@@ -1,0 +1,71 @@
+"""Flax param tree (numpy leaves) -> torch state_dicts for the port's models.
+
+Torch parameter names follow the flax paths ("/" -> "."), so the mapping is
+transposes only, the inverse of tools/convert_weights.py's t2f helpers:
+conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in).  Head
+padding for the packed attention kernel is not stored; the models build
+their padded weights once from these unpadded kernels.
+
+Subtrees: "text" (a list with one tower per text encoder), "unet",
+"controlnet", "vae".  Keys of the VAE encoder are not ported yet; the bridge
+skips exactly the keys under VAE_SKIPPED_PREFIXES and drops nothing else.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+# flax VAE subtrees the port has no module for yet (encoder incl. quant_conv)
+VAE_SKIPPED_PREFIXES: Tuple[str, ...] = ("encoder/",)
+
+
+def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, path + "/"))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _to_torch(path: str, leaf: np.ndarray) -> torch.Tensor:
+    t = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    if path.rsplit("/", 1)[-1] == "kernel":
+        if t.ndim == 4:  # HWIO -> OIHW
+            t = t.permute(3, 2, 0, 1)
+        elif t.ndim == 2:  # (in, out) -> (out, in)
+            t = t.t()
+    return t.contiguous()
+
+
+def state_dict_from_flax(tree, skip_prefixes: Tuple[str, ...] = ()) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """One module's flax subtree -> (state_dict, skipped flax paths)."""
+    sd, skipped = {}, []
+    for path, leaf in _flatten(tree).items():
+        if path.startswith(skip_prefixes):
+            skipped.append(path)
+            continue
+        sd[path.replace("/", ".")] = _to_torch(path, leaf)
+    return sd, skipped
+
+
+def params_from_flax(params) -> Tuple[dict, List[str]]:
+    """{"text": [tower, ...], "unet", "controlnet"?, "vae"} flax params ->
+    ({same keys: state_dict(s)}, skipped "vae/..." paths)."""
+    out, skipped = {}, []
+    for name, sub in params.items():
+        if name == "text":
+            out["text"] = [state_dict_from_flax(t)[0] for t in sub]
+        elif name == "vae":
+            out["vae"], sk = state_dict_from_flax(sub, VAE_SKIPPED_PREFIXES)
+            skipped += [f"vae/{p}" for p in sk]
+        elif name in ("unet", "controlnet"):
+            out[name] = state_dict_from_flax(sub)[0]
+        else:
+            raise KeyError(f"no port of the flax subtree {name!r}")
+    return out, skipped

@@ -1,0 +1,130 @@
+"""SD1.5 + canny-ControlNet generation (counterpart of saspa_tpu/diffusion/pipelines.py).
+
+`DiffusionPipeline(...)` owns the text tower, UNet, ControlNet and VAE
+decoder; `make_fused_generate(...)` returns the whole-batch generation
+function: on-device Canny, the text tower for the prompt and the negative
+prompt, the CFG DDIM loop over UNet + ControlNet, VAE decode and the uint8
+quantisation.  Without converted weights the models take a seeded random
+init (`torch.Generator`); `load_flax_params` carries a flax param tree in
+through the bridge.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+import torch
+
+from saspa_tpu_torch import default_dtype, resolve_device
+from saspa_tpu_torch.bridge import params_from_flax
+from saspa_tpu_torch.diffusion.sampler import make_sample_loop
+from saspa_tpu_torch.diffusion.schedulers import DDIMScheduler, SchedulerConfig
+from saspa_tpu_torch.gen.tokenizer import default_tokenizer
+from saspa_tpu_torch.models.controlnet import ZERO_INIT_PREFIXES, ControlNet
+from saspa_tpu_torch.models.layers import init_weights, nearest_resize
+from saspa_tpu_torch.models.text_encoder import SD15_TEXT, CLIPTextEncoder
+from saspa_tpu_torch.models.unet import SD15_UNET, UNet2DCondition
+from saspa_tpu_torch.models.vae import SD_VAE, AutoencoderKL
+from saspa_tpu_torch.ops.canny import canny_control_image
+
+
+class DiffusionPipeline:
+    def __init__(self, base_model: str = "sd_v1.5", controlnet: Optional[str] = "canny", sampler: str = "ddim",
+                 dtype: Optional[torch.dtype] = None, device=None, weights_dir: Optional[str] = None,
+                 init_seed: Optional[int] = 0, unet_cfg=None, vae_cfg=None, text_cfgs=None):
+        """init_seed=None leaves the parameters at zero for a caller that
+        loads weights next (load_flax_params or load_state_dict)."""
+        if base_model != "sd_v1.5" or sampler != "ddim" or controlnet not in (None, "canny"):
+            raise NotImplementedError(f"ported so far: sd_v1.5 + canny/None + ddim, got {base_model}, {controlnet}, {sampler}")
+        self.device = resolve_device(device)
+        self.dtype = dtype if dtype is not None else default_dtype(self.device)
+        self.base_model, self.controlnet_kind = base_model, controlnet
+        self.unet_cfg = unet_cfg or SD15_UNET
+        self.vae_cfg = vae_cfg or SD_VAE
+        self.text_cfgs = tuple(text_cfgs or (SD15_TEXT,))
+        self.tokenizer = default_tokenizer(weights_dir)
+        self.scheduler = DDIMScheduler(SchedulerConfig(), device=self.device)
+        self.latent_factor = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
+
+        dev, dt = self.device, self.dtype
+        self.params = {
+            "text": [CLIPTextEncoder(c, dt, dev) for c in self.text_cfgs],
+            "unet": UNet2DCondition(self.unet_cfg, dt, dev),
+            "vae": AutoencoderKL(self.vae_cfg, dt, dev),
+        }
+        if controlnet:
+            self.params["controlnet"] = ControlNet(self.unet_cfg, dt, dev)
+        for m in self._modules():
+            m.eval()
+        self.weights_loaded = False
+        if init_seed is not None:
+            self._random_init(init_seed)
+
+        self._sample = make_sample_loop(
+            lambda p, lat, t, ctx, dr, mr: p(lat, t, ctx, dr, mr),
+            self.scheduler,
+            (lambda p, lat, t, ctx, emb, scale: p(lat, t, ctx, emb, scale)) if controlnet else None,
+            lambda p, z: p.decode(z),
+            self.vae_cfg.scaling_factor,
+            controlnet_embed=(lambda p, cimg: p.embed_cond(cimg)) if controlnet else None,
+        )
+
+    def _modules(self):
+        return [*self.params["text"], *(self.params[k] for k in ("unet", "controlnet", "vae") if k in self.params)]
+
+    def _random_init(self, seed: int) -> None:
+        logging.warning("no converted weights for %s: seeded random init (outputs are not meaningful images)",
+                        self.base_model)
+        for i, te in enumerate(self.params["text"]):
+            init_weights(te, seed + 2 + i)
+        init_weights(self.params["unet"], seed)
+        init_weights(self.params["vae"], seed + 1)
+        if "controlnet" in self.params:
+            init_weights(self.params["controlnet"], seed + 7, zero_prefixes=ZERO_INIT_PREFIXES)
+
+    def load_flax_params(self, flax_params) -> list:
+        """Loads a flax param tree (numpy leaves) strictly; returns the flax
+        paths the bridge skipped (the VAE encoder)."""
+        sds, skipped = params_from_flax(flax_params)
+        for te, sd in zip(self.params["text"], sds["text"]):
+            te.load_state_dict(sd, strict=True)
+        for k in ("unet", "controlnet", "vae"):
+            if k in sds:
+                self.params[k].load_state_dict(sds[k], strict=True)
+        self.weights_loaded = True
+        return skipped
+
+    def make_fused_generate(self, height: int, width: int, num_inference_steps: int, guidance_scale: float,
+                            controlnet_scale: float = 0.75, canny_low: float = 120.0, canny_high: float = 200.0):
+        """Returns fn(params, ids, neg_ids, src_images, latents) -> (B, H, W, 3)
+        uint8 images on the pipeline's device.  ids/neg_ids: (B, 77) token ids;
+        src_images: (B, H, W, 3) uint8 (or float in [0, 255]); latents:
+        (B, H/f, W/f, 4) f32; numpy arrays or tensors.  With
+        return_images=True it also returns the [0, 1] f32 images before
+        quantisation."""
+        timesteps = self.scheduler.timesteps(num_inference_steps)
+        do_cfg = guidance_scale > 1.0
+        dev = self.device
+
+        @torch.no_grad()
+        def fused(params, ids, neg_ids, src_images, latents, return_images: bool = False):
+            te = params["text"][0]
+            ctx = te(torch.as_tensor(ids, device=dev).long())["hidden"]
+            nctx = te(torch.as_tensor(neg_ids, device=dev).long())["hidden"] if do_cfg else None
+            # uint8 sources: values 0-255 are exact in f32, so the cast is exact
+            src = torch.as_tensor(src_images, device=dev).float()
+            control = None
+            if self.controlnet_kind == "canny":
+                control = canny_control_image(src, canny_low, canny_high)
+                lf = self.latent_factor
+                ch, cw = (height // lf) * 8, (width // lf) * 8
+                if (ch, cw) != (height, width):
+                    control = nearest_resize(control, ch, cw)
+            lat = torch.as_tensor(latents, device=dev).float()
+            out = self._sample(params, lat, ctx, nctx, timesteps, guidance_scale=float(guidance_scale),
+                               control_image=control, controlnet_scale=float(controlnet_scale))
+            u8 = torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
+            return (u8, out) if return_images else u8
+
+        return fused

@@ -1,0 +1,56 @@
+"""Classifier-free-guidance sampling loop (counterpart of saspa_tpu/diffusion/sampler.py).
+
+2-way CFG with the shared prefix: the UNet and ControlNet take the B-sized
+latent against the 2B [uncond, cond] context and fork to 2B at their first
+cross-attention.  The ControlNet conditioning embedding is computed once,
+before the step loop.  Latents, control images and outputs are NHWC at this
+boundary, NCHW inside.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def make_sample_loop(unet_apply, scheduler, controlnet_apply=None, vae_decode=None, vae_scaling: float = 0.18215,
+                     controlnet_embed=None):
+    """unet_apply(params_unet, lat, t, ctx, down_res, mid_res) -> eps (f32)
+    controlnet_apply(params_cn, lat, t, ctx, cond_emb, scale) -> (down_res, mid_res)
+    controlnet_embed(params_cn, cond_img) -> cond embedding
+    vae_decode(params_vae, z) -> images in [-1, 1]"""
+
+    @torch.no_grad()
+    def sample(params: dict, latents, context, uncond_context: Optional[torch.Tensor], timesteps,
+               guidance_scale: float, control_image=None, controlnet_scale: float = 1.0):
+        """latents (B, h, w, 4) f32; context (B, 77, D); timesteps: descending
+        ints.  Returns (B, H, W, 3) images in [0, 1] (or the final NHWC latents
+        without a decoder)."""
+        do_cfg = uncond_context is not None
+        ctx = torch.cat([uncond_context, context], dim=0) if do_cfg else context
+        lat = latents.float().permute(0, 3, 1, 2)
+        ts = [int(t) for t in timesteps]
+        prev_ts = ts[1:] + [-1]
+
+        cond_emb = None
+        use_cn = controlnet_apply is not None and control_image is not None
+        if use_cn:
+            cond_emb = controlnet_embed(params["controlnet"], control_image.permute(0, 3, 1, 2))
+
+        for t, prev_t in zip(ts, prev_ts):
+            down_res = mid_res = None
+            if use_cn:
+                down_res, mid_res = controlnet_apply(params["controlnet"], lat, t, ctx, cond_emb, controlnet_scale)
+            eps = unet_apply(params["unet"], lat, t, ctx, down_res, mid_res)
+            if do_cfg:
+                eps_u, eps_c = eps.chunk(2, dim=0)
+                eps = eps_u + guidance_scale * (eps_c - eps_u)
+            lat = scheduler.step(eps, t, prev_t, lat)
+
+        if vae_decode is None:
+            return lat.permute(0, 2, 3, 1)
+        images = vae_decode(params["vae"], lat / vae_scaling)
+        return torch.clamp(images * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
+
+    return sample

@@ -1,0 +1,114 @@
+"""Parameter-holding building blocks shared by the port's models.
+
+Parameter names follow the flax modules of saspa_tpu (`kernel`, `bias`,
+`scale`, `embedding`), so a flax path maps to a torch state_dict key by
+replacing "/" with "."; layouts are torch's (dense (out, in), conv OIHW).
+
+Dense/Conv/Embed hold their weights in the compute dtype (flax casts its f32
+masters to the module dtype at every call; casting once is the same value).
+Norm parameters stay f32, as the JAX package reads them.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def _empty(shape, dtype, device):
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+class Dense(nn.Module):
+    def __init__(self, in_features, out_features, bias=True, dtype=torch.float32, device=None):
+        super().__init__()
+        self.kernel = _empty((out_features, in_features), dtype, device)
+        self.bias = _empty((out_features,), dtype, device) if bias else None
+
+    def forward(self, x):
+        return F.linear(x.to(self.kernel.dtype), self.kernel, self.bias)
+
+
+class Conv(nn.Module):
+    """NCHW conv with symmetric padding."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, dtype=torch.float32, device=None):
+        super().__init__()
+        self.kernel = _empty((out_ch, in_ch, kernel_size, kernel_size), dtype, device)
+        self.bias = _empty((out_ch,), dtype, device)
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        return F.conv2d(x.to(self.kernel.dtype), self.kernel, self.bias, self.stride, self.padding)
+
+
+class Embed(nn.Module):
+    def __init__(self, num, features, dtype=torch.float32, device=None):
+        super().__init__()
+        self.embedding = _empty((num, features), dtype, device)
+
+    def forward(self, ids):
+        return self.embedding[ids]
+
+
+class NormParams(nn.Module):
+    """f32 {scale, bias} of a LayerNorm or GroupNorm."""
+
+    def __init__(self, features, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features, device=device), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(features, device=device), requires_grad=False)
+
+
+def flax_layer_norm(x, scale, bias, eps: float = 1e-5):
+    """flax nn.LayerNorm(dtype=float32): f32 stats with the clamped fast
+    variance, the normalize in f32; returns f32."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    return (xf - mean) * (torch.rsqrt(var + eps) * scale) + bias
+
+
+def nearest_resize(x, out_h: int, out_w: int):
+    """jax.image.resize(method="nearest") on NHWC: source index
+    floor((i + 0.5) * in / out), computed in f32 as JAX does."""
+    def idx(n_in, n_out):
+        o = (torch.arange(n_out, dtype=torch.float32) + 0.5) * n_in / n_out
+        return torch.floor(o).to(torch.long).to(x.device)
+
+    if x.shape[1] != out_h:
+        x = x.index_select(1, idx(x.shape[1], out_h))
+    if x.shape[2] != out_w:
+        x = x.index_select(2, idx(x.shape[2], out_w))
+    return x
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, seed: int, zero_prefixes=()) -> None:
+    """Seeded random init in the spirit of flax's defaults (the bits differ):
+    dense/conv kernels N(0, 1/fan_in), embeddings N(0, 0.02), positional
+    embeddings N(0, 0.01), biases 0, norm scales 1.  Parameters whose name
+    starts with one of `zero_prefixes` stay zero (ControlNet's zero convs)."""
+    gen = None
+    for name, p in sorted(module.named_parameters(), key=lambda kv: kv[0]):
+        if gen is None:
+            gen = torch.Generator(device=p.device).manual_seed(seed)
+        leaf = name.rsplit(".", 1)[-1]
+        if any(name.startswith(z) for z in zero_prefixes):
+            p.zero_()
+            continue
+        if leaf == "kernel":
+            fan_in = p[0].numel()
+            std = fan_in ** -0.5
+        elif leaf == "embedding":
+            std = 0.02
+        elif leaf == "positional_embedding":
+            std = 0.01
+        elif leaf == "scale":
+            p.fill_(1.0)
+            continue
+        else:
+            p.zero_()
+            continue
+        p.copy_(torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32) * std)

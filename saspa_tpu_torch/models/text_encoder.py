@@ -1,0 +1,86 @@
+"""SD1.5 CLIP text tower (counterpart of saspa_tpu/models/text_encoder.py).
+
+Causal masking, quick-gelu MLP, f32 LayerNorm islands, `output_layer`
+selection and the final LayerNorm, with the flax tree's names.  Attention
+over 77 tokens is plain torch.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn as nn
+
+from saspa_tpu_torch.models.layers import Dense, Embed, NormParams, flax_layer_norm
+
+
+@dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+    context_length: int = 77
+    act: str = "quick_gelu"
+    output_layer: int = -1  # -1 = last (after ln_final); -2 = raw penultimate
+
+
+SD15_TEXT = CLIPTextConfig()
+
+
+class CLIPTextBlock(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig, dtype, device):
+        super().__init__()
+        w = cfg.width
+        self.heads = cfg.heads
+        self.ln_1 = NormParams(w, device)
+        self.attn_qkv = Dense(w, 3 * w, dtype=dtype, device=device)
+        self.attn_out = Dense(w, w, dtype=dtype, device=device)
+        self.ln_2 = NormParams(w, device)
+        self.mlp_fc = Dense(w, 4 * w, dtype=dtype, device=device)
+        self.mlp_proj = Dense(4 * w, w, dtype=dtype, device=device)
+        assert cfg.act == "quick_gelu", "only the SD1.5 (OpenAI CLIP) tower is ported"
+
+    def forward(self, x, mask_bias):
+        b, l, w = x.shape
+        d = w // self.heads
+        h = flax_layer_norm(x, self.ln_1.scale, self.ln_1.bias).to(x.dtype)
+        q, k, v = self.attn_qkv(h).reshape(b, l, 3, self.heads, d).unbind(2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+        probs = torch.softmax(logits + mask_bias, dim=-1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, l, w)
+        x = x + self.attn_out(out)
+        h = self.mlp_fc(flax_layer_norm(x, self.ln_2.scale, self.ln_2.bias).to(x.dtype))
+        h = h * torch.sigmoid(1.702 * h)
+        return x + self.mlp_proj(h)
+
+
+class CLIPTextEncoder(nn.Module):
+    """forward(token_ids (B, 77)) -> {"hidden": (B, 77, width), "pooled": (B, width)}."""
+
+    def __init__(self, cfg: CLIPTextConfig = SD15_TEXT, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = Embed(cfg.vocab_size, cfg.width, dtype=dtype, device=device)
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(cfg.context_length, cfg.width, dtype=dtype, device=device), requires_grad=False)
+        for i in range(cfg.layers):
+            setattr(self, f"resblocks_{i}", CLIPTextBlock(cfg, dtype, device))
+        self.ln_final = NormParams(cfg.width, device)
+
+    def forward(self, token_ids):
+        cfg = self.cfg
+        b, l = token_ids.shape
+        tok = self.token_embedding(token_ids)
+        x = tok + self.positional_embedding[None, :l].to(tok.dtype)
+        causal = torch.full((l, l), -1e9, dtype=torch.float32, device=tok.device).triu(1)[None, None]
+        hiddens = []
+        for i in range(cfg.layers):
+            x = getattr(self, f"resblocks_{i}")(x, causal)
+            hiddens.append(x)
+        final = flax_layer_norm(hiddens[-1], self.ln_final.scale, self.ln_final.bias).to(x.dtype)
+        hidden = final if cfg.output_layer == -1 else hiddens[cfg.output_layer]
+        pooled = final[torch.arange(b, device=tok.device), token_ids.argmax(dim=-1)]
+        return {"hidden": hidden, "pooled": pooled}

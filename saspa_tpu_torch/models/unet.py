@@ -1,0 +1,386 @@
+"""SD1.5 conditional UNet in PyTorch (counterpart of saspa_tpu/models/unet.py).
+
+NCHW inside; module and parameter names follow the flax tree.  Carries only
+the JAX package's default behaviour: self-attention over >= 256 tokens runs
+the packed-heads kernel (K1) with head dims padded in the weights, every
+transformer block's norm3 + feed-forward runs the fused LN+GEGLU kernel (K2),
+GroupNorm is the f32 path, and cross-attention over the 77 text tokens is
+plain torch.
+
+CFG shared prefix (`cfg_tile`): under classifier-free guidance both halves
+share one latent, so the network runs at batch B until the first
+cross-attention, which meets the 2B [uncond, cond] context and forks the
+batch to 2B; pre-fork tensors are tiled wherever they join post-fork ones.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from saspa_tpu_torch.models.layers import Conv, Dense, NormParams
+from saspa_tpu_torch.ops.attention import (
+    LOG2E,
+    attention,
+    flash_attention_packed,
+    packed_flash_eligible,
+    pad_head_dim,
+)
+from saspa_tpu_torch.ops.geglu import fused_ln_geglu
+from saspa_tpu_torch.ops.groupnorm import group_norm
+
+
+@dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "DownBlock2D",
+    )
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+    )
+    layers_per_block: int = 2
+    transformer_layers_per_block: Tuple[int, ...] = (1, 1, 1, 1)
+    num_attention_heads: Tuple[int, ...] = (8, 8, 8, 8)  # head COUNT per block (diffusers' naming)
+    cross_attention_dim: int = 768
+    norm_num_groups: int = 32
+    freq_shift: int = 0
+    flip_sin_to_cos: bool = True
+
+    def depth(self, block_idx: int) -> int:
+        return self.transformer_layers_per_block[min(block_idx, len(self.transformer_layers_per_block) - 1)]
+
+
+SD15_UNET = UNetConfig()
+
+
+def timestep_embedding(t, dim: int, flip_sin_to_cos=True, freq_shift=0.0, max_period=10000.0):
+    """Sinusoidal embedding (diffusers get_timestep_embedding); f32."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device) / (half - freq_shift)
+    emb = t.float()[:, None] * torch.exp(exponent)[None, :]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    return torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    def __init__(self, in_dim, dim, dtype, device):
+        super().__init__()
+        self.linear_1 = Dense(in_dim, dim, dtype=dtype, device=device)
+        self.linear_2 = Dense(dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm with f32 statistics (params under <name>.GroupNorm_0)."""
+
+    def __init__(self, channels, num_groups=32, eps=1e-5, act=None, device=None):
+        super().__init__()
+        self.GroupNorm_0 = NormParams(channels, device)
+        self.num_groups, self.eps, self.act = num_groups, eps, act
+
+    def forward(self, x):
+        p = self.GroupNorm_0
+        return group_norm(x, p.scale, p.bias, self.num_groups, self.eps, self.act)
+
+
+def _ln32_forward(x, scale, bias, eps: float):
+    """LayerNorm with f32 statistics (E[x^2] - E[x]^2) and a normalize pass
+    in x's dtype, in flax's association (x - mean) * (rsqrt * scale) + bias."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+    mul = torch.rsqrt(var + eps) * scale
+    if x.dtype == torch.float32:
+        return (xf - mean) * mul + bias
+    d = x.dtype
+    return (x - mean.to(d)) * mul.to(d) + bias.to(d)
+
+
+class LayerNorm32(NormParams):
+    def __init__(self, features, eps=1e-5, device=None):
+        super().__init__(features, device)
+        self.eps = eps
+
+    def forward(self, x):
+        return _ln32_forward(x, self.scale, self.bias, self.eps)
+
+
+def cfg_tile(x, n: int):
+    """Tile a pre-fork (B) tensor to the post-fork batch n = 2B."""
+    if x.shape[0] == n:
+        return x
+    assert 2 * x.shape[0] == n, (tuple(x.shape), n)
+    return torch.cat([x, x], dim=0)
+
+
+class ResnetBlock2D(nn.Module):
+    def __init__(self, in_ch, out_ch, temb_dim, dtype, device, groups=32):
+        super().__init__()
+        self.norm1 = GroupNorm32(in_ch, groups, act="silu", device=device)
+        self.conv1 = Conv(in_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
+        self.time_emb_proj = Dense(temb_dim, out_ch, dtype=dtype, device=device)
+        self.norm2 = GroupNorm32(out_ch, groups, act="silu", device=device)
+        self.conv2 = Conv(out_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
+        self.conv_shortcut = Conv(in_ch, out_ch, 1, dtype=dtype, device=device) if in_ch != out_ch else None
+
+    def forward(self, x, temb):
+        h = self.conv1(self.norm1(x))
+        t = self.time_emb_proj(F.silu(temb))
+        h = h + cfg_tile(t, h.shape[0])[:, :, None, None]
+        h = self.conv2(self.norm2(h))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, query_dim, context_dim, heads, dtype, device):
+        super().__init__()
+        self.heads = heads
+        self.to_q = Dense(query_dim, query_dim, bias=False, dtype=dtype, device=device)
+        self.to_k = Dense(context_dim, query_dim, bias=False, dtype=dtype, device=device)
+        self.to_v = Dense(context_dim, query_dim, bias=False, dtype=dtype, device=device)
+        self.to_out = Dense(query_dim, query_dim, dtype=dtype, device=device)
+        self._padded = None  # (key, (wq, wk, wv, wo)) head-padded weights
+
+    def padded_weights(self):
+        """Head-padded (H*D_pad, in) q/k/v kernels and (out, H*D_pad) to_out
+        kernel; built once per weight version, not per call.  Zero pad rows
+        make the padded q/k/v columns zero, so attention is unchanged and
+        the padded output columns are exactly zero."""
+        wq = self.to_q.kernel
+        key = (wq.dtype, wq.device, wq.data_ptr(), wq._version)
+        if self._padded is None or self._padded[0] != key:
+            h = self.heads
+            inner = wq.shape[0]
+            d = inner // h
+            dp = pad_head_dim(d)
+
+            def rows(w):
+                return F.pad(w.reshape(h, d, -1), (0, 0, 0, dp - d)).reshape(h * dp, -1).contiguous()
+
+            wo = F.pad(self.to_out.kernel.reshape(inner, h, d), (0, dp - d)).reshape(inner, h * dp).contiguous()
+            self._padded = (key, (rows(wq), rows(self.to_k.kernel), rows(self.to_v.kernel), wo))
+        return self._padded[1]
+
+    def forward(self, x, context=None, residual=None):
+        context = x if context is None else context
+        inner = x.shape[-1]
+        d = inner // self.heads
+        if packed_flash_eligible(x.shape[1], context.shape[1]):
+            wq, wk, wv, wo = self.padded_weights()
+            dt = wq.dtype
+            q = F.linear(x.to(dt), wq)
+            k = F.linear(context.to(dt), wk)
+            v = F.linear(context.to(dt), wv)
+            q = cfg_tile(q, context.shape[0])
+            qs = q * (LOG2E / math.sqrt(d))
+            out = F.linear(flash_attention_packed(qs, k, v, self.heads), wo, self.to_out.bias)
+        else:
+            q = cfg_tile(self.to_q(x), context.shape[0])
+            out = self.to_out(attention(q, self.to_k(context), self.to_v(context), self.heads))
+        return out if residual is None else residual + out
+
+
+class FeedForwardGEGLU(nn.Module):
+    """GEGLU feed-forward weights; the block runs them through fused_ln_geglu (K2)."""
+
+    def __init__(self, dim, dtype, device, mult=4):
+        super().__init__()
+        self.proj_in = Dense(dim, dim * mult * 2, dtype=dtype, device=device)
+        self.proj_out = Dense(dim * mult, dim, dtype=dtype, device=device)
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim, context_dim, heads, dtype, device):
+        super().__init__()
+        self.attn1 = CrossAttention(dim, dim, heads, dtype, device)
+        self.attn2 = CrossAttention(dim, context_dim, heads, dtype, device)
+        self.norm1 = LayerNorm32(dim, device=device)
+        self.norm2 = LayerNorm32(dim, device=device)
+        self.norm3 = LayerNorm32(dim, device=device)
+        self.ff = FeedForwardGEGLU(dim, dtype, device)
+
+    def forward(self, x, context):
+        x = self.attn1(self.norm1(x).to(x.dtype), residual=x)
+        a2 = self.attn2(self.norm2(x).to(x.dtype), context)
+        x = cfg_tile(x, a2.shape[0]) + a2  # CFG fork point (B -> 2B)
+        ff = self.ff
+        return fused_ln_geglu(x, self.norm3.scale, self.norm3.bias, ff.proj_in.kernel, ff.proj_in.bias,
+                              ff.proj_out.kernel, ff.proj_out.bias, self.norm3.eps)
+
+
+class Transformer2D(nn.Module):
+    def __init__(self, channels, context_dim, heads, depth, dtype, device):
+        super().__init__()
+        # diffusers' Transformer2DModel uses eps 1e-6 for this norm
+        self.norm = GroupNorm32(channels, 32, eps=1e-6, device=device)
+        self.proj_in = Conv(channels, channels, 1, dtype=dtype, device=device)
+        for i in range(depth):
+            setattr(self, f"blocks_{i}", BasicTransformerBlock(channels, context_dim, heads, dtype, device))
+        self.depth = depth
+        self.proj_out = Conv(channels, channels, 1, dtype=dtype, device=device)
+
+    def forward(self, x, context):
+        b, c, h, w = x.shape
+        residual = x
+        x = self.proj_in(self.norm(x))
+        x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        for i in range(self.depth):
+            x = getattr(self, f"blocks_{i}")(x, context)
+        # the batch may have grown B -> 2B at the CFG fork inside the blocks
+        x = x.reshape(x.shape[0], h, w, c).permute(0, 3, 1, 2)
+        return self.proj_out(x) + cfg_tile(residual, x.shape[0])
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels, dtype, device):
+        super().__init__()
+        self.conv = Conv(channels, channels, 3, stride=2, padding=1, dtype=dtype, device=device)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, channels, dtype, device):
+        super().__init__()
+        self.conv = Conv(channels, channels, 3, padding=1, dtype=dtype, device=device)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class UNetMidBlock2DCrossAttn(nn.Module):
+    def __init__(self, cfg: UNetConfig, temb_dim, dtype, device):
+        super().__init__()
+        ch = cfg.block_out_channels[-1]
+        heads = cfg.num_attention_heads[len(cfg.block_out_channels) - 1]
+        self.resnets_0 = ResnetBlock2D(ch, ch, temb_dim, dtype, device)
+        self.attentions_0 = Transformer2D(ch, cfg.cross_attention_dim, heads,
+                                          cfg.transformer_layers_per_block[-1], dtype, device)
+        self.resnets_1 = ResnetBlock2D(ch, ch, temb_dim, dtype, device)
+
+    def forward(self, x, temb, context):
+        x = self.resnets_0(x, temb)
+        x = self.attentions_0(x, context)
+        return self.resnets_1(x, temb)
+
+
+class UNetEncoder(nn.Module):
+    """time embedding + conv_in + down blocks + mid block: the part the UNet
+    and the ControlNet share (names as in the flax tree)."""
+
+    def __init__(self, cfg: UNetConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        boc = cfg.block_out_channels
+        temb_dim = boc[0] * 4
+        self.time_embedding = TimestepEmbedding(boc[0], temb_dim, dtype, device)
+        self.conv_in = Conv(cfg.in_channels, boc[0], 3, padding=1, dtype=dtype, device=device)
+        self.skip_channels = [boc[0]]
+        cur = boc[0]
+        for i, block_type in enumerate(cfg.down_block_types):
+            ch = boc[i]
+            for j in range(cfg.layers_per_block):
+                setattr(self, f"down_{i}_resnets_{j}", ResnetBlock2D(cur, ch, temb_dim, dtype, device))
+                cur = ch
+                if block_type == "CrossAttnDownBlock2D":
+                    setattr(self, f"down_{i}_attentions_{j}", Transformer2D(
+                        ch, cfg.cross_attention_dim, cfg.num_attention_heads[i], cfg.depth(i), dtype, device))
+                self.skip_channels.append(ch)
+            if i < len(boc) - 1:
+                setattr(self, f"down_{i}_downsample", Downsample2D(ch, dtype, device))
+                self.skip_channels.append(ch)
+        self.mid_block = UNetMidBlock2DCrossAttn(cfg, temb_dim, dtype, device)
+
+    def temb(self, sample, timesteps):
+        cfg = self.cfg
+        t = torch.as_tensor(timesteps, device=sample.device)
+        if t.ndim == 0:
+            t = t.expand(sample.shape[0])
+        t_freq = timestep_embedding(t, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift)
+        return self.time_embedding(t_freq.to(self.conv_in.kernel.dtype))
+
+    def down(self, x, temb, context):
+        """Runs the down blocks; returns (x, skip list)."""
+        cfg = self.cfg
+        res = [x]
+        for i, block_type in enumerate(cfg.down_block_types):
+            for j in range(cfg.layers_per_block):
+                x = getattr(self, f"down_{i}_resnets_{j}")(x, temb)
+                if block_type == "CrossAttnDownBlock2D":
+                    x = getattr(self, f"down_{i}_attentions_{j}")(x, context)
+                res.append(x)
+            if i < len(cfg.block_out_channels) - 1:
+                x = getattr(self, f"down_{i}_downsample")(x)
+                res.append(x)
+        return x, res
+
+
+class UNet2DCondition(UNetEncoder):
+    """forward(sample (B, C, h, w), timesteps, context (B or 2B, 77, D),
+    down_res, mid_res) -> eps (B or 2B, C, h, w) in f32."""
+
+    def __init__(self, cfg: UNetConfig = SD15_UNET, dtype=torch.float32, device=None):
+        super().__init__(cfg, dtype, device)
+        boc = cfg.block_out_channels
+        temb_dim = boc[0] * 4
+        skips = list(self.skip_channels)
+        cur = boc[-1]
+        rev = list(boc)[::-1]
+        for i, block_type in enumerate(cfg.up_block_types):
+            ch = rev[i]
+            block_idx = len(boc) - 1 - i
+            for j in range(cfg.layers_per_block + 1):
+                setattr(self, f"up_{i}_resnets_{j}", ResnetBlock2D(cur + skips.pop(), ch, temb_dim, dtype, device))
+                cur = ch
+                if block_type == "CrossAttnUpBlock2D":
+                    setattr(self, f"up_{i}_attentions_{j}", Transformer2D(
+                        ch, cfg.cross_attention_dim, cfg.num_attention_heads[block_idx], cfg.depth(block_idx),
+                        dtype, device))
+            if i < len(cfg.up_block_types) - 1:
+                setattr(self, f"up_{i}_upsample", Upsample2D(ch, dtype, device))
+        self.conv_norm_out = GroupNorm32(boc[0], cfg.norm_num_groups, act="silu", device=device)
+        self.conv_out = Conv(boc[0], cfg.out_channels, 3, padding=1, dtype=dtype, device=device)
+
+    def forward(self, sample, timesteps, encoder_hidden_states,
+                down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
+                mid_block_additional_residual: Optional[torch.Tensor] = None):
+        cfg = self.cfg
+        dt = self.conv_in.kernel.dtype
+        temb = self.temb(sample, timesteps)
+        context = encoder_hidden_states.to(dt)
+        x = self.conv_in(sample.to(dt))
+        x, down_res = self.down(x, temb, context)
+
+        if down_block_additional_residuals is not None:
+            # pre-fork (B) heads and post-fork (2B) tails: tile whichever side is pre-fork
+            down_res = [
+                cfg_tile(r, max(r.shape[0], c.shape[0])) + cfg_tile(c, max(r.shape[0], c.shape[0]))
+                for r, c in zip(down_res, down_block_additional_residuals)
+            ]
+        x = self.mid_block(x, temb, context)
+        if mid_block_additional_residual is not None:
+            x = x + cfg_tile(mid_block_additional_residual, x.shape[0])
+
+        for i, block_type in enumerate(cfg.up_block_types):
+            for j in range(cfg.layers_per_block + 1):
+                skip = cfg_tile(down_res.pop(), x.shape[0])
+                x = getattr(self, f"up_{i}_resnets_{j}")(torch.cat([x, skip], dim=1), temb)
+                if block_type == "CrossAttnUpBlock2D":
+                    x = getattr(self, f"up_{i}_attentions_{j}")(x, context)
+            if i < len(cfg.up_block_types) - 1:
+                x = getattr(self, f"up_{i}_upsample")(x)
+        x = self.conv_out(self.conv_norm_out(x))
+        return x.float()

@@ -1,0 +1,115 @@
+"""AutoencoderKL decoder (counterpart of saspa_tpu/models/vae.py::decode).
+
+Only the decoder is ported so far; the encoder (SDEdit, ip2p) comes with
+those paths.  The mid-block's one-head attention (d = 512 at SD width)
+takes the packed kernel when its head dim is already lane-aligned and the
+token count qualifies, as the JAX package routes it.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from saspa_tpu_torch.models.layers import Conv, Dense
+from saspa_tpu_torch.models.unet import GroupNorm32
+from saspa_tpu_torch.ops.attention import LOG2E, attention, flash_attention_packed, packed_flash_eligible, pad_head_dim
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    in_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    scaling_factor: float = 0.18215
+
+
+SD_VAE = VAEConfig()
+
+
+class VAEResnetBlock(nn.Module):
+    def __init__(self, in_ch, out_ch, dtype, device):
+        super().__init__()
+        self.norm1 = GroupNorm32(in_ch, 32, eps=1e-6, act="silu", device=device)
+        self.conv1 = Conv(in_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
+        self.norm2 = GroupNorm32(out_ch, 32, eps=1e-6, act="silu", device=device)
+        self.conv2 = Conv(out_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
+        self.conv_shortcut = Conv(in_ch, out_ch, 1, dtype=dtype, device=device) if in_ch != out_ch else None
+
+    def forward(self, x):
+        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class VAEAttentionBlock(nn.Module):
+    def __init__(self, ch, dtype, device):
+        super().__init__()
+        self.group_norm = GroupNorm32(ch, 32, eps=1e-6, device=device)
+        self.to_q = Dense(ch, ch, dtype=dtype, device=device)
+        self.to_k = Dense(ch, ch, dtype=dtype, device=device)
+        self.to_v = Dense(ch, ch, dtype=dtype, device=device)
+        self.to_out = Dense(ch, ch, dtype=dtype, device=device)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        res = x
+        x = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        if c == pad_head_dim(c) and packed_flash_eligible(h * w, h * w):
+            out = flash_attention_packed(q * ((1.0 / math.sqrt(c)) * LOG2E), k, v, 1)
+        else:
+            out = attention(q, k, v, 1)
+        out = self.to_out(out)
+        return res + out.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        boc = cfg.block_out_channels
+        self.post_quant_conv = Conv(cfg.latent_channels, cfg.latent_channels, 1, dtype=dtype, device=device)
+        cur = boc[-1]
+        self.conv_in = Conv(cfg.latent_channels, cur, 3, padding=1, dtype=dtype, device=device)
+        self.mid_block_1 = VAEResnetBlock(cur, cur, dtype, device)
+        self.mid_attn = VAEAttentionBlock(cur, dtype, device)
+        self.mid_block_2 = VAEResnetBlock(cur, cur, dtype, device)
+        for i, ch in enumerate(reversed(boc)):
+            for j in range(cfg.layers_per_block + 1):
+                setattr(self, f"up_{i}_block_{j}", VAEResnetBlock(cur, ch, dtype, device))
+                cur = ch
+            if i < len(boc) - 1:
+                setattr(self, f"up_{i}_upsample", Conv(ch, ch, 3, padding=1, dtype=dtype, device=device))
+        self.conv_norm_out = GroupNorm32(cur, 32, eps=1e-6, act="silu", device=device)
+        self.conv_out = Conv(cur, cfg.in_channels, 3, padding=1, dtype=dtype, device=device)
+
+    def forward(self, z):
+        cfg = self.cfg
+        x = self.conv_in(self.post_quant_conv(z))
+        x = self.mid_block_2(self.mid_attn(self.mid_block_1(x)))
+        for i in range(len(cfg.block_out_channels)):
+            for j in range(cfg.layers_per_block + 1):
+                x = getattr(self, f"up_{i}_block_{j}")(x)
+            if i < len(cfg.block_out_channels) - 1:
+                x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        return self.conv_out(self.conv_norm_out(x))
+
+
+class AutoencoderKL(nn.Module):
+    """decode(z (B, 4, h, w)) -> image (B, 3, 8h, 8w) in [-1, 1], f32."""
+
+    def __init__(self, cfg: VAEConfig = SD_VAE, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.decoder = Decoder(cfg, dtype, device)
+
+    def decode(self, z):
+        return self.decoder(z.to(self.decoder.conv_in.kernel.dtype)).float()

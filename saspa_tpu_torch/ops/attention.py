@@ -1,0 +1,96 @@
+"""Multi-head attention: the packed-heads kernel (K1) and the plain path.
+
+Counterpart of saspa_tpu/ops/attention.py.  Self-attention over image tokens
+(lq == lk >= 256, lq % 128 == 0) runs `flash_attention_packed` on packed
+(B, L, H*D_pad) tensors whose head dims are zero-padded in the projection
+weights (64/128/192 for SD1.5's 40/80/160; the VAE's 512 as is).  Short-kv
+cross-attention (77 text tokens) and the text tower take `plain_attention`,
+the counterpart of the JAX package's `_xla_attention`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from saspa_tpu_torch.ops import _build
+
+LOG2E = math.log2(math.e)
+PACKED_HEAD_DIMS = (64, 128, 192, 512)
+
+launches = 0  # kernel launches of flash_attention_packed since the last reset
+
+
+def pad_head_dim(d: int) -> int:
+    """Head dim the packed kernel takes (40 -> 64, 80 -> 128, 160 -> 192)."""
+    return max(64, ((d + 63) // 64) * 64)
+
+
+def packed_flash_eligible(lq: int, lk: int) -> bool:
+    """Shape-only predicate for the packed kernel: long self-attention."""
+    return lq == lk and lq >= 256 and lq % 128 == 0
+
+
+def plain_attention(q, k, v, scale: float):
+    """q: (B, Lq, H, D), k/v: (B, Lk, H, D) -> (B, Lq, H, D): f32 logits and
+    softmax, probabilities cast to v's dtype, product in v's dtype."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention(q, k, v, num_heads: int):
+    """Packed (B, L, H*D) inputs -> (B, Lq, H*D) through the plain path."""
+    b, lq, hd = q.shape
+    d = hd // num_heads
+    qh = q.reshape(b, lq, num_heads, d)
+    kh = k.reshape(b, k.shape[1], num_heads, d)
+    vh = v.reshape(b, v.shape[1], num_heads, d)
+    out = plain_attention(qh * (1.0 / math.sqrt(d)), kh, vh, 1.0)
+    return out.to(q.dtype).reshape(b, lq, hd)
+
+
+def flash_attention_packed_plain(q, k, v, heads: int):
+    """Plain version of K1 (same function, f32 scores and accumulation):
+    q pre-scaled by scale*log2(e); exp2 softmax; P cast to v's dtype before
+    the P.V product; output in q's dtype.  Loops over heads to bound the
+    (B, L, L) f32 score memory."""
+    b, lq, hd = q.shape
+    dp = hd // heads
+    out = torch.empty_like(q)
+    for h in range(heads):
+        sl = slice(h * dp, (h + 1) * dp)
+        s = q[:, :, sl].float() @ k[:, :, sl].float().transpose(1, 2)
+        p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+        acc = p.to(v.dtype).float() @ v[:, :, sl].float()
+        out[:, :, sl] = (acc / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+    return out
+
+
+def flash_attention_packed(q, k, v, heads: int):
+    """q: (B, L, H*D_pad) with softmax_scale*log2(e) folded in; k, v: (B, L,
+    H*D_pad).  Returns (B, L, H*D_pad); padded output columns are exactly 0.
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_packed_plain(q, k, v, heads)
+    b, l, hd = q.shape
+    dp = hd // heads
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_packed takes bf16 on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if k.shape != q.shape or v.shape != q.shape or hd != heads * dp:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} heads {heads}")
+    if dp not in PACKED_HEAD_DIMS or l % 64:
+        raise ValueError(f"packed kernel takes head dim in {PACKED_HEAD_DIMS} and L % 64 == 0, got {dp}, {l}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_packed needs contiguous q, k, v")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v on different devices")
+    out = torch.empty_like(q)
+    fn = _build.kernel("attention_packed")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, heads, dp, stream),
+                 "attention_packed")
+    launches += 1
+    return out
