@@ -8,16 +8,25 @@ Phases, each printing one JSON line:
                 (one nvcc per source, in parallel);
   2. kernels -- each kernel against its plain PyTorch version on the card at
                 every main-path shape, from the same seeded bf16 inputs, with
-                kernel / plain / library times from CUDA events;
+                kernel / plain / library times from CUDA events.  K1/K2 shapes
+                are listed below; the GroupNorm (K3), LayerNorm (K4) and
+                self-attention block (K5) shapes are recorded by forward hooks
+                during the main path's warm-up.  Tolerances: K1, K2 within 1%
+                of the largest output; K3, K4 in bf16 ulps per element
+                (require_ulps); K5 within 1% of the largest attention-plus-
+                projection term (the output less residual and bias);
   3. main    -- the port's main path: DiffusionPipeline(sd_v1.5, canny, ddim,
                 bf16) at full SD1.5 width with seeded weights, batch 8 at
-                512^2, through make_fused_generate; launch counters prove that
-                every eligible site ran the kernels;
-  4. reference -- the same pipeline's output against a CPU f32 run of the
-                plain path on a small input, and the card's Canny against the
-                CPU's, bit for bit.
-With --profile, one more main-path run under torch.profiler writes the device
-time by kernel to OUT.json and prints a summary line.
+                512^2, through make_fused_generate, in the default kernel
+                configuration and in the opt-in one (pallas_group_norm=True,
+                attention_megakernel=True); launch counters prove that every
+                eligible site ran its kernel;
+  4. reference -- both configurations' output against one CPU f32 run of
+                the plain path on a small input, and the card's Canny against
+                the CPU's, bit for bit.
+With --profile, one more main-path run of each configuration under
+torch.profiler writes the device time by kernel to OUT.json and
+OUT_opt_in.json and prints a summary line each.
 Then the kernels line, the card's name and power limit (nvidia-smi) and, as
 the last line, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Needs one CUDA card; imports nothing of JAX.
@@ -36,6 +45,7 @@ import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM at 700 W
+H100_F32_FLOPS = 67e12  # f32 outside the tensor cores (norm arithmetic)
 H100_HBM_BYTES = 3.35e12  # HBM3 bytes/s
 
 # K1 shapes on the main path at 512^2: (what, B, L, H, d, d_pad)
@@ -65,8 +75,12 @@ def require(ok, *what) -> None:
         raise SmokeFailure(" ".join(str(w) for w in what))
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line; t_s is the seconds since the script started."""
+    print(json.dumps({**obj, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -82,9 +96,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bf16_ulps(out, ref, mag):
+    """|out - ref| per element in bf16 ulps (8 bits of mantissa) of the larger
+    of |ref| and mag, the magnitude of the element's terms before they cancel."""
+    m = torch.maximum(mag, ref.float().abs()).clamp_min(2.0 ** -126)
+    return (out.float() - ref.float()).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def require_ulps(what, out, ref, mag, max_ulps=8, min_equal=0.999):
+    """The norms' check: 99.9% of the elements equal, and every element within
+    8 ulps of its magnitude.  A correct kernel sums its f32 statistics in
+    another order than the plain version, which can flip a bf16 rounding of
+    the mean or of a folded scale in a few channels or rows; one flipped bf16
+    scale moves x * scale by up to 2^-7 of it (2 ulps), and each of the up to
+    six bf16 roundings after it (the product, the shift, the sum, SiLU's exp,
+    sigmoid and product) adds at most one.  A wrong kernel changes far more
+    than 0.1% of the elements.  (1% of the largest output would not do: one
+    ulp near the largest output is 0.39-0.78% of it, and a correct kernel
+    gives two.)"""
+    ulps = bf16_ulps(out, ref, mag).max().item()
+    equal = (out == ref).float().mean().item()
+    require(ulps <= max_ulps and equal >= min_equal, what, "max ulps", ulps, "equal share", equal)
+    return ulps, equal
 
 
 def nvidia_smi_line() -> str:
@@ -164,7 +202,172 @@ def check_k2(gen):
     return rows
 
 
-def profile_main(run, out_path: str, steps: int) -> None:
+def check_k3(gen, sites):
+    """sites: {(B, C, H, W, act, eps)} of the main path's GroupNorms (all
+    channels-last); both epilogues at each."""
+    from saspa_tpu_torch.ops import groupnorm as gn
+
+    rows = []
+    for (b, c, h, w, act, eps) in sorted(sites, key=lambda s: (s[0] * s[1] * s[2] * s[3], s[1], str(s[4]))):
+        x = (0.5 + 3.0 * torch.randn(b, c, h, w, generator=gen, device="cuda")).to(torch.bfloat16)
+        x = x.to(memory_format=torch.channels_last)
+        gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+        beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+        n = x.numel()
+        # the terms' magnitude per element: (|x| + |mean|) * |gamma * rstd| + |beta|
+        g = gn.groups_for(c, 32)
+        xg = x.float().reshape(b, g, -1)
+        mean = xg.mean(-1)
+        rstd = torch.rsqrt(((xg * xg).mean(-1) - mean * mean).clamp_min(0.0) + eps)
+        sc = (gamma.reshape(1, g, -1) * rstd[:, :, None]).abs().reshape(b, c, 1, 1)
+        mag = (x.float().abs() + mean.abs().repeat_interleave(c // g, 1)[:, :, None, None]) * sc \
+            + beta.abs().reshape(1, c, 1, 1)
+        del xg, sc
+        lib_ms = None
+        if act is None:  # no single PyTorch call computes GroupNorm + SiLU
+            gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+            lib_ms = cuda_ms(lambda: torch.nn.functional.group_norm(x, 32, gb, bb, eps), 10)
+        for tpu in (False, True):
+            plain = gn.group_norm_tpu_plain if tpu else gn.group_norm_plain
+            out = gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
+            ref = plain(x, gamma, beta, 32, eps, act)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            what = f"B{b} C{c} {h}x{w} act={act} {'tpu' if tpu else 'xla'}"
+            ulps, equal = require_ulps(what, out, ref, mag)
+            ms = cuda_ms(lambda: gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu), 10)
+            plain_ms = cuda_ms(lambda: plain(x, gamma, beta, 32, eps, act), 3, warmup=1)
+            b_ms, b_by = bound((10.0 if act else 6.0) * n, 4 * n + 8 * c, H100_F32_FLOPS)
+            rows.append(dict(shape=what, B=b, C=c, HW=h * w, act=act, eps=eps, tpu_numerics=tpu,
+                             max_abs_err=err, ref_max=ref_max, max_ulps=ulps, equal_share=equal, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+            del out, ref
+        del x, mag
+    return rows
+
+
+def check_k4(gen, sites):
+    """sites: {(rows, C)} of the main path's norm1/norm2 LayerNorms."""
+    from saspa_tpu_torch.ops import layernorm as ln
+
+    rows = []
+    for m, c in sorted(sites):
+        x = (0.5 + 3.0 * torch.randn(1, m, c, generator=gen, device="cuda")).to(torch.bfloat16)
+        s, bias = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda"), 0.2 * torch.randn(c, generator=gen, device="cuda")
+        out = ln.layer_norm_one_pass(x, s, bias)
+        ref = ln.layer_norm_one_pass_plain(x, s, bias)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        # same bf16 rounding points; f32 sum order and rsqrt's last bit can
+        # flip one.  Terms' magnitude: (|x| + |mean|) * |rstd * s| + |b|
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) - mean * mean + 1e-5)
+        mag = (xf.abs() + mean.abs()) * (rstd * s).abs() + bias.abs()
+        ulps, equal = require_ulps(f"rows {m} C {c}", out, ref, mag)
+        del xf, mag
+        ms = cuda_ms(lambda: ln.layer_norm_one_pass(x, s, bias), 10)
+        plain_ms = cuda_ms(lambda: ln.layer_norm_one_pass_plain(x, s, bias), 3, warmup=1)
+        sb, bb = s.to(torch.bfloat16), bias.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.layer_norm(x, (c,), sb, bb, 1e-5), 10)
+        b_ms, b_by = bound(8.0 * m * c, 4 * m * c + 8 * c, H100_F32_FLOPS)
+        rows.append(dict(shape=f"rows {m}, C{c}", rows=m, C=c, max_abs_err=err, ref_max=ref_max, max_ulps=ulps,
+                         equal_share=equal, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by))
+        del x, out, ref
+    return rows
+
+
+def check_k5(gen, sites):
+    """sites: {(B, L, C, heads)} of the self-attentions the block kernel takes."""
+    from saspa_tpu_torch.ops import attention as att
+
+    rows = []
+    bf = torch.bfloat16
+    for b, l, c, h in sorted(sites):
+        d = c // h
+        dp = att.pad_head_dim(d)
+
+        def rn(*shape, std=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * std
+
+        def pad_rows(w):  # (C, C) -> head-padded (H*dp, C)
+            return torch.nn.functional.pad(w.reshape(h, d, c), (0, 0, 0, dp - d)).reshape(h * dp, c)
+
+        # scores of std ~4.3 bits (q three times the unit scale) make each
+        # query's softmax peak on a few keys, so the attention term is of
+        # order 1 and changes if a K/V tile or the exp2 base goes wrong; the
+        # residual and bo are small beside it but not zero
+        wq = (pad_rows(rn(c, c, std=3.0 * c ** -0.5)) * (att.LOG2E / math.sqrt(d))).to(bf).contiguous()
+        wk, wv = (pad_rows(rn(c, c, std=c ** -0.5)).to(bf).contiguous() for _ in range(2))
+        wo = torch.nn.functional.pad(rn(c, c, std=c ** -0.5).reshape(c, h, d), (0, dp - d)).reshape(c, h * dp)
+        wo = wo.to(bf).contiguous()
+        bo = rn(c, std=0.05)
+        x, res = rn(b, l, c).to(bf), rn(b, l, c, std=0.05).to(bf)
+        args = (x, res, wq, wk, wv, wo, bo, h)
+        out = att.attention_block_fused(*args)
+        ref = att.attention_block_fused_plain(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        term_max = (ref.float() - res.float() - bo).abs().max().item()
+        # Q/K/V, P and the packed heads are rounded to bf16 at the same points;
+        # the online softmax and the product order differ: 1% of the largest
+        # attention-plus-projection term, out - residual - bo
+        what = f"B{b} L{l} C{c} H{h} d{d}->{dp}"
+        require(err <= 1e-2 * term_max, what, "max |kernel - plain|", err, "> 1% of the term's max", term_max)
+        equal = (out == ref).float().mean().item()
+        ms = cuda_ms(lambda: att.attention_block_fused(*args), 10)
+        plain_ms = cuda_ms(lambda: att.attention_block_fused_plain(*args), 2, warmup=1)
+        m, hd = b * l, h * dp
+        b_ms, b_by = bound(8.0 * m * c * hd + 4.0 * b * h * l * l * dp, 2 * 3 * m * c + 2 * 4 * c * hd + 4 * c)
+        rows.append(dict(shape=what, B=b, L=l, C=c, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
+                         term_max=term_max, equal_share=equal, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by))
+        del args, x, res, out, ref
+    return rows
+
+
+def record_sites(pipe):
+    """Forward hooks on the pipeline's norms and self-attentions; returns
+    (sites dict, hook handles).  GroupNorm: (B, C, H, W, act, eps); norm1/norm2
+    LayerNorm: (rows, C); self-attention with a residual that the block kernel
+    admits: (B, L, C, heads)."""
+    from saspa_tpu_torch.models.unet import CrossAttention, GroupNorm32, LayerNorm32
+    from saspa_tpu_torch.ops.attention import attention_block_eligible
+
+    sites = {"group_norm": set(), "layernorm": set(), "attention_block": set()}
+
+    def gn_hook(mod, args):
+        x = args[0]
+        sites["group_norm"].add((*x.shape, mod.act, mod.eps))
+
+    def ln_hook(mod, args):
+        x = args[0]
+        sites["layernorm"].add((x.numel() // x.shape[-1], x.shape[-1]))
+
+    def attn_hook(mod, args, kwargs):
+        x = args[0]
+        b, l, c = x.shape
+        if kwargs.get("context") is None and kwargs.get("residual") is not None \
+                and attention_block_eligible(l, l, mod.heads, c // mod.heads, c, x.element_size()):
+            sites["attention_block"].add((b, l, c, mod.heads))
+
+    handles = []
+    for key in ("unet", "controlnet", "vae"):
+        for m in pipe.params[key].modules():
+            if isinstance(m, GroupNorm32):
+                handles.append(m.register_forward_pre_hook(gn_hook))
+            elif isinstance(m, LayerNorm32):
+                handles.append(m.register_forward_pre_hook(ln_hook))
+            elif isinstance(m, CrossAttention):
+                handles.append(m.register_forward_pre_hook(attn_hook, with_kwargs=True))
+    return sites, handles
+
+
+def profile_main(run, out_path: str, steps: int, config: str) -> None:
     """Device time by kernel over one main-path run (torch.profiler/CUPTI)."""
     from pathlib import Path
 
@@ -185,6 +388,12 @@ def profile_main(run, out_path: str, steps: int) -> None:
             return "attention_packed (K1)"
         if "ln_geglu_hidden_kernel" in name or "geglu_out_kernel" in name:
             return "ln_geglu (K2)"
+        if "saspa::gn_" in name:
+            return "group_norm (K3)"
+        if "layernorm_kernel" in name:
+            return "layernorm (K4)"
+        if any(k in name for k in ("kv_proj_kernel", "block_attention_kernel", "out_proj_kernel")):
+            return "attention_block (K5)"
         n = name.lower()
         if any(k in n for k in ("conv", "fprop", "cudnn", "implicit")):
             return "convolution (cuDNN)"
@@ -199,9 +408,9 @@ def profile_main(run, out_path: str, steps: int) -> None:
         g = group(r["name"])
         groups[g] = groups.get(g, 0.0) + r["device_ms"]
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
-    Path(out_path).write_text(json.dumps({"steps": steps, "wall_s": wall, "device_busy_s": busy,
+    Path(out_path).write_text(json.dumps({"config": config, "steps": steps, "wall_s": wall, "device_busy_s": busy,
                                           "groups_ms": groups, "kernels": rows}, indent=1))
-    emit({"phase": "profile", "steps": steps, "wall_s": wall, "device_busy_s": busy,
+    emit({"phase": "profile", "config": config, "steps": steps, "wall_s": wall, "device_busy_s": busy,
           "idle_share": 1.0 - busy / wall, "groups_ms": groups, "top": rows[:12], "table": out_path})
 
 
@@ -220,11 +429,54 @@ def synthetic_sources(rng: np.random.RandomState, n: int, size: int) -> np.ndarr
     return np.clip(np.round(imgs), 0, 255).astype(np.uint8)
 
 
+COUNTERS = ("attention_packed", "ln_geglu", "group_norm", "group_norm_tpu", "layernorm", "attention_block")
+CONFIGS = {"default": {}, "opt_in": {"pallas_group_norm": True, "attention_megakernel": True}}
+
+
+def read_counts() -> dict:
+    from saspa_tpu_torch.ops import attention, geglu, groupnorm, layernorm
+
+    return {"attention_packed": attention.launches, "ln_geglu": geglu.launches, "group_norm": groupnorm.launches,
+            "group_norm_tpu": groupnorm.launches_tpu, "layernorm": layernorm.launches,
+            "attention_block": attention.block_launches}
+
+
+def reset_counts() -> None:
+    from saspa_tpu_torch.ops import attention, geglu, groupnorm, layernorm
+
+    attention.launches = attention.block_launches = geglu.launches = 0
+    groupnorm.launches = groupnorm.launches_tpu = layernorm.launches = 0
+
+
+def expected_counts(steps: int, config: str) -> dict:
+    """Launches of one batch at 512^2.  Per step: UNet 15 + ControlNet 6
+    self-attentions over >= 256 tokens, 16 + 7 transformer blocks (norm1 and
+    norm2 each), 61 + 27 GroupNorms; per decode: the VAE's attention and 30
+    GroupNorms, 7 of which (the 512^2 tail) the TPU kernel's split plan
+    refuses."""
+    if config == "default":
+        return {"attention_packed": 21 * steps + 1, "ln_geglu": 23 * steps, "group_norm": 88 * steps + 30,
+                "group_norm_tpu": 0, "layernorm": 46 * steps, "attention_block": 0}
+    return {"attention_packed": 1, "ln_geglu": 23 * steps, "group_norm": 88 * steps + 30,
+            "group_norm_tpu": 88 * steps + 23, "layernorm": 46 * steps, "attention_block": 21 * steps}
+
+
+def copy_weights(src, dst) -> None:
+    """Loads src pipeline's parameters into dst (any device and dtype)."""
+    for k, mod in src.params.items():
+        mods = mod if isinstance(mod, list) else [mod]
+        dmods = dst.params[k] if isinstance(mod, list) else [dst.params[k]]
+        for m, dm in zip(mods, dmods):
+            dtypes = {n: t.dtype for n, t in dm.state_dict().items()}
+            dm.load_state_dict({n: t.to(device=dst.device, dtype=dtypes[n]) for n, t in m.state_dict().items()})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="DDIM steps of the main path (the recipe uses 30)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", metavar="OUT.json", help="also profile one main-path run, write the table here")
+    ap.add_argument("--profile", metavar="OUT.json",
+                    help="also profile one main-path run of each configuration: OUT.json, OUT_opt_in.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card", file=sys.stderr)
@@ -237,7 +489,7 @@ def main() -> int:
     from saspa_tpu_torch.diffusion.pipelines import DiffusionPipeline
     from saspa_tpu_torch.gen.tokenizer import NEGATIVE_PROMPT
     from saspa_tpu_torch.models.controlnet import ZERO_INIT_PREFIXES
-    from saspa_tpu_torch.ops import _build, attention, geglu
+    from saspa_tpu_torch.ops import _build
     from saspa_tpu_torch.ops.canny import canny_batch
 
     smi = nvidia_smi_line()
@@ -246,31 +498,30 @@ def main() -> int:
              for k, v in _build.build_log.items()}
     emit({"phase": "build", "seconds": build_s, "nvidia_smi": smi, "ptxas": ptxas})
 
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    k1 = check_k1(gen)
-    emit({"phase": "kernels", "kernel": "attention_packed", "shapes": k1})
-    k2 = check_k2(gen)
-    emit({"phase": "kernels", "kernel": "ln_geglu", "shapes": k2})
-
-    # ---- main path ---------------------------------------------------------
+    # ---- the pipelines of both configurations, one set of seeded weights ---
     t0 = time.perf_counter()
-    pipe = DiffusionPipeline("sd_v1.5", controlnet="canny", sampler="ddim", dtype=torch.bfloat16, init_seed=args.seed)
+    pipes = {"default": DiffusionPipeline("sd_v1.5", controlnet="canny", sampler="ddim", dtype=torch.bfloat16,
+                                          init_seed=args.seed)}
     with torch.no_grad():  # small seeded values so the ControlNet residuals are not all zero
         zgen = torch.Generator(device="cuda").manual_seed(args.seed + 11)
-        for name, p in sorted(pipe.params["controlnet"].named_parameters()):
+        for name, p in sorted(pipes["default"].params["controlnet"].named_parameters()):
             if name.startswith(ZERO_INIT_PREFIXES):
                 p.copy_(torch.randn(p.shape, generator=zgen, device="cuda") * 0.02)
+    pipes["opt_in"] = DiffusionPipeline("sd_v1.5", controlnet="canny", sampler="ddim", dtype=torch.bfloat16,
+                                        init_seed=None, **CONFIGS["opt_in"])
+    copy_weights(pipes["default"], pipes["opt_in"])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.RandomState(args.seed)
     b, size = 8, 512
     src = synthetic_sources(rng, b, size)
     prompts = [f"a photo of a {c} airliner on the runway" for c in ("red", "white", "blue", "grey") * 2]
-    ids = pipe.tokenizer(prompts, pad="eot")
-    neg_ids = pipe.tokenizer([NEGATIVE_PROMPT] * b, pad="eot")
+    ids = pipes["default"].tokenizer(prompts, pad="eot")
+    neg_ids = pipes["default"].tokenizer([NEGATIVE_PROMPT] * b, pad="eot")
     latents = rng.randn(b, size // 8, size // 8, 4).astype(np.float32)
 
-    def run(steps):
+    def run(config, steps):
+        pipe = pipes[config]
         fn = pipe.make_fused_generate(size, size, steps, 7.5, 0.75, 120.0, 200.0)
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -278,72 +529,117 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
-    run(1)  # warm-up: cuDNN/cuBLAS heuristics, kernel library loads
-    _, t1 = run(1)
-    torch.cuda.reset_peak_memory_stats()
-    attention.launches = geglu.launches = 0
-    (u8, images), ts = run(args.steps)
-    counts = {"attention_packed": attention.launches, "ln_geglu": geglu.launches}
-    peak = torch.cuda.max_memory_allocated()
-    require(u8.shape == (b, size, size, 3) and u8.dtype == torch.uint8, "output", tuple(u8.shape), u8.dtype)
-    require(bool(torch.isfinite(images).all()), "non-finite images before quantisation")
-    # per step: UNet 15 + ControlNet 6 self-attentions over >= 256 tokens, plus
-    # the VAE's one; 16 + 7 transformer blocks
-    want = {"attention_packed": 21 * args.steps + 1, "ln_geglu": 23 * args.steps}
-    require(counts == want, "launch counts", counts, "expected", want)
-    s_step = (ts - t1) / (args.steps - 1)
-    emit({"phase": "main", "batch": b, "resolution": size, "steps": args.steps, "init_s": init_s,
-          "wall_s": ts, "wall_1step_s": t1, "s_per_step": s_step, "img_per_s": b / ts,
-          "img_per_s_30_steps_est": b / (t1 + 29 * s_step), "peak_mem_bytes": peak, "launches": counts,
-          "launches_expected": want, "uint8_mean": u8.float().mean().item()})
+    # warm-up (cuDNN/cuBLAS heuristics, kernel library loads), recording the
+    # norm and self-attention shapes of the main path
+    sites, handles = record_sites(pipes["default"])
+    run("default", 1)
+    for h in handles:
+        h.remove()
+
+    # ---- kernels against their plain versions --------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    checks = {}
+    for name, check, arg in (("attention_packed", check_k1, None), ("ln_geglu", check_k2, None),
+                             ("group_norm", check_k3, "group_norm"), ("layernorm", check_k4, "layernorm"),
+                             ("attention_block", check_k5, "attention_block")):
+        checks[name] = check(gen) if arg is None else check(gen, sites[arg])
+        emit({"phase": "kernels", "kernel": name, "shapes": checks[name]})
+
+    # ---- main path, each configuration ---------------------------------------
+    counts = {}
+    for config in CONFIGS:
+        if config != "default":
+            run(config, 1)  # warm-up
+        _, t1 = run(config, 1)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (u8, images), ts = run(config, args.steps)
+        counts[config] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        require(u8.shape == (b, size, size, 3) and u8.dtype == torch.uint8, "output", tuple(u8.shape), u8.dtype)
+        require(bool(torch.isfinite(images).all()), config, "non-finite images before quantisation")
+        want = expected_counts(args.steps, config)
+        require(counts[config] == want, config, "launch counts", counts[config], "expected", want)
+        s_step = (ts - t1) / (args.steps - 1)
+        emit({"phase": "main", "config": config, "batch": b, "resolution": size, "steps": args.steps,
+              "init_s": init_s, "wall_s": ts, "wall_1step_s": t1, "s_per_step": s_step, "img_per_s": b / ts,
+              "img_per_s_30_steps_est": b / (t1 + 29 * s_step), "peak_mem_bytes": peak,
+              "launches": counts[config], "launches_expected": want, "uint8_mean": u8.float().mean().item()})
+        del u8, images
 
     if args.profile:
-        profile_main(lambda: run(args.steps), args.profile, args.steps)
+        from pathlib import Path
+
+        out = Path(args.profile)
+        for config in CONFIGS:
+            path = out if config == "default" else out.with_name(f"{out.stem}_{config}{out.suffix}")
+            profile_main(lambda: run(config, args.steps), str(path), args.steps, config)
 
     # ---- reference: small input against the plain path on the CPU ----------
-    cpu = DiffusionPipeline("sd_v1.5", controlnet="canny", sampler="ddim", dtype=torch.float32, device="cpu",
-                            init_seed=None)
-    for k, mod in pipe.params.items():
-        mods = mod if isinstance(mod, list) else [mod]
-        cmods = cpu.params[k] if isinstance(mod, list) else [cpu.params[k]]
-        for m, cm in zip(mods, cmods):
-            cm.load_state_dict({n: t.float().cpu() for n, t in m.state_dict().items()})
-    rs, n_small = 256, 1  # 32^2 latents: K1 at 1024 and 256 tokens, K2 on a ragged 32-row mid block
+    rs, n_small = 256, 1  # 32^2 latents: K1/K5 at 1024 and 256 tokens, K2/K4 on a ragged 32-row mid block
     small = (src[:n_small, ::2, ::2], ids[:n_small], neg_ids[:n_small], latents[:n_small, ::2, ::2])
-    attention.launches = geglu.launches = 0
-    _, img_gpu = pipe.make_fused_generate(rs, rs, 2, 7.5)(pipe.params, small[1], small[2], small[0], small[3],
-                                                           return_images=True)
-    small_counts = {"attention_packed": attention.launches, "ln_geglu": geglu.launches}
-    _, img_cpu = cpu.make_fused_generate(rs, rs, 2, 7.5)(cpu.params, small[1], small[2], small[0], small[3],
-                                                         return_images=True)
-    diff = (img_gpu.float().cpu() - img_cpu).abs()
-    # bf16 network with the kernels vs the f32 plain path: agreement to a few
-    # uint8 levels on average (mean |diff| <= 0.02 of the [0, 1] range)
-    mean_diff, max_diff = diff.mean().item(), diff.max().item()
     edges_gpu = canny_batch(torch.as_tensor(src, device="cuda"), 120.0, 200.0).cpu()
     edges_cpu = canny_batch(torch.as_tensor(src), 120.0, 200.0)
     canny_equal = bool(torch.equal(edges_gpu, edges_cpu))
-    emit({"phase": "reference", "resolution": rs, "batch": n_small, "steps": 2, "launches": small_counts,
-          "mean_abs_diff": mean_diff, "max_abs_diff": max_diff, "canny_bit_exact": canny_equal,
-          "edge_fraction": (edges_gpu > 0).float().mean().item()})
-    require(min(small_counts.values()) > 0, "reference run missed a kernel", small_counts)
-    require(mean_diff <= 0.02, "card vs CPU mean |diff|", mean_diff)
-    require(canny_equal, "Canny on the card differs from the CPU")
+    # One CPU f32 run of the plain path is the reference of both
+    # configurations: in f32 the opt-in plain versions compute the default
+    # path's function (the TPU numerics' normalize and the block's plain
+    # version round nothing to bf16), up to f32 rounding.
+    t = time.perf_counter()
+    cpu = DiffusionPipeline("sd_v1.5", controlnet="canny", sampler="ddim", dtype=torch.float32, device="cpu",
+                            init_seed=None)
+    copy_weights(pipes["default"], cpu)
+    t_setup = time.perf_counter()
+    _, img_cpu = cpu.make_fused_generate(rs, rs, 2, 7.5)(cpu.params, small[1], small[2], small[0], small[3],
+                                                         return_images=True)
+    cpu_setup_s, cpu_s = t_setup - t, time.perf_counter() - t_setup
+    del cpu
+    for config in CONFIGS:
+        pipe = pipes[config]
+        reset_counts()
+        t = time.perf_counter()
+        _, img_gpu = pipe.make_fused_generate(rs, rs, 2, 7.5)(pipe.params, small[1], small[2], small[0], small[3],
+                                                               return_images=True)
+        small_counts = read_counts()
+        gpu_s = time.perf_counter() - t
+        diff = (img_gpu.float().cpu() - img_cpu).abs()
+        # bf16 network with the kernels vs the f32 plain path: agreement to a few
+        # uint8 levels on average (mean |diff| <= 0.02 of the [0, 1] range)
+        mean_diff, max_diff = diff.mean().item(), diff.max().item()
+        emit({"phase": "reference", "config": config, "resolution": rs, "batch": n_small, "steps": 2,
+              "launches": small_counts, "mean_abs_diff": mean_diff, "max_abs_diff": max_diff,
+              "canny_bit_exact": canny_equal, "edge_fraction": (edges_gpu > 0).float().mean().item(),
+              "cpu_setup_s": cpu_setup_s, "gpu_s": gpu_s, "cpu_s": cpu_s,
+              "cpu_threads": torch.get_num_threads()})
+        ran = [k for k, v in expected_counts(2, config).items() if v > 0]
+        require(all(small_counts[k] > 0 for k in ran), config, "reference run missed a kernel", small_counts)
+        require(mean_diff <= 0.02, config, "card vs CPU mean |diff|", mean_diff)
+        require(canny_equal, "Canny on the card differs from the CPU")
 
-    kernels = [
-        {"name": "attention_packed", "route": "cuda", "source": "saspa_tpu_torch/csrc/attention_packed.cu",
-         "replaces": "saspa_tpu/ops/attention.py:181", "launches": counts["attention_packed"],
-         "max_abs_err": max(r["max_abs_err"] for r in k1), **{k: k1[1][k] for k in
-         ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}},
-        {"name": "ln_geglu", "route": "cuda", "source": "saspa_tpu_torch/csrc/ln_geglu.cu",
-         "replaces": "saspa_tpu/ops/geglu.py:123", "launches": counts["ln_geglu"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2), **{k: k2[0][k] for k in
-         ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}},
+    # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
+    lines = [
+        ("attention_packed", "attention_packed.cu", "saspa_tpu/ops/attention.py:181",
+         lambda r: r["shape"] == "unet/cn level 0"),
+        ("ln_geglu", "ln_geglu.cu", "saspa_tpu/ops/geglu.py:123", lambda r: r["shape"] == "level 0"),
+        ("group_norm", "group_norm.cu", "saspa_tpu/ops/groupnorm.py:111",
+         lambda r: (r["B"], r["C"], r["HW"], r["act"], r["tpu_numerics"]) == (16, 320, 4096, None, False)),
+        ("layernorm", "layernorm.cu", "saspa_tpu/ops/layernorm.py:62", lambda r: (r["rows"], r["C"]) == (65536, 320)),
+        ("attention_block", "attention_block.cu", "saspa_tpu/ops/attention.py:268",
+         lambda r: (r["B"], r["L"]) == (16, 4096)),
     ]
-    emit({"kernels": kernels})
+    kernels = []
+    for name, source, replaces, pick in lines:
+        rows = checks[name]
+        row = next(r for r in rows if pick(r))
+        kernels.append({"name": name, "route": "cuda", "source": f"saspa_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches": sum(c[name] for c in counts.values()),
+                        "launches_by_config": {c: counts[c][name] for c in counts},
+                        "max_abs_err": max(r["max_abs_err"] for r in rows),
+                        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}})
+    print(json.dumps({"kernels": kernels}), flush=True)  # the result lines carry no t_s
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -25,13 +25,9 @@
 // function; only the hidden's HBM round trip (write + read of M*F bf16) is
 // extra.  Both are 64x64-tile bf16 mma.sync GEMMs with f32 accumulation,
 // 4 warps of 32x32, a 32-deep k step staged through shared memory.
-#include "mma_bf16.cuh"
+#include "gemm_bf16.cuh"
 
 namespace saspa {
-
-constexpr int GM_BM = 64, GM_BN = 64, GM_BK = 32;
-constexpr int GM_THREADS = 128;
-constexpr int GM_S = GM_BK + 8;  // padded smem row stride (80 bytes: ldmatrix conflict-free)
 
 // Eigen generic_fast_erf_float, the polynomial of geglu.py::_erf_f32.
 __device__ __forceinline__ float erf_poly(float x) {
@@ -55,40 +51,6 @@ __device__ __forceinline__ float erf_poly(float x) {
 
 __device__ __forceinline__ float gelu_erf(float x) {
     return 0.5f * x * (1.0f + erf_poly(x * 0.70710678118654752f));
-}
-
-// 64 rows x 32 cols of a row-major bf16 matrix (row stride ld) into smem;
-// rows at or past `rows` are zero-filled.
-__device__ __forceinline__ void load_rows_async(bf16* s, const bf16* g, int ld, int rows = GM_BM) {
-    for (int i = threadIdx.x; i < GM_BM * (GM_BK / 8); i += GM_THREADS) {
-        int r = i / (GM_BK / 8), c = (i % (GM_BK / 8)) * 8;
-        if (r < rows)
-            cp_async_16(s + r * GM_S + c, g + (size_t)r * ld + c);
-        else
-            *reinterpret_cast<uint4*>(s + r * GM_S + c) = make_uint4(0, 0, 0, 0);
-    }
-}
-
-// One 32-deep step of a warp's 32x32 tile: acc[mi][ni] += A[rows] * B[cols]^T.
-__device__ __forceinline__ void warp_mma_step(float acc[2][4][4], const bf16* sA, const bf16* sB,
-                                              int wm, int wn, int lane) {
-#pragma unroll
-    for (int kk = 0; kk < GM_BK / 16; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-            ldmatrix_x4(a[mi], sA + (wm * 32 + mi * 16 + (lane % 16)) * GM_S + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-            uint32_t b[4];
-            ldmatrix_x4(b, sB + (wn * 32 + np * 16 + (lane / 16) * 8 + (lane % 8)) * GM_S + kk * 16 + ((lane / 8) & 1) * 8);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-                mma_bf16_16816(acc[mi][2 * np], a[mi], b[0], b[1]);
-                mma_bf16_16816(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
-            }
-        }
-    }
 }
 
 // (a) grid (F/64, ceil(M/64)): hid[m0:m0+64, n0:n0+64]
@@ -204,22 +166,8 @@ geglu_out_kernel(const bf16* __restrict__ hid, const bf16* __restrict__ w2, cons
     const int wm = warp / 2, wn = warp % 2;
 
     float acc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-    for (int k0 = 0; k0 < F; k0 += GM_BK) {
-        load_rows_async(sA, hid + (size_t)m0 * F + k0, F, M - m0);
-        load_rows_async(sB, w2 + (size_t)n0 * F + k0, F);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        warp_mma_step(acc, sA, sB, wm, wn, lane);
-        __syncthreads();
-    }
+    zero_acc(acc);
+    block_gemm_bt(acc, sA, sB, hid, F, w2, F, F, m0, n0, M);
 
     const int g = lane / 4, t = lane % 4;
 #pragma unroll

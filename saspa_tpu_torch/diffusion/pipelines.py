@@ -32,9 +32,18 @@ from saspa_tpu_torch.ops.canny import canny_control_image
 class DiffusionPipeline:
     def __init__(self, base_model: str = "sd_v1.5", controlnet: Optional[str] = "canny", sampler: str = "ddim",
                  dtype: Optional[torch.dtype] = None, device=None, weights_dir: Optional[str] = None,
-                 init_seed: Optional[int] = 0, unet_cfg=None, vae_cfg=None, text_cfgs=None):
+                 init_seed: Optional[int] = 0, unet_cfg=None, vae_cfg=None, text_cfgs=None,
+                 pallas_group_norm: bool = False, attention_megakernel: bool = False):
         """init_seed=None leaves the parameters at zero for a caller that
-        loads weights next (load_flax_params or load_state_dict)."""
+        loads weights next (load_flax_params or load_state_dict).
+
+        The kernel configuration: by default what the JAX main path runs by
+        default.  pallas_group_norm=True and attention_megakernel=True are the
+        counterparts of SASPA_PALLAS_GN=1 and SASPA_ATTN_MEGAKERNEL=1 (with
+        SASPA_PALLAS_LN=1, which needs no switch here: the one-pass LayerNorm
+        is the default path's function): GroupNorm with the TPU kernel's
+        numerics where its split plan admits the site, and the self-attention
+        block kernel where `attention_block_eligible` admits it."""
         if base_model != "sd_v1.5" or sampler != "ddim" or controlnet not in (None, "canny"):
             raise NotImplementedError(f"ported so far: sd_v1.5 + canny/None + ddim, got {base_model}, {controlnet}, {sampler}")
         self.device = resolve_device(device)
@@ -48,13 +57,15 @@ class DiffusionPipeline:
         self.latent_factor = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
 
         dev, dt = self.device, self.dtype
+        gn, mk = pallas_group_norm, attention_megakernel
         self.params = {
             "text": [CLIPTextEncoder(c, dt, dev) for c in self.text_cfgs],
-            "unet": UNet2DCondition(self.unet_cfg, dt, dev),
-            "vae": AutoencoderKL(self.vae_cfg, dt, dev),
+            "unet": UNet2DCondition(self.unet_cfg, dt, dev, pallas_group_norm=gn, attention_megakernel=mk),
+            "vae": AutoencoderKL(self.vae_cfg, dt, dev, pallas_group_norm=gn),
         }
         if controlnet:
-            self.params["controlnet"] = ControlNet(self.unet_cfg, dt, dev)
+            self.params["controlnet"] = ControlNet(self.unet_cfg, dt, dev, pallas_group_norm=gn,
+                                                   attention_megakernel=mk)
         for m in self._modules():
             m.eval()
         self.weights_loaded = False

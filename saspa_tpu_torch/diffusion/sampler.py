@@ -29,7 +29,7 @@ def make_sample_loop(unet_apply, scheduler, controlnet_apply=None, vae_decode=No
         without a decoder)."""
         do_cfg = uncond_context is not None
         ctx = torch.cat([uncond_context, context], dim=0) if do_cfg else context
-        lat = latents.float().permute(0, 3, 1, 2)
+        lat = latents.float().permute(0, 3, 1, 2)  # channels-last in memory, as the convs keep it
         ts = [int(t) for t in timesteps]
         prev_ts = ts[1:] + [-1]
 

@@ -40,8 +40,9 @@ class ControlNetConditioningEmbedding(nn.Module):
 
 
 class ControlNet(UNetEncoder):
-    def __init__(self, cfg: UNetConfig = SD15_UNET, dtype=torch.float32, device=None):
-        super().__init__(cfg, dtype, device)
+    def __init__(self, cfg: UNetConfig = SD15_UNET, dtype=torch.float32, device=None, pallas_group_norm=False,
+                 attention_megakernel=False):
+        super().__init__(cfg, dtype, device, pallas_group_norm, attention_megakernel)
         self.controlnet_cond_embedding = ControlNetConditioningEmbedding(cfg.block_out_channels[0], dtype, device)
         for idx, ch in enumerate(self.skip_channels):
             setattr(self, f"controlnet_down_blocks_{idx}", Conv(ch, ch, 1, dtype=dtype, device=device))

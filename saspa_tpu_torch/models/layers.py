@@ -6,7 +6,8 @@ replacing "/" with "."; layouts are torch's (dense (out, in), conv OIHW).
 
 Dense/Conv/Embed hold their weights in the compute dtype (flax casts its f32
 masters to the module dtype at every call; casting once is the same value).
-Norm parameters stay f32, as the JAX package reads them.
+Norm parameters stay f32, as the JAX package reads them, and so does the
+bias of an attention's to_out, which the block kernel K5 reads as f32.
 """
 
 from __future__ import annotations
@@ -21,13 +22,17 @@ def _empty(shape, dtype, device):
 
 
 class Dense(nn.Module):
-    def __init__(self, in_features, out_features, bias=True, dtype=torch.float32, device=None):
+    """bias_dtype: keep the bias in another dtype (an f32 master, cast to
+    the kernel's dtype per call)."""
+
+    def __init__(self, in_features, out_features, bias=True, dtype=torch.float32, device=None, bias_dtype=None):
         super().__init__()
         self.kernel = _empty((out_features, in_features), dtype, device)
-        self.bias = _empty((out_features,), dtype, device) if bias else None
+        self.bias = _empty((out_features,), bias_dtype or dtype, device) if bias else None
 
     def forward(self, x):
-        return F.linear(x.to(self.kernel.dtype), self.kernel, self.bias)
+        dt = self.kernel.dtype
+        return F.linear(x.to(dt), self.kernel, None if self.bias is None else self.bias.to(dt))
 
 
 class Conv(nn.Module):

@@ -1,11 +1,20 @@
 """SD1.5 conditional UNet in PyTorch (counterpart of saspa_tpu/models/unet.py).
 
-NCHW inside; module and parameter names follow the flax tree.  Carries only
-the JAX package's default behaviour: self-attention over >= 256 tokens runs
-the packed-heads kernel (K1) with head dims padded in the weights, every
-transformer block's norm3 + feed-forward runs the fused LN+GEGLU kernel (K2),
-GroupNorm is the f32 path, and cross-attention over the 77 text tokens is
-plain torch.
+NCHW inside (channels-last in memory from the latents on, the format the
+convolutions keep); module and parameter names follow the flax tree.  By default
+it runs what the JAX package runs by default: self-attention over >= 256
+tokens runs the packed-heads kernel (K1) with head dims padded in the
+weights, every transformer block's norm3 + feed-forward runs the fused
+LN+GEGLU kernel (K2), norm1/norm2 the one-pass LayerNorm (K4), every
+GroupNorm the GroupNorm kernel (K3) in `_xla_group_norm`'s order, and
+cross-attention over the 77 text tokens is plain torch.
+
+Two options select the counterpart of the JAX package's opt-in kernels
+(SASPA_PALLAS_GN=1 SASPA_ATTN_MEGAKERNEL=1): `pallas_group_norm` gives K3 the
+TPU kernel's bf16 numerics wherever that kernel's `_split_plan` admits the
+site, and `attention_megakernel` runs each self-attention that
+`attention_block_eligible` admits, with its residual add, through the block
+kernel (K5).
 
 CFG shared prefix (`cfg_tile`): under classifier-free guidance both halves
 share one latent, so the network runs at batch B until the first
@@ -27,12 +36,16 @@ from saspa_tpu_torch.models.layers import Conv, Dense, NormParams
 from saspa_tpu_torch.ops.attention import (
     LOG2E,
     attention,
+    attention_block_eligible,
+    attention_block_fused,
     flash_attention_packed,
     packed_flash_eligible,
     pad_head_dim,
 )
 from saspa_tpu_torch.ops.geglu import fused_ln_geglu
-from saspa_tpu_torch.ops.groupnorm import group_norm
+from saspa_tpu_torch.ops.groupnorm import group_norm, groups_for, split_plan
+from saspa_tpu_torch.ops.layernorm import layer_norm_one_pass
+from saspa_tpu_torch.ops.layernorm import layer_norm_one_pass_plain as _ln32_forward  # noqa: F401
 
 
 @dataclass(frozen=True)
@@ -81,38 +94,33 @@ class TimestepEmbedding(nn.Module):
 
 
 class GroupNorm32(nn.Module):
-    """GroupNorm with f32 statistics (params under <name>.GroupNorm_0)."""
+    """GroupNorm with f32 statistics (params under <name>.GroupNorm_0), K3.
+    tpu_numerics: the TPU kernel's numerics at the sites its split plan
+    admits (decided per call from the input's shape and dtype)."""
 
-    def __init__(self, channels, num_groups=32, eps=1e-5, act=None, device=None):
+    def __init__(self, channels, num_groups=32, eps=1e-5, act=None, device=None, tpu_numerics=False):
         super().__init__()
         self.GroupNorm_0 = NormParams(channels, device)
-        self.num_groups, self.eps, self.act = num_groups, eps, act
+        self.num_groups, self.eps, self.act, self.tpu_numerics = num_groups, eps, act, tpu_numerics
 
     def forward(self, x):
         p = self.GroupNorm_0
-        return group_norm(x, p.scale, p.bias, self.num_groups, self.eps, self.act)
-
-
-def _ln32_forward(x, scale, bias, eps: float):
-    """LayerNorm with f32 statistics (E[x^2] - E[x]^2) and a normalize pass
-    in x's dtype, in flax's association (x - mean) * (rsqrt * scale) + bias."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
-    mul = torch.rsqrt(var + eps) * scale
-    if x.dtype == torch.float32:
-        return (xf - mean) * mul + bias
-    d = x.dtype
-    return (x - mean.to(d)) * mul.to(d) + bias.to(d)
+        c = x.shape[1]
+        tpu = self.tpu_numerics and split_plan(
+            math.prod(x.shape[2:]), c, groups_for(c, self.num_groups), x.element_size()) is not None
+        return group_norm(x, p.scale, p.bias, self.num_groups, self.eps, self.act, tpu_numerics=tpu)
 
 
 class LayerNorm32(NormParams):
+    """LayerNorm with f32 statistics and a normalize pass in x's dtype (K4;
+    `_ln32_forward` is its plain version)."""
+
     def __init__(self, features, eps=1e-5, device=None):
         super().__init__(features, device)
         self.eps = eps
 
     def forward(self, x):
-        return _ln32_forward(x, self.scale, self.bias, self.eps)
+        return layer_norm_one_pass(x, self.scale, self.bias, self.eps)
 
 
 def cfg_tile(x, n: int):
@@ -124,12 +132,12 @@ def cfg_tile(x, n: int):
 
 
 class ResnetBlock2D(nn.Module):
-    def __init__(self, in_ch, out_ch, temb_dim, dtype, device, groups=32):
+    def __init__(self, in_ch, out_ch, temb_dim, dtype, device, groups=32, pallas_group_norm=False):
         super().__init__()
-        self.norm1 = GroupNorm32(in_ch, groups, act="silu", device=device)
+        self.norm1 = GroupNorm32(in_ch, groups, act="silu", device=device, tpu_numerics=pallas_group_norm)
         self.conv1 = Conv(in_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
         self.time_emb_proj = Dense(temb_dim, out_ch, dtype=dtype, device=device)
-        self.norm2 = GroupNorm32(out_ch, groups, act="silu", device=device)
+        self.norm2 = GroupNorm32(out_ch, groups, act="silu", device=device, tpu_numerics=pallas_group_norm)
         self.conv2 = Conv(out_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
         self.conv_shortcut = Conv(in_ch, out_ch, 1, dtype=dtype, device=device) if in_ch != out_ch else None
 
@@ -144,20 +152,25 @@ class ResnetBlock2D(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, query_dim, context_dim, heads, dtype, device):
+    def __init__(self, query_dim, context_dim, heads, dtype, device, megakernel=False):
         super().__init__()
         self.heads = heads
+        self.megakernel = megakernel
         self.to_q = Dense(query_dim, query_dim, bias=False, dtype=dtype, device=device)
         self.to_k = Dense(context_dim, query_dim, bias=False, dtype=dtype, device=device)
         self.to_v = Dense(context_dim, query_dim, bias=False, dtype=dtype, device=device)
-        self.to_out = Dense(query_dim, query_dim, dtype=dtype, device=device)
-        self._padded = None  # (key, (wq, wk, wv, wo)) head-padded weights
+        # the bias stays an f32 master: K5 adds it in f32, as the JAX block
+        # kernel does; the other paths cast it to the compute dtype per call
+        self.to_out = Dense(query_dim, query_dim, dtype=dtype, device=device, bias_dtype=torch.float32)
+        self._padded = None  # (key, (wq, wk, wv, wo, wq_scaled)) head-padded weights
 
     def padded_weights(self):
-        """Head-padded (H*D_pad, in) q/k/v kernels and (out, H*D_pad) to_out
-        kernel; built once per weight version, not per call.  Zero pad rows
-        make the padded q/k/v columns zero, so attention is unchanged and
-        the padded output columns are exactly zero."""
+        """Head-padded (H*D_pad, in) q/k/v kernels, (out, H*D_pad) to_out
+        kernel and the q kernel with softmax_scale*log2(e) folded in (rounded
+        to the compute dtype, as the JAX block path folds it); built once per
+        weight version, not per call.  Zero pad rows make the padded q/k/v
+        columns zero, so attention is unchanged and the padded output columns
+        are exactly zero."""
         wq = self.to_q.kernel
         key = (wq.dtype, wq.device, wq.data_ptr(), wq._version)
         if self._padded is None or self._padded[0] != key:
@@ -170,22 +183,28 @@ class CrossAttention(nn.Module):
                 return F.pad(w.reshape(h, d, -1), (0, 0, 0, dp - d)).reshape(h * dp, -1).contiguous()
 
             wo = F.pad(self.to_out.kernel.reshape(inner, h, d), (0, dp - d)).reshape(inner, h * dp).contiguous()
-            self._padded = (key, (rows(wq), rows(self.to_k.kernel), rows(self.to_v.kernel), wo))
+            wqp = rows(wq)
+            self._padded = (key, (wqp, rows(self.to_k.kernel), rows(self.to_v.kernel), wo,
+                                  wqp * (LOG2E / math.sqrt(d))))
         return self._padded[1]
 
     def forward(self, x, context=None, residual=None):
+        is_self = context is None
         context = x if context is None else context
         inner = x.shape[-1]
         d = inner // self.heads
         if packed_flash_eligible(x.shape[1], context.shape[1]):
-            wq, wk, wv, wo = self.padded_weights()
+            wq, wk, wv, wo, wq_scaled = self.padded_weights()
             dt = wq.dtype
+            if self.megakernel and is_self and residual is not None and attention_block_eligible(
+                    x.shape[1], context.shape[1], self.heads, d, inner, x.element_size()):
+                return attention_block_fused(x.to(dt), residual, wq_scaled, wk, wv, wo, self.to_out.bias, self.heads)
             q = F.linear(x.to(dt), wq)
             k = F.linear(context.to(dt), wk)
             v = F.linear(context.to(dt), wv)
             q = cfg_tile(q, context.shape[0])
             qs = q * (LOG2E / math.sqrt(d))
-            out = F.linear(flash_attention_packed(qs, k, v, self.heads), wo, self.to_out.bias)
+            out = F.linear(flash_attention_packed(qs, k, v, self.heads), wo, self.to_out.bias.to(dt))
         else:
             q = cfg_tile(self.to_q(x), context.shape[0])
             out = self.to_out(attention(q, self.to_k(context), self.to_v(context), self.heads))
@@ -202,9 +221,9 @@ class FeedForwardGEGLU(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim, context_dim, heads, dtype, device):
+    def __init__(self, dim, context_dim, heads, dtype, device, megakernel=False):
         super().__init__()
-        self.attn1 = CrossAttention(dim, dim, heads, dtype, device)
+        self.attn1 = CrossAttention(dim, dim, heads, dtype, device, megakernel=megakernel)
         self.attn2 = CrossAttention(dim, context_dim, heads, dtype, device)
         self.norm1 = LayerNorm32(dim, device=device)
         self.norm2 = LayerNorm32(dim, device=device)
@@ -221,13 +240,15 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    def __init__(self, channels, context_dim, heads, depth, dtype, device):
+    def __init__(self, channels, context_dim, heads, depth, dtype, device, pallas_group_norm=False,
+                 attention_megakernel=False):
         super().__init__()
         # diffusers' Transformer2DModel uses eps 1e-6 for this norm
-        self.norm = GroupNorm32(channels, 32, eps=1e-6, device=device)
+        self.norm = GroupNorm32(channels, 32, eps=1e-6, device=device, tpu_numerics=pallas_group_norm)
         self.proj_in = Conv(channels, channels, 1, dtype=dtype, device=device)
         for i in range(depth):
-            setattr(self, f"blocks_{i}", BasicTransformerBlock(channels, context_dim, heads, dtype, device))
+            setattr(self, f"blocks_{i}", BasicTransformerBlock(channels, context_dim, heads, dtype, device,
+                                                               megakernel=attention_megakernel))
         self.depth = depth
         self.proj_out = Conv(channels, channels, 1, dtype=dtype, device=device)
 
@@ -262,14 +283,16 @@ class Upsample2D(nn.Module):
 
 
 class UNetMidBlock2DCrossAttn(nn.Module):
-    def __init__(self, cfg: UNetConfig, temb_dim, dtype, device):
+    def __init__(self, cfg: UNetConfig, temb_dim, dtype, device, pallas_group_norm=False,
+                 attention_megakernel=False):
         super().__init__()
         ch = cfg.block_out_channels[-1]
         heads = cfg.num_attention_heads[len(cfg.block_out_channels) - 1]
-        self.resnets_0 = ResnetBlock2D(ch, ch, temb_dim, dtype, device)
-        self.attentions_0 = Transformer2D(ch, cfg.cross_attention_dim, heads,
-                                          cfg.transformer_layers_per_block[-1], dtype, device)
-        self.resnets_1 = ResnetBlock2D(ch, ch, temb_dim, dtype, device)
+        gn = pallas_group_norm
+        self.resnets_0 = ResnetBlock2D(ch, ch, temb_dim, dtype, device, pallas_group_norm=gn)
+        self.attentions_0 = Transformer2D(ch, cfg.cross_attention_dim, heads, cfg.transformer_layers_per_block[-1],
+                                          dtype, device, gn, attention_megakernel)
+        self.resnets_1 = ResnetBlock2D(ch, ch, temb_dim, dtype, device, pallas_group_norm=gn)
 
     def forward(self, x, temb, context):
         x = self.resnets_0(x, temb)
@@ -279,10 +302,13 @@ class UNetMidBlock2DCrossAttn(nn.Module):
 
 class UNetEncoder(nn.Module):
     """time embedding + conv_in + down blocks + mid block: the part the UNet
-    and the ControlNet share (names as in the flax tree)."""
+    and the ControlNet share (names as in the flax tree).  pallas_group_norm
+    and attention_megakernel select the opt-in kernel configuration (module
+    docstring)."""
 
-    def __init__(self, cfg: UNetConfig, dtype, device):
+    def __init__(self, cfg: UNetConfig, dtype, device, pallas_group_norm=False, attention_megakernel=False):
         super().__init__()
+        gn, mk = pallas_group_norm, attention_megakernel
         self.cfg = cfg
         boc = cfg.block_out_channels
         temb_dim = boc[0] * 4
@@ -293,16 +319,17 @@ class UNetEncoder(nn.Module):
         for i, block_type in enumerate(cfg.down_block_types):
             ch = boc[i]
             for j in range(cfg.layers_per_block):
-                setattr(self, f"down_{i}_resnets_{j}", ResnetBlock2D(cur, ch, temb_dim, dtype, device))
+                setattr(self, f"down_{i}_resnets_{j}", ResnetBlock2D(cur, ch, temb_dim, dtype, device,
+                                                                     pallas_group_norm=gn))
                 cur = ch
                 if block_type == "CrossAttnDownBlock2D":
                     setattr(self, f"down_{i}_attentions_{j}", Transformer2D(
-                        ch, cfg.cross_attention_dim, cfg.num_attention_heads[i], cfg.depth(i), dtype, device))
+                        ch, cfg.cross_attention_dim, cfg.num_attention_heads[i], cfg.depth(i), dtype, device, gn, mk))
                 self.skip_channels.append(ch)
             if i < len(boc) - 1:
                 setattr(self, f"down_{i}_downsample", Downsample2D(ch, dtype, device))
                 self.skip_channels.append(ch)
-        self.mid_block = UNetMidBlock2DCrossAttn(cfg, temb_dim, dtype, device)
+        self.mid_block = UNetMidBlock2DCrossAttn(cfg, temb_dim, dtype, device, gn, mk)
 
     def temb(self, sample, timesteps):
         cfg = self.cfg
@@ -332,8 +359,10 @@ class UNet2DCondition(UNetEncoder):
     """forward(sample (B, C, h, w), timesteps, context (B or 2B, 77, D),
     down_res, mid_res) -> eps (B or 2B, C, h, w) in f32."""
 
-    def __init__(self, cfg: UNetConfig = SD15_UNET, dtype=torch.float32, device=None):
-        super().__init__(cfg, dtype, device)
+    def __init__(self, cfg: UNetConfig = SD15_UNET, dtype=torch.float32, device=None, pallas_group_norm=False,
+                 attention_megakernel=False):
+        super().__init__(cfg, dtype, device, pallas_group_norm, attention_megakernel)
+        gn, mk = pallas_group_norm, attention_megakernel
         boc = cfg.block_out_channels
         temb_dim = boc[0] * 4
         skips = list(self.skip_channels)
@@ -343,15 +372,16 @@ class UNet2DCondition(UNetEncoder):
             ch = rev[i]
             block_idx = len(boc) - 1 - i
             for j in range(cfg.layers_per_block + 1):
-                setattr(self, f"up_{i}_resnets_{j}", ResnetBlock2D(cur + skips.pop(), ch, temb_dim, dtype, device))
+                setattr(self, f"up_{i}_resnets_{j}", ResnetBlock2D(cur + skips.pop(), ch, temb_dim, dtype, device,
+                                                                   pallas_group_norm=gn))
                 cur = ch
                 if block_type == "CrossAttnUpBlock2D":
                     setattr(self, f"up_{i}_attentions_{j}", Transformer2D(
                         ch, cfg.cross_attention_dim, cfg.num_attention_heads[block_idx], cfg.depth(block_idx),
-                        dtype, device))
+                        dtype, device, gn, mk))
             if i < len(cfg.up_block_types) - 1:
                 setattr(self, f"up_{i}_upsample", Upsample2D(ch, dtype, device))
-        self.conv_norm_out = GroupNorm32(boc[0], cfg.norm_num_groups, act="silu", device=device)
+        self.conv_norm_out = GroupNorm32(boc[0], cfg.norm_num_groups, act="silu", device=device, tpu_numerics=gn)
         self.conv_out = Conv(boc[0], cfg.out_channels, 3, padding=1, dtype=dtype, device=device)
 
     def forward(self, sample, timesteps, encoder_hidden_states,

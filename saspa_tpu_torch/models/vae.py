@@ -3,7 +3,10 @@
 Only the decoder is ported so far; the encoder (SDEdit, ip2p) comes with
 those paths.  The mid-block's one-head attention (d = 512 at SD width)
 takes the packed kernel when its head dim is already lane-aligned and the
-token count qualifies, as the JAX package routes it.
+token count qualifies, as the JAX package routes it.  Every GroupNorm runs
+K3; `pallas_group_norm` gives it the TPU kernel's numerics where that
+kernel's split plan admits the site (not the 512^2 tail, see
+ops/groupnorm.py::split_plan).
 """
 
 from __future__ import annotations
@@ -34,11 +37,11 @@ SD_VAE = VAEConfig()
 
 
 class VAEResnetBlock(nn.Module):
-    def __init__(self, in_ch, out_ch, dtype, device):
+    def __init__(self, in_ch, out_ch, dtype, device, pallas_group_norm=False):
         super().__init__()
-        self.norm1 = GroupNorm32(in_ch, 32, eps=1e-6, act="silu", device=device)
+        self.norm1 = GroupNorm32(in_ch, 32, eps=1e-6, act="silu", device=device, tpu_numerics=pallas_group_norm)
         self.conv1 = Conv(in_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
-        self.norm2 = GroupNorm32(out_ch, 32, eps=1e-6, act="silu", device=device)
+        self.norm2 = GroupNorm32(out_ch, 32, eps=1e-6, act="silu", device=device, tpu_numerics=pallas_group_norm)
         self.conv2 = Conv(out_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
         self.conv_shortcut = Conv(in_ch, out_ch, 1, dtype=dtype, device=device) if in_ch != out_ch else None
 
@@ -50,9 +53,9 @@ class VAEResnetBlock(nn.Module):
 
 
 class VAEAttentionBlock(nn.Module):
-    def __init__(self, ch, dtype, device):
+    def __init__(self, ch, dtype, device, pallas_group_norm=False):
         super().__init__()
-        self.group_norm = GroupNorm32(ch, 32, eps=1e-6, device=device)
+        self.group_norm = GroupNorm32(ch, 32, eps=1e-6, device=device, tpu_numerics=pallas_group_norm)
         self.to_q = Dense(ch, ch, dtype=dtype, device=device)
         self.to_k = Dense(ch, ch, dtype=dtype, device=device)
         self.to_v = Dense(ch, ch, dtype=dtype, device=device)
@@ -72,23 +75,24 @@ class VAEAttentionBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig, dtype, device):
+    def __init__(self, cfg: VAEConfig, dtype, device, pallas_group_norm=False):
         super().__init__()
         self.cfg = cfg
+        gn = pallas_group_norm
         boc = cfg.block_out_channels
         self.post_quant_conv = Conv(cfg.latent_channels, cfg.latent_channels, 1, dtype=dtype, device=device)
         cur = boc[-1]
         self.conv_in = Conv(cfg.latent_channels, cur, 3, padding=1, dtype=dtype, device=device)
-        self.mid_block_1 = VAEResnetBlock(cur, cur, dtype, device)
-        self.mid_attn = VAEAttentionBlock(cur, dtype, device)
-        self.mid_block_2 = VAEResnetBlock(cur, cur, dtype, device)
+        self.mid_block_1 = VAEResnetBlock(cur, cur, dtype, device, gn)
+        self.mid_attn = VAEAttentionBlock(cur, dtype, device, gn)
+        self.mid_block_2 = VAEResnetBlock(cur, cur, dtype, device, gn)
         for i, ch in enumerate(reversed(boc)):
             for j in range(cfg.layers_per_block + 1):
-                setattr(self, f"up_{i}_block_{j}", VAEResnetBlock(cur, ch, dtype, device))
+                setattr(self, f"up_{i}_block_{j}", VAEResnetBlock(cur, ch, dtype, device, gn))
                 cur = ch
             if i < len(boc) - 1:
                 setattr(self, f"up_{i}_upsample", Conv(ch, ch, 3, padding=1, dtype=dtype, device=device))
-        self.conv_norm_out = GroupNorm32(cur, 32, eps=1e-6, act="silu", device=device)
+        self.conv_norm_out = GroupNorm32(cur, 32, eps=1e-6, act="silu", device=device, tpu_numerics=gn)
         self.conv_out = Conv(cur, cfg.in_channels, 3, padding=1, dtype=dtype, device=device)
 
     def forward(self, z):
@@ -106,10 +110,10 @@ class Decoder(nn.Module):
 class AutoencoderKL(nn.Module):
     """decode(z (B, 4, h, w)) -> image (B, 3, 8h, 8w) in [-1, 1], f32."""
 
-    def __init__(self, cfg: VAEConfig = SD_VAE, dtype=torch.float32, device=None):
+    def __init__(self, cfg: VAEConfig = SD_VAE, dtype=torch.float32, device=None, pallas_group_norm=False):
         super().__init__()
         self.cfg = cfg
-        self.decoder = Decoder(cfg, dtype, device)
+        self.decoder = Decoder(cfg, dtype, device, pallas_group_norm)
 
     def decode(self, z):
         return self.decoder(z.to(self.decoder.conv_in.kernel.dtype)).float()

@@ -1,0 +1,160 @@
+"""Parity of the port's self-attention block (K5) and of the opt-in kernel
+configuration with the JAX package, on the CPU.
+
+Inputs are numpy arrays from a seed, handed to both packages.  The JAX
+Pallas kernels run in interpret mode (`pltpu.force_tpu_interpret_mode()`);
+the port's wrappers run their plain versions on CPU tensors.  The JAX
+package picks its opt-in kernels through SASPA_PALLAS_GN=1,
+SASPA_PALLAS_LN=1 and SASPA_ATTN_MEGAKERNEL=1 and only on a TPU backend, so
+the pipeline test sets those variables and answers `jax.default_backend()`
+with "tpu" while the kernels run in interpret mode; the port takes
+`pallas_group_norm=True, attention_megakernel=True`.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from saspa_tpu.ops import attention as jatt
+from saspa_tpu.ops import groupnorm as jgn
+from saspa_tpu_torch.diffusion.pipelines import DiffusionPipeline
+from saspa_tpu_torch.models import unet as t_unet
+from saspa_tpu_torch.ops import attention as tatt
+from saspa_tpu_torch.ops import groupnorm as tgn
+from tests.test_golden_generation import G_UNET, G_VAE, G_TEXT
+from tests.test_torch_pipeline import P_TEXT, P_UNET, P_VAE, _PresetJaxPipeline, _ids, _inputs, tiny_params
+
+
+def _np(x):
+    return np.asarray(x.float() if torch.is_tensor(x) else jnp.asarray(x, jnp.float32))
+
+
+def _block_inputs(b, l, heads, d, seed):
+    """Head-padded weights in the JAX layout ((C, H*dp), (H*dp, C)) and the
+    activations; C = heads * d, dp = pad_head_dim(d)."""
+    rng = np.random.RandomState(seed)
+    c, dp = heads * d, tatt.pad_head_dim(d)
+
+    def cols(w):  # (C, C) -> (C, H*dp): zero columns pad each head
+        return np.pad(w.reshape(c, heads, d), ((0, 0), (0, 0), (0, dp - d))).reshape(c, heads * dp)
+
+    wq, wk, wv, wo = (rng.randn(c, c).astype(np.float32) / np.sqrt(c) for _ in range(4))
+    wo = np.pad(wo.reshape(heads, d, c), ((0, 0), (0, dp - d), (0, 0))).reshape(heads * dp, c)
+    return dict(
+        x_ln=rng.randn(b, l, c).astype(np.float32), res=rng.randn(b, l, c).astype(np.float32),
+        wq=cols(wq) * np.float32(tatt.LOG2E / math.sqrt(d)), wk=cols(wk), wv=cols(wv), wo=wo,
+        bo=(0.1 * rng.randn(c)).astype(np.float32))
+
+
+@pytest.mark.parametrize("l", [256, 768])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_block_plain_matches_pallas_interpret(l, dtype):
+    """attention_block_fused (plain on the CPU) vs the JAX block kernel, d 40
+    padded to 64, 2 heads, a nonzero f32 bo.  f32: to 1e-5 of the largest
+    output (f32 product order).  bf16: Q, K, V, P, each head's output and the
+    result are rounded at the same points; the online-vs-one-pass softmax
+    and product order can flip one of those roundings, which moves an output
+    by an ulp of a term: >= 99.5% of elements equal, max |diff| <= 1% of the
+    largest output (0.4% at these inputs)."""
+    p = _block_inputs(2, l, 2, 40, seed=l)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    j = {k: jnp.asarray(v) for k, v in p.items()}
+    with pltpu.force_tpu_interpret_mode():
+        want = _np(jatt.attention_block_fused(j["x_ln"].astype(jdt), j["res"].astype(jdt), j["wq"].astype(jdt),
+                                              j["wk"].astype(jdt), j["wv"].astype(jdt), j["wo"].astype(jdt),
+                                              j["bo"], 2))
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in p.items()}
+    out = tatt.attention_block_fused(t["x_ln"].to(tdt), t["res"].to(tdt), t["wq"].t().to(tdt), t["wk"].t().to(tdt),
+                                     t["wv"].t().to(tdt), t["wo"].t().to(tdt), t["bo"], 2)
+    assert out.dtype == tdt
+    got, scale = _np(out), np.abs(want).max()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5 * scale, rtol=0)
+    else:
+        assert np.mean(got == want) >= 0.995
+        assert np.abs(got - want).max() <= 1e-2 * scale
+
+
+def test_attention_block_eligible_copy_matches_jax(monkeypatch):
+    """The port's predicate equals JAX's (with SASPA_ATTN_MEGAKERNEL=1 on a
+    TPU backend) at SD1.5's self-attention sites, at 1024^2 and beyond, bf16
+    and f32; at 512^2 it admits levels 0-2 and refuses the 64-token mid block."""
+    monkeypatch.setenv("SASPA_ATTN_MEGAKERNEL", "1")
+    monkeypatch.delenv("SASPA_PACKED_BLOCK_Q", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    sites = [(4096, 40, 320), (1024, 80, 640), (256, 160, 1280), (64, 160, 1280), (16384, 40, 320),
+             (65536, 40, 320), (4096, 80, 640), (3456, 40, 320), (320, 40, 320)]
+    for l, d, c in sites:
+        for itemsize, jdt in ((2, jnp.bfloat16), (4, jnp.float32)):
+            want = jatt.attention_block_eligible(l, l, 8, d, c, jdt)
+            assert tatt.attention_block_eligible(l, l, 8, d, c, itemsize) == want, (l, d, c, itemsize)
+        assert not tatt.attention_block_eligible(l, 77, 8, d, c)  # cross-attention
+    assert [tatt.attention_block_eligible(l, l, 8, d, c) for l, d, c in sites[:4]] == [True, True, True, False]
+
+
+def test_to_out_bias_is_an_f32_master():
+    """The f32 master of to_out.bias reaches K5 as f32 and the other paths as
+    the compute dtype (as flax casts it per call)."""
+    attn = t_unet.CrossAttention(64, 64, 2, torch.bfloat16, "cpu")
+    assert attn.to_out.bias.dtype == torch.float32 and attn.to_out.kernel.dtype == torch.bfloat16
+    x = torch.randn(1, 16, 64).to(torch.bfloat16)
+    assert attn(x).dtype == torch.bfloat16
+
+
+def _config_b_pipes(monkeypatch):
+    params = tiny_params()
+    _PresetJaxPipeline.preset = params
+    for k in ("SASPA_PALLAS_GN", "SASPA_PALLAS_LN", "SASPA_ATTN_MEGAKERNEL"):
+        monkeypatch.setenv(k, "1")
+    for k in ("SASPA_GN_FP32_NORM", "SASPA_LN_FP32_NORM", "SASPA_GN_MIN_SPLIT", "SASPA_PACKED_BLOCK_Q"):
+        monkeypatch.delenv(k, raising=False)
+    jp = _PresetJaxPipeline(base_model="sd_v1.5", controlnet="canny", sampler="ddim", dtype=jnp.float32,
+                            unet_cfg=G_UNET, vae_cfg=G_VAE, text_cfgs=G_TEXT)
+    tp = DiffusionPipeline(controlnet="canny", device="cpu", dtype=torch.float32, init_seed=None,
+                           unet_cfg=P_UNET, vae_cfg=P_VAE, text_cfgs=P_TEXT,
+                           pallas_group_norm=True, attention_megakernel=True)
+    tp.load_flax_params(params)
+    return jp, tp
+
+
+def test_fused_generate_opt_in_kernels_match_jax(monkeypatch):
+    """Configuration (b) on the tiny canny config, f32, 2 DDIM steps, CFG 7.5
+    (tests/test_torch_pipeline.py's inputs): the JAX pipeline with the three
+    switches and its Pallas kernels in interpret mode against the port with
+    the two options, whose wrappers count the sites they take.  uint8
+    outputs agree to 1 level, >= 99% exactly, as in configuration (a)."""
+    jp, tp = _config_b_pipes(monkeypatch)
+    src, lat = _inputs(5)
+    ids, neg = _ids()
+    counted = {}
+
+    def count(name, fn):
+        def wrapped(*args, **kwargs):
+            counted[name] = counted.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    # the JAX side really takes its kernels (counted while it traces)
+    monkeypatch.setattr(jatt, "attention_block_fused", count("jax_k5", jatt.attention_block_fused))
+    monkeypatch.setattr(jgn, "_gn_pallas", count("jax_k3", jgn._gn_pallas))
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jp.make_fused_generate(32, 32, 2, 7.5)(
+            jp.params, jnp.asarray(ids), jnp.asarray(neg), jnp.asarray(src), jnp.asarray(lat)))
+    assert counted["jax_k5"] > 0 and counted["jax_k3"] > 0
+    monkeypatch.setattr(t_unet, "attention_block_fused", count("k5", t_unet.attention_block_fused))
+    monkeypatch.setattr(tgn, "group_norm_tpu_plain", count("k3_tpu", tgn.group_norm_tpu_plain))
+    got = tp.make_fused_generate(32, 32, 2, 7.5)(tp.params, ids, neg, src, lat).numpy()
+    assert got.dtype == np.uint8 and got.shape == want.shape == (2, 32, 32, 3)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and np.mean(diff == 0) >= 0.99
+    # per step, the self-attentions over 256 tokens take K5: the UNet's down
+    # and two up blocks, the ControlNet's down block (the mid block's 64
+    # tokens do not qualify)
+    assert counted["k5"] == 4 * 2
+    assert counted["k3_tpu"] > 0

@@ -10,7 +10,7 @@ import math
 import pytest
 import torch
 
-from saspa_tpu_torch.ops import attention, geglu
+from saspa_tpu_torch.ops import attention, geglu, groupnorm, layernorm
 
 pytestmark = pytest.mark.cuda
 
@@ -57,6 +57,74 @@ def test_ln_geglu_kernel_matches_plain(gen, m, c):
     assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
 
 
+@pytest.mark.parametrize("b,c,h,w,act,eps", [(2, 320, 64, 64, "silu", 1e-5), (2, 1280, 8, 8, None, 1e-6),
+                                               (1, 256, 128, 128, "silu", 1e-6), (3, 64, 4, 4, None, 1e-5),
+                                               (2, 192, 5, 7, "silu", 1e-5), (2, 2560, 8, 8, "silu", 1e-5),
+                                               (2, 1920, 16, 16, None, 1e-5), (1, 640, 32, 32, "silu", 1e-5)])
+@pytest.mark.parametrize("tpu", [False, True])
+def test_group_norm_kernel_matches_plain(gen, b, c, h, w, act, eps, tpu):
+    """Both epilogues on channels-last input; f32 statistics summed in another
+    order than the plain version's, which can flip a bf16 rounding: |diff|
+    <= 1% of the largest output, and >= 99% of elements equal.  One chunk
+    and many; channel slots of 2, 4 and 8 per thread, fewer and more slots
+    than threads; an HW that is not a multiple of 8."""
+    x = (2.0 + 3.0 * torch.randn(b, c, h, w, generator=gen, device="cuda")).to(torch.bfloat16)
+    x = x.to(memory_format=torch.channels_last)
+    gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    before = (groupnorm.launches, groupnorm.launches_tpu)
+    out = groupnorm.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
+    assert (groupnorm.launches, groupnorm.launches_tpu) == (before[0] + 1, before[1] + int(tpu))
+    plain = groupnorm.group_norm_tpu_plain if tpu else groupnorm.group_norm_plain
+    ref = plain(x, gamma, beta, 32, eps, act)
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape and out.stride() == x.stride()
+    assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    assert (out == ref).float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("m,c", [(4096, 320), (1000, 640), (64, 1280), (3, 2048)])
+def test_layernorm_kernel_matches_plain(gen, m, c):
+    """Same bf16 rounding points; f32 sum order and rsqrt differ: |diff| <= 1%
+    of the largest output, and >= 99% of elements equal.  Ragged row counts."""
+    x = (1.0 + 2.0 * torch.randn(1, m, c, generator=gen, device="cuda")).to(torch.bfloat16)
+    s, bias = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda"), 0.1 * torch.randn(c, generator=gen, device="cuda")
+    out = layernorm.layer_norm_one_pass(x, s, bias)
+    ref = layernorm.layer_norm_one_pass_plain(x, s, bias)
+    assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    assert (out == ref).float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("b,l,c,h", [(2, 256, 320, 8), (1, 1024, 640, 8), (2, 256, 1280, 8), (1, 64, 128, 2)])
+def test_attention_block_kernel_matches_plain(gen, b, l, c, h):
+    """K5 vs its plain version: bf16 Q/K/V and packed rounding points are the
+    same; online vs one-pass softmax and f32 product order differ: |diff|
+    <= 1% of the largest attention-plus-projection term (out - residual -
+    bo).  Scores of std ~4.3 bits peak each query's softmax on a few keys, so
+    that term is of order 1, beside a small residual and bo.  The last case
+    is a 64-token block (one q tile, one K/V tile)."""
+    d = c // h
+    dp = attention.pad_head_dim(d)
+    bf = torch.bfloat16
+
+    def rows(w):  # (C, C) torch-layout weight -> head-padded (H*dp, C)
+        return torch.nn.functional.pad(w.reshape(h, d, c), (0, 0, 0, dp - d)).reshape(h * dp, c)
+
+    w = [torch.randn(c, c, generator=gen, device="cuda") * c ** -0.5 for _ in range(4)]
+    wq = (rows(3.0 * w[0]) * (attention.LOG2E / d ** 0.5)).to(bf).contiguous()
+    wk, wv = rows(w[1]).to(bf).contiguous(), rows(w[2]).to(bf).contiguous()
+    wo = torch.nn.functional.pad(w[3].reshape(c, h, d), (0, dp - d)).reshape(c, h * dp).to(bf).contiguous()
+    bo = 0.05 * torch.randn(c, generator=gen, device="cuda")
+    x = torch.randn(b, l, c, generator=gen, device="cuda").to(bf)
+    res = (0.05 * torch.randn(b, l, c, generator=gen, device="cuda")).to(bf)
+    before = attention.block_launches
+    out = attention.attention_block_fused(x, res, wq, wk, wv, wo, bo, h)
+    assert attention.block_launches == before + 1
+    ref = attention.attention_block_fused_plain(x, res, wq, wk, wv, wo, bo, h)
+    term = ref.float() - res.float() - bo
+    assert term.abs().max() >= 0.5
+    assert (out.float() - ref.float()).abs().max() <= 1e-2 * term.abs().max()
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     x = torch.zeros(1, 256, 64, device="cuda")  # f32 on the card
     with pytest.raises(TypeError):
@@ -64,3 +132,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     y = x[:, :, :40].to(torch.bfloat16).contiguous()  # head dim 40: not padded
     with pytest.raises(ValueError):
         attention.flash_attention_packed(y, y, y, 1)
+    ones = torch.ones(64, device="cuda")
+    with pytest.raises(TypeError):  # f32 activations
+        groupnorm.group_norm(x.reshape(1, 64, 256), ones, ones)
+    with pytest.raises(ValueError):  # contiguous NCHW, not channels-last
+        groupnorm.group_norm(y.reshape(1, 40, 16, 16), ones[:40], ones[:40])
+    with pytest.raises(TypeError):
+        layernorm.layer_norm_one_pass(x, ones, ones)
+    with pytest.raises(ValueError):  # C not a multiple of 8
+        layernorm.layer_norm_one_pass(y[:, :, :36].contiguous(), ones[:36], ones[:36])
+    w = torch.zeros(40, 40, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):  # head dim 40: not padded
+        attention.attention_block_fused(y, y, w, w, w, w, ones[:40], 1)
