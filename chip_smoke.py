@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
                 kernel / plain / library times from CUDA events.  K1/K2 shapes
                 are listed below; the GroupNorm (K3), LayerNorm (K4) and
                 self-attention block (K5) shapes are recorded by forward hooks
-                during the main path's warm-up.  Tolerances: K1, K2 within 1%
+                during the main path's warm-up, and K3's and K4's also during
+                one step at 1024^2 (the gen phase's shapes, among them the
+                VAE's 2^31-element GroupNorm).  Tolerances: K1, K2 within 1%
                 of the largest output; K3, K4 in bf16 ulps per element
                 (require_ulps); K5 within 1% of the largest attention-plus-
                 projection term (the output less residual and bias);
@@ -23,10 +25,23 @@ Phases, each printing one JSON line:
                 eligible site ran its kernel;
   4. reference -- both configurations' output against one CPU f32 run of
                 the plain path on a small input, and the card's Canny against
-                the CPU's, bit for bit.
+                the CPU's, bit for bit;
+  5. gen     -- the entry point at 1024^2:  saspa_tpu_torch.cli gen --dataset
+                planes --resolution 1024 --skip_filter  on a synthetic
+                FGVC-Aircraft tree of 8 seeded 1024x1024 sources (PNG bytes
+                under .jpg names, so resizing is the identity), in-process:
+                full-width SD1.5 + canny ControlNet, DDIM, CFG 7.5, scale
+                0.75, batch 8.  Its launch counts prove that every level-0
+                self-attention (16384 tokens, past K1's guard) ran K6; the 8
+                PNGs must equal, bit for bit, the fused function's output for
+                the same prompts, sources and noise.
+The kernels phase also holds K6 (streamed flash attention on unpadded heads)
+against its plain version at the 1024^2 level-0 shapes and a capped
+960x1280 bucket.
 With --profile, one more main-path run of each configuration under
 torch.profiler writes the device time by kernel to OUT.json and
-OUT_opt_in.json and prints a summary line each.
+OUT_opt_in.json, and one 1024^2 batch to OUT_gen_1024.json, and prints a
+summary line each.
 Then the kernels line, the card's name and power limit (nvidia-smi) and, as
 the last line, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Needs one CUDA card; imports nothing of JAX.
@@ -36,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -48,20 +64,33 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM at 700 W
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores (norm arithmetic)
 H100_HBM_BYTES = 3.35e12  # HBM3 bytes/s
 
-# K1 shapes on the main path at 512^2: (what, B, L, H, d, d_pad)
+# K1 shapes on the main path at 512^2 and the gen path at 1024^2: (what, B, L, H, d, d_pad)
 K1_SHAPES = [
     ("unet/cn level 0, before the CFG fork", 8, 4096, 8, 40, 64),
     ("unet/cn level 0", 16, 4096, 8, 40, 64),
     ("unet/cn level 1", 16, 1024, 8, 80, 128),
     ("unet/cn level 2", 16, 256, 8, 160, 192),
     ("vae mid attention", 8, 4096, 1, 512, 512),
+    ("1024^2 level 1", 16, 4096, 8, 80, 128),  # the gen phase's K1 sites (its mid block is level 2's shape)
+    ("1024^2 level 2", 16, 1024, 8, 160, 192),
 ]
-# K2 shapes: (what, B, L, C); F = 4C
+# K6 shapes: (what, B, L, H, d); d pads to 64 in shared memory
+K6_SHAPES = [
+    ("1024^2 level 0, before the CFG fork", 8, 16384, 8, 40),
+    ("1024^2 level 0", 16, 16384, 8, 40),
+    ("capped 960x1280 bucket, level 0", 16, 19200, 8, 40),
+]
+GEN_RESOLUTION = 1024
+# K2 shapes: (what, B, L, C); F = 4C; levels at 512^2, then at 1024^2 (its mid
+# block is level 2's shape at 512^2)
 K2_SHAPES = [
     ("level 0", 16, 4096, 320),
     ("level 1", 16, 1024, 640),
     ("level 2", 16, 256, 1280),
     ("mid", 16, 64, 1280),
+    ("1024^2 level 0", 16, 16384, 320),
+    ("1024^2 level 1", 16, 4096, 640),
+    ("1024^2 level 2", 16, 1024, 1280),
 ]
 
 
@@ -108,7 +137,7 @@ def bf16_ulps(out, ref, mag):
     return (out.float() - ref.float()).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
 
 
-def require_ulps(what, out, ref, mag, max_ulps=8, min_equal=0.999):
+def require_ulps(what, out, ref, mag_of, slices, max_ulps=8, min_equal=0.999):
     """The norms' check: 99.9% of the elements equal, and every element within
     8 ulps of its magnitude.  A correct kernel sums its f32 statistics in
     another order than the plain version, which can flip a bf16 rounding of
@@ -118,11 +147,21 @@ def require_ulps(what, out, ref, mag, max_ulps=8, min_equal=0.999):
     sigmoid and product) adds at most one.  A wrong kernel changes far more
     than 0.1% of the elements.  (1% of the largest output would not do: one
     ulp near the largest output is 0.39-0.78% of it, and a correct kernel
-    gives two.)"""
-    ulps = bf16_ulps(out, ref, mag).max().item()
-    equal = (out == ref).float().mean().item()
+    gives two.)  Evaluated slice by slice (mag_of(sl): the magnitude of
+    out[sl]), so that the VAE's 2^31-element GroupNorm at 1024^2 needs no
+    f32 copy of the whole tensor.  Returns (max |out - ref|, max |ref|, max
+    ulps, equal share)."""
+    err = ref_max = ulps = 0.0
+    n_equal = 0
+    for sl in slices:
+        o, r = out[sl], ref[sl]
+        err = max(err, (o.float() - r.float()).abs().max().item())
+        ref_max = max(ref_max, r.float().abs().max().item())
+        ulps = max(ulps, bf16_ulps(o, r, mag_of(sl)).max().item())
+        n_equal += (o == r).sum().item()
+    equal = n_equal / out.numel()
     require(ulps <= max_ulps and equal >= min_equal, what, "max ulps", ulps, "equal share", equal)
-    return ulps, equal
+    return err, ref_max, ulps, equal
 
 
 def nvidia_smi_line() -> str:
@@ -164,6 +203,41 @@ def check_k1(gen):
                          pad_cols_zero=pad_zero, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by))
         del q, k, v, out, ref
+    return rows
+
+
+def check_k6(gen):
+    from saspa_tpu_torch.ops import attention as att
+
+    rows = []
+    for what, b, l, h, d in K6_SHAPES:
+        dp = att.pad_head_dim(d)
+        scale = d ** -0.5
+        # q of std 3 peaks each query's softmax on a few keys (scores of std
+        # ~3), so a dropped or misplaced K/V tile changes the output
+        q = (3.0 * torch.randn(b, l, h, d, generator=gen, device="cuda")).to(torch.bfloat16)
+        k, v = (torch.randn(b, l, h, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+        out = att.flash_attention(q, k, v, scale)
+        ref = att.flash_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        # the same bf16 rounding of q * scale, P and the output; the kernel
+        # rounds P against the running max of 64-key tiles, the plain version
+        # of 512/256-key chunks: 1% of the largest output, as for K1
+        require(err <= 1e-2 * ref_max, what, "max |kernel - plain|", err, "> 1% of", ref_max)
+        del ref
+        ms = cuda_ms(lambda: att.flash_attention(q, k, v, scale), 3)
+        plain_ms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, scale), 1, warmup=1)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's (B, H, L, d)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale), 3)
+        # the function's work is on d-wide heads: the padding to dp is the
+        # kernel's own choice, made in shared memory (K1's inputs come padded)
+        b_ms, b_by = bound(4.0 * b * h * l * l * d, 4 * b * l * h * d * 2)
+        rows.append(dict(shape=what, B=b, L=l, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, out, qh, kh, vh
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -209,20 +283,24 @@ def check_k3(gen, sites):
 
     rows = []
     for (b, c, h, w, act, eps) in sorted(sites, key=lambda s: (s[0] * s[1] * s[2] * s[3], s[1], str(s[4]))):
-        x = (0.5 + 3.0 * torch.randn(b, c, h, w, generator=gen, device="cuda")).to(torch.bfloat16)
+        x = torch.randn(b, c, h, w, generator=gen, device="cuda").mul_(3.0).add_(0.5).to(torch.bfloat16)
         x = x.to(memory_format=torch.channels_last)
         gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
         beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
         n = x.numel()
-        # the terms' magnitude per element: (|x| + |mean|) * |gamma * rstd| + |beta|
         g = gn.groups_for(c, 32)
-        xg = x.float().reshape(b, g, -1)
-        mean = xg.mean(-1)
-        rstd = torch.rsqrt(((xg * xg).mean(-1) - mean * mean).clamp_min(0.0) + eps)
-        sc = (gamma.reshape(1, g, -1) * rstd[:, :, None]).abs().reshape(b, c, 1, 1)
-        mag = (x.float().abs() + mean.abs().repeat_interleave(c // g, 1)[:, :, None, None]) * sc \
-            + beta.abs().reshape(1, c, 1, 1)
-        del xg, sc
+
+        def mag_of(sl):
+            """The terms' magnitude per element of the batch rows sl:
+            (|x| + |mean|) * |gamma * rstd| + |beta|."""
+            xs = x[sl].float()
+            xg = xs.reshape(xs.shape[0], g, -1)
+            mean = xg.mean(-1)
+            rstd = torch.rsqrt(((xg * xg).mean(-1) - mean * mean).clamp_min(0.0) + eps)
+            sc = (gamma.reshape(1, g, -1) * rstd[:, :, None]).abs().reshape(-1, c, 1, 1)
+            return (xs.abs() + mean.abs().repeat_interleave(c // g, 1)[:, :, None, None]) * sc \
+                + beta.abs().reshape(1, c, 1, 1)
+
         lib_ms = None
         if act is None:  # no single PyTorch call computes GroupNorm + SiLU
             gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
@@ -231,11 +309,8 @@ def check_k3(gen, sites):
             plain = gn.group_norm_tpu_plain if tpu else gn.group_norm_plain
             out = gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
             ref = plain(x, gamma, beta, 32, eps, act)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            ref_max = ref.float().abs().max().item()
             what = f"B{b} C{c} {h}x{w} act={act} {'tpu' if tpu else 'xla'}"
-            ulps, equal = require_ulps(what, out, ref, mag)
+            err, ref_max, ulps, equal = require_ulps(what, out, ref, mag_of, [slice(i, i + 1) for i in range(b)])
             ms = cuda_ms(lambda: gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu), 10)
             plain_ms = cuda_ms(lambda: plain(x, gamma, beta, 32, eps, act), 3, warmup=1)
             b_ms, b_by = bound((10.0 if act else 6.0) * n, 4 * n + 8 * c, H100_F32_FLOPS)
@@ -243,7 +318,8 @@ def check_k3(gen, sites):
                              max_abs_err=err, ref_max=ref_max, max_ulps=ulps, equal_share=equal, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
             del out, ref
-        del x, mag
+        del x
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -257,17 +333,16 @@ def check_k4(gen, sites):
         s, bias = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda"), 0.2 * torch.randn(c, generator=gen, device="cuda")
         out = ln.layer_norm_one_pass(x, s, bias)
         ref = ln.layer_norm_one_pass_plain(x, s, bias)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        ref_max = ref.float().abs().max().item()
-        # same bf16 rounding points; f32 sum order and rsqrt's last bit can
-        # flip one.  Terms' magnitude: (|x| + |mean|) * |rstd * s| + |b|
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) - mean * mean + 1e-5)
-        mag = (xf.abs() + mean.abs()) * (rstd * s).abs() + bias.abs()
-        ulps, equal = require_ulps(f"rows {m} C {c}", out, ref, mag)
-        del xf, mag
+
+        def mag_of(sl):
+            """same bf16 rounding points; f32 sum order and rsqrt's last bit
+            can flip one.  Terms' magnitude: (|x| + |mean|) * |rstd * s| + |b|"""
+            xf = x[sl].float()
+            mean = xf.mean(-1, keepdim=True)
+            rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) - mean * mean + 1e-5)
+            return (xf.abs() + mean.abs()) * (rstd * s).abs() + bias.abs()
+
+        err, ref_max, ulps, equal = require_ulps(f"rows {m} C {c}", out, ref, mag_of, [slice(None)])
         ms = cuda_ms(lambda: ln.layer_norm_one_pass(x, s, bias), 10)
         plain_ms = cuda_ms(lambda: ln.layer_norm_one_pass_plain(x, s, bias), 3, warmup=1)
         sb, bb = s.to(torch.bfloat16), bias.to(torch.bfloat16)
@@ -394,6 +469,8 @@ def profile_main(run, out_path: str, steps: int, config: str) -> None:
             return "layernorm (K4)"
         if any(k in name for k in ("kv_proj_kernel", "block_attention_kernel", "out_proj_kernel")):
             return "attention_block (K5)"
+        if "flash_attention_kernel" in name:
+            return "flash_attention (K6)"
         n = name.lower()
         if any(k in n for k in ("conv", "fprop", "cudnn", "implicit")):
             return "convolution (cuDNN)"
@@ -429,7 +506,6 @@ def synthetic_sources(rng: np.random.RandomState, n: int, size: int) -> np.ndarr
     return np.clip(np.round(imgs), 0, 255).astype(np.uint8)
 
 
-COUNTERS = ("attention_packed", "ln_geglu", "group_norm", "group_norm_tpu", "layernorm", "attention_block")
 CONFIGS = {"default": {}, "opt_in": {"pallas_group_norm": True, "attention_megakernel": True}}
 
 
@@ -438,13 +514,13 @@ def read_counts() -> dict:
 
     return {"attention_packed": attention.launches, "ln_geglu": geglu.launches, "group_norm": groupnorm.launches,
             "group_norm_tpu": groupnorm.launches_tpu, "layernorm": layernorm.launches,
-            "attention_block": attention.block_launches}
+            "attention_block": attention.block_launches, "flash_attention": attention.flash_launches}
 
 
 def reset_counts() -> None:
     from saspa_tpu_torch.ops import attention, geglu, groupnorm, layernorm
 
-    attention.launches = attention.block_launches = geglu.launches = 0
+    attention.launches = attention.block_launches = attention.flash_launches = geglu.launches = 0
     groupnorm.launches = groupnorm.launches_tpu = layernorm.launches = 0
 
 
@@ -456,9 +532,158 @@ def expected_counts(steps: int, config: str) -> dict:
     refuses."""
     if config == "default":
         return {"attention_packed": 21 * steps + 1, "ln_geglu": 23 * steps, "group_norm": 88 * steps + 30,
-                "group_norm_tpu": 0, "layernorm": 46 * steps, "attention_block": 0}
+                "group_norm_tpu": 0, "layernorm": 46 * steps, "attention_block": 0, "flash_attention": 0}
     return {"attention_packed": 1, "ln_geglu": 23 * steps, "group_norm": 88 * steps + 30,
-            "group_norm_tpu": 88 * steps + 23, "layernorm": 46 * steps, "attention_block": 21 * steps}
+            "group_norm_tpu": 88 * steps + 23, "layernorm": 46 * steps, "attention_block": 21 * steps,
+            "flash_attention": 0}
+
+
+def expected_gen_counts(steps: int) -> dict:
+    """Launches of one batch through `cli gen` at 1024^2 (128^2 latents),
+    default configuration.  Self-attention per step: level 0 (16384 tokens)
+    is past K1's 48 MiB guard, so its 7 sites run K6 (UNet: down 2 + up 3;
+    ControlNet: down 2); levels 1 and 2 (4096, 1024 tokens) and the mid
+    block (256 tokens, eligible at this size) run K1 (UNet 5 + 5 + 1,
+    ControlNet 2 + 2 + 1 = 16).  The VAE's 16384-token attention takes the
+    plain path.  Norms and feed-forwards as at 512^2."""
+    return {"attention_packed": 16 * steps, "ln_geglu": 23 * steps, "group_norm": 88 * steps + 30,
+            "group_norm_tpu": 0, "layernorm": 46 * steps, "attention_block": 0, "flash_attention": 7 * steps}
+
+
+def write_planes_tree(root, rng, n: int, size: int) -> list:
+    """A synthetic FGVC-Aircraft train split under root (the layout
+    PlanesUtils reads): n seeded size x size sources written as PNG under
+    .jpg names, with manufacturer and variant files.  Returns the image ids."""
+    from pathlib import Path
+
+    from saspa_tpu_torch.gen.image_io import write_png
+
+    data = Path(root) / "FGVC-Aircraft/fgvc-aircraft-2013b/data"
+    (data / "images").mkdir(parents=True)
+    ids = [f"{1000000 + 37 * i:07d}" for i in range(n)]
+    makers = [("Boeing", "737-800"), ("Airbus", "A320"), ("Embraer", "E-190"), ("Cessna", "172")]
+    for i, (img, image_id) in enumerate(zip(synthetic_sources(rng, n, size), ids)):
+        write_png(data / "images" / f"{image_id}.jpg", img)
+    (data / "images_train.txt").write_text("".join(f"{i}\n" for i in ids))
+    (data / "images_manufacturer_train.txt").write_text(
+        "".join(f"{i} {makers[k % 4][0]}\n" for k, i in enumerate(ids)))
+    (data / "images_variant_train.txt").write_text("".join(f"{i} {makers[k % 4][1]}\n" for k, i in enumerate(ids)))
+    return ids
+
+
+class TelemetryHandler(logging.Handler):
+    """Keeps the driver's telemetry lines, parsed."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("generation telemetry: "):
+            self.lines.append(json.loads(msg.split(": ", 1)[1]))
+
+
+def run_gen_phase(steps: int, seed: int, profile_path=None) -> dict:
+    """The `gen` entry point at 1024^2 (module docstring, phase 5); returns
+    its launch counts."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion.pipelines import init_pipeline
+    from saspa_tpu_torch.gen.image_io import read_png, read_rgb
+    from saspa_tpu_torch.gen.prompts import PromptEngine
+    from saspa_tpu_torch.gen.tokenizer import NEGATIVE_PROMPT
+    from saspa_tpu_torch.ops.image import resize_image
+    from saspa_tpu_torch.utils import rng as rngs
+
+    size, b = GEN_RESOLUTION, 8
+    root = tempfile.mkdtemp(prefix="saspa_gen_")
+    old_root = os.environ.get("SASPA_DATA_ROOT")
+    os.environ["SASPA_DATA_ROOT"] = root
+    tele = TelemetryHandler()
+    root_logger = logging.getLogger()
+    old_level = root_logger.level
+    root_logger.setLevel(logging.INFO)  # the driver's progress and telemetry lines
+    root_logger.addHandler(tele)
+    try:
+        ids = write_planes_tree(root, np.random.RandomState(seed + 101), b, size)
+        argv = ["gen", "--dataset", "planes", "--resolution", str(size), "--skip_filter", "--num_per_image", "1",
+                "--num_inference_steps", str(steps), "--batch_size", str(b), "--seed", str(seed + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        folder = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = expected_gen_counts(steps)
+        require(counts == want, "gen launch counts", counts, "expected", want)
+        require(len(tele.lines) == 1 and tele.lines[0]["num_errors"] == 0 and tele.lines[0]["total"] == b,
+                "gen telemetry", tele.lines)
+        files = sorted(Path(folder).glob("*.png"))
+        side = [f for f in files if f.stem.endswith(("_source", "_control"))]
+        outs = {f.name.split("_prompt_")[0]: f for f in files if "_prompt_" in f.name}
+        require(len(side) == 2 * b and sorted(outs) == sorted(ids), "gen files", [f.name for f in files])
+        pngs = {i: read_png(f) for i, f in outs.items()}
+        require(all(a.shape == (size, size, 3) for a in pngs.values()), "gen PNG shapes",
+                [a.shape for a in pngs.values()])
+
+        # the same batch through the fused function: same weights (seeded),
+        # prompts, sources and noise -> the PNGs' pixels, bit for bit
+        cfg = cli.gen_config(cli.build_parser().parse_args(argv)).with_dataset_overrides()
+        ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        engine = PromptEngine(cfg, ds, ds.get_image_stem_to_class_str_dict())
+        paths = ds.original_images_paths
+        prompts = [engine.build(pth, i, 0) for i, pth in enumerate(paths)]
+        pipe = init_pipeline("sd_v1.5", "canny")
+        src = np.stack([resize_image(read_rgb(pth), size) for pth in paths])
+        lf = pipe.latent_factor
+        lat = np.stack([rngs.item_normal(cfg.seed, "noise", i, 0, shape=(size // lf, size // lf, 4))
+                        for i in range(b)])
+        tok_ids = pipe.tokenizer(prompts, pad="eot")
+        neg_ids = pipe.tokenizer([NEGATIVE_PROMPT] * b, pad="eot")
+
+        def fused_run(n_steps):
+            fn = pipe.make_fused_generate(size, size, n_steps, 7.5, 0.75, 120.0, 200.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(pipe.params, tok_ids, neg_ids, src, lat, return_images=True)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        (u8, images), ts = fused_run(steps)
+        require(bool(torch.isfinite(images).all()), "gen: non-finite images before quantisation")
+        u8 = u8.cpu().numpy()
+        del images
+        same = [bool(np.array_equal(pngs[i], u8[k])) for k, i in enumerate(Path(pth).stem for pth in paths)]
+        require(all(same), "gen PNGs differ from the fused function's output", same)
+        _, t1 = fused_run(1)
+        s_step = (ts - t1) / (steps - 1)
+        emit({"phase": "gen", "argv": argv, "batch": b, "resolution": size, "steps": steps, "wall_s": wall,
+              "img_per_s": b / wall, "fused_wall_s": ts, "fused_1step_s": t1, "s_per_step": s_step,
+              "img_per_s_30_steps_est": b / (t1 + 29 * s_step), "peak_mem_bytes": peak,
+              "launches": counts, "launches_expected": want, "telemetry": tele.lines[0],
+              "pngs_equal_fused": all(same), "uint8_mean": float(u8.mean())})
+        if profile_path:
+            profile_main(lambda: fused_run(steps), profile_path, steps, "gen_1024")
+        del pipe
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        root_logger.removeHandler(tele)
+        root_logger.setLevel(old_level)
+        if old_root is None:
+            os.environ.pop("SASPA_DATA_ROOT", None)
+        else:
+            os.environ["SASPA_DATA_ROOT"] = old_root
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def copy_weights(src, dst) -> None:
@@ -535,11 +760,29 @@ def main() -> int:
     run("default", 1)
     for h in handles:
         h.remove()
+    # the gen path's norm shapes: one hooked step of the same pipeline at
+    # 1024^2 (K1, K2 and K6 list theirs above; K5 is not on that path)
+    sites_gen, handles = record_sites(pipes["default"])
+    big = synthetic_sources(np.random.RandomState(args.seed + 202), b, GEN_RESOLUTION)
+    big_lat = np.random.RandomState(args.seed + 203).randn(b, GEN_RESOLUTION // 8, GEN_RESOLUTION // 8, 4)
+    pipes["default"].make_fused_generate(GEN_RESOLUTION, GEN_RESOLUTION, 1, 7.5, 0.75, 120.0, 200.0)(
+        pipes["default"].params, ids, neg_ids, big, big_lat.astype(np.float32), return_images=True)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    del big, big_lat
+    torch.cuda.empty_cache()
+    for key in ("group_norm", "layernorm"):
+        sites[key] |= sites_gen[key]
+    # the VAE decoder's GroupNorm at B8 C256 1024^2 holds exactly 2^31 elements
+    require(any(math.prod(st[:4]) >= 2 ** 31 for st in sites["group_norm"]),
+            "no 2^31-element GroupNorm among the recorded sites", sorted(sites["group_norm"], key=str))
 
     # ---- kernels against their plain versions --------------------------------
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     checks = {}
-    for name, check, arg in (("attention_packed", check_k1, None), ("ln_geglu", check_k2, None),
+    for name, check, arg in (("attention_packed", check_k1, None), ("flash_attention", check_k6, None),
+                             ("ln_geglu", check_k2, None),
                              ("group_norm", check_k3, "group_norm"), ("layernorm", check_k4, "layernorm"),
                              ("attention_block", check_k5, "attention_block")):
         checks[name] = check(gen) if arg is None else check(gen, sites[arg])
@@ -616,6 +859,15 @@ def main() -> int:
         require(mean_diff <= 0.02, config, "card vs CPU mean |diff|", mean_diff)
         require(canny_equal, "Canny on the card differs from the CPU")
 
+    # ---- the gen entry point at 1024^2 -----------------------------------------
+    gen_profile = None
+    if args.profile:
+        from pathlib import Path
+
+        out = Path(args.profile)
+        gen_profile = str(out.with_name(f"{out.stem}_gen_{GEN_RESOLUTION}{out.suffix}"))
+    counts[f"gen_{GEN_RESOLUTION}"] = run_gen_phase(args.steps, args.seed, gen_profile)
+
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [
         ("attention_packed", "attention_packed.cu", "saspa_tpu/ops/attention.py:181",
@@ -626,6 +878,8 @@ def main() -> int:
         ("layernorm", "layernorm.cu", "saspa_tpu/ops/layernorm.py:62", lambda r: (r["rows"], r["C"]) == (65536, 320)),
         ("attention_block", "attention_block.cu", "saspa_tpu/ops/attention.py:268",
          lambda r: (r["B"], r["L"]) == (16, 4096)),
+        ("flash_attention", "flash_attention.cu", "saspa_tpu/ops/attention.py:80",
+         lambda r: r["shape"] == "1024^2 level 0"),
     ]
     kernels = []
     for name, source, replaces, pick in lines:

@@ -45,7 +45,7 @@ attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int h = blockIdx.y, b = blockIdx.z;
     const size_t head_base = (size_t)b * L * HD + (size_t)h * DP;
     const size_t tile = head_base + (size_t)qt * ATT_BM * HD;
-    load_tile<ATT_BM, DP>(sQ, Cfg::SQ, q + tile, HD);
+    load_tile<ATT_BM>(sQ, Cfg::SQ, q + tile, HD, DP);
     cp_async_commit();
     attend_tile<DP, DO>(sQ, sK, sV, k + head_base, v + head_base + split * DO, o + tile + split * DO, L, HD);
 }

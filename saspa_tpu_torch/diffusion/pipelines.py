@@ -139,3 +139,20 @@ class DiffusionPipeline:
             return (u8, out) if return_images else u8
 
         return fused
+
+
+def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = False, sampler: str = "ddim",
+                  weights_dir: Optional[str] = None, dtype: Optional[torch.dtype] = None,
+                  device=None) -> DiffusionPipeline:
+    """Name-compatible with the reference's init_pipeline (run_aug/run_aug.py:128)
+    and the JAX package's: SD1.5 with a canny ControlNet or none, DDIM.
+    Without weights the models take the seeded random init (seed 0)."""
+    if base_model != "sd_v1.5" or SDEdit or controlnet not in (None, "canny") or sampler != "ddim":
+        raise NotImplementedError(
+            f"ported so far: sd_v1.5 + canny/None + ddim; {base_model}, controlnet={controlnet}, "
+            f"SDEdit={SDEdit}, {sampler} come with the other generation families (ROADMAP Queue 1 item 12)")
+    if weights_dir is not None:
+        raise NotImplementedError("loading converted checkpoints from a weights directory is ROADMAP Queue 1 "
+                                  "item 16; load a flax tree with DiffusionPipeline.load_flax_params")
+    return DiffusionPipeline(base_model, controlnet=controlnet, sampler=sampler, dtype=dtype, device=device,
+                             init_seed=0)

@@ -1,0 +1,205 @@
+"""Image files for the generation driver, without PIL or cv2.
+
+The JAX driver reads sources and writes PNGs with PIL; the machine with the
+card has neither PIL nor cv2, so the port carries its own:
+  * `read_png` / `write_png`: 8-bit PNG (gray, RGB, RGBA), non-interlaced,
+    scanline filters 0-4; zlib from the standard library.  `write_png`
+    writes RGB or gray with the Sub filter.
+  * `image_size`: (width, height) from the header alone (PNG's IHDR, JPEG's
+    SOF marker), as PIL's `Image.open(p).size` reads it for the driver's
+    shape buckets.
+  * `read_rgb`: an (H, W, 3) uint8 array as `np.asarray(Image.open(p).
+    convert("RGB"))` gives it.  The format is told by the file's first bytes,
+    not its name (FGVC-Aircraft paths end in .jpg whatever they hold).  PNG
+    decodes here; JPEG and every other format decode through PIL where PIL
+    is installed, and raise otherwise.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from pathlib import Path
+from typing import Tuple
+
+import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
+# JPEG start-of-frame markers: C0-CF except DHT (C4), JPG (C8) and DAC (CC)
+_SOF_MARKERS = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def sniff(path) -> str:
+    """'png', 'jpeg' or 'other', from the file's first bytes."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == PNG_SIGNATURE:
+        return "png"
+    if head[:2] == JPEG_SIGNATURE:
+        return "jpeg"
+    return "other"
+
+
+def image_size(path) -> Tuple[int, int]:
+    """(width, height) from the header, without decoding pixels."""
+    kind = sniff(path)
+    with open(path, "rb") as f:
+        if kind == "png":
+            f.seek(8)
+            length, tag = struct.unpack(">I4s", f.read(8))
+            if tag != b"IHDR":
+                raise ValueError(f"{path}: PNG without a leading IHDR chunk")
+            return struct.unpack(">II", f.read(8))
+        if kind == "jpeg":
+            return _jpeg_size(f, path)
+    with _pil_open(path) as im:
+        return im.size
+
+
+def _jpeg_size(f, path) -> Tuple[int, int]:
+    f.seek(2)
+    while True:
+        byte = f.read(1)
+        if not byte:
+            break
+        if byte != b"\xff":
+            continue
+        marker = f.read(1)
+        while marker == b"\xff":  # fill bytes
+            marker = f.read(1)
+        if not marker:
+            break
+        m = marker[0]
+        if m == 0xD8 or 0xD0 <= m <= 0xD7 or m == 0x01:  # markers without a length
+            continue
+        (length,) = struct.unpack(">H", f.read(2))
+        if m in _SOF_MARKERS:
+            _, height, width = struct.unpack(">BHH", f.read(5))
+            return width, height
+        f.seek(length - 2, 1)
+    raise ValueError(f"{path}: JPEG without a start-of-frame marker")
+
+
+def _pil_open(path):
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(f"{path}: only PNG decodes without PIL, and PIL is not installed here "
+                           f"(JPEG sources need PIL; see ROADMAP Queue 1 item 9)") from e
+    return Image.open(path)
+
+
+def read_rgb(path) -> np.ndarray:
+    """(H, W, 3) uint8 RGB, as PIL's convert("RGB") gives it (alpha dropped,
+    gray replicated)."""
+    if sniff(path) == "png":
+        img = read_png(path)
+        if img.shape[2] == 1:
+            return np.repeat(img, 3, axis=2)
+        return np.ascontiguousarray(img[:, :, :3])
+    with _pil_open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def _chunks(data: bytes):
+    pos = len(PNG_SIGNATURE)
+    while pos < len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        yield tag, data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IEND":
+            return
+
+
+def read_png(path) -> np.ndarray:
+    """(H, W, C) uint8 pixels of an 8-bit PNG: C = 1 (gray), 3 (RGB) or 4 (RGBA)."""
+    data = Path(path).read_bytes()
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    ihdr, idat = None, []
+    for tag, body in _chunks(data):
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+    w, h, depth, ctype, comp, filt, interlace = ihdr
+    if depth != 8 or ctype not in _PNG_CHANNELS or comp or filt or interlace:
+        raise ValueError(f"{path}: PNG with bit depth {depth}, colour type {ctype}, interlace {interlace}: "
+                         "only 8-bit, non-interlaced gray/RGB/RGBA PNGs are read here")
+    bpp = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * bpp)
+    return _unfilter(raw[:, 0], raw[:, 1:], bpp).reshape(h, w, bpp)
+
+
+def _unfilter(kinds: np.ndarray, rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undoes the per-scanline filters (PNG spec, section 9): None and Up are
+    elementwise, Sub is a running sum per channel (mod 256); Average and
+    Paeth depend on the reconstructed left neighbour, so they walk the row."""
+    h, n = rows.shape
+    out = np.empty((h, n), np.uint8)
+    prior = np.zeros(n, np.uint8)
+    for y in range(h):
+        line, kind = rows[y], kinds[y]
+        if kind == 0:
+            cur = line.copy()
+        elif kind == 1:
+            cur = (np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.int64) % 256).astype(np.uint8).reshape(-1)
+        elif kind == 2:
+            cur = line + prior
+        elif kind in (3, 4):
+            cur = _walk(line, prior, bpp, kind)
+        else:
+            raise ValueError(f"PNG scanline filter {kind} is not defined")
+        out[y] = cur
+        prior = cur
+    return out
+
+
+def _walk(line: np.ndarray, prior: np.ndarray, bpp: int, kind: int) -> np.ndarray:
+    cur = line.astype(np.int64).tolist()
+    up = prior.astype(np.int64).tolist()
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if kind == 3:
+            cur[i] = (cur[i] + ((a + b) >> 1)) & 0xFF
+        else:
+            c = up[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+            cur[i] = (cur[i] + pred) & 0xFF
+    return np.asarray(cur, np.uint8)
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """Writes an (H, W), (H, W, 1) or (H, W, 3) uint8 array as an 8-bit gray
+    or RGB PNG, every scanline with the Sub filter."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"write_png takes uint8, got {img.dtype}")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    if img.ndim == 2:
+        ctype, bpp = 0, 1
+    elif img.ndim == 3 and img.shape[2] == 3:
+        ctype, bpp = 2, 3
+    else:
+        raise ValueError(f"write_png takes gray or RGB, got shape {img.shape}")
+    h, w = img.shape[:2]
+    rows = img.reshape(h, w * bpp)
+    sub = rows.copy()
+    sub[:, bpp:] = rows[:, bpp:] - rows[:, :-bpp]  # uint8 arithmetic wraps mod 256
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    data = PNG_SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) \
+        + chunk(b"IEND", b"")
+    tmp = Path(f"{path}.tmp")
+    tmp.write_bytes(data)
+    tmp.replace(path)

@@ -4,7 +4,9 @@ NCHW inside (channels-last in memory from the latents on, the format the
 convolutions keep); module and parameter names follow the flax tree.  By default
 it runs what the JAX package runs by default: self-attention over >= 256
 tokens runs the packed-heads kernel (K1) with head dims padded in the
-weights, every transformer block's norm3 + feed-forward runs the fused
+weights where its guard admits the shape, else (level 0 at 1024^2) the
+streamed flash kernel (K6) on the unpadded projections, every transformer
+block's norm3 + feed-forward runs the fused
 LN+GEGLU kernel (K2), norm1/norm2 the one-pass LayerNorm (K4), every
 GroupNorm the GroupNorm kernel (K3) in `_xla_group_norm`'s order, and
 cross-attention over the 77 text tokens is plain torch.
@@ -193,7 +195,7 @@ class CrossAttention(nn.Module):
         context = x if context is None else context
         inner = x.shape[-1]
         d = inner // self.heads
-        if packed_flash_eligible(x.shape[1], context.shape[1]):
+        if packed_flash_eligible(x.shape[1], context.shape[1], self.heads, d, x.element_size()):
             wq, wk, wv, wo, wq_scaled = self.padded_weights()
             dt = wq.dtype
             if self.megakernel and is_self and residual is not None and attention_block_eligible(
@@ -205,7 +207,7 @@ class CrossAttention(nn.Module):
             q = cfg_tile(q, context.shape[0])
             qs = q * (LOG2E / math.sqrt(d))
             out = F.linear(flash_attention_packed(qs, k, v, self.heads), wo, self.to_out.bias.to(dt))
-        else:
+        else:  # unpadded projections: cross-attention, and self-attention past the packed guard (K6)
             q = cfg_tile(self.to_q(x), context.shape[0])
             out = self.to_out(attention(q, self.to_k(context), self.to_v(context), self.heads))
         return out if residual is None else residual + out

@@ -3,7 +3,9 @@
 Only the decoder is ported so far; the encoder (SDEdit, ip2p) comes with
 those paths.  The mid-block's one-head attention (d = 512 at SD width)
 takes the packed kernel when its head dim is already lane-aligned and the
-token count qualifies, as the JAX package routes it.  Every GroupNorm runs
+packed predicate admits the token count, as the JAX package routes it; past
+the packed guard (16384 tokens at 1024^2) it takes the plain path, as JAX
+takes XLA there.  Every GroupNorm runs
 K3; `pallas_group_norm` gives it the TPU kernel's numerics where that
 kernel's split plan admits the site (not the 512^2 tail, see
 ops/groupnorm.py::split_plan).
@@ -66,7 +68,7 @@ class VAEAttentionBlock(nn.Module):
         res = x
         x = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
-        if c == pad_head_dim(c) and packed_flash_eligible(h * w, h * w):
+        if c == pad_head_dim(c) and packed_flash_eligible(h * w, h * w, 1, c, x.element_size()):
             out = flash_attention_packed(q * ((1.0 / math.sqrt(c)) * LOG2E), k, v, 1)
         else:
             out = attention(q, k, v, 1)

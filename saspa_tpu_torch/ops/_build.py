@@ -27,7 +27,9 @@ NVCC_FLAGS = [
 ]
 
 # C signatures: every pointer and the stream are c_void_p (a c_int would cut
-# a 64-bit address), counts are c_int, eps is c_float.
+# a 64-bit address), counts are c_int (each count passed is a dimension, far
+# below 2^31; the kernels form element offsets in 64 bits), eps and scale
+# are c_float.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "attention_packed": ("saspa_attention_packed", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -35,6 +37,7 @@ SIGNATURES = {
     "group_norm": ("saspa_group_norm", [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P]),
     "layernorm": ("saspa_layernorm", [_P, _P, _P, _P, _I, _I, _F, _P]),
     "attention_block": ("saspa_attention_block", [_P] * 11 + [_I, _I, _I, _I, _I, _P]),
+    "flash_attention": ("saspa_flash_attention", [_P] * 4 + [_I] * 6 + [_F, _P]),
 }
 
 KERNELS = tuple(SIGNATURES)

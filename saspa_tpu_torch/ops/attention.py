@@ -1,16 +1,20 @@
 """Multi-head attention: the packed-heads kernel (K1), the self-attention
-block kernel (K5) and the plain path.
+block kernel (K5), the streamed flash kernel (K6) and the plain path.
 
 Counterpart of saspa_tpu/ops/attention.py.  Self-attention over image tokens
-(lq == lk >= 256, lq % 128 == 0) runs `flash_attention_packed` on packed
+that `packed_flash_eligible` admits (lq == lk >= 256, lq % 128 == 0, and the
+packed kernel's 48 MiB guard) runs `flash_attention_packed` on packed
 (B, L, H*D_pad) tensors whose head dims are zero-padded in the projection
-weights (64/128/192 for SD1.5's 40/80/160; the VAE's 512 as is).  Short-kv
-cross-attention (77 text tokens) and the text tower take `plain_attention`,
-the counterpart of the JAX package's `_xla_attention`.  With the
-megakernel option, each transformer block's self-attention that
-`attention_block_eligible` admits runs `attention_block_fused` instead: the
-Q/K/V projections, the attention, to_out, its bias and the residual add
-behind one wrapper.
+weights (64/128/192 for SD1.5's 40/80/160; the VAE's 512 as is).  Past that
+guard (SD1.5's level 0 at 1024^2: 16384 tokens) the projections stay
+unpadded and `attention()` routes as the JAX package does: K6
+(`flash_attention`, which pads the heads in shared memory) where
+`flash_attention_route` admits the shape, else `plain_attention`, the
+counterpart of `_xla_attention`.  Short-kv cross-attention (77 text tokens)
+and the text tower take the plain path.  With the megakernel option, each
+transformer block's self-attention that `attention_block_eligible` admits
+runs `attention_block_fused` instead: the Q/K/V projections, the attention,
+to_out, its bias and the residual add behind one wrapper.
 """
 
 from __future__ import annotations
@@ -18,14 +22,18 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from saspa_tpu_torch.ops import _build
 
 LOG2E = math.log2(math.e)
 PACKED_HEAD_DIMS = (64, 128, 192, 512)
+FLASH_HEAD_DIMS = (64, 128, 192)  # the padded head dims K6 takes
+PLAIN_SCORE_BYTES = 1 << 30  # f32 scores K6's plain version holds at once
 
 launches = 0  # kernel launches of flash_attention_packed since the last reset
 block_launches = 0  # calls of attention_block_fused that launched K5 since the last reset
+flash_launches = 0  # kernel launches of flash_attention (K6) since the last reset
 BLOCK_HEAD_DIMS = (64, 128, 192)
 
 
@@ -34,9 +42,64 @@ def pad_head_dim(d: int) -> int:
     return max(64, ((d + 63) // 64) * 64)
 
 
-def packed_flash_eligible(lq: int, lk: int) -> bool:
-    """Shape-only predicate for the packed kernel: long self-attention."""
-    return lq == lk and lq >= 256 and lq % 128 == 0
+def _packed_block_q(lq: int) -> int:
+    """The q-block the JAX packed and block kernels run with (the JAX
+    function of this name without its environment override)."""
+    block_q = 256 if lq > 1024 else 512
+    for cand in (min(block_q, lq), 256, 128):
+        if cand <= lq and lq % cand == 0:
+            return cand
+    return lq
+
+
+def packed_flash_eligible(lq: int, lk: int, heads: int, d: int, itemsize: int = 2) -> bool:
+    """Copy of the JAX predicate for the packed kernel (without its backend
+    check): long self-attention whose K/V, scores and probabilities for one
+    q-block fit 48 MiB of VMEM.  itemsize: activation bytes (bf16 2, f32 4).
+    With 8 heads at d_pad 64 in bf16 the guard fails past 13,897 tokens."""
+    if not (lq >= 256 and lk >= 256 and lq == lk and lq % 128 == 0):
+        return False
+    hd = heads * pad_head_dim(d)
+    bq = _packed_block_q(lq)
+    vmem = itemsize * (2 * lk * hd) + bq * lk * 4 + bq * lk * itemsize + 4 * bq * hd
+    return vmem <= 48 * 1024 * 1024
+
+
+def flash_block_q(lq: int) -> int:
+    """The q-block of the JAX flash_attention (without its env override)."""
+    return min(512, lq) if lq % min(512, lq) == 0 else lq
+
+
+def flash_block_kv(lk: int) -> int:
+    """The K/V chunk of the JAX flash_attention (without its env override)."""
+    return 512 if lk % 512 == 0 else (256 if lk % 256 == 0 else lk)
+
+
+def flash_kernel_ok(lq: int, lk: int, d: int) -> bool:
+    """Copy of JAX's `_kernel_ok` (without its backend check): long
+    attention whose resident K/V and one q-block's scores fit 12 MiB."""
+    if not (lq >= 256 and lk >= 256 and lq % 128 == 0):
+        return False
+    d_pad = pad_head_dim(d)
+    bq, bkv = flash_block_q(lq), flash_block_kv(lk)
+    return 4 * (2 * lk * d_pad + 3 * bq * d_pad + bq * bkv) <= 12 * 1024 * 1024
+
+
+def flash_attention_route(lq: int, lk: int, d: int) -> bool:
+    """Whether `attention()` runs K6 on a shape K1 does not take.
+
+    The JAX package takes K6 where `_kernel_ok` admits the shape and XLA
+    elsewhere.  Past both guards XLA materialises the (B*H, L, L) f32
+    scores: about 189 GB at a capped 960x1280 bucket (L = 19,200, where
+    L % 512 != 0 makes block_q = L and `_kernel_ok` fail).  So the port also
+    sends there every self-attention over >= 256 tokens that the kernel
+    takes to K6: the same function, streamed.  The kernel takes L % 64 == 0
+    and head dims that are multiples of 8 padding to at most 192; the VAE's
+    one 512-wide head past the packed guard stays on the plain path, as in
+    JAX."""
+    if lq % 64 or lk % 64 or d % 8 or pad_head_dim(d) not in FLASH_HEAD_DIMS:
+        return False
+    return flash_kernel_ok(lq, lk, d) or (lq == lk and lq >= 256)
 
 
 def plain_attention(q, k, v, scale: float):
@@ -48,14 +111,96 @@ def plain_attention(q, k, v, scale: float):
 
 
 def attention(q, k, v, num_heads: int):
-    """Packed (B, L, H*D) inputs -> (B, Lq, H*D) through the plain path."""
+    """Packed (B, L, H*D) inputs -> (B, Lq, H*D), routed as the JAX
+    package's `attention()`: K1 where the heads are already lane-aligned and
+    the packed kernel admits the shape, K6 where `flash_attention_route`
+    admits it, the plain path otherwise."""
     b, lq, hd = q.shape
+    lk = k.shape[1]
     d = hd // num_heads
+    scale = 1.0 / math.sqrt(d)
+    if d == pad_head_dim(d) and packed_flash_eligible(lq, lk, num_heads, d, q.element_size()):
+        return flash_attention_packed(q * (scale * LOG2E), k, v, num_heads).to(q.dtype)
     qh = q.reshape(b, lq, num_heads, d)
-    kh = k.reshape(b, k.shape[1], num_heads, d)
-    vh = v.reshape(b, v.shape[1], num_heads, d)
-    out = plain_attention(qh * (1.0 / math.sqrt(d)), kh, vh, 1.0)
+    kh = k.reshape(b, lk, num_heads, d)
+    vh = v.reshape(b, lk, num_heads, d)
+    if flash_attention_route(lq, lk, d):
+        out = flash_attention(qh, kh, vh, scale)
+    else:
+        out = plain_attention(qh * scale, kh, vh, 1.0)
     return out.to(q.dtype).reshape(b, lq, hd)
+
+
+def flash_attention_plain(q, k, v, scale: float):
+    """Plain version of K6, step by step the TPU kernel `_flash_kernel` as
+    `flash_attention` drives it: q * scale rounded to q's dtype; heads
+    padded to pad_head_dim(d); K/V in block_kv chunks with a running f32
+    (max, denom, acc) and base-e exp; P cast to v's dtype before P.V;
+    acc / l in q's dtype.  q: (B, Lq, H, D), k/v: (B, Lk, H, D) -> (B, Lq,
+    H, D).  (batch, head) rows are independent, so they run in groups that
+    keep one chunk's f32 scores within PLAIN_SCORE_BYTES."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    dp = pad_head_dim(d)
+    # JAX takes the Python scale as a weak type, i.e. in q's dtype
+    qs = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+
+    def heads(x, n):
+        return F.pad(x.transpose(1, 2).reshape(b * h, n, d), (0, dp - d))
+
+    qf, kf, vf = heads(qs, lq), heads(k, lk), heads(v, lk)
+    bkv = flash_block_kv(lk)
+    out = torch.empty((b * h, lq, dp), dtype=q.dtype, device=q.device)
+    group = max(1, PLAIN_SCORE_BYTES // (4 * lq * bkv))
+    for lo in range(0, b * h, group):
+        rows = slice(lo, lo + group)
+        qg = qf[rows].float()
+        n = qg.shape[0]
+        m = torch.full((n, lq, 1), -math.inf, device=q.device)
+        den = torch.zeros((n, lq, 1), device=q.device)
+        acc = torch.zeros((n, lq, dp), device=q.device)
+        for i in range(lk // bkv):
+            keys = slice(i * bkv, (i + 1) * bkv)
+            s = qg @ kf[rows, keys].float().transpose(1, 2)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            del s
+            den = den * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p.to(v.dtype).float() @ vf[rows, keys].float()
+            m = m_new
+        out[rows] = (acc / den).to(q.dtype)
+    return out[..., :d].reshape(b, h, lq, d).transpose(1, 2)
+
+
+def flash_attention(q, k, v, scale: float):
+    """softmax(q k^T * scale) v over unpadded heads: q (B, Lq, H, D), k/v
+    (B, Lk, H, D) -> (B, Lq, H, D).  CPU tensors run the plain version;
+    CUDA tensors launch K6 (bf16, contiguous, Lq and Lk multiples of 64, D a
+    multiple of 8 that pads to 64/128/192) or raise."""
+    global flash_launches
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale)
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    dp = pad_head_dim(d)
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes bf16 on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if k.shape != (b, lk, h, d) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if lq % 64 or lk % 64 or d % 8 or dp not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash kernel takes L % 64 == 0 and a head dim (a multiple of 8) padding to one of "
+                         f"{FLASH_HEAD_DIMS}; got Lq {lq}, Lk {lk}, d {d}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 and t.device == q.device for t in (q, k, v)):
+        raise ValueError("flash_attention needs contiguous, 16-byte aligned q, k, v on one device")
+    out = torch.empty_like(q)
+    fn = _build.kernel("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale_q = float(torch.tensor(scale, dtype=q.dtype))  # in q's dtype, as the plain version folds it
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, lk, h, d, dp, scale_q, stream),
+                 "flash_attention")
+    flash_launches += 1
+    return out
 
 
 def flash_attention_packed_plain(q, k, v, heads: int):
@@ -103,28 +248,15 @@ def flash_attention_packed(q, k, v, heads: int):
     return out
 
 
-def _packed_block_q(lq: int) -> int:
-    """The q-block the JAX packed and block kernels run with (the JAX
-    function of this name without its environment override)."""
-    block_q = 256 if lq > 1024 else 512
-    for cand in (min(block_q, lq), 256, 128):
-        if cand <= lq and lq % cand == 0:
-            return cand
-    return lq
-
-
 def attention_block_eligible(lq: int, lk: int, heads: int, d: int, c: int, itemsize: int = 2) -> bool:
-    """Copy of the JAX megakernel predicate (`attention_block_eligible`,
-    whose `packed_flash_eligible` call adds the packed kernel's 48 MiB VMEM
-    guard): packed-eligible self-attention whose full-row activations, K/V
-    scratch and weights fit 80 MiB of VMEM.  itemsize: activation bytes."""
-    if not packed_flash_eligible(lq, lk):
+    """Copy of the JAX megakernel predicate (`attention_block_eligible`):
+    packed-eligible self-attention whose full-row activations, K/V scratch
+    and weights fit 80 MiB of VMEM.  itemsize: activation bytes."""
+    if not packed_flash_eligible(lq, lk, heads, d, itemsize):
         return False
     a = itemsize
     hd = heads * pad_head_dim(d)
     bq = _packed_block_q(lq)
-    if a * 2 * lk * hd + bq * lk * 4 + bq * lk * a + 4 * bq * hd > 48 * 1024 * 1024:
-        return False
     vmem = (a * lq * c + 2 * a * lq * hd + a * 4 * c * hd + 2 * a * bq * c
             + bq * lq * 4 + bq * lq * a + 4 * bq * hd + 4 * bq * c)
     return vmem <= 80 * 1024 * 1024

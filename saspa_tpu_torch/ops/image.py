@@ -1,0 +1,257 @@
+"""Image geometry and resizing on the host (counterpart of saspa_tpu/ops/image.py).
+
+`resize_shape_multiple_of_64` reproduces the reference's aspect-preserving
+resize-to-multiple-of-64 geometry (all_utils/utils.py:58-79), an artifact
+contract: the `_source.png` files and the ControlNet conditioning images are
+made at these sizes.  The JAX package resamples with cv2 (INTER_LANCZOS4 to
+upscale, INTER_AREA to downscale); the machine with the card has no cv2, so
+this module implements cv2's uint8 arithmetic of both in numpy:
+  * INTER_LANCZOS4: 8-tap separable filter, float32 coefficients
+    (interpolateLanczos4) rounded to fixed point at scale 2048, integer
+    horizontal then vertical passes, (v + 2^21) >> 22, edge replication;
+  * INTER_AREA, both scales >= 1 and integral: block means (2x2:
+    (sum + 2) >> 2; otherwise round(sum * float32(1 / area)));
+  * INTER_AREA, both scales >= 1: cv2's float32 area-weight tables
+    (computeResizeAreaTab) accumulated in cv2's order, then rounded;
+  * INTER_AREA otherwise (an upscale after the 1.2 MP cap): cv2's emulation
+    by a fixed-point bilinear filter with area-mode offsets.
+tests/test_torch_image.py holds each against cv2.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+
+MAX_RES_SIZE = 1_200_000  # 1200*1000 pixel cap (all_utils/utils.py:65)
+COEF_BITS = 11
+COEF_SCALE = 1 << COEF_BITS  # cv2's INTER_RESIZE_COEF_SCALE
+
+
+def HWC3(x: np.ndarray) -> np.ndarray:
+    """Grayscale/RGBA -> RGB uint8 (all_utils/utils.py:39-55 semantics)."""
+    assert x.dtype == np.uint8
+    if x.ndim == 2:
+        x = x[:, :, None]
+    assert x.ndim == 3
+    _, _, c = x.shape
+    assert c in (1, 3, 4)
+    if c == 3:
+        return x
+    if c == 1:
+        return np.concatenate([x, x, x], axis=2)
+    color = x[:, :, 0:3].astype(np.float32)
+    alpha = x[:, :, 3:4].astype(np.float32) / 255.0
+    y = color * alpha + 255.0 * (1.0 - alpha)
+    return y.clip(0, 255).astype(np.uint8)
+
+
+def resize_shape_multiple_of_64(h: int, w: int, smaller_side_res: int) -> Tuple[int, int, float]:
+    """Target (H, W) after the reference's geometry; also returns the scale k.
+
+    Steps: scale so min side == smaller_side_res; if area > 1.2MP rescale down;
+    round each side to the nearest multiple of 64.
+    """
+    H, W = float(h), float(w)
+    k = float(smaller_side_res) / min(H, W)
+    H *= k
+    W *= k
+    if H * W > MAX_RES_SIZE:
+        k2 = np.sqrt(MAX_RES_SIZE / (H * W))
+        H *= k2
+        W *= k2
+        k *= k2
+    H = int(np.round(H / 64.0)) * 64
+    W = int(np.round(W / 64.0)) * 64
+    return H, W, k
+
+
+def k0_scale(h: int, w: int, smaller_side_res: int) -> float:
+    """The PRE-cap scale factor (reference's first k, all_utils/utils.py:68)."""
+    return float(smaller_side_res) / min(float(h), float(w))
+
+
+def resize_image(img: np.ndarray, smaller_side_res: int) -> np.ndarray:
+    """Single-image resize with the reference geometry; uint8 in/out.  Same
+    interpolation choice as the JAX package, including the reference's k
+    rebinding quirk (all_utils/utils.py:71-77): when the 1.2 MP cap fires, k
+    is overwritten by the (always < 1) cap factor, so capped UPSCALES use
+    INTER_AREA too.  Identity geometry returns the image as is."""
+    h, w = img.shape[:2]
+    out_h, out_w, k = resize_shape_multiple_of_64(h, w, smaller_side_res)
+    x = HWC3(np.asarray(img, np.uint8))
+    if (out_h, out_w) == (h, w):
+        return x
+    k0 = k0_scale(h, w, smaller_side_res)
+    capped = (float(h) * k0) * (float(w) * k0) > MAX_RES_SIZE
+    if not capped and k > 1:
+        return resize_lanczos4(x, out_h, out_w)
+    return resize_area(x, out_h, out_w)
+
+
+# ---- INTER_LANCZOS4 ------------------------------------------------------------
+
+_S45 = 0.70710678118654752440084436210485
+_LANCZOS_CS = ((1, 0), (-_S45, -_S45), (0, 1), (_S45, -_S45), (-1, 0), (_S45, _S45), (0, -1), (-_S45, _S45))
+
+
+def _lanczos4_coeffs(fx: float) -> np.ndarray:
+    """cv2's interpolateLanczos4(fx) (float32 weights summing to 1), as
+    fixed-point int16 taps."""
+    f = np.float32
+    x = f(fx)
+    y0 = -float(x + f(3)) * math.pi * 0.25
+    s0, c0 = math.sin(y0), math.cos(y0)
+    coeffs = np.empty(8, np.float32)
+    total = f(0)
+    for i in range(8):
+        t = x + f(3) - f(i)  # float arithmetic, as in cv2
+        if abs(t) >= f(1e-6):
+            y = -float(t) * math.pi * 0.25
+            coeffs[i] = f((_LANCZOS_CS[i][0] * s0 + _LANCZOS_CS[i][1] * c0) / (y * y))
+        else:
+            coeffs[i] = f(1e30)
+        total = f(total + coeffs[i])
+    total = f(1) / total
+    coeffs = (coeffs * total).astype(np.float32)
+    return _fixed(coeffs * f(COEF_SCALE))
+
+
+def _fixed(v) -> np.ndarray:
+    """saturate_cast<short>(float): round half to even, then clip."""
+    return np.clip(np.rint(np.asarray(v, np.float32)), -32768, 32767).astype(np.int64)
+
+
+def _taps(n_in: int, n_out: int, ksize: int, coeffs):
+    """Source indices (n_out, ksize), clamped to the image (cv2 replicates
+    the border), and fixed-point weights, for one axis."""
+    scale = 1.0 / (n_out / n_in)
+    idx = np.empty((n_out, ksize), np.int64)
+    w = np.empty((n_out, ksize), np.int64)
+    for d in range(n_out):
+        f = np.float32((d + 0.5) * scale - 0.5)
+        s = math.floor(f)
+        w[d] = coeffs(float(f - np.float32(s)))
+        idx[d] = np.arange(s - ksize // 2 + 1, s + ksize // 2 + 1)
+    return np.clip(idx, 0, n_in - 1), w
+
+
+def resize_lanczos4(x: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2.resize(x, (out_w, out_h), interpolation=cv2.INTER_LANCZOS4) on
+    uint8 (H, W, C)."""
+    h, w = x.shape[:2]
+    xi, xw = _taps(w, out_w, 8, _lanczos4_coeffs)
+    yi, yw = _taps(h, out_h, 8, _lanczos4_coeffs)
+    src = x.astype(np.int64)
+    rows = np.zeros((h, out_w, x.shape[2]), np.int64)
+    for j in range(8):
+        rows += src[:, xi[:, j]] * xw[:, j, None]
+    out = np.zeros((out_h, out_w, x.shape[2]), np.int64)
+    for j in range(8):
+        out += rows[yi[:, j]] * yw[:, j, None, None]
+    return np.clip((out + (1 << (2 * COEF_BITS - 1))) >> (2 * COEF_BITS), 0, 255).astype(np.uint8)
+
+
+# ---- INTER_AREA ----------------------------------------------------------------
+
+def resize_area(x: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2.resize(x, (out_w, out_h), interpolation=cv2.INTER_AREA) on uint8
+    (H, W, C)."""
+    h, w = x.shape[:2]
+    sx, sy = 1.0 / (out_w / w), 1.0 / (out_h / h)
+    if sx >= 1 and sy >= 1:
+        ix, iy = int(round(sx)), int(round(sy))
+        if abs(sx - ix) < np.finfo(np.float64).eps and abs(sy - iy) < np.finfo(np.float64).eps:
+            return _area_fast(x, ix, iy, out_h, out_w)
+        return _area_tables(x, sx, sy, out_h, out_w)
+    return _area_linear(x, out_h, out_w)
+
+
+def _area_fast(x, ix: int, iy: int, out_h: int, out_w: int) -> np.ndarray:
+    """Integral scales: the mean of each ix-by-iy block."""
+    blocks = x[:out_h * iy, :out_w * ix].astype(np.int64).reshape(out_h, iy, out_w, ix, x.shape[2])
+    s = blocks.sum(axis=(1, 3))
+    if ix == 2 and iy == 2:
+        return ((s + 2) >> 2).astype(np.uint8)
+    v = s.astype(np.float32) * (np.float32(1) / np.float32(ix * iy))
+    return np.clip(np.rint(v), 0, 255).astype(np.uint8)
+
+
+def _area_tab(n_in: int, n_out: int, scale: float):
+    """cv2's computeResizeAreaTab as (n_out, slots) source indices and
+    float32 weights (weight 0 pads the unused slots), in cv2's order."""
+    entries = []
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s1, s2 = math.ceil(f1), math.floor(f2)
+        s2 = min(s2, n_in - 1)
+        s1 = min(s1, s2)
+        e = []
+        if s1 - f1 > 1e-3:
+            e.append((s1 - 1, np.float32((s1 - f1) / cell)))
+        for s in range(s1, s2):
+            e.append((s, np.float32(1.0 / cell)))
+        if f2 - s2 > 1e-3:
+            e.append((s2, np.float32(min(min(f2 - s2, 1.0), cell) / cell)))
+        entries.append(e)
+    slots = max(len(e) for e in entries)
+    idx = np.zeros((n_out, slots), np.int64)
+    wt = np.zeros((n_out, slots), np.float32)
+    for d, e in enumerate(entries):
+        for j, (s, a) in enumerate(e):
+            idx[d, j], wt[d, j] = s, a
+    return idx, wt
+
+
+def _area_tables(x, sx: float, sy: float, out_h: int, out_w: int) -> np.ndarray:
+    """Both scales >= 1, not integral: float32 sums of area-weighted pixels,
+    each output element's terms added in cv2's order (an added zero leaves a
+    sum unchanged, so the padded slots do nothing)."""
+    h, w = x.shape[:2]
+    xi, xw = _area_tab(w, out_w, sx)
+    yi, yw = _area_tab(h, out_h, sy)
+    src = x.astype(np.float32)
+    buf = np.zeros((h, out_w, x.shape[2]), np.float32)
+    for j in range(xi.shape[1]):
+        buf = buf + src[:, xi[:, j]] * xw[:, j, None]
+    acc = np.zeros((out_h, out_w, x.shape[2]), np.float32)
+    for j in range(yi.shape[1]):
+        acc = acc + yw[:, j, None, None] * buf[yi[:, j]]
+    return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+
+
+def _area_linear_taps(n_in: int, n_out: int, horizontal: bool):
+    """Area-mode bilinear taps of one axis: (n_out, 2) clamped source
+    indices and fixed-point weights.  cv2 pins the last source column (not
+    row) with weight 1 where its right neighbour falls off the image."""
+    scale, inv = 1.0 / (n_out / n_in), n_out / n_in
+    idx = np.empty((n_out, 2), np.int64)
+    w = np.empty((n_out, 2), np.int64)
+    for d in range(n_out):
+        s = math.floor(d * scale)
+        fx = float(np.float32((d + 1) - (s + 1) * inv))
+        fx = 0.0 if fx <= 0 else fx - math.floor(fx)
+        if horizontal and s >= n_in - 1:
+            fx, s = 0.0, n_in - 1
+        f = np.float32(fx)
+        w[d] = _fixed(np.array([np.float32(1) - f, f], np.float32) * np.float32(COEF_SCALE))
+        idx[d] = (s, min(s + 1, n_in - 1))
+    return idx, w
+
+
+def _area_linear(x, out_h: int, out_w: int) -> np.ndarray:
+    """An upscale in an axis: cv2 emulates INTER_AREA with its fixed-point
+    bilinear filter; the vertical pass rounds as cv2's 8-bit kernel does:
+    ((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16), + 2, >> 2."""
+    h, w = x.shape[:2]
+    xi, xw = _area_linear_taps(w, out_w, True)
+    yi, yw = _area_linear_taps(h, out_h, False)
+    src = x.astype(np.int64)
+    rows = src[:, xi[:, 0]] * xw[:, 0, None] + src[:, xi[:, 1]] * xw[:, 1, None]
+    r0, r1 = rows[yi[:, 0]] >> 4, rows[yi[:, 1]] >> 4
+    out = ((yw[:, 0, None, None] * r0) >> 16) + ((yw[:, 1, None, None] * r1) >> 16)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)

@@ -1,0 +1,115 @@
+"""Generation-stage configuration (counterpart of the generation part of
+saspa_tpu/utils/config.py).
+
+`GenerationConfig` mirrors the reference's module constants of
+run_aug/run_aug.py:513-556, with its dataset overrides, the prompt
+descriptor and the output-folder layout, field for field the JAX package's
+copy, so the CLI maps onto the same configuration.  The baseline presets
+(`real_guidance`, `alia`) come with the paths they run (SDEdit, ip2p, the
+filter stage).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+from saspa_tpu_torch.gen.tokenizer import NEGATIVE_PROMPT
+
+DATASETS_SUPPORTED = ["planes", "cars", "dtd", "compcars-parts", "cub", "planes_biased"]
+
+MAX_FILENAME_LENGTH = 40  # filename stem truncation shared by gen + filter (run_aug/run_aug.py:48)
+MAX_PROMPT_LENGTH = 150  # prompt truncation (run_aug/run_aug.py:49)
+
+
+@dataclass
+class GenerationConfig:
+    """Generation-stage parameters (module constants in run_aug/run_aug.py:513-556)."""
+
+    dataset: str = "planes"
+    version: str = "v1"
+    base_model: str = "sd_v1.5"
+    controlnet: Optional[str] = "canny"
+    sdedit: bool = False
+    sdedit_strength: float = 0.85
+    num_per_image: int = 2
+    seed: int = 1
+
+    # prompts
+    prompt_type: str = "gpt-meta_class"  # txt2sentence | txt2sentence-per_class | captions | gpt-meta_class | ALIA
+    prompt_with_sub_class: bool = True
+    use_artistic_prompts: bool = True
+    artistic_prompts_prob: float = 0.5
+    use_camera_variations_prompts: bool = False
+    camera_variations_prob: float = 0.5
+    prompts_file: Optional[str] = None
+    blip_captions: Optional[str] = None
+
+    # sampling
+    resolution: int = 512
+    guidance_scale: float = 7.5
+    num_inference_steps: int = 30
+    sampler: str = "ddim"  # ddim | unipcmultistep
+    negative_prompt: Optional[str] = NEGATIVE_PROMPT
+
+    # controlnet
+    low_threshold_canny: int = 120
+    high_threshold_canny: int = 200
+    controlnet_conditioning_scale: float = 0.75
+
+    # blip-diffusion
+    style_img_from_diff_img: bool = True
+
+    # execution
+    batch_size: int = 8  # generation items per device batch
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    weights_dir: Optional[str] = None  # directory with converted checkpoints
+
+    debug: bool = False
+    specific_file_strs: Optional[Tuple[str, ...]] = None
+
+    def replace(self, **kw) -> "GenerationConfig":
+        return dataclasses.replace(self, **kw)
+
+    def with_dataset_overrides(self) -> "GenerationConfig":
+        """Dataset-conditional overrides (run_aug/run_aug.py:560-586)."""
+        cfg = self
+        if "cars" in cfg.dataset.lower():
+            cfg = cfg.replace(num_inference_steps=50)
+        if cfg.dataset.lower() == "cub":
+            cfg = cfg.replace(base_model="sd_xl-turbo")
+        if cfg.base_model == "sd_xl-turbo":
+            cfg = cfg.replace(guidance_scale=0.0, num_inference_steps=2, negative_prompt=None)
+        if cfg.sdedit:
+            assert cfg.num_inference_steps * cfg.sdedit_strength >= 1
+        return cfg
+
+    @property
+    def prompt_str(self) -> str:
+        """Output-folder prompt descriptor (run_aug/run_aug.py:668-676)."""
+        s = self.prompt_type
+        if self.prompt_with_sub_class:
+            s += "_prompt_w_sub_class"
+        if self.use_artistic_prompts:
+            s += f"_artistic_prompts_p_{self.artistic_prompts_prob}"
+        if self.use_camera_variations_prompts:
+            s += f"_camera_variations_p_{self.camera_variations_prob}"
+        if "blip_diffusion" in self.base_model and self.style_img_from_diff_img:
+            s += "_style_img_from_diff_img"
+        return s
+
+    def output_folder(self, ds_root: str) -> str:
+        """Aug-image folder layout (run_aug/run_aug.py:678-692), an artifact
+        contract of the aug-JSON matcher.  The reference also computes a
+        param-encoding last_folder_name (:682-687) but never appends it to
+        the path (:692); this is the layout it actually uses."""
+        base_model_folder = f"regular/{self.base_model}"
+        if self.sdedit:
+            base_model_folder += f"-SDEdit_strength_{self.sdedit_strength}"
+        if self.controlnet:
+            base_model_folder = base_model_folder.replace("regular/", "controlnet/")
+        return (
+            f"{ds_root}/aug_data/{base_model_folder}/{self.controlnet}/"
+            f"{self.prompt_str}_seed_{self.seed}/images"
+        )

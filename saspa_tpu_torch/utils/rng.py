@@ -1,0 +1,201 @@
+"""Deterministic RNG streams (counterpart of saspa_tpu/utils/rng.py).
+
+Every work item's randomness derives from (seed, stream, indices), so the
+generation stage's results do not depend on batch composition, sharding or
+resume point.  `host_uniform`/`host_choice` are hashlib only, as in the JAX
+package.  The per-item keys and the initial noise reproduce `jax.random`
+bit for bit without jax: `item_key` is `jax.random.fold_in` chained over a
+threefry2x32 `PRNGKey`, and `item_normal` is `jax.random.normal`'s float32
+draw, in the mode the JAX package runs (`jax_threefry_partitionable=True`,
+the default of jax 0.9 and what tests/conftest.py sets):
+  bits    = threefry2x32(key, (hi, lo) of a 64-bit iota) -> bits1 ^ bits2
+  uniform = bitcast((bits >> 9) | 0x3f800000) - 1, mapped to
+            [nextafter(-1, 0), 1)
+  normal  = sqrt(2) * erfinv(uniform), with XLA's float32 ErfInv (Giles'
+            polynomial on w = -log1p(-u^2)) and the Cephes log1p/log of
+            XLA's CPU backend.
+All arithmetic is numpy uint32 / float32, as XLA does it, with XLA's fused
+multiply-adds.  Keys, bits and uniforms equal jax's bit for bit; a normal
+can differ from jax on the CPU by an ulp where XLA orders an operation of
+its log differently (tests/test_torch_rng.py states the measured bound).
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+
+# Stable, documented stream ids; never renumber.
+STREAMS = {
+    "noise": 0,  # diffusion initial latents
+    "prompt_choice": 1,  # which prompt from the prompt pool
+    "artistic": 2,  # artistic/camera suffix coin flips + choice
+    "dropout": 3,  # model-internal randomness
+    "attention_pick": 4,  # WSDAN attention-map sampling
+    "augment": 5,  # train-time image augmentation
+    "cutmix": 6,
+    "aug_swap": 7,  # AugWrapper original/aug swap coin
+    "subject_choice": 8,  # BLIP-diffusion same-class subject image pick
+    "alia_amnesty": 9,  # 20% amnesty coin in ALIA filtering
+}
+
+_U32 = np.uint32
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return (x << _U32(r)) | (x >> _U32(32 - r))
+
+
+def threefry2x32(key, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) of the counter pairs (x0, x1)
+    under key = (k0, k1): uint32 arrays in, a pair of uint32 arrays out."""
+    k0, k1 = _U32(key[0]), _U32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ _U32(0x1BD11BDA))
+    x = [np.asarray(x0, np.uint32) + ks[0], np.asarray(x1, np.uint32) + ks[1]]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + _U32(i + 1)
+    return x[0], x[1]
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """jax.random.PRNGKey(seed) without x64: (0, the seed's low 32 bits)."""
+    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """jax.random.fold_in: the hash of the counter pair (0, data)."""
+    with np.errstate(over="ignore"):
+        a, b = threefry2x32(key, np.zeros(1, np.uint32), np.array([data & 0xFFFFFFFF], np.uint32))
+    return np.array([a[0], b[0]], np.uint32)
+
+
+def item_key(seed: int, stream: str, *indices: int) -> np.ndarray:
+    """Key for one work item, e.g. item_key(seed, 'noise', image_idx, prompt_idx)."""
+    k = fold_in(prng_key(seed), STREAMS[stream])
+    for idx in indices:
+        k = fold_in(k, idx)
+    return k
+
+
+def random_bits(key, shape) -> np.ndarray:
+    """jax.random.bits(key, shape, uint32) in the partitionable mode."""
+    n = int(np.prod(shape, dtype=np.int64))
+    iota = np.arange(n, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        b1, b2 = threefry2x32(key, (iota >> np.uint64(32)).astype(np.uint32), iota.astype(np.uint32))
+    return (b1 ^ b2).reshape(shape)
+
+
+def uniform_f32(key, shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """jax.random.uniform(key, shape, float32, minval, maxval)."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    bits = (random_bits(key, shape) >> _U32(9)) | _U32(0x3F800000)
+    floats = bits.view(np.float32) - np.float32(1.0)
+    return np.maximum(lo, floats * (hi - lo) + lo)
+
+
+def _fma(a, b, c):
+    """float32 a * b + c with one rounding, as XLA's CPU code contracts a
+    multiply that feeds an add (the f32 product is exact in f64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _horner(x, coeffs):
+    r = np.full_like(x, np.float32(coeffs[0]))
+    for c in coeffs[1:]:
+        r = _fma(r, x, np.float32(c))
+    return r
+
+
+# XLA's float32 log (the Cephes logf its CPU backend emits)
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+          -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+
+
+def _log_f32(v):
+    f = np.float32
+    t = np.maximum(np.array(0x00800000, np.uint32).view(np.float32), v.astype(np.float32))
+    e = f(1) + ((t.view(np.uint32) >> _U32(23)).astype(np.int32) - 0x7F).astype(np.float32)
+    t = ((t.view(np.uint32) & _U32(0x807FFFFF)) | _U32(0x3F000000)).view(np.float32)  # mantissa in [0.5, 1)
+    small = t < f(0.707106781186547524)
+    e = e - np.where(small, f(1), f(0))
+    t = (t - f(1)) + np.where(small, t, f(0))
+    x2 = t * t
+    x3 = x2 * t
+    p = [f(c) for c in _LOG_P]
+    y, y1, y2 = _fma(t, p[0], p[1]), _fma(t, p[3], p[4]), _fma(t, p[6], p[7])
+    y, y1, y2 = _fma(y, t, p[2]), _fma(y1, t, p[5]), _fma(y2, t, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2) * x3
+    y = _fma(f(-2.12194440e-4), e, y)
+    t = _fma(-f(0.5), x2, t) + y
+    return _fma(f(0.693359375), e, t)
+
+
+# XLA's float32 log1p: a Cephes rational approximation below sqrt(2) - 1
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.2176239823732856465394e2,
+              3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
+              2.9911919328553073277375e1, 6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+
+
+def _log1p_f32(x):
+    f = np.float32
+    x2 = x * x
+    small = (x * x2) * (_horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN))
+    small = x + _fma(-f(0.5), x2, small)
+    return np.where(np.abs(x) < f(0.41421356237309504880), small, _log_f32(f(1) + x))
+
+
+# XLA's float32 ErfInv (Giles, "Approximating the erfinv function"):
+# coefficients for w < 5 and for w >= 5, highest degree first
+_ERFINV_LT5 = np.array([2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+                        -0.00125372503, -0.00417768164, 0.246640727, 1.50140941], np.float32)
+_ERFINV_GE5 = np.array([-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+                        -0.0076224613, 0.00943887047, 1.00167406, 2.83297682], np.float32)
+
+
+def erfinv_f32(x) -> np.ndarray:
+    x = np.asarray(x, np.float32)
+    f = np.float32
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        w = -_log1p_f32(-x * x)
+        lt = w < f(5.0)
+        w = np.where(lt, w - f(2.5), np.sqrt(w) - f(3.0))
+        p = np.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+        for i in range(1, len(_ERFINV_LT5)):
+            p = _fma(p, w, np.where(lt, _ERFINV_LT5[i], _ERFINV_GE5[i]))
+        return np.where(np.abs(x) == f(1.0), x * np.finfo(np.float32).max, p * x).astype(np.float32)
+
+
+def normal_f32(key, shape) -> np.ndarray:
+    """jax.random.normal(key, shape, float32)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform_f32(key, shape, lo, 1.0)
+    return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)
+
+
+def item_normal(seed: int, stream: str, *indices: int, shape) -> np.ndarray:
+    """jax.random.normal(item_key(seed, stream, *indices), shape, float32)."""
+    return normal_f32(item_key(seed, stream, *indices), tuple(shape))
+
+
+def host_uniform(seed: int, stream: str, *indices: int) -> float:
+    """A cheap host-side uniform in [0,1) derived from the same mapping, for
+    host-side control flow (file skipping, sampling ratios) that must not
+    depend on traced values."""
+    h = hashlib.sha256(
+        f"{seed}:{STREAMS[stream]}:{':'.join(map(str, indices))}".encode()
+    ).digest()
+    return int.from_bytes(h[:8], "little") / 2**64
+
+
+def host_choice(n: int, seed: int, stream: str, *indices: int) -> int:
+    """Host-side integer choice in [0, n)."""
+    return int(host_uniform(seed, stream, *indices) * n) % max(n, 1)

@@ -125,6 +125,26 @@ def test_attention_block_kernel_matches_plain(gen, b, l, c, h):
     assert (out.float() - ref.float()).abs().max() <= 1e-2 * term.abs().max()
 
 
+@pytest.mark.parametrize("b,lq,lk,h,d", [(2, 256, 256, 8, 40), (1, 512, 512, 4, 80), (1, 256, 256, 2, 160),
+                                          (2, 384, 384, 2, 64), (1, 128, 320, 2, 40), (1, 1024, 1024, 1, 40)])
+def test_flash_attention_kernel_matches_plain(gen, b, lq, lk, h, d):
+    """K6 vs its plain version on unpadded (B, L, H, d) heads: the same bf16
+    rounding of q * scale, P and the output; the kernel's 64-key tiles round P
+    against another running max than the plain version's 512/256/Lk-key
+    chunks: |diff| <= 1% of the largest output.  q of std 3 peaks each
+    query's softmax on a few keys.  L = 384 and 320 are not multiples of 128;
+    the fifth case has Lq != Lk."""
+    scale = d ** -0.5
+    q = (3.0 * torch.randn(b, lq, h, d, generator=gen, device="cuda")).to(torch.bfloat16)
+    k, v = (torch.randn(b, lk, h, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    before = attention.flash_launches
+    out = attention.flash_attention(q, k, v, scale)
+    assert attention.flash_launches == before + 1
+    ref = attention.flash_attention_plain(q, k, v, scale)
+    assert out.shape == ref.shape == q.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     x = torch.zeros(1, 256, 64, device="cuda")  # f32 on the card
     with pytest.raises(TypeError):
@@ -144,3 +164,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     w = torch.zeros(40, 40, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError):  # head dim 40: not padded
         attention.attention_block_fused(y, y, w, w, w, w, ones[:40], 1)
+    z = torch.zeros(1, 256, 2, 40, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(TypeError):
+        attention.flash_attention(z.float(), z.float(), z.float(), 0.1)
+    with pytest.raises(ValueError):  # L not a multiple of 64
+        attention.flash_attention(z[:, :200], z[:, :200], z[:, :200], 0.1)
+    with pytest.raises(ValueError):  # head dim 512: past K6's padded dims
+        attention.flash_attention(*(torch.zeros(1, 256, 1, 512, dtype=torch.bfloat16, device="cuda"),) * 3, 0.1)
+    zs = torch.zeros(1, 256, 2, 48, dtype=torch.bfloat16, device="cuda")[..., :40]
+    with pytest.raises(ValueError):  # not contiguous
+        attention.flash_attention(zs, zs, zs, 0.1)

@@ -1,0 +1,198 @@
+"""Parity of the port's generation entry point with the JAX package's, on the CPU.
+
+The stub planes tree of tests/test_generation_driver.py (three 96x128
+PIL-written JPEG sources) goes through both drivers: the JAX package's
+`run_generation` with the tiny canny pipeline of tests/test_torch_pipeline.py
+and the port's with the same params carried over by the bridge, f32.  The
+port reads the JPEGs through PIL here (the card's machine reads PNG only),
+resizes them with its own cv2 arithmetic and draws each item's noise with
+its numpy copy of jax.random.normal.
+"""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import saspa_tpu.data.registry as JR
+import saspa_tpu_torch.data.registry as TR
+from saspa_tpu.gen.driver import run_generation as jax_run_generation
+from saspa_tpu_torch.diffusion.pipelines import DiffusionPipeline, init_pipeline
+from saspa_tpu_torch.gen import driver as tdriver
+from saspa_tpu_torch.gen.prompts import PromptEngine
+from saspa_tpu_torch.utils.config import GenerationConfig
+from tests.test_generation_driver import StubPlanesUtils
+from tests.test_golden_generation import G_TEXT, G_UNET, G_VAE
+from tests.test_torch_pipeline import P_TEXT, P_UNET, P_VAE, _PresetJaxPipeline, tiny_params
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture()
+def stub_tree(tmp_path, monkeypatch):
+    images = tmp_path / "ds" / "images"
+    images.mkdir(parents=True)
+    rng = np.random.RandomState(0)
+    for i in range(3):
+        Image.fromarray(rng.randint(0, 255, (96, 128, 3), np.uint8)).save(images / f"{2000000 + i}.jpg")
+
+    def stub(print_func=print):
+        return StubPlanesUtils(tmp_path / "ds", print_func)
+
+    monkeypatch.setitem(JR.DS_UTILS_DICT, "planes", stub)
+    monkeypatch.setitem(TR.DS_UTILS_DICT, "planes", stub)
+    return tmp_path
+
+
+def _cfg(**kw):
+    base = dict(dataset="planes", base_model="sd_v1.5", controlnet="canny", num_per_image=2, seed=1,
+                prompt_type="gpt-meta_class", resolution=64, guidance_scale=7.5, num_inference_steps=2,
+                batch_size=4)
+    base.update(kw)
+    return GenerationConfig(**base)
+
+
+def _jax_cfg(cfg):
+    from saspa_tpu.utils.config import GenerationConfig as JaxGenerationConfig
+
+    return JaxGenerationConfig(**dataclasses.asdict(cfg))
+
+
+def _pipes():
+    params = tiny_params()
+    _PresetJaxPipeline.preset = params
+    jp = _PresetJaxPipeline(base_model="sd_v1.5", controlnet="canny", sampler="ddim", dtype=jnp.float32,
+                            unet_cfg=G_UNET, vae_cfg=G_VAE, text_cfgs=G_TEXT)
+    tp = DiffusionPipeline(controlnet="canny", device="cpu", dtype=torch.float32, init_seed=None,
+                           unet_cfg=P_UNET, vae_cfg=P_VAE, text_cfgs=P_TEXT)
+    tp.load_flax_params(params)
+    return jp, tp
+
+
+def _pngs(folder):
+    return {p.name: np.asarray(Image.open(p)) for p in sorted(Path(folder).glob("*.png"))}
+
+
+def test_run_generation_matches_jax(stub_tree, caplog):
+    """3 sources x 2 prompts at 64^2 (INTER_AREA from 96x128), batch 4 (the
+    second batch padded), 2 DDIM steps, CFG 7.5, canny ControlNet.  Both
+    drivers write the same file set (the names carry the prompts); the
+    _source and _control PNGs are bit-equal; the generated images agree to
+    1 uint8 level on >= 99% of the pixels (the f32 network's rounding, as in
+    test_fused_generate_matches_jax, plus the noise's last-ulp
+    differences).  The telemetry line carries num_errors = 0."""
+    jp, tp = _pipes()
+    cfg = _cfg()
+    want_dir = jax_run_generation(_jax_cfg(cfg), pipe=jp)
+    want = _pngs(want_dir)
+    for p in Path(want_dir).glob("*.png"):
+        p.unlink()
+    caplog.set_level("INFO")
+    got_dir = tdriver.run_generation(cfg, pipe=tp)
+    assert got_dir == want_dir
+    got = _pngs(got_dir)
+    assert sorted(got) == sorted(want) and len(got) == 6 + 3 + 3
+    gen = [n for n in got if "_source" not in n and "_control" not in n]
+    assert len(gen) == 6 and all("_prompt_" in n for n in gen)
+    for name in got:
+        a, b = got[name].astype(np.int32), want[name].astype(np.int32)
+        assert a.shape == b.shape, name
+        if name in gen:
+            assert a.shape == (64, 64, 3)
+            d = np.abs(a - b)
+            assert d.max() <= 1 and np.mean(d == 0) >= 0.99, (name, d.max(), np.mean(d == 0))
+        else:
+            assert np.array_equal(a, b), name
+    tele = [r.getMessage() for r in caplog.records if r.getMessage().startswith("generation telemetry: ")]
+    assert tele and '"num_errors": 0' in tele[-1] and '"total": 6' in tele[-1]
+
+
+def test_resume_leaves_no_work(stub_tree):
+    """A second run finds every output on disk: an empty worklist, and no
+    file is written again."""
+    _, tp = _pipes()
+    cfg = _cfg(controlnet=None, num_inference_steps=1)
+    folder = tdriver.run_generation(cfg, pipe=tp)
+    stamps = {p: p.stat().st_mtime_ns for p in Path(folder).glob("*.png")}
+    assert len(stamps) == 6 + 3
+    ds = TR.DS_UTILS_DICT["planes"]()
+    c = cfg.with_dataset_overrides()
+    engine = PromptEngine(c, ds, ds.get_image_stem_to_class_str_dict())
+    assert tdriver.build_worklist(c, ds, engine, folder) == []
+    tdriver.run_generation(cfg, pipe=tp)
+    assert {p: p.stat().st_mtime_ns for p in Path(folder).glob("*.png")} == stamps
+
+
+def test_save_source_and_control_uses_global_index(tmp_path):
+    """Shards pass (global index, path) pairs: the first-10 _control.png rule
+    follows the global index, as in the JAX driver."""
+    paths = []
+    for i in range(12):
+        p = tmp_path / f"img_{i:02d}.png"
+        Image.fromarray((np.random.RandomState(i).rand(32, 32, 3) * 255).astype(np.uint8)).save(p)
+        paths.append(str(p))
+    out = tmp_path / "out"
+    out.mkdir()
+    tdriver._save_source_and_control(GenerationConfig(controlnet="canny", resolution=64),
+                                     list(enumerate(paths))[1::2], str(out))
+    assert sorted(f.name for f in out.glob("*_control.png")) == [f"img_{i:02d}_control.png" for i in (1, 3, 5, 7, 9)]
+    assert len(list(out.glob("*_source.png"))) == 6
+
+
+@pytest.mark.parametrize("argv", [
+    ["gen", "--dataset", "planes", "--resolution", "1024", "--skip_filter"],
+    ["gen", "--dataset", "cars", "--controlnet", "none", "--num_per_image", "3", "--seed", "7", "--no_sub_class",
+     "--guidance_scale", "5", "--num_inference_steps", "12", "--controlnet_scale", "0.5", "--batch_size", "4",
+     "--debug", "--version", "v2", "--prompt_type", "captions", "--skip_filter"],
+])
+def test_cli_flags_map_to_the_same_config(argv, monkeypatch):
+    """The port's `gen` flags build the JAX CLI's GenerationConfig, field for
+    field; both CLIs are driven with their run_generation replaced."""
+    import saspa_tpu.cli as jcli
+    import saspa_tpu.gen.driver as jdriver
+    import saspa_tpu.utils.logging_utils as jlog
+    import saspa_tpu_torch.cli as tcli
+
+    seen = {}
+    monkeypatch.setattr(jdriver, "run_generation", lambda cfg, **kw: seen.setdefault("jax", cfg))
+    monkeypatch.setattr(tdriver, "run_generation", lambda cfg, **kw: seen.setdefault("port", cfg))
+    monkeypatch.setattr(jlog, "init_logging", lambda **kw: None)
+    monkeypatch.setattr("saspa_tpu.utils.enable_compilation_cache", lambda *a, **k: None)
+    jcli.main(argv)
+    tcli.main(argv)
+    assert dataclasses.asdict(seen["port"]) == dataclasses.asdict(seen["jax"])
+    assert dataclasses.asdict(seen["port"].with_dataset_overrides()) == \
+        dataclasses.asdict(seen["jax"].with_dataset_overrides())
+    assert seen["port"].output_folder("/d") == seen["jax"].output_folder("/d")
+
+
+def test_cli_refuses_what_is_not_ported(monkeypatch):
+    import saspa_tpu_torch.cli as tcli
+
+    monkeypatch.setattr(tdriver, "run_generation", lambda cfg, **kw: None)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tcli.main(["gen", "--resolution", "1024"])  # no --skip_filter: the filter stage
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tcli.main(["gen", "--preset", "alia", "--skip_filter"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        init_pipeline("sd_xl", "canny")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        init_pipeline("sd_v1.5", "canny", weights_dir="/nowhere")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        tdriver._check_supported(GenerationConfig(controlnet="hed"))
+
+
+def test_importing_the_entry_point_loads_no_jax_pil_or_cv2():
+    code = (
+        "import sys, saspa_tpu_torch.cli, saspa_tpu_torch.gen.driver, saspa_tpu_torch.gen.image_io, "
+        "saspa_tpu_torch.diffusion.pipelines, saspa_tpu_torch.data.registry, saspa_tpu_torch.gen.prompts\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'saspa_tpu', 'PIL', 'cv2'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -70,10 +70,13 @@ def test_plain_attention_matches_xla_attention():
 
 
 def test_packed_eligibility_is_shape_only():
-    assert tatt.packed_flash_eligible(4096, 4096) and tatt.packed_flash_eligible(256, 256)
-    assert not tatt.packed_flash_eligible(64, 64)  # SD1.5 mid block at 512^2
-    assert not tatt.packed_flash_eligible(4096, 77)  # cross-attention
-    assert not tatt.packed_flash_eligible(320, 320)  # not a multiple of 128
+    """The packed predicate reads shapes and the activation itemsize only
+    (its guard against JAX's at every shape: test_torch_flash_attention.py)."""
+    assert tatt.packed_flash_eligible(4096, 4096, 8, 40) and tatt.packed_flash_eligible(256, 256, 8, 160)
+    assert not tatt.packed_flash_eligible(64, 64, 8, 160)  # SD1.5 mid block at 512^2
+    assert not tatt.packed_flash_eligible(4096, 77, 8, 40)  # cross-attention
+    assert not tatt.packed_flash_eligible(320, 320, 8, 40)  # not a multiple of 128
+    assert not tatt.packed_flash_eligible(16384, 16384, 8, 40)  # SD1.5 level 0 at 1024^2: past the guard
     assert [tatt.pad_head_dim(d) for d in (40, 80, 160, 512, 64)] == [64, 128, 192, 512, 64]
     assert all(jatt.pad_head_dim(d) == tatt.pad_head_dim(d) for d in (16, 40, 80, 160, 512))
 
