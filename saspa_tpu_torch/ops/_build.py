@@ -44,7 +44,7 @@ KERNELS = tuple(SIGNATURES)
 
 _lock = threading.Lock()
 _loaded: dict = {}
-build_log: dict = {}  # name -> nvcc's stderr (register / spill report from -Xptxas -v)
+build_log: dict = {}  # name -> nvcc's stderr (register / spill report from -Xptxas -v), kept beside the library
 
 
 def _nvcc() -> str:
@@ -66,6 +66,9 @@ def _lib_path(name: str) -> Path:
 def _start(name: str):
     out = _lib_path(name)
     if out.exists():
+        log = out.with_suffix(".log")
+        if log.exists():
+            build_log[name] = log.read_text()
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -81,6 +84,7 @@ def _finish(name: str, out: Path, job) -> None:
     build_log[name] = stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{stdout}\n{stderr}")
+    out.with_suffix(".log").write_text(stderr)
     os.replace(tmp, out)
 
 

@@ -223,7 +223,10 @@ def flash_attention_packed_plain(q, k, v, heads: int):
 def flash_attention_packed(q, k, v, heads: int):
     """q: (B, L, H*D_pad) with softmax_scale*log2(e) folded in; k, v: (B, L,
     H*D_pad).  Returns (B, L, H*D_pad); padded output columns are exactly 0.
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel: bf16,
+    contiguous and 16-byte aligned (its TMA loads), D_pad 64/128/192 with
+    L % 128 == 0 (its 128- or 256-row query blocks; `packed_flash_eligible`
+    admits no other L), or the VAE's D_pad 512 with L % 64 == 0."""
     global launches
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, heads)
@@ -233,10 +236,11 @@ def flash_attention_packed(q, k, v, heads: int):
         raise TypeError(f"flash_attention_packed takes bf16 on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != q.shape or v.shape != q.shape or hd != heads * dp:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} heads {heads}")
-    if dp not in PACKED_HEAD_DIMS or l % 64:
-        raise ValueError(f"packed kernel takes head dim in {PACKED_HEAD_DIMS} and L % 64 == 0, got {dp}, {l}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_packed needs contiguous q, k, v")
+    if dp not in PACKED_HEAD_DIMS or l % (64 if dp == 512 else 128):
+        raise ValueError(f"packed kernel takes head dim in {PACKED_HEAD_DIMS} with L % 128 == 0 (L % 64 == 0 at "
+                         f"512), got {dp}, {l}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        raise ValueError("flash_attention_packed needs contiguous, 16-byte aligned q, k, v")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v on different devices")
     out = torch.empty_like(q)

@@ -40,6 +40,31 @@ def test_attention_packed_kernel_matches_plain(gen, b, l, h, d, dp):
     assert (out.reshape(b, l, h, dp)[..., d:] == 0).all()
 
 
+@pytest.mark.parametrize("b,l,h,d,dp", [(2, 256, 8, 40, 64), (8, 1024, 8, 40, 64), (2, 384, 2, 40, 64),
+                                        (2, 256, 4, 80, 128), (8, 1024, 8, 80, 128), (2, 384, 2, 80, 128),
+                                        (1, 128, 2, 160, 192), (2, 256, 2, 160, 192), (4, 1024, 8, 160, 192)])
+def test_attention_packed_wgmma_kernel_peaked(gen, b, l, h, d, dp):
+    """The wgmma kernel (head dims 64/128/192) on peaked scores: q of std 3
+    before the scale puts each query's softmax on a few keys, so a permuted,
+    half-swizzled or dropped K/V tile changes the output.  L = 128 and 256
+    stay within one turn of the 3-stage K/V ring, L = 1024 wraps it several
+    times; the L = 1024 cases launch 256 blocks (two waves on 132 SMs); L =
+    384 takes the 2-warpgroup blocks at head dims 64 and 128 (L % 256 != 0).
+    |diff| <= 1% of the largest output; pad columns exactly 0."""
+    def padded(x):
+        return torch.nn.functional.pad(x, (0, dp - d)).reshape(b, l, h * dp).to(torch.bfloat16).contiguous()
+
+    q = padded(torch.randn(b, l, h, d, generator=gen, device="cuda") * (3.0 * attention.LOG2E / math.sqrt(d)))
+    k, v = (padded(torch.randn(b, l, h, d, generator=gen, device="cuda")) for _ in range(2))
+    before = attention.launches
+    out = attention.flash_attention_packed(q, k, v, h)
+    assert attention.launches == before + 1
+    ref = attention.flash_attention_packed_plain(q, k, v, h)
+    assert ref.float().abs().max() >= 2.0  # peaked: a few keys carry each output
+    assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    assert (out.reshape(b, l, h, dp)[..., d:] == 0).all()
+
+
 @pytest.mark.parametrize("m,c", [(256, 64), (96, 128), (32, 320)])
 def test_ln_geglu_kernel_matches_plain(gen, m, c):
     """Same bf16 rounding points; f32 summation order differs: |diff| <= 1%
@@ -152,6 +177,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     y = x[:, :, :40].to(torch.bfloat16).contiguous()  # head dim 40: not padded
     with pytest.raises(ValueError):
         attention.flash_attention_packed(y, y, y, 1)
+    for dp in (64, 128, 192):  # L = 192: the wgmma kernel's blocks take 128 or 256 rows
+        x192 = torch.zeros(1, 192, 2 * dp, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError):
+            attention.flash_attention_packed(x192, x192, x192, 2)
     ones = torch.ones(64, device="cuda")
     with pytest.raises(TypeError):  # f32 activations
         groupnorm.group_norm(x.reshape(1, 64, 256), ones, ones)
