@@ -5,12 +5,15 @@
 
 Phases, each printing one JSON line:
   1. build   -- builds every CUDA kernel of the port from saspa_tpu_torch/csrc
-                (one nvcc per source, in parallel) and reports K1's wgmma
-                kernels' registers and spills (ptxas), requiring no spills;
+                (one nvcc per source, in parallel) and reports the registers
+                and spills (ptxas) of K1's and K6's wgmma kernels, requiring
+                no spills;
   2. kernels -- each kernel against its plain PyTorch version on the card at
                 every main-path shape, from the same seeded bf16 inputs, with
-                kernel / plain / library times from CUDA events (K1's rows also
-                carry kernel / library and bound / kernel).  K1/K2 shapes
+                kernel / plain / library times from CUDA events (K1's and K6's
+                rows also carry kernel / library and bound / kernel; the bound
+                of K1, K5 and K6 counts one exp2 a score on the special-
+                function units at the card's maximum SM clock).  K1/K2 shapes
                 are listed below; the GroupNorm (K3), LayerNorm (K4) and
                 self-attention block (K5) shapes are recorded by forward hooks
                 during the main path's warm-up, and K3's and K4's also during
@@ -68,6 +71,8 @@ import torch
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM at 700 W
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores (norm arithmetic)
 H100_HBM_BYTES = 3.35e12  # HBM3 bytes/s
+EXP_PER_CLOCK = 16  # exp2 results a clock per SM on the special-function unit (compute capability 9.0)
+SM_CLOCK_HZ = 1.98e9  # replaced in main() by the card's clocks.max.sm (nvidia-smi)
 
 # K1 shapes on the main path at 512^2 and the gen path at 1024^2: (what, B, L, H, d, d_pad)
 K1_SHAPES = [
@@ -130,9 +135,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS, exps: float = 0.0):
+    """The least time in ms and what sets it: flops at peak ("operations"),
+    bytes at the HBM rate ("bytes") or, for a softmax, one exp2 a score on
+    the special-function units of every SM at the maximum SM clock ("exp")."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return max((flops / peak * 1e3, "operations"), (nbytes / H100_HBM_BYTES * 1e3, "bytes"),
+               (exps / (sms * EXP_PER_CLOCK * SM_CLOCK_HZ) * 1e3, "exp"))
 
 
 def bf16_ulps(out, ref, mag):
@@ -169,8 +178,9 @@ def require_ulps(what, out, ref, mag_of, slices, max_ulps=8, min_equal=0.999):
     return err, ref_max, ulps, equal
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def nvidia_smi_line(query: str = "name,power.limit", units: bool = True) -> str:
+    fmt = "--format=csv,noheader" + ("" if units else ",nounits")
+    out = subprocess.run(["nvidia-smi", "-i", "0", f"--query-gpu={query}", fmt],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -204,6 +214,26 @@ def k1_ptxas(log: str) -> dict:
     return rep
 
 
+K6_INSTANCES = sorted([f"dp64_trim_bn{bn}_wg{wg}" for bn in (128, 64) for wg in (4, 2, 1)]
+                      + [f"dp64_bn{bn}_wg{wg}" for bn in (128, 64) for wg in (4, 2, 1)]
+                      + [f"dp128_bn64_wg{wg}" for wg in (4, 2, 1)] + ["dp192_bn64_wg2", "dp192_bn64_wg1"])
+
+
+def k6_ptxas(log: str) -> dict:
+    """K6's kernel per (padded head dim, trimmed widths, key tile,
+    warpgroups) instantiation: registers, spills, and wgmma_serialized where
+    ptxas serialised its wgmmas (warning C7514)."""
+    def key(m):
+        return f"dp{m[1]}{'_trim' if m[2] == '1' else ''}_bn{m[3]}_wg{m[4]}"
+
+    pat = r"flash_attention_kernelILi(\d+)ELb([01])ELi(\d+)ELi(\d+)E"
+    rep = {key(m): r for fn, r in ptxas_report(log).items() if (m := re.search(pat, fn))}
+    for ln in log.splitlines():
+        if "C7514" in ln and (m := re.search(pat, ln)) and key(m) in rep:
+            rep[key(m)]["wgmma_serialized"] = True
+    return rep
+
+
 def check_k1(gen):
     from saspa_tpu_torch.ops import attention as att
 
@@ -234,7 +264,7 @@ def check_k1(gen):
         ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, h), 10)
         plain_ms = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, h), 3, warmup=1)
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=math.log(2.0)), 10)
-        b_ms, b_by = bound(4.0 * b * h * l * l * dp, 4 * b * l * h * dp * 2)
+        b_ms, b_by = bound(4.0 * b * h * l * l * dp, 4 * b * l * h * dp * 2, exps=b * h * l * l)
         rows.append(dict(shape=what, B=b, L=l, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
                          pad_cols_zero=pad_zero, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by, lib_ratio=ms / lib_ms, bound_share=b_ms / ms))
@@ -259,7 +289,7 @@ def check_k6(gen):
         err = (out.float() - ref.float()).abs().max().item()
         ref_max = ref.float().abs().max().item()
         # the same bf16 rounding of q * scale, P and the output; the kernel
-        # rounds P against the running max of 64-key tiles, the plain version
+        # rounds P against the running max of 128-key tiles, the plain version
         # of 512/256-key chunks: 1% of the largest output, as for K1
         require(err <= 1e-2 * ref_max, what, "max |kernel - plain|", err, "> 1% of", ref_max)
         del ref
@@ -267,11 +297,12 @@ def check_k6(gen):
         plain_ms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, scale), 1, warmup=1)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's (B, H, L, d)
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale), 3)
-        # the function's work is on d-wide heads: the padding to dp is the
-        # kernel's own choice, made in shared memory (K1's inputs come padded)
-        b_ms, b_by = bound(4.0 * b * h * l * l * d, 4 * b * l * h * d * 2)
+        # the function's work is on d-wide heads (the padding is the kernel's
+        # own choice; K1's inputs come padded), and one exp a score
+        b_ms, b_by = bound(4.0 * b * h * l * l * d, 4 * b * l * h * d * 2, exps=b * h * l * l)
         rows.append(dict(shape=what, B=b, L=l, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         lib_ratio=ms / lib_ms, bound_share=b_ms / ms))
         del q, k, v, out, qh, kh, vh
         torch.cuda.empty_cache()
     return rows
@@ -433,7 +464,8 @@ def check_k5(gen, sites):
         ms = cuda_ms(lambda: att.attention_block_fused(*args), 10)
         plain_ms = cuda_ms(lambda: att.attention_block_fused_plain(*args), 2, warmup=1)
         m, hd = b * l, h * dp
-        b_ms, b_by = bound(8.0 * m * c * hd + 4.0 * b * h * l * l * dp, 2 * 3 * m * c + 2 * 4 * c * hd + 4 * c)
+        b_ms, b_by = bound(8.0 * m * c * hd + 4.0 * b * h * l * l * dp, 2 * 3 * m * c + 2 * 4 * c * hd + 4 * c,
+                           exps=b * h * l * l)
         rows.append(dict(shape=what, B=b, L=l, C=c, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
                          term_max=term_max, equal_share=equal, ms=ms, plain_ms=plain_ms, library_ms=None,
                          bound_ms=b_ms, bound_by=b_by))
@@ -753,12 +785,18 @@ def main() -> int:
     from saspa_tpu_torch.ops import _build
     from saspa_tpu_torch.ops.canny import canny_batch
 
+    global SM_CLOCK_HZ
     smi = nvidia_smi_line()
+    SM_CLOCK_HZ = float(nvidia_smi_line("clocks.max.sm", units=False)) * 1e6
     build_s = _build.build_all()
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
              for k, v in _build.build_log.items()}
-    emit({"phase": "build", "seconds": build_s, "nvidia_smi": smi, "ptxas": ptxas,
-          "k1_wgmma": k1_ptxas(_build.build_log.get("attention_packed", ""))})
+    k6 = k6_ptxas(_build.build_log.get("flash_attention", ""))
+    emit({"phase": "build", "seconds": build_s, "nvidia_smi": smi, "sm_clock_max_hz": SM_CLOCK_HZ, "ptxas": ptxas,
+          "k1_wgmma": k1_ptxas(_build.build_log.get("attention_packed", "")), "k6_wgmma": k6})
+    require(sorted(k6) == K6_INSTANCES, "K6 instantiations in the ptxas report", sorted(k6))
+    require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in k6.values()),
+            "K6 kernels spill", k6)
 
     # ---- the pipelines of both configurations, one set of seeded weights ---
     t0 = time.perf_counter()
@@ -926,7 +964,10 @@ def main() -> int:
                         "replaces": replaces, "launches": sum(c[name] for c in counts.values()),
                         "launches_by_config": {c: counts[c][name] for c in counts},
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
-                        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}})
+                        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shape")},
+                        # an exp2 on the special-function unit is an operation too
+                        "bound_by": "operations" if row["bound_by"] == "exp" else row["bound_by"],
+                        "bound_term": row["bound_by"]})
     print(json.dumps({"kernels": kernels}), flush=True)  # the result lines carry no t_s
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

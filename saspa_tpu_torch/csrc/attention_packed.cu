@@ -37,14 +37,15 @@
 // sub-partition and cap every thread at 168 registers, which spills at
 // DP 128/192; so a consumer thread in the last warpgroup loads instead.
 // The epilogue divides by the row sum and writes bf16 from registers.
-// Tiles use the 128-byte swizzle (wgmma_tma.cuh).
+// Tiles use the 128-byte swizzle (wgmma_tma.cuh); the per-tile step
+// (products, softmax, repacking) is attention_wgmma.cuh, shared with K6.
 //
 // The VAE's single 512-wide head (DP = 512) keeps the mma.sync tile loop of
 // attention_tile.cuh: a 64 x 512 f32 accumulator does not fit one warpgroup's
 // registers, so each block owns a 128-column slice of the output and
 // recomputes the scores for its slice.
 #include "attention_tile.cuh"
-#include "wgmma_tma.cuh"
+#include "attention_wgmma.cuh"
 
 namespace saspa {
 
@@ -64,105 +65,6 @@ struct WgCfg {
     static constexpr size_t SMEM = Q_BYTES + STAGES * 2 * TILE_BYTES + 1024;  // + 1024-byte alignment
     static_assert(SMEM + 128 <= 232448, "shared memory per block (the barriers are static)");
 };
-
-// S = Q K^T for this warpgroup's 64 rows and one BN-key tile (issued, not waited).
-template <int DP, int BN, int Q_BOX>
-__device__ __forceinline__ void issue_qk(float (&s)[BN / 2], uint32_t qa, uint32_t kb) {
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint32_t koff = (kk % 4) * 32;  // 16 columns = 32 bytes into the 128-byte row
-        const uint64_t da = sw128_desc(qa + (kk / 4) * Q_BOX + koff, 16, 1024);
-        const uint64_t db = sw128_desc(kb + (kk / 4) * BN * 128 + koff, 16, 1024);
-        if constexpr (BN == 128) wgmma_ss_n128(s, da, db, kk > 0);
-        else wgmma_ss_n64(s, da, db, kk > 0);
-    }
-}
-
-// O += bf16(P) V over one BN-key tile (issued, not waited).
-template <int DP, int BN>
-__device__ __forceinline__ void issue_pv(float (&o)[DP / 2], uint32_t (&p)[BN / 16][4], uint32_t vb) {
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-        const uint64_t dv = sw128_desc(vb + kc * 16 * 128, BN * 128, 1024);
-        if constexpr (DP == 64) wgmma_rs_n64(o, p[kc], dv);
-        else if constexpr (DP == 128) wgmma_rs_n128(o, p[kc], dv);
-        else wgmma_rs_n192(o, p[kc], dv);
-    }
-}
-
-// 2^x in one MUFU instruction; results below 2^-126 flush to 0 (beside a
-// row sum >= 1 they are nothing).
-__device__ __forceinline__ float exp2_ftz(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// Online softmax (base 2) of one tile's scores, in place: s becomes
-// exp2(s - new max); the row sums l take the factors al and the new terms.
-template <int BN>
-__device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float& m0, float& m1, float& l0, float& l1,
-                                               float& al0, float& al1) {
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    al0 = exp2_ftz(m0 - mn0);
-    al1 = exp2_ftz(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= al0;
-    l1 *= al1;
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i) {
-        s[4 * i] = exp2_ftz(s[4 * i] - mn0);
-        s[4 * i + 1] = exp2_ftz(s[4 * i + 1] - mn0);
-        s[4 * i + 2] = exp2_ftz(s[4 * i + 2] - mn1);
-        s[4 * i + 3] = exp2_ftz(s[4 * i + 3] - mn1);
-        l0 += s[4 * i] + s[4 * i + 1];
-        l1 += s[4 * i + 2] + s[4 * i + 3];
-    }
-}
-
-// bf16(P) as wgmma's register A operand: 16 keys per step, S's chunks 2kc, 2kc+1.
-template <int BN>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[BN / 16][4], const float (&s)[BN / 2]) {
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-        p[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
-        p[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
-        p[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
-        p[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
-    }
-}
-
-// O *= the factors of its rows; skipped (the same result) where no row of
-// the warp has a new max.
-template <int N>
-__device__ __forceinline__ void rescale(float (&o)[N], float al0, float al1) {
-    if (!__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) return;
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-        o[4 * i] *= al0;
-        o[4 * i + 1] *= al0;
-        o[4 * i + 2] *= al1;
-        o[4 * i + 3] *= al1;
-    }
-}
-
-template <int BN>
-__device__ __forceinline__ void fence_p(uint32_t (&p)[BN / 16][4]) {
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) fence_regs(p[kc]);
-}
 
 template <int DP, int WGS>
 __global__ void __launch_bounds__(WgCfg<DP, WGS>::THREADS, 1)
@@ -240,7 +142,7 @@ attention_packed_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __gr
         wgmma_wait<0>();
         fence_regs(sacc);
         float al0, al1;
-        online_softmax<BN>(sacc, m0, m1, l0, l1, al0, al1);
+        online_softmax<BN>(sacc, 1.f, m0, m1, l0, l1, al0, al1);  // scores are base 2
         rescale(oacc, al0, al1);
         pack_p<BN>(pa, sacc);
         fence_regs(oacc);

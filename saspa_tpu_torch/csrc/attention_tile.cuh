@@ -1,5 +1,5 @@
-// Streamed attention of one 64-row query tile, shared by K1
-// (attention_packed.cu), K5 (attention_block.cu) and K6 (flash_attention.cu).
+// Streamed attention of one 64-row query tile on mma.sync, shared by K1's
+// 512-wide VAE head (attention_packed.cu) and K5 (attention_block.cu).
 //
 // For one (batch row, head), softmax2(Q K^T) V over the L keys: 4 warps,
 // each owning 16 query rows; Q.K^T and P.V on bf16 mma.sync m16n8k16 with f32
@@ -7,15 +7,9 @@
 // (double-buffered with cp.async where shared memory allows, DP <= 192) with
 // an online (running max/sum) softmax in base 2.  Scores, running max, sum
 // and the output accumulator are f32; P is rounded to bf16 before the P.V
-// product, as the TPU kernels do; the output is rounded to bf16.
-//
-// Two layouts.  Packed (K1, K5): K, V and the output rows hold the padded
-// head dims, and log2(e) is folded into q, so the scores are base 2.
-// Unpadded (K6, UNPADDED = true): the rows hold only the model's `dc` head
-// columns (dc % 8 == 0); the caller zeroes columns dc..DP-1 of every shared
-// K/V buffer once, the loads fill columns 0..dc-1, and only those output
-// columns are written.  Its scores are base e: they are multiplied by
-// log2(e) before the base-2 softmax, which computes the same exp(s - max).
+// product, as the TPU kernels do; the output is rounded to bf16.  K, V and
+// the output rows hold the padded head dims, and log2(e) is folded into q,
+// so the scores are base 2.
 #pragma once
 
 #include "mma_bf16.cuh"
@@ -27,7 +21,6 @@ namespace saspa {
 constexpr int ATT_BM = 64;       // query rows per block
 constexpr int ATT_BN = 64;       // keys per K/V tile
 constexpr int ATT_THREADS = 128;
-constexpr float LOG2E_F = 1.4426950408889634f;
 
 // DP: (padded) head dim of Q and K; DO: the output columns this block owns.
 template <int DP, int DO>
@@ -57,21 +50,19 @@ __device__ __forceinline__ void load_tile(bf16* s, int sstride, const bf16* g, i
 // K/V staging buffers of AttnCfg<DP, DO>.  kg: the head's first K row; vg:
 // the first V column of this block's DO-wide slice; og: the output at the
 // tile's first query row and the slice's first column.  K, V and the output
-// share the row stride ld (elements); L % 64 == 0.  dc: the columns of K, V
-// and the output in memory (UNPADDED only).
-template <int DP, int DO, bool UNPADDED = false>
+// share the row stride ld (elements); L % 64 == 0.
+template <int DP, int DO>
 __device__ __forceinline__ void attend_tile(const bf16* sQ, bf16* sK, bf16* sV, const bf16* kg, const bf16* vg,
-                                            bf16* og, int L, int ld, int dc = DO) {
+                                            bf16* og, int L, int ld) {
     using Cfg = AttnCfg<DP, DO>;
     constexpr int SQ = Cfg::SQ, SV = Cfg::SV, STAGES = Cfg::STAGES;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int g = lane / 4, t = lane % 4;
     const int nkv = L / ATT_BN;
-    const int k_cols = UNPADDED ? dc : DP, v_cols = UNPADDED ? dc : DO;  // loaded per K / V row
 
     if (STAGES == 2) {
-        load_tile<ATT_BN>(sK, SQ, kg, ld, k_cols);
-        load_tile<ATT_BN>(sV, SV, vg, ld, v_cols);
+        load_tile<ATT_BN>(sK, SQ, kg, ld, DP);
+        load_tile<ATT_BN>(sV, SV, vg, ld, DO);
     }
     cp_async_commit();
 
@@ -85,14 +76,14 @@ __device__ __forceinline__ void attend_tile(const bf16* sQ, bf16* sK, bf16* sV, 
         if (STAGES == 2) {
             if (j + 1 < nkv) {
                 const int nb = (j + 1) & 1;
-                load_tile<ATT_BN>(sK + nb * Cfg::K_ELEMS, SQ, kg + (size_t)(j + 1) * ATT_BN * ld, ld, k_cols);
-                load_tile<ATT_BN>(sV + nb * Cfg::V_ELEMS, SV, vg + (size_t)(j + 1) * ATT_BN * ld, ld, v_cols);
+                load_tile<ATT_BN>(sK + nb * Cfg::K_ELEMS, SQ, kg + (size_t)(j + 1) * ATT_BN * ld, ld, DP);
+                load_tile<ATT_BN>(sV + nb * Cfg::V_ELEMS, SV, vg + (size_t)(j + 1) * ATT_BN * ld, ld, DO);
             }
             cp_async_commit();
             cp_async_wait<1>();
         } else {
-            load_tile<ATT_BN>(sK, SQ, kg + (size_t)j * ATT_BN * ld, ld, k_cols);
-            load_tile<ATT_BN>(sV, SV, vg + (size_t)j * ATT_BN * ld, ld, v_cols);
+            load_tile<ATT_BN>(sK, SQ, kg + (size_t)j * ATT_BN * ld, ld, DP);
+            load_tile<ATT_BN>(sV, SV, vg + (size_t)j * ATT_BN * ld, ld, DO);
             cp_async_commit();
             cp_async_wait<0>();
         }
@@ -114,16 +105,6 @@ __device__ __forceinline__ void attend_tile(const bf16* sQ, bf16* sK, bf16* sV, 
                 ldmatrix_x4(bb, cK + (np * 16 + (lane / 16) * 8 + (lane % 8)) * SQ + kk * 16 + ((lane / 8) & 1) * 8);
                 mma_bf16_16816(s[2 * np], a, bb[0], bb[1]);
                 mma_bf16_16816(s[2 * np + 1], a, bb[2], bb[3]);
-            }
-        }
-
-        if (UNPADDED) {  // base e -> base 2
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                s[i][0] *= LOG2E_F;
-                s[i][1] *= LOG2E_F;
-                s[i][2] *= LOG2E_F;
-                s[i][3] *= LOG2E_F;
             }
         }
 
@@ -191,7 +172,6 @@ __device__ __forceinline__ void attend_tile(const bf16* sQ, bf16* sK, bf16* sV, 
 #pragma unroll
     for (int i = 0; i < DO / 8; ++i) {
         const int c = i * 8 + 2 * t;
-        if (UNPADDED && c >= dc) continue;
         *reinterpret_cast<__nv_bfloat162*>(o0 + c) = __floats2bfloat162_rn(acc[i][0] / l0, acc[i][1] / l0);
         *reinterpret_cast<__nv_bfloat162*>(o1 + c) = __floats2bfloat162_rn(acc[i][2] / l1, acc[i][3] / l1);
     }

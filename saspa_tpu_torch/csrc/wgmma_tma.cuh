@@ -73,6 +73,23 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
         : "memory");
 }
 
+// One box of a 3-d tensor map (coordinates innermost first) into shared
+// memory at dst; completion is counted in bytes on bar.  Elements of the box
+// outside the tensor are written as zeros (and still counted).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+        : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operand reads, TMA) once a barrier has ordered them.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- wgmma -------------------------------------------------------------
 
 // 128B-swizzle shared-memory matrix descriptor (addresses and offsets in bytes).
@@ -137,6 +154,19 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64x40) += A B; A: four registers of bf16 pairs, B: MN-major descriptor
+// (the first 40 columns of a 64-column box).
+__device__ __forceinline__ void wgmma_rs_n40(float (&d)[20], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19"
+        "}, {%20, %21, %22, %23}, %24, 1, 1, 1, 1;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
 // D(64x64) += A B; A: four registers of bf16 pairs, B: MN-major descriptor.
@@ -232,6 +262,25 @@ static bool bf16_map_sw128(CUtensorMap* map, const void* base, uint64_t rows, ui
     const cuuint32_t box[2] = {64, box_rows};
     const cuuint32_t elem[2] = {1, 1};
     return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map over a row-major (rows, heads, cols) bf16 array -- the (B*L, H,
+// dc) view of (B, L, H*dc) projections -- with boxes of box_rows x 1 head x 64
+// columns and the 128-byte swizzle.  Where cols < 64 the box reaches past the
+// row's last column; those elements are not read and land in shared memory
+// as zeros.  cols * 2 bytes must be a multiple of 16.  Returns false if the
+// driver refuses it.
+static bool bf16_map3_sw128(CUtensorMap* map, const void* base, uint64_t rows, uint64_t heads, uint64_t cols,
+                            uint32_t box_rows) {
+    EncodeTiledFn fn = encode_tiled();
+    if (!fn) return false;
+    const cuuint64_t dims[3] = {cols, heads, rows};
+    const cuuint64_t strides[2] = {cols * 2, heads * cols * 2};
+    const cuuint32_t box[3] = {64, 1, box_rows};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -41,6 +41,7 @@ from saspa_tpu_torch.ops.attention import (
     attention_block_eligible,
     attention_block_fused,
     flash_attention_packed,
+    fold_scale,
     packed_flash_eligible,
     pad_head_dim,
 )
@@ -187,7 +188,7 @@ class CrossAttention(nn.Module):
             wo = F.pad(self.to_out.kernel.reshape(inner, h, d), (0, dp - d)).reshape(inner, h * dp).contiguous()
             wqp = rows(wq)
             self._padded = (key, (wqp, rows(self.to_k.kernel), rows(self.to_v.kernel), wo,
-                                  wqp * (LOG2E / math.sqrt(d))))
+                                  fold_scale(wqp, LOG2E / math.sqrt(d))))
         return self._padded[1]
 
     def forward(self, x, context=None, residual=None):
@@ -205,7 +206,7 @@ class CrossAttention(nn.Module):
             k = F.linear(context.to(dt), wk)
             v = F.linear(context.to(dt), wv)
             q = cfg_tile(q, context.shape[0])
-            qs = q * (LOG2E / math.sqrt(d))
+            qs = fold_scale(q, LOG2E / math.sqrt(d))
             out = F.linear(flash_attention_packed(qs, k, v, self.heads), wo, self.to_out.bias.to(dt))
         else:  # unpadded projections: cross-attention, and self-attention past the packed guard (K6)
             q = cfg_tile(self.to_q(x), context.shape[0])

@@ -23,7 +23,14 @@ import torch.nn.functional as F
 
 from saspa_tpu_torch.models.layers import Conv, Dense
 from saspa_tpu_torch.models.unet import GroupNorm32
-from saspa_tpu_torch.ops.attention import LOG2E, attention, flash_attention_packed, packed_flash_eligible, pad_head_dim
+from saspa_tpu_torch.ops.attention import (
+    LOG2E,
+    attention,
+    flash_attention_packed,
+    fold_scale,
+    packed_flash_eligible,
+    pad_head_dim,
+)
 
 
 @dataclass(frozen=True)
@@ -69,7 +76,7 @@ class VAEAttentionBlock(nn.Module):
         x = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         if c == pad_head_dim(c) and packed_flash_eligible(h * w, h * w, 1, c, x.element_size()):
-            out = flash_attention_packed(q * ((1.0 / math.sqrt(c)) * LOG2E), k, v, 1)
+            out = flash_attention_packed(fold_scale(q, (1.0 / math.sqrt(c)) * LOG2E), k, v, 1)
         else:
             out = attention(q, k, v, 1)
         out = self.to_out(out)

@@ -102,6 +102,13 @@ def flash_attention_route(lq: int, lk: int, d: int) -> bool:
     return flash_kernel_ok(lq, lk, d) or (lq == lk and lq >= 256)
 
 
+def fold_scale(x, scale: float):
+    """x * scale with the scale rounded to x's dtype first, as JAX folds a
+    Python float (weakly typed) into an array: bf16(x * bf16(scale)) in bf16.
+    The scalar is a CPU tensor, so a CUDA x needs no host-to-device copy."""
+    return x * torch.tensor(scale, dtype=x.dtype)
+
+
 def plain_attention(q, k, v, scale: float):
     """q: (B, Lq, H, D), k/v: (B, Lk, H, D) -> (B, Lq, H, D): f32 logits and
     softmax, probabilities cast to v's dtype, product in v's dtype."""
@@ -120,14 +127,14 @@ def attention(q, k, v, num_heads: int):
     d = hd // num_heads
     scale = 1.0 / math.sqrt(d)
     if d == pad_head_dim(d) and packed_flash_eligible(lq, lk, num_heads, d, q.element_size()):
-        return flash_attention_packed(q * (scale * LOG2E), k, v, num_heads).to(q.dtype)
+        return flash_attention_packed(fold_scale(q, scale * LOG2E), k, v, num_heads).to(q.dtype)
     qh = q.reshape(b, lq, num_heads, d)
     kh = k.reshape(b, lk, num_heads, d)
     vh = v.reshape(b, lk, num_heads, d)
     if flash_attention_route(lq, lk, d):
         out = flash_attention(qh, kh, vh, scale)
     else:
-        out = plain_attention(qh * scale, kh, vh, 1.0)
+        out = plain_attention(fold_scale(qh, scale), kh, vh, 1.0)
     return out.to(q.dtype).reshape(b, lq, hd)
 
 
@@ -142,8 +149,7 @@ def flash_attention_plain(q, k, v, scale: float):
     b, lq, h, d = q.shape
     lk = k.shape[1]
     dp = pad_head_dim(d)
-    # JAX takes the Python scale as a weak type, i.e. in q's dtype
-    qs = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    qs = fold_scale(q, scale)
 
     def heads(x, n):
         return F.pad(x.transpose(1, 2).reshape(b * h, n, d), (0, dp - d))
@@ -176,8 +182,9 @@ def flash_attention_plain(q, k, v, scale: float):
 def flash_attention(q, k, v, scale: float):
     """softmax(q k^T * scale) v over unpadded heads: q (B, Lq, H, D), k/v
     (B, Lk, H, D) -> (B, Lq, H, D).  CPU tensors run the plain version;
-    CUDA tensors launch K6 (bf16, contiguous, Lq and Lk multiples of 64, D a
-    multiple of 8 that pads to 64/128/192) or raise."""
+    CUDA tensors launch K6 (bf16, contiguous and 16-byte aligned for its TMA
+    loads, Lq and Lk multiples of 64, D a multiple of 8 that pads to
+    64/128/192) or raise."""
     global flash_launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)

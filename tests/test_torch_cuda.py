@@ -170,6 +170,37 @@ def test_flash_attention_kernel_matches_plain(gen, b, lq, lk, h, d):
     assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
 
 
+@pytest.mark.parametrize("b,lq,lk,h,d", [
+    (2, 512, 512, 3, 40),      # 256-row blocks, 128-key tiles, the trimmed dc <= 40 path, three heads
+    (1, 384, 384, 2, 40),      # 128-row blocks (Lq % 256 != 0)
+    (2, 320, 320, 2, 40),      # 64-row blocks and 64-key tiles (L % 128 != 0)
+    (1, 256, 1024, 1, 40),     # Lq < Lk, one head
+    (1, 1024, 256, 2, 40),     # Lq > Lk, several 256-row blocks over two K/V tiles
+    (2, 256, 256, 2, 16),      # dc 16 on the trimmed path
+    (1, 512, 512, 2, 56),      # dc 56: Q.K^T and P.V at the padded 64
+    (2, 512, 384, 2, 80),      # dc 80: two boxes, the second 16 columns wide
+    (1, 384, 512, 3, 160),     # dc 160: three boxes, 128-row blocks
+    (1, 320, 320, 2, 160),     # dc 160, 64-row blocks
+    (1, 4800, 4800, 8, 80),    # the capped bucket's level 1: 64-row blocks (4800 % 128 != 0)
+])
+def test_flash_attention_wgmma_kernel_peaked(gen, b, lq, lk, h, d):
+    """The wgmma kernel's block shapes, widths and box layouts on peaked
+    scores (q of std 3): every head's dc columns come from TMA boxes 64
+    columns wide whose columns past dc are zero-filled, so a box that read a
+    neighbouring head, a misplaced tile or a wrong block size changes the
+    output.  |diff| <= 1% of the largest output, as in chip_smoke.py."""
+    scale = d ** -0.5
+    q = (3.0 * torch.randn(b, lq, h, d, generator=gen, device="cuda")).to(torch.bfloat16)
+    k, v = (torch.randn(b, lk, h, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    before = attention.flash_launches
+    out = attention.flash_attention(q, k, v, scale)
+    assert attention.flash_launches == before + 1
+    ref = attention.flash_attention_plain(q, k, v, scale)
+    assert ref.float().abs().max() >= 2.0  # peaked: a few keys carry each output
+    assert out.shape == ref.shape == q.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     x = torch.zeros(1, 256, 64, device="cuda")  # f32 on the card
     with pytest.raises(TypeError):
@@ -203,3 +234,6 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     zs = torch.zeros(1, 256, 2, 48, dtype=torch.bfloat16, device="cuda")[..., :40]
     with pytest.raises(ValueError):  # not contiguous
         attention.flash_attention(zs, zs, zs, 0.1)
+    za = torch.zeros(256 * 2 * 40 + 4, dtype=torch.bfloat16, device="cuda")[4:].view(1, 256, 2, 40)
+    with pytest.raises(ValueError):  # contiguous but 8-byte aligned: TMA needs 16
+        attention.flash_attention(za, za, za, 0.1)
