@@ -6,12 +6,16 @@
 Phases, each printing one JSON line:
   1. build   -- builds every CUDA kernel of the port from saspa_tpu_torch/csrc
                 (one nvcc per source, in parallel) and reports the registers
-                and spills (ptxas) of K1's and K6's wgmma kernels, requiring
-                no spills;
+                and spills (ptxas) of K1's, K2's and K6's wgmma kernels,
+                requiring no spills;
   2. kernels -- each kernel against its plain PyTorch version on the card at
                 every main-path shape, from the same seeded bf16 inputs, with
                 kernel / plain / library times from CUDA events (K1's and K6's
-                rows also carry kernel / library and bound / kernel; the bound
+                rows also carry kernel / library and bound / kernel; K2's and
+                K4's rows also the kernels' own device time from
+                torch.profiler (device_ms; K2's by stage), the wrapper's host
+                microseconds a call, and their yardsticks' device time:
+                F.layer_norm for K4, cuBLAS's two products for K2; the bound
                 of K1, K5 and K6 counts one exp2 a score on the special-
                 function units at the card's maximum SM clock).  K1/K2 shapes
                 are listed below; the GroupNorm (K3), LayerNorm (K4) and
@@ -135,6 +139,42 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10, warmup: int = 2):
+    """The device time per call of the CUDA kernels that fn launches: their
+    self device time under torch.profiler (CUPTI), summed over iters calls,
+    over iters.  Unlike cuda_ms, no host dispatch between the launches counts.
+    Returns (ms, {kernel name: ms per call})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():  # kernels only, as in profile_main
+        dev_us = getattr(e, "self_device_time_total", 0) or 0
+        if str(e.device_type).endswith("CUDA") and dev_us > 0:
+            by[e.key] = by.get(e.key, 0.0) + dev_us / 1e3 / iters
+    require(by, "device_ms: the profiler recorded no device time")
+    return sum(by.values()), by
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Host microseconds per call of fn (the wrapper's checks, allocation and
+    launch), with the card busy behind it."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
 def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS, exps: float = 0.0):
     """The least time in ms and what sets it: flops at peak ("operations"),
     bytes at the HBM rate ("bytes") or, for a softmax, one exp2 a score on
@@ -211,6 +251,26 @@ def k1_ptxas(log: str) -> dict:
             "K1 wgmma instantiations in the ptxas report", sorted(rep))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()),
             "K1 wgmma kernels spill", rep)
+    return rep
+
+
+def k2_ptxas(log: str) -> dict:
+    """K2's wgmma kernels (the first product, and the second at both N
+    tiles): registers, spills, and wgmma_serialized where ptxas serialised
+    their wgmmas (warning C7514); requires all three, no spills and no
+    serialisation."""
+    pat = r"ln_geglu_(up_kernel|down_kernelILi(\d+)E)"
+
+    def key(m):
+        return "up" if m[1] == "up_kernel" else f"down_bn{m[2]}"
+
+    rep = {key(m): r for fn, r in ptxas_report(log).items() if (m := re.search(pat, fn))}
+    for ln in log.splitlines():
+        if "C7514" in ln and (m := re.search(pat, ln)) and key(m) in rep:
+            rep[key(m)]["wgmma_serialized"] = True
+    require(sorted(rep) == ["down_bn160", "down_bn64", "up"], "K2 wgmma kernels in the ptxas report", sorted(rep))
+    require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 and not r.get("wgmma_serialized")
+                for r in rep.values()), "K2 wgmma kernels spill or serialise", rep)
     return rep
 
 
@@ -333,13 +393,30 @@ def check_k2(gen):
         # only f32 summation order differs, which can flip the bf16 rounding of
         # hid and of the output's three bf16 steps: allow 1% of the largest output
         require(err <= 1e-2 * ref_max, what, "max |kernel - plain|", err, "> 1% of", ref_max)
+        del ref
         ms = cuda_ms(lambda: geglu.fused_ln_geglu(*args), 10)
+        dev_ms, by_kernel = device_ms(lambda: geglu.fused_ln_geglu(*args))
+        stages = {k: sum(v for n, v in by_kernel.items() if f"ln_geglu_{k}_kernel" in n) for k in ("norm", "up", "down")}
+        require(abs(sum(stages.values()) - dev_ms) <= 1e-6 * dev_ms, what, "kernels outside K2's stages", by_kernel)
+        host = host_us(lambda: geglu.fused_ln_geglu(*args))
         plain_ms = cuda_ms(lambda: geglu.fused_ln_geglu_plain(*args), 3, warmup=1)
+        # the yardstick of the two products: cuBLAS on the same bf16 operands
+        # (xn and hid from the kernel's own stages); not a call the port makes
+        xn, hid, _ = geglu.ln_geglu_stages(*args)
+
+        def products():
+            torch.matmul(xn, w1.t())
+            torch.matmul(hid, w2.t())
+
+        cublas_ms = cuda_ms(products, 10)
+        cublas_dev_ms, _ = device_ms(products)
         m = b * l
         b_ms, b_by = bound(6.0 * m * c * f, 2 * (2 * m * c + 3 * c * f + 2 * f + c) + 8 * c)
-        rows.append(dict(shape=what, rows=m, C=c, F=f, max_abs_err=err, ref_max=ref_max, ms=ms,
-                         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by))
-        del args, x, out, ref
+        rows.append(dict(shape=what, rows=m, C=c, F=f, max_abs_err=err, ref_max=ref_max, ms=ms, device_ms=dev_ms,
+                         stage_device_ms=stages, host_us=host, plain_ms=plain_ms, library_ms=None,
+                         cublas_ms=cublas_ms, cublas_device_ms=cublas_dev_ms, bound_ms=b_ms, bound_by=b_by,
+                         bound_share=b_ms / dev_ms))
+        del args, x, out, xn, hid
     return rows
 
 
@@ -411,13 +488,18 @@ def check_k4(gen, sites):
 
         err, ref_max, ulps, equal = require_ulps(f"rows {m} C {c}", out, ref, mag_of, [slice(None)])
         ms = cuda_ms(lambda: ln.layer_norm_one_pass(x, s, bias), 10)
+        dev_ms, _ = device_ms(lambda: ln.layer_norm_one_pass(x, s, bias))
+        host = host_us(lambda: ln.layer_norm_one_pass(x, s, bias))
         plain_ms = cuda_ms(lambda: ln.layer_norm_one_pass_plain(x, s, bias), 3, warmup=1)
         sb, bb = s.to(torch.bfloat16), bias.to(torch.bfloat16)
         lib_ms = cuda_ms(lambda: torch.nn.functional.layer_norm(x, (c,), sb, bb, 1e-5), 10)
+        lib_dev_ms, _ = device_ms(lambda: torch.nn.functional.layer_norm(x, (c,), sb, bb, 1e-5))
         b_ms, b_by = bound(8.0 * m * c, 4 * m * c + 8 * c, H100_F32_FLOPS)
-        rows.append(dict(shape=f"rows {m}, C{c}", rows=m, C=c, max_abs_err=err, ref_max=ref_max, max_ulps=ulps,
-                         equal_share=equal, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by))
+        rows.append(dict(shape=f"rows {m}, C{c}", rows=m, C=c, plan=list(ln.ln_plan(m, c, ln.sm_count(x.device))),
+                         max_abs_err=err, ref_max=ref_max, max_ulps=ulps, equal_share=equal, ms=ms,
+                         device_ms=dev_ms, host_us=host, plain_ms=plain_ms, library_ms=lib_ms,
+                         library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / dev_ms,
+                         lib_ratio_device=dev_ms / lib_dev_ms))
         del x, out, ref
     return rows
 
@@ -529,7 +611,7 @@ def profile_main(run, out_path: str, steps: int, config: str) -> None:
     def group(name: str) -> str:
         if "attention_packed" in name:  # the wgmma kernel and the VAE's
             return "attention_packed (K1)"
-        if "ln_geglu_hidden_kernel" in name or "geglu_out_kernel" in name:
+        if "ln_geglu_" in name:  # its three stages, the row-normalize included
             return "ln_geglu (K2)"
         if "saspa::gn_" in name:
             return "group_norm (K3)"
@@ -793,7 +875,8 @@ def main() -> int:
              for k, v in _build.build_log.items()}
     k6 = k6_ptxas(_build.build_log.get("flash_attention", ""))
     emit({"phase": "build", "seconds": build_s, "nvidia_smi": smi, "sm_clock_max_hz": SM_CLOCK_HZ, "ptxas": ptxas,
-          "k1_wgmma": k1_ptxas(_build.build_log.get("attention_packed", "")), "k6_wgmma": k6})
+          "k1_wgmma": k1_ptxas(_build.build_log.get("attention_packed", "")),
+          "k2_wgmma": k2_ptxas(_build.build_log.get("ln_geglu", "")), "k6_wgmma": k6})
     require(sorted(k6) == K6_INSTANCES, "K6 instantiations in the ptxas report", sorted(k6))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in k6.values()),
             "K6 kernels spill", k6)
@@ -965,6 +1048,7 @@ def main() -> int:
                         "launches_by_config": {c: counts[c][name] for c in counts},
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shape")},
+                        **{k: row[k] for k in ("device_ms", "host_us", "cublas_ms") if k in row},
                         # an exp2 on the special-function unit is an operation too
                         "bound_by": "operations" if row["bound_by"] == "exp" else row["bound_by"],
                         "bound_term": row["bound_by"]})

@@ -9,23 +9,38 @@
 // fast variance E[x^2] - E[x]^2 (no clamp), the normalize pass in bf16
 // ((x - bf16(mean)) * bf16(rsqrt(var + eps) * scale) + bf16(bias)), b1 rounded
 // to bf16 and added to the f32 accumulators, gelu on f32 through Eigen's
-// rational erf polynomial (geglu.py::_erf_f32), hid rounded to bf16 before the
-// second product, and the bf16 epilogue (out -> bf16) + b2 + x.
+// rational erf polynomial (geglu.py::_erf_f32) with IEEE division, hid
+// rounded to bf16 before the second product, and the bf16 epilogue
+// (out -> bf16) + b2 + x.
 //
-// What bounds it on an H100: both products are 2*M*C*F flops each against
-// M*(2C + F) bf16 activations and 3*C*F weights, i.e. ~1000 flops per byte at
-// the UNet's shapes -- tensor-core throughput bounds it.  The TPU kernel kept
-// the (rows x F) hidden in VMEM; F reaches 5120 here, so a 64-row hidden
-// (640 KB) does not fit in shared memory beside an f32 output tile.  This
-// first design therefore runs two launches behind one wrapper:
-//   (a) ln_geglu_hidden: LN prologue on the A tile + x.[W1h | W1g] + the GEGLU
-//       epilogue, writing hid as bf16 to a scratch buffer;
-//   (b) geglu_out: hid.W2 + the (-> bf16) + b2 + x epilogue.
-// Since the TPU kernel itself rounds hid to bf16 before W2, this is the same
-// function; only the hidden's HBM round trip (write + read of M*F bf16) is
-// extra.  Both are 64x64-tile bf16 mma.sync GEMMs with f32 accumulation,
-// 4 warps of 32x32, a 32-deep k step staged through shared memory.
-#include "gemm_bf16.cuh"
+// What bounds it on an H100: the two products, 6*M*C*F flops against
+// M*(2C + F)-ish bf16 activations and 3*C*F weights (~1000 flops per byte at
+// the UNet's shapes): tensor-core throughput, which only wgmma reaches.  The
+// TPU kernel kept the (rows x F) hidden in VMEM; here it round-trips HBM as
+// bf16 (the TPU kernel rounds it to bf16 before W2 too, so the function is
+// the same).  Three launches behind one entry point:
+//   1. ln_geglu_norm_kernel: K4's row-normalize (layernorm_row.cuh) writes
+//      xn (M, C) bf16 once, instead of every N tile recomputing it;
+//   2. ln_geglu_up_kernel: [h | g] = xn W1^T on wgmma, 128 rows x 64 hidden
+//      columns a block.  Each stage's B is two 64-row TMA boxes of W1 (value
+//      rows n0.., gate rows F + n0..) stacked into one 128-row operand, so
+//      one m64n128k16 per 16-deep step gives every thread matching h and g
+//      accumulators and the GEGLU epilogue is thread-local; writes hid;
+//   3. ln_geglu_down_kernel: hid W2^T on wgmma, 128 rows x BN output
+//      columns (BN = 160 where C % 160 == 0, else 64), epilogue + b2 + x.
+// Both products: TMA loads with the 128-byte swizzle into a 3-stage ring of
+// full/empty mbarriers, fed by one thread of the second warpgroup (a
+// separate producer warp would cap every thread's registers, see
+// attention_packed.cu), and two consumer warpgroups of 64 rows each with
+// one wgmma group in flight.  A block needs <= 128 registers a thread and
+// <= 110 KB of shared memory, so two blocks share an SM: one's epilogue
+// (the erf polynomial and a division per hidden element on the CUDA cores)
+// overlaps the other's products.  The blocks are persistent (two an SM) and
+// walk the tiles N fastest, so the blocks at work share their A rows (xn,
+// hid) and weight tiles in L2; the ring runs on across a block's tiles, so
+// the next tile's first stages load during this tile's epilogue.
+#include "layernorm_row.cuh"
+#include "wgmma_tma.cuh"
 
 namespace saspa {
 
@@ -53,164 +68,248 @@ __device__ __forceinline__ float gelu_erf(float x) {
     return 0.5f * x * (1.0f + erf_poly(x * 0.70710678118654752f));
 }
 
-// (a) grid (F/64, ceil(M/64)): hid[m0:m0+64, n0:n0+64]
-__global__ void __launch_bounds__(GM_THREADS)
-ln_geglu_hidden_kernel(const bf16* __restrict__ x, const float* __restrict__ lns, const float* __restrict__ lnb,
-                       const bf16* __restrict__ w1, const bf16* __restrict__ b1, bf16* __restrict__ hid,
-                       int M, int C, int F, float eps) {
-    __shared__ __align__(16) uint16_t smem[3 * GM_BM * GM_S];
-    bf16* sA = reinterpret_cast<bf16*>(smem);
-    bf16* sBh = sA + GM_BM * GM_S;
-    bf16* sBg = sBh + GM_BN * GM_S;
-    __shared__ float sMean[GM_BM];  // bf16(mean) as a float
-    __shared__ float sRs[GM_BM];    // rsqrt(var + eps), f32
+// ---- 1. the row-normalize ------------------------------------------------
 
-    const int n0 = blockIdx.x * GM_BN, m0 = blockIdx.y * GM_BM;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / 2, wn = warp % 2;
-    const bf16* xb = x + (size_t)m0 * C;
-    const int rows = min(GM_BM, M - m0);
+template <int V>
+__global__ void __launch_bounds__(LN_THREADS)
+ln_geglu_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
+                     bf16* __restrict__ xn, int M, int C, int lanes, float eps) {
+    extern __shared__ __align__(16) float ln_params[];
+    layernorm_rows<V>(x, scale, bias, xn, ln_params, M, C, lanes, eps);
+}
 
-    // LN statistics: each warp takes 16 rows
-    for (int r = warp * 16; r < min(warp * 16 + 16, rows); ++r) {
-        const __nv_bfloat162* row = reinterpret_cast<const __nv_bfloat162*>(xb + (size_t)r * C);
-        float s1 = 0.f, s2 = 0.f;
-        for (int c = lane; c < C / 2; c += 32) {
-            float2 v = __bfloat1622float2(row[c]);
-            s1 += v.x + v.y;
-            s2 += v.x * v.x + v.y * v.y;
+static const LayerNormKernel kNormKernels[LN_MAXV] = {
+    ln_geglu_norm_kernel<1>, ln_geglu_norm_kernel<2>, ln_geglu_norm_kernel<3>, ln_geglu_norm_kernel<4>,
+    ln_geglu_norm_kernel<5>, ln_geglu_norm_kernel<6>, ln_geglu_norm_kernel<7>, ln_geglu_norm_kernel<8>};
+
+// ---- 2, 3. the products ----------------------------------------------------
+
+constexpr int GG_BM = 128;        // rows a block: two consumer warpgroups of 64
+constexpr int GG_THREADS = 256;
+constexpr int GG_LOADER = 128;    // thread 0 of the second warpgroup issues every TMA load
+constexpr int GG_STAGES = 3;      // ring depth; a stage is 64 deep along K (one 128-byte box row)
+constexpr int GG_A_BYTES = GG_BM * 128;
+
+template <int BN>
+struct GgCfg {
+    static constexpr int STAGE_BYTES = GG_A_BYTES + BN * 128;
+    static constexpr size_t SMEM = GG_STAGES * STAGE_BYTES + 1024;  // + 1024-byte alignment
+    static_assert(2 * (SMEM + 1024 + 64) <= 233472, "two blocks an SM");
+};
+
+template <int BN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+    if constexpr (BN == 64) wgmma_ss_n64(d, da, db, 1);
+    else if constexpr (BN == 128) wgmma_ss_n128(d, da, db, 1);
+    else wgmma_ss_n160(d, da, db, 1);
+}
+
+// A persistent block's walk over output tiles t = blockIdx.x, + gridDim.x, ...
+// (tile t: N tile t % nt, 128-row block t / nt, so that the blocks working
+// at one time share their A rows and B tiles in L2).  For each tile, acc
+// (this warpgroup's 64 x BN) = A B^T over nk stages of 64 along K, then
+// epi(n, m, acc).  load(n, m, j, a, b, bar), called by GG_LOADER only,
+// issues stage j of tile (n, m) (A: 128 rows, B: BN rows) to shared
+// addresses a and b, completing on bar.  The ring's loads are numbered
+// across the block's tiles, and a stage released is refilled at once with
+// the load GG_STAGES further on, so the next tile's first stages land while
+// this tile's epilogue runs.
+template <int BN, class Load, class Epi>
+__device__ __forceinline__ void gg_tiles(uint32_t smem, uint64_t* bars, int nk, int nt, int ntiles, Load load,
+                                         Epi epi) {
+    using Cf = GgCfg<BN>;
+    auto full = [&](int s) { return smem_addr(&bars[s]); };
+    auto empty = [&](int s) { return smem_addr(&bars[GG_STAGES + s]); };
+    const int mine = (ntiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;  // tiles of this block
+    auto issue = [&](int n) {  // the block's n-th load: stage j = n % nk of its (n / nk)-th tile
+        if (n >= mine * nk) return;
+        const int st = n % GG_STAGES, t = blockIdx.x + (n / nk) * gridDim.x;
+        if (n >= GG_STAGES) mbar_wait(empty(st), ((n / GG_STAGES) - 1) & 1);
+        const uint32_t a = smem + st * Cf::STAGE_BYTES;
+        mbar_arrive_expect_tx(full(st), Cf::STAGE_BYTES);
+        load(t % nt, t / nt, n % nk, a, a + GG_A_BYTES, full(st));
+    };
+    const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+    if (threadIdx.x == GG_LOADER) {
+        for (int s = 0; s < GG_STAGES; ++s) {
+            mbar_init(full(s), 1);
+            mbar_init(empty(s), GG_THREADS / 32);  // lane 0 of each warp
         }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-            s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-        }
-        if (lane == 0) {
-            const float mean = s1 / C;
-            const float var = s2 / C - mean * mean;
-            sMean[r] = round_bf16(mean);
-            sRs[r] = rsqrtf(var + eps);
-        }
+        mbar_fence_init();
+        for (int n = 0; n < GG_STAGES; ++n) issue(n);
     }
     __syncthreads();
 
-    float acch[2][4][4], accg[2][4][4];
+    // stage `it` is done: release it, and the loader refills it with load
+    // it + GG_STAGES once all 8 warps have released it
+    auto release = [&](int it) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(it % GG_STAGES));
+        if (threadIdx.x == GG_LOADER) issue(it + GG_STAGES);
+        __syncwarp();  // the warp reconverges before the next .aligned wgmma
+    };
+    int it = 0;  // the block's stages consumed so far
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        float acc[BN / 2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+        for (int j = 0; j < nk; ++j, ++it) {
+            const int st = it % GG_STAGES;
+            const uint32_t a = smem + st * Cf::STAGE_BYTES + wg * 64 * 128, b = smem + st * Cf::STAGE_BYTES + GG_A_BYTES;
+            mbar_wait(full(st), (it / GG_STAGES) & 1);
+            fence_regs(acc);
+            wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acch[i][j][e] = accg[i][j][e] = 0.f;
-
-    for (int k0 = 0; k0 < C; k0 += GM_BK) {
-        load_rows_async(sBh, w1 + (size_t)n0 * C + k0, C);
-        load_rows_async(sBg, w1 + (size_t)(F + n0) * C + k0, C);
-        cp_async_commit();
-        // A tile: the bf16 normalize pass, 8 contiguous columns per step
-        for (int i = threadIdx.x; i < GM_BM * (GM_BK / 8); i += GM_THREADS) {
-            const int r = i / (GM_BK / 8), c = (i % (GM_BK / 8)) * 8;
-            if (r >= rows) {
-                *reinterpret_cast<uint4*>(sA + r * GM_S + c) = make_uint4(0, 0, 0, 0);
-                continue;
-            }
-            const uint4 raw = *reinterpret_cast<const uint4*>(xb + (size_t)r * C + k0 + c);
-            const bf16* xv = reinterpret_cast<const bf16*>(&raw);
-            __align__(16) bf16 out[8];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-                const int col = k0 + c + e;
-                const float t1 = round_bf16(__bfloat162float(xv[e]) - sMean[r]);
-                const float mul = round_bf16(sRs[r] * lns[col]);
-                const float t2 = round_bf16(t1 * mul);
-                out[e] = __float2bfloat16_rn(t2 + round_bf16(lnb[col]));
-            }
-            *reinterpret_cast<uint4*>(sA + r * GM_S + c) = *reinterpret_cast<const uint4*>(out);
+            for (int kk = 0; kk < 4; ++kk)  // 16 columns = 32 bytes into the 128-byte row
+                wgmma_ss<BN>(acc, sw128_desc(a + kk * 32, 16, 1024), sw128_desc(b + kk * 32, 16, 1024));
+            wgmma_commit();
+            if (j == 0) continue;
+            wgmma_wait<1>();  // stage it - 1's products are done
+            fence_regs(acc);
+            release(it - 1);
         }
-        cp_async_wait<0>();
-        __syncthreads();
-        warp_mma_step(acch, sA, sBh, wm, wn, lane);
-        warp_mma_step(accg, sA, sBg, wm, wn, lane);
-        __syncthreads();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(it - 1);
+        epi(t % nt, t / nt, acc);
     }
+}
 
-    const int g = lane / 4, t = lane % 4;
+// Persistent blocks over the (F / 64) x ceil(M / 128) tiles of hid: tile
+// hid[m0:m0+128, n0:n0+64].
+__global__ void __launch_bounds__(GG_THREADS, 2)
+ln_geglu_up_kernel(const __grid_constant__ CUtensorMap mxn, const __grid_constant__ CUtensorMap mw1,
+                   const bf16* __restrict__ b1, bf16* __restrict__ hid, int M, int C, int F) {
+    __shared__ __align__(8) uint64_t bars[2 * GG_STAGES];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t smem = (smem_addr(smem_raw) + 1023u) & ~1023u;
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int nt = F / 64;
+
+    // acc columns 0..63: h of hidden columns n0.., 64..127: g of the same columns
+    auto load = [&](int n, int m, int j, uint32_t a, uint32_t b, uint32_t bar) {
+        tma_load_2d(a, &mxn, j * 64, m * GG_BM, bar);
+        tma_load_2d(b, &mw1, j * 64, n * 64, bar);
+        tma_load_2d(b + 64 * 128, &mw1, j * 64, F + n * 64, bar);
+    };
+    auto epi = [&](int n, int m, float (&acc)[64]) {
+        const int row0 = m * GG_BM + (threadIdx.x / 32) * 16 + g;  // warp w of the block holds rows 16w..16w+15
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-            const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-            const float bh0 = __bfloat162float(b1[col]), bh1 = __bfloat162float(b1[col + 1]);
-            const float bg0 = __bfloat162float(b1[F + col]), bg1 = __bfloat162float(b1[F + col + 1]);
+        for (int i = 0; i < 8; ++i) {
+            const int col = n * 64 + 8 * i + 2 * t;
+            const float2 bh = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + col));
+            const float2 bg = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + F + col));
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-                const int row = m0 + wm * 32 + mi * 16 + g + half * 8;
+                const int row = row0 + 8 * half;
                 if (row >= M) continue;
-                const float h0 = acch[mi][ni][2 * half] + bh0, h1 = acch[mi][ni][2 * half + 1] + bh1;
-                const float g0 = accg[mi][ni][2 * half] + bg0, g1 = accg[mi][ni][2 * half + 1] + bg1;
+                const float h0 = acc[4 * i + 2 * half] + bh.x, h1 = acc[4 * i + 2 * half + 1] + bh.y;
+                const float g0 = acc[32 + 4 * i + 2 * half] + bg.x, g1 = acc[32 + 4 * i + 2 * half + 1] + bg.y;
                 *reinterpret_cast<__nv_bfloat162*>(hid + (size_t)row * F + col) =
                     __floats2bfloat162_rn(h0 * gelu_erf(g0), h1 * gelu_erf(g1));
             }
         }
-    }
+    };
+    gg_tiles<128>(smem, bars, C / 64, nt, nt * ((M + GG_BM - 1) / GG_BM), load, epi);
 }
 
-// (b) grid (C/64, ceil(M/64)): out[m0:m0+64, n0:n0+64]
-__global__ void __launch_bounds__(GM_THREADS)
-geglu_out_kernel(const bf16* __restrict__ hid, const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-                 const bf16* __restrict__ x, bf16* __restrict__ out, int M, int C, int F) {
-    __shared__ __align__(16) uint16_t smem[2 * GM_BM * GM_S];
-    bf16* sA = reinterpret_cast<bf16*>(smem);
-    bf16* sB = sA + GM_BM * GM_S;
-    const int n0 = blockIdx.x * GM_BN, m0 = blockIdx.y * GM_BM;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / 2, wn = warp % 2;
+// Persistent blocks over the (C / BN) x ceil(M / 128) tiles of out: tile
+// out[m0:m0+128, n0:n0+BN].
+template <int BN>
+__global__ void __launch_bounds__(GG_THREADS, 2)
+ln_geglu_down_kernel(const __grid_constant__ CUtensorMap mhid, const __grid_constant__ CUtensorMap mw2,
+                     const bf16* __restrict__ b2, const bf16* __restrict__ x, bf16* __restrict__ out, int M, int C,
+                     int F) {
+    __shared__ __align__(8) uint64_t bars[2 * GG_STAGES];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t smem = (smem_addr(smem_raw) + 1023u) & ~1023u;
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int nt = C / BN;
 
-    float acc[2][4][4];
-    zero_acc(acc);
-    block_gemm_bt(acc, sA, sB, hid, F, w2, F, F, m0, n0, M);
-
-    const int g = lane / 4, t = lane % 4;
+    auto load = [&](int n, int m, int j, uint32_t a, uint32_t b, uint32_t bar) {
+        tma_load_2d(a, &mhid, j * 64, m * GG_BM, bar);
+        tma_load_2d(b, &mw2, j * 64, n * BN, bar);
+    };
+    auto epi = [&](int n, int m, float (&acc)[BN / 2]) {
+        const int row0 = m * GG_BM + (threadIdx.x / 32) * 16 + g;
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-            const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-            const float c0 = __bfloat162float(b2[col]), c1 = __bfloat162float(b2[col + 1]);
+        for (int i = 0; i < BN / 8; ++i) {
+            const int col = n * BN + 8 * i + 2 * t;
+            const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b2 + col));
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-                const int row = m0 + wm * 32 + mi * 16 + g + half * 8;
+                const int row = row0 + 8 * half;
                 if (row >= M) continue;
-                const float2 xr = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)row * C + col));
-                const float y0 = round_bf16(round_bf16(acc[mi][ni][2 * half]) + c0);
-                const float y1 = round_bf16(round_bf16(acc[mi][ni][2 * half + 1]) + c1);
+                const float2 xr =
+                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + (size_t)row * C + col));
+                const float y0 = round_bf16(round_bf16(acc[4 * i + 2 * half]) + c.x);
+                const float y1 = round_bf16(round_bf16(acc[4 * i + 2 * half + 1]) + c.y);
                 *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + col) =
                     __floats2bfloat162_rn(y0 + xr.x, y1 + xr.y);
             }
         }
-    }
+    };
+    gg_tiles<BN>(smem, bars, F / 64, nt, nt * ((M + GG_BM - 1) / GG_BM), load, epi);
+}
+
+// Blocks of a persistent grid: two an SM (each needs at most half of the
+// SM's registers and shared memory), no more than there are tiles.
+static int gg_grid(int ntiles) {
+    int dev = 0, sms = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return ntiles < 2 * sms ? ntiles : 2 * sms;
+}
+
+template <int BN>
+static cudaError_t launch_down(const CUtensorMap& mhid, const void* w2, const bf16* b2, const bf16* x, bf16* out,
+                               int M, int C, int F, cudaStream_t stream) {
+    CUtensorMap mw2;
+    if (!bf16_map_sw128(&mw2, w2, C, F, BN)) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(ln_geglu_down_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)GgCfg<BN>::SMEM);
+    if (err != cudaSuccess) return err;
+    const int ntiles = (C / BN) * ((M + GG_BM - 1) / GG_BM);
+    ln_geglu_down_kernel<BN><<<gg_grid(ntiles), GG_THREADS, GgCfg<BN>::SMEM, stream>>>(mhid, mw2, b2, x, out, M,
+                                                                                          C, F);
+    return cudaGetLastError();
 }
 
 }  // namespace saspa
 
-// x, out: (M, C) bf16; lns, lnb: (C,) f32; w1: (2F, C) bf16 with the value
-// rows first and the gate rows second; b1: (2F,) bf16; w2: (C, F) bf16;
-// b2: (C,) bf16; hid: (M, F) bf16 scratch.  All contiguous on the device;
-// C and F multiples of 64.  Returns a cudaError_t (0 on success).
+// x, out, xn: (M, C) bf16; lns, lnb: (C,) f32; w1: (2F, C) bf16 with the
+// value rows first and the gate rows second; b1: (2F,) bf16; w2: (C, F) bf16;
+// b2: (C,) bf16; hid: (M, F) bf16.  xn and hid are scratch written by the
+// first two stages.  All contiguous and 16-byte aligned on the device; C and
+// F multiples of 64, C <= 2048.  lanes, vecs, ln_blocks: the row-normalize's
+// launch plan; bn_down: the second product's N tile (64, or 160 where
+// C % 160 == 0) (ops/geglu.py::geglu_plan).  Returns a cudaError_t (0 on
+// success).
 extern "C" int saspa_ln_geglu(const void* x, const void* lns, const void* lnb, const void* w1, const void* b1,
-                              const void* w2, const void* b2, void* hid, void* out, int M, int C, int F,
-                              float eps, void* stream) {
-    using saspa::bf16;
-    if (C % saspa::GM_BN || F % saspa::GM_BN || M <= 0) return (int)cudaErrorInvalidValue;
+                              const void* w2, const void* b2, void* xn, void* hid, void* out, int M, int C, int F,
+                              int lanes, int vecs, int ln_blocks, int bn_down, float eps, void* stream) {
+    using namespace saspa;
+    if (M <= 0 || C % 64 || F % 64 || F <= 0 || !(bn_down == 64 || (bn_down == 160 && C % 160 == 0)))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int mb = (M + saspa::GM_BM - 1) / saspa::GM_BM;
-    saspa::ln_geglu_hidden_kernel<<<dim3(F / saspa::GM_BN, mb), saspa::GM_THREADS, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(lns), static_cast<const float*>(lnb),
-        static_cast<const bf16*>(w1), static_cast<const bf16*>(b1), static_cast<bf16*>(hid), M, C, F, eps);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = layernorm_launch(kNormKernels, x, lns, lnb, xn, M, C, lanes, vecs, ln_blocks, eps, s);
     if (err != cudaSuccess) return (int)err;
-    saspa::geglu_out_kernel<<<dim3(C / saspa::GM_BN, mb), saspa::GM_THREADS, 0, s>>>(
-        static_cast<const bf16*>(hid), static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
-        static_cast<const bf16*>(x), static_cast<bf16*>(out), M, C, F);
-    return (int)cudaGetLastError();
+
+    CUtensorMap mxn, mw1, mhid;
+    if (!bf16_map_sw128(&mxn, xn, M, C, GG_BM) || !bf16_map_sw128(&mw1, w1, 2 * (uint64_t)F, C, 64) ||
+        !bf16_map_sw128(&mhid, hid, M, F, GG_BM))
+        return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(ln_geglu_up_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)GgCfg<128>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int ntiles = (F / 64) * ((M + GG_BM - 1) / GG_BM);
+    ln_geglu_up_kernel<<<gg_grid(ntiles), GG_THREADS, GgCfg<128>::SMEM, s>>>(
+        mxn, mw1, static_cast<const bf16*>(b1), static_cast<bf16*>(hid), M, C, F);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    const bf16* b2p = static_cast<const bf16*>(b2);
+    const bf16* xp = static_cast<const bf16*>(x);
+    bf16* op = static_cast<bf16*>(out);
+    return (int)(bn_down == 160 ? launch_down<160>(mhid, w2, b2p, xp, op, M, C, F, s)
+                                : launch_down<64>(mhid, w2, b2p, xp, op, M, C, F, s));
 }

@@ -11,13 +11,54 @@ blocks' norm1/norm2 run it at every site.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from saspa_tpu_torch.ops import _build
 
 launches = 0  # K4 launches since the last reset
 
-LN_MAX_C = 2048  # the kernel keeps one row in a warp's registers
+# csrc/layernorm_row.cuh: blocks of 8 warps; a lane holds at most 8 16-byte
+# vectors of its row, so a row of a warp's 32 lanes holds at most 2048 bf16
+LN_THREADS = 256
+LN_MAXV = 8
+LN_MAX_C = 32 * 8 * LN_MAXV
+LN_BLOCKS_PER_SM = 4  # the grid-stride grid: 32 warps an SM
+
+
+class LnPlan(NamedTuple):
+    """Launch plan of the row-normalize (K4, and K2's first stage): `lanes`
+    lanes of a warp share a row (32 // lanes rows a warp), lane li holds the
+    row's 16-byte vectors li + j * lanes for j < `vecs`, and `blocks` blocks
+    of LN_THREADS walk the rows grid-stride."""
+    lanes: int
+    vecs: int
+    blocks: int
+
+
+def ln_plan(m: int, c: int, sms: int) -> LnPlan:
+    """The plan for m rows of c bf16 (c % 8 == 0, c <= LN_MAX_C) on a card of
+    `sms` SMs: no lane without a vector, the fewest idle vector slots a row,
+    then the most lanes; at C = 320, 640, 1280 that is 5 vectors a lane on
+    8, 16, 32 lanes."""
+    nv = c // 8
+    lanes, vecs = min(((n, -(-nv // n)) for n in (32, 16, 8, 4, 2, 1) if n <= nv and -(-nv // n) <= LN_MAXV),
+                      key=lambda p: (p[0] * p[1] - nv, -p[0]))
+    rows_per_block = LN_THREADS // 32 * (32 // lanes)
+    return LnPlan(lanes, vecs, max(1, min(-(-m // rows_per_block), sms * LN_BLOCKS_PER_SM)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def aligned16(*ts) -> bool:
+    """Whether every tensor starts on a 16-byte boundary (the kernels' vector
+    loads and TMA need it)."""
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def layer_norm_one_pass_plain(x, scale, bias, eps: float = 1e-5):
@@ -33,7 +74,8 @@ def layer_norm_one_pass_plain(x, scale, bias, eps: float = 1e-5):
 
 def layer_norm_one_pass(x, scale, bias, eps: float = 1e-5):
     """x: (..., C); scale, bias: (C,) f32.  CPU tensors run the plain version;
-    CUDA tensors launch K4 (bf16 x, C % 8 == 0, C <= 2048) or raise."""
+    CUDA tensors launch K4 (bf16 x, C % 8 == 0, C <= 2048, 16-byte aligned)
+    or raise."""
     global launches
     if x.device.type == "cpu":
         return layer_norm_one_pass_plain(x, scale, bias, eps)
@@ -46,10 +88,14 @@ def layer_norm_one_pass(x, scale, bias, eps: float = 1e-5):
         raise ValueError("layer_norm_one_pass needs contiguous x, scale, bias")
     if not (x.device == scale.device == bias.device):
         raise ValueError("layer_norm_one_pass inputs on different devices")
+    if not aligned16(x, scale, bias):
+        raise ValueError("layer_norm_one_pass needs 16-byte aligned x, scale, bias")
     out = torch.empty_like(x)
+    m = x.numel() // c
+    plan = ln_plan(m, c, sm_count(x.device))
     fn = _build.kernel("layernorm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), x.numel() // c, c,
-                    float(eps), stream), "layernorm")
+    _build.check(fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, c, *plan, float(eps),
+                    stream), "layernorm")
     launches += 1
     return out

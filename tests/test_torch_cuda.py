@@ -65,21 +65,69 @@ def test_attention_packed_wgmma_kernel_peaked(gen, b, l, h, d, dp):
     assert (out.reshape(b, l, h, dp)[..., d:] == 0).all()
 
 
-@pytest.mark.parametrize("m,c", [(256, 64), (96, 128), (32, 320)])
-def test_ln_geglu_kernel_matches_plain(gen, m, c):
-    """Same bf16 rounding points; f32 summation order differs: |diff| <= 1%
-    of the largest output.  Row counts that are not multiples of 64 too."""
+def _geglu_args(gen, m, c):
     f = 4 * c
 
     def rn(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * std
 
     bf = torch.bfloat16
-    args = (rn(1, m, c).to(bf), 1.0 + rn(c, std=0.1), rn(c, std=0.1), rn(2 * f, c, std=c ** -0.5).to(bf),
+    return (rn(1, m, c).to(bf), 1.0 + rn(c, std=0.1), rn(c, std=0.1), rn(2 * f, c, std=c ** -0.5).to(bf),
             rn(2 * f, std=0.1).to(bf), rn(c, f, std=f ** -0.5).to(bf), rn(c, std=0.1).to(bf))
+
+
+@pytest.mark.parametrize("m,c", [(256, 64), (96, 128), (32, 320), (96, 320), (200, 640), (96, 1280), (200, 1280),
+                                 (65536, 320)])
+def test_ln_geglu_kernel_matches_plain(gen, m, c):
+    """Same bf16 rounding points; f32 summation order differs: |diff| <= 1%
+    of the largest output.  Row counts that are not multiples of the 128-row
+    blocks at every main-path C (N tiles of 160 and 64), and the full
+    level-0 shape at 512^2."""
+    args = _geglu_args(gen, m, c)
+    before = geglu.launches
     out = geglu.fused_ln_geglu(*args)
+    assert geglu.launches == before + 1
     ref = geglu.fused_ln_geglu_plain(*args)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
     assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("m,c", [(200, 320), (96, 640), (4096, 1280), (256, 64)])
+def test_ln_geglu_stages_match_plain_stages(gen, m, c):
+    """Each of K2's three kernels against its plain stage on the previous
+    kernel's output.  xn: K4's function (>= 99% equal, <= 8 ulps).  hid:
+    >= 99% bit-equal to the plain hidden, the rest within 1 bf16 ulp of the
+    terms' magnitude of h * gelu(g): a_h |g| + |h| a_g, with a_h, a_g the
+    products' terms (|xn| |W1|^T + |b1|), |gelu(g)|'s terms 0.5 |g| (1 +
+    |erf|) <= |g| (where erf nears -1, 1 + erf cancels) and |gelu'| < 1.13;
+    only the f32 sum order of the product and the polynomial's FMAs differ.
+    out:
+    >= 99% equal to the plain epilogue on the kernel's hid, and within 1% of
+    the largest output."""
+    args = _geglu_args(gen, m, c)
+    x, lns, lnb, w1, b1, w2, b2 = args
+    f = 4 * c
+    xn, hid, out = geglu.ln_geglu_stages(*args)
+    xn_ref = layernorm.layer_norm_one_pass_plain(x, lns, lnb).reshape(m, c)
+    assert (xn == xn_ref).float().mean() >= 0.99
+    assert _bf16_ulps(xn, xn_ref, xn_ref.float().abs()).max() <= 8
+
+    hid_ref = geglu.geglu_hidden_plain(xn, w1, b1)
+    a = xn.float().abs() @ w1.float().abs().t() + b1.float().abs()
+    hg = xn.float() @ w1.float().t() + b1.float()
+    mag = a[:, :f] * hg[:, f:].abs() + hg[:, :f].abs() * a[:, f:]
+    assert (hid == hid_ref).float().mean() >= 0.99
+    assert _bf16_ulps(hid, hid_ref, mag).max() <= 1
+
+    out_ref = geglu.geglu_out_plain(hid, w2, b2, x.reshape(m, c))
+    assert (out.reshape(m, c) == out_ref).float().mean() >= 0.99
+    assert (out.reshape(m, c).float() - out_ref.float()).abs().max() <= 1e-2 * out_ref.float().abs().max()
+
+
+def _bf16_ulps(out, ref, mag):
+    """|out - ref| in bf16 ulps of the larger of |ref| and mag."""
+    m = torch.maximum(mag, ref.float().abs()).clamp_min(2.0 ** -126)
+    return (out.float() - ref.float()).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
 
 
 @pytest.mark.parametrize("b,c,h,w,act,eps", [(2, 320, 64, 64, "silu", 1e-5), (2, 1280, 8, 8, None, 1e-6),
@@ -107,13 +155,19 @@ def test_group_norm_kernel_matches_plain(gen, b, c, h, w, act, eps, tpu):
     assert (out == ref).float().mean() >= 0.99
 
 
-@pytest.mark.parametrize("m,c", [(4096, 320), (1000, 640), (64, 1280), (3, 2048)])
+@pytest.mark.parametrize("m,c", [(4096, 320), (1000, 640), (64, 1280), (3, 2048), (4099, 320), (1003, 640),
+                                 (67, 1280), (13, 8), (257, 64), (999, 1000), (5, 2048), (65536, 320)])
 def test_layernorm_kernel_matches_plain(gen, m, c):
     """Same bf16 rounding points; f32 sum order and rsqrt differ: |diff| <= 1%
-    of the largest output, and >= 99% of elements equal.  Ragged row counts."""
+    of the largest output, and >= 99% of elements equal.  Ragged row counts
+    (not multiples of a warp's or a block's rows) at the UNet's widths,
+    widths with 1 to 8 vectors a lane and an idle slot (C 1000), and the
+    main path's rows 65536, C320."""
     x = (1.0 + 2.0 * torch.randn(1, m, c, generator=gen, device="cuda")).to(torch.bfloat16)
     s, bias = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda"), 0.1 * torch.randn(c, generator=gen, device="cuda")
+    before = layernorm.launches
     out = layernorm.layer_norm_one_pass(x, s, bias)
+    assert layernorm.launches == before + 1
     ref = layernorm.layer_norm_one_pass_plain(x, s, bias)
     assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
     assert (out == ref).float().mean() >= 0.99
@@ -221,6 +275,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         layernorm.layer_norm_one_pass(x, ones, ones)
     with pytest.raises(ValueError):  # C not a multiple of 8
         layernorm.layer_norm_one_pass(y[:, :, :36].contiguous(), ones[:36], ones[:36])
+    xo = torch.zeros(64 * 64 + 4, dtype=torch.bfloat16, device="cuda")[4:].view(1, 64, 64)
+    with pytest.raises(ValueError):  # contiguous but 8-byte aligned: the kernel's vector loads need 16
+        layernorm.layer_norm_one_pass(xo, ones, ones)
+    gargs = list(_geglu_args(gen, 64, 64))
+    with pytest.raises(TypeError):  # f32 activations
+        geglu.fused_ln_geglu(gargs[0].float(), *gargs[1:])
+    with pytest.raises(ValueError):  # contiguous but 8-byte aligned x: TMA and the vector loads need 16
+        geglu.fused_ln_geglu(xo, *gargs[1:])
+    g96 = list(_geglu_args(gen, 64, 96))
+    with pytest.raises(ValueError):  # C = 96: not a multiple of 64
+        geglu.fused_ln_geglu(*g96)
     w = torch.zeros(40, 40, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError):  # head dim 40: not padded
         attention.attention_block_fused(y, y, w, w, w, w, ones[:40], 1)
