@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--steps N] [--seed S] [--profile OUT.json]
+    python3 chip_smoke.py [--steps N] [--seed S] [--profile OUT.json] [--parent DIR]
 
 Phases, each printing one JSON line:
   1. build   -- builds every CUDA kernel of the port from saspa_tpu_torch/csrc
                 (one nvcc per source, in parallel) and reports the registers
-                and spills (ptxas) of K1's, K2's and K6's wgmma kernels,
-                requiring no spills;
+                and spills (ptxas) of K1's, K2's, K5's and K6's wgmma kernels
+                and K3's two kernels, requiring no spills;
   2. kernels -- each kernel against its plain PyTorch version on the card at
                 every main-path shape, from the same seeded bf16 inputs, with
                 kernel / plain / library times from CUDA events (K1's and K6's
-                rows also carry kernel / library and bound / kernel; K2's and
-                K4's rows also the kernels' own device time from
-                torch.profiler (device_ms; K2's by stage), the wrapper's host
-                microseconds a call, and their yardsticks' device time:
-                F.layer_norm for K4, cuBLAS's two products for K2; the bound
+                rows also carry kernel / library and bound / kernel; K2's,
+                K3's, K4's and K5's rows also the kernels' own device time
+                from torch.profiler (device_ms; K2's by stage, K3's by launch,
+                K5's by phase), the wrapper's host microseconds a call, and
+                their yardsticks' device time: F.layer_norm for K4,
+                F.group_norm for K3 without act, cuBLAS's two products for K2,
+                route (a) for K5 (three cuBLAS projections, K1, the out
+                projection and the residual add: route_a_ms); the bound
                 of K1, K5 and K6 counts one exp2 a score on the special-
                 function units at the card's maximum SM clock).  K1/K2 shapes
                 are listed below; the GroupNorm (K3), LayerNorm (K4) and
@@ -49,6 +52,9 @@ Phases, each printing one JSON line:
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
+With --parent DIR, the kernels phase also times another checkout's K3 and
+K5 (its own wrappers and kernels, built from DIR) on the same inputs
+(parent_ms, parent_device_ms, parent_host_us).
 With --profile, one more main-path run of each configuration under
 torch.profiler writes the device time by kernel to OUT.json and
 OUT_opt_in.json, and one 1024^2 batch to OUT_gen_1024.json, and prints a
@@ -143,23 +149,29 @@ def device_ms(fn, iters: int = 10, warmup: int = 2):
     """The device time per call of the CUDA kernels that fn launches: their
     self device time under torch.profiler (CUPTI), summed over iters calls,
     over iters.  Unlike cuda_ms, no host dispatch between the launches counts.
-    Returns (ms, {kernel name: ms per call})."""
+    Returns (ms, {kernel name: ms per call}).  On the H100 a profile of
+    kernels from the ctypes libraries has now and then come back with the
+    host's launch calls and no device record at all; such a profile is taken
+    again, up to three in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.key_averages():  # kernels only, as in profile_main
-        dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if str(e.device_type).endswith("CUDA") and dev_us > 0:
-            by[e.key] = by.get(e.key, 0.0) + dev_us / 1e3 / iters
-    require(by, "device_ms: the profiler recorded no device time")
-    return sum(by.values()), by
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.key_averages():  # kernels only, as in profile_main
+            dev_us = getattr(e, "self_device_time_total", 0) or 0
+            if str(e.device_type).endswith("CUDA") and dev_us > 0:
+                by[e.key] = by.get(e.key, 0.0) + dev_us / 1e3 / iters
+        if by:
+            return sum(by.values()), by
+    require(by, "device_ms: the profiler recorded no device time in 3 profiles; the last one's events:",
+            [(e.key, str(e.device_type), getattr(e, "self_device_time_total", None)) for e in prof.key_averages()][:30])
 
 
 def host_us(fn, iters: int = 20) -> float:
@@ -274,6 +286,47 @@ def k2_ptxas(log: str) -> dict:
     return rep
 
 
+def k5_ptxas(log: str) -> dict:
+    """K5's three phases: the Q/K/V product, the attention block per (head
+    dim, warpgroups) instantiation and the out product at both N tiles;
+    registers, spills, and wgmma_serialized where ptxas serialised their
+    wgmmas (warning C7514); requires all eight, no spills and no
+    serialisation."""
+    pat = r"attention_block_(qkv_kernel|attend_kernelILi(\d+)ELi(\d+)E|out_kernelILi(\d+)E)"
+
+    def key(m):
+        if m[1] == "qkv_kernel":
+            return "qkv"
+        return f"attend_dp{m[2]}_wg{m[3]}" if m[2] else f"out_bn{m[4]}"
+
+    rep = {key(m): r for fn, r in ptxas_report(log).items() if (m := re.search(pat, fn))}
+    for ln in log.splitlines():
+        if "C7514" in ln and (m := re.search(pat, ln)) and key(m) in rep:
+            rep[key(m)]["wgmma_serialized"] = True
+    want = ["attend_dp128_wg2", "attend_dp128_wg4", "attend_dp192_wg2", "attend_dp64_wg2", "attend_dp64_wg4",
+            "out_bn160", "out_bn64", "qkv"]
+    require(sorted(rep) == want, "K5 wgmma kernels in the ptxas report", sorted(rep))
+    require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 and not r.get("wgmma_serialized")
+                for r in rep.values()), "K5 wgmma kernels spill or serialise", rep)
+    return rep
+
+
+def k3_ptxas(log: str) -> dict:
+    """K3's statistics kernel and its normalize per epilogue (TPU numerics
+    or not, SiLU or not): registers and spills; requires all five and no
+    spills."""
+    def key(m):
+        return "stats" if m[1] == "stats" else f"apply_{'tpu' if m[2] == '1' else 'xla'}{'_silu' * (m[3] == '1')}"
+
+    pat = r"gn_(stats|apply)_kernel(?:ILi(\d)ELi(\d)E)?"
+    rep = {key(m): r for fn, r in ptxas_report(log).items() if (m := re.search(pat, fn))}
+    require(sorted(rep) == ["apply_tpu", "apply_tpu_silu", "apply_xla", "apply_xla_silu", "stats"],
+            "K3 kernels in the ptxas report", sorted(rep))
+    require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()), "K3 kernels spill",
+            rep)
+    return rep
+
+
 K6_INSTANCES = sorted([f"dp64_trim_bn{bn}_wg{wg}" for bn in (128, 64) for wg in (4, 2, 1)]
                       + [f"dp64_bn{bn}_wg{wg}" for bn in (128, 64) for wg in (4, 2, 1)]
                       + [f"dp128_bn64_wg{wg}" for wg in (4, 2, 1)] + ["dp192_bn64_wg2", "dp192_bn64_wg1"])
@@ -292,6 +345,64 @@ def k6_ptxas(log: str) -> dict:
         if "C7514" in ln and (m := re.search(pat, ln)) and key(m) in rep:
             rep[key(m)]["wgmma_serialized"] = True
     return rep
+
+
+PARENT = {}  # with --parent: the parent checkout's K3 and K5 wrapper modules, on its own kernels
+
+
+def load_parent(root: str) -> float:
+    """Builds the K3 and K5 libraries of another checkout (root/saspa_tpu_torch/
+    csrc, nvcc in parallel, into _build/parent) and loads that checkout's
+    wrapper modules (ops/groupnorm.py, ops/attention.py) as they are, their
+    `_build` answered by those libraries with that checkout's C signatures,
+    into PARENT.  Returns the seconds taken."""
+    import ctypes
+    import importlib.util
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from saspa_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    pkg = Path(root) / "saspa_tpu_torch"
+
+    def module(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    sigs = module("parent_build", pkg / "ops" / "_build.py").SIGNATURES
+    out = _build.BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"),
+                                 str(pkg / "csrc" / f"{n}.cu")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True) for n in ("group_norm", "attention_block")}
+    fns = {}
+    for n, proc in jobs.items():
+        _, err = proc.communicate()
+        require(proc.returncode == 0, "parent build of", n, err[-2000:])
+        fn = getattr(ctypes.CDLL(str(out / f"lib{n}.so")), sigs[n][0])
+        fn.argtypes, fn.restype = sigs[n][1], ctypes.c_int
+        fns[n] = fn
+    shim = SimpleNamespace(kernel=fns.__getitem__, check=_build.check)
+    for key, name in (("group_norm", "groupnorm"), ("attention_block", "attention")):
+        mod = module(f"parent_{name}", pkg / "ops" / f"{name}.py")
+        mod._build = shim
+        PARENT[key] = mod
+    return time.perf_counter() - t0
+
+
+def parent_times(fn) -> dict:
+    """The parent's wrapper timed as the change's is: ms, device_ms, host_us
+    (device_ms None, with the reason, where the profiler recorded none of
+    its kernels: a comparison, not a check of this checkout)."""
+    out = {"parent_ms": cuda_ms(fn, 10), "parent_host_us": host_us(fn)}
+    try:
+        out["parent_device_ms"] = device_ms(fn)[0]
+    except SmokeFailure as e:
+        out.update(parent_device_ms=None, parent_device_ms_error=str(e)[:300])
+    return out
 
 
 def check_k1(gen):
@@ -445,23 +556,40 @@ def check_k3(gen, sites):
             return (xs.abs() + mean.abs().repeat_interleave(c // g, 1)[:, :, None, None]) * sc \
                 + beta.abs().reshape(1, c, 1, 1)
 
-        lib_ms = None
+        lib = {"library_ms": None, "library_device_ms": None}
         if act is None:  # no single PyTorch call computes GroupNorm + SiLU
             gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
-            lib_ms = cuda_ms(lambda: torch.nn.functional.group_norm(x, 32, gb, bb, eps), 10)
+
+            def library():
+                return torch.nn.functional.group_norm(x, 32, gb, bb, eps)
+
+            lib = {"library_ms": cuda_ms(library, 10), "library_device_ms": device_ms(library)[0]}
         for tpu in (False, True):
             plain = gn.group_norm_tpu_plain if tpu else gn.group_norm_plain
             out = gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
             ref = plain(x, gamma, beta, 32, eps, act)
             what = f"B{b} C{c} {h}x{w} act={act} {'tpu' if tpu else 'xla'}"
             err, ref_max, ulps, equal = require_ulps(what, out, ref, mag_of, [slice(i, i + 1) for i in range(b)])
-            ms = cuda_ms(lambda: gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu), 10)
+            del out, ref
+
+            def kernel():
+                return gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
+
+            ms = cuda_ms(kernel, 10)
+            dev_ms, by_kernel = device_ms(kernel)
+            launch_ms = {k: sum(v for nm, v in by_kernel.items() if f"gn_{k}_kernel" in nm) for k in ("stats", "apply")}
+            require(abs(sum(launch_ms.values()) - dev_ms) <= 1e-6 * dev_ms, what, "kernels outside K3's", by_kernel)
             plain_ms = cuda_ms(lambda: plain(x, gamma, beta, 32, eps, act), 3, warmup=1)
             b_ms, b_by = bound((10.0 if act else 6.0) * n, 4 * n + 8 * c, H100_F32_FLOPS)
+            par = {}
+            if PARENT:
+                pgn = PARENT["group_norm"]
+                par = parent_times(lambda: pgn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu))
             rows.append(dict(shape=what, B=b, C=c, HW=h * w, act=act, eps=eps, tpu_numerics=tpu,
-                             max_abs_err=err, ref_max=ref_max, max_ulps=ulps, equal_share=equal, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-            del out, ref
+                             plan=list(gn.gn_plan(b, h * w, c, gn.sm_count(x.device))), max_abs_err=err,
+                             ref_max=ref_max, max_ulps=ulps, equal_share=equal, ms=ms, device_ms=dev_ms,
+                             launch_device_ms=launch_ms, host_us=host_us(kernel), plain_ms=plain_ms, **lib,
+                             bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / dev_ms, **par))
         del x
         torch.cuda.empty_cache()
     return rows
@@ -543,15 +671,41 @@ def check_k5(gen, sites):
         what = f"B{b} L{l} C{c} H{h} d{d}->{dp}"
         require(err <= 1e-2 * term_max, what, "max |kernel - plain|", err, "> 1% of the term's max", term_max)
         equal = (out == ref).float().mean().item()
-        ms = cuda_ms(lambda: att.attention_block_fused(*args), 10)
+        del out, ref
+
+        def kernel():
+            return att.attention_block_fused(*args)
+
+        ms = cuda_ms(kernel, 10)
+        dev_ms, by_kernel = device_ms(kernel)
+        phases = {k: sum(v for nm, v in by_kernel.items() if f"attention_block_{k}_kernel" in nm)
+                  for k in ("qkv", "attend", "out")}
+        require(abs(sum(phases.values()) - dev_ms) <= 1e-6 * dev_ms, what, "kernels outside K5's phases", by_kernel)
         plain_ms = cuda_ms(lambda: att.attention_block_fused_plain(*args), 2, warmup=1)
+        # the yardstick: the route that configuration (a) takes at the same
+        # shape (models/unet.py CrossAttention without the megakernel): three
+        # cuBLAS projections, the scale fold, K1, the out projection with its
+        # bias, the residual add.  No one PyTorch call computes K5.  Timed
+        # only (wq is already scaled, so the fold scales q twice).
+        bo_bf = bo.to(bf)
+
+        def route_a():
+            q = att.fold_scale(torch.nn.functional.linear(x, wq), att.LOG2E / math.sqrt(d))
+            k, v = torch.nn.functional.linear(x, wk), torch.nn.functional.linear(x, wv)
+            return res + torch.nn.functional.linear(att.flash_attention_packed(q, k, v, h), wo, bo_bf)
+
+        route_ms = cuda_ms(route_a, 10)
+        route_dev_ms, _ = device_ms(route_a)
         m, hd = b * l, h * dp
         b_ms, b_by = bound(8.0 * m * c * hd + 4.0 * b * h * l * l * dp, 2 * 3 * m * c + 2 * 4 * c * hd + 4 * c,
                            exps=b * h * l * l)
+        par = parent_times(lambda: PARENT["attention_block"].attention_block_fused(*args)) if PARENT else {}
         rows.append(dict(shape=what, B=b, L=l, C=c, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
-                         term_max=term_max, equal_share=equal, ms=ms, plain_ms=plain_ms, library_ms=None,
-                         bound_ms=b_ms, bound_by=b_by))
-        del args, x, res, out, ref
+                         term_max=term_max, equal_share=equal, ms=ms, device_ms=dev_ms, phase_device_ms=phases,
+                         host_us=host_us(kernel), plain_ms=plain_ms, library_ms=None, route_a_ms=route_ms,
+                         route_a_device_ms=route_dev_ms, bound_ms=b_ms, bound_by=b_by,
+                         bound_share=b_ms / dev_ms, **par))
+        del args, x, res
     return rows
 
 
@@ -617,7 +771,7 @@ def profile_main(run, out_path: str, steps: int, config: str) -> None:
             return "group_norm (K3)"
         if "layernorm_kernel" in name:
             return "layernorm (K4)"
-        if any(k in name for k in ("kv_proj_kernel", "block_attention_kernel", "out_proj_kernel")):
+        if "attention_block_" in name:  # its three phases
             return "attention_block (K5)"
         if "flash_attention_kernel" in name:
             return "flash_attention (K6)"
@@ -852,6 +1006,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="OUT.json",
                     help="also profile one main-path run of each configuration: OUT.json, OUT_opt_in.json")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also time another checkout's K3 and K5 wrappers and kernels beside these (parent_* keys)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card", file=sys.stderr)
@@ -876,10 +1032,14 @@ def main() -> int:
     k6 = k6_ptxas(_build.build_log.get("flash_attention", ""))
     emit({"phase": "build", "seconds": build_s, "nvidia_smi": smi, "sm_clock_max_hz": SM_CLOCK_HZ, "ptxas": ptxas,
           "k1_wgmma": k1_ptxas(_build.build_log.get("attention_packed", "")),
-          "k2_wgmma": k2_ptxas(_build.build_log.get("ln_geglu", "")), "k6_wgmma": k6})
+          "k2_wgmma": k2_ptxas(_build.build_log.get("ln_geglu", "")),
+          "k5_wgmma": k5_ptxas(_build.build_log.get("attention_block", "")),
+          "k3": k3_ptxas(_build.build_log.get("group_norm", "")), "k6_wgmma": k6})
     require(sorted(k6) == K6_INSTANCES, "K6 instantiations in the ptxas report", sorted(k6))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in k6.values()),
             "K6 kernels spill", k6)
+    if args.parent:
+        emit({"phase": "parent_build", "dir": args.parent, "seconds": load_parent(args.parent)})
 
     # ---- the pipelines of both configurations, one set of seeded weights ---
     t0 = time.perf_counter()
@@ -1048,7 +1208,7 @@ def main() -> int:
                         "launches_by_config": {c: counts[c][name] for c in counts},
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shape")},
-                        **{k: row[k] for k in ("device_ms", "host_us", "cublas_ms") if k in row},
+                        **{k: row[k] for k in ("device_ms", "host_us", "cublas_ms", "route_a_ms") if k in row},
                         # an exp2 on the special-function unit is an operation too
                         "bound_by": "operations" if row["bound_by"] == "exp" else row["bound_by"],
                         "bound_term": row["bound_by"]})

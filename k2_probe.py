@@ -51,16 +51,17 @@ sys.path.insert(0, str(ROOT))
 VARIANTS = {
     "as_is": [],
     "no_gelu": [("ln_geglu.cu", "return 0.5f * x * (1.0f + erf_poly(x * 0.70710678118654752f));", "return x;", 1)],
-    "no_b": [("ln_geglu.cu", "mbar_arrive_expect_tx(full(st), Cf::STAGE_BYTES);",
+    "no_b": [("gemm_wgmma.cuh", "mbar_arrive_expect_tx(full(st), Cf::STAGE_BYTES);",
               "mbar_arrive_expect_tx(full(st), GG_A_BYTES);", 1),
              ("ln_geglu.cu", "tma_load_2d(b, &mw1, j * 64, n * 64, bar);", "", 1),
              ("ln_geglu.cu", "tma_load_2d(b + 64 * 128, &mw1, j * 64, F + n * 64, bar);", "", 1),
              ("ln_geglu.cu", "tma_load_2d(b, &mw2, j * 64, n * BN, bar);", "", 1)],
-    "one_cta": [("ln_geglu.cu", "constexpr int GG_STAGES = 3;", "constexpr int GG_STAGES = 4;", 1),
-                ("ln_geglu.cu", '    static_assert(2 * (SMEM + 1024 + 64) <= 233472, "two blocks an SM");\n', "", 1),
+    "one_cta": [("gemm_wgmma.cuh", "constexpr int GG_STAGES = 3;", "constexpr int GG_STAGES = 4;", 1),
+                ("gemm_wgmma.cuh", '    static_assert(2 * (SMEM + 1024 + 64) <= 233472, "two blocks an SM");\n', "", 1),
                 ("ln_geglu.cu", "__launch_bounds__(GG_THREADS, 2)", "__launch_bounds__(GG_THREADS, 1)", 2),
-                ("ln_geglu.cu", "return ntiles < 2 * sms ? ntiles : 2 * sms;", "return ntiles < sms ? ntiles : sms;", 1)],
-    "one_tile": [("ln_geglu.cu", "return ntiles < 2 * sms ? ntiles : 2 * sms;", "return ntiles;", 1)],
+                ("gemm_wgmma.cuh", "return ntiles < 2 * sms ? ntiles : 2 * sms;", "return ntiles < sms ? ntiles : sms;",
+                 1)],
+    "one_tile": [("gemm_wgmma.cuh", "return ntiles < 2 * sms ? ntiles : 2 * sms;", "return ntiles;", 1)],
 }
 STAGES = {"norm": ("ln_geglu_norm_kernel",), "up": ("ln_geglu_up_kernel", "ln_geglu_hidden_kernel"),
           "down": ("ln_geglu_down_kernel", "geglu_out_kernel")}

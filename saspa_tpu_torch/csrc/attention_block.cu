@@ -4,213 +4,202 @@
 // _block_kernel).  For x_ln, residual: (B, L, C) bf16 and head-padded
 // weights in torch's (out, in) layout, wq_scaled/wk/wv: (H*DP, C) with
 // softmax_scale*log2(e) folded into wq, wo: (C, H*DP), bo: (C,) f32:
-//     K, V   = bf16(x_ln wk^T), bf16(x_ln wv^T)
-//     Q      = bf16(x_ln wq_scaled^T)
-//     packed = bf16(softmax2(Q_h K_h^T) V_h) per head, packed (B, L, H*DP)
-//     out    = bf16(packed wo^T + bo + residual)      (the sum in f32)
+//     Q, K, V = bf16(x_ln wq_scaled^T), bf16(x_ln wk^T), bf16(x_ln wv^T)
+//     packed  = bf16(softmax2(Q_h K_h^T) V_h) per head, packed (B, L, H*DP)
+//     out     = bf16(packed wo^T + bo + residual)      (the sum in f32)
 // with the TPU kernel's rounding points: every product accumulates in f32
 // and is rounded to bf16 where the TPU kernel rounds it (the K/V scratch, Q,
 // each head's output); P is rounded to bf16 before P.V.
 //
-// What bounds it on an H100: at the UNet's shapes (L = 4096/1024/256, C =
-// 320/640/1280, H*DP = 512/1024/1536) the attention's 4*L^2*H*DP flops and the
-// four projections' 8*L*C*H*DP flops per batch row dwarf the bytes (x_ln,
-// residual and out are 3*L*C bf16, the weights 4*C*H*DP): tensor-core
-// throughput bounds it.  The TPU kernel projected K/V for a whole batch row
-// into VMEM scratch and kept it resident across that row's q-blocks; blocks
-// here run in parallel and a 4096-row K/V does not fit in shared memory, so
-// this first design runs three launches behind one wrapper:
-//   (1) kv_proj: one GEMM writes K and V as bf16 to a workspace -- the
-//       counterpart of the k_scr/v_scr scratch, rounded where it is rounded;
-//   (2) block_attention: grid (q-tile, head, batch); each block projects its
-//       64 x DP slice of Q (x_ln rows . wq_scaled head rows, f32 accumulate,
-//       rounded to bf16) into shared memory, then runs K1's streamed exp2
-//       attention (attention_tile.cuh) against K/V and writes the head's
-//       output as bf16 into the packed workspace;
-//   (3) out_proj: packed . wo^T with the epilogue f32 acc + bo + residual,
-//       rounded to bf16.
+// What bounds it on an H100: tensor-core throughput.  At the UNet's shapes
+// (L = 4096/1024/256, C = 320/640/1280, H*DP = 512/1024/1536) the
+// attention's 4*L^2*H*DP flops and the four projections' 8*L*C*H*DP flops per
+// batch row dwarf the bytes (x_ln, residual and out are 3*L*C bf16, the
+// weights 4*C*H*DP), and only wgmma reaches the card's bf16 rate.  The TPU
+// kernel projected K/V for a whole batch row into VMEM scratch and kept it
+// resident across that row's q-blocks; 4096 keys do not fit in a block's
+// shared memory, and blocks here run in parallel, so the function runs as
+// three wgmma + TMA kernels behind one entry point, with Q, K, V and the
+// packed heads round-tripping HBM as bf16 (where the TPU kernel rounds them
+// too, so the function is the same):
+//   1. attention_block_qkv_kernel: [Q | K | V] = x_ln [wq | wk | wv]^T on the
+//      persistent product walk of gemm_wgmma.cuh (shared with K2), 128 rows x
+//      128 columns a tile; the load picks wq's, wk's or wv's tensor map by
+//      the N tile, so nothing is concatenated per call, and the epilogue
+//      rounds to bf16 into K1's packed (B, L, H*DP) layout, 16 bytes a
+//      thread after a transpose across each quad of lanes (quad_transpose:
+//      4-byte stores of the accumulator's layout cost more than the
+//      product at C = 320);
+//   2. attention_block_attend_kernel: K1's wgmma attention block
+//      (attention_packed_wgmma.cuh) on Q, K, V, writing the packed heads;
+//   3. attention_block_out_kernel<BN>: packed wo^T on the same walk, BN = 160
+//      output columns a tile where C % 160 == 0 (else 64), with the epilogue
+//      acc + bo + residual in f32, rounded once, 16 bytes a thread.
 // The streamed online softmax differs from the TPU kernel's one-pass softmax
-// over a resident row only in summation order.  The extra HBM traffic against
-// the TPU kernel is the K/V and packed workspaces (3 * B*L*H*DP bf16 written
-// and read back).  Simple, not yet tuned: mma.sync, no wgmma/TMA.
-#include "attention_tile.cuh"
-#include "gemm_bf16.cuh"
+// over a resident row only in summation order.
+#include "attention_packed_wgmma.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace saspa {
 
-// (1) grid (HD/64, ceil(M/64), 2): z = 0 writes K, z = 1 writes V
-__global__ void __launch_bounds__(GM_THREADS)
-kv_proj_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk, const bf16* __restrict__ wv,
-               bf16* __restrict__ kout, bf16* __restrict__ vout, int M, int C, int HD) {
-    __shared__ __align__(16) uint16_t smem[2 * GM_BM * GM_S];
-    bf16* sA = reinterpret_cast<bf16*>(smem);
-    bf16* sB = sA + GM_BM * GM_S;
-    const int n0 = blockIdx.x * GM_BN, m0 = blockIdx.y * GM_BM;
-    const bf16* w = blockIdx.z ? wv : wk;
-    bf16* o = blockIdx.z ? vout : kout;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / 2, wn = warp % 2, g = lane / 4, t = lane % 4;
-
-    float acc[2][4][4];
-    zero_acc(acc);
-    block_gemm_bt(acc, sA, sB, x, C, w, C, C, m0, n0, M);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-            const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int row = m0 + wm * 32 + mi * 16 + g + half * 8;
-                if (row < M)
-                    *reinterpret_cast<__nv_bfloat162*>(o + (size_t)row * HD + col) =
-                        __floats2bfloat162_rn(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-            }
-        }
-}
-
-// (2) grid (L/64, H, B)
-template <int DP>
-__global__ void __launch_bounds__(ATT_THREADS)
-block_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq, const bf16* __restrict__ kbuf,
-                       const bf16* __restrict__ vbuf, bf16* __restrict__ packed, int L, int C, int HD) {
-    using Cfg = AttnCfg<DP, DP>;
-    constexpr int SQ = Cfg::SQ;
+// Persistent blocks over the (3 * HD / 128) x ceil(M / 128) tiles of
+// [Q | K | V]: N tiles 0 .. HD/128 - 1 are Q's, then K's, then V's.
+__global__ void __launch_bounds__(GG_THREADS, 2)
+attention_block_qkv_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mwq,
+                           const __grid_constant__ CUtensorMap mwk, const __grid_constant__ CUtensorMap mwv,
+                           bf16* __restrict__ qkv, int M, int C, int HD) {
+    __shared__ __align__(8) uint64_t bars[2 * GG_STAGES];
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-    bf16* sK = sQ + Cfg::Q_ELEMS;
-    bf16* sV = sK + Cfg::STAGES * Cfg::K_ELEMS;
-    // the Q projection stages x and wq through the K buffers before the K/V loop
-    bf16* sX = sK;                  // 64 x GM_S
-    bf16* sW = sK + ATT_BM * GM_S;  // DP x GM_S
-    static_assert(ATT_BM * GM_S + DP * GM_S <= Cfg::STAGES * Cfg::K_ELEMS, "Q staging exceeds the K buffers");
+    const uint32_t smem = (smem_addr(smem_raw) + 1023u) & ~1023u;
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int per = HD / 128, nt = 3 * per;  // N tiles of one projection, of all three
 
-    const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;
-    const bf16* xg = x + ((size_t)b * L + (size_t)qt * ATT_BM) * C;
-    const bf16* wg = wq + (size_t)h * DP * C;
-
-    // Q tile: this warp's 16 rows x DP columns, f32 accumulate over C
-    float qacc[DP / 8][4];
+    auto load = [&](int n, int m, int j, uint32_t a, uint32_t b, uint32_t bar) {
+        const int which = n / per;
+        const CUtensorMap* w = which == 0 ? &mwq : which == 1 ? &mwk : &mwv;
+        tma_load_2d(a, &mx, j * 64, m * GG_BM, bar);
+        tma_load_2d(b, w, j * 64, (n % per) * 128, bar);
+    };
+    auto epi = [&](int n, int m, float (&acc)[64]) {
+        bf16* o = qkv + (size_t)(n / per) * M * HD;  // Q, K, V: (M, HD) each, one after another
+        const int row0 = m * GG_BM + (threadIdx.x / 32) * 16 + g;
 #pragma unroll
-    for (int i = 0; i < DP / 8; ++i) qacc[i][0] = qacc[i][1] = qacc[i][2] = qacc[i][3] = 0.f;
-    for (int k0 = 0; k0 < C; k0 += GM_BK) {
-        for (int i = threadIdx.x; i < (ATT_BM + DP) * (GM_BK / 8); i += ATT_THREADS) {
-            const int r = i / (GM_BK / 8), c = (i % (GM_BK / 8)) * 8;
-            if (r < ATT_BM)
-                cp_async_16(sX + r * GM_S + c, xg + (size_t)r * C + k0 + c);
-            else
-                cp_async_16(sW + (r - ATT_BM) * GM_S + c, wg + (size_t)(r - ATT_BM) * C + k0 + c);
-        }
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < GM_BK / 16; ++kk) {
-            uint32_t a[4];
-            ldmatrix_x4(a, sX + (warp * 16 + (lane % 16)) * GM_S + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-            for (int np = 0; np < DP / 16; ++np) {
-                uint32_t bb[4];
-                ldmatrix_x4(bb, sW + (np * 16 + (lane / 16) * 8 + (lane % 8)) * GM_S + kk * 16 + ((lane / 8) & 1) * 8);
-                mma_bf16_16816(qacc[2 * np], a, bb[0], bb[1]);
-                mma_bf16_16816(qacc[2 * np + 1], a, bb[2], bb[3]);
-            }
-        }
-        __syncthreads();
-    }
-    bf16* q0 = sQ + (warp * 16 + g) * SQ;
-    bf16* q1 = q0 + 8 * SQ;
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-        const int c = i * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(q0 + c) = __floats2bfloat162_rn(qacc[i][0], qacc[i][1]);
-        *reinterpret_cast<__nv_bfloat162*>(q1 + c) = __floats2bfloat162_rn(qacc[i][2], qacc[i][3]);
-    }
-    __syncthreads();
-
-    const size_t head_base = (size_t)b * L * HD + (size_t)h * DP;
-    attend_tile<DP, DP>(sQ, sK, sV, kbuf + head_base, vbuf + head_base,
-                        packed + head_base + (size_t)qt * ATT_BM * HD, L, HD);
-}
-
-// (3) grid (C/64, ceil(M/64))
-__global__ void __launch_bounds__(GM_THREADS)
-out_proj_kernel(const bf16* __restrict__ packed, const bf16* __restrict__ wo, const float* __restrict__ bo,
-                const bf16* __restrict__ res, bf16* __restrict__ out, int M, int HD, int C) {
-    __shared__ __align__(16) uint16_t smem[2 * GM_BM * GM_S];
-    bf16* sA = reinterpret_cast<bf16*>(smem);
-    bf16* sB = sA + GM_BM * GM_S;
-    const int n0 = blockIdx.x * GM_BN, m0 = blockIdx.y * GM_BM;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / 2, wn = warp % 2, g = lane / 4, t = lane % 4;
-
-    float acc[2][4][4];
-    zero_acc(acc);
-    block_gemm_bt(acc, sA, sB, packed, HD, wo, HD, HD, m0, n0, M);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-            const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-            const float b0 = bo[col], b1 = bo[col + 1];
+        for (int i = 0; i < 16; i += 4)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-                const int row = m0 + wm * 32 + mi * 16 + g + half * 8;
-                if (row >= M) continue;
-                const float2 r = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)row * C + col));
-                *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + col) = __floats2bfloat162_rn(
-                    acc[mi][ni][2 * half] + b0 + r.x, acc[mi][ni][2 * half + 1] + b1 + r.y);
+                uint32_t w[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    w[j] = pack_bf16(acc[4 * (i + j) + 2 * half], acc[4 * (i + j) + 2 * half + 1]);
+                quad_transpose(w);  // now columns 8(i + t) .. + 7
+                const int row = row0 + 8 * half;
+                if (row < M)
+                    *reinterpret_cast<uint4*>(o + (size_t)row * HD + (n % per) * 128 + 8 * (i + t)) =
+                        make_uint4(w[0], w[1], w[2], w[3]);
             }
-        }
+    };
+    gg_tiles<128>(smem, bars, C / 64, nt, nt * ((M + GG_BM - 1) / GG_BM), load, epi);
 }
 
-template <int DP>
-static cudaError_t launch_attention(const bf16* x, const bf16* wq, const bf16* k, const bf16* v, bf16* packed,
-                                    int B, int L, int C, int H, cudaStream_t stream) {
-    const size_t smem = AttnCfg<DP, DP>::SMEM;
-    cudaError_t err = cudaFuncSetAttribute(block_attention_kernel<DP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// K5's __global__ for packed_attention_wgmma (attention_packed_wgmma.cuh).
+template <int DP, int WGS>
+__global__ void __launch_bounds__(WgCfg<DP, WGS>::THREADS, 1)
+attention_block_attend_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                              const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o, int L, int HD) {
+    packed_attention_wgmma<DP, WGS>(mq, mk, mv, o, L, HD);
+}
+
+struct K5Kernels {
+    template <int DP, int WGS>
+    static PackedWgmmaKernel get() { return attention_block_attend_kernel<DP, WGS>; }
+};
+
+// Persistent blocks over the (C / BN) x ceil(M / 128) tiles of out.
+template <int BN>
+__global__ void __launch_bounds__(GG_THREADS, 2)
+attention_block_out_kernel(const __grid_constant__ CUtensorMap mp, const __grid_constant__ CUtensorMap mwo,
+                           const float* __restrict__ bo, const bf16* __restrict__ res, bf16* __restrict__ out, int M,
+                           int C, int HD) {
+    __shared__ __align__(8) uint64_t bars[2 * GG_STAGES];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t smem = (smem_addr(smem_raw) + 1023u) & ~1023u;
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int nt = C / BN;
+
+    auto load = [&](int n, int m, int j, uint32_t a, uint32_t b, uint32_t bar) {
+        tma_load_2d(a, &mp, j * 64, m * GG_BM, bar);
+        tma_load_2d(b, &mwo, j * 64, n * BN, bar);
+    };
+    auto epi = [&](int n, int m, float (&acc)[BN / 2]) {
+        const int row0 = m * GG_BM + (threadIdx.x / 32) * 16 + g;
+#pragma unroll
+        for (int i = 0; i < BN / 8; i += 4) {
+            const int col = n * BN + 8 * (i + t);  // this thread's 8 columns after the transposes
+            const float4 b0 = *reinterpret_cast<const float4*>(bo + col);
+            const float4 b1 = *reinterpret_cast<const float4*>(bo + col + 4);
+            const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                uint32_t ev[4], od[4];  // the f32 sums of even and of odd columns
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    ev[j] = __float_as_uint(acc[4 * (i + j) + 2 * half]);
+                    od[j] = __float_as_uint(acc[4 * (i + j) + 2 * half + 1]);
+                }
+                quad_transpose(ev);
+                quad_transpose(od);
+                const int row = row0 + 8 * half;
+                if (row >= M) continue;
+                const uint4 rr = *reinterpret_cast<const uint4*>(res + (size_t)row * C + col);
+                const bf16* r = reinterpret_cast<const bf16*>(&rr);
+                uint32_t o[4];
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                    o[k] = pack_bf16(__uint_as_float(ev[k]) + bs[2 * k] + __bfloat162float(r[2 * k]),
+                                     __uint_as_float(od[k]) + bs[2 * k + 1] + __bfloat162float(r[2 * k + 1]));
+                *reinterpret_cast<uint4*>(out + (size_t)row * C + col) = make_uint4(o[0], o[1], o[2], o[3]);
+            }
+        }
+    };
+    gg_tiles<BN>(smem, bars, HD / 64, nt, nt * ((M + GG_BM - 1) / GG_BM), load, epi);
+}
+
+static cudaError_t launch_qkv(const void* x, const void* wq, const void* wk, const void* wv, bf16* qkv, int M, int C,
+                              int HD, cudaStream_t s) {
+    CUtensorMap mx, mwq, mwk, mwv;
+    if (!bf16_map_sw128(&mx, x, M, C, GG_BM) || !bf16_map_sw128(&mwq, wq, HD, C, 128) ||
+        !bf16_map_sw128(&mwk, wk, HD, C, 128) || !bf16_map_sw128(&mwv, wv, HD, C, 128))
+        return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(attention_block_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)GgCfg<128>::SMEM);
     if (err != cudaSuccess) return err;
-    block_attention_kernel<DP><<<dim3(L / ATT_BM, H, B), ATT_THREADS, smem, stream>>>(x, wq, k, v, packed, L, C, H * DP);
+    const int ntiles = 3 * (HD / 128) * ((M + GG_BM - 1) / GG_BM);
+    attention_block_qkv_kernel<<<gg_grid(ntiles), GG_THREADS, GgCfg<128>::SMEM, s>>>(mx, mwq, mwk, mwv, qkv, M, C,
+                                                                                      HD);
+    return cudaGetLastError();
+}
+
+template <int BN>
+static cudaError_t launch_out(const bf16* packed, const void* wo, const float* bo, const bf16* res, bf16* out, int M,
+                              int C, int HD, cudaStream_t s) {
+    CUtensorMap mp, mwo;
+    if (!bf16_map_sw128(&mp, packed, M, HD, GG_BM) || !bf16_map_sw128(&mwo, wo, C, HD, BN))
+        return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(attention_block_out_kernel<BN>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GgCfg<BN>::SMEM);
+    if (err != cudaSuccess) return err;
+    const int ntiles = (C / BN) * ((M + GG_BM - 1) / GG_BM);
+    attention_block_out_kernel<BN><<<gg_grid(ntiles), GG_THREADS, GgCfg<BN>::SMEM, s>>>(mp, mwo, bo, res, out, M, C,
+                                                                                         HD);
     return cudaGetLastError();
 }
 
 }  // namespace saspa
 
 // x_ln, residual, out: (B, L, C) bf16; wq, wk, wv: (H*dp, C) bf16; wo: (C, H*dp)
-// bf16; bo: (C,) f32; kbuf, vbuf, packed: (B, L, H*dp) bf16 workspaces.  All
-// contiguous on the device; L % 64 == 0, C % 64 == 0, dp in {64, 128, 192}.
+// bf16; bo: (C,) f32; ws: 4 * B*L*H*dp bf16 scratch (Q, K, V, then the packed
+// heads, each (B, L, H*dp)).  All contiguous and 16-byte aligned on the
+// device; L % 128 == 0, C % 64 == 0, dp in {64, 128, 192}, H*dp % 128 == 0.
 // Returns a cudaError_t (0 on success).
 extern "C" int saspa_attention_block(const void* x_ln, const void* residual, const void* wq, const void* wk,
-                                     const void* wv, const void* wo, const void* bo, void* kbuf, void* vbuf,
-                                     void* packed, void* out, int B, int L, int C, int H, int dp, void* stream) {
-    using saspa::bf16;
-    if (B <= 0 || H <= 0 || L % saspa::ATT_BM || C % saspa::GM_BN || (dp != 64 && dp != 128 && dp != 192))
+                                     const void* wv, const void* wo, const void* bo, void* ws, void* out, int B,
+                                     int L, int C, int H, int dp, void* stream) {
+    using namespace saspa;
+    const int HD = H * dp;
+    if (B <= 0 || H <= 0 || L <= 0 || L % 128 || C <= 0 || C % 64 || HD % 128 ||
+        (dp != 64 && dp != 128 && dp != 192))
         return (int)cudaErrorInvalidValue;
-    const int M = B * L, HD = H * dp, mb = (M + saspa::GM_BM - 1) / saspa::GM_BM;
-    const bf16* x = static_cast<const bf16*>(x_ln);
-    bf16* k = static_cast<bf16*>(kbuf);
-    bf16* v = static_cast<bf16*>(vbuf);
-    bf16* p = static_cast<bf16*>(packed);
+    const int M = B * L;
+    const size_t n = (size_t)M * HD;
+    bf16* q = static_cast<bf16*>(ws);
+    bf16* packed = q + 3 * n;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-    saspa::kv_proj_kernel<<<dim3(HD / saspa::GM_BN, mb, 2), saspa::GM_THREADS, 0, s>>>(
-        x, static_cast<const bf16*>(wk), static_cast<const bf16*>(wv), k, v, M, C, HD);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = launch_qkv(x_ln, wq, wk, wv, q, M, C, HD, s);
+    if (err == cudaSuccess) err = launch_packed_wgmma<K5Kernels>(q, q + n, q + 2 * n, packed, B, L, H, dp, s);
     if (err != cudaSuccess) return (int)err;
-    const bf16* wqp = static_cast<const bf16*>(wq);
-    switch (dp) {
-        case 64: err = saspa::launch_attention<64>(x, wqp, k, v, p, B, L, C, H, s); break;
-        case 128: err = saspa::launch_attention<128>(x, wqp, k, v, p, B, L, C, H, s); break;
-        case 192: err = saspa::launch_attention<192>(x, wqp, k, v, p, B, L, C, H, s); break;
-        default: return (int)cudaErrorInvalidValue;
-    }
-    if (err != cudaSuccess) return (int)err;
-    saspa::out_proj_kernel<<<dim3(C / saspa::GM_BN, mb), saspa::GM_THREADS, 0, s>>>(
-        p, static_cast<const bf16*>(wo), static_cast<const float*>(bo), static_cast<const bf16*>(residual),
-        static_cast<bf16*>(out), M, HD, C);
-    return (int)cudaGetLastError();
+    const float* bop = static_cast<const float*>(bo);
+    const bf16* rp = static_cast<const bf16*>(residual);
+    bf16* op = static_cast<bf16*>(out);
+    return (int)(C % 160 == 0 ? launch_out<160>(packed, wo, bop, rp, op, M, C, HD, s)
+                              : launch_out<64>(packed, wo, bop, rp, op, M, C, HD, s));
 }

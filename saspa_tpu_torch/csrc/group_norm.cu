@@ -15,56 +15,36 @@
 //
 // What bounds it on an H100: a few flops per element against 4 bytes (one
 // bf16 read, one bf16 write): HBM bandwidth.  The TPU kernel kept one
-// sample's channel block resident in VMEM (one read, one write) and folded
-// group stats into channels with a one-hot matmul; a group here reaches
-// 2,097,152 elements (the VAE's 256 channels at 512^2), far beyond a block's
-// shared memory.  So the work is split into chunks of `chunk` pixel rows of
-// one sample, in three launches:
-// (a) gn_stats writes each chunk's f32 (sum, sum of squares) per group;
-// (b) gn_finalize sums a group's partials in a fixed order into (mean, rstd);
-// (c) gn_apply normalizes a chunk.  x is read twice (the second read often
-// from L2); the sum order differs from the plain version's, nothing else
-// does.  A thread owns VEC consecutive channels of one group (VEC divides
-// C/G) and walks the chunk's rows, so loads stay coalesced along C.
+// sample's channel block resident in VMEM (one read, one write) and summed
+// per-channel f32 moments over rows before folding channels into groups
+// with a one-hot matmul; a group here reaches 2,097,152 elements (the VAE's
+// 256 channels at 512^2), far beyond a block's shared memory, so x is read
+// twice (the second read partly from L2), in two launches on one host plan
+// (ops/groupnorm.py::gn_plan):
+//   gn_stats_kernel: a thread owns one 16-byte vector (8 consecutive
+//     channels) of a pixel row, whatever C/G is; `rows` pixel rows of C/8
+//     threads each run side by side in a block of `threads` (whole warps),
+//     and grid (blocks, B) blocks walk their sample's rows grid-stride,
+//     four loads in flight a thread.  Each thread sums its 8 channels' f32
+//     moments over its rows in row order; the block adds its row offsets per
+//     channel, in order, then folds channels into groups once (a vector may
+//     span a group boundary: C/G = 10, 20, 30), all groups at once (gn_fold:
+//     lane-strided sums, then a butterfly), and writes one (sum, sum of
+//     squares) per group;
+//   gn_apply_kernel<TPU, SILU>: its prologue folds the sample's `blocks`
+//     partials of each group the same way, in the same fixed order in every
+//     block, into (mean, rstd); then the same walk as the statistics, its 8
+//     channels' coefficients in registers, normalizes each vector and stores
+//     16 bytes.  With SiLU the normalize is bound by its arithmetic (expf and
+//     an IEEE division or reciprocal an element, and in the TPU numerics a
+//     bf16 rounding after each op) as much as by HBM.
+// The sums are deterministic; their order differs from the plain versions'.
 #include "mma_bf16.cuh"
 
 namespace saspa {
 
-constexpr int GN_THREADS = 256;
+constexpr int GN_MAX_THREADS = 512;  // a block's threads (ops/groupnorm.py::GN_MAX_THREADS)
 constexpr int GN_MAX_GROUPS = 64;
-
-template <int VEC>
-__device__ __forceinline__ void load_vec(float f[VEC], const bf16* p) {
-    if (VEC == 8) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(p);
-        const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) f[i] = __bfloat162float(e[i]);
-    } else if (VEC == 4) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(p);
-        const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) f[i] = __bfloat162float(e[i]);
-    } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) f[i] = __bfloat162float(p[i]);
-    }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(bf16* p, const float f[VEC]) {
-    __align__(16) bf16 o[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o[i] = __float2bfloat16_rn(f[i]);
-    if (VEC == 8) {
-        *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(o);
-    } else if (VEC == 4) {
-        *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(o);
-    } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) p[i] = o[i];
-    }
-}
 
 // Per-channel coefficients: xla order (a, b) = (rstd * gamma, beta) with the
 // mean subtracted first; TPU numerics (a, b) = (bf16(scale), bf16(shift)).
@@ -81,172 +61,185 @@ __device__ __forceinline__ GnCoef gn_coef(float gamma, float beta, float mean, f
 }
 
 // One element; the result is rounded to bf16 by the store.
-__device__ __forceinline__ float gn_elem(float x, GnCoef k, float mean, int silu, int tpu) {
-    if (tpu) {
+template <int TPU, int SILU>
+__device__ __forceinline__ float gn_elem(float x, GnCoef k, float mean) {
+    if (TPU) {
         float y = round_bf16(round_bf16(x * k.a) + k.b);
-        if (silu) y = y * round_bf16(1.f / round_bf16(1.f + round_bf16(expf(-y))));
+        if (SILU) y = y * round_bf16(__frcp_rn(round_bf16(1.f + round_bf16(expf(-y)))));  // 1 / z, rounded once
         return y;
     }
     float y = round_bf16(__fmul_rn(x - mean, k.a) + k.b);  // no fma: the plain order
-    if (silu) y = y / (1.f + expf(-y));
+    if (SILU) y = y / (1.f + expf(-y));
     return y;
 }
 
-// Grid (nchunk, B): a chunk is `rows` pixel rows of one sample.
-// P = C / VEC channel slots per row; with P < GN_THREADS, RP = GN_THREADS / P
-// rows run side by side (thread t: row offset t / P, slot t % P), else each
-// thread takes slots t, t + GN_THREADS, ... of every row.
-
-// (a) partial[(b * G + g) * nchunk + chunk] = (sum, sum of squares)
-template <int VEC>
-__global__ void __launch_bounds__(GN_THREADS)
-gn_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ partial, int HW, int C, int G, int rows,
-                     int nchunk) {
-    extern __shared__ float2 sacc[];  // [RP][P]
-    const int b = blockIdx.y, P = C / VEC;
-    const int RP = P >= GN_THREADS ? 1 : GN_THREADS / P;
-    const int r_off = P >= GN_THREADS ? 0 : threadIdx.x / P;
-    const int r_lo = blockIdx.x * rows, r_hi = min(r_lo + rows, HW);
-    const bf16* xb = x + (size_t)b * HW * C;
-    if (r_off < RP) {
-        for (int s = P >= GN_THREADS ? threadIdx.x : threadIdx.x % P; s < P; s += GN_THREADS) {
-            float s1 = 0.f, s2 = 0.f;
-            for (int r = r_lo + r_off; r < r_hi; r += RP) {
-                float f[VEC];
-                load_vec<VEC>(f, xb + (size_t)r * C + s * VEC);
-#pragma unroll
-                for (int e = 0; e < VEC; ++e) {
-                    s1 += f[e];
-                    s2 += f[e] * f[e];
-                }
-            }
-            sacc[r_off * P + s] = make_float2(s1, s2);
-        }
-    }
-    __syncthreads();
-    const int slots = C / G / VEC;  // a group's slots
-    for (int g = threadIdx.x; g < G; g += GN_THREADS) {
-        float s1 = 0.f, s2 = 0.f;
-        for (int ro = 0; ro < RP; ++ro)
-            for (int s = g * slots; s < (g + 1) * slots; ++s) {
-                const float2 v = sacc[ro * P + s];
-                s1 += v.x;
-                s2 += v.y;
-            }
-        partial[((size_t)b * G + g) * nchunk + blockIdx.x] = make_float2(s1, s2);
-    }
+// Lanes that fold one group's terms (channels in the statistics, the blocks'
+// partials in the normalize): the most, up to a warp, that let the block hold
+// all G groups at once.  A power of two, so a group's lanes are an aligned
+// segment of a warp and a butterfly over them stays inside it.
+__device__ __forceinline__ int gn_lanes(int G) {
+    int L = 32;
+    while (L > 1 && G * L > (int)blockDim.x) L >>= 1;
+    return L;
 }
 
-// (c)
-template <int VEC>
-__global__ void __launch_bounds__(GN_THREADS)
-gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-                     bf16* __restrict__ out, const float2* __restrict__ stats, int HW, int C, int G, int rows,
-                     int silu, int tpu) {
-    __shared__ float2 sst[GN_MAX_GROUPS];  // (mean, rstd) of this sample's groups
-    const int b = blockIdx.y, P = C / VEC;
-    for (int g = threadIdx.x; g < G; g += GN_THREADS) sst[g] = stats[(size_t)b * G + g];
-    __syncthreads();
-    const int RP = P >= GN_THREADS ? 1 : GN_THREADS / P;
-    const int r_off = P >= GN_THREADS ? 0 : threadIdx.x / P;
-    const int r_lo = blockIdx.x * rows, r_hi = min(r_lo + rows, HW);
-    const int CG = C / G;
-    const size_t base = (size_t)b * HW * C;
-    if (r_off >= RP) return;
-    for (int s = P >= GN_THREADS ? threadIdx.x : threadIdx.x % P; s < P; s += GN_THREADS) {
-        const float2 st = sst[s * VEC / CG];  // VEC divides C/G: one group per slot
-        GnCoef k[VEC];
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) k[e] = gn_coef(gamma[s * VEC + e], beta[s * VEC + e], st.x, st.y, tpu);
-        for (int r = r_lo + r_off; r < r_hi; r += RP) {
-            const size_t i = base + (size_t)r * C + s * VEC;
-            float f[VEC];
-            load_vec<VEC>(f, x + i);
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) f[e] = gn_elem(f[e], k[e], st.x, silu, tpu);
-            store_vec<VEC>(out + i, f);
-        }
-    }
-}
-
-// (b) one warp per (sample, group): stats[bg] = (mean, rstd)
-__global__ void __launch_bounds__(GN_THREADS)
-gn_finalize_kernel(const float2* __restrict__ partial, float2* __restrict__ stats, int BG, int nchunk, float n,
-                   float eps, int tpu) {
-    const int bg = blockIdx.x * (GN_THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (bg >= BG) return;
+// Thread tid = g * L + l of the block's first ceil(G * L / 32) warps (L =
+// gn_lanes(G)) folds terms l, l + L, ... of group g, in order, then the L
+// lanes add up in a butterfly; term(g, i, s1, s2) adds term i; returns the
+// group's (sum, sum of squares) in the group's lane 0 (and (0, 0) where g >=
+// G).  Every lane of those warps runs the shuffles.
+template <class Term>
+__device__ __forceinline__ bool gn_fold(int G, int n, Term term, int& g, float2& out) {
+    const int L = gn_lanes(G), tid = threadIdx.x;
+    if (tid / 32 >= (G * L + 31) / 32) return false;
+    g = tid / L;
     float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < nchunk; c += 32) {
-        const float2 p = partial[(size_t)bg * nchunk + c];
-        s1 += p.x;
-        s2 += p.y;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+    if (g < G)
+        for (int i = tid % L; i < n; i += L) term(g, i, s1, s2);
+    for (int off = L / 2; off > 0; off >>= 1) {
         s1 += __shfl_xor_sync(0xffffffffu, s1, off);
         s2 += __shfl_xor_sync(0xffffffffu, s2, off);
     }
-    if (lane == 0) {
-        const float mean = s1 / n;
-        float var = s2 / n - mean * mean;
-        if (!tpu) var = fmaxf(var, 0.f);
-        stats[bg] = make_float2(mean, rsqrtf(var + eps));
+    out = make_float2(s1, s2);
+    return g < G && tid % L == 0;
+}
+
+// Thread tid < rows * C/8 of a block owns channels 8s .. 8s + 7 (s = tid %
+// (C/8)) of the pixel rows blockIdx.x * rows + tid / (C/8) + k * gridDim.x *
+// rows, k = 0, 1, ... of sample blockIdx.y; fn(v, r) runs on each row's
+// vector, U loads ahead, in row order.
+template <int U, class Fn>
+__device__ __forceinline__ void gn_walk(const bf16* xs, int HW, int C, int rows, int ro, Fn fn) {
+    const int step = gridDim.x * rows;
+    int r = blockIdx.x * rows + ro;
+    for (; r + (U - 1) * step < HW; r += U * step) {
+        uint4 v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) v[u] = __ldg(reinterpret_cast<const uint4*>(xs + (size_t)(r + u * step) * C));
+#pragma unroll
+        for (int u = 0; u < U; ++u) fn(v[u], r + u * step);
     }
+    for (; r < HW; r += step) fn(__ldg(reinterpret_cast<const uint4*>(xs + (size_t)r * C)), r);
 }
 
-struct GnArgs {
-    const bf16* x;
-    const float* gamma;
-    const float* beta;
-    bf16* out;
-    float2* partial;
-    float2* stats;
-    int B, C, HW, G, chunk, nchunk, silu, tpu;
-    float eps;
-    cudaStream_t s;
-};
-
-static cudaError_t finalize(const GnArgs& a) {
-    const int bg = a.B * a.G, per = GN_THREADS / 32;
-    gn_finalize_kernel<<<(bg + per - 1) / per, GN_THREADS, 0, a.s>>>(a.partial, a.stats, bg, a.nchunk,
-                                                                     (float)((long)(a.C / a.G) * a.HW), a.eps, a.tpu);
-    return cudaGetLastError();
+// partial[(b * G + g) * gridDim.x + blockIdx.x] = this block's (sum, sum of
+// squares) of group g.
+__global__ void __launch_bounds__(GN_MAX_THREADS, 2)
+gn_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ partial, int HW, int C, int G, int rows) {
+    extern __shared__ float2 sch[];  // [rows][C]: each row offset's per-channel moments
+    const int b = blockIdx.y, nv = C / 8, tid = threadIdx.x;
+    if (tid < rows * nv) {
+        const int s = tid % nv, ro = tid / nv;
+        float s1[8], s2[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s1[e] = s2[e] = 0.f;
+        gn_walk<4>(x + (size_t)b * HW * C + s * 8, HW, C, rows, ro, [&](const uint4& v, int) {
+            const bf16* h = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+                const float f = __bfloat162float(h[e]);
+                s1[e] += f;
+                s2[e] += f * f;
+            }
+        });
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sch[ro * C + s * 8 + e] = make_float2(s1[e], s2[e]);
+    }
+    __syncthreads();
+    for (int c = tid; c < C; c += blockDim.x) {  // the row offsets, in order
+        float2 a = sch[c];
+        for (int ro = 1; ro < rows; ++ro) {
+            a.x += sch[ro * C + c].x;
+            a.y += sch[ro * C + c].y;
+        }
+        sch[c] = a;
+    }
+    __syncthreads();
+    const int CG = C / G;
+    int g;
+    float2 m;
+    if (gn_fold(G, CG, [&](int grp, int i, float& s1, float& s2) {  // channels into groups
+            s1 += sch[grp * CG + i].x;
+            s2 += sch[grp * CG + i].y;
+        }, g, m))
+        partial[((size_t)b * G + g) * gridDim.x + blockIdx.x] = m;
 }
 
-template <int VEC>
-static cudaError_t launch(const GnArgs& a) {
-    const int P = a.C / VEC;
-    const size_t smem = sizeof(float2) * (P >= GN_THREADS ? P : (GN_THREADS / P) * P);
-    const dim3 grid(a.nchunk, a.B);
-    gn_stats_kernel<VEC><<<grid, GN_THREADS, smem, a.s>>>(a.x, a.partial, a.HW, a.C, a.G, a.chunk, a.nchunk);
-    cudaError_t err = cudaGetLastError();
-    if (err == cudaSuccess) err = finalize(a);
-    if (err != cudaSuccess) return err;
-    gn_apply_kernel<VEC><<<grid, GN_THREADS, 0, a.s>>>(a.x, a.gamma, a.beta, a.out, a.stats, a.HW, a.C, a.G, a.chunk,
-                                                       a.silu, a.tpu);
-    return cudaGetLastError();
+// One instantiation per epilogue (TPU numerics or the xla order, with or
+// without SiLU), so that no per-element branch or unused operand takes
+// registers.
+template <int TPU, int SILU>
+__global__ void __launch_bounds__(GN_MAX_THREADS, 2)
+gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+                bf16* __restrict__ out, const float2* __restrict__ partial, int HW, int C, int G, int rows, float n,
+                float eps) {
+    __shared__ float2 sst[GN_MAX_GROUPS];  // (mean, rstd) of this sample's groups
+    const int b = blockIdx.y, nv = C / 8, tid = threadIdx.x;
+    int g;
+    float2 m;
+    if (gn_fold(G, gridDim.x, [&](int grp, int i, float& s1, float& s2) {  // the blocks' partials
+            const float2 p = partial[((size_t)b * G + grp) * gridDim.x + i];
+            s1 += p.x;
+            s2 += p.y;
+        }, g, m)) {
+        const float mean = m.x / n;
+        float var = m.y / n - mean * mean;
+        if (!TPU) var = fmaxf(var, 0.f);
+        sst[g] = make_float2(mean, rsqrtf(var + eps));
+    }
+    __syncthreads();
+    if (tid >= rows * nv) return;
+    const int s = tid % nv, ro = tid / nv, CG = C / G;
+    GnCoef k[8];
+    float mean[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+        const int c = s * 8 + e;
+        const float2 st = sst[c / CG];
+        mean[e] = st.x;
+        k[e] = gn_coef(gamma[c], beta[c], st.x, st.y, TPU);
+    }
+    const size_t base = (size_t)b * HW * C + s * 8;
+    gn_walk<TPU ? 4 : 2>(x + base, HW, C, rows, ro, [&](const uint4& v, int r) {
+        const bf16* h = reinterpret_cast<const bf16*>(&v);
+        __align__(16) bf16 o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+            o[e] = __float2bfloat16_rn(gn_elem<TPU, SILU>(__bfloat162float(h[e]), k[e], mean[e]));
+        *reinterpret_cast<uint4*>(out + base + (size_t)r * C) = *reinterpret_cast<const uint4*>(o);
+    });
 }
+
+typedef void (*GnApplyKernel)(const bf16*, const float*, const float*, bf16*, const float2*, int, int, int, int,
+                              float, float);
+static const GnApplyKernel kGnApply[2][2] = {{gn_apply_kernel<0, 0>, gn_apply_kernel<0, 1>},
+                                             {gn_apply_kernel<1, 0>, gn_apply_kernel<1, 1>}};  // [tpu][silu]
 
 }  // namespace saspa
 
 // x, out: (B, C, HW) bf16, NHWC in memory; gamma, beta: (C,) f32; ws:
-// (B * G * (nchunk + 1)) float2 scratch (the chunks' partial sums, then the
-// groups' (mean, rstd)).  chunk: pixel rows per chunk, nchunk = ceil(HW /
-// chunk).  All contiguous on the device; C % G == 0, C/G even, G <= 64,
-// C <= 4096, B <= 65535.  Returns a cudaError_t (0 on success).
+// (B * G * blocks) float2 scratch (each block's group moments).  threads,
+// rows, blocks: the launch plan (ops/groupnorm.py::gn_plan): threads a
+// multiple of 32 and at most 512, rows * C/8 <= threads, grid (blocks, B).
+// All contiguous and 16-byte aligned on the device; C % 8 == 0, C <= 4096,
+// C % G == 0, G <= 64, B <= 65535.  Returns a cudaError_t (0 on success).
 extern "C" int saspa_group_norm(const void* x, const void* gamma, const void* beta, void* out, void* ws, int B,
-                                int C, int HW, int G, int chunk, int nchunk, float eps, int silu, int tpu,
+                                int C, int HW, int G, int threads, int rows, int blocks, float eps, int silu, int tpu,
                                 void* stream) {
-    using saspa::bf16;
-    if (B <= 0 || G <= 0 || HW <= 0 || C % G || chunk <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
-    const int CG = C / G;
-    if (nchunk != (HW + chunk - 1) / chunk) return (int)cudaErrorInvalidValue;
-    if (CG % 2 || G > saspa::GN_MAX_GROUPS || C > 4096) return (int)cudaErrorInvalidValue;
-    float2* w = static_cast<float2*>(ws);
-    const saspa::GnArgs a{static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-                          static_cast<const float*>(beta), static_cast<bf16*>(out), w, w + (size_t)B * G * nchunk,
-                          B, C, HW, G, chunk, nchunk, silu, tpu, eps, static_cast<cudaStream_t>(stream)};
-    if (CG % 8 == 0) return (int)saspa::launch<8>(a);
-    if (CG % 4 == 0) return (int)saspa::launch<4>(a);
-    return (int)saspa::launch<2>(a);
+    using namespace saspa;
+    if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || C % 8 || C > 4096 || G <= 0 || G > GN_MAX_GROUPS || C % G ||
+        threads % 32 || threads <= 0 || threads > GN_MAX_THREADS || rows <= 0 || rows * (C / 8) > threads ||
+        blocks <= 0)
+        return (int)cudaErrorInvalidValue;
+    const bf16* xp = static_cast<const bf16*>(x);
+    float2* part = static_cast<float2*>(ws);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dim3 grid(blocks, B);
+    gn_stats_kernel<<<grid, threads, sizeof(float2) * rows * C, s>>>(xp, part, HW, C, G, rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    kGnApply[tpu != 0][silu != 0]<<<grid, threads, 0, s>>>(xp, static_cast<const float*>(gamma),
+                                                           static_cast<const float*>(beta), static_cast<bf16*>(out),
+                                                           part, HW, C, G, rows, (float)((long long)(C / G) * HW), eps);
+    return (int)cudaGetLastError();
 }

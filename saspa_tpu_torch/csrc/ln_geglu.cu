@@ -28,19 +28,18 @@
 //      accumulators and the GEGLU epilogue is thread-local; writes hid;
 //   3. ln_geglu_down_kernel: hid W2^T on wgmma, 128 rows x BN output
 //      columns (BN = 160 where C % 160 == 0, else 64), epilogue + b2 + x.
-// Both products: TMA loads with the 128-byte swizzle into a 3-stage ring of
-// full/empty mbarriers, fed by one thread of the second warpgroup (a
-// separate producer warp would cap every thread's registers, see
-// attention_packed.cu), and two consumer warpgroups of 64 rows each with
-// one wgmma group in flight.  A block needs <= 128 registers a thread and
+// Both products walk their tiles with gemm_wgmma.cuh (shared with K5): TMA
+// loads with the 128-byte swizzle into a 3-stage ring of full/empty
+// mbarriers, fed by one thread of the second warpgroup, and two consumer
+// warpgroups of 64 rows each with one wgmma group in flight.  A block needs <= 128 registers a thread and
 // <= 110 KB of shared memory, so two blocks share an SM: one's epilogue
 // (the erf polynomial and a division per hidden element on the CUDA cores)
 // overlaps the other's products.  The blocks are persistent (two an SM) and
 // walk the tiles N fastest, so the blocks at work share their A rows (xn,
 // hid) and weight tiles in L2; the ring runs on across a block's tiles, so
 // the next tile's first stages load during this tile's epilogue.
+#include "gemm_wgmma.cuh"
 #include "layernorm_row.cuh"
-#include "wgmma_tma.cuh"
 
 namespace saspa {
 
@@ -83,97 +82,6 @@ static const LayerNormKernel kNormKernels[LN_MAXV] = {
     ln_geglu_norm_kernel<5>, ln_geglu_norm_kernel<6>, ln_geglu_norm_kernel<7>, ln_geglu_norm_kernel<8>};
 
 // ---- 2, 3. the products ----------------------------------------------------
-
-constexpr int GG_BM = 128;        // rows a block: two consumer warpgroups of 64
-constexpr int GG_THREADS = 256;
-constexpr int GG_LOADER = 128;    // thread 0 of the second warpgroup issues every TMA load
-constexpr int GG_STAGES = 3;      // ring depth; a stage is 64 deep along K (one 128-byte box row)
-constexpr int GG_A_BYTES = GG_BM * 128;
-
-template <int BN>
-struct GgCfg {
-    static constexpr int STAGE_BYTES = GG_A_BYTES + BN * 128;
-    static constexpr size_t SMEM = GG_STAGES * STAGE_BYTES + 1024;  // + 1024-byte alignment
-    static_assert(2 * (SMEM + 1024 + 64) <= 233472, "two blocks an SM");
-};
-
-template <int BN>
-__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da, uint64_t db) {
-    if constexpr (BN == 64) wgmma_ss_n64(d, da, db, 1);
-    else if constexpr (BN == 128) wgmma_ss_n128(d, da, db, 1);
-    else wgmma_ss_n160(d, da, db, 1);
-}
-
-// A persistent block's walk over output tiles t = blockIdx.x, + gridDim.x, ...
-// (tile t: N tile t % nt, 128-row block t / nt, so that the blocks working
-// at one time share their A rows and B tiles in L2).  For each tile, acc
-// (this warpgroup's 64 x BN) = A B^T over nk stages of 64 along K, then
-// epi(n, m, acc).  load(n, m, j, a, b, bar), called by GG_LOADER only,
-// issues stage j of tile (n, m) (A: 128 rows, B: BN rows) to shared
-// addresses a and b, completing on bar.  The ring's loads are numbered
-// across the block's tiles, and a stage released is refilled at once with
-// the load GG_STAGES further on, so the next tile's first stages land while
-// this tile's epilogue runs.
-template <int BN, class Load, class Epi>
-__device__ __forceinline__ void gg_tiles(uint32_t smem, uint64_t* bars, int nk, int nt, int ntiles, Load load,
-                                         Epi epi) {
-    using Cf = GgCfg<BN>;
-    auto full = [&](int s) { return smem_addr(&bars[s]); };
-    auto empty = [&](int s) { return smem_addr(&bars[GG_STAGES + s]); };
-    const int mine = (ntiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;  // tiles of this block
-    auto issue = [&](int n) {  // the block's n-th load: stage j = n % nk of its (n / nk)-th tile
-        if (n >= mine * nk) return;
-        const int st = n % GG_STAGES, t = blockIdx.x + (n / nk) * gridDim.x;
-        if (n >= GG_STAGES) mbar_wait(empty(st), ((n / GG_STAGES) - 1) & 1);
-        const uint32_t a = smem + st * Cf::STAGE_BYTES;
-        mbar_arrive_expect_tx(full(st), Cf::STAGE_BYTES);
-        load(t % nt, t / nt, n % nk, a, a + GG_A_BYTES, full(st));
-    };
-    const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
-    if (threadIdx.x == GG_LOADER) {
-        for (int s = 0; s < GG_STAGES; ++s) {
-            mbar_init(full(s), 1);
-            mbar_init(empty(s), GG_THREADS / 32);  // lane 0 of each warp
-        }
-        mbar_fence_init();
-        for (int n = 0; n < GG_STAGES; ++n) issue(n);
-    }
-    __syncthreads();
-
-    // stage `it` is done: release it, and the loader refills it with load
-    // it + GG_STAGES once all 8 warps have released it
-    auto release = [&](int it) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty(it % GG_STAGES));
-        if (threadIdx.x == GG_LOADER) issue(it + GG_STAGES);
-        __syncwarp();  // the warp reconverges before the next .aligned wgmma
-    };
-    int it = 0;  // the block's stages consumed so far
-    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-        float acc[BN / 2];
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-        for (int j = 0; j < nk; ++j, ++it) {
-            const int st = it % GG_STAGES;
-            const uint32_t a = smem + st * Cf::STAGE_BYTES + wg * 64 * 128, b = smem + st * Cf::STAGE_BYTES + GG_A_BYTES;
-            mbar_wait(full(st), (it / GG_STAGES) & 1);
-            fence_regs(acc);
-            wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)  // 16 columns = 32 bytes into the 128-byte row
-                wgmma_ss<BN>(acc, sw128_desc(a + kk * 32, 16, 1024), sw128_desc(b + kk * 32, 16, 1024));
-            wgmma_commit();
-            if (j == 0) continue;
-            wgmma_wait<1>();  // stage it - 1's products are done
-            fence_regs(acc);
-            release(it - 1);
-        }
-        wgmma_wait<0>();
-        fence_regs(acc);
-        release(it - 1);
-        epi(t % nt, t / nt, acc);
-    }
-}
 
 // Persistent blocks over the (F / 64) x ceil(M / 128) tiles of hid: tile
 // hid[m0:m0+128, n0:n0+64].
@@ -250,14 +158,6 @@ ln_geglu_down_kernel(const __grid_constant__ CUtensorMap mhid, const __grid_cons
         }
     };
     gg_tiles<BN>(smem, bars, F / 64, nt, nt * ((M + GG_BM - 1) / GG_BM), load, epi);
-}
-
-// Blocks of a persistent grid: two an SM (each needs at most half of the
-// SM's registers and shared memory), no more than there are tiles.
-static int gg_grid(int ntiles) {
-    int dev = 0, sms = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return ntiles < 2 * sms ? ntiles : 2 * sms;
 }
 
 template <int BN>

@@ -34,9 +34,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "attention_packed": ("saspa_attention_packed", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "ln_geglu": ("saspa_ln_geglu", [_P] * 10 + [_I] * 7 + [_F, _P]),
-    "group_norm": ("saspa_group_norm", [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P]),
+    "group_norm": ("saspa_group_norm", [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P]),
     "layernorm": ("saspa_layernorm", [_P] * 4 + [_I] * 5 + [_F, _P]),
-    "attention_block": ("saspa_attention_block", [_P] * 11 + [_I, _I, _I, _I, _I, _P]),
+    "attention_block": ("saspa_attention_block", [_P] * 9 + [_I] * 5 + [_P]),
     "flash_attention": ("saspa_flash_attention", [_P] * 4 + [_I] * 6 + [_F, _P]),
 }
 

@@ -32,7 +32,7 @@ FLASH_HEAD_DIMS = (64, 128, 192)  # the padded head dims K6 takes
 PLAIN_SCORE_BYTES = 1 << 30  # f32 scores K6's plain version holds at once
 
 launches = 0  # kernel launches of flash_attention_packed since the last reset
-block_launches = 0  # calls of attention_block_fused that launched K5 since the last reset
+block_launches = 0  # calls of attention_block_fused / attention_block_stages that launched K5 since the last reset
 flash_launches = 0  # kernel launches of flash_attention (K6) since the last reset
 BLOCK_HEAD_DIMS = (64, 128, 192)
 
@@ -284,15 +284,31 @@ def attention_block_fused_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads
     return (packed.float() @ wo.float().t() + bo.float() + residual.float()).to(d)
 
 
-def attention_block_fused(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int):
-    """residual + to_out(self_attention(x_ln)).  x_ln, residual: (B, L, C);
-    wq_scaled, wk, wv: (H*D_pad, C) head-padded, softmax_scale*log2(e) folded
-    into wq; wo: (C, H*D_pad); bo: (C,) f32.  CPU tensors run the plain
-    version; CUDA tensors launch K5 (bf16, D_pad in {64, 128, 192}, L and C
-    multiples of 64) or raise."""
+def attention_block_stages_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int):
+    """The plain mirror of K5's three kernels on the card: (q, k, v, packed,
+    out).  The QKV projection rounds each f32 product to x_ln's dtype; the
+    attention is K1's (`flash_attention_packed_plain`); the out projection
+    adds bo and the residual to the f32 product and rounds once."""
+    d = x_ln.dtype
+    xf = x_ln.float()
+    q = (xf @ wq_scaled.float().t()).to(d)
+    k = (xf @ wk.float().t()).to(d)
+    v = (xf @ wv.float().t()).to(d)
+    packed = flash_attention_packed_plain(q, k, v, heads)
+    out = packed.float() @ wo.float().t()
+    return q, k, v, packed, (out + bo.float() + residual.float()).to(d)
+
+
+def attention_block_stages(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int):
+    """(q, k, v, packed, out) of K5's three kernels: q, k, v and packed are
+    (B, L, H*D_pad), out like x_ln.  CPU tensors run the plain stages; CUDA
+    tensors launch the kernels or raise: bf16 activations and weights, an f32
+    bo, D_pad in {64, 128, 192}, L % 128 == 0 (K1's attention blocks;
+    `attention_block_eligible` admits no other L), C % 64 == 0, H*D_pad %
+    128 == 0, contiguous and 16-byte aligned (TMA)."""
     global block_launches
     if x_ln.device.type == "cpu":
-        return attention_block_fused_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads)
+        return attention_block_stages_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads)
     b, l, c = x_ln.shape
     hd = wq_scaled.shape[0]
     dp = hd // heads
@@ -303,18 +319,28 @@ def attention_block_fused(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int)
             or wo.shape != (c, hd) or bo.shape != (c,) or hd != heads * dp:
         raise ValueError(f"attention_block_fused shapes: x {tuple(x_ln.shape)} wq {tuple(wq_scaled.shape)} "
                          f"wo {tuple(wo.shape)} heads {heads}")
-    if dp not in BLOCK_HEAD_DIMS or l % 64 or c % 64:
-        raise ValueError(f"block kernel takes head dim in {BLOCK_HEAD_DIMS}, L and C multiples of 64; "
-                         f"got {dp}, {l}, {c}")
+    if dp not in BLOCK_HEAD_DIMS or l % 128 or c % 64 or hd % 128:
+        raise ValueError(f"block kernel takes head dim in {BLOCK_HEAD_DIMS}, L % 128 == 0, C % 64 == 0 and "
+                         f"H*D_pad % 128 == 0; got {dp}, {l}, {c}, {hd}")
     ts = (x_ln, residual, wq_scaled, wk, wv, wo, bo)
-    if not all(t.is_contiguous() and t.device == x_ln.device for t in ts):
-        raise ValueError("attention_block_fused needs contiguous inputs on one device")
-    kbuf, vbuf, packed = (torch.empty((b, l, hd), dtype=bf, device=x_ln.device) for _ in range(3))
+    if not all(t.is_contiguous() and t.device == x_ln.device and t.data_ptr() % 16 == 0 for t in ts):
+        raise ValueError("attention_block_fused needs contiguous, 16-byte aligned inputs on one device")
+    ws = torch.empty((4, b, l, hd), dtype=bf, device=x_ln.device)  # Q, K, V, packed
     out = torch.empty_like(x_ln)
     fn = _build.kernel("attention_block")
     stream = torch.cuda.current_stream(x_ln.device).cuda_stream
     _build.check(fn(x_ln.data_ptr(), residual.data_ptr(), wq_scaled.data_ptr(), wk.data_ptr(), wv.data_ptr(),
-                    wo.data_ptr(), bo.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), packed.data_ptr(),
-                    out.data_ptr(), b, l, c, heads, dp, stream), "attention_block")
+                    wo.data_ptr(), bo.data_ptr(), ws.data_ptr(), out.data_ptr(), b, l, c, heads, dp, stream),
+                 "attention_block")
     block_launches += 1
-    return out
+    return ws[0], ws[1], ws[2], ws[3], out
+
+
+def attention_block_fused(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int):
+    """residual + to_out(self_attention(x_ln)).  x_ln, residual: (B, L, C);
+    wq_scaled, wk, wv: (H*D_pad, C) head-padded, softmax_scale*log2(e) folded
+    into wq; wo: (C, H*D_pad); bo: (C,) f32.  CPU tensors run the plain
+    version; CUDA tensors launch K5 (see attention_block_stages) or raise."""
+    if x_ln.device.type == "cpu":
+        return attention_block_fused_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads)
+    return attention_block_stages(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads)[4]

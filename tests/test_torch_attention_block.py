@@ -80,6 +80,68 @@ def test_attention_block_plain_matches_pallas_interpret(l, dtype):
         assert np.abs(got - want).max() <= 1e-2 * scale
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_block_stages_plain_matches_pallas_interpret(dtype):
+    """The plain mirror of K5's three kernels on the card (QKV product
+    rounded to the input dtype, K1's plain attention, the f32 out epilogue)
+    at L 256, C 128, 2 heads of 64: its output is attention_block_fused_plain's
+    bit for bit, its Q/K/V/packed are the inputs and output of K1's plain
+    version, and it agrees with the JAX block kernel in interpret mode as
+    attention_block_fused does (f32: 1e-5 of the largest output; bf16: >=
+    99.5% equal, max |diff| <= 1% of the largest output)."""
+    p = _block_inputs(1, 256, 2, 64, seed=7)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    j = {k: jnp.asarray(v) for k, v in p.items()}
+    with pltpu.force_tpu_interpret_mode():
+        want = _np(jatt.attention_block_fused(j["x_ln"].astype(jdt), j["res"].astype(jdt), j["wq"].astype(jdt),
+                                              j["wk"].astype(jdt), j["wv"].astype(jdt), j["wo"].astype(jdt),
+                                              j["bo"], 2))
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in p.items()}
+    args = (t["x_ln"].to(tdt), t["res"].to(tdt), t["wq"].t().to(tdt), t["wk"].t().to(tdt), t["wv"].t().to(tdt),
+            t["wo"].t().to(tdt), t["bo"], 2)
+    q, k, v, packed, out = tatt.attention_block_stages_plain(*args)
+    assert all(x.dtype == tdt and x.shape == (1, 256, 128) for x in (q, k, v, packed, out))
+    assert torch.equal(out, tatt.attention_block_fused_plain(*args))
+    assert torch.equal(packed, tatt.flash_attention_packed_plain(q, k, v, 2))
+    assert torch.equal(tatt.attention_block_stages(*args)[4], out)  # the CPU wrapper runs the plain stages
+    got, scale = _np(out), np.abs(want).max()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5 * scale, rtol=0)
+    else:
+        assert np.mean(got == want) >= 0.995
+        assert np.abs(got - want).max() <= 1e-2 * scale
+
+
+QKV_BN = 128  # csrc/attention_block.cu: columns a tile of the Q/K/V product
+
+
+@pytest.mark.parametrize("hd", [512, 1024, 1536])
+def test_qkv_tile_map_covers_each_projection_once(hd):
+    """Replays attention_block_qkv_kernel's N-tile map for SD1.5's H*D_pad
+    (8 heads of 64, 128, 192): tile n loads rows (n % per) * 128 .. + 127 of
+    wq, wk or wv (n // per = 0, 1, 2; per = HD / 128) and its epilogue writes
+    the same columns of Q, K or V, whose buffers follow one another in the
+    workspace ((M, HD) each).  Every weight row and every workspace column of
+    the three is covered exactly once, and no tile crosses a projection."""
+    per = hd // QKV_BN
+    m = 256  # rows of the workspace (two 128-row blocks)
+    hits = np.zeros(3 * m * hd, np.int64)
+    rows_hit = np.zeros((3, hd), np.int64)
+    for n in range(3 * per):
+        which, col0 = n // per, (n % per) * QKV_BN
+        assert col0 + QKV_BN <= hd
+        rows_hit[which, col0:col0 + QKV_BN] += 1
+        cols = col0 + np.arange(QKV_BN)
+        offs = which * m * hd + np.arange(m)[:, None] * hd + cols[None, :]
+        np.add.at(hits, offs.ravel(), 1)
+    assert (rows_hit == 1).all() and (hits == 1).all()
+    # the out product's N tiles: 160 columns where they divide C (SD1.5's
+    # 320, 640, 1280), else 64; its K walk takes HD in 64-wide stages
+    c = {512: 320, 1024: 640, 1536: 1280}[hd]
+    bn = 160 if c % 160 == 0 else 64
+    assert c % bn == 0 and hd % 64 == 0 and c // bn in (2, 4, 8)
+
+
 def test_attention_block_eligible_copy_matches_jax(monkeypatch):
     """The port's predicate equals JAX's (with SASPA_ATTN_MEGAKERNEL=1 on a
     TPU backend) at SD1.5's self-attention sites, at 1024^2 and beyond, bf16

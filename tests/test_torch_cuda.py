@@ -130,6 +130,57 @@ def _bf16_ulps(out, ref, mag):
     return (out.float() - ref.float()).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
 
 
+@pytest.mark.parametrize("b,c,h,w,act,eps", [(16, 320, 64, 64, "silu", 1e-5), (2, 960, 16, 16, "silu", 1e-5),
+                                               (2, 960, 64, 64, None, 1e-5), (8, 128, 128, 128, "silu", 1e-6),
+                                               (1, 128, 17, 19, None, 1e-6), (2, 640, 32, 32, "silu", 1e-5),
+                                               (3, 256, 9, 9, "silu", 1e-6), (1, 64, 2, 3, None, 1e-5)])
+@pytest.mark.parametrize("tpu", [False, True])
+def test_group_norm_kernel_ulps_across_group_boundaries(gen, b, c, h, w, act, eps, tpu):
+    """K3 against its plain versions as chip_smoke.py holds it: >= 99.9% of
+    elements bit-equal and every one within 8 bf16 ulps of its terms'
+    magnitude ((|x| + |mean|) |gamma rstd| + |beta|), where a flipped bf16
+    rounding of a mean or a folded scale moves x * scale by 2 ulps and each
+    later rounding adds one.  C/G = 10, 30, 20 and 8 put group boundaries
+    inside 16-byte vectors (at C/G = 10 a vector of 8 channels spans two
+    groups), C/G = 4 (the VAE's C128) and 2 put several groups in one; row
+    counts that leave a ragged last row group (17x19, 9x9, 2x3) and a
+    sample's rows walked by many blocks (B8 C128 128^2)."""
+    x = (0.5 + 3.0 * torch.randn(b, c, h, w, generator=gen, device="cuda")).to(torch.bfloat16)
+    x = x.to(memory_format=torch.channels_last)
+    gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    out = groupnorm.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
+    plain = groupnorm.group_norm_tpu_plain if tpu else groupnorm.group_norm_plain
+    ref = plain(x, gamma, beta, 32, eps, act)
+    xg = x.float().reshape(b, 32, -1)
+    mean = xg.mean(-1)
+    rstd = torch.rsqrt(((xg * xg).mean(-1) - mean * mean).clamp_min(0.0) + eps)
+    sc = (gamma.reshape(1, 32, -1) * rstd[:, :, None]).abs().reshape(b, c, 1, 1)
+    mag = (x.float().abs() + mean.abs().repeat_interleave(c // 32, 1)[:, :, None, None]) * sc \
+        + beta.abs().reshape(1, c, 1, 1)
+    assert out.stride() == x.stride()
+    assert (out == ref).float().mean() >= 0.999
+    assert _bf16_ulps(out, ref, mag).max() <= 8
+
+
+def test_group_norm_makes_two_launches(gen):
+    """One call runs K3's two kernels (statistics, then normalize) and
+    nothing else: no finalize launch, no memset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(2, 320, 32, 32, generator=gen, device="cuda").to(torch.bfloat16)
+    x = x.to(memory_format=torch.channels_last)
+    ones = torch.ones(320, device="cuda")
+    groupnorm.group_norm(x, ones, ones, 32, 1e-5, "silu")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        groupnorm.group_norm(x, ones, ones, 32, 1e-5, "silu")
+        torch.cuda.synchronize()
+    names = sorted(e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert len(names) == 2 and any("gn_stats_kernel" in n for n in names) \
+        and any("gn_apply_kernel" in n for n in names), names
+
+
 @pytest.mark.parametrize("b,c,h,w,act,eps", [(2, 320, 64, 64, "silu", 1e-5), (2, 1280, 8, 8, None, 1e-6),
                                                (1, 256, 128, 128, "silu", 1e-6), (3, 64, 4, 4, None, 1e-5),
                                                (2, 192, 5, 7, "silu", 1e-5), (2, 2560, 8, 8, "silu", 1e-5),
@@ -173,14 +224,7 @@ def test_layernorm_kernel_matches_plain(gen, m, c):
     assert (out == ref).float().mean() >= 0.99
 
 
-@pytest.mark.parametrize("b,l,c,h", [(2, 256, 320, 8), (1, 1024, 640, 8), (2, 256, 1280, 8), (1, 64, 128, 2)])
-def test_attention_block_kernel_matches_plain(gen, b, l, c, h):
-    """K5 vs its plain version: bf16 Q/K/V and packed rounding points are the
-    same; online vs one-pass softmax and f32 product order differ: |diff|
-    <= 1% of the largest attention-plus-projection term (out - residual -
-    bo).  Scores of std ~4.3 bits peak each query's softmax on a few keys, so
-    that term is of order 1, beside a small residual and bo.  The last case
-    is a 64-token block (one q tile, one K/V tile)."""
+def _block_args(gen, b, l, c, h):
     d = c // h
     dp = attention.pad_head_dim(d)
     bf = torch.bfloat16
@@ -195,12 +239,57 @@ def test_attention_block_kernel_matches_plain(gen, b, l, c, h):
     bo = 0.05 * torch.randn(c, generator=gen, device="cuda")
     x = torch.randn(b, l, c, generator=gen, device="cuda").to(bf)
     res = (0.05 * torch.randn(b, l, c, generator=gen, device="cuda")).to(bf)
-    before = attention.block_launches
-    out = attention.attention_block_fused(x, res, wq, wk, wv, wo, bo, h)
-    assert attention.block_launches == before + 1
-    ref = attention.attention_block_fused_plain(x, res, wq, wk, wv, wo, bo, h)
+    return x, res, wq, wk, wv, wo, bo, h
+
+
+@pytest.mark.parametrize("b,l,c,h", [(2, 256, 320, 8), (1, 1024, 640, 8), (2, 256, 1280, 8), (1, 128, 128, 2)])
+def test_attention_block_kernel_matches_plain(gen, b, l, c, h):
+    """K5 vs its plain version: bf16 Q/K/V and packed rounding points are the
+    same; online vs one-pass softmax and f32 product order differ: |diff|
+    <= 1% of the largest attention-plus-projection term (out - residual -
+    bo).  Scores of std ~4.3 bits peak each query's softmax on a few keys, so
+    that term is of order 1, beside a small residual and bo.  The last case
+    is a 128-token block (one 128-row attention block, one 128-key tile; C
+    128 takes the out product's 64-column tiles)."""
+    args = _block_args(gen, b, l, c, h)
+    x, res, bo = args[0], args[1], args[6]
+    before = (attention.block_launches, attention.launches)
+    out = attention.attention_block_fused(*args)
+    assert (attention.block_launches, attention.launches) == (before[0] + 1, before[1])
+    ref = attention.attention_block_fused_plain(*args)
     term = ref.float() - res.float() - bo
     assert term.abs().max() >= 0.5
+    assert (out.float() - ref.float()).abs().max() <= 1e-2 * term.abs().max()
+
+
+@pytest.mark.parametrize("b,l,c,h", [(16, 4096, 320, 8), (16, 1024, 640, 8), (16, 256, 1280, 8), (2, 384, 320, 8),
+                                     (2, 640, 640, 8)])
+def test_attention_block_stages_match_plain_stages(gen, b, l, c, h):
+    """Each of K5's three kernels against its plain stage on the previous
+    kernel's output, at the three main-path shapes of configuration (b) and
+    at L = 384 and 640, where the attention takes K1's 2-warpgroup blocks (L
+    % 256 != 0).  Q, K, V: f32 products rounded to bf16, only the sum order
+    differs: >= 99% bit-equal, the rest within 1 ulp of the product's terms
+    (|x| |W|^T).  packed: K1's function on the kernel's Q, K, V, within 1% of
+    its largest output; padded head columns exactly 0.  out: >= 99% equal to
+    the plain epilogue on the kernel's packed heads, and the whole block
+    within 1% of the largest attention-plus-projection term."""
+    args = _block_args(gen, b, l, c, h)
+    x, res, wq, wk, wv, wo, bo, _ = args
+    dp = attention.pad_head_dim(c // h)
+    q, k, v, packed, out = attention.attention_block_stages(*args)
+    for got, w in ((q, wq), (k, wk), (v, wv)):
+        want = (x.float() @ w.float().t()).to(torch.bfloat16)
+        mag = x.float().abs() @ w.float().abs().t()
+        assert (got == want).float().mean() >= 0.99
+        assert _bf16_ulps(got, want, mag).max() <= 1
+    att_ref = attention.flash_attention_packed_plain(q, k, v, h)
+    assert (packed.float() - att_ref.float()).abs().max() <= 1e-2 * att_ref.float().abs().max()
+    assert (packed.reshape(b, l, h, dp)[..., c // h:] == 0).all()
+    out_ref = (packed.float() @ wo.float().t() + bo + res.float()).to(torch.bfloat16)
+    assert (out == out_ref).float().mean() >= 0.99
+    ref = attention.attention_block_fused_plain(*args)
+    term = ref.float() - res.float() - bo
     assert (out.float() - ref.float()).abs().max() <= 1e-2 * term.abs().max()
 
 
@@ -289,6 +378,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     w = torch.zeros(40, 40, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError):  # head dim 40: not padded
         attention.attention_block_fused(y, y, w, w, w, w, ones[:40], 1)
+    x64 = torch.zeros(1, 64, 128, dtype=torch.bfloat16, device="cuda")
+    w128 = torch.zeros(128, 128, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):  # L = 64: K1's attention blocks take L % 128 == 0
+        attention.attention_block_fused(x64, x64, w128, w128, w128, w128, torch.ones(128, device="cuda"), 2)
+    g36 = torch.zeros(1, 36, 4, 4, dtype=torch.bfloat16, device="cuda").to(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):  # C = 36: not a whole number of 16-byte vectors
+        groupnorm.group_norm(g36, ones[:36], ones[:36])
     z = torch.zeros(1, 256, 2, 40, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(TypeError):
         attention.flash_attention(z.float(), z.float(), z.float(), 0.1)

@@ -225,3 +225,200 @@ def test_norm_inputs_are_in_a_layout_the_kernels_take():
                     m.register_forward_pre_hook(hook)
         tp.make_fused_generate(32, 32, 2, 7.5)(tp.params, ids, neg, src, lat)
     assert len(seen) > 100 and all(seen)
+
+
+# ---- K3 on the card: its launch plan and its sum order, replayed here --------
+
+H100_SMS = 132
+# HW of every GroupNorm on the main path: the UNet's and ControlNet's levels
+# (8^2 .. 64^2 latents at 512^2, up to 128^2 at 1024^2) and the VAE's up to
+# 512^2 and 1024^2
+MAIN_PATH_HW = [s * s for s in (8, 16, 32, 64, 128, 256, 512, 1024)]
+
+
+def test_gn_plan_covers_every_channel_once():
+    """gn_plan for every C <= 4096 that is a whole number of 16-byte vectors
+    (C % 8 == 0), with the callers' G = groups_for(C, 32): the block is whole
+    warps, at most GN_MAX_THREADS, holds rows * C/8 threads that each own one
+    vector (8 channels) of a row, and its statistics fit 32 KB of shared
+    memory; replaying the kernel's slot arithmetic (s = tid % (C/8), row
+    offset tid // (C/8)), every channel of every row offset is covered by
+    exactly one thread, and gn_fold's (thread tid = g * L + l of L lanes a
+    group, the most up to 32 with G * L <= threads; lane l takes the group's
+    channels l, l + L, ...) puts each channel c into group c // (C/G) exactly
+    once, with each group's lanes inside one warp.  At SD1.5's widths no
+    thread idles."""
+    for c in range(8, tgn.GN_MAX_C + 1, 8):
+        g = tgn.groups_for(c, 32)
+        cg, nv = c // g, c // 8
+        threads, rows, _ = tgn.gn_plan(16, 4096, c, H100_SMS)
+        assert threads % 32 == 0 and threads <= tgn.GN_MAX_THREADS and rows * nv <= threads
+        assert rows * c * 8 <= 32 * 1024
+        tid = np.arange(rows * nv)
+        chan = (tid % nv)[:, None] * 8 + np.arange(8)[None, :]
+        cover = np.zeros((rows, c), np.int64)
+        np.add.at(cover, (np.repeat(tid // nv, 8), chan.ravel()), 1)
+        assert (cover == 1).all(), c
+        lanes = 32
+        while lanes > 1 and g * lanes > threads:
+            lanes //= 2
+        folded = np.zeros(c, np.int64)
+        for t in range(g * lanes):
+            grp, lane = divmod(t, lanes)
+            assert t // 32 == (grp * lanes + lanes - 1) // 32  # the group's lanes share a warp
+            chans = grp * cg + np.arange(lane, cg, lanes)
+            assert (chans // cg == grp).all()
+            folded[chans] += 1
+        assert (folded == 1).all(), c
+        if c in (128, 256, 320, 512, 640, 960, 1280, 1920, 2560):
+            assert threads == rows * nv, (c, threads, rows)
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 16])
+def test_gn_plan_walks_every_row_once(b):
+    """The grid-stride walk of gn_walk at every main-path HW and SD1.5 width:
+    block k of a sample takes rows k * rows + ro + i * blocks * rows (ro <
+    rows, i >= 0); every pixel row is taken by exactly one (block, row
+    offset), and the grid of blocks * b blocks fits one wave of
+    GN_THREADS_PER_SM threads an SM."""
+    for c in (128, 256, 320, 512, 640, 960, 1280, 1920, 2560):
+        for hw in MAIN_PATH_HW:
+            threads, rows, blocks = tgn.gn_plan(b, hw, c, H100_SMS)
+            step = blocks * rows
+            starts = (np.arange(blocks)[:, None] * rows + np.arange(rows)[None, :]).ravel()
+            taken = np.zeros(hw, np.int64)
+            for st in starts:
+                taken[st::step] += 1
+            assert (taken == 1).all(), (b, c, hw)
+            per_sm = max(1, tgn.GN_THREADS_PER_SM // threads)
+            assert blocks * b <= H100_SMS * per_sm, (b, c, hw, blocks)
+
+
+def _fold(terms, lanes):
+    """gn_fold: terms (..., n) f32; lane l sums terms l, l + lanes, ... in
+    order, then the lanes add up in a butterfly; returns lane 0's sum."""
+    n = terms.shape[-1]
+    pad = torch.zeros(*terms.shape[:-1], -(-n // lanes) * lanes)
+    pad[..., :n] = terms  # zero terms add nothing: s + 0 == s in f32
+    acc = pad[..., 0:lanes]
+    for i in range(1, pad.shape[-1] // lanes):
+        acc = acc + pad[..., lanes * i:lanes * (i + 1)]
+    off = lanes // 2
+    while off:
+        acc = acc + acc[..., torch.arange(lanes) ^ off]
+        off //= 2
+    return acc[..., 0]
+
+
+def _kernel_moments(x, groups, plan):
+    """K3's statistics in its own f32 sum order, in torch: x (B, HW, C) f32
+    (bf16 values).  A thread sums its 8 channels' moments over its rows in row
+    order (s2 as fma(f, f, s2), modelled as the exact f64 sum rounded once);
+    the block adds its row offsets per channel in order, then folds channels
+    into groups (gn_fold: L lanes a group, the most up to 32 with G * L <=
+    threads); the normalize's prologue folds a group's block partials the
+    same way.  Returns (sum, sum of squares) per (B, G), f32."""
+    b, hw, c = x.shape
+    threads, rows, blocks = plan
+    lanes = 32
+    while lanes > 1 and groups * lanes > threads:
+        lanes //= 2
+    step = blocks * rows
+    k = -(-hw // step)
+    xp = torch.zeros(b, k * step, c)
+    xp[:, :hw] = x  # zero rows add nothing: x + 0 == x in f32
+    xp = xp.reshape(b, k, blocks, rows, c)
+    s1 = torch.zeros(b, blocks, rows, c)
+    s2 = torch.zeros(b, blocks, rows, c)
+    for i in range(k):
+        f = xp[:, i]
+        s1 = s1 + f
+        s2 = (s2.double() + f.double() * f.double()).float()
+    c1, c2 = s1[:, :, 0], s2[:, :, 0]
+    for ro in range(1, rows):
+        c1, c2 = c1 + s1[:, :, ro], c2 + s2[:, :, ro]
+    cg = c // groups
+    parts = [_fold(t.reshape(b, blocks, groups, cg), lanes) for t in (c1, c2)]  # (B, blocks, G)
+    return [_fold(t.transpose(1, 2), lanes) for t in parts]
+
+
+def _kernel_group_norm(x, gamma, beta, groups, eps, act, tpu, plan):
+    """K3's function on x (B, HW, C) bf16 in its own sum order
+    (_kernel_moments) and its two epilogues (gn_coef, gn_elem), in torch."""
+    b, hw, c = x.shape
+    s1, s2 = _kernel_moments(x.float(), groups, plan)
+    n = float(c // groups * hw)
+    mean = s1 / n
+    var = s2 / n - mean * mean
+    if not tpu:
+        var = var.clamp_min(0.0)
+    rstd = torch.rsqrt(var + eps)
+    cg = c // groups
+    mean_c, rstd_c = mean.repeat_interleave(cg, 1)[:, None], rstd.repeat_interleave(cg, 1)[:, None]
+    xf = x.float()
+    bf = torch.bfloat16
+
+    def r(t):
+        return t.to(bf).float()
+
+    if tpu:
+        sc = gamma * rstd_c
+        a, sh = r(sc), r(beta - mean_c * sc)
+        y = r(r(xf * a) + sh)
+        if act == "silu":
+            y = y * r(1.0 / r(1.0 + r(torch.exp(-y))))
+    else:
+        y = r((xf - mean_c) * (rstd_c * gamma) + beta)
+        if act == "silu":
+            y = y / (1.0 + torch.exp(-y))
+    return y.to(bf)
+
+
+@pytest.mark.parametrize("c", [320, 640, 960, 256])
+@pytest.mark.parametrize("tpu", [False, True])
+@pytest.mark.parametrize("sms", [4, H100_SMS])
+def test_kernel_sum_order_matches_plain_and_jax(c, tpu, sms):
+    """K3's per-channel-then-group f32 sum order and its epilogues, emulated
+    in torch at C/G = 10, 20, 30 and 8 (vectors of 8 channels that span
+    group boundaries at 10, 20, 30), with the plan for an H100 (one row
+    group a thread) and for 4 SMs (many rows a thread, a ragged last row
+    group), against group_norm_plain / group_norm_tpu_plain and against the
+    JAX package's _xla_group_norm / _gn_pallas in interpret mode, bf16, with
+    SiLU and without (HW 256: the TPU kernel takes power-of-two HW only).
+    Only f32 sum orders differ; a flipped bf16 rounding of the mean or a
+    folded scale moves an element by 2 ulps of its terms' magnitude and
+    each later rounding adds one: >= 99.9% equal and all within 8 ulps of
+    (|x| + |mean|) |gamma rstd| + |beta|, as chip_smoke.py holds the
+    kernel.  XLA's SiLU in bf16 rounds sigmoid to bf16 before the product
+    (tests/test_torch_ops.py), which changes some 40% of the activated
+    outputs by an ulp: there only the 8 ulps hold."""
+    b, h, w, groups, eps = 2, 16, 16, 32, 1e-5
+    hw = h * w
+    x, gamma, beta = _gn_inputs(b, hw, c, seed=c + sms)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    gt, bt = torch.from_numpy(gamma), torch.from_numpy(beta)
+    plan = tgn.gn_plan(b, hw, c, sms)
+    xf = xb.float().reshape(b, hw, groups, -1)
+    mean = xf.mean((1, 3))
+    rstd = torch.rsqrt(((xf * xf).mean((1, 3)) - mean * mean).clamp_min(0.0) + eps)
+    mag = _np((xb.float().abs() + mean.repeat_interleave(c // groups, 1)[:, None].abs())
+              * (gt * rstd.repeat_interleave(c // groups, 1)[:, None]).abs() + bt.abs())
+    x4 = xb.permute(0, 2, 1).reshape(b, c, h, w)
+    onehot = jnp.asarray(np.repeat(np.eye(groups, dtype=np.float32), c // groups, axis=0))
+    for act in (None, "silu"):
+        got = _np(_kernel_group_norm(xb, gt, bt, groups, eps, act, tpu, plan))
+        plain = tgn.group_norm_tpu_plain if tpu else tgn.group_norm_plain
+        ref = _np(plain(x4, gt, bt, groups, eps, act).reshape(b, c, hw).permute(0, 2, 1))
+        xj = jnp.asarray(_np(xb)).astype(jnp.bfloat16)
+        if tpu:
+            with pltpu.force_tpu_interpret_mode():
+                want = _np(jgn._gn_pallas(xj, jnp.asarray(gamma).reshape(1, c), jnp.asarray(beta).reshape(1, c),
+                                          onehot, groups, eps, act, jgn._pick_chunk(hw, c), 1, True))
+        else:
+            want = _np(jgn._xla_group_norm(xj, jnp.asarray(gamma), jnp.asarray(beta), groups, eps, act))
+        for other in (ref, want):
+            u = np.abs(got - other) / 2.0 ** (np.floor(np.log2(np.maximum(np.maximum(mag, np.abs(other)),
+                                                                           2.0 ** -126))) - 7)
+            assert u.max() <= 8, (act, u.max())
+            if tpu or act is None or other is ref:
+                assert np.mean(got == other) >= 0.999, (act, np.mean(got == other))
