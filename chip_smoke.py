@@ -53,6 +53,30 @@ Phases, each printing one JSON line:
                 self-attention (16384 tokens, past K1's guard) ran K6; the 8
                 PNGs must equal, bit for bit, the fused function's output for
                 the same prompts, sources and noise.
+  6. filter  -- the filter stage on a synthetic tree of 8 sources in 4
+                classes at 512^2:  cli gen  without --skip_filter (two
+                batches of 8; launch counts of a 512^2 run) writes the
+                recipe's aug-JSON (CLIP RN50 semantic filter, WSDAN-CAL
+                ResNet-101 top-10 confidence filter, seeded weights at full
+                published widths, batch 64, bf16), which  cli filter  must
+                rebuild byte for byte with its log beside it; then  cli
+                filter --conf_top_k 2,  --clip_filtering per_class, and
+                cli merge-jsons  of those two.  The filter runs none of
+                K1-K6.  Four augs scored on the card and through the port in
+                f32 on the CPU (same weights, moved by state_dict): CLIP
+                image features at cosine >= 0.99, CAL logits within 2% of
+                the largest |logit|; every keep decision of the three JSONs
+                equals the card's own scores', and the CPU's except where
+                the CPU's margin lies within the measured score gap
+                (counted and printed); features and logits also at
+                cosine >= 0.99 with each side's batch mean taken off.  The
+                same weights with every BatchNorm's statistics taken from
+                the 16 augs, on the card in f32 (filter_agreement): there
+                the card's features and logits must spread over the augs
+                by 10x the card-CPU gap, and pass the same cosines.  Then
+                256 synthetic 512^2 PNG augs
+                through  cli filter  at batch 64: augs/s, host preprocess
+                and device seconds apart, peak memory (filter_throughput).
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -61,8 +85,8 @@ K5 (its own wrappers and kernels, built from DIR) on the same inputs
 (parent_ms, parent_device_ms, parent_host_us).
 With --profile, one more main-path run of each configuration under
 torch.profiler writes the device time by kernel to OUT.json and
-OUT_opt_in.json, and one 1024^2 batch to OUT_gen_1024.json, and prints a
-summary line each.
+OUT_opt_in.json, one 1024^2 batch to OUT_gen_1024.json and the filter's
+scoring of its 256 augs to OUT_filter.json, and prints a summary line each.
 Then the kernels line, the card's name and power limit (nvidia-smi) and, as
 the last line, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Needs one CUDA card; imports nothing of JAX.
@@ -896,8 +920,9 @@ def expected_gen_counts(steps: int) -> dict:
 
 def write_planes_tree(root, rng, n: int, size: int) -> list:
     """A synthetic FGVC-Aircraft train split under root (the layout
-    PlanesUtils reads): n seeded size x size sources written as PNG under
-    .jpg names, with manufacturer and variant files.  Returns the image ids."""
+    PlanesUtils and FGVCAircraftFiles read): n seeded size x size sources
+    written as PNG under .jpg names, with manufacturer and variant files and
+    the class list variants.txt (4 classes).  Returns the image ids."""
     from pathlib import Path
 
     from saspa_tpu_torch.gen.image_io import write_png
@@ -912,6 +937,7 @@ def write_planes_tree(root, rng, n: int, size: int) -> list:
     (data / "images_manufacturer_train.txt").write_text(
         "".join(f"{i} {makers[k % 4][0]}\n" for k, i in enumerate(ids)))
     (data / "images_variant_train.txt").write_text("".join(f"{i} {makers[k % 4][1]}\n" for k, i in enumerate(ids)))
+    (data / "variants.txt").write_text("".join(f"{m[1]}\n" for m in makers))
     return ids
 
 
@@ -1027,6 +1053,326 @@ def run_gen_phase(steps: int, seed: int, profile_path=None) -> dict:
             os.environ.pop("SASPA_DATA_ROOT", None)
         else:
             os.environ["SASPA_DATA_ROOT"] = old_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
+FILTER_RESOLUTION = 512
+FILTER_THROUGHPUT_AUGS = 256
+FILTER_BATCH = 64
+
+
+def filter_telemetry(json_path) -> dict:
+    """The filter's telemetry line, read from the log the builder writes
+    beside its JSON (which proves the log is there)."""
+    from pathlib import Path
+
+    jp = Path(json_path)
+    logs = sorted(jp.parent.glob(f"{jp.stem}_*.log"))
+    require(logs, "no log beside", jp)
+    lines = [ln.split("filter telemetry: ", 1)[1] for ln in logs[-1].read_text().splitlines()
+             if "filter telemetry: " in ln]
+    require(lines, "no filter telemetry in", logs[-1])
+    return json.loads(lines[-1])
+
+
+def topk_margins(logits: np.ndarray, owner: np.ndarray, k: int) -> np.ndarray:
+    """> 0 where the owner's class is in the top k (the kept side), < 0
+    where it is not: its logit less the (k+1)-th, or less the k-th."""
+    k = min(k, logits.shape[1])
+    top = -np.sort(-logits, axis=1)
+    own = logits[np.arange(len(owner)), owner]
+    in_top = (np.argsort(-logits, axis=1)[:, :k] == owner[:, None]).any(axis=1)
+    nxt = top[:, k] if k < logits.shape[1] else np.full(len(owner), -np.inf)
+    return np.where(in_top, own - nxt, own - top[:, k - 1])
+
+
+def calibrate_batch_norm(model, images) -> None:
+    """Sets each BatchNorm's mean and var to the statistics of its input
+    over `images` ((H, W, 3) float32 arrays, preprocessed), layer after layer
+    in one forward: each sees the layers before it already set."""
+    from saspa_tpu_torch.models.layers import BatchNorm
+
+    def take(mod, args):
+        x = args[0].float()
+        dims = [0] + list(range(2, x.ndim))
+        mod.mean.copy_(x.mean(dims))
+        mod.var.copy_(x.var(dims, unbiased=False))
+
+    device = next(model.parameters()).device
+    hooks = [m.register_forward_pre_hook(take) for m in model.modules() if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            model(torch.from_numpy(np.stack(images)).to(device).permute(0, 3, 1, 2))
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def run_filter_phase(steps: int, seed: int, smi: str, profile_path=None) -> dict:
+    """The filter stage (module docstring, phase 6); returns the launch
+    counts of its `gen` run."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.filters.aug_json import _clip_class_battery, get_aug_json_path
+    from saspa_tpu_torch.filters.batches import score_in_batches
+    from saspa_tpu_torch.filters.clip_filters import NEGATIVE_SEMANTIC_PROMPTS, TEXT_CFG, VISION_CFG, CLIPScorer, \
+        clip_preprocess_path, per_class_keep, semantic_keep
+    from saspa_tpu_torch.filters.confidence import BASELINE_NET, batched_logits, load_cal_baseline
+    from saspa_tpu_torch.models.cal import WSDAN_CAL
+    from saspa_tpu_torch.models.clip import CLIPModel
+    from saspa_tpu_torch.gen.image_io import write_png
+
+    size, n_src, per = FILTER_RESOLUTION, 8, 2
+    root = Path(tempfile.mkdtemp(prefix="saspa_filter_"))
+    env = {k: os.environ.get(k) for k in ("SASPA_DATA_ROOT", "SASPA_CHECKPOINTS")}
+    os.environ["SASPA_DATA_ROOT"] = str(root)
+    os.environ["SASPA_CHECKPOINTS"] = str(root / "checkpoints")  # none: seeded weights
+    root_logger = logging.getLogger()
+    old_handlers, old_level = root_logger.handlers[:], root_logger.level
+    root_logger.setLevel(logging.INFO)
+    try:
+        ids = write_planes_tree(root, np.random.RandomState(seed + 301), n_src, size)
+        # ---- gen without --skip_filter: generate 16 augs, then the recipe's JSON
+        argv = ["gen", "--dataset", "planes", "--resolution", str(size), "--num_per_image", str(per),
+                "--num_inference_steps", str(steps), "--batch_size", "8", "--seed", str(seed + 2)]
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        json_path = cli.main(argv)
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t
+        counts = read_counts()
+        want = {k: per * v for k, v in expected_counts(steps, "default").items()}  # two batches of 8 at 512^2
+        require(counts == want, "filter phase: gen launch counts", counts, "expected", want)
+        ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        folder = Path(cli.gen_config(cli.build_parser().parse_args(argv)).with_dataset_overrides()
+                      .output_folder(str(ds.root_path)))
+        want_path = get_aug_json_path(str(folder), semantic_filtering=True, model_confidence_based_filtering=True)
+        require(json_path == want_path and Path(want_path).name ==
+                "semantic_filtering-model_confidence_based_filtering_top_10_classes-aug.json",
+                "gen's aug-JSON path", json_path, want_path)
+        gen_bytes = Path(json_path).read_bytes()
+        recipe = json.loads(gen_bytes)
+        augs = {i: sorted(str(f) for f in folder.glob(f"{i}_prompt_*.png")) for i in ids}
+        require(sorted(recipe) == sorted(f"{i}.jpg" for i in ids), "aug-JSON keys", sorted(recipe))
+        require(all(len(augs[i]) == per for i in ids), "generated files", augs)
+        require(all(set(recipe[f"{i}.jpg"]) <= set(augs[i]) for i in ids), "aug-JSON values", recipe)
+        flat = [p for i in ids for p in augs[i]]
+        owner = np.asarray([ds.get_image_path_to_class_id_dict()[ds.original_images_paths[k]]
+                            for k in range(n_src) for _ in range(per)])
+
+        # ---- the same folder through `filter`: the recipe rebuilt, the other predicates
+        reset_counts()
+        t = time.perf_counter()
+        rebuilt = cli.main(["filter", "--dataset", "planes", "--aug_folder", str(folder)])
+        rebuild_wall = time.perf_counter() - t
+        require(rebuilt == json_path and Path(rebuilt).read_bytes() == gen_bytes,
+                "cli filter's rebuilt recipe JSON differs from gen's", rebuilt)
+        tele_recipe = filter_telemetry(rebuilt)
+        require(tele_recipe["images"] == 2 * len(flat), "recipe telemetry", tele_recipe)
+        top2 = cli.main(["filter", "--dataset", "planes", "--aug_folder", str(folder), "--conf_top_k", "2"])
+        per_class = cli.main(["filter", "--dataset", "planes", "--aug_folder", str(folder), "--clip_filtering",
+                              "per_class", "--no_model_confidence", "--no_semantic_filtering"])
+        for path, name in ((top2, "semantic_filtering-model_confidence_based_filtering_top_2_classes-aug.json"),
+                           (per_class, "clip_filtering_per_class_discount_1.0-aug.json")):
+            require(Path(path).name == name, "filter JSON name", path, name)
+            filter_telemetry(path)
+        merged_path = root / "merged" / "merged-aug.json"
+        merged = cli.main(["merge-jsons", "--jsons", top2, per_class, "--output", str(merged_path)])
+        js = {k: json.loads(Path(v).read_text()) for k, v in (("top2", top2), ("per_class", per_class))}
+        require(merged == {i: js["top2"][i] + js["per_class"].get(i, []) for i in js["top2"]}
+                and json.loads(merged_path.read_text()) == merged, "merge-jsons", merged)
+        filter_counts = read_counts()
+        require(not any(filter_counts.values()), "the filter path launched a K1-K6 kernel", filter_counts)
+
+        # ---- card scores of every aug (the builder's batches), and f32 CPU scores of four
+        scorer = CLIPScorer(device="cuda")
+        cal, prep = load_cal_baseline("planes", ds.num_classes, device="cuda")
+        classnames, prompts, key_to_class, _ = _clip_class_battery("planes", ds)
+        batteries = {"semantic": [ds.get_basic_prompt()] + NEGATIVE_SEMANTIC_PROMPTS, "per_class": prompts}
+        pick = [0, 5, 10, 15]
+        sub = [flat[k] for k in pick]
+        scorer_cpu = CLIPScorer(device="cpu")
+        cal_cpu, _ = load_cal_baseline("planes", ds.num_classes, device="cpu")
+        cpu_s = []
+
+        def scores(clip_model, cal_model):
+            """Card scores of every aug; f32 CPU scores of the picked four,
+            the card's weights moved by state_dict."""
+            scorer_cpu.model.load_state_dict(clip_model.state_dict())
+            cal_cpu.load_state_dict(cal_model.state_dict())
+            card = (score_in_batches(flat, clip_preprocess_path, clip_model.encode_image, FILTER_BATCH,
+                                     VISION_CFG.output_dim, torch.device("cuda")),
+                    batched_logits(cal_model, flat, prep, FILTER_BATCH))
+            t = time.perf_counter()
+            cpu = scorer_cpu.image_features(sub, len(sub)), batched_logits(cal_cpu, sub, prep, len(sub))
+            cpu_s.append(time.perf_counter() - t)
+            require(all(np.isfinite(a).all() for a in card + cpu), "non-finite filter scores")
+            return card + cpu
+
+        def agreement(card, cpu):
+            """The card's scores of every aug against the CPU's of the picked
+            four: the rows' spread over the augs (root mean square distance
+            from their mean) beside the largest card-CPU row distance, and
+            the agreement as it is and with each side's mean taken off."""
+            c4 = card[pick]
+            rows = (c4 * cpu).sum(1) / (np.linalg.norm(c4, axis=1) * np.linalg.norm(cpu, axis=1))
+            cc, uc = (c4 - c4.mean(0)).ravel(), (cpu - cpu.mean(0)).ravel()
+            spread = float(np.sqrt((np.linalg.norm(card - card.mean(0), axis=1) ** 2).mean()))
+            gap = float(np.linalg.norm(c4 - cpu, axis=1).max())
+            return {"spread": spread, "gap": gap, "spread_over_gap": spread / gap if gap else math.inf,
+                    "cosine_min": float(rows.min()), "centered_cosine": float(cc @ uc / (np.linalg.norm(cc) *
+                                                                                         np.linalg.norm(uc))),
+                    "rel_err": float(np.abs(c4 - cpu).max() / np.abs(cpu).max())}
+
+        feats_gpu, logits_gpu, feats_cpu, logits_cpu = scores(scorer.model, cal)
+        txt_gpu = {k: scorer.text_features(v) for k, v in batteries.items()}
+        txt_cpu = {k: scorer_cpu.text_features(v) for k, v in batteries.items()}
+        seeded = {"clip_features": agreement(feats_gpu, feats_cpu), "cal_logits": agreement(logits_gpu, logits_cpu)}
+        require(seeded["clip_features"]["cosine_min"] >= 0.99, "CLIP image features, card vs CPU f32", seeded)
+        require(seeded["cal_logits"]["rel_err"] <= 0.02, "CAL logits, card vs CPU f32: max |diff| / max |logit|",
+                seeded)
+        for what, a in seeded.items():
+            require(a["centered_cosine"] >= 0.99, what, "card vs CPU f32 without the batch mean", a)
+
+        # keep decisions: the card's JSONs against the card's scores (exact) and
+        # against the CPU's f32 scores (a flip only where the CPU's margin lies
+        # within the measured gap: the largest difference of that rule's scores)
+        def rules_of(feats, logits, txt, scale, rows):
+            """rule -> (keep, margin (>= 0 on the kept side), scores) as the builder decides."""
+            sem = scale * feats @ txt["semantic"].T
+            cls = scale * feats @ txt["per_class"].T
+            ex = np.exp(cls - cls.max(1, keepdims=True))
+            probs = ex / ex.sum(1, keepdims=True)
+            own = np.asarray([classnames.index(key_to_class[Path(ds.original_images_paths[k // per]).stem])
+                              for k in rows])
+            thr = 1 / len(classnames)
+            out = {"semantic": (semantic_keep(sem), sem[:, 0] - sem[:, 1:].max(1), sem),
+                   "per_class": (per_class_keep(cls, own, thr), probs[np.arange(len(rows)), own] - thr, probs)}
+            for k in (2, 10):
+                top = np.argsort(-logits, axis=-1)[:, :min(k, logits.shape[1])]
+                out[f"top{k}"] = ((top == owner[rows][:, None]).any(-1), topk_margins(logits, owner[rows], k), logits)
+            return out
+
+        card = rules_of(feats_gpu, logits_gpu, txt_gpu, scorer.logit_scale, list(range(len(flat))))
+        cpu = rules_of(feats_cpu, logits_cpu, txt_cpu, scorer.logit_scale, pick)
+        gaps = {r: float(np.abs(card[r][2][pick] - cpu[r][2]).max()) for r in card}
+        rules = {"recipe": ("semantic", "top10"), "top2": ("semantic", "top2"), "per_class": ("per_class",)}
+        got_json = {"recipe": recipe, "top2": js["top2"], "per_class": js["per_class"]}
+        flips, decisions = [], {}
+        for name, parts in rules.items():
+            kept = {p for v in got_json[name].values() for p in v}
+            in_json = np.asarray([p in kept for p in flat])
+            card_keep = np.all([card[r][0] for r in parts], axis=0)
+            require(np.array_equal(in_json, card_keep), name, "JSON differs from the card's own scores",
+                    in_json.tolist(), card_keep.tolist())
+            for j, k in enumerate(pick):
+                if all(cpu[r][0][j] for r in parts) != in_json[k]:
+                    near = [r for r in parts if cpu[r][0][j] != card[r][0][k] and abs(cpu[r][1][j]) <= gaps[r]]
+                    require(near, name, "keep decision of", flat[k], "differs from the CPU's beyond the gap")
+                    flips.append({"json": name, "aug": Path(flat[k]).name, "rules": near})
+            decisions[name] = int(in_json.sum())
+
+        # The seeded BatchNorms (mean 0, var 1) leave a component common to
+        # every image on top of the outputs: the scores above spread over the
+        # augs by only a few of bf16's steps.  The same weights with each
+        # BatchNorm's statistics taken from these 16 augs (as a trained
+        # network holds them) spread them widely, but subtract large means
+        # that bf16 resolves coarsely; so that comparison runs the card's path
+        # in f32 (TF32 off), where the spread must stand 10x above the gap.
+        clip32 = CLIPModel("rn50", VISION_CFG, TEXT_CFG, dtype=torch.float32, device="cuda").eval()
+        clip32.load_state_dict(scorer.model.state_dict())
+        cal32 = WSDAN_CAL(ds.num_classes, M=32, net=BASELINE_NET, dtype=torch.float32, device="cuda").eval()
+        cal32.load_state_dict(cal.state_dict())
+        calibrate_batch_norm(clip32.visual, [clip_preprocess_path(f) for f in flat])
+        calibrate_batch_norm(cal32, [prep(f) for f in flat])
+        fg, lg, fc, lc = scores(clip32, cal32)
+        calibrated = {"clip_features": agreement(fg, fc), "cal_logits": agreement(lg, lc)}
+        emit({"phase": "filter_agreement", "augs": len(flat), "picked": pick, "seeded_bf16": seeded,
+              "calibrated_f32": calibrated, "score_gaps": gaps})
+        for what, a in calibrated.items():
+            require(a["spread"] >= 10 * a["gap"], what, "of the calibrated models: spread over the augs not 10x"
+                    " the card-CPU gap", a)
+            require(a["centered_cosine"] >= 0.99, what, "of the calibrated models: card vs CPU f32 without the"
+                    " batch mean", a)
+        require(calibrated["clip_features"]["cosine_min"] >= 0.99, "calibrated CLIP features, card vs CPU f32",
+                calibrated)
+        require(calibrated["cal_logits"]["rel_err"] <= 0.02, "calibrated CAL logits, card vs CPU f32", calibrated)
+        del clip32, cal32, scorer_cpu, cal_cpu
+        emit({"phase": "filter", "gen_argv": argv, "augs": len(flat), "gen_wall_s": gen_wall,
+              "rebuild_wall_s": rebuild_wall, "launches": counts, "launches_expected": want,
+              "filter_launches": filter_counts, "kept": decisions,
+              "clip_cosine_min": seeded["clip_features"]["cosine_min"],
+              "cal_rel_err": seeded["cal_logits"]["rel_err"], "score_gaps": gaps, "decision_flips_within_gap": flips,
+              "cpu_reference_s": cpu_s, "cpu_threads": torch.get_num_threads(), "telemetry_recipe": tele_recipe})
+        del scorer, cal
+        torch.cuda.empty_cache()
+
+        # ---- throughput: 256 synthetic 512^2 PNG augs through `filter`, batch 64
+        tp = root / "throughput" / "images"
+        tp.mkdir(parents=True)
+        distinct = synthetic_sources(np.random.RandomState(seed + 302), 16, size)
+        for k in range(16):
+            write_png(tp / f"src_{k}.png", distinct[k])
+        blobs = [(tp / f"src_{k}.png").read_bytes() for k in range(16)]
+        for k in range(FILTER_THROUGHPUT_AUGS):
+            (tp / f"{ids[k % n_src]}_prompt_synthetic_{k}.png").write_bytes(blobs[k % 16])
+        for k in range(16):
+            (tp / f"src_{k}.png").unlink()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        tp_json = cli.main(["filter", "--dataset", "planes", "--aug_folder", str(tp), "--batch_size",
+                            str(FILTER_BATCH)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        tele = filter_telemetry(tp_json)
+        require(tele["images"] == 2 * FILTER_THROUGHPUT_AUGS and
+                tele["batches"] == 2 * math.ceil(FILTER_THROUGHPUT_AUGS / FILTER_BATCH), "throughput telemetry", tele)
+        scored = sum(len(v) for v in json.loads(Path(tp_json).read_text()).values())
+        emit({"phase": "filter_throughput", "augs": FILTER_THROUGHPUT_AUGS, "resolution": size,
+              "batch": FILTER_BATCH, "wall_s": wall, "augs_per_s": FILTER_THROUGHPUT_AUGS / wall,
+              "host_preprocess_s": tele["preprocess_s"], "device_s": tele["device_s"], "verify_s": tele["verify_s"],
+              "scoring_augs_per_s": FILTER_THROUGHPUT_AUGS / (tele["preprocess_s"] + tele["device_s"]),
+              "kept": scored, "peak_mem_bytes": peak, "nvidia_smi": smi})
+        if profile_path:  # the scoring of the same 256 augs, both models built beforehand
+            scorer = CLIPScorer(device="cuda")
+            cal, prep = load_cal_baseline("planes", ds.num_classes, device="cuda")
+            paths = sorted(str(p) for p in tp.glob("*.png"))
+
+            def score():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scorer.image_features(paths, FILTER_BATCH)
+                batched_logits(cal, paths, prep, FILTER_BATCH)
+                torch.cuda.synchronize()
+                return None, time.perf_counter() - t0
+
+            score()  # warm-up
+            profile_main(score, profile_path, 1, "filter_256")
+            del scorer, cal
+            torch.cuda.empty_cache()
+        return counts
+    finally:
+        for h in root_logger.handlers[:]:
+            if h not in old_handlers:
+                root_logger.removeHandler(h)
+                h.close()
+        for h in old_handlers:
+            if h not in root_logger.handlers:
+                root_logger.addHandler(h)
+        root_logger.setLevel(old_level)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1225,6 +1571,15 @@ def main() -> int:
         out = Path(args.profile)
         gen_profile = str(out.with_name(f"{out.stem}_gen_{GEN_RESOLUTION}{out.suffix}"))
     counts[f"gen_{GEN_RESOLUTION}"] = run_gen_phase(args.steps, args.seed, gen_profile)
+
+    # ---- the filter stage: gen without --skip_filter, filter, merge-jsons ----
+    filter_profile = None
+    if args.profile:
+        from pathlib import Path
+
+        out = Path(args.profile)
+        filter_profile = str(out.with_name(f"{out.stem}_filter{out.suffix}"))
+    counts[f"filter_gen_{FILTER_RESOLUTION}"] = run_filter_phase(args.steps, args.seed, smi, filter_profile)
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

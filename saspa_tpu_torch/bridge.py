@@ -7,8 +7,12 @@ padding for the packed attention kernel is not stored; the models build
 their padded weights once from these unpadded kernels.
 
 Subtrees: "text" (a list with one tower per text encoder), "unet",
-"controlnet", "vae".  Keys of the VAE encoder are not ported yet; the bridge
-skips exactly the keys under VAE_SKIPPED_PREFIXES and drops nothing else.
+"controlnet", "vae" (params), and the filter stage's "clip" (CLIP RN50) and
+"cal" (WSDAN_CAL), which are flax variables: {"params", "batch_stats"}.
+BatchNorm's mean and var live in flax's batch_stats collection and land on
+the module's buffers of the same name.  Keys of the VAE encoder are not
+ported yet; the bridge skips exactly the keys under VAE_SKIPPED_PREFIXES
+and drops nothing else.
 """
 
 from __future__ import annotations
@@ -54,12 +58,30 @@ def state_dict_from_flax(tree, skip_prefixes: Tuple[str, ...] = ()) -> Tuple[Dic
     return sd, skipped
 
 
+def state_dict_from_flax_variables(variables) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"?} of one flax module -> one state_dict; the
+    two collections must not share a path."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"no port of the flax collections {sorted(unknown)}")
+    sd = state_dict_from_flax(variables["params"])[0]
+    stats = state_dict_from_flax(variables.get("batch_stats", {}))[0]
+    clash = sorted(set(sd) & set(stats))
+    if clash:
+        raise KeyError(f"paths in both params and batch_stats: {clash[:5]}")
+    sd.update(stats)
+    return sd
+
+
 def params_from_flax(params) -> Tuple[dict, List[str]]:
-    """{"text": [tower, ...], "unet", "controlnet"?, "vae"} flax params ->
-    ({same keys: state_dict(s)}, skipped "vae/..." paths)."""
+    """{"text": [tower, ...], "unet", "controlnet"?, "vae", "clip"?, "cal"?}
+    flax params (variables for "clip" and "cal") -> ({same keys:
+    state_dict(s)}, skipped "vae/..." paths)."""
     out, skipped = {}, []
     for name, sub in params.items():
-        if name == "text":
+        if name in ("clip", "cal"):
+            out[name] = state_dict_from_flax_variables(sub)
+        elif name == "text":
             out["text"] = [state_dict_from_flax(t)[0] for t in sub]
         elif name == "vae":
             out["vae"], sk = state_dict_from_flax(sub, VAE_SKIPPED_PREFIXES)

@@ -1,12 +1,17 @@
 """Command-line interface of the port (counterpart of saspa_tpu/cli.py).
 
-    python -m saspa_tpu_torch.cli gen --dataset planes --resolution 1024 --skip_filter
+    python -m saspa_tpu_torch.cli gen --dataset planes --resolution 1024
+    python -m saspa_tpu_torch.cli filter --dataset planes --aug_folder DIR
+    python -m saspa_tpu_torch.cli merge-jsons --jsons A.json B.json --output OUT.json
 
 `gen` takes the JAX package's flags and builds the same GenerationConfig,
-then runs the port's `run_generation` on the card.  Ported so far: SD1.5
-with a canny ControlNet (or none), DDIM, without the filter stage
-(`--skip_filter`); the presets and filtering come with the filter slice
-(ROADMAP Queue 1 item 10), the other subcommands with later slices.
+then runs the port's `run_generation_and_filter` on the card (the CLIP
+semantic filter and the baseline's top-10 confidence filter), or
+`run_generation` with `--skip_filter`.  `filter` rebuilds the aug-JSON of a
+folder of generated images; `merge-jsons` merges aug-JSONs.  Ported so far:
+SD1.5 with a canny ControlNet (or none), DDIM; the presets come with the
+LPIPS filter and ip2p (ROADMAP Queue 1 items 10c and 12), the other
+subcommands with later slices.
 """
 
 from __future__ import annotations
@@ -41,6 +46,31 @@ def _add_gen(sub):
     return p
 
 
+def _add_filter(sub):
+    p = sub.add_parser("filter", help="build the aug-JSON from a folder of generated images")
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--aug_folder", required=True)
+    p.add_argument("--lpips_min", type=float, default=None)
+    p.add_argument("--lpips_max", type=float, default=None)
+    p.add_argument("--clip_filtering", default=None, choices=[None, "per_class"])
+    p.add_argument("--clip_filtering_discount", type=float, default=1.0)
+    p.add_argument("--no_semantic_filtering", action="store_true")
+    p.add_argument("--no_model_confidence", action="store_true")
+    p.add_argument("--conf_top_k", type=int, default=10)
+    p.add_argument("--alia_conf_filtering", action="store_true")
+    p.add_argument("--weights_dir", default=None)
+    p.add_argument("--batch_size", type=int, default=64)
+    return p
+
+
+def _add_merge(sub):
+    p = sub.add_parser("merge-jsons", help="merge aug-JSONs")
+    p.add_argument("--jsons", nargs="+", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--amount_per_json", type=int, default=None)
+    return p
+
+
 def gen_config(args):
     """The GenerationConfig of the gen flags (saspa_tpu/cli.py:188-208)."""
     from saspa_tpu_torch.utils.config import GenerationConfig
@@ -70,27 +100,59 @@ def gen_config(args):
 
 
 def cmd_gen(args):
-    from saspa_tpu_torch.gen.driver import run_generation
+    from saspa_tpu_torch.gen.driver import run_generation, run_generation_and_filter
 
     if args.preset is not None:
-        raise NotImplementedError(f"--preset {args.preset} comes with the filter slice (ROADMAP Queue 1 item 10)")
-    if not args.skip_filter:
-        raise NotImplementedError("filtering the generated images comes with the filter slice "
-                                  "(ROADMAP Queue 1 item 10); pass --skip_filter")
-    return run_generation(gen_config(args))
+        raise NotImplementedError(f"--preset {args.preset} comes with the LPIPS filter (ROADMAP Queue 1 item 10c) "
+                                  "and ip2p (item 12)")
+    if args.skip_filter:
+        return run_generation(gen_config(args))
+    return run_generation_and_filter(gen_config(args), semantic_filtering=True,
+                                     model_confidence_based_filtering=True)
+
+
+def cmd_filter(args):
+    from saspa_tpu_torch.filters.aug_json import create_json_of_image_name_to_augmented_images_paths
+
+    path = create_json_of_image_name_to_augmented_images_paths(
+        args.dataset,
+        augmented_image_folder_path=args.aug_folder,
+        lpips_min=args.lpips_min,
+        lpips_max=args.lpips_max,
+        clip_filtering=args.clip_filtering,
+        clip_filtering_discount=args.clip_filtering_discount,
+        semantic_filtering=not args.no_semantic_filtering,
+        model_confidence_based_filtering=not args.no_model_confidence,
+        conf_top_k=args.conf_top_k,
+        alia_conf_filtering=args.alia_conf_filtering,
+        weights_dir=args.weights_dir,
+        batch_size=args.batch_size,
+    )
+    print(path)
+    return path
+
+
+def cmd_merge(args):
+    from saspa_tpu_torch.filters.aug_json import merge_aug_jsons, merge_aug_jsons_with_amount_per_json
+
+    if args.amount_per_json:
+        return merge_aug_jsons_with_amount_per_json({j: args.amount_per_json for j in args.jsons}, args.output)
+    return merge_aug_jsons(args.jsons, args.output)
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="saspa_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_gen(sub)
+    _add_filter(sub)
+    _add_merge(sub)
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    return {"gen": cmd_gen}[args.command](args)
+    return {"gen": cmd_gen, "filter": cmd_filter, "merge-jsons": cmd_merge}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -7,14 +7,17 @@ reference's filesystem contracts (dataset roots under $SASPA_DATA_ROOT,
 split-file formats, the repo's datasets_files/).  $SASPA_DATA_ROOT is read
 when a dataset is constructed.  The biased-planes split is read with the
 csv module (the machine with the card has no pandas).  A missing dataset
-raises (the reference downloads it).  What the filter and train stages add
-(baseline models, class ids) raises until those slices land.
+raises (the reference downloads it).  The filter stage's baseline
+classifier (`load_baseline_model`, converted checkpoints under
+$SASPA_CHECKPOINTS, default <repo>/checkpoints) and its ALIA thresholds
+live here too; the class ids come from `data.datasets`.
 """
 
 from __future__ import annotations
 
 import csv
 import glob
+import json
 import os
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -25,6 +28,10 @@ DATASETS_FILES = REPO_ROOT / "datasets_files"
 
 def data_root() -> Path:
     return Path(os.environ.get("SASPA_DATA_ROOT", "data"))
+
+
+def checkpoints_dir() -> Path:
+    return Path(os.environ.get("SASPA_CHECKPOINTS", str(REPO_ROOT / "checkpoints")))
 
 
 def load_kv_file(file_path) -> Dict[str, str]:
@@ -68,7 +75,7 @@ class BaseUtils:
         raise NotImplementedError
 
     def get_image_path_to_class_id_dict(self, split: str = "train") -> Dict[str, int]:
-        raise NotImplementedError("class ids come with the port's data/datasets.py (ROADMAP Queue 1 item 11)")
+        raise NotImplementedError
 
     def get_basic_prompt(self) -> str:
         raise NotImplementedError
@@ -106,11 +113,35 @@ class BaseUtils:
             return [p for p in paths if key(p) in val_files]
         return [p for p in paths if key(p) not in val_files]
 
-    def load_baseline_model(self, resize=(224, 224)):
-        raise NotImplementedError("the baseline classifier comes with the filter slice (ROADMAP Queue 1 item 10)")
+    def load_baseline_model(self, resize=(224, 224), device=None):
+        """The dataset's WSDAN_CAL baseline for confidence filtering
+        (all_utils/dataset_utils.py:87-115): (model, preprocess_fn)."""
+        from saspa_tpu_torch.filters.confidence import load_cal_baseline
 
-    def get_baseline_conf_threshold(self) -> Dict[str, float]:
-        raise NotImplementedError("ALIA confidence thresholds come with the filter slice (ROADMAP Queue 1 item 10)")
+        name = "compcars" if "compcars" in self.name else self.name
+        return load_cal_baseline(name, self.num_classes, resize=resize, device=device)
+
+    def get_baseline_conf_threshold(self, device=None) -> Dict[str, float]:
+        """Per-class mean-confidence thresholds for ALIA filtering, computed
+        once and cached in alia_confidence_thresholds/<name>.json under the
+        working directory (all_utils/dataset_utils.py:117-146)."""
+        json_path = Path(f"alia_confidence_thresholds/{self.name}.json")
+        if json_path.exists():
+            with open(json_path) as f:
+                return json.load(f)
+        from saspa_tpu_torch.filters.confidence import compute_alia_thresholds
+
+        thresholds = compute_alia_thresholds(self, device=device)
+        json_path.parent.mkdir(parents=True, exist_ok=True)
+        with open(json_path, "w") as f:
+            json.dump(thresholds, f)
+        self.print_func(f"Saved baseline mean confidences to {json_path}")
+        return thresholds
+
+
+def _class_ids(ds) -> Dict[str, int]:
+    """image path -> class id of a `data.datasets` reader."""
+    return dict(zip(ds.image_files, ds.labels))
 
 
 class PlanesUtils(BaseUtils):
@@ -133,6 +164,11 @@ class PlanesUtils(BaseUtils):
         manufacturers = load_kv_file(self.manufacturers_file_path)
         variants = load_kv_file(self.variants_file_path)
         return {i: f"{manufacturers[i]} {variants[i]}" for i in manufacturers if i in variants}
+
+    def get_image_path_to_class_id_dict(self, split="train"):
+        from saspa_tpu_torch.data.datasets import FGVCAircraftFiles
+
+        return _class_ids(FGVCAircraftFiles(split=split))
 
     def get_classes(self):
         return list(set(self.image_path_to_class_str_dict.values()))
@@ -173,6 +209,11 @@ class CarsUtils(BaseUtils):
                 out[image_id] = id_to_name[class_id]
         return out
 
+    def get_image_path_to_class_id_dict(self, split="train"):
+        from saspa_tpu_torch.data.datasets import StanfordCarsFiles
+
+        return _class_ids(StanfordCarsFiles(split=split))
+
     def get_classes(self):
         return list(set(self.get_image_stem_to_class_str_dict().values()))
 
@@ -202,6 +243,15 @@ class DTDUtils(BaseUtils):
 
     def get_image_path_to_class_str_dict(self):
         return {p: Path(p).parent.name for p in self.all_original_images_paths}
+
+    def get_image_path_to_class_id_dict(self, split="train"):
+        """Every split's ids: the reference reads all three."""
+        from saspa_tpu_torch.data.datasets import DTDFiles
+
+        out = {}
+        for s in ("train", "val", "test"):
+            out.update(_class_ids(DTDFiles(split=s)))
+        return out
 
     def get_basic_prompt(self):
         return "a photo of a texture"
@@ -297,6 +347,17 @@ class CompCarsPartsUtils(BaseUtils):
             for p in self.all_original_images_paths
         }
 
+    def get_image_path_to_class_id_dict(self, split="train"):
+        """Ids from the split's own csv, sorted, without the val carve-out."""
+        files, labels = [], []
+        with open(DATASETS_FILES / "compcars-parts" / f"{split}.csv") as f:
+            for line in f.read().splitlines():
+                path, label = line.strip().split(",")
+                files.append(str(self.images_folder / path))
+                labels.append(label)
+        label_map = {lab: i for i, lab in enumerate(sorted(set(labels)))}
+        return {f: label_map[lab] for f, lab in zip(files, labels)}
+
     def get_basic_prompt(self, part: Optional[str] = None):
         if part:
             return f"close up of the {self.part_to_string[str(part)]} of a"
@@ -352,6 +413,11 @@ class CUBUtils(BaseUtils):
                 id_to_name[int(cid) - 1] = cname.split(".", 1)[1]
         return {p: id_to_name[int(Path(p).parent.name.split(".")[0]) - 1] for p in self.original_images_paths}
 
+    def get_image_path_to_class_id_dict(self, split="train"):
+        from saspa_tpu_torch.data.datasets import CUBFiles
+
+        return _class_ids(CUBFiles(split=split, root=str(self.root_path)))
+
     def get_classes(self):
         return list(set(self.image_path_to_class_str_dict.values()))
 
@@ -392,6 +458,11 @@ class PlanesBiasedUtils(BaseUtils):
         manufacturers = load_kv_file(self.manufacturers_file_path)
         variants = load_kv_file(self.variants_file_path)
         return {i: f"{manufacturers[i]} {variants[i]}" for i in manufacturers if i in variants}
+
+    def get_image_path_to_class_id_dict(self, split="train"):
+        from saspa_tpu_torch.data.datasets import PlanesBiasedFiles
+
+        return _class_ids(PlanesBiasedFiles(split=split))
 
     def get_classes(self):
         return list(set(self.image_path_to_class_str_dict.values()))

@@ -15,8 +15,9 @@ Every item's noise derives from (seed, image index, prompt index) through
 `utils.rng.item_normal`, jax.random.normal's draw in numpy, so results do not
 depend on batch composition, shard count or resume point, and match the JAX
 driver's.  Sources are read and PNGs written by `gen.image_io`; resizing is
-`ops.image.resize_image`.  The paths of other families (HED, SDEdit,
-BLIP-Diffusion, ip2p) come with ROADMAP Queue 1 item 12.
+`ops.image.resize_image`.  `run_generation_and_filter` then builds the
+aug-JSON of the folder (`filters.aug_json`).  The paths of other families
+(HED, SDEdit, BLIP-Diffusion, ip2p) come with ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -307,3 +308,51 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
         tele_out["steady_img_per_s"] = round((total - ff_n) / (wall - ff_t), 4)
     logging.info("generation telemetry: %s", json.dumps(tele_out))
     return output_folder
+
+
+def run_generation_and_filter(cfg: GenerationConfig, filter_cfg=None, pipe=None, **filter_kw) -> str:
+    """Generate, then build the aug-JSON (run_aug/run_aug.py:713-733);
+    returns the JSON's path (the output folder after a debug run with
+    `specific_file_strs`, which skips the JSON).
+
+    Filter options: the defaults, then `filter_cfg` (a FilterConfig or a
+    dict; its `dataset` field gives way to cfg.dataset), then `filter_kw`.
+    The filter runs on the injected pipe's device, else on the card.  With a
+    process group, every rank generates its share, all meet at a barrier,
+    and only rank 0 scores and writes the JSON; the other ranks return the
+    same path (the JSON's name is a function of the filter flags)."""
+    import dataclasses
+    import inspect
+
+    from saspa_tpu_torch.filters.aug_json import create_json_of_image_name_to_augmented_images_paths, \
+        get_aug_json_path
+
+    output_folder = run_generation(cfg, pipe=pipe)
+    if cfg.debug and cfg.specific_file_strs:
+        logging.info("Skipping json creation (SPECIFIC_FILE_STRs debug run)")
+        return output_folder
+    kw = dict(resize=(256, 256), clip_filtering_discount=1)
+    if filter_cfg is not None:
+        d = dataclasses.asdict(filter_cfg) if dataclasses.is_dataclass(filter_cfg) else dict(filter_cfg)
+        d.pop("dataset", None)
+        kw.update(d)
+    kw.update(filter_kw)
+
+    rank, world = _process_index_count()
+    if world > 1:
+        # every shard must be on disk before the folder is scored
+        _host_barrier("saspa:generation_done")
+        if rank != 0:
+            folder = output_folder if str(output_folder).endswith("/images") else str(Path(output_folder) / "images")
+            name_params = inspect.signature(get_aug_json_path).parameters
+            flags = {k: v for k, v in kw.items() if k in name_params and k != "augmented_image_folder_path"}
+            return get_aug_json_path(folder, **flags)
+
+    return create_json_of_image_name_to_augmented_images_paths(
+        cfg.dataset,
+        augmented_image_folder_path=output_folder,
+        init_log=False,
+        weights_dir=cfg.weights_dir,
+        device=None if pipe is None else pipe.device,
+        **kw,
+    )

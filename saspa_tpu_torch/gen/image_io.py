@@ -13,10 +13,16 @@ card has neither PIL nor cv2, so the port carries its own:
     not its name (FGVC-Aircraft paths end in .jpg whatever they hold).  PNG
     decodes here; JPEG and every other format decode through PIL where PIL
     is installed, and raise otherwise.
+  * `verify_image`: the check of `Image.open(p).verify()`, which the filter
+    stage runs on every generated file: PNG chunks walked to IEND with each
+    CRC checked, JPEG markers parsed to the start of scan; other formats
+    through PIL where it is installed.  A file that fails raises
+    `CorruptImage`; one that cannot be checked here raises `RuntimeError`.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from pathlib import Path
@@ -82,13 +88,106 @@ def _jpeg_size(f, path) -> Tuple[int, int]:
     raise ValueError(f"{path}: JPEG without a start-of-frame marker")
 
 
-def _pil_open(path):
+def _pil_image(path):
+    """PIL's Image module; RuntimeError where PIL is not installed."""
     try:
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(f"{path}: only PNG decodes without PIL, and PIL is not installed here "
                            f"(JPEG sources need PIL; see ROADMAP Queue 1 item 9)") from e
-    return Image.open(path)
+    return Image
+
+
+def _pil_open(path):
+    return _pil_image(path).open(path)
+
+
+class CorruptImage(ValueError):
+    """A file that failed its image check."""
+
+
+_CHUNK_TYPE = re.compile(rb"[A-Za-z0-9_]{4}")  # PIL's is_cid
+
+
+def verify_image(path) -> None:
+    """Raises CorruptImage where `Image.open(path).verify()` raises, as far
+    as the format is checked here: a PNG must hold its signature, an IHDR
+    chunk first, and whole chunks with matching CRCs up to IEND (whose CRC
+    PIL does not read); a JPEG must hold every marker segment up to the start
+    of scan, with a start-of-frame before it.  An empty file, or one that
+    ends inside the PNG or JPEG signature, is no image of any format.  Other
+    formats go through PIL, and raise RuntimeError (not CorruptImage) where
+    PIL is not installed."""
+    with open(path, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE))
+    if len(head) < len(PNG_SIGNATURE) and (PNG_SIGNATURE.startswith(head) or JPEG_SIGNATURE.startswith(head)):
+        raise CorruptImage(f"{path}: {len(head)} bytes, too short for an image")
+    kind = sniff(path)
+    if kind == "other":
+        image = _pil_image(path)
+        try:
+            with image.open(path) as im:
+                im.verify()
+        except Exception as e:  # PIL raises many types for a broken file
+            raise CorruptImage(f"{path}: {e}") from e
+        return
+    data = Path(path).read_bytes()
+    (_verify_png if kind == "png" else _verify_jpeg)(data, path)
+
+
+def _verify_png(data: bytes, path) -> None:
+    pos, first = len(PNG_SIGNATURE), True
+    while True:
+        if pos + 8 > len(data):
+            raise CorruptImage(f"{path}: truncated PNG file")
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if not _CHUNK_TYPE.fullmatch(tag):
+            raise CorruptImage(f"{path}: broken PNG file (chunk {tag!r})")
+        if first and (tag != b"IHDR" or length < 13):
+            raise CorruptImage(f"{path}: PNG without a leading IHDR chunk")
+        first = False
+        if tag == b"IEND":
+            return
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) < length or len(crc) < 4:
+            raise CorruptImage(f"{path}: truncated PNG file (chunk {tag!r})")
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != struct.unpack(">I", crc)[0]:
+            raise CorruptImage(f"{path}: broken PNG file (bad checksum in {tag!r})")
+        pos += 12 + length
+
+
+def _verify_jpeg(data: bytes, path) -> None:
+    if data[:3] != b"\xff\xd8\xff":
+        raise CorruptImage(f"{path}: not a JPEG file")
+    pos, frame = 2, False
+    while True:
+        while pos < len(data) and data[pos] != 0xFF:  # junk between segments
+            pos += 1
+        while pos < len(data) and data[pos] == 0xFF:  # fill bytes
+            pos += 1
+        if pos >= len(data):
+            raise CorruptImage(f"{path}: JPEG ends before its start of scan")
+        m = data[pos]
+        pos += 1
+        if m == 0xD8 or 0xD0 <= m <= 0xD7 or m == 0x00:  # markers without a length
+            continue
+        if m < 0xC0:
+            raise CorruptImage(f"{path}: no JPEG marker at byte {pos - 1}")
+        if pos + 2 > len(data):
+            raise CorruptImage(f"{path}: truncated JPEG marker segment")
+        (length,) = struct.unpack(">H", data[pos:pos + 2])
+        if length < 2 or pos + length > len(data):
+            raise CorruptImage(f"{path}: truncated JPEG marker segment {m:#04x}")
+        if m in _SOF_MARKERS:
+            if length < 8 or data[pos + 7] not in (1, 3, 4):
+                raise CorruptImage(f"{path}: JPEG frame header of an unsupported layout")
+            frame = True
+        if m == 0xDA:  # start of scan
+            if not frame:
+                raise CorruptImage(f"{path}: JPEG scan without a frame header")
+            return
+        pos += length
 
 
 def read_rgb(path) -> np.ndarray:
@@ -134,26 +233,21 @@ def read_png(path) -> np.ndarray:
 
 
 def _unfilter(kinds: np.ndarray, rows: np.ndarray, bpp: int) -> np.ndarray:
-    """Undoes the per-scanline filters (PNG spec, section 9): None and Up are
-    elementwise, Sub is a running sum per channel (mod 256); Average and
-    Paeth depend on the reconstructed left neighbour, so they walk the row."""
-    h, n = rows.shape
-    out = np.empty((h, n), np.uint8)
-    prior = np.zeros(n, np.uint8)
-    for y in range(h):
-        line, kind = rows[y], kinds[y]
-        if kind == 0:
-            cur = line.copy()
-        elif kind == 1:
-            cur = (np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.int64) % 256).astype(np.uint8).reshape(-1)
-        elif kind == 2:
-            cur = line + prior
-        elif kind in (3, 4):
-            cur = _walk(line, prior, bpp, kind)
-        else:
-            raise ValueError(f"PNG scanline filter {kind} is not defined")
-        out[y] = cur
-        prior = cur
+    """Undoes the per-scanline filters (PNG spec, section 9): None and Sub
+    (a running sum per channel, mod 256) read only their own row, so all
+    such rows are undone at once; Up is elementwise on the row above;
+    Average and Paeth depend on the reconstructed left neighbour, so they
+    walk the row."""
+    n = rows.shape[1]
+    if np.any(kinds > 4):
+        raise ValueError(f"PNG scanline filter {int(kinds.max())} is not defined")
+    out = rows.copy()
+    sub = kinds == 1
+    if sub.any():
+        out[sub] = np.cumsum(rows[sub].reshape(int(sub.sum()), -1, bpp), axis=1, dtype=np.uint8).reshape(-1, n)
+    for y in np.flatnonzero(kinds >= 2):  # in order: each reads the finished row above
+        prior = out[y - 1] if y else np.zeros(n, np.uint8)
+        out[y] = rows[y] + prior if kinds[y] == 2 else _walk(rows[y], prior, bpp, int(kinds[y]))
     return out
 
 

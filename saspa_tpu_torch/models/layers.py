@@ -38,10 +38,10 @@ class Dense(nn.Module):
 class Conv(nn.Module):
     """NCHW conv with symmetric padding."""
 
-    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, dtype=torch.float32, device=None):
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, dtype=torch.float32, device=None, bias=True):
         super().__init__()
         self.kernel = _empty((out_ch, in_ch, kernel_size, kernel_size), dtype, device)
-        self.bias = _empty((out_ch,), dtype, device)
+        self.bias = _empty((out_ch,), dtype, device) if bias else None
         self.stride, self.padding = stride, padding
 
     def forward(self, x):
@@ -64,6 +64,26 @@ class NormParams(nn.Module):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(features, device=device), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(features, device=device), requires_grad=False)
+
+
+class BatchNorm(nn.Module):
+    """flax nn.BatchNorm(use_running_average=True) on NCHW: f32 {scale, bias}
+    parameters and {mean, var} buffers (flax's batch_stats collection);
+    (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, cast back to x's
+    dtype.  Starts at mean 0, var 1."""
+
+    def __init__(self, features, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features, device=device), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(features, device=device), requires_grad=False)
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def forward(self, x):
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(self.var + self.eps) * self.scale
+        return ((x.float() - self.mean.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
 def flax_layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -93,7 +113,8 @@ def nearest_resize(x, out_h: int, out_w: int):
 def init_weights(module: nn.Module, seed: int, zero_prefixes=()) -> None:
     """Seeded random init in the spirit of flax's defaults (the bits differ):
     dense/conv kernels N(0, 1/fan_in), embeddings N(0, 0.02), positional
-    embeddings N(0, 0.01), biases 0, norm scales 1.  Parameters whose name
+    embeddings N(0, 0.01), biases 0, norm scales 1, CLIP's logit_scale
+    ln(100) (flax's constant 4.6052).  Parameters whose name
     starts with one of `zero_prefixes` stay zero (ControlNet's zero convs)."""
     gen = None
     for name, p in sorted(module.named_parameters(), key=lambda kv: kv[0]):
@@ -112,6 +133,9 @@ def init_weights(module: nn.Module, seed: int, zero_prefixes=()) -> None:
             std = 0.01
         elif leaf == "scale":
             p.fill_(1.0)
+            continue
+        elif leaf == "logit_scale":
+            p.fill_(4.6052)
             continue
         else:
             p.zero_()

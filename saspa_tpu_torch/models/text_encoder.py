@@ -1,14 +1,18 @@
-"""SD1.5 CLIP text tower (counterpart of saspa_tpu/models/text_encoder.py).
+"""OpenAI CLIP text towers (counterpart of saspa_tpu/models/text_encoder.py):
+SD1.5's conditioning tower (ViT-L/14 text, last_hidden_state) and the CLIP
+RN50 filter's tower (12 layers of 512 with a 1024-wide text_projection).
 
 Causal masking, quick-gelu MLP, f32 LayerNorm islands, `output_layer`
-selection and the final LayerNorm, with the flax tree's names.  Attention
-over 77 tokens is plain torch.
+selection, the final LayerNorm, EOT pooling (argmax over the token ids) and
+the optional projection, with the flax tree's names.  Attention over 77
+tokens is plain torch.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -23,11 +27,13 @@ class CLIPTextConfig:
     layers: int = 12
     heads: int = 12
     context_length: int = 77
+    projection_dim: Optional[int] = None  # set for CLIP similarity towers
     act: str = "quick_gelu"
     output_layer: int = -1  # -1 = last (after ln_final); -2 = raw penultimate
 
 
 SD15_TEXT = CLIPTextConfig()
+CLIP_RN50_TEXT = CLIPTextConfig(width=512, layers=12, heads=8, projection_dim=1024)
 
 
 class CLIPTextBlock(nn.Module):
@@ -41,7 +47,7 @@ class CLIPTextBlock(nn.Module):
         self.ln_2 = NormParams(w, device)
         self.mlp_fc = Dense(w, 4 * w, dtype=dtype, device=device)
         self.mlp_proj = Dense(4 * w, w, dtype=dtype, device=device)
-        assert cfg.act == "quick_gelu", "only the SD1.5 (OpenAI CLIP) tower is ported"
+        assert cfg.act == "quick_gelu", "only the OpenAI CLIP towers (quick-gelu) are ported"
 
     def forward(self, x, mask_bias):
         b, l, w = x.shape
@@ -58,7 +64,8 @@ class CLIPTextBlock(nn.Module):
 
 
 class CLIPTextEncoder(nn.Module):
-    """forward(token_ids (B, 77)) -> {"hidden": (B, 77, width), "pooled": (B, width)}."""
+    """forward(token_ids (B, 77)) -> {"hidden": (B, 77, width), "pooled": (B, width)},
+    and "proj": (B, projection_dim) where the config has a projection."""
 
     def __init__(self, cfg: CLIPTextConfig = SD15_TEXT, dtype=torch.float32, device=None):
         super().__init__()
@@ -69,6 +76,8 @@ class CLIPTextEncoder(nn.Module):
         for i in range(cfg.layers):
             setattr(self, f"resblocks_{i}", CLIPTextBlock(cfg, dtype, device))
         self.ln_final = NormParams(cfg.width, device)
+        if cfg.projection_dim is not None:
+            self.text_projection = Dense(cfg.width, cfg.projection_dim, bias=False, dtype=dtype, device=device)
 
     def forward(self, token_ids):
         cfg = self.cfg
@@ -83,4 +92,7 @@ class CLIPTextEncoder(nn.Module):
         final = flax_layer_norm(hiddens[-1], self.ln_final.scale, self.ln_final.bias).to(x.dtype)
         hidden = final if cfg.output_layer == -1 else hiddens[cfg.output_layer]
         pooled = final[torch.arange(b, device=tok.device), token_ids.argmax(dim=-1)]
-        return {"hidden": hidden, "pooled": pooled}
+        out = {"hidden": hidden, "pooled": pooled}
+        if cfg.projection_dim is not None:
+            out["proj"] = self.text_projection(pooled)
+        return out

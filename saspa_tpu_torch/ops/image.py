@@ -20,6 +20,7 @@ tests/test_torch_image.py holds each against cv2.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -255,3 +256,98 @@ def _area_linear(x, out_h: int, out_w: int) -> np.ndarray:
     r0, r1 = rows[yi[:, 0]] >> 4, rows[yi[:, 1]] >> 4
     out = ((yw[:, 0, None, None] * r0) >> 16) + ((yw[:, 1, None, None] * r1) >> 16)
     return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+# ---- Pillow's resample (the filter stage) ----------------------------------------
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+PIL_PRECISION_BITS = 32 - 8 - 2  # libImaging/Resample.c
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _pil_bilinear(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+_PIL_FILTERS = {"bicubic": (_pil_bicubic, 2.0), "bilinear": (_pil_bilinear, 1.0)}
+
+
+@functools.lru_cache(maxsize=64)
+def _pil_coeffs(in_size: int, out_size: int, method: str):
+    """Pillow's precompute_coeffs + normalize_coeffs_8bpc for one axis over
+    the whole image: (xmin (out,), tap indices (out, ksize), int32 weights
+    (out, ksize), rows of the input the taps reach (first, last))."""
+    filt, filter_support = _PIL_FILTERS[method]
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = filter_support * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64) - xmin
+    ss = 1.0 / filterscale
+    taps = np.arange(ksize)
+    w = np.where(taps[None] < xmax[:, None], filt(((taps[None] + xmin[:, None]) - center[:, None] + 0.5) * ss), 0.0)
+    ww = np.zeros(out_size)
+    for t in range(ksize):  # Pillow's summation order
+        ww += w[:, t]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    fixed = w * (1 << PIL_PRECISION_BITS)
+    fixed = np.trunc(np.where(w < 0, fixed - 0.5, fixed + 0.5)).astype(np.int32)
+    idx = xmin[:, None] + np.minimum(taps[None], xmax[:, None] - 1)  # zero-weight taps stay in range
+    for a in (xmin, idx, fixed):
+        a.setflags(write=False)
+    return xmin, idx, fixed, (int(xmin[0]), int(xmin[-1] + xmax[-1]))
+
+
+def _pil_pass(x: np.ndarray, idx: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """One 8-bit pass along axis 0 (whole rows gathered at a time): sum of
+    taps in int32 from the 1 << 21 rounding term, then clip8 (>> 22 into
+    [0, 255])."""
+    shape = (idx.shape[0],) + x.shape[1:]
+    acc = np.full(shape, 1 << (PIL_PRECISION_BITS - 1), np.int32)
+    tap = np.empty(shape, np.int32)
+    wshape = (idx.shape[0],) + (1,) * (x.ndim - 1)
+    for t in range(idx.shape[1]):
+        np.take(x, idx[:, t], axis=0, out=tap)
+        tap *= w[:, t].reshape(wshape)
+        acc += tap
+    acc >>= PIL_PRECISION_BITS
+    return np.clip(acc, 0, 255).astype(np.uint8)
+
+
+def pil_resize(img: np.ndarray, size: Tuple[int, int], method: str = "bicubic") -> np.ndarray:
+    """`np.asarray(Image.fromarray(img).resize(size, BICUBIC | BILINEAR))`
+    on uint8 (H, W, C) or (H, W): Pillow's 8-bit two-pass resample
+    (libImaging/Resample.c, reducing_gap=None).  The filter's support widens
+    by the scale when downscaling; coefficients are normalised, then put in
+    fixed point with 22 fraction bits, rounded away from zero; the
+    horizontal pass runs first over the rows the vertical pass reads, each
+    pass rounds and clips to uint8.  `size` is (width, height), as PIL's."""
+    out_w, out_h = size
+    h, w = img.shape[:2]
+    x = img
+    if (out_w, out_h) == (w, h):
+        return img.copy()
+    if out_h != h:
+        ymin, yidx, yw, (y0, y1) = _pil_coeffs(h, out_h, method)
+    else:
+        y0, y1 = 0, h
+    if out_w != w:  # on the transposed rows, so that the taps gather whole rows
+        _, xidx, xw, _ = _pil_coeffs(w, out_w, method)
+        x = _pil_pass(np.ascontiguousarray(np.swapaxes(x[y0:y1], 0, 1), dtype=np.int32), xidx, xw)
+        x = np.ascontiguousarray(np.swapaxes(x, 0, 1))
+    else:
+        x = x[y0:y1]
+    if out_h != h:
+        x = _pil_pass(x.astype(np.int32), yidx - y0, yw)
+    return x

@@ -113,3 +113,27 @@ class GenerationConfig:
             f"{ds_root}/aug_data/{base_model_folder}/{self.controlnet}/"
             f"{self.prompt_str}_seed_{self.seed}/images"
         )
+
+
+@dataclass
+class FilterConfig:
+    """Filter-stage parameters (all_utils/utils.py:221-235 signature), field
+    for field the JAX package's copy."""
+
+    dataset: str = "planes"
+    lpips_min: Optional[float] = None
+    lpips_max: Optional[float] = None
+    resize: Tuple[int, int] = (256, 256)
+    clip_filtering: Optional[str] = None  # None | "per_class"
+    clip_filtering_discount: float = 1.0
+    semantic_filtering: bool = True
+    model_confidence_based_filtering: bool = True
+    conf_top_k: int = 10
+    filter_confidence_higher_than: Optional[float] = None
+    alia_conf_filtering: bool = False
+
+    batch_size: int = 64  # images scored per device step (reference scores 1 at a time)
+
+    def __post_init__(self):
+        if self.clip_filtering and self.model_confidence_based_filtering:
+            raise ValueError("can't use both clip_filtering and model_confidence_based_filtering")

@@ -173,12 +173,18 @@ def test_cli_flags_map_to_the_same_config(argv, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(monkeypatch):
+    """`gen` filters unless --skip_filter is passed (the JAX CLI's
+    semantic + top-10 confidence recipe); the presets raise."""
     import saspa_tpu_torch.cli as tcli
 
-    monkeypatch.setattr(tdriver, "run_generation", lambda cfg, **kw: None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tcli.main(["gen", "--resolution", "1024"])  # no --skip_filter: the filter stage
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    calls = []
+    monkeypatch.setattr(tdriver, "run_generation", lambda cfg, **kw: calls.append(("gen", kw)))
+    monkeypatch.setattr(tdriver, "run_generation_and_filter", lambda cfg, **kw: calls.append(("filter", kw)))
+    tcli.main(["gen", "--resolution", "1024"])
+    tcli.main(["gen", "--resolution", "1024", "--skip_filter"])
+    assert calls == [("filter", {"semantic_filtering": True, "model_confidence_based_filtering": True}),
+                     ("gen", {})]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10c"):
         tcli.main(["gen", "--preset", "alia", "--skip_filter"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         init_pipeline("sd_xl", "canny")
@@ -191,7 +197,10 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
 def test_importing_the_entry_point_loads_no_jax_pil_or_cv2():
     code = (
         "import sys, saspa_tpu_torch.cli, saspa_tpu_torch.gen.driver, saspa_tpu_torch.gen.image_io, "
-        "saspa_tpu_torch.diffusion.pipelines, saspa_tpu_torch.data.registry, saspa_tpu_torch.gen.prompts\n"
+        "saspa_tpu_torch.diffusion.pipelines, saspa_tpu_torch.data.registry, saspa_tpu_torch.gen.prompts, "
+        "saspa_tpu_torch.data.datasets, saspa_tpu_torch.filters, saspa_tpu_torch.filters.clip_filters, "
+        "saspa_tpu_torch.filters.confidence, saspa_tpu_torch.models.clip, saspa_tpu_torch.models.cal, "
+        "saspa_tpu_torch.models.resnet, saspa_tpu_torch.utils.logging_utils, saspa_tpu_torch.bridge\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'saspa_tpu', 'PIL', 'cv2'))\n"
         "assert not bad, bad\n"
     )
