@@ -77,6 +77,34 @@ Phases, each printing one JSON line:
                 256 synthetic 512^2 PNG augs
                 through  cli filter  at batch 64: augs/s, host preprocess
                 and device seconds apart, peak memory (filter_throughput).
+  7. train   -- the train stage on a synthetic FGVC-Aircraft tree of 100
+                classes (64 / 16 / 16 seeded sources of about 1000 x 700,
+                PNG bytes under .jpg names; an aug-JSON of 2 seeded 512^2
+                PNG augs a train image):  cli train --dataset planes
+                --aug_json ... --aug_sample_ratio 0.4 --limit_aug_per_image 2
+                --special_aug classic --epochs 1 --seed 1  in-process, the
+                planes preset at full width (WSDAN-CAL ResNet-101, layer4 at
+                stride 1, M 32, 224^2, batch 4, bf16, seeded weights): 16
+                steps, validation and test, a checkpoint whose reload
+                (--ckpt) gives the same test metrics; the AugSampler's
+                substitutions equal a host replay; the launch counters of
+                K1-K6 stay 0.  The transforms and attention crop/drop on the
+                card equal the CPU's (train_draws).  Three steps of one
+                seeded model on the card and through the port on the CPU,
+                same batches and injected draws: in f64 the loss within 1e-6,
+                running statistics within 1e-4 (norm), feature centers and
+                fc's update at cosine >= 0.9999; in f32 (TF32 off), every
+                step, the loss within 1e-2, feature centers at cosine >=
+                0.99, fc's update at cosine >= 0.98, running statistics
+                within 0.1 at the first step and 0.5 after: the seeded net's
+                train-mode BatchNorms (fast variance) amplify f32 rounding
+                (train_card_vs_cpu).  Ten bf16 steps on one batch lower the
+                loss.  Then the input pipeline feeding the step at batch 4
+                and 16: s/step, img/s, the host's input wait and load
+                seconds, its dispatch seconds and its wait for the card at
+                the end, the stream synchronizations in one batch and step
+                (required 0), the card's idle share and kernels a step over
+                2 profiled steps, peak memory (train_throughput).
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -86,7 +114,9 @@ K5 (its own wrappers and kernels, built from DIR) on the same inputs
 With --profile, one more main-path run of each configuration under
 torch.profiler writes the device time by kernel to OUT.json and
 OUT_opt_in.json, one 1024^2 batch to OUT_gen_1024.json and the filter's
-scoring of its 256 augs to OUT_filter.json, and prints a summary line each.
+scoring of its 256 augs to OUT_filter.json, and the train phase's 2
+profiled steps at batch 4 and 16 to OUT_train.json and OUT_train_b16.json,
+and prints a summary line each.
 Then the kernels line, the card's name and power limit (nvidia-smi) and, as
 the last line, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Needs one CUDA card; imports nothing of JAX.
@@ -102,6 +132,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -810,10 +841,33 @@ def record_sites(pipe):
     return sites, handles
 
 
-def profile_main(run, out_path: str, steps: int, config: str) -> None:
-    """Device time by kernel over one main-path run (torch.profiler/CUPTI)."""
-    from pathlib import Path
+def kernel_group(name: str) -> str:
+    """The op group of a kernel's name in the profiles' tables."""
+    if "attention_packed" in name:  # the wgmma kernel and the VAE's
+        return "attention_packed (K1)"
+    if "ln_geglu_" in name:  # its three stages, the row-normalize included
+        return "ln_geglu (K2)"
+    if "saspa::gn_" in name:
+        return "group_norm (K3)"
+    if "layernorm_kernel" in name:
+        return "layernorm (K4)"
+    if "attention_block_" in name:  # its three phases
+        return "attention_block (K5)"
+    if "flash_attention_kernel" in name:
+        return "flash_attention (K6)"
+    n = name.lower()
+    if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")):
+        return "convolution (cuDNN)"
+    if any(k in n for k in ("gemm", "nvjet", "cublas", "cutlass")):
+        return "matmul (cuBLAS)"
+    if "reduce" in n:
+        return "reductions (norm statistics, softmax)"
+    return "elementwise and copies"
 
+
+def profile_run(run) -> dict:
+    """Device time by kernel and by group over one call of run()
+    (torch.profiler/CUPTI); run returns (anything, wall seconds)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -825,44 +879,33 @@ def profile_main(run, out_path: str, steps: int, config: str) -> None:
             rows.append({"name": e.key, "calls": e.count, "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows) / 1e3
-
-    def group(name: str) -> str:
-        if "attention_packed" in name:  # the wgmma kernel and the VAE's
-            return "attention_packed (K1)"
-        if "ln_geglu_" in name:  # its three stages, the row-normalize included
-            return "ln_geglu (K2)"
-        if "saspa::gn_" in name:
-            return "group_norm (K3)"
-        if "layernorm_kernel" in name:
-            return "layernorm (K4)"
-        if "attention_block_" in name:  # its three phases
-            return "attention_block (K5)"
-        if "flash_attention_kernel" in name:
-            return "flash_attention (K6)"
-        n = name.lower()
-        if any(k in n for k in ("conv", "fprop", "cudnn", "implicit")):
-            return "convolution (cuDNN)"
-        if any(k in n for k in ("gemm", "nvjet", "cublas", "cutlass")):
-            return "matmul (cuBLAS)"
-        if "reduce" in n:
-            return "reductions (norm statistics, softmax)"
-        return "elementwise and copies"
-
     groups: dict = {}
     for r in rows:
-        g = group(r["name"])
+        g = kernel_group(r["name"])
         groups[g] = groups.get(g, 0.0) + r["device_ms"]
+    return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall, "groups_ms": groups,
+            "kernels": rows}
+
+
+def profile_main(run, out_path: str, steps: int, config: str) -> None:
+    """Device time by kernel over one main-path run, into out_path."""
+    from pathlib import Path
+
+    r = profile_run(run)
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
-    Path(out_path).write_text(json.dumps({"config": config, "steps": steps, "wall_s": wall, "device_busy_s": busy,
-                                          "groups_ms": groups, "kernels": rows}, indent=1))
-    emit({"phase": "profile", "config": config, "steps": steps, "wall_s": wall, "device_busy_s": busy,
-          "idle_share": 1.0 - busy / wall, "groups_ms": groups, "top": rows[:12], "table": out_path})
+    Path(out_path).write_text(json.dumps({"config": config, "steps": steps, **{k: r[k] for k in (
+        "wall_s", "device_busy_s", "groups_ms", "kernels")}}, indent=1))
+    emit({"phase": "profile", "config": config, "steps": steps, **{k: r[k] for k in (
+        "wall_s", "device_busy_s", "idle_share", "groups_ms")}, "top": r["kernels"][:12], "table": out_path})
 
 
-def synthetic_sources(rng: np.random.RandomState, n: int, size: int) -> np.ndarray:
-    """Smooth synthetic scenes: a colour gradient with a few filled ellipses."""
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
-    imgs = np.empty((n, size, size, 3), np.float32)
+def synthetic_sources(rng: np.random.RandomState, n: int, size: int, width=None) -> np.ndarray:
+    """Smooth synthetic scenes: a colour gradient with a few filled ellipses;
+    size x size, or size x width."""
+    width = width or size
+    yy, xx = np.mgrid[0:size, 0:width].astype(np.float32)
+    yy, xx = yy / size, xx / width
+    imgs = np.empty((n, size, width, 3), np.float32)
     for i in range(n):
         a, c = rng.uniform(40, 200, 3), rng.uniform(-60, 60, 3)
         img = a[None, None] + c[None, None] * (0.6 * xx + 0.4 * yy)[..., None]
@@ -1376,6 +1419,371 @@ def run_filter_phase(steps: int, seed: int, smi: str, profile_path=None) -> dict
         shutil.rmtree(root, ignore_errors=True)
 
 
+TRAIN_CLASSES = 100  # FGVC-Aircraft's variants: the planes width of fc
+TRAIN_SPLITS = {"train": 64, "val": 16, "test": 16}
+TRAIN_SOURCE_HW = (700, 1000)  # about FGVC-Aircraft's image size
+TRAIN_AUGS = 2  # seeded 512^2 PNG augs a train image in the aug-JSON
+TRAIN_BATCHES = (4, 16)  # the planes preset's batch, and cub/dtd's
+TRAIN_TIMED_STEPS = 20
+TRAIN_PROFILED_STEPS = 2
+TRAIN_COMPARE_STEPS = 3
+
+
+TRAIN_DISTINCT = 16  # distinct encoded images of each kind; the tree's files repeat their bytes
+
+
+def write_train_tree(root, seed: int):
+    """A synthetic FGVC-Aircraft tree of 100 classes: seeded sources of
+    about 1000 x 700 as PNG bytes under .jpg names, split 64 / 16 / 16,
+    and an aug-JSON of 2 seeded 512^2 PNG augs a train image; the files
+    repeat the bytes of 16 distinct encoded sources and 16 augs (decoding
+    costs the same).  Returns the aug-JSON's path."""
+    from pathlib import Path
+
+    from saspa_tpu_torch.gen.image_io import write_png
+
+    rng = np.random.RandomState(seed)
+    data = Path(root) / "FGVC-Aircraft/fgvc-aircraft-2013b/data"
+    (data / "images").mkdir(parents=True)
+    classes = [f"variant-{i:03d}" for i in range(TRAIN_CLASSES)]
+    (data / "variants.txt").write_text("".join(c + "\n" for c in classes))
+    aug_dir = Path(root) / "augs"
+    aug_dir.mkdir()
+    blobs = {}
+    for kind in ("source", "aug"):
+        for j in range(TRAIN_DISTINCT):
+            h, w = (d + rng.randint(-40, 41) for d in TRAIN_SOURCE_HW) if kind == "source" else (512, 512)
+            pth = Path(root) / f"{kind}_{j}.png"
+            write_png(pth, synthetic_sources(rng, 1, h, w)[0])
+            blobs[kind, j] = pth.read_bytes()
+            pth.unlink()
+    augs, k = {}, 0
+    for shift, (split, n) in enumerate(TRAIN_SPLITS.items()):
+        lines = []
+        for i in range(n):
+            image_id = f"{2000000 + 7 * k:07d}"
+            # a split's i-th image takes label i % 100 and source (i + 5 * shift) % 16: val and test differ
+            (data / "images" / f"{image_id}.jpg").write_bytes(blobs["source", (i + 5 * shift) % TRAIN_DISTINCT])
+            lines.append(f"{image_id} {classes[i % TRAIN_CLASSES]}\n")
+            if split == "train":
+                paths = [aug_dir / f"{image_id}_prompt_synthetic_{j}.png" for j in range(TRAIN_AUGS)]
+                for j, pth in enumerate(paths):
+                    pth.write_bytes(blobs["aug", (TRAIN_AUGS * k + j) % TRAIN_DISTINCT])
+                augs[f"{image_id}.jpg"] = [str(pth) for pth in paths]
+            k += 1
+        (data / f"images_variant_{split}.txt").write_text("".join(lines))
+    aug_json = Path(root) / "aug.json"
+    aug_json.write_text(json.dumps(augs))
+    return aug_json
+
+
+def train_draws(rng, b: int, m: int, hw: int):
+    """Seeded draws of one train step (fake attention, picks, thetas), as
+    numpy arrays in the port's layout."""
+    return {"fake1": rng.uniform(0, 2, (b, m, hw, hw)), "pick1": rng.randint(0, m, (b, 2)),
+            "fake2": rng.uniform(0, 2, (2 * b, m, hw, hw)), "pick2": rng.randint(0, m, (2 * b, 2)),
+            "crop_theta": rng.uniform(0.4, 0.6, b), "drop_theta": rng.uniform(0.2, 0.5, b)}
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double().cpu().ravel(), b.detach().double().cpu().ravel()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def card_vs_cpu(cfg, dtype, lr: float, seed: int) -> list:
+    """TRAIN_COMPARE_STEPS train steps of one seeded full-width model on the
+    card and through the port on the CPU (weights moved by state_dict), on
+    the same seeded batches with the same injected draws, all in `dtype`;
+    the per-step agreement."""
+    from saspa_tpu_torch.fgvc import train as ttrain
+
+    cfg = cfg.replace(compute_dtype="float32", learning_rate=lr)
+    b, m = cfg.batch_size, cfg.num_attentions
+    states = {}
+    for dev in ("cuda", "cpu"):
+        st = ttrain.create_train_state(cfg, TRAIN_CLASSES, device=dev, init_seed=seed)
+        if dtype == torch.float64:
+            for mod in st.model.modules():
+                if hasattr(mod, "dtype"):
+                    mod.dtype = torch.float64
+            st.model.to(torch.float64)
+            st.momentum = {n: p.to(torch.float64) for n, p in st.momentum.items()}
+            st.feature_center = st.feature_center.to(torch.float64)
+        states[dev] = st
+    states["cpu"].model.load_state_dict({k: v.cpu() for k, v in states["cuda"].model.state_dict().items()})
+    step = ttrain.make_train_step(cfg, 16)
+    rng = np.random.RandomState(seed + 1)
+    rows = []
+    for s in range(TRAIN_COMPARE_STEPS):
+        X = rng.randn(b, 3, *cfg.image_size)
+        y = rng.randint(0, TRAIN_CLASSES, b)
+        draws = train_draws(rng, b, m, cfg.image_size[0] // 16)
+        key = np.array([0, s], np.uint32)
+        out, times = {}, {}
+        for dev, st in states.items():
+            d = {k: torch.from_numpy(v).to(dev, dtype if v.dtype.kind == "f" else torch.long) for k, v in draws.items()}
+            fc_before = st.model.fc.kernel.detach().clone()
+            t = time.perf_counter()
+            met = step(st, torch.from_numpy(X).to(dev, dtype), torch.from_numpy(y).to(dev), key, draws=d)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            times[dev] = time.perf_counter() - t
+            out[dev] = (met["loss"].item(), st.model.fc.kernel.detach() - fc_before)
+        sg, sc = states["cuda"].model.state_dict(), states["cpu"].model.state_dict()
+        stats = [k for k in sc if k.endswith((".mean", ".var"))]
+        rows.append({"step": s, "loss_card": out["cuda"][0], "loss_cpu": out["cpu"][0],
+                     "loss_rel": abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0]),
+                     "feature_center_cos": cosine(states["cuda"].feature_center, states["cpu"].feature_center),
+                     "fc_update_cos": cosine(out["cuda"][1], out["cpu"][1]),
+                     "running_stats_rel": max(rel_norm(sg[k], sc[k]) for k in stats),
+                     "card_s": times["cuda"], "cpu_s": times["cpu"]})
+    del states
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_train_phase(seed: int, smi: str, profile_path=None) -> dict:
+    """The train stage (module docstring, phase 7); returns its launch
+    counts (all 0: the train path runs none of K1-K6)."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data import datasets as tds
+    from saspa_tpu_torch.data.pipeline import InputPipeline
+    from saspa_tpu_torch.fgvc import runner
+    from saspa_tpu_torch.fgvc import train as ttrain
+    from saspa_tpu_torch.models.cal import sample_attention_maps
+    from saspa_tpu_torch.ops.augment import train_transform_batch, val_transform_batch
+    from saspa_tpu_torch.ops.batch_augment import batch_augment
+    from saspa_tpu_torch.utils import rng as rngs
+    from saspa_tpu_torch.utils.config import get_train_config
+
+    root = Path(tempfile.mkdtemp(prefix="saspa_train_"))
+    old_root = os.environ.get("SASPA_DATA_ROOT")
+    os.environ["SASPA_DATA_ROOT"] = str(root)
+    root_logger = logging.getLogger()
+    old_handlers, old_level = root_logger.handlers[:], root_logger.level
+    sampler_call = tds.AugSampler.__call__
+    calls = []
+
+    def recording_call(self, image_path, idx=0):
+        out = sampler_call(self, image_path, idx)
+        calls.append(out)
+        return out
+
+    try:
+        t = time.perf_counter()
+        aug_json = write_train_tree(root, seed + 401)
+        tree_s = time.perf_counter() - t
+        argv = ["train", "--dataset", "planes", "--aug_json", str(aug_json), "--aug_sample_ratio", "0.4",
+                "--limit_aug_per_image", "2", "--special_aug", "classic", "--epochs", "1", "--seed", "1",
+                "--logdir", str(root / "logs")]
+        # ---- the recipe through `cli train`: 16 steps, validation, test, checkpoint
+        tds.AugSampler.__call__ = recording_call
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()  # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        logs = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        tds.AugSampler.__call__ = sampler_call
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        require(all(v == 0 for v in counts.values()), "train: the train path launched a kernel of K1-K6", counts)
+        lines = [json.loads(ln) for ln in (Path(logs["save_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        epoch = lines[0]
+        require(epoch["steps"] == TRAIN_SPLITS["train"] // 4 and math.isfinite(epoch["train_loss"]),
+                "train: the epoch's metrics", epoch)
+        val = next(ln for ln in lines if "val_loss" in ln)
+        test = next(ln for ln in lines if "test_loss" in ln)
+        require(all(math.isfinite(v) for v in (val["val_loss"], test["test_loss"])), "train: eval metrics", lines)
+        require(Path(logs["ckpt_path"]).exists(), "train: no checkpoint at", logs["ckpt_path"])
+
+        # the AugSampler's substitutions, replayed on the host in the pipeline's order
+        train_ds = tds.get_datasets("planes", aug_json=str(aug_json), aug_sample_ratio=0.4, limit_aug_per_image=2,
+                                    special_aug="classic", seed=1, print_func=lambda *a: None)[0]
+        order = np.arange(len(train_ds))
+        np.random.RandomState(1 * 100003 + 0).shuffle(order)
+        replay = [train_ds.item_path(int(i))[0] for i in order]
+        require(calls == replay, "train: the AugSampler's substitutions differ from the host replay")
+        substituted = sum("_prompt_synthetic_" in pth for pth in calls)
+
+        # ---- the checkpoint through --ckpt: the same test metrics
+        t = time.perf_counter()
+        again = runner.evaluate_checkpoint(cli.build_parser().parse_args(argv + ["--ckpt", logs["ckpt_path"]]))
+        reload_s = time.perf_counter() - t
+        same = (again["test_loss"] == test["test_loss"] and again["test_topk_accuracy"][0] == test["test_topk_accuracy"]
+                and again["test_mean_class_acc"] == test["test_mean_class_acc"])
+        require(same, "train: --ckpt's test metrics differ from the run's", again, test)
+        emit({"phase": "train", "argv": argv, "tree_s": tree_s, "wall_s": wall, "steps": epoch["steps"],
+              "epoch": epoch, "val": val, "test": test, "reloaded_test": {k: again[k] for k in (
+                  "test_loss", "test_topk_accuracy", "test_mean_class_acc")}, "reload_s": reload_s,
+              "aug_substitutions": substituted, "sampler_calls": len(calls), "peak_mem_bytes": peak,
+              "peak_mem_above_base_bytes": peak - base_mem,
+              "launches": counts, "pipeline_timings": logs["pipeline_timings"]})
+
+        # ---- host draws and views: card against CPU on the same inputs
+        rng = np.random.RandomState(seed + 402)
+        u8 = torch.from_numpy(rng.randint(0, 256, (16, 256, 256, 3)).astype(np.uint8))
+        key = rngs.item_key(1, "augment", 0, 0)
+        views_equal = {
+            "classic": torch.equal(train_transform_batch(u8.cuda(), key, "classic", 224, 224).cpu(),
+                                   train_transform_batch(u8, key, "classic", 224, 224)),
+            "val": torch.equal(val_transform_batch(u8.cuda(), 224, 224).cpu(), val_transform_batch(u8, 224, 224))}
+        att = torch.from_numpy((np.maximum(rng.randn(16, 32, 14, 14), 0) * rng.uniform(0.1, 3, (1, 32, 1, 1)))
+                               .astype(np.float32))
+        pick_key = rngs.item_key(1, "dropout", 0, 0)
+        _, picks_card = sample_attention_maps(att.cuda(), pick_key, return_picks=True)
+        _, picks_cpu = sample_attention_maps(att, pick_key, return_picks=True)
+        picks_equal = float((picks_card.cpu() == picks_cpu).float().mean())
+        X = torch.from_numpy(rng.randn(16, 3, 224, 224).astype(np.float32))
+        aug_err = {}
+        for mode, theta in (("crop", (0.4, 0.6)), ("drop", (0.2, 0.5))):
+            a = batch_augment(X.cuda(), att[:, 0].cuda(), pick_key, mode=mode, theta=theta).cpu()
+            b = batch_augment(X, att[:, 0], pick_key, mode=mode, theta=theta)
+            aug_err[mode] = float((a - b).abs().max())
+        emit({"phase": "train_draws", "views_bit_equal": views_equal, "picks_equal_share": picks_equal,
+              "batch_augment_max_abs_err": aug_err})
+        require(all(views_equal.values()), "train: the card's transforms differ from the CPU's", views_equal)
+        require(picks_equal == 1.0, "train: the card's attention picks differ from the CPU's", picks_equal)
+        require(max(aug_err.values()) <= 1e-6, "train: the card's attention crop/drop differ from the CPU's", aug_err)
+
+        # ---- the step on the card against the port on the CPU, full width, batch 4
+        cfg = get_train_config("planes")
+        cmp = {}
+        t = time.perf_counter()
+        cmp["f64"] = card_vs_cpu(cfg, torch.float64, cfg.learning_rate, seed + 403)
+        cmp["f32"] = card_vs_cpu(cfg, torch.float32, cfg.learning_rate, seed + 403)
+        emit({"phase": "train_card_vs_cpu", "cpu_threads": torch.get_num_threads(), "seconds":
+              time.perf_counter() - t, **cmp})
+        for r in cmp["f64"]:
+            require(r["loss_rel"] <= 1e-6 and r["running_stats_rel"] <= 1e-4 and r["feature_center_cos"] >= 0.9999
+                    and r["fc_update_cos"] >= 0.9999, "train: the card's f64 steps differ from the CPU's", r)
+        for r in cmp["f32"]:  # f32 rounding grows through the seeded train-mode ResNet (docstring)
+            require(r["loss_rel"] <= 1e-2 and r["feature_center_cos"] >= 0.99 and r["fc_update_cos"] >= 0.98
+                    and r["running_stats_rel"] <= (0.1 if r["step"] == 0 else 0.5),
+                    "train: the card's f32 steps differ from the CPU's", r)
+
+        # ---- bf16 on one fixed batch: the loss falls
+        state = ttrain.create_train_state(cfg, TRAIN_CLASSES, device="cuda", init_seed=seed)
+        step = ttrain.make_train_step(cfg, 16)
+        pipe = InputPipeline(train_ds, cfg.batch_size, resize=cfg.image_size, train_transform="classic", seed=1,
+                             device="cuda")
+        Xf, yf = next(iter(pipe.iter_train(0)))
+        losses = [step(state, Xf, yf, rngs.item_key(1, "dropout", 0, i))["loss"].item() for i in range(10)]
+        emit({"phase": "train_fixed_batch", "dtype": "bfloat16", "losses": losses})
+        require(all(math.isfinite(v) for v in losses) and min(losses[-3:]) < losses[0],
+                "train: the bf16 loss did not fall on a fixed batch", losses)
+        del state
+
+        # ---- throughput: the input pipeline feeding the step, batch 4 and 16
+        for b in TRAIN_BATCHES:
+            cfg_b = get_train_config("planes", batch_size=b)
+            state = ttrain.create_train_state(cfg_b, TRAIN_CLASSES, device="cuda", init_seed=seed)
+            ds = tds.get_datasets("planes", aug_json=str(aug_json), aug_sample_ratio=0.4, limit_aug_per_image=2,
+                                  special_aug="classic", seed=1, print_func=lambda *a: None)[0]
+            pipe = InputPipeline(ds, b, resize=cfg_b.image_size, train_transform="classic", seed=1,
+                                 num_threads=cfg_b.workers * 2, device="cuda")
+            step = ttrain.make_train_step(cfg_b, len(pipe))
+
+            def batches():
+                e = 0
+                while True:
+                    yield from pipe.iter_train(e)
+                    e += 1
+
+            it = batches()
+
+            def run_steps(n):
+                wait = dispatch = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(n):
+                    ta = time.perf_counter()
+                    X, y = next(it)
+                    tb = time.perf_counter()
+                    step(state, X, y, rngs.item_key(1, "dropout", 9, i))
+                    dispatch += time.perf_counter() - tb
+                    wait += tb - ta
+                tc = time.perf_counter()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                return (wait, dispatch, t1 - tc), t1 - t0
+
+            run_steps(3)  # warm-up: cuDNN's heuristics, the allocator
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")  # a warning for each stream synchronization
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    X, y = next(it)
+                    step(state, X, y, rngs.item_key(1, "dropout", 9, TRAIN_TIMED_STEPS))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+            require(not syncs, "train: a batch and step synchronized the stream", syncs[:5])
+            load0 = pipe.timings["load_s"]
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated() - sum(  # what earlier phases still hold
+                t.numel() * t.element_size() for t in (*state.model.parameters(), *state.model.buffers(),
+                                                       *state.momentum.values(), state.feature_center))
+            torch.cuda.reset_peak_memory_stats()
+            (wait, dispatch, sync_wait), wall = run_steps(TRAIN_TIMED_STEPS)
+            load = pipe.timings["load_s"] - load0
+            peak = torch.cuda.max_memory_allocated()
+            t = time.perf_counter()
+            prof = profile_run(lambda: run_steps(TRAIN_PROFILED_STEPS))
+            profile_s = time.perf_counter() - t
+            kernels = sum(r["calls"] for r in prof["kernels"]) / TRAIN_PROFILED_STEPS
+            emit({"phase": "train_throughput", "batch": b, "steps": TRAIN_TIMED_STEPS, "wall_s": wall,
+                  "s_per_step": wall / TRAIN_TIMED_STEPS, "img_per_s": b * TRAIN_TIMED_STEPS / wall,
+                  "host_input_wait_s": wait, "host_input_load_s": load, "host_step_dispatch_s": dispatch,
+                  "host_sync_wait_s": sync_wait, "syncs_per_step": len(syncs),
+                  "profiled_steps": TRAIN_PROFILED_STEPS, "profiled_wall_s": prof["wall_s"],
+                  "device_busy_s": prof["device_busy_s"], "idle_share": prof["idle_share"],
+                  "kernels_per_step": kernels, "groups_ms": prof["groups_ms"], "profile_s": profile_s,
+                  "peak_mem_bytes": peak, "peak_mem_above_base_bytes": peak - base_mem, "nvidia_smi": smi})
+            if profile_path:
+                out = Path(profile_path) if b == TRAIN_BATCHES[0] else Path(profile_path).with_name(
+                    f"{Path(profile_path).stem}_b{b}{Path(profile_path).suffix}")
+                out.parent.mkdir(parents=True, exist_ok=True)
+                out.write_text(json.dumps({"config": f"train_b{b}", "steps": TRAIN_PROFILED_STEPS, **prof}, indent=1))
+            del state, it
+            torch.cuda.empty_cache()
+        return read_counts()
+    finally:
+        tds.AugSampler.__call__ = sampler_call
+        for h in root_logger.handlers[:]:
+            if h not in old_handlers:
+                root_logger.removeHandler(h)
+                h.close()
+        for h in old_handlers:
+            if h not in root_logger.handlers:
+                root_logger.addHandler(h)
+        root_logger.setLevel(old_level)
+        if old_root is None:
+            os.environ.pop("SASPA_DATA_ROOT", None)
+        else:
+            os.environ["SASPA_DATA_ROOT"] = old_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_profile_path(profile):
+    from pathlib import Path
+
+    return str(Path(profile).with_name(f"{Path(profile).stem}_train{Path(profile).suffix}")) if profile else None
+
+
 def copy_weights(src, dst) -> None:
     """Loads src pipeline's parameters into dst (any device and dtype)."""
     for k, mod in src.params.items():
@@ -1402,7 +1810,6 @@ def main() -> int:
         ap.error("--steps must be at least 2")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
     from saspa_tpu_torch.diffusion.pipelines import DiffusionPipeline
     from saspa_tpu_torch.gen.tokenizer import NEGATIVE_PROMPT
     from saspa_tpu_torch.models.controlnet import ZERO_INIT_PREFIXES
@@ -1580,6 +1987,9 @@ def main() -> int:
         out = Path(args.profile)
         filter_profile = str(out.with_name(f"{out.stem}_filter{out.suffix}"))
     counts[f"filter_gen_{FILTER_RESOLUTION}"] = run_filter_phase(args.steps, args.seed, smi, filter_profile)
+
+    # ---- the train stage: cli train at the planes preset, card vs CPU, throughput ----
+    counts["train"] = run_train_phase(args.seed, smi, train_profile_path(args.profile))
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

@@ -14,9 +14,10 @@ Dtype policy: bf16 on the card, f32 on the CPU (parity tests).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "default_dtype"]
+__all__ = ["resolve_device", "default_dtype", "to_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,3 +34,14 @@ def resolve_device(device=None) -> torch.device:
 
 def default_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+def to_device(array: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device`.  To the card it goes through
+    pinned memory without waiting: an upload from pageable memory
+    synchronizes the stream, so the host could not queue work ahead of the
+    card."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -13,6 +13,12 @@ BatchNorm's mean and var live in flax's batch_stats collection and land on
 the module's buffers of the same name.  Keys of the VAE encoder are not
 ported yet; the bridge skips exactly the keys under VAE_SKIPPED_PREFIXES
 and drops nothing else.
+
+`train_state_from_flax` carries the JAX package's WSDAN-CAL TrainState
+across: params and batch_stats as the "cal" state_dict, optax's momentum
+(the trace of its chain) as one buffer a parameter, transposed as the
+parameter is, the feature centers and the step, so a trajectory started in
+JAX continues in the port (`load_train_state`).
 """
 
 from __future__ import annotations
@@ -91,3 +97,32 @@ def params_from_flax(params) -> Tuple[dict, List[str]]:
         else:
             raise KeyError(f"no port of the flax subtree {name!r}")
     return out, skipped
+
+
+def train_state_from_flax(params, batch_stats, opt_state, feature_center, step=0) -> dict:
+    """The JAX TrainState's fields -> {"cal": state_dict, "momentum":
+    {name: tensor}, "feature_center": tensor, "step": int}.  `opt_state` is
+    the chain's state tuple; its TraceState (the one with `.trace`) holds
+    the momentum."""
+    traces = [s.trace for s in opt_state if hasattr(s, "trace")]
+    if len(traces) != 1:
+        raise KeyError(f"expected one optax TraceState in the chain's state, found {len(traces)}")
+    return {"cal": state_dict_from_flax_variables({"params": params, "batch_stats": batch_stats}),
+            "momentum": state_dict_from_flax(traces[0])[0],
+            "feature_center": torch.from_numpy(np.array(feature_center, dtype=np.float32)),
+            "step": int(np.asarray(step))}
+
+
+def load_train_state(state, bridged: dict) -> None:
+    """Loads train_state_from_flax's output into a port TrainState
+    (saspa_tpu_torch.fgvc.train), on its device, strictly."""
+    model = state.model
+    model.load_state_dict(bridged["cal"])
+    if set(bridged["momentum"]) != set(state.momentum):
+        raise KeyError("momentum buffers differ from the model's parameters: "
+                       f"{sorted(set(bridged['momentum']) ^ set(state.momentum))[:5]}")
+    with torch.no_grad():
+        for name, buf in state.momentum.items():
+            buf.copy_(bridged["momentum"][name])
+        state.feature_center.copy_(bridged["feature_center"])
+    state.step = bridged["step"]

@@ -3,12 +3,17 @@
     python -m saspa_tpu_torch.cli gen --dataset planes --resolution 1024
     python -m saspa_tpu_torch.cli filter --dataset planes --aug_folder DIR
     python -m saspa_tpu_torch.cli merge-jsons --jsons A.json B.json --output OUT.json
+    python -m saspa_tpu_torch.cli train --dataset planes --aug_json AUG.json --aug_sample_ratio 0.4 \
+        --limit_aug_per_image 2 --special_aug classic
 
 `gen` takes the JAX package's flags and builds the same GenerationConfig,
 then runs the port's `run_generation_and_filter` on the card (the CLIP
 semantic filter and the baseline's top-10 confidence filter), or
 `run_generation` with `--skip_filter`.  `filter` rebuilds the aug-JSON of a
-folder of generated images; `merge-jsons` merges aug-JSONs.  Ported so far:
+folder of generated images; `merge-jsons` merges aug-JSONs.  `train` trains
+the WSDAN-CAL classifier on the originals mixed with the aug-JSON's images
+(`fgvc/runner.py::run_training`), with the JAX CLI's flags; `--gpu_id` is
+accepted and ignored, as there.  Ported so far:
 SD1.5 with a canny ControlNet (or none), DDIM; the presets come with the
 LPIPS filter and ip2p (ROADMAP Queue 1 items 10c and 12), the other
 subcommands with later slices.
@@ -60,6 +65,36 @@ def _add_filter(sub):
     p.add_argument("--alia_conf_filtering", action="store_true")
     p.add_argument("--weights_dir", default=None)
     p.add_argument("--batch_size", type=int, default=64)
+    return p
+
+
+def _add_train(sub):
+    # flag names mirror fgvc/train.py:46-80, as the JAX CLI's
+    p = sub.add_parser("train", help="train the WS-DAN/CAL classifier")
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--gpu_id", type=int, default=0, help="accepted for parity; ignored")
+    p.add_argument("--logdir", type=str, default="logs")
+    p.add_argument("--dataset", type=str, default="planes")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--learning_rate", type=float, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--weight_decay", type=float, default=None)
+    p.add_argument("--net", type=str, default="resnet101")
+    p.add_argument("--aug_json", type=str, default=None)
+    p.add_argument("--aug_sample_ratio", type=float, default=None)
+    p.add_argument("--limit_aug_per_image", type=int, default=None)
+    p.add_argument("--stop_aug_after_epoch", type=int, default=None)
+    p.add_argument("--special_aug", type=str, default="classic")
+    p.add_argument("--train_sample_ratio", type=float, default=1.0)
+    p.add_argument("--dont_use_wsdan", action="store_true", default=False)
+    p.add_argument("--use_cutmix", action="store_true", default=False)
+    p.add_argument("--use_target_soft_cross_entropy", action="store_true", default=False)
+    p.add_argument("--few_shot", type=int, default=None)
+    p.add_argument("--ckpt", type=str, default=None)
+    p.add_argument("--wandb", action="store_true", default=False)
+    p.add_argument("--plot_per_class_acc", action="store_true", default=False,
+                   help="write samples-per-class vs class-accuracy scatter PNGs each validation")
+    p.add_argument("--weights_dir", default=None, help="converted-checkpoint dir for the CLIP soft-CE teacher")
     return p
 
 
@@ -140,11 +175,18 @@ def cmd_merge(args):
     return merge_aug_jsons(args.jsons, args.output)
 
 
+def cmd_train(args, device=None):
+    from saspa_tpu_torch.fgvc.runner import run_training
+
+    return run_training(args, device=device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="saspa_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_gen(sub)
     _add_filter(sub)
+    _add_train(sub)
     _add_merge(sub)
     return parser
 
@@ -152,7 +194,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    return {"gen": cmd_gen, "filter": cmd_filter, "merge-jsons": cmd_merge}[args.command](args)
+    return {"gen": cmd_gen, "filter": cmd_filter, "train": cmd_train, "merge-jsons": cmd_merge}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,11 @@ replacing "/" with "."; layouts are torch's (dense (out, in), conv OIHW).
 
 Dense/Conv/Embed hold their weights in the compute dtype (flax casts its f32
 masters to the module dtype at every call; casting once is the same value).
-Norm parameters stay f32, as the JAX package reads them, and so does the
-bias of an attention's to_out, which the block kernel K5 reads as f32.
+Training passes `param_dtype=torch.float32`: Dense and Conv then keep f32
+masters and cast them to the compute dtype at every call, as flax does, so
+the gradient reaches the masters.  Norm parameters stay f32, as the JAX
+package reads them, and so does the bias of an attention's to_out, which the
+block kernel K5 reads as f32.
 """
 
 from __future__ import annotations
@@ -17,35 +20,46 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def acc_dtype(x: torch.Tensor) -> torch.Tensor:
+    """x in at least f32: low precision upcast, f64 kept (jnp.promote_types(x, f32))."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _empty(shape, dtype, device):
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
 
 
 class Dense(nn.Module):
     """bias_dtype: keep the bias in another dtype (an f32 master, cast to
-    the kernel's dtype per call)."""
+    the compute dtype per call); param_dtype: the same for the kernel."""
 
-    def __init__(self, in_features, out_features, bias=True, dtype=torch.float32, device=None, bias_dtype=None):
+    def __init__(self, in_features, out_features, bias=True, dtype=torch.float32, device=None, bias_dtype=None,
+                 param_dtype=None):
         super().__init__()
-        self.kernel = _empty((out_features, in_features), dtype, device)
-        self.bias = _empty((out_features,), bias_dtype or dtype, device) if bias else None
+        self.dtype = dtype
+        self.kernel = _empty((out_features, in_features), param_dtype or dtype, device)
+        self.bias = _empty((out_features,), bias_dtype or param_dtype or dtype, device) if bias else None
 
     def forward(self, x):
-        dt = self.kernel.dtype
-        return F.linear(x.to(dt), self.kernel, None if self.bias is None else self.bias.to(dt))
+        dt = self.dtype
+        return F.linear(x.to(dt), self.kernel.to(dt), None if self.bias is None else self.bias.to(dt))
 
 
 class Conv(nn.Module):
-    """NCHW conv with symmetric padding."""
+    """NCHW conv with symmetric padding; param_dtype as Dense's."""
 
-    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, dtype=torch.float32, device=None, bias=True):
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, dtype=torch.float32, device=None, bias=True,
+                 param_dtype=None):
         super().__init__()
-        self.kernel = _empty((out_ch, in_ch, kernel_size, kernel_size), dtype, device)
-        self.bias = _empty((out_ch,), dtype, device) if bias else None
+        self.dtype = dtype
+        self.kernel = _empty((out_ch, in_ch, kernel_size, kernel_size), param_dtype or dtype, device)
+        self.bias = _empty((out_ch,), param_dtype or dtype, device) if bias else None
         self.stride, self.padding = stride, padding
 
     def forward(self, x):
-        return F.conv2d(x.to(self.kernel.dtype), self.kernel, self.bias, self.stride, self.padding)
+        dt = self.dtype
+        return F.conv2d(x.to(dt), self.kernel.to(dt), None if self.bias is None else self.bias.to(dt),
+                        self.stride, self.padding)
 
 
 class Embed(nn.Module):
@@ -67,10 +81,18 @@ class NormParams(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax nn.BatchNorm(use_running_average=True) on NCHW: f32 {scale, bias}
-    parameters and {mean, var} buffers (flax's batch_stats collection);
+    """flax nn.BatchNorm(momentum=0.9) on NCHW: f32 {scale, bias} parameters
+    and {mean, var} buffers (flax's batch_stats collection);
     (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, cast back to x's
-    dtype.  Starts at mean 0, var 1."""
+    dtype.  Starts at mean 0, var 1.
+
+    forward(x) normalizes with the running statistics (use_running_average).
+    forward(x, train=True) normalizes with the batch's: f32 mean and fast
+    variance E[x^2] - E[x]^2 clipped at 0 (biased), over every axis but the
+    channels, differentiable; and folds them into the running statistics
+    under no_grad as ra = 0.9 * ra + 0.1 * batch, var as mean."""
+
+    momentum = 0.9
 
     def __init__(self, features, eps: float = 1e-5, device=None):
         super().__init__()
@@ -80,10 +102,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        return ((x.float() - self.mean.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(x.dtype)
+        xf = acc_dtype(x)
+        if train:
+            dims = [0] + list(range(2, x.ndim))
+            mean = xf.mean(dim=dims)
+            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
 def flax_layer_norm(x, scale, bias, eps: float = 1e-5):

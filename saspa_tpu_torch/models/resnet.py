@@ -4,9 +4,11 @@ saspa_tpu/models/resnet.py).
 Bottleneck v1, NCHW, with the flax tree's names.  `layer4_stride` defaults to
 1 as in the reference's WSDAN_CAL: layer4 does not downsample, so the
 backbone is overall stride 16 and a 224^2 input gives 14x14x2048 features.
-`features_only` returns that map.  BatchNorm runs with its running
-statistics (eval); its f32 arithmetic is `layers.BatchNorm`.  The CBAM
-variants come with the train slice (ROADMAP Queue 1 item 11).
+`features_only` returns that map.  forward(x) runs BatchNorm with its
+running statistics (eval), forward(x, train=True) with the batch's,
+updating the running ones (`layers.BatchNorm`).  `param_dtype=torch.float32`
+keeps f32 master weights for training.  The CBAM variants are not ported
+(ROADMAP Queue 1 item 11) and raise.
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ from saspa_tpu_torch.models.layers import BatchNorm, Conv, Dense
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, in_ch: int, features: int, strides: int = 1, dtype=torch.float32, device=None):
+    def __init__(self, in_ch: int, features: int, strides: int = 1, dtype=torch.float32, device=None,
+                 param_dtype=None):
         super().__init__()
         out = features * self.expansion
-        conv = partial(Conv, dtype=dtype, device=device, bias=False)
+        conv = partial(Conv, dtype=dtype, device=device, bias=False, param_dtype=param_dtype)
         self.conv1 = conv(in_ch, features, 1)
         self.bn1 = BatchNorm(features, device=device)
         self.conv2 = conv(features, features, 3, stride=strides, padding=1)
@@ -39,11 +42,11 @@ class Bottleneck(nn.Module):
             self.downsample_conv = conv(in_ch, out, 1, stride=strides)
             self.downsample_bn = BatchNorm(out, device=device)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = self.downsample_bn(self.downsample_conv(x)) if hasattr(self, "downsample_conv") else x
+    def forward(self, x, train: bool = False):
+        y = F.relu(self.bn1(self.conv1(x), train))
+        y = F.relu(self.bn2(self.conv2(y), train))
+        y = self.bn3(self.conv3(y), train)
+        residual = self.downsample_bn(self.downsample_conv(x), train) if hasattr(self, "downsample_conv") else x
         return F.relu(y + residual)
 
 
@@ -52,11 +55,12 @@ class ResNet(nn.Module):
     at layer4_stride=1, else (B, num_classes) logits."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: Optional[int] = None, features_only: bool = True,
-                 layer4_stride: int = 1, dtype=torch.float32, device=None):
+                 layer4_stride: int = 1, dtype=torch.float32, device=None, param_dtype=None):
         super().__init__()
         self.features_only = features_only
         self.dtype = dtype
-        self.conv1 = Conv(3, 64, 7, stride=2, padding=3, dtype=dtype, device=device, bias=False)
+        self.conv1 = Conv(3, 64, 7, stride=2, padding=3, dtype=dtype, device=device, bias=False,
+                          param_dtype=param_dtype)
         self.bn1 = BatchNorm(64, device=device)
         self.blocks = []
         in_ch = 64
@@ -66,18 +70,18 @@ class ResNet(nn.Module):
                 if i == 3 and j == 0:
                     strides = layer4_stride
                 name = f"layer{i + 1}_{j}"
-                setattr(self, name, Bottleneck(in_ch, 64 * 2**i, strides, dtype, device))
+                setattr(self, name, Bottleneck(in_ch, 64 * 2**i, strides, dtype, device, param_dtype))
                 self.blocks.append(name)
                 in_ch = 64 * 2**i * Bottleneck.expansion
         self.num_features = in_ch
         if not features_only:
-            self.fc = Dense(in_ch, num_classes, dtype=dtype, device=device)
+            self.fc = Dense(in_ch, num_classes, dtype=dtype, device=device, param_dtype=param_dtype)
 
-    def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
+    def forward(self, x, train: bool = False):
+        x = F.relu(self.bn1(self.conv1(x.to(self.dtype)), train))
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf, as flax's ((1, 1), (1, 1))
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         if self.features_only:
             return x
         return self.fc(x.mean(dim=(2, 3)))
@@ -92,7 +96,7 @@ def resnet101(**kw) -> ResNet:
 
 
 def _cbam(name: str, **kw):
-    raise NotImplementedError(f"{name}: the CBAM backbones come with the train slice (ROADMAP Queue 1 item 11)")
+    raise NotImplementedError(f"{name}: the CBAM backbones are not ported yet (ROADMAP Queue 1 item 11)")
 
 
 NUM_FEATURES = {"resnet50": 2048, "resnet101": 2048}

@@ -1,7 +1,9 @@
-"""Generation-stage configuration (counterpart of the generation part of
+"""Configuration of the three stages (counterpart of
 saspa_tpu/utils/config.py).
 
-`GenerationConfig` mirrors the reference's module constants of
+`TrainConfig`, its per-dataset presets and `get_train_config` mirror the
+JAX package's field for field, but for its mesh and buffer-donation
+fields, which have no meaning on one card.  `GenerationConfig` mirrors the reference's module constants of
 run_aug/run_aug.py:513-556, with its dataset overrides, the prompt
 descriptor and the output-folder layout, field for field the JAX package's
 copy, so the CLI maps onto the same configuration.  The baseline presets
@@ -12,6 +14,7 @@ filter stage).
 from __future__ import annotations
 
 import dataclasses
+import logging
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -21,6 +24,97 @@ DATASETS_SUPPORTED = ["planes", "cars", "dtd", "compcars-parts", "cub", "planes_
 
 MAX_FILENAME_LENGTH = 40  # filename stem truncation shared by gen + filter (run_aug/run_aug.py:48)
 MAX_PROMPT_LENGTH = 150  # prompt truncation (run_aug/run_aug.py:49)
+
+
+@dataclass
+class TrainConfig:
+    """Training hyperparameters.  Presets mirror fgvc/configs/config_*.py."""
+
+    dataset: str = "planes"
+    seed: int = 1
+    logdir: str = "logs"
+
+    # fgvc/configs/config_planes.py:1-16
+    workers: int = 4
+    epochs: int = 140
+    batch_size: int = 4
+    learning_rate: float = 1e-3
+    image_size: Tuple[int, int] = (224, 224)
+    net: str = "resnet101"
+    num_attentions: int = 32  # M
+    beta: float = 5e-2  # feature-center EMA rate
+    # the reference's per-dataset config field, which its SGD ignores (wd
+    # hardcoded to 1e-5, fgvc/train.py:312); the optimizer reads
+    # optimizer_weight_decay, and get_train_config warns when it is set
+    weight_decay: float = 1e-4
+    momentum: float = 0.9  # hardcoded in the reference (fgvc/train.py:312)
+    optimizer_weight_decay: float = 1e-5  # the value SGD applies
+
+    # lr = base * 0.9 ** ((epoch + iter/num_batches) / 2)   (fgvc/train.py:407-414)
+    lr_decay_rate: float = 0.9
+    lr_decay_duration: float = 2.0
+
+    # augmentation options (fgvc/train.py:58-78)
+    aug_json: Optional[str] = None
+    aug_sample_ratio: Optional[float] = None
+    limit_aug_per_image: Optional[int] = None
+    stop_aug_after_epoch: Optional[int] = None
+    special_aug: Optional[str] = "classic"
+    train_sample_ratio: float = 1.0
+    dont_use_wsdan: bool = False
+    use_cutmix: bool = False
+    use_target_soft_cross_entropy: bool = False
+    few_shot: Optional[int] = None
+
+    # checkpoint / io
+    ckpt: Optional[str] = None
+    model_name: str = "model.ckpt"
+    save_dir: Optional[str] = None
+
+    # eval cadence: every 10 epochs + tail (fgvc/train.py:366)
+    val_every: int = 10
+    early_stop_patience: int = 20  # stale validations before stop (fgvc/train.py:395-397)
+
+    compute_dtype: str = "bfloat16"  # the reference's fp16 AMP; bf16 on the card
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_TRAIN_PRESETS = {
+    # fgvc/configs/config_planes.py (bs4, r101, wd1e-4), also planes_biased
+    "planes": dict(batch_size=4, net="resnet101", weight_decay=1e-4),
+    "planes_biased": dict(batch_size=4, net="resnet101", weight_decay=1e-4),
+    # fgvc/configs/config_cars.py (bs8, wd1e-3)
+    "cars": dict(batch_size=8, net="resnet101", weight_decay=1e-3),
+    # fgvc/configs/config_cub.py / config_dtd.py (bs16, wd1e-3)
+    "cub": dict(batch_size=16, net="resnet101", weight_decay=1e-3),
+    "dtd": dict(batch_size=16, net="resnet101", weight_decay=1e-3),
+    # fgvc/configs/config_compcars_parts.py (bs8, resnet50, wd1e-5)
+    "compcars-parts": dict(batch_size=8, net="resnet50", weight_decay=1e-5),
+    # fgvc/configs/config_original_cal_params.py (448^2, bs4)
+    "original_cal": dict(batch_size=4, net="resnet101", weight_decay=1e-5, image_size=(448, 448)),
+}
+
+
+def get_train_config(dataset: str, preset: Optional[str] = None, **overrides) -> TrainConfig:
+    """`preset` layers a named preset (e.g. "original_cal", the 448^2 CAL
+    paper settings) over the dataset's own; None overrides are ignored."""
+    if dataset not in DATASETS_SUPPORTED:
+        raise ValueError(f"Unsupported dataset {dataset!r}; supported: {DATASETS_SUPPORTED}")
+    base = dict(_TRAIN_PRESETS[dataset])
+    if preset is not None:
+        base.update(_TRAIN_PRESETS[preset])
+    base.update({k: v for k, v in overrides.items() if v is not None})
+    cfg = TrainConfig(dataset=dataset, **base)
+    if overrides.get("weight_decay") is not None:
+        logging.warning(
+            "weight_decay=%s mirrors the reference's config field, which its SGD ignores (wd hardcoded 1e-5, "
+            "fgvc/train.py:312); the optimizer applies optimizer_weight_decay=%s — override THAT to change decay",
+            cfg.weight_decay, cfg.optimizer_weight_decay)
+    if cfg.few_shot:  # few-shot forces 100 epochs (fgvc/train.py:190-197)
+        cfg = cfg.replace(epochs=100)
+    return cfg
 
 
 @dataclass

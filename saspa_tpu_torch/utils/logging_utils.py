@@ -3,12 +3,14 @@
 `init_logging(logfile=...)` is what the filter stage's aug-JSON builder
 calls: it writes `<stem>_<date><suffix>` beside `logfile`.  Given a logdir
 `logs/<dataset>/<run_name>` it makes `logs/<dataset>/<date>_<run_name>` with
-a `log.log` inside.
+a `log.log` inside.  `MetricsWriter` writes the train stage's
+metrics.jsonl.
 """
 
 from __future__ import annotations
 
 import datetime
+import json
 import logging
 import os
 from pathlib import Path
@@ -44,3 +46,21 @@ def init_logging(logdir: str | None = None, logfile: str | None = None) -> str:
     logging.getLogger().addHandler(fh)
     logging.info(f"Logging to {log_file}")
     return ret
+
+
+class MetricsWriter:
+    """Appends one JSON line a call to <out_dir>/metrics.jsonl.  The JAX
+    package can mirror to wandb, which is not installed where the port runs,
+    so `use_wandb` raises."""
+
+    def __init__(self, out_dir: str, use_wandb: bool = False):
+        if use_wandb:
+            raise NotImplementedError("--wandb: wandb is not installed where the port runs; metrics go to "
+                                      "metrics.jsonl")
+        self.path = os.path.join(out_dir, "metrics.jsonl")
+        os.makedirs(out_dir, exist_ok=True)
+
+    def log(self, metrics: dict):
+        clean = {k: (float(v) if hasattr(v, "__float__") else v) for k, v in metrics.items()}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(clean) + "\n")

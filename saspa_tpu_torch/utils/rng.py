@@ -18,6 +18,9 @@ All arithmetic is numpy uint32 / float32, as XLA does it, with XLA's fused
 multiply-adds.  Keys, bits and uniforms equal jax's bit for bit; a normal
 can differ from jax on the CPU by an ulp where XLA orders an operation of
 its log differently (tests/test_torch_rng.py states the measured bound).
+The train path's draws (`split`, `bernoulli`, `randint`, `gumbel`,
+`categorical`) equal jax.random's bit for bit
+(tests/test_torch_train_augment.py).
 """
 
 from __future__ import annotations
@@ -93,11 +96,13 @@ def random_bits(key, shape) -> np.ndarray:
 
 
 def uniform_f32(key, shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
-    """jax.random.uniform(key, shape, float32, minval, maxval)."""
+    """jax.random.uniform(key, shape, float32, minval, maxval) as XLA's CPU
+    code computes it: floats * (maxval - minval) + minval in one fused
+    multiply-add."""
     lo, hi = np.float32(minval), np.float32(maxval)
-    bits = (random_bits(key, shape) >> _U32(9)) | _U32(0x3F800000)
+    bits = (random_bits(key, tuple(shape)) >> _U32(9)) | _U32(0x3F800000)
     floats = bits.view(np.float32) - np.float32(1.0)
-    return np.maximum(lo, floats * (hi - lo) + lo)
+    return np.maximum(lo, _fma(floats, hi - lo, lo))
 
 
 def _fma(a, b, c):
@@ -199,3 +204,53 @@ def host_uniform(seed: int, stream: str, *indices: int) -> float:
 def host_choice(n: int, seed: int, stream: str, *indices: int) -> int:
     """Host-side integer choice in [0, n)."""
     return int(host_uniform(seed, stream, *indices) * n) % max(n, 1)
+
+
+# ---- the draws of the train path: jax.random's functions on numpy keys ----
+def split(key, num: int = 2) -> np.ndarray:
+    """jax.random.split(key, num) in the partitionable mode: key i is the
+    hash of the counter pair (0, i), so it equals fold_in(key, i)."""
+    with np.errstate(over="ignore"):
+        a, b = threefry2x32(key, np.zeros(num, np.uint32), np.arange(num, dtype=np.uint32))
+    return np.stack([a, b], axis=1)
+
+
+def bernoulli(key, p: float, shape) -> np.ndarray:
+    """jax.random.bernoulli(key, p, shape): uniform(key, shape) < p, in f32."""
+    return uniform_f32(key, shape) < np.float32(p)
+
+
+def randint(key, shape, minval: int, maxval: int) -> np.ndarray:
+    """jax.random.randint(key, shape, minval, maxval) as int32: 64 random
+    bits a value from the two halves of split(key), reduced mod the span in
+    uint32 arithmetic, as jax does."""
+    k1, k2 = split(key, 2)
+    higher, lower = random_bits(k1, tuple(shape)), random_bits(k2, tuple(shape))
+    span = _U32(max(int(maxval) - int(minval), 1))
+    with np.errstate(over="ignore"):
+        multiplier = _U32(2 ** 16) % span
+        multiplier = (multiplier * multiplier) % span
+        offset = ((higher % span) * multiplier + lower % span) % span
+    return (np.int32(minval) + offset.astype(np.int32)).astype(np.int32)
+
+
+def gumbel(key, shape) -> np.ndarray:
+    """jax.random.gumbel(key, shape, float32) in its default ("low") mode:
+    -log(-log(U)) with U uniform on [tiny, 1), through XLA's float32 log."""
+    u = uniform_f32(key, shape, np.finfo(np.float32).tiny, 1.0)
+    return -_log_f32(-_log_f32(u))
+
+
+def categorical_gumbel(key, num_categories: int, shape) -> np.ndarray:
+    """The noise of jax.random.categorical(key, logits, shape=shape) over
+    logits of `num_categories` entries: the pick is argmax(noise + logits)
+    over the last axis, so the host draws the noise and the logits may
+    stay on the card."""
+    return gumbel(key, (*tuple(shape), num_categories))
+
+
+def categorical(key, logits: np.ndarray, shape) -> np.ndarray:
+    """jax.random.categorical(key, logits, shape=shape) on one row of
+    float32 logits."""
+    logits = np.asarray(logits, np.float32)
+    return np.argmax(categorical_gumbel(key, logits.shape[-1], shape) + logits, axis=-1)

@@ -180,8 +180,10 @@ def test_wsdan_cal_eval_forward_matches(tiny_backbone):
 
 def test_what_the_train_slice_brings_raises(tiny_backbone):
     m = tcal.WSDAN_CAL(num_classes=3, net=tiny_backbone)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(ValueError, match="rng key"):  # the training forward is ported; it needs its draws
         m(torch.zeros(1, 3, 32, 32), train=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tresnet.BACKBONES["resnet50_cbam"]()
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tcal.WSDAN_CAL(num_classes=3, net="inception_mixed_7c")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):

@@ -200,7 +200,10 @@ def test_importing_the_entry_point_loads_no_jax_pil_or_cv2():
         "saspa_tpu_torch.diffusion.pipelines, saspa_tpu_torch.data.registry, saspa_tpu_torch.gen.prompts, "
         "saspa_tpu_torch.data.datasets, saspa_tpu_torch.filters, saspa_tpu_torch.filters.clip_filters, "
         "saspa_tpu_torch.filters.confidence, saspa_tpu_torch.models.clip, saspa_tpu_torch.models.cal, "
-        "saspa_tpu_torch.models.resnet, saspa_tpu_torch.utils.logging_utils, saspa_tpu_torch.bridge\n"
+        "saspa_tpu_torch.models.resnet, saspa_tpu_torch.utils.logging_utils, saspa_tpu_torch.bridge, "
+        "saspa_tpu_torch.fgvc.train, saspa_tpu_torch.fgvc.runner, saspa_tpu_torch.fgvc.losses, "
+        "saspa_tpu_torch.fgvc.metrics, saspa_tpu_torch.data.pipeline, saspa_tpu_torch.ops.augment, "
+        "saspa_tpu_torch.ops.batch_augment, saspa_tpu_torch.ops.host_resize, saspa_tpu_torch.utils.checkpoint\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'saspa_tpu', 'PIL', 'cv2'))\n"
         "assert not bad, bad\n"
     )
