@@ -105,6 +105,27 @@ Phases, each printing one JSON line:
                 the end, the stream synchronizations in one batch and step
                 (required 0), the card's idle share and kernels a step over
                 2 profiled steps, peak memory (train_throughput).
+  8. blip    -- BLIP-Diffusion + canny ControlNet, the default model of
+                every dataset but planes:  cli gen --dataset dtd
+                --skip_filter --num_per_image 1 --resolution 512
+                --num_inference_steps 30  in-process on a synthetic DTD tree of 8 seeded 512^2
+                sources in 4 classes (PNG bytes under .jpg names, named as
+                the shipped DTD captions' keys), one batch of 8: CLIP
+                ViT-L/14 and the Q-Former (full published widths, seeded)
+                once, then the SD1.5 denoise, DDIM 30 steps, CFG 7.5, scale
+                0.75, bf16.  K1-K4 launch at one 512^2 main-path batch's
+                counts and K5/K6 not at all (the towers run none of them);
+                the 8 _subject_ files equal a host replay of the subject
+                choice, the resize and the uint8 truncation; the 8 PNGs equal
+                the fused function's output bit for bit.  Printed: wall s,
+                img/s, s/step, the towers' CUDA-event ms a batch and their
+                own device ms and kernel count (torch.profiler), the idle
+                share of one profiled batch.  Card bf16 against the port on
+                the CPU in f32 (same weights): subject embeddings and the
+                spliced text tower's hidden states on the references of two
+                classes at row cosine >= 0.99, and >= 0.99 with each side's
+                mean over the two taken off; the fused path at 256^2, 2
+                steps, within mean |diff| <= 0.02 as in phase 4.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -114,9 +135,10 @@ K5 (its own wrappers and kernels, built from DIR) on the same inputs
 With --profile, one more main-path run of each configuration under
 torch.profiler writes the device time by kernel to OUT.json and
 OUT_opt_in.json, one 1024^2 batch to OUT_gen_1024.json and the filter's
-scoring of its 256 augs to OUT_filter.json, and the train phase's 2
+scoring of its 256 augs to OUT_filter.json, the train phase's 2
 profiled steps at batch 4 and 16 to OUT_train.json and OUT_train_b16.json,
-and prints a summary line each.
+and the blip phase's profiled batch to OUT_blip.json, and prints a summary
+line each.
 Then the kernels line, the card's name and power limit (nvidia-smi) and, as
 the last line, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Needs one CUDA card; imports nothing of JAX.
@@ -985,16 +1007,20 @@ def write_planes_tree(root, rng, n: int, size: int) -> list:
 
 
 class TelemetryHandler(logging.Handler):
-    """Keeps the driver's telemetry lines, parsed."""
+    """Keeps the driver's telemetry lines, parsed, and its error records
+    (with their tracebacks: the driver counts a failed batch and goes on)."""
 
     def __init__(self):
         super().__init__()
         self.lines = []
+        self.errors = []
 
     def emit(self, record):
         msg = record.getMessage()
         if msg.startswith("generation telemetry: "):
             self.lines.append(json.loads(msg.split(": ", 1)[1]))
+        elif record.levelno >= logging.ERROR:
+            self.errors.append(self.format(record))
 
 
 def run_gen_phase(steps: int, seed: int, profile_path=None) -> dict:
@@ -1090,6 +1116,230 @@ def run_gen_phase(steps: int, seed: int, profile_path=None) -> dict:
         torch.cuda.empty_cache()
         return counts
     finally:
+        root_logger.removeHandler(tele)
+        root_logger.setLevel(old_level)
+        if old_root is None:
+            os.environ.pop("SASPA_DATA_ROOT", None)
+        else:
+            os.environ["SASPA_DATA_ROOT"] = old_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
+BLIP_STEPS = 30  # the recipe's DDIM steps, whatever --steps says
+BLIP_RESOLUTION = 512
+BLIP_REFERENCE_RESOLUTION = 256  # the card-vs-CPU fused run, as phase 4's
+# DTD train images (4 classes, two each) whose names the shipped captions JSON
+# covers: DTD's prompts are its BLIP captions, keyed by these paths
+DTD_SOURCES = ["banded/banded_0005.jpg", "banded/banded_0011.jpg", "blotchy/blotchy_0009.jpg",
+               "blotchy/blotchy_0019.jpg", "braided/braided_0050.jpg", "braided/braided_0069.jpg",
+               "bubbly/bubbly_0043.jpg", "bubbly/bubbly_0049.jpg"]
+
+
+def write_dtd_tree(root, rng, size: int):
+    """A synthetic DTD train split at root/data/DTD/dtdataset/dtd (the layout
+    DTDUtils reads): DTD_SOURCES as seeded size x size PNG bytes under their
+    .jpg names, and labels/train1.txt.  Returns the tree's root."""
+    from pathlib import Path
+
+    from saspa_tpu_torch.gen.image_io import write_png
+
+    dtd = Path(root) / "data/DTD/dtdataset/dtd"
+    (dtd / "labels").mkdir(parents=True)
+    for name, img in zip(DTD_SOURCES, synthetic_sources(rng, len(DTD_SOURCES), size)):
+        (dtd / "images" / name).parent.mkdir(parents=True, exist_ok=True)
+        write_png(dtd / "images" / name, img)
+    (dtd / "labels" / "train1.txt").write_text("".join(f"{n}\n" for n in DTD_SOURCES))
+    return dtd
+
+
+def row_cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine of each last-axis vector of a with b's, in f64 on the host."""
+    a, b = (t.detach().double().cpu().reshape(-1, t.shape[-1]) for t in (a, b))
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-300)
+
+
+def run_blip_phase(seed: int, profile_path=None) -> dict:
+    """BLIP-Diffusion through `cli gen --dataset dtd` (module docstring,
+    phase 8); returns its launch counts."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion.pipelines import init_pipeline
+    from saspa_tpu_torch.gen.image_io import read_png, read_rgb
+    from saspa_tpu_torch.gen.prompts import PromptEngine
+    from saspa_tpu_torch.gen.tokenizer import NEGATIVE_PROMPT
+    from saspa_tpu_torch.models.blip_diffusion import BlipDiffusionPipeline
+    from saspa_tpu_torch.ops.image import pil_resize, resize_image
+    from saspa_tpu_torch.utils import rng as rngs
+
+    size, b, steps = BLIP_RESOLUTION, len(DTD_SOURCES), BLIP_STEPS
+    if profile_path:  # the phase runs in another directory
+        profile_path = str(Path(profile_path).resolve())
+    root = tempfile.mkdtemp(prefix="saspa_blip_")
+    old_cwd, old_root = os.getcwd(), os.environ.get("SASPA_DATA_ROOT")
+    tele = TelemetryHandler()
+    root_logger = logging.getLogger()
+    old_level = root_logger.level
+    root_logger.setLevel(logging.INFO)
+    root_logger.addHandler(tele)
+    try:
+        os.chdir(root)  # DTD's captions are keyed by paths under data/
+        os.environ["SASPA_DATA_ROOT"] = "data"
+        write_dtd_tree(root, np.random.RandomState(seed + 301), size)
+        argv = ["gen", "--dataset", "dtd", "--skip_filter", "--num_per_image", "1", "--resolution", str(size),
+                "--num_inference_steps", str(steps), "--batch_size", str(b), "--seed", str(seed + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        folder = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        require(len(tele.lines) == 1 and tele.lines[0]["num_errors"] == 0 and tele.lines[0]["total"] == b,
+                "blip telemetry", tele.lines, *tele.errors)
+        # one 512^2 main-path batch's launches at the recipe's 30 steps: the
+        # vision tower and the Q-Former launch none of K1-K6
+        want = expected_counts(steps, "default")
+        require(counts == want, "blip launch counts", counts, "expected", want)
+        require(folder.endswith("_style_img_from_diff_img_seed_%d/images" % (seed + 1)), "blip folder", folder)
+        files = sorted(Path(folder).glob("*.png"))
+        stems = [Path(n).stem for n in DTD_SOURCES]
+        outs = {f.name.split("_prompt_")[0]: f for f in files if "_prompt_" in f.name}
+        subjects = {f.name[:-len("_subject_0.png")]: f for f in files if f.name.endswith("_subject_0.png")}
+        require(sorted(outs) == sorted(stems) and sorted(subjects) == sorted(stems), "blip files",
+                [f.name for f in files])
+
+        # host replay: the subject choice, the resize to 512^2 and the
+        # truncation to uint8; then PIL's default resize to 224^2
+        cfg = cli.gen_config(cli.build_parser().parse_args(argv)).with_dataset_overrides()
+        require(cfg.base_model == "blip_diffusion" and cfg.controlnet == "canny", "dtd's recipe", cfg)
+        ds = DS_UTILS_DICT["dtd"](print_func=lambda *a: None)
+        paths = ds.original_images_paths
+        subject_u8 = []
+        for i, pth in enumerate(paths):
+            same = ds.get_image_path_with_same_class(pth)
+            pick = same[rngs.host_choice(len(same), cfg.seed, "subject_choice", i, 0)]
+            r = resize_image(read_rgb(pick), size).astype(np.float32) / 255.0
+            subject_u8.append((r * 255).astype(np.uint8))
+        subjects_equal = [bool(np.array_equal(read_png(subjects[Path(p).stem]), u))
+                          for p, u in zip(paths, subject_u8)]
+        require(all(subjects_equal), "blip _subject_ files differ from the host replay", subjects_equal)
+        refs = np.stack([pil_resize(u, (224, 224)) for u in subject_u8]).astype(np.float32) / np.float32(255.0)
+
+        # the same batch through the fused function: same seeded weights,
+        # ids, category ids, references, sources and noise -> the PNGs' pixels
+        engine = PromptEngine(cfg, ds, ds.get_image_path_to_class_str_dict())
+        prompts = [engine.build(pth, i, 0) for i, pth in enumerate(paths)]
+        pipe = init_pipeline("blip_diffusion", "canny")
+        src = np.stack([resize_image(read_rgb(pth), size) for pth in paths])
+        lf = pipe.latent_factor
+        lat = np.stack([rngs.item_normal(cfg.seed, "noise", i, 0, shape=(size // lf, size // lf, 4))
+                        for i in range(b)])
+        meta = ds.meta_class
+        ids = pipe.build_subject_prompt_ids(prompts, meta)
+        neg_ids = pipe.tokenizer([NEGATIVE_PROMPT] * b, pad="eot")
+        cat_ids, cat_mask = pipe.bert_category_ids(meta, b)
+
+        def fused_run(n_steps):
+            fn = pipe.make_fused_generate(size, size, n_steps, 7.5, 0.75, 120.0, 200.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(pipe.params, ids, neg_ids, cat_ids, cat_mask, refs, src, lat, return_images=True)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        (u8, images), ts = fused_run(steps)
+        require(bool(torch.isfinite(images).all()), "blip: non-finite images before quantisation")
+        u8 = u8.cpu().numpy()
+        del images
+        pngs = {s: read_png(outs[s]) for s in stems}
+        same = [bool(np.array_equal(pngs[s], u8[k])) for k, s in enumerate(stems)]
+        require(all(same), "blip PNGs differ from the fused function's output", same)
+        _, t1 = fused_run(1)
+        s_step = (ts - t1) / (steps - 1)
+        tower_ms = cuda_ms(lambda: pipe.subject_embeddings(pipe.params, refs, cat_ids, cat_mask), iters=5)
+
+        def towers_run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipe.subject_embeddings(pipe.params, refs, cat_ids, cat_mask)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        towers = profile_run(towers_run)  # their own device time and launches
+        prof = profile_run(lambda: fused_run(steps))
+        if profile_path:
+            Path(profile_path).parent.mkdir(parents=True, exist_ok=True)
+            Path(profile_path).write_text(json.dumps({"config": "blip", "steps": steps, **{k: prof[k] for k in (
+                "wall_s", "device_busy_s", "groups_ms", "kernels")}}, indent=1))
+        blip = {"phase": "blip", "argv": argv, "batch": b, "resolution": size, "steps": steps, "wall_s": wall,
+                "img_per_s": b / wall, "fused_wall_s": ts, "fused_1step_s": t1, "s_per_step": s_step,
+                "towers_ms": tower_ms, "towers_share_of_fused": tower_ms / 1e3 / ts,
+                "towers_device_ms": towers["device_busy_s"] * 1e3, "towers_groups_ms": towers["groups_ms"],
+                "towers_kernels": sum(k["calls"] for k in towers["kernels"]),
+                "idle_share": prof["idle_share"], "profiled_wall_s": prof["wall_s"],
+                "device_busy_s": prof["device_busy_s"], "groups_ms": prof["groups_ms"], "peak_mem_bytes": peak,
+                "launches": counts, "launches_expected": want, "telemetry": tele.lines[0],
+                "pngs_equal_fused": all(same), "subjects_equal_replay": all(subjects_equal),
+                "uint8_mean": float(u8.mean()), "profile": profile_path}
+
+        # card bf16 against the port on the CPU in f32, same weights: the
+        # subject embeddings and the spliced text tower on the references of
+        # items 0 and 2 (two classes: a class's two items may share one),
+        # then the whole fused path on one 256^2 source at 2 steps
+        t = time.perf_counter()
+        cpu = BlipDiffusionPipeline(controlnet="canny", dtype=torch.float32, device="cpu", init_seed=None)
+        copy_weights(pipe, cpu)
+        cpu_setup_s = time.perf_counter() - t
+        two, rs = [0, 2], BLIP_REFERENCE_RESOLUTION
+        sub = {}
+        for name, p in (("card", pipe), ("cpu", cpu)):
+            e = p.subject_embeddings(p.params, refs[two], cat_ids[two], cat_mask[two])
+            with torch.no_grad():
+                h = p._encode_with_ctx(p.params, ids[two], e)
+            sub[name] = (e.float().cpu(), h.float().cpu())
+        cos_e = row_cosines(sub["card"][0], sub["cpu"][0])
+        cos_h = row_cosines(sub["card"][1], sub["cpu"][1])
+        centred = [cosine(sub["card"][0] - sub["card"][0].mean(0), sub["cpu"][0] - sub["cpu"][0].mean(0)),
+                   cosine(sub["card"][1] - sub["card"][1].mean(0), sub["cpu"][1] - sub["cpu"][1].mean(0))]
+        k = size // rs
+        small = (ids[:1], neg_ids[:1], cat_ids[:1], cat_mask[:1], refs[:1], src[:1, ::k, ::k], lat[:1, ::k, ::k])
+        outs_small = {}
+        for name, p in (("cpu", cpu), ("card", pipe)):
+            reset_counts()
+            t = time.perf_counter()
+            _, img = p.make_fused_generate(rs, rs, 2, 7.5)(p.params, *small, return_images=True)
+            outs_small[name] = (img.float().cpu(), time.perf_counter() - t, read_counts())
+        del cpu
+        diff = (outs_small["card"][0] - outs_small["cpu"][0]).abs()
+        small_counts = outs_small["card"][2]
+        blip.update({"card_vs_cpu": {
+            "refs": two, "subject_row_cosine_min": float(cos_e.min()), "text_row_cosine_min": float(cos_h.min()),
+            "subject_centred_cosine": centred[0], "text_centred_cosine": centred[1],
+            "fused_resolution": rs, "fused_mean_abs_diff": diff.mean().item(), "fused_max_abs_diff": diff.max().item(),
+            "fused_launches": small_counts, "cpu_setup_s": cpu_setup_s, "cpu_s": outs_small["cpu"][1],
+            "gpu_s": outs_small["card"][1], "cpu_threads": torch.get_num_threads()}})
+        emit(blip)
+        require(float(cos_e.min()) >= 0.99, "blip subject embeddings card vs CPU, row cosine", float(cos_e.min()))
+        require(float(cos_h.min()) >= 0.99, "blip spliced text hidden states card vs CPU, row cosine",
+                float(cos_h.min()))
+        # with each side's mean over the two references taken off: what
+        # depends on the reference image agrees too
+        require(min(centred) >= 0.99, "blip card vs CPU, cosine without the mean over the references", centred)
+        ran = [k for k, v in expected_counts(2, "default").items() if v > 0]
+        require(all(small_counts[k] > 0 for k in ran), "blip reference run missed a kernel", small_counts)
+        require(diff.mean().item() <= 0.02, "blip card vs CPU mean |diff|", diff.mean().item())
+        del pipe
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        os.chdir(old_cwd)
         root_logger.removeHandler(tele)
         root_logger.setLevel(old_level)
         if old_root is None:
@@ -1990,6 +2240,15 @@ def main() -> int:
 
     # ---- the train stage: cli train at the planes preset, card vs CPU, throughput ----
     counts["train"] = run_train_phase(args.seed, smi, train_profile_path(args.profile))
+
+    # ---- BLIP-Diffusion: cli gen --dataset dtd, every dataset's default but planes' ----
+    blip_profile = None
+    if args.profile:
+        from pathlib import Path
+
+        out = Path(args.profile)
+        blip_profile = str(out.with_name(f"{out.stem}_blip{out.suffix}"))
+    counts["blip"] = run_blip_phase(args.seed, blip_profile)
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

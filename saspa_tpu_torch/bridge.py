@@ -7,7 +7,8 @@ padding for the packed attention kernel is not stored; the models build
 their padded weights once from these unpadded kernels.
 
 Subtrees: "text" (a list with one tower per text encoder), "unet",
-"controlnet", "vae" (params), and the filter stage's "clip" (CLIP RN50) and
+"controlnet", "vae", BLIP-Diffusion's "blip_vision" (CLIP ViT) and
+"blip_qformer" (params), and the filter stage's "clip" (CLIP RN50) and
 "cal" (WSDAN_CAL), which are flax variables: {"params", "batch_stats"}.
 BatchNorm's mean and var live in flax's batch_stats collection and land on
 the module's buffers of the same name.  Keys of the VAE encoder are not
@@ -80,9 +81,9 @@ def state_dict_from_flax_variables(variables) -> Dict[str, torch.Tensor]:
 
 
 def params_from_flax(params) -> Tuple[dict, List[str]]:
-    """{"text": [tower, ...], "unet", "controlnet"?, "vae", "clip"?, "cal"?}
-    flax params (variables for "clip" and "cal") -> ({same keys:
-    state_dict(s)}, skipped "vae/..." paths)."""
+    """{"text": [tower, ...], "unet", "controlnet"?, "vae", "blip_vision"?,
+    "blip_qformer"?, "clip"?, "cal"?} flax params (variables for "clip" and
+    "cal") -> ({same keys: state_dict(s)}, skipped "vae/..." paths)."""
     out, skipped = {}, []
     for name, sub in params.items():
         if name in ("clip", "cal"):
@@ -92,7 +93,7 @@ def params_from_flax(params) -> Tuple[dict, List[str]]:
         elif name == "vae":
             out["vae"], sk = state_dict_from_flax(sub, VAE_SKIPPED_PREFIXES)
             skipped += [f"vae/{p}" for p in sk]
-        elif name in ("unet", "controlnet"):
+        elif name in ("unet", "controlnet", "blip_vision", "blip_qformer"):
             out[name] = state_dict_from_flax(sub)[0]
         else:
             raise KeyError(f"no port of the flax subtree {name!r}")

@@ -14,9 +14,10 @@ folder of generated images; `merge-jsons` merges aug-JSONs.  `train` trains
 the WSDAN-CAL classifier on the originals mixed with the aug-JSON's images
 (`fgvc/runner.py::run_training`), with the JAX CLI's flags; `--gpu_id` is
 accepted and ignored, as there.  Ported so far:
-SD1.5 with a canny ControlNet (or none), DDIM; the presets come with the
-LPIPS filter and ip2p (ROADMAP Queue 1 items 10c and 12), the other
-subcommands with later slices.
+SD1.5 (planes' default) and BLIP-Diffusion (every other dataset's default:
+cars, dtd, compcars-parts; cub goes to SDXL-Turbo, not ported) with a canny
+ControlNet (or none), DDIM; the presets come with SDEdit and ip2p (ROADMAP
+Queue 1 item 12), the other subcommands with later slices.
 """
 
 from __future__ import annotations
@@ -138,8 +139,8 @@ def cmd_gen(args):
     from saspa_tpu_torch.gen.driver import run_generation, run_generation_and_filter
 
     if args.preset is not None:
-        raise NotImplementedError(f"--preset {args.preset} comes with the LPIPS filter (ROADMAP Queue 1 item 10c) "
-                                  "and ip2p (item 12)")
+        raise NotImplementedError(f"--preset {args.preset} comes with SDEdit and ip2p, the generation families "
+                                  "of ROADMAP Queue 1 item 12")
     if args.skip_filter:
         return run_generation(gen_config(args))
     return run_generation_and_filter(gen_config(args), semantic_filtering=True,

@@ -6,7 +6,9 @@ function: on-device Canny, the text tower for the prompt and the negative
 prompt, the CFG DDIM loop over UNet + ControlNet, VAE decode and the uint8
 quantisation.  Without converted weights the models take a seeded random
 init (`torch.Generator`); `load_flax_params` carries a flax param tree in
-through the bridge.
+through the bridge.  BLIP-Diffusion (`blip_diffusion`,
+`blip_diffusion-controlnet`) is this SD1.5 pipeline plus a vision tower and
+a Q-Former (`models/blip_diffusion.py`); `init_pipeline` builds either.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ from saspa_tpu_torch.models.vae import SD_VAE, AutoencoderKL
 from saspa_tpu_torch.ops.canny import canny_control_image
 
 
+SD15_BASE_MODELS = ("sd_v1.5", "blip_diffusion", "blip_diffusion-controlnet")  # the SD1.5 spec
+
+
 class DiffusionPipeline:
     def __init__(self, base_model: str = "sd_v1.5", controlnet: Optional[str] = "canny", sampler: str = "ddim",
                  dtype: Optional[torch.dtype] = None, device=None, weights_dir: Optional[str] = None,
@@ -44,8 +49,9 @@ class DiffusionPipeline:
         is the default path's function): GroupNorm with the TPU kernel's
         numerics where its split plan admits the site, and the self-attention
         block kernel where `attention_block_eligible` admits it."""
-        if base_model != "sd_v1.5" or sampler != "ddim" or controlnet not in (None, "canny"):
-            raise NotImplementedError(f"ported so far: sd_v1.5 + canny/None + ddim, got {base_model}, {controlnet}, {sampler}")
+        if base_model not in SD15_BASE_MODELS or sampler != "ddim" or controlnet not in (None, "canny"):
+            raise NotImplementedError(f"ported so far: {'/'.join(SD15_BASE_MODELS)} + canny/None + ddim, got "
+                                      f"{base_model}, {controlnet}, {sampler}")
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else default_dtype(self.device)
         self.base_model, self.controlnet_kind = base_model, controlnet
@@ -82,7 +88,7 @@ class DiffusionPipeline:
         )
 
     def _modules(self):
-        return [*self.params["text"], *(self.params[k] for k in ("unet", "controlnet", "vae") if k in self.params)]
+        return [m for v in self.params.values() for m in (v if isinstance(v, list) else [v])]
 
     def _random_init(self, seed: int) -> None:
         logging.warning("no converted weights for %s: seeded random init (outputs are not meaningful images)",
@@ -95,14 +101,15 @@ class DiffusionPipeline:
             init_weights(self.params["controlnet"], seed + 7, zero_prefixes=ZERO_INIT_PREFIXES)
 
     def load_flax_params(self, flax_params) -> list:
-        """Loads a flax param tree (numpy leaves) strictly; returns the flax
-        paths the bridge skipped (the VAE encoder)."""
+        """Loads a flax param tree (numpy leaves) strictly: one subtree per
+        model of the pipeline, every key.  Returns the flax paths the bridge
+        skipped (the VAE encoder)."""
         sds, skipped = params_from_flax(flax_params)
-        for te, sd in zip(self.params["text"], sds["text"]):
-            te.load_state_dict(sd, strict=True)
-        for k in ("unet", "controlnet", "vae"):
-            if k in sds:
-                self.params[k].load_state_dict(sds[k], strict=True)
+        if set(sds) != set(self.params) or len(sds["text"]) != len(self.params["text"]):
+            raise KeyError(f"flax subtrees {sorted(sds)} do not match the pipeline's {sorted(self.params)}")
+        for k, sd in sds.items():
+            for mod, msd in (zip(self.params[k], sd) if k == "text" else [(self.params[k], sd)]):
+                mod.load_state_dict(msd, strict=True)
         self.weights_loaded = True
         return skipped
 
@@ -114,15 +121,29 @@ class DiffusionPipeline:
         (B, H/f, W/f, 4) f32; numpy arrays or tensors.  With
         return_images=True it also returns the [0, 1] f32 images before
         quantisation."""
-        timesteps = self.scheduler.timesteps(num_inference_steps)
-        do_cfg = guidance_scale > 1.0
         dev = self.device
+        denoise = self._denoise(height, width, num_inference_steps, guidance_scale, controlnet_scale, canny_low,
+                                canny_high)
 
         @torch.no_grad()
         def fused(params, ids, neg_ids, src_images, latents, return_images: bool = False):
             te = params["text"][0]
             ctx = te(torch.as_tensor(ids, device=dev).long())["hidden"]
-            nctx = te(torch.as_tensor(neg_ids, device=dev).long())["hidden"] if do_cfg else None
+            nctx = te(torch.as_tensor(neg_ids, device=dev).long())["hidden"] if guidance_scale > 1.0 else None
+            return denoise(params, ctx, nctx, src_images, latents, return_images)
+
+        return fused
+
+    def _denoise(self, height: int, width: int, num_inference_steps: int, guidance_scale: float,
+                 controlnet_scale: float, canny_low: float, canny_high: float):
+        """The fused function's part after the text towers:
+        fn(params, ctx, nctx, src_images, latents, return_images) -> uint8
+        images (and the [0, 1] f32 images): on-device Canny, the CFG DDIM
+        loop, VAE decode, quantisation.  nctx is None without CFG."""
+        timesteps = self.scheduler.timesteps(num_inference_steps)
+        dev = self.device
+
+        def denoise(params, ctx, nctx, src_images, latents, return_images):
             # uint8 sources: values 0-255 are exact in f32, so the cast is exact
             src = torch.as_tensor(src_images, device=dev).float()
             control = None
@@ -138,21 +159,35 @@ class DiffusionPipeline:
             u8 = torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
             return (u8, out) if return_images else u8
 
-        return fused
+        return denoise
 
 
 def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = False, sampler: str = "ddim",
                   weights_dir: Optional[str] = None, dtype: Optional[torch.dtype] = None,
                   device=None) -> DiffusionPipeline:
     """Name-compatible with the reference's init_pipeline (run_aug/run_aug.py:128)
-    and the JAX package's: SD1.5 with a canny ControlNet or none, DDIM.
-    Without weights the models take the seeded random init (seed 0)."""
-    if base_model != "sd_v1.5" or SDEdit or controlnet not in (None, "canny") or sampler != "ddim":
+    and the JAX package's: SD1.5 or BLIP-Diffusion, with a canny ControlNet
+    or none, DDIM.  Without weights the models take the seeded random init
+    (seed 0)."""
+    blip = base_model in ("blip_diffusion", "blip_diffusion-controlnet")
+    if SDEdit and blip:
+        # the JAX package's refusal: the reference's blip + SDEdit call passes
+        # arguments its BLIP pipelines do not declare
+        raise ValueError("SDEdit is not supported with blip_diffusion; use "
+                         "base_model='blip_diffusion-edit' for the inversion-edit path")
+    if base_model not in SD15_BASE_MODELS or SDEdit or controlnet not in (None, "canny") or sampler != "ddim":
         raise NotImplementedError(
-            f"ported so far: sd_v1.5 + canny/None + ddim; {base_model}, controlnet={controlnet}, "
-            f"SDEdit={SDEdit}, {sampler} come with the other generation families (ROADMAP Queue 1 item 12)")
+            f"ported so far: {'/'.join(SD15_BASE_MODELS)} + canny/None + ddim; {base_model}, "
+            f"controlnet={controlnet}, SDEdit={SDEdit}, {sampler} come with the other generation families "
+            "(ROADMAP Queue 1 item 12; blip_diffusion-edit's DDIM inversion needs the VAE encoder, which comes "
+            "with SDEdit)")
     if weights_dir is not None:
         raise NotImplementedError("loading converted checkpoints from a weights directory is ROADMAP Queue 1 "
-                                  "item 16; load a flax tree with DiffusionPipeline.load_flax_params")
+                                  "item 13; load a flax tree with DiffusionPipeline.load_flax_params")
+    if blip:
+        from saspa_tpu_torch.models.blip_diffusion import BlipDiffusionPipeline
+
+        return BlipDiffusionPipeline(controlnet=controlnet, sampler=sampler, dtype=dtype, device=device,
+                                     init_seed=0)
     return DiffusionPipeline(base_model, controlnet=controlnet, sampler=sampler, dtype=dtype, device=device,
                              init_seed=0)

@@ -10,14 +10,18 @@ become a flat worklist of (image, prompt) items that is
   * run in batches: the host reads and resizes the sources, the card runs
     Canny, the text tower, the CFG DDIM loop and the VAE decode
     (`DiffusionPipeline.make_fused_generate`), and the host writes the PNGs
-    of batch i while the card works on batch i + 1.
+    of batch i while the card works on batch i + 1.  BLIP-Diffusion
+    (`blip_diffusion[-controlnet]`) also reads each item's same-class
+    subject image, writes it as `{stem}_subject_{i}.png`, and hands it at
+    224^2 to the fused function with the dataset's meta class as the
+    subject category.
 Every item's noise derives from (seed, image index, prompt index) through
 `utils.rng.item_normal`, jax.random.normal's draw in numpy, so results do not
 depend on batch composition, shard count or resume point, and match the JAX
 driver's.  Sources are read and PNGs written by `gen.image_io`; resizing is
 `ops.image.resize_image`.  `run_generation_and_filter` then builds the
 aug-JSON of the folder (`filters.aug_json`).  The paths of other families
-(HED, SDEdit, BLIP-Diffusion, ip2p) come with ROADMAP Queue 1 item 12.
+(HED, SDEdit, blip_diffusion-edit, ip2p) come with ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from saspa_tpu_torch.gen.image_io import image_size, read_rgb, write_png
 from saspa_tpu_torch.ops.canny import canny
-from saspa_tpu_torch.ops.image import HWC3, resize_image, resize_shape_multiple_of_64
+from saspa_tpu_torch.ops.image import HWC3, pil_resize, resize_image, resize_shape_multiple_of_64
 from saspa_tpu_torch.utils import rng as rngs
 from saspa_tpu_torch.utils.config import MAX_FILENAME_LENGTH, GenerationConfig
 
@@ -148,15 +152,36 @@ def _save_source_and_control(cfg, indexed_paths, output_folder, device="cpu"):
 
 
 def _check_supported(cfg: GenerationConfig) -> None:
+    from saspa_tpu_torch.diffusion.pipelines import SD15_BASE_MODELS
+
     if cfg.base_model == "ip2p" and cfg.controlnet is not None:
         raise ValueError("ip2p does not support a ControlNet")
     if cfg.sdedit and "blip_diffusion" in cfg.base_model:
         raise ValueError("SDEdit is not supported with blip_diffusion; use "
                          "base_model='blip_diffusion-edit' for the inversion-edit path")
-    if cfg.base_model != "sd_v1.5" or cfg.sdedit or cfg.controlnet not in (None, "canny"):
+    if cfg.base_model not in SD15_BASE_MODELS or cfg.sdedit or cfg.controlnet not in (None, "canny"):
         raise NotImplementedError(
-            f"ported so far: sd_v1.5 text(+canny)->image; {cfg.base_model}, controlnet={cfg.controlnet}, "
-            f"sdedit={cfg.sdedit} come with the other generation families (ROADMAP Queue 1 item 12)")
+            f"ported so far: {'/'.join(SD15_BASE_MODELS)} text(+canny)->image; {cfg.base_model}, "
+            f"controlnet={cfg.controlnet}, sdedit={cfg.sdedit} come with the other generation families "
+            "(ROADMAP Queue 1 item 12)")
+
+
+def _subject_references(cfg: GenerationConfig, chunk: List[WorkItem], output_folder: str) -> np.ndarray:
+    """BLIP-Diffusion's reference images of a batch, (B, 224, 224, 3) f32 in
+    [0, 1], as the JAX driver makes them: the item's subject image (or its
+    source) resized to cfg.resolution, / 255 in f32; `{stem}_subject_{i}.png`
+    of (r * 255).astype(uint8) where it does not exist yet (a truncation, so
+    x / 255 * 255 can come back as x - 1); then PIL's default resize of that
+    uint8 image to 224^2, / 255."""
+    refs = []
+    for it in chunk:
+        r = resize_image(read_rgb(it.subject_path or it.image_path), cfg.resolution).astype(np.float32) / 255.0
+        u8 = (r * 255).astype(np.uint8)
+        sp = Path(output_folder) / f"{Path(it.image_path).stem[:MAX_FILENAME_LENGTH]}_subject_{it.prompt_index}.png"
+        if not sp.exists():
+            write_png(sp, u8)
+        refs.append(pil_resize(u8, (224, 224)))
+    return np.stack(refs).astype(np.float32) / np.float32(255.0)
 
 
 def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = None) -> str:
@@ -246,6 +271,8 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
 
     lf = pipe.latent_factor
     neg = [cfg.negative_prompt or ""] * cfg.batch_size
+    is_blip = "blip_diffusion" in cfg.base_model
+    meta = ds_utils.meta_class  # BLIP's source and target subject category
     aborted = False  # MAX_ERRORS stops every bucket, not just the current one
     for (h, w), bucket_items in buckets.items():
         if aborted:
@@ -268,6 +295,7 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
                 assert img.shape[:2] == (h, w), (img.shape, h, w)
                 srcs.append(img)
             src = np.stack(srcs)  # uint8: the pipeline uploads it and casts on the card
+            refs = _subject_references(cfg, chunk, output_folder) if is_blip else None
             tele["decode_s"] += time.perf_counter() - t_dec
             latents = np.stack([rngs.item_normal(cfg.seed, "noise", it.image_index, it.prompt_index,
                                                  shape=(h // lf, w // lf, 4)) for it in chunk])
@@ -276,9 +304,14 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
             dispatched = None
             t_disp = time.perf_counter()
             try:
-                ids = pipe.tokenizer([it.prompt for it in chunk], pad="eot")
+                prompts = [it.prompt for it in chunk]
                 neg_ids = pipe.tokenizer(neg, pad="eot")
-                dispatched = fused(pipe.params, ids, neg_ids, src, latents)
+                if is_blip:
+                    ids = pipe.build_subject_prompt_ids(prompts, meta)
+                    cat_ids, cat_mask = pipe.bert_category_ids(meta, len(chunk))
+                    dispatched = fused(pipe.params, ids, neg_ids, cat_ids, cat_mask, refs, src, latents)
+                else:
+                    dispatched = fused(pipe.params, pipe.tokenizer(prompts, pad="eot"), neg_ids, src, latents)
             except RuntimeError as e:
                 if count_error("on batch", e):
                     aborted = True

@@ -144,7 +144,8 @@ def nearest_resize(x, out_h: int, out_w: int):
 @torch.no_grad()
 def init_weights(module: nn.Module, seed: int, zero_prefixes=()) -> None:
     """Seeded random init in the spirit of flax's defaults (the bits differ):
-    dense/conv kernels N(0, 1/fan_in), embeddings N(0, 0.02), positional
+    dense/conv kernels N(0, 1/fan_in), embeddings, the ViT's class token and
+    the Q-Former's queries and position embeddings N(0, 0.02), positional
     embeddings N(0, 0.01), biases 0, norm scales 1, CLIP's logit_scale
     ln(100) (flax's constant 4.6052).  Parameters whose name
     starts with one of `zero_prefixes` stay zero (ControlNet's zero convs)."""
@@ -159,7 +160,7 @@ def init_weights(module: nn.Module, seed: int, zero_prefixes=()) -> None:
         if leaf == "kernel":
             fan_in = p[0].numel()
             std = fan_in ** -0.5
-        elif leaf == "embedding":
+        elif leaf in ("embedding", "class_embedding", "query_tokens", "position_embeddings"):
             std = 0.02
         elif leaf == "positional_embedding":
             std = 0.01

@@ -79,10 +79,15 @@ class CLIPTextEncoder(nn.Module):
         if cfg.projection_dim is not None:
             self.text_projection = Dense(cfg.width, cfg.projection_dim, bias=False, dtype=dtype, device=device)
 
-    def forward(self, token_ids):
+    def forward(self, token_ids, spliced_embeddings: Optional[torch.Tensor] = None):
+        """spliced_embeddings (B, l, width) replaces the token-embedding
+        lookup (BLIP-Diffusion's subject splice); the positional embedding,
+        the causal mask and the EOT pooling still follow token_ids."""
         cfg = self.cfg
         b, l = token_ids.shape
         tok = self.token_embedding(token_ids)
+        if spliced_embeddings is not None:
+            tok = spliced_embeddings.to(tok.dtype)
         x = tok + self.positional_embedding[None, :l].to(tok.dtype)
         causal = torch.full((l, l), -1e9, dtype=torch.float32, device=tok.device).triu(1)[None, None]
         hiddens = []

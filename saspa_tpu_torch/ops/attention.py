@@ -11,10 +11,12 @@ unpadded and `attention()` routes as the JAX package does: K6
 (`flash_attention`, which pads the heads in shared memory) where
 `flash_attention_route` admits the shape, else `plain_attention`, the
 counterpart of `_xla_attention`.  Short-kv cross-attention (77 text tokens)
-and the text tower take the plain path.  With the megakernel option, each
-transformer block's self-attention that `attention_block_eligible` admits
-runs `attention_block_fused` instead: the Q/K/V projections, the attention,
-to_out, its bias and the residual add behind one wrapper.
+and the text tower take the plain path, and so do the CLIP image towers
+(`use_kernels=False`, JAX's `use_pallas=False`).  With the megakernel
+option, each transformer block's self-attention that
+`attention_block_eligible` admits runs `attention_block_fused` instead: the
+Q/K/V projections, the attention, to_out, its bias and the residual add
+behind one wrapper.
 """
 
 from __future__ import annotations
@@ -117,21 +119,22 @@ def plain_attention(q, k, v, scale: float):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def attention(q, k, v, num_heads: int):
+def attention(q, k, v, num_heads: int, use_kernels: bool = True):
     """Packed (B, L, H*D) inputs -> (B, Lq, H*D), routed as the JAX
     package's `attention()`: K1 where the heads are already lane-aligned and
     the packed kernel admits the shape, K6 where `flash_attention_route`
-    admits it, the plain path otherwise."""
+    admits it, the plain path otherwise.  use_kernels=False is JAX's
+    use_pallas=False: the plain path at every shape (the CLIP towers)."""
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // num_heads
     scale = 1.0 / math.sqrt(d)
-    if d == pad_head_dim(d) and packed_flash_eligible(lq, lk, num_heads, d, q.element_size()):
+    if use_kernels and d == pad_head_dim(d) and packed_flash_eligible(lq, lk, num_heads, d, q.element_size()):
         return flash_attention_packed(fold_scale(q, scale * LOG2E), k, v, num_heads).to(q.dtype)
     qh = q.reshape(b, lq, num_heads, d)
     kh = k.reshape(b, lk, num_heads, d)
     vh = v.reshape(b, lk, num_heads, d)
-    if flash_attention_route(lq, lk, d):
+    if use_kernels and flash_attention_route(lq, lk, d):
         out = flash_attention(qh, kh, vh, scale)
     else:
         out = plain_attention(fold_scale(qh, scale), kh, vh, 1.0)

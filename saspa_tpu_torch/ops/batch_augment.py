@@ -31,29 +31,14 @@ import torch
 from saspa_tpu_torch import to_device
 from saspa_tpu_torch.models.layers import acc_dtype
 from saspa_tpu_torch.ops.augment import fma
+from saspa_tpu_torch.ops.image import jax_resize_weights
 from saspa_tpu_torch.utils import rng as rngs
 
 
 @lru_cache(maxsize=32)
-def _halfpixel_weights(n_in: int, n_out: int, f=np.float32) -> np.ndarray:
-    """jax.image.resize's (n_in, n_out) weight matrix for the linear
-    (triangle) kernel, antialiased, scale n_out / n_in, no translation, in
-    float32 (float64 where jax runs with x64)."""
-    inv_scale = 1.0 / (n_out / n_in)
-    kernel_scale = f(max(inv_scale, 1.0))
-    sample_f = (np.arange(n_out, dtype=f) + f(0.5)) * f(inv_scale) - f(0.0) - f(0.5)
-    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=f)[:, None]) / kernel_scale
-    w = np.maximum(f(0), f(1) - x)
-    total = w.sum(axis=0, keepdims=True, dtype=f)
-    w = np.where(np.abs(total) > f(1000.0 * np.finfo(np.float32).eps), w / np.where(total != 0, total, f(1)), f(0))
-    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return np.where(inside[None, :], w, f(0)).astype(f)
-
-
-@lru_cache(maxsize=32)
 def _halfpixel_weights_on(n_in: int, n_out: int, f, device: torch.device) -> torch.Tensor:
-    """_halfpixel_weights on `device`, uploaded once a shape."""
-    return to_device(_halfpixel_weights(n_in, n_out, f), device)
+    """jax.image.resize's linear weight matrix on `device`, uploaded once a shape."""
+    return to_device(jax_resize_weights(n_in, n_out, "linear", f).copy(), device)
 
 
 def upsample_halfpixel(attn: torch.Tensor, h: int, w: int) -> torch.Tensor:

@@ -15,7 +15,9 @@ this module implements cv2's uint8 arithmetic of both in numpy:
     (computeResizeAreaTab) accumulated in cv2's order, then rounded;
   * INTER_AREA otherwise (an upscale after the 1.2 MP cap): cv2's emulation
     by a fixed-point bilinear filter with area-mode offsets.
-tests/test_torch_image.py holds each against cv2.
+tests/test_torch_image.py holds each against cv2.  `pil_resize` is
+Pillow's 8-bit resample, and `jax_resize_weights` the weight matrices of
+jax.image.resize (triangle and Keys cubic kernels).
 """
 
 from __future__ import annotations
@@ -351,3 +353,44 @@ def pil_resize(img: np.ndarray, size: Tuple[int, int], method: str = "bicubic") 
     if out_h != h:
         x = _pil_pass(x.astype(np.int32), yidx - y0, yw)
     return x
+
+
+def _fma(a, b, c, f):
+    """a * b + c rounded once to f (computed in long double: exact products
+    of float32 operands)."""
+    w = np.longdouble
+    return (np.asarray(a, f).astype(w) * np.asarray(b, f).astype(w) + np.asarray(c, f).astype(w)).astype(f)
+
+
+def _keys_cubic(x: np.ndarray, f) -> np.ndarray:
+    """jax.image's Keys cubic kernel (a = -0.5), in x's dtype, with the
+    multiply-adds fused as XLA compiles them on the CPU."""
+    near = _fma(_fma(f(1.5), x, f(-2.5), f) * x, x, f(1.0), f)
+    far = _fma(_fma(_fma(f(-0.5), x, f(2.5), f), x, f(-4.0), f), x, f(2.0), f)
+    return np.where(x >= 2.0, f(0.0), np.where(x >= 1.0, far, near))
+
+
+_JAX_KERNELS = {"linear": lambda x, f: np.maximum(f(0), f(1) - x), "cubic": _keys_cubic}
+
+
+@functools.lru_cache(maxsize=32)
+def jax_resize_weights(n_in: int, n_out: int, method: str = "linear", f=np.float32) -> np.ndarray:
+    """jax.image.resize's (n_in, n_out) weight matrix for one spatial
+    dimension (`compute_weight_mat`): scale n_out / n_in, no translation,
+    antialiased (the kernel widens by the scale when downscaling), columns
+    normalised, samples outside the input zeroed; in float32 (float64 where
+    jax runs with x64).  The sample positions (i + 0.5) * inv_scale - 0.5
+    are one fused multiply-add, rounded once, as XLA compiles them on the
+    CPU (near a position of 150 the separately rounded product moves a
+    weight by 1e-5).  Read-only: the cache hands it to every caller."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = f(max(inv_scale, 1.0))
+    sample_f = _fma(np.arange(n_out, dtype=f) + f(0.5), f(inv_scale), f(-0.5), f)
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=f)[:, None]) / kernel_scale
+    w = _JAX_KERNELS[method](x, f)
+    total = w.sum(axis=0, keepdims=True, dtype=f)
+    w = np.where(np.abs(total) > f(1000.0 * np.finfo(np.float32).eps), w / np.where(total != 0, total, f(1)), f(0))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    w = np.where(inside[None, :], w, f(0)).astype(f)
+    w.setflags(write=False)
+    return w

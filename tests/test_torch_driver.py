@@ -174,7 +174,8 @@ def test_cli_flags_map_to_the_same_config(argv, monkeypatch):
 
 def test_cli_refuses_what_is_not_ported(monkeypatch):
     """`gen` filters unless --skip_filter is passed (the JAX CLI's
-    semantic + top-10 confidence recipe); the presets raise."""
+    semantic + top-10 confidence recipe); the presets raise, and so do the
+    generation families not ported yet."""
     import saspa_tpu_torch.cli as tcli
 
     calls = []
@@ -184,14 +185,95 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
     tcli.main(["gen", "--resolution", "1024", "--skip_filter"])
     assert calls == [("filter", {"semantic_filtering": True, "model_confidence_based_filtering": True}),
                      ("gen", {})]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10c"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tcli.main(["gen", "--preset", "alia", "--skip_filter"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         init_pipeline("sd_xl", "canny")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         init_pipeline("sd_v1.5", "canny", weights_dir="/nowhere")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tdriver._check_supported(GenerationConfig(controlnet="hed"))
+    # BLIP-Diffusion + canny builds (its constructor stubbed: the full-width
+    # towers are the card's); its edit path, cub's SDXL-Turbo and HED raise
+    import saspa_tpu_torch.models.blip_diffusion as tblip
+
+    monkeypatch.setattr(tblip, "BlipDiffusionPipeline", lambda **kw: ("blip", kw))
+    assert init_pipeline("blip_diffusion", "canny") == \
+        ("blip", {"controlnet": "canny", "sampler": "ddim", "dtype": None, "device": None, "init_seed": 0})
+    tdriver._check_supported(GenerationConfig(dataset="dtd", base_model="blip_diffusion", controlnet="canny"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        init_pipeline("blip_diffusion-edit", None)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        tdriver._check_supported(GenerationConfig(base_model="blip_diffusion-edit"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        tdriver._check_supported(GenerationConfig(dataset="cub", base_model="blip_diffusion").with_dataset_overrides())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        init_pipeline("blip_diffusion", "hed")
+    with pytest.raises(ValueError, match="SDEdit is not supported with blip_diffusion"):
+        init_pipeline("blip_diffusion", "canny", SDEdit=True)
+
+
+DTD_SOURCES = ["banded/banded_0005.jpg", "banded/banded_0011.jpg", "blotchy/blotchy_0009.jpg",
+               "blotchy/blotchy_0019.jpg"]  # names the shipped DTD captions cover
+
+
+@pytest.fixture()
+def dtd_tree(tmp_path, monkeypatch):
+    """A DTD train split of 4 sources in 2 classes (PNG bytes under the
+    .jpg names, 96x128) at data/DTD/dtdataset/dtd under the working
+    directory, where the captions JSON's keys point."""
+    from saspa_tpu.data.registry import DTDUtils as JaxDTD
+    from saspa_tpu_torch.data.registry import DTDUtils as PortDTD
+
+    monkeypatch.chdir(tmp_path)
+    root = Path("data/DTD/dtdataset/dtd")
+    (root / "labels").mkdir(parents=True)
+    rng = np.random.RandomState(1)
+    for name in DTD_SOURCES:
+        (root / "images" / name).parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(rng.randint(0, 255, (96, 128, 3), np.uint8)).save(root / "images" / name, format="PNG")
+    (root / "labels" / "train1.txt").write_text("\n".join(DTD_SOURCES) + "\n")
+    monkeypatch.setitem(JR.DS_UTILS_DICT, "dtd", lambda print_func=print: JaxDTD(root_path=str(root),
+                                                                                  print_func=print_func))
+    monkeypatch.setitem(TR.DS_UTILS_DICT, "dtd", lambda print_func=print: PortDTD(root_path=str(root),
+                                                                                  print_func=print_func))
+    return root
+
+
+def test_run_generation_blip_matches_jax(dtd_tree, caplog):
+    """BLIP-Diffusion + canny (the dtd recipe's model) through both
+    drivers: 4 sources x 1 prompt at 64^2, batch 3 (the second batch
+    padded), 2 DDIM steps, CFG 7.5, the tiny pipelines of
+    tests/test_torch_blip.py with the same params.  The output folder
+    (which names `_style_img_from_diff_img`) and the file names are
+    equal; the _source, _control and _subject_ PNGs are bit-equal; the
+    generated images agree to 1 uint8 level on >= 99% of the pixels."""
+    from tests.test_torch_blip import blip_params, jax_pipe, port_pipe
+
+    params = blip_params()["canny"]
+    cfg = _cfg(dataset="dtd", base_model="blip_diffusion", num_per_image=1, batch_size=3)
+    want_dir = jax_run_generation(_jax_cfg(cfg), pipe=jax_pipe(params, "canny"))
+    assert "_style_img_from_diff_img" in want_dir
+    want = _pngs(want_dir)
+    for p in Path(want_dir).glob("*.png"):
+        p.unlink()
+    caplog.set_level("INFO")
+    got_dir = tdriver.run_generation(cfg, pipe=port_pipe(params, "canny"))
+    assert got_dir == want_dir
+    got = _pngs(got_dir)
+    assert sorted(got) == sorted(want) and len(got) == 4 * 4
+    gen = [n for n in got if "_prompt_" in n]
+    assert len(gen) == 4 and sum("_subject_0" in n for n in got) == 4
+    for name in got:
+        a, b = got[name].astype(np.int32), want[name].astype(np.int32)
+        assert a.shape == b.shape, name
+        if name in gen:
+            d = np.abs(a - b)
+            assert d.max() <= 1 and np.mean(d == 0) >= 0.99, (name, d.max(), np.mean(d == 0))
+        else:
+            assert np.array_equal(a, b), name
+    tele = [r.getMessage() for r in caplog.records if r.getMessage().startswith("generation telemetry: ")]
+    assert tele and '"num_errors": 0' in tele[-1] and '"total": 4' in tele[-1]
 
 
 def test_importing_the_entry_point_loads_no_jax_pil_or_cv2():
