@@ -126,6 +126,24 @@ Phases, each printing one JSON line:
                 classes at row cosine >= 0.99, and >= 0.99 with each side's
                 mean over the two taken off; the fused path at 256^2, 2
                 steps, within mean |diff| <= 0.02 as in phase 4.
+  9. train_recipes -- the paper's best train recipes (saspa_tpu/gen/recipes.py:
+                17-23) through  cli train --epochs 1:  --dataset dtd
+                --special_aug classic-cutmix --aug_json ... --aug_sample_ratio
+                0.4 --limit_aug_per_image 2  on a synthetic 47-class DTD tree
+                (64 / 32 / 32 seeded 400^2 PNG sources, 2 augs a train image;
+                WSDAN-CAL ResNet-101, M 32, 224^2, batch 16), and  --dataset
+                compcars-parts --special_aug randaug-cutmix
+                --train_sample_ratio 0.01  on the shipped csv splits' every
+                path (hard links to 8 seeded 48^2 PNGs; ResNet-50, batch 8):
+                4 steps each, validation, test, a checkpoint, K1-K6 at 0
+                launches.  The randaug, autoaug and classic transforms and
+                cutmix_batch on the card against the CPU from one key (within
+                1e-6, the CPU tests' bound against JAX; CutMix's images and
+                soft labels equal), with their host and device ms a batch of
+                16; three f64 soft-label steps, card against CPU, within the
+                train phase's f64 bounds; then the input pipeline feeding the
+                step at each preset: s/step, img/s over 10 steps, stream
+                syncs of a batch and step (required 0), peak memory.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -1745,11 +1763,12 @@ def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
-def card_vs_cpu(cfg, dtype, lr: float, seed: int) -> list:
+def card_vs_cpu(cfg, dtype, lr: float, seed: int, soft: bool = False) -> list:
     """TRAIN_COMPARE_STEPS train steps of one seeded full-width model on the
     card and through the port on the CPU (weights moved by state_dict), on
     the same seeded batches with the same injected draws, all in `dtype`;
-    the per-step agreement."""
+    the per-step agreement.  With soft, each step also takes seeded soft
+    labels (each label mixed with another's, as CutMix leaves them)."""
     from saspa_tpu_torch.fgvc import train as ttrain
 
     cfg = cfg.replace(compute_dtype="float32", learning_rate=lr)
@@ -1773,13 +1792,18 @@ def card_vs_cpu(cfg, dtype, lr: float, seed: int) -> list:
         X = rng.randn(b, 3, *cfg.image_size)
         y = rng.randint(0, TRAIN_CLASSES, b)
         draws = train_draws(rng, b, m, cfg.image_size[0] // 16)
+        y_soft = None
+        if soft:
+            lam, eye = rng.uniform(0.2, 1.0, (b, 1)), np.eye(TRAIN_CLASSES)
+            y_soft = lam * eye[y] + (1 - lam) * eye[y[rng.permutation(b)]]
         key = np.array([0, s], np.uint32)
         out, times = {}, {}
         for dev, st in states.items():
             d = {k: torch.from_numpy(v).to(dev, dtype if v.dtype.kind == "f" else torch.long) for k, v in draws.items()}
+            ys = None if y_soft is None else torch.from_numpy(y_soft).to(dev, dtype)
             fc_before = st.model.fc.kernel.detach().clone()
             t = time.perf_counter()
-            met = step(st, torch.from_numpy(X).to(dev, dtype), torch.from_numpy(y).to(dev), key, draws=d)
+            met = step(st, torch.from_numpy(X).to(dev, dtype), torch.from_numpy(y).to(dev), key, y_soft=ys, draws=d)
             if dev == "cuda":
                 torch.cuda.synchronize()
             times[dev] = time.perf_counter() - t
@@ -1929,7 +1953,7 @@ def run_train_phase(seed: int, smi: str, profile_path=None) -> dict:
         step = ttrain.make_train_step(cfg, 16)
         pipe = InputPipeline(train_ds, cfg.batch_size, resize=cfg.image_size, train_transform="classic", seed=1,
                              device="cuda")
-        Xf, yf = next(iter(pipe.iter_train(0)))
+        Xf, yf, _ = next(iter(pipe.iter_train(0)))
         losses = [step(state, Xf, yf, rngs.item_key(1, "dropout", 0, i))["loss"].item() for i in range(10)]
         emit({"phase": "train_fixed_batch", "dtype": "bfloat16", "losses": losses})
         require(all(math.isfinite(v) for v in losses) and min(losses[-3:]) < losses[0],
@@ -1960,7 +1984,7 @@ def run_train_phase(seed: int, smi: str, profile_path=None) -> dict:
                 t0 = time.perf_counter()
                 for i in range(n):
                     ta = time.perf_counter()
-                    X, y = next(it)
+                    X, y, _ = next(it)
                     tb = time.perf_counter()
                     step(state, X, y, rngs.item_key(1, "dropout", 9, i))
                     dispatch += time.perf_counter() - tb
@@ -1976,7 +2000,7 @@ def run_train_phase(seed: int, smi: str, profile_path=None) -> dict:
             try:
                 with warnings.catch_warnings(record=True) as caught:
                     warnings.simplefilter("always")
-                    X, y = next(it)
+                    X, y, _ = next(it)
                     step(state, X, y, rngs.item_key(1, "dropout", 9, TRAIN_TIMED_STEPS))
             finally:
                 torch.cuda.set_sync_debug_mode("default")
@@ -2013,6 +2037,267 @@ def run_train_phase(seed: int, smi: str, profile_path=None) -> dict:
         return read_counts()
     finally:
         tds.AugSampler.__call__ = sampler_call
+        for h in root_logger.handlers[:]:
+            if h not in old_handlers:
+                root_logger.removeHandler(h)
+                h.close()
+        for h in old_handlers:
+            if h not in root_logger.handlers:
+                root_logger.addHandler(h)
+        root_logger.setLevel(old_level)
+        if old_root is None:
+            os.environ.pop("SASPA_DATA_ROOT", None)
+        else:
+            os.environ["SASPA_DATA_ROOT"] = old_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# the paper's best train recipes (saspa_tpu/gen/recipes.py:17-23) at their datasets' presets:
+# (dataset, --special_aug, extra cli flags, preset batch, steps of the epoch)
+RECIPES = (("dtd", "classic-cutmix", ("--aug_sample_ratio", "0.4", "--limit_aug_per_image", "2"), 16, 4),
+           ("compcars-parts", "randaug-cutmix", ("--train_sample_ratio", "0.01"), 8, 4))
+DTD_CLASSES = 47  # DTD's categories: dtd's width of fc
+DTD_SPLITS = {"train": 64, "val": 32, "test": 32}  # one eval batch (batch_size * 2) each for val and test
+DTD_SOURCE_HW = 400  # about DTD's image size (300-640)
+COMPCARS_SOURCE_HW = 48  # small: the shipped test split's 4,683 images and val's 1,838 are all decoded
+RECIPE_TIMED_STEPS = 10
+
+
+def write_dtd_train_tree(root, seed: int):
+    """A synthetic DTD tree at root/DTD/dtdataset/dtd of 47 class folders,
+    labels/{train,val,test}1.txt of 64 / 32 / 32 seeded PNG sources (the
+    bytes of 8 distinct ones, under .jpg names), and an aug-JSON of 2 seeded
+    512^2 PNG augs a train image.  Returns the aug-JSON's path."""
+    from pathlib import Path
+
+    from saspa_tpu_torch.gen.image_io import write_png
+
+    rng = np.random.RandomState(seed)
+    dtd = Path(root) / "DTD/dtdataset/dtd"
+    (dtd / "labels").mkdir(parents=True)
+    aug_dir = Path(root) / "dtd_augs"
+    aug_dir.mkdir()
+    blobs = {}
+    for kind, size in (("source", DTD_SOURCE_HW), ("aug", 512)):
+        for j in range(8):
+            pth = Path(root) / f"dtd_{kind}_{j}.png"
+            write_png(pth, synthetic_sources(rng, 1, size)[0])
+            blobs[kind, j] = pth.read_bytes()
+            pth.unlink()
+    classes = [f"texture{c:02d}" for c in range(DTD_CLASSES)]
+    augs, k = {}, 0
+    for split, n in DTD_SPLITS.items():
+        lines = []
+        for i in range(n):
+            rel = f"{classes[i % DTD_CLASSES]}/{classes[i % DTD_CLASSES]}_{k:04d}.jpg"
+            (dtd / "images" / rel).parent.mkdir(parents=True, exist_ok=True)
+            (dtd / "images" / rel).write_bytes(blobs["source", k % 8])
+            lines.append(rel + "\n")
+            if split == "train":
+                paths = [aug_dir / f"{Path(rel).stem}_prompt_synthetic_{j}.png" for j in range(2)]
+                for j, pth in enumerate(paths):
+                    pth.write_bytes(blobs["aug", (2 * k + j) % 8])
+                augs[Path(rel).name] = [str(pth) for pth in paths]
+            k += 1
+        (dtd / "labels" / f"{split}1.txt").write_text("".join(lines))
+    aug_json = Path(root) / "dtd_aug.json"
+    aug_json.write_text(json.dumps(augs))
+    return aug_json
+
+
+def write_compcars_tree(root, seed: int) -> int:
+    """Every path of the shipped CompCars-parts csv splits under
+    root/compcars/part, each a hard link to one of 8 seeded small PNG blobs
+    (under .jpg names).  Returns the file count."""
+    import os
+    from pathlib import Path
+
+    from saspa_tpu_torch.data.registry import DATASETS_FILES
+    from saspa_tpu_torch.gen.image_io import write_png
+
+    rng = np.random.RandomState(seed)
+    part = Path(root) / "compcars/part"
+    part.mkdir(parents=True)
+    blobs = []
+    for j in range(8):
+        blobs.append(Path(root) / f"compcars_blob_{j}.png")
+        write_png(blobs[-1], synthetic_sources(rng, 1, COMPCARS_SOURCE_HW)[0])
+    paths = set()
+    for split in ("train", "test"):
+        with open(DATASETS_FILES / "compcars-parts" / f"{split}.csv") as f:
+            paths |= {line.split(",")[0] for line in f if line.strip()}
+    for i, rel in enumerate(sorted(paths)):
+        (part / rel).parent.mkdir(parents=True, exist_ok=True)
+        os.link(blobs[i % len(blobs)], part / rel)
+    return len(paths)
+
+
+def batch_ms(fn, iters: int = 5) -> dict:
+    """A batch's costs of fn: the host's ms to queue a call (the card busy
+    behind it), and the device ms of the kernels a call launches
+    (device_ms: torch.profiler, else CUDA events)."""
+    return {"host_ms": host_us(fn, iters) / 1e3, "device_ms": device_ms(fn, iters)[0]}
+
+
+def run_train_recipes_phase(seed: int, smi: str) -> dict:
+    """The paper's best train recipes (module docstring, phase 9); returns
+    their launch counts (all 0: they run none of K1-K6)."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data import datasets as tds
+    from saspa_tpu_torch.data.pipeline import InputPipeline
+    from saspa_tpu_torch.fgvc import train as ttrain
+    from saspa_tpu_torch.ops import augment as taug
+    from saspa_tpu_torch.utils import rng as rngs
+    from saspa_tpu_torch.utils.config import get_train_config
+
+    root = Path(tempfile.mkdtemp(prefix="saspa_recipes_"))
+    old_root = os.environ.get("SASPA_DATA_ROOT")
+    os.environ["SASPA_DATA_ROOT"] = str(root)
+    root_logger = logging.getLogger()
+    old_handlers, old_level = root_logger.handlers[:], root_logger.level
+    try:
+        t = time.perf_counter()
+        aug_json = write_dtd_train_tree(root, seed + 501)
+        n_compcars = write_compcars_tree(root, seed + 502)
+        tree_s = time.perf_counter() - t
+        counts = {}
+        # ---- each recipe through `cli train`: an epoch, validation, test, checkpoint
+        for dataset, aug, extra, batch, steps in RECIPES:
+            argv = ["train", "--dataset", dataset, "--special_aug", aug, "--epochs", "1", "--seed", "1",
+                    "--logdir", str(root / f"logs_{dataset}"), *extra]
+            if dataset == "dtd":
+                argv += ["--aug_json", str(aug_json)]
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t = time.perf_counter()
+            logs = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts[dataset] = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            require(all(v == 0 for v in counts[dataset].values()), "train_recipes:", dataset,
+                    "launched a kernel of K1-K6", counts[dataset])
+            lines = [json.loads(ln) for ln in (Path(logs["save_dir"]) / "metrics.jsonl").read_text().splitlines()]
+            epoch = lines[0]
+            val = next(ln for ln in lines if "val_loss" in ln)
+            test = next(ln for ln in lines if "test_loss" in ln)
+            emit({"phase": "train_recipes", "dataset": dataset, "argv": argv, "batch": batch, "tree_s": tree_s,
+                  "compcars_files": n_compcars, "wall_s": wall, "epoch": epoch, "val": val, "test": test,
+                  "peak_mem_bytes": peak, "peak_mem_above_base_bytes": peak - base_mem,
+                  "launches": counts[dataset], "pipeline_timings": logs["pipeline_timings"], "nvidia_smi": smi})
+            require(epoch["steps"] == steps and math.isfinite(epoch["train_loss"]), "train_recipes:", dataset,
+                    "epoch metrics", epoch)
+            require(all(math.isfinite(v) for v in (val["val_loss"], test["test_loss"])), "train_recipes:", dataset,
+                    "eval metrics", val, test)
+            require(Path(logs["ckpt_path"]).exists(), "train_recipes: no checkpoint at", logs["ckpt_path"])
+
+        # ---- the transforms and CutMix on the card against the CPU, one key; their costs a batch
+        rng = np.random.RandomState(seed + 503)
+        u8 = torch.from_numpy(rng.randint(0, 256, (16, 256, 256, 3)).astype(np.uint8))
+        key = rngs.item_key(1, "augment", 0, 0)
+        agree, cost = {}, {}
+        for preset in ("randaug", "autoaug", "classic"):
+            card = taug.train_transform_batch(u8.cuda(), key, preset, 224, 224).cpu()
+            cpu = taug.train_transform_batch(u8, key, preset, 224, 224)
+            agree[preset] = {"max_abs_err": float((card - cpu).abs().max()),
+                             "equal_share": float((card == cpu).float().mean())}
+            u8c = u8.cuda()
+            cost[preset] = batch_ms(lambda: taug.train_transform_batch(u8c, key, preset, 224, 224))
+        cost["randaug"]["draws_host_ms"] = host_us(lambda: taug.randaugment_draws(key, 16), 5) / 1e3
+        cost["autoaug"]["draws_host_ms"] = host_us(lambda: taug.autoaugment_draws(key, 16), 5) / 1e3
+        X = torch.from_numpy(rng.randn(16, 3, 224, 224).astype(np.float32))
+        y = torch.from_numpy(rng.randint(0, DTD_CLASSES, 16))
+        ck = rngs.item_key(1, "cutmix", 0, 0)
+        Xc, yc, sc = taug.cutmix_batch(X.cuda(), y.cuda(), ck, DTD_CLASSES)
+        Xh, yh, sh = taug.cutmix_batch(X, y, ck, DTD_CLASSES)
+        agree["cutmix"] = {"images_equal": torch.equal(Xc.cpu(), Xh), "soft_labels_equal": torch.equal(sc.cpu(), sh),
+                           "mixed_share": float((Xh != X).float().mean())}
+        Xd, yd = X.cuda(), y.cuda()
+        cost["cutmix"] = {**batch_ms(lambda: taug.cutmix_batch(Xd, yd, ck, DTD_CLASSES)),
+                          "draws_host_ms": host_us(lambda: taug.cutmix_draws(ck, 16, 224, 224), 5) / 1e3}
+        emit({"phase": "train_recipes_transforms", "batch": 16, "agreement": agree, "ms_a_batch": cost,
+              "nvidia_smi": smi})
+        for preset in ("randaug", "autoaug", "classic"):  # the CPU tests' bound against JAX
+            require(agree[preset]["max_abs_err"] <= 1e-6, "train_recipes: the card's", preset, "differs from the CPU's",
+                    agree[preset])
+        require(agree["cutmix"]["images_equal"] and agree["cutmix"]["soft_labels_equal"],
+                "train_recipes: the card's CutMix differs from the CPU's", agree["cutmix"])
+
+        # ---- the soft-label step on the card against the port on the CPU, f64, full width
+        t = time.perf_counter()
+        rows = card_vs_cpu(get_train_config("planes"), torch.float64, 1e-3, seed + 504, soft=True)
+        emit({"phase": "train_recipes_card_vs_cpu", "dtype": "float64", "soft_labels": True,
+              "seconds": time.perf_counter() - t, "steps": rows})
+        for r in rows:
+            require(r["loss_rel"] <= 1e-6 and r["running_stats_rel"] <= 1e-4 and r["feature_center_cos"] >= 0.9999
+                    and r["fc_update_cos"] >= 0.9999, "train_recipes: the card's f64 soft-label steps differ", r)
+
+        # ---- throughput: the input pipeline (transform + CutMix) feeding the step at each preset
+        for dataset, aug, extra, batch, _ in RECIPES:
+            cfg = get_train_config(dataset)
+            ds, _, _, info = tds.get_datasets(dataset, special_aug=aug, seed=1, print_func=lambda *a: None,
+                                              train_sample_ratio=0.01 if dataset == "compcars-parts" else 1.0)
+            state = ttrain.create_train_state(cfg, info["num_classes"], device="cuda", init_seed=seed)
+            pipe = InputPipeline(ds, batch, resize=cfg.image_size, train_transform=info["train_transform"],
+                                 use_cutmix=info["use_cutmix"], seed=1, num_threads=cfg.workers * 2,
+                                 device="cuda")
+            step = ttrain.make_train_step(cfg, len(pipe))
+
+            def batches():
+                e = 0
+                while True:
+                    yield from pipe.iter_train(e)
+                    e += 1
+
+            it = batches()
+
+            def run_steps(n):
+                wait = dispatch = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(n):
+                    ta = time.perf_counter()
+                    X, y, ys = next(it)
+                    tb = time.perf_counter()
+                    step(state, X, y, rngs.item_key(1, "dropout", 9, i), y_soft=ys)
+                    dispatch += time.perf_counter() - tb
+                    wait += tb - ta
+                torch.cuda.synchronize()
+                return wait, dispatch, time.perf_counter() - t0
+
+            run_steps(3)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    X, y, ys = next(it)
+                    require(ys is not None and tuple(ys.shape) == (batch, info["num_classes"]),
+                            "train_recipes: no soft labels from the pipeline")
+                    step(state, X, y, rngs.item_key(1, "dropout", 9, RECIPE_TIMED_STEPS), y_soft=ys)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+            require(not syncs, "train_recipes: a batch and step synchronized the stream", syncs[:5])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            wait, dispatch, wall = run_steps(RECIPE_TIMED_STEPS)
+            emit({"phase": "train_recipes_throughput", "dataset": dataset, "special_aug": aug, "net": cfg.net,
+                  "batch": batch, "steps": RECIPE_TIMED_STEPS, "wall_s": wall, "s_per_step": wall / RECIPE_TIMED_STEPS,
+                  "img_per_s": batch * RECIPE_TIMED_STEPS / wall, "host_input_wait_s": wait,
+                  "host_step_dispatch_s": dispatch, "syncs_per_step": len(syncs),
+                  "peak_mem_bytes": torch.cuda.max_memory_allocated(), "nvidia_smi": smi})
+            del state, it
+            torch.cuda.empty_cache()
+        return read_counts()
+    finally:
         for h in root_logger.handlers[:]:
             if h not in old_handlers:
                 root_logger.removeHandler(h)
@@ -2249,6 +2534,9 @@ def main() -> int:
         out = Path(args.profile)
         blip_profile = str(out.with_name(f"{out.stem}_blip{out.suffix}"))
     counts["blip"] = run_blip_phase(args.seed, blip_profile)
+
+    # ---- the paper's best train recipes: dtd classic-cutmix, compcars-parts randaug-cutmix ----
+    counts["train_recipes"] = run_train_recipes_phase(args.seed, smi)
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

@@ -9,7 +9,8 @@ pre-crop size (size / 0.875) with the JAX package's native resize
 batches ahead and re-raises its errors in the consumer.  The epoch's order
 is `RandomState(seed * 100003 + epoch)`'s shuffle and each train batch's
 transform key `item_key(seed, "augment", epoch, i)`, as in the JAX package,
-so the batches equal its batches.  `timings` adds up the host seconds the
+so the batches equal its batches; with CutMix, each batch's mixing key is
+`item_key(seed, "cutmix", epoch, i)`.  `timings` adds up the host seconds the
 consumer waited for batches (`host_wait_s`) and the seconds the producer
 spent loading them (`load_s`).
 """
@@ -28,7 +29,7 @@ import torch
 from saspa_tpu_torch import resolve_device, to_device
 from saspa_tpu_torch.data.datasets import FGVCDataset
 from saspa_tpu_torch.gen.image_io import read_rgb
-from saspa_tpu_torch.ops.augment import _not_ported, train_transform_batch, val_transform_batch
+from saspa_tpu_torch.ops.augment import cutmix_batch, train_transform_batch, val_transform_batch
 from saspa_tpu_torch.ops.host_resize import resize_bilinear_u8
 from saspa_tpu_torch.utils import rng as rngs
 
@@ -47,13 +48,12 @@ class InputPipeline:
     def __init__(self, dataset: FGVCDataset, batch_size: int, resize: Tuple[int, int] = (224, 224),
                  train_transform: Optional[str] = "classic", use_cutmix: bool = False, seed: int = 1,
                  num_threads: int = 8, device=None):
-        if use_cutmix:
-            raise _not_ported("--use_cutmix")
         self.ds = dataset
         self.batch_size = batch_size
         self.resize = resize
         self.pre_size = (int(resize[0] / 0.875), int(resize[1] / 0.875))
         self.train_transform = train_transform
+        self.use_cutmix = use_cutmix
         self.seed = seed
         self.device = resolve_device(device)
         self._pool = ThreadPoolExecutor(max_workers=num_threads)
@@ -125,12 +125,17 @@ class InputPipeline:
         return to_device(x_u8, self.device)
 
     def iter_train(self, epoch: int):
-        """Yields (X normalized float32 (B, 3, h, w), y int64 (B,)) on the device."""
+        """Yields (X normalized float32 (B, 3, h, w), y int64 (B,), y_soft
+        float32 (B, classes) or None) on the device; y_soft is CutMix's."""
         th, tw = self.resize
         for i, (x_u8, y) in enumerate(self.host_batches(epoch, shuffle=True)):
             key = rngs.item_key(self.seed, "augment", epoch, i)
             X = train_transform_batch(self._upload(x_u8), key, self.train_transform, th, tw)
-            yield X, to_device(y.astype(np.int64), self.device)
+            y = to_device(y.astype(np.int64), self.device)
+            y_soft = None
+            if self.use_cutmix:
+                X, y, y_soft = cutmix_batch(X, y, rngs.item_key(self.seed, "cutmix", epoch, i), self.ds.num_classes)
+            yield X, y, y_soft
 
     def iter_eval(self):
         th, tw = self.resize

@@ -9,8 +9,7 @@ and the stop_aug_after_epoch switch.
 Runs on the card unless `device="cpu"` is passed.  Not ported, and raising
 with the ROADMAP item: the CLIP soft-target teacher
 (--use_target_soft_cross_entropy, CLIP ViT-B/16), --plot_per_class_acc
-(matplotlib), CutMix, RandAugment/AutoAugment and the Inception and CBAM
-nets.
+(matplotlib) and the Inception and CBAM nets.
 """
 
 from __future__ import annotations

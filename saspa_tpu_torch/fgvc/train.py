@@ -95,15 +95,22 @@ def sgd_update(state: TrainState, lr: float, weight_decay: float, momentum: floa
 
 
 def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int):
-    """train_step(state, X (B, 3, H, W) f32, y (B,) int, key, draws=None)
-    -> metrics (device tensors), updating `state` in place.
+    """train_step(state, X (B, 3, H, W) f32, y (B,) int, key, y_soft=None,
+    draws=None) -> metrics (device tensors), updating `state` in place.
 
-    draws injects every stochastic draw: {fake1 (B, M, h, w), pick1 (B, 2),
-    fake2 (2B, M, h, w), pick2 (2B, 2), crop_theta (B,), drop_theta (B,)}."""
+    y_soft (B, num_classes) f32, CutMix's soft labels, replaces y in every
+    cross-entropy term (the aug and aux views repeat it as they repeat y);
+    the metrics stay on the hard y.  draws injects every stochastic draw:
+    {fake1 (B, M, h, w), pick1 (B, 2), fake2 (2B, M, h, w), pick2 (2B, 2),
+    crop_theta (B,), drop_theta (B,)}."""
     beta = cfg.beta
     use_wsdan = not cfg.dont_use_wsdan
 
-    def train_step(state: TrainState, X: torch.Tensor, y: torch.Tensor, key, draws: Optional[dict] = None):
+    def ce(logits, labels, soft):
+        return L.cross_entropy(logits, labels) if soft is None else L.cross_entropy_soft(logits, soft)
+
+    def train_step(state: TrainState, X: torch.Tensor, y: torch.Tensor, key, y_soft: Optional[torch.Tensor] = None,
+                   draws: Optional[dict] = None):
         k_model1, k_model2, k_crop, k_drop = rngs.split(key, 4)
         draws = draws or {}
         model = state.model
@@ -116,7 +123,7 @@ def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int):
             X, train=True, rngs_key=k_model1, fake_att=draws.get("fake1"), pick_idx=draws.get("pick1"))
         if not use_wsdan:
             # dont_use_wsdan keeps the center term: CE(raw) + center (fgvc/train.py:501-503)
-            loss = L.cross_entropy(p_raw, y) + L.center_loss(feature_matrix, fc_batch)
+            loss = ce(p_raw, y, y_soft) + L.center_loss(feature_matrix, fc_batch)
             p_aux_cat, p_aug, y_aux, y_aug = p_aux, p_raw, y, y
         else:
             att = attention_map.detach()
@@ -129,9 +136,10 @@ def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int):
             y_aug = torch.cat([y, y])
             p_aux_cat = torch.cat([p_aux, p_aux_aug])
             y_aux = torch.cat([y, y_aug])
+            soft_aug = None if y_soft is None else torch.cat([y_soft, y_soft])
+            soft_aux = None if y_soft is None else torch.cat([y_soft, soft_aug])
             loss = L.center_loss(feature_matrix, fc_batch) + (
-                L.cross_entropy(p_raw, y) / 3.0 + L.cross_entropy(p_aux_cat, y_aux)
-                + L.cross_entropy(p_aug, y_aug) * 2.0 / 3.0)
+                ce(p_raw, y, y_soft) / 3.0 + ce(p_aux_cat, y_aux, soft_aux) + ce(p_aug, y_aug, soft_aug) * 2.0 / 3.0)
 
         loss.backward()
         f = np.float64 if model.fc.kernel.dtype == torch.float64 else np.float32
@@ -164,7 +172,8 @@ def eval_step(state: TrainState, X: torch.Tensor, y: torch.Tensor, key, num_clas
 
 
 class Trainer:
-    """The epoch loop over the input pipeline's device batches (X, y)."""
+    """The epoch loop over the input pipeline's device batches (X, y,
+    y_soft or None)."""
 
     def __init__(self, cfg: TrainConfig, num_classes: int, num_batches_per_epoch: int, device=None):
         self.cfg = cfg
@@ -197,8 +206,8 @@ class Trainer:
             aux_acc.update(m["aux_correct"].cpu().numpy(), bs * den_aux)
 
         pending = None  # a step's metrics are read one step behind, so the host does not wait on the card
-        for i, (X, y) in enumerate(batches):
-            m = self.train_step(self.state, X, y, rngs.item_key(cfg.seed, "dropout", epoch, i))
+        for i, (X, y, y_soft) in enumerate(batches):
+            m = self.train_step(self.state, X, y, rngs.item_key(cfg.seed, "dropout", epoch, i), y_soft=y_soft)
             n += 1
             if pending is not None:
                 consume(*pending)

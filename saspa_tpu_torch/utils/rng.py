@@ -20,7 +20,11 @@ can differ from jax on the CPU by an ulp where XLA orders an operation of
 its log differently (tests/test_torch_rng.py states the measured bound).
 The train path's draws (`split`, `bernoulli`, `randint`, `gumbel`,
 `categorical`) equal jax.random's bit for bit
-(tests/test_torch_train_augment.py).
+(tests/test_torch_train_augment.py).  CutMix's `permutation` does too;
+its `beta_f32` (two `loggamma_f32` draws, Marsaglia and Tsang's rejection
+loop on jax's key schedule, then XLA's exp) and `exponential_f32` go
+through XLA's log and log1p, and so are >= 99.9% bit-equal and otherwise
+within 3 ulps (tests/test_torch_train_recipes.py).
 """
 
 from __future__ import annotations
@@ -99,9 +103,12 @@ def uniform_f32(key, shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndar
     """jax.random.uniform(key, shape, float32, minval, maxval) as XLA's CPU
     code computes it: floats * (maxval - minval) + minval in one fused
     multiply-add."""
+    return _uniform_of_bits(random_bits(key, tuple(shape)), minval, maxval)
+
+
+def _uniform_of_bits(bits: np.ndarray, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
     lo, hi = np.float32(minval), np.float32(maxval)
-    bits = (random_bits(key, tuple(shape)) >> _U32(9)) | _U32(0x3F800000)
-    floats = bits.view(np.float32) - np.float32(1.0)
+    floats = ((bits >> _U32(9)) | _U32(0x3F800000)).view(np.float32) - np.float32(1.0)
     return np.maximum(lo, _fma(floats, hi - lo, lo))
 
 
@@ -140,6 +147,22 @@ def _log_f32(v):
     y = _fma(f(-2.12194440e-4), e, y)
     t = _fma(-f(0.5), x2, t) + y
     return _fma(f(0.693359375), e, t)
+
+
+# XLA's float32 exp (the Cephes expf its CPU backend emits): n = floor(x *
+# log2(e) + 1/2), x - n * ln(2) in two parts, a degree-5 polynomial, * 2^n
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _exp_f32(v):
+    f = np.float32
+    x = np.clip(np.asarray(v, f), f(-87.8), f(88.8))
+    n = np.floor(_fma(x, f(1.44269504088896341), f(0.5)))
+    x = _fma(-n, f(0.693359375), x)
+    x = _fma(-n, f(-2.12194440e-4), x)
+    y = _horner(x, _EXP_P)
+    y = _fma(y, x * x, x) + f(1)
+    return y * ((n.astype(np.int32) + 127) << 23).astype(np.int32).view(f)
 
 
 # XLA's float32 log1p: a Cephes rational approximation below sqrt(2) - 1
@@ -181,8 +204,11 @@ def erfinv_f32(x) -> np.ndarray:
 
 def normal_f32(key, shape) -> np.ndarray:
     """jax.random.normal(key, shape, float32)."""
-    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    u = uniform_f32(key, shape, lo, 1.0)
+    return _normal_of_bits(random_bits(key, tuple(shape)))
+
+
+def _normal_of_bits(bits: np.ndarray) -> np.ndarray:
+    u = _uniform_of_bits(bits, np.nextafter(np.float32(-1.0), np.float32(0.0)), 1.0)
     return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)
 
 
@@ -225,7 +251,10 @@ def randint(key, shape, minval: int, maxval: int) -> np.ndarray:
     bits a value from the two halves of split(key), reduced mod the span in
     uint32 arithmetic, as jax does."""
     k1, k2 = split(key, 2)
-    higher, lower = random_bits(k1, tuple(shape)), random_bits(k2, tuple(shape))
+    return _randint_of_bits(random_bits(k1, tuple(shape)), random_bits(k2, tuple(shape)), minval, maxval)
+
+
+def _randint_of_bits(higher: np.ndarray, lower: np.ndarray, minval: int, maxval: int) -> np.ndarray:
     span = _U32(max(int(maxval) - int(minval), 1))
     with np.errstate(over="ignore"):
         multiplier = _U32(2 ** 16) % span
@@ -254,3 +283,120 @@ def categorical(key, logits: np.ndarray, shape) -> np.ndarray:
     float32 logits."""
     logits = np.asarray(logits, np.float32)
     return np.argmax(categorical_gumbel(key, logits.shape[-1], shape) + logits, axis=-1)
+
+
+# ---- scalar draws of many keys at once: a per-sample key schedule vectorized ----
+def _hash_each(keys: np.ndarray, counter):
+    """The hash of the counter pair (0, counter) under each key of keys (n, 2)."""
+    n = keys.shape[0]
+    with np.errstate(over="ignore"):
+        return threefry2x32((keys[:, 0], keys[:, 1]), np.zeros(n, np.uint32),
+                            np.broadcast_to(np.asarray(counter, np.uint32), (n,)))
+
+
+def split_each(keys: np.ndarray, num: int) -> np.ndarray:
+    """split(k, num) of each key of keys (n, 2) -> (num, n, 2)."""
+    n = keys.shape[0]
+    a, b = _hash_each(np.tile(keys, (num, 1)), np.repeat(np.arange(num, dtype=np.uint32), n))
+    return np.stack([a, b], axis=1).reshape(num, n, 2)
+
+
+def fold_in_each(keys: np.ndarray, data: int) -> np.ndarray:
+    """fold_in(k, data) of each key of keys (n, 2) -> (n, 2)."""
+    return np.stack(_hash_each(keys, data & 0xFFFFFFFF), axis=1)
+
+
+def bits_each(keys: np.ndarray) -> np.ndarray:
+    """random_bits(k, ()) of each key of keys (n, 2) -> uint32 (n,)."""
+    b1, b2 = _hash_each(keys, 0)
+    return b1 ^ b2
+
+
+def uniform_each(keys: np.ndarray) -> np.ndarray:
+    """uniform(k, (), float32) of each key; bernoulli(k, p) is uniform < p."""
+    return _uniform_of_bits(bits_each(keys))
+
+
+def randint_each(keys: np.ndarray, minval: int, maxval: int) -> np.ndarray:
+    """randint(k, (), minval, maxval) of each key -> int32 (n,)."""
+    k1, k2 = split_each(keys, 2)
+    return _randint_of_bits(bits_each(k1), bits_each(k2), minval, maxval)
+
+
+# ---- CutMix's draws: jax.random's exponential, loggamma, beta, permutation ----
+
+
+def exponential_f32(key, shape) -> np.ndarray:
+    """jax.random.exponential(key, shape, float32): -log1p(-U)."""
+    return -_log1p_f32(-uniform_f32(key, shape))
+
+
+def gamma_one(keys: np.ndarray, alpha: np.ndarray) -> np.ndarray:
+    """jax's _gamma_one(key, alpha, log_space=True) for each key of keys
+    (n, 2) and alpha (n,) f32: Marsaglia and Tsang's rejection loop, its
+    draws on jax's key schedule (key, subkey = split(key); each round splits
+    key into (key, x_key, U_key) and draws normals off x_key until v > 0),
+    with XLA's float32 log and its fused multiply-adds.  Returns log-gamma
+    samples (n,) f32."""
+    f = np.float32
+    alpha = np.asarray(alpha, f)
+    n = alpha.shape[0]
+    boost = alpha >= f(1)
+    a = np.where(boost, alpha, alpha + f(1))
+    d = a - f(1.0 / 3.0)
+    c = f(1.0 / 3.0) / np.sqrt(d)
+    key, subkey = split_each(np.asarray(keys, np.uint32), 2)
+    V = np.ones(n, f)
+    active = np.ones(n, bool)  # the loop's initial state (X 0, V 1, U 2) always enters the body
+    while active.any():
+        idx = np.nonzero(active)[0]
+        key[idx], x_key, u_key = split_each(key[idx], 3)
+        x, v = np.zeros(len(idx), f), np.full(len(idx), f(-1))
+        redraw = np.ones(len(idx), bool)
+        while redraw.any():
+            j = np.nonzero(redraw)[0]
+            x_key[j], sub = split_each(x_key[j], 2)
+            x[j] = _normal_of_bits(bits_each(sub))
+            v[j] = _fma(x[j], c[idx][j], f(1))
+            redraw[j] = v[j] <= f(0)
+        X = x * x
+        V[idx] = (v * v) * v
+        U = _uniform_of_bits(bits_each(u_key))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            reject = (U >= _fma(-f(0.0331), X * X, f(1))) & (
+                _log_f32(U) >= _fma(d[idx], (f(1) - V[idx]) + _log_f32(V[idx]), X * f(0.5)))
+        active[idx] = reject
+    log_samples = _log1p_f32(-_uniform_of_bits(bits_each(subkey)))  # -exponential(subkey)
+    log_boost = np.where(boost | (log_samples == 0), f(0), log_samples * (f(1) / alpha))
+    return (_log_f32(d) + _log_f32(V)) + log_boost
+
+
+def loggamma_f32(key, a: float, shape) -> np.ndarray:
+    """jax.random.loggamma(key, a, shape, float32): one gamma_one a sample,
+    on split(key, n)."""
+    n = int(np.prod(shape, dtype=np.int64))
+    return gamma_one(split(key, n), np.full(n, np.float32(a))).reshape(shape)
+
+
+def beta_f32(key, a: float, b: float, shape) -> np.ndarray:
+    """jax.random.beta(key, a, b, shape, float32): two log-gamma draws off
+    split(key), then exp(la - max) / (exp(la - max) + exp(lb - max)), one
+    XLA op at a time as jax runs it."""
+    n = int(np.prod(shape, dtype=np.int64))
+    key_a, key_b = split(key, 2)
+    alpha = np.concatenate([np.full(n, np.float32(a)), np.full(n, np.float32(b))])
+    la, lb = gamma_one(np.concatenate([split(key_a, n), split(key_b, n)]), alpha).reshape(2, *shape)  # both at once
+    m = np.maximum(la, lb)
+    ga, gb = _exp_f32(la - m), _exp_f32(lb - m)
+    return ga / (ga + gb)
+
+
+def permutation(key, n: int) -> np.ndarray:
+    """jax.random.permutation(key, n): _shuffle's ceil(3 ln n / ln(2^32 - 1))
+    rounds (one for n < 2^21), each a stable sort of arange's order by fresh
+    random_bits of split(key)'s second key."""
+    x = np.arange(n)
+    for _ in range(int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))):
+        key, sub = split(key, 2)
+        x = x[np.argsort(random_bits(sub, (n,)), kind="stable")]
+    return x

@@ -7,7 +7,9 @@ on the CPU.
   batch_augment.py's own jit): boxes equal, views within 1e-6 (measured:
   bit-equal at these shapes), with drawn and injected thetas.
 * the classic, classic_no_color and center-crop train transforms and the val
-  transform, from the same key: within 1e-6 (measured: bit-equal).
+  transform, from the same key: within 1e-6 (measured: bit-equal); an
+  unknown preset raises (RandAugment, AutoAugment and CutMix:
+  tests/test_torch_train_recipes.py).
 * the copied host resize bit-equal to the JAX package's native build.
 """
 
@@ -107,11 +109,9 @@ def test_val_transform_matches_jax_and_the_rest_raises():
     got = taug.val_transform_batch(torch.from_numpy(u8), 224, 224)
     assert np.abs(got.permute(0, 2, 3, 1).numpy() - want).max() <= 1e-6
     key = trng.item_key(1, "augment", 0, 0)
-    for preset in ("randaug", "autoaug"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    for preset in ("Classic", "randaugment", "cutmix", "none"):  # cutmix wraps a preset; "none" maps to None upstream
+        with pytest.raises(ValueError, match="unknown train transform preset"):
             taug.train_transform_batch(torch.from_numpy(u8), key, preset, 224, 224)
-    with pytest.raises(ValueError):
-        taug.train_transform_batch(torch.from_numpy(u8), key, "Classic", 224, 224)
 
 
 @pytest.mark.parametrize("shape", [(700, 1000, 256, 256), (512, 512, 256, 256), (100, 90, 256, 256),

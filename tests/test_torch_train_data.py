@@ -136,8 +136,8 @@ def test_input_pipeline_batches_equal_jax(tree):
     jp, tp = JPipeline(jtrain, train_transform="classic", **kw), TPipeline(ttrain_ds, train_transform="classic",
                                                                           device="cpu", **kw)
     jx, jy, _ = next(iter(jp.iter_train(0)))
-    tx, ty = next(iter(tp.iter_train(0)))
-    assert tx.shape == (4, 3, 64, 64) and ty.tolist() == np.asarray(jy).tolist()
+    tx, ty, tsoft = next(iter(tp.iter_train(0)))
+    assert tx.shape == (4, 3, 64, 64) and ty.tolist() == np.asarray(jy).tolist() and tsoft is None
     assert np.array_equal(tx.permute(0, 2, 3, 1).numpy(), np.asarray(jx))
     je = list(JPipeline(jtest, batch_size=2, resize=(64, 64), num_threads=2).iter_eval())
     te = list(TPipeline(ttest, batch_size=2, resize=(64, 64), num_threads=2, device="cpu").iter_eval())
@@ -240,7 +240,7 @@ def test_cli_train_one_epoch_writes_metrics_and_a_checkpoint_that_restores(tree,
 
 
 @pytest.mark.parametrize("flag", ["--wandb", "--use_target_soft_cross_entropy", "--plot_per_class_acc",
-                                  "--use_cutmix"])
+                                  "--net=inception_mixed_6e"])
 def test_cli_train_options_not_ported_raise(tree, tmp_path, monkeypatch, flag):
     _small_planes(monkeypatch, tree)
     with pytest.raises(NotImplementedError):
