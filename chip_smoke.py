@@ -144,6 +144,30 @@ Phases, each printing one JSON line:
                 train phase's f64 bounds; then the input pipeline feeding the
                 step at each preset: s/step, img/s over 10 steps, stream
                 syncs of a batch and step (required 0), peak memory.
+ 10. xl     -- SDXL-Turbo + canny ControlNet-XL, cub's default recipe:  cli
+                gen --dataset cub --skip_filter --num_per_image 1  in-process
+                on a synthetic CUB-200-2011 tree of 8 seeded 512^2 sources
+                in 4 classes (PNG bytes under .jpg names outside the val
+                carve-out), one batch of 8.  The recipe must resolve to
+                sd_xl-turbo + canny, 2 trailing DDIM steps (999, 499),
+                guidance 0, no negative prompt; full published widths
+                (UNet 320/640/1280, depth 1/2/10, heads of d 64;
+                ControlNet-XL; CLIP ViT-L and OpenCLIP bigG towers; the VAE;
+                about 4.5 B parameters), seeded, bf16.  Launch counts as
+                expected_xl_counts; the 8 PNGs equal the fused function's
+                output bit for bit.  The K3, K4 and K5 sites of one hooked
+                XL step that the kernels phase did not check are checked
+                there (rows with "cell": "xl").  Card bf16 against the port
+                on the CPU in f32 (same weights): both towers on one prompt
+                (hidden states at row cosine >= 0.99, pooled >= 0.99) and
+                one UNet + ControlNet-XL step at B1 on the same inputs (eps
+                cosine >= 0.99).  Then sd_xl + canny (init_pipeline's
+                "sd_xl") under CFG 7.5 at 2 of its 30 steps: every
+                self-attention at B16, launch counts as the turbo batch's.
+                Printed: init s, wall s, img/s, s/step (the time of 4 more
+                steps, over 4), the towers' ms and device ms, the profiled
+                batch's device time by kernel and idle share, peak memory
+                and what earlier phases still held.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -155,8 +179,8 @@ torch.profiler writes the device time by kernel to OUT.json and
 OUT_opt_in.json, one 1024^2 batch to OUT_gen_1024.json and the filter's
 scoring of its 256 augs to OUT_filter.json, the train phase's 2
 profiled steps at batch 4 and 16 to OUT_train.json and OUT_train_b16.json,
-and the blip phase's profiled batch to OUT_blip.json, and prints a summary
-line each.
+the blip phase's profiled batch to OUT_blip.json and the xl phase's to
+OUT_xl.json, and prints a summary line each.
 Then the kernels line, the card's name and power limit (nvidia-smi) and, as
 the last line, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Needs one CUDA card; imports nothing of JAX.
@@ -192,6 +216,12 @@ K1_SHAPES = [
     ("vae mid attention", 8, 4096, 1, 512, 512),
     ("1024^2 level 1", 16, 4096, 8, 80, 128),  # the gen phase's K1 sites (its mid block is level 2's shape)
     ("1024^2 level 2", 16, 1024, 8, 160, 192),
+    # the xl phase's: SDXL at 512^2, heads of d 64 (no padding); sd_xl-turbo
+    # at B8, sd_xl's CFG at B16 (XL has no shared prefix)
+    ("xl level 1", 8, 1024, 10, 64, 64),
+    ("xl level 2 and mid", 8, 256, 20, 64, 64),
+    ("xl CFG level 1", 16, 1024, 10, 64, 64),
+    ("xl CFG level 2 and mid", 16, 256, 20, 64, 64),
 ]
 # K6 shapes: (what, B, L, H, d); d pads to 64 in shared memory
 K6_SHAPES = [
@@ -210,6 +240,8 @@ K2_SHAPES = [
     ("1024^2 level 0", 16, 16384, 320),
     ("1024^2 level 1", 16, 4096, 640),
     ("1024^2 level 2", 16, 1024, 1280),
+    ("xl level 1", 8, 1024, 640),  # sd_xl-turbo at 512^2; sd_xl's CFG B16 shapes are levels 1 and 2 above
+    ("xl level 2 and mid", 8, 256, 1280),
 ]
 
 
@@ -274,15 +306,18 @@ def queued_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10, warmup: int = 2):
+def device_ms(fn, iters: int = 10, warmup: int = 2, floor_ms: float = 0.0):
     """The device time per call of the CUDA kernels that fn launches: their
     self device time under torch.profiler (CUPTI), summed over iters calls,
     over iters.  Unlike cuda_ms, no host dispatch between the launches counts.
     Returns (ms, {kernel name: ms per call}).  On the H100 a profile of the
     ctypes kernels has now and then come back with the host's launch calls
-    and no device record at all, up to three in a row; after two such, the
-    time is taken from CUDA events instead (queued_ms), the call is noted in
-    PROFILER_MISSES, and the kernel breakdown is None."""
+    and no device record at all, up to three in a row, and late in a long
+    run with a share of the records (a K5 row at a quarter of its events
+    time, below its bound); a profile with no device record, or one whose
+    time lies below floor_ms (the caller's bound), counts as missed.  After
+    two such, the time is taken from CUDA events instead (queued_ms), the
+    call is noted in PROFILER_MISSES, and the kernel breakdown is None."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -298,12 +333,12 @@ def device_ms(fn, iters: int = 10, warmup: int = 2):
             dev_us = getattr(e, "self_device_time_total", 0) or 0
             if str(e.device_type).endswith("CUDA") and dev_us > 0:
                 by[e.key] = by.get(e.key, 0.0) + dev_us / 1e3 / iters
-        if by:
+        if by and sum(by.values()) >= floor_ms:
             return sum(by.values()), by
     events = [(e.key, str(e.device_type)) for e in prof.key_averages()][:12]
     PROFILER_MISSES.append(events)
-    print("device_ms: the profiler recorded no device time in 2 profiles; CUDA events instead. Its events:",
-          events, file=sys.stderr, flush=True)
+    print(f"device_ms: the profiler recorded no device time, or less than the bound {floor_ms} ms, in 2 "
+          f"profiles ({sum(by.values())} ms); CUDA events instead. Its events:", events, file=sys.stderr, flush=True)
     return queued_ms(fn, iters), None
 
 
@@ -642,8 +677,10 @@ def check_k2(gen):
         # hid and of the output's three bf16 steps: allow 1% of the largest output
         require(err <= 1e-2 * ref_max, what, "max |kernel - plain|", err, "> 1% of", ref_max)
         del ref
+        m = b * l
+        b_ms, b_by = bound(6.0 * m * c * f, 2 * (2 * m * c + 3 * c * f + 2 * f + c) + 8 * c)
         ms = cuda_ms(lambda: geglu.fused_ln_geglu(*args), 10)
-        dev_ms, by_kernel = device_ms(lambda: geglu.fused_ln_geglu(*args))
+        dev_ms, by_kernel = device_ms(lambda: geglu.fused_ln_geglu(*args), floor_ms=b_ms)
         stages = breakdown(by_kernel, dev_ms, "ln_geglu_{}_kernel", ("norm", "up", "down"), what)
         host = host_us(lambda: geglu.fused_ln_geglu(*args))
         plain_ms = cuda_ms(lambda: geglu.fused_ln_geglu_plain(*args), 3, warmup=1)
@@ -657,8 +694,6 @@ def check_k2(gen):
 
         cublas_ms = cuda_ms(products, 10)
         cublas_dev_ms, _ = device_ms(products)
-        m = b * l
-        b_ms, b_by = bound(6.0 * m * c * f, 2 * (2 * m * c + 3 * c * f + 2 * f + c) + 8 * c)
         rows.append(dict(shape=what, rows=m, C=c, F=f, max_abs_err=err, ref_max=ref_max, ms=ms, device_ms=dev_ms,
                          stage_device_ms=stages, host_us=host, plain_ms=plain_ms, library_ms=None,
                          cublas_ms=cublas_ms, cublas_device_ms=cublas_dev_ms, bound_ms=b_ms, bound_by=b_by,
@@ -711,11 +746,11 @@ def check_k3(gen, sites):
             def kernel():
                 return gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
 
+            b_ms, b_by = bound((10.0 if act else 6.0) * n, 4 * n + 8 * c, H100_F32_FLOPS)
             ms = cuda_ms(kernel, 10)
-            dev_ms, by_kernel = device_ms(kernel)
+            dev_ms, by_kernel = device_ms(kernel, floor_ms=b_ms)
             launch_ms = breakdown(by_kernel, dev_ms, "gn_{}_kernel", ("stats", "apply"), what)
             plain_ms = cuda_ms(lambda: plain(x, gamma, beta, 32, eps, act), 3, warmup=1)
-            b_ms, b_by = bound((10.0 if act else 6.0) * n, 4 * n + 8 * c, H100_F32_FLOPS)
             par = {}
             if PARENT:
                 pgn = PARENT["group_norm"]
@@ -751,14 +786,14 @@ def check_k4(gen, sites):
             return (xf.abs() + mean.abs()) * (rstd * s).abs() + bias.abs()
 
         err, ref_max, ulps, equal = require_ulps(f"rows {m} C {c}", out, ref, mag_of, [slice(None)])
+        b_ms, b_by = bound(8.0 * m * c, 4 * m * c + 8 * c, H100_F32_FLOPS)
         ms = cuda_ms(lambda: ln.layer_norm_one_pass(x, s, bias), 10)
-        dev_ms, _ = device_ms(lambda: ln.layer_norm_one_pass(x, s, bias))
+        dev_ms, _ = device_ms(lambda: ln.layer_norm_one_pass(x, s, bias), floor_ms=b_ms)
         host = host_us(lambda: ln.layer_norm_one_pass(x, s, bias))
         plain_ms = cuda_ms(lambda: ln.layer_norm_one_pass_plain(x, s, bias), 3, warmup=1)
         sb, bb = s.to(torch.bfloat16), bias.to(torch.bfloat16)
         lib_ms = cuda_ms(lambda: torch.nn.functional.layer_norm(x, (c,), sb, bb, 1e-5), 10)
         lib_dev_ms, _ = device_ms(lambda: torch.nn.functional.layer_norm(x, (c,), sb, bb, 1e-5))
-        b_ms, b_by = bound(8.0 * m * c, 4 * m * c + 8 * c, H100_F32_FLOPS)
         rows.append(dict(shape=f"rows {m}, C{c}", rows=m, C=c, plan=list(ln.ln_plan(m, c, ln.sm_count(x.device))),
                          max_abs_err=err, ref_max=ref_max, max_ulps=ulps, equal_share=equal, ms=ms,
                          device_ms=dev_ms, queued_ms=queued_ms(lambda: ln.layer_norm_one_pass(x, s, bias), 10),
@@ -813,8 +848,11 @@ def check_k5(gen, sites):
         def kernel():
             return att.attention_block_fused(*args)
 
+        m, hd = b * l, h * dp
+        b_ms, b_by = bound(8.0 * m * c * hd + 4.0 * b * h * l * l * dp, 2 * 3 * m * c + 2 * 4 * c * hd + 4 * c,
+                           exps=b * h * l * l)
         ms = cuda_ms(kernel, 10)
-        dev_ms, by_kernel = device_ms(kernel)
+        dev_ms, by_kernel = device_ms(kernel, floor_ms=b_ms)
         phases = breakdown(by_kernel, dev_ms, "attention_block_{}_kernel", ("qkv", "attend", "out"), what)
         plain_ms = cuda_ms(lambda: att.attention_block_fused_plain(*args), 2, warmup=1)
         # the yardstick: the route that configuration (a) takes at the same
@@ -830,10 +868,7 @@ def check_k5(gen, sites):
             return res + torch.nn.functional.linear(att.flash_attention_packed(q, k, v, h), wo, bo_bf)
 
         route_ms = cuda_ms(route_a, 10)
-        route_dev_ms, _ = device_ms(route_a)
-        m, hd = b * l, h * dp
-        b_ms, b_by = bound(8.0 * m * c * hd + 4.0 * b * h * l * l * dp, 2 * 3 * m * c + 2 * 4 * c * hd + 4 * c,
-                           exps=b * h * l * l)
+        route_dev_ms, _ = device_ms(route_a, floor_ms=b_ms)
         par = parent_times(lambda: PARENT["attention_block"].attention_block_fused(*args)) if PARENT else {}
         rows.append(dict(shape=what, B=b, L=l, C=c, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
                          term_max=term_max, equal_share=equal, ms=ms, device_ms=dev_ms, phase_device_ms=phases,
@@ -848,11 +883,12 @@ def record_sites(pipe):
     """Forward hooks on the pipeline's norms and self-attentions; returns
     (sites dict, hook handles).  GroupNorm: (B, C, H, W, act, eps); norm1/norm2
     LayerNorm: (rows, C); self-attention with a residual that the block kernel
-    admits: (B, L, C, heads)."""
+    admits: (B, L, C, heads); every transformer self-attention: the same
+    tuple under "self_attention"."""
     from saspa_tpu_torch.models.unet import CrossAttention, GroupNorm32, LayerNorm32
     from saspa_tpu_torch.ops.attention import attention_block_eligible
 
-    sites = {"group_norm": set(), "layernorm": set(), "attention_block": set()}
+    sites = {"group_norm": set(), "layernorm": set(), "attention_block": set(), "self_attention": set()}
 
     def gn_hook(mod, args):
         x = args[0]
@@ -865,6 +901,8 @@ def record_sites(pipe):
     def attn_hook(mod, args, kwargs):
         x = args[0]
         b, l, c = x.shape
+        if kwargs.get("context") is None:
+            sites["self_attention"].add((b, l, c, mod.heads))
         if kwargs.get("context") is None and kwargs.get("residual") is not None \
                 and attention_block_eligible(l, l, mod.heads, c // mod.heads, c, x.element_size()):
             sites["attention_block"].add((b, l, c, mod.heads))
@@ -1358,6 +1396,303 @@ def run_blip_phase(seed: int, profile_path=None) -> dict:
         return counts
     finally:
         os.chdir(old_cwd)
+        root_logger.removeHandler(tele)
+        root_logger.setLevel(old_level)
+        if old_root is None:
+            os.environ.pop("SASPA_DATA_ROOT", None)
+        else:
+            os.environ["SASPA_DATA_ROOT"] = old_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
+XL_STEPS = 2  # SDXL-Turbo's recipe (cub); the sd_xl CFG batch is cut from its 30 to the same 2
+XL_EXTRA_STEPS = 4  # s/step: (time of XL_STEPS + 4 steps - time of XL_STEPS) / 4
+XL_RESOLUTION = 512
+XL_SOURCES = 8
+CUB_CLASSES = ["001.Black_footed_Albatross", "002.Laysan_Albatross", "003.Sooty_Albatross",
+               "004.Groove_billed_Ani"]
+
+
+def expected_xl_counts(steps: int) -> dict:
+    """Launches of one SDXL(-Turbo) + ControlNet-XL batch at 512^2 (64^2
+    latents), default configuration, with or without CFG (XL runs no shared
+    prefix: CFG doubles the batch, not the launches).  Per step: UNet 70 +
+    ControlNet 34 transformer blocks (level 1 at 32^2: 4 + 6 + 4; level 2 and
+    the mid block at 16^2: 20 + 10 + 30 + 20 + 10), each with one
+    self-attention on K1, one K2 and two K4 (norm1, norm2); GroupNorms: UNet
+    46 (17 resnets x 2, 11 Transformer2D norms, conv_norm_out), ControlNet 21
+    (8 resnets x 2, 5 Transformer2D norms).  Per decode: the VAE's attention
+    on K1 and its 30 GroupNorms.  The towers' 77-token attention and every
+    cross-attention run plain; level 0 (64^2) has no attention."""
+    return {"attention_packed": 104 * steps + 1, "ln_geglu": 104 * steps, "group_norm": 67 * steps + 30,
+            "group_norm_tpu": 0, "layernorm": 208 * steps, "attention_block": 0, "flash_attention": 0}
+
+
+def write_cub_tree(root, rng, n: int, size: int) -> list:
+    """A synthetic CUB-200-2011 train split at root/CUB/CUB_200_2011 (the
+    layout CUBUtils reads): n seeded size x size sources in 4 classes as PNG
+    bytes under .jpg names none of which is in datasets_files/cub_val.txt,
+    with images.txt, train_test_split.txt, classes.txt and
+    image_class_labels.txt.  Returns the image paths under images/."""
+    from pathlib import Path
+
+    from saspa_tpu_torch.gen.image_io import write_png
+
+    cub = Path(root) / "CUB/CUB_200_2011"
+    names = [f"{CUB_CLASSES[i % 4]}/{CUB_CLASSES[i % 4].split('.', 1)[1]}_90{i:02d}_{700 + i}.jpg"
+             for i in range(n)]
+    val = set((Path(__file__).resolve().parent / "datasets_files/cub_val.txt").read_text().split())
+    require(not val & set(names), "synthetic CUB names in the val carve-out", sorted(val & set(names)))
+    for name, img in zip(names, synthetic_sources(rng, n, size)):
+        (cub / "images" / name).parent.mkdir(parents=True, exist_ok=True)
+        write_png(cub / "images" / name, img)
+    (cub / "images.txt").write_text("".join(f"{i + 1} {nm}\n" for i, nm in enumerate(names)))
+    (cub / "train_test_split.txt").write_text("".join(f"{i + 1} 1\n" for i in range(n)))
+    (cub / "classes.txt").write_text("".join(f"{k + 1} {c}\n" for k, c in enumerate(CUB_CLASSES)))
+    (cub / "image_class_labels.txt").write_text("".join(f"{i + 1} {i % 4 + 1}\n" for i in range(n)))
+    return names
+
+
+def run_xl_phase(seed: int, checks: dict, checked_sites: dict, profile_path=None) -> dict:
+    """SDXL-Turbo + ControlNet-XL through `cli gen --dataset cub`, an sd_xl
+    CFG batch, the XL kernel sites and the card against the CPU (module
+    docstring, phase 10); returns the launch counts of both batches and
+    appends the XL sites' K3, K4 and K5 rows to `checks`."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion.pipelines import DiffusionPipeline, init_pipeline
+    from saspa_tpu_torch.gen.image_io import read_png, read_rgb
+    from saspa_tpu_torch.gen.prompts import PromptEngine
+    from saspa_tpu_torch.gen.tokenizer import NEGATIVE_PROMPT
+    from saspa_tpu_torch.ops.canny import canny_control_image
+    from saspa_tpu_torch.ops.image import resize_image
+    from saspa_tpu_torch.utils import rng as rngs
+
+    size, b, steps = XL_RESOLUTION, XL_SOURCES, XL_STEPS
+    root = tempfile.mkdtemp(prefix="saspa_xl_")
+    old_root = os.environ.get("SASPA_DATA_ROOT")
+    os.environ["SASPA_DATA_ROOT"] = root
+    tele = TelemetryHandler()
+    root_logger = logging.getLogger()
+    old_level = root_logger.level
+    root_logger.setLevel(logging.INFO)
+    root_logger.addHandler(tele)
+    want = expected_xl_counts(steps)
+    try:
+        names = write_cub_tree(root, np.random.RandomState(seed + 401), b, size)
+        argv = ["gen", "--dataset", "cub", "--skip_filter", "--num_per_image", "1", "--batch_size", str(b),
+                "--seed", str(seed + 1)]
+        cfg = cli.gen_config(cli.build_parser().parse_args(argv)).with_dataset_overrides()
+        require((cfg.base_model, cfg.controlnet, cfg.num_inference_steps, cfg.guidance_scale, cfg.negative_prompt,
+                 cfg.resolution) == ("sd_xl-turbo", "canny", steps, 0.0, None, size), "cub's recipe", cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem_before = torch.cuda.memory_allocated()  # what earlier phases still hold
+        reset_counts()
+        t = time.perf_counter()
+        folder = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        gc.collect()  # the driver's pipeline
+        torch.cuda.empty_cache()
+        require(len(tele.lines) == 1 and tele.lines[0]["num_errors"] == 0 and tele.lines[0]["total"] == b,
+                "xl telemetry", tele.lines, *tele.errors)
+        require(counts == want, "xl launch counts", counts, "expected", want)
+        require(folder.endswith(f"/aug_data/controlnet/sd_xl-turbo/canny/{cfg.prompt_str}_seed_{seed + 1}/images"),
+                "xl folder", folder)
+        files = sorted(Path(folder).glob("*.png"))
+        stems = [Path(n).stem for n in names]
+        side = [f for f in files if f.stem.endswith(("_source", "_control"))]
+        outs = {f.name.split("_prompt_")[0]: f for f in files if "_prompt_" in f.name}
+        require(len(side) == 2 * b and sorted(outs) == sorted(stems), "xl files", [f.name for f in files])
+
+        # the same batch through the fused function: same seeded weights,
+        # prompts, sources and noise -> the PNGs' pixels, bit for bit
+        ds = DS_UTILS_DICT["cub"](print_func=lambda *a: None)
+        paths = ds.original_images_paths
+        engine = PromptEngine(cfg, ds, ds.get_image_path_to_class_str_dict())
+        prompts = [engine.build(pth, i, 0) for i, pth in enumerate(paths)]
+        t = time.perf_counter()
+        pipe = init_pipeline("sd_xl-turbo", "canny")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        require(pipe.scheduler.cfg.timestep_spacing == "trailing" and
+                [int(x) for x in pipe.scheduler.timesteps(steps)] == [999, 499], "turbo's timesteps",
+                pipe.scheduler.timesteps(steps))
+        n_params = sum(p.numel() for m in pipe._modules() for p in m.parameters())
+        src = np.stack([resize_image(read_rgb(pth), size) for pth in paths])
+        lf = pipe.latent_factor
+        lat = np.stack([rngs.item_normal(cfg.seed, "noise", i, 0, shape=(size // lf, size // lf, 4))
+                        for i in range(b)])
+        ids = pipe.tokenizer(prompts, pad="eot")
+        neg_ids = pipe.tokenizer([""] * b, pad="eot")
+
+        def fused_run(p, n_steps, gs, nids):
+            fn = p.make_fused_generate(size, size, n_steps, gs, 0.75, 120.0, 200.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(p.params, ids, nids, src, lat, return_images=True)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        # one hooked warm-up step (it also builds the head-padded attention
+        # weights, once per weight version): the XL sites of every norm and
+        # self-attention
+        sites, handles = record_sites(pipe)
+        fused_run(pipe, 1, 0.0, neg_ids)
+        for h in handles:
+            h.remove()
+        require({(bb, ll, hh) for bb, ll, _, hh in sites["self_attention"]} == {(b, 1024, 10), (b, 256, 20)},
+                "xl self-attention sites", sorted(sites["self_attention"]))
+        (u8, images), ts = fused_run(pipe, steps, 0.0, neg_ids)
+        require(bool(torch.isfinite(images).all()), "xl: non-finite images before quantisation")
+        u8 = u8.cpu().numpy()
+        del images
+        pngs = {s: read_png(outs[s]) for s in stems}
+        same = [bool(np.array_equal(pngs[s], u8[k])) for k, s in enumerate(stems)]
+        require(all(same), "xl PNGs differ from the fused function's output", same)
+        _, t_more = fused_run(pipe, steps + XL_EXTRA_STEPS, 0.0, neg_ids)
+        s_step = (t_more - ts) / XL_EXTRA_STEPS
+        with torch.no_grad():
+            towers_ms = cuda_ms(lambda: pipe.encode_ids(pipe.params["text"], ids), iters=5)
+
+            def towers_run():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = pipe.encode_ids(pipe.params["text"], ids)
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t0
+
+            towers = profile_run(towers_run)
+        prof = profile_run(lambda: fused_run(pipe, steps, 0.0, neg_ids))
+        if profile_path:
+            Path(profile_path).parent.mkdir(parents=True, exist_ok=True)
+            Path(profile_path).write_text(json.dumps({"config": "xl", "steps": steps, **{k: prof[k] for k in (
+                "wall_s", "device_busy_s", "groups_ms", "kernels")}}, indent=1))
+
+        # the XL sites of K3, K4 and K5 (the hooked step's) against their
+        # plain versions, where the kernels phase has not checked them yet
+        gen = torch.Generator(device="cuda").manual_seed(seed + 402)
+        xl_rows = {}
+        for name, check in (("group_norm", check_k3), ("layernorm", check_k4), ("attention_block", check_k5)):
+            new = sites[name] - checked_sites[name]
+            xl_rows[name] = check(gen, new)
+            checks[name] += xl_rows[name]
+            emit({"phase": "kernels", "kernel": name, "cell": "xl", "shapes": xl_rows[name]})
+        require(len(xl_rows["layernorm"]) == 2 and len(xl_rows["attention_block"]) == 2,
+                "xl LayerNorm and block-kernel sites", sorted(sites["layernorm"]), sorted(sites["attention_block"]))
+
+        xl = {"phase": "xl", "argv": argv, "base_model": cfg.base_model, "controlnet": cfg.controlnet,
+              "steps": steps, "timesteps": [int(x) for x in pipe.scheduler.timesteps(steps)],
+              "guidance_scale": cfg.guidance_scale, "negative_prompt": cfg.negative_prompt, "batch": b,
+              "resolution": size, "params": n_params, "init_s": init_s, "wall_s": wall, "img_per_s": b / wall,
+              "fused_wall_s": ts, f"fused_{steps + XL_EXTRA_STEPS}step_s": t_more, "s_per_step": s_step,
+              "fused_img_per_s": b / ts,
+              "towers_ms": towers_ms, "towers_share_of_fused": towers_ms / 1e3 / ts,
+              "towers_device_ms": towers["device_busy_s"] * 1e3, "towers_groups_ms": towers["groups_ms"],
+              "towers_kernels": sum(k["calls"] for k in towers["kernels"]),
+              "idle_share": prof["idle_share"], "profiled_wall_s": prof["wall_s"],
+              "device_busy_s": prof["device_busy_s"], "groups_ms": prof["groups_ms"], "peak_mem_bytes": peak,
+              "mem_before_bytes": mem_before, "launches": counts, "launches_expected": want,
+              "telemetry": tele.lines[0], "pngs_equal_fused": all(same), "uint8_mean": float(u8.mean()),
+              "profile": profile_path}
+
+        # card bf16 against the port on the CPU in f32, same weights: both
+        # towers on one prompt, then one UNet + ControlNet-XL step at B1 on
+        # the same f32 inputs (the CPU towers' context and pooled embedding)
+        t = time.perf_counter()
+        cpu = DiffusionPipeline("sd_xl-turbo", "canny", dtype=torch.float32, device="cpu", init_seed=None)
+        copy_weights(pipe, cpu)
+        cpu_setup_s = time.perf_counter() - t
+        tw = {}
+        with torch.no_grad():
+            for name, p in (("card", pipe), ("cpu", cpu)):
+                t = time.perf_counter()
+                tw[name] = [x.float().cpu() for x in p.encode_ids(p.params["text"], ids[:1])]
+                tw[name + "_s"] = time.perf_counter() - t
+        cos_hidden = row_cosines(tw["card"][0], tw["cpu"][0])
+        cos_pooled = row_cosines(tw["card"][1], tw["cpu"][1])
+        control = canny_control_image(torch.as_tensor(src[:1]).float(), 120.0, 200.0)
+        x0 = torch.from_numpy(lat[:1]).permute(0, 3, 1, 2)
+        ac = {"text_embeds": tw["cpu"][1], "time_ids": cpu.make_time_ids(1, size, size)}
+
+        def step(p):
+            dev = p.device
+            with torch.no_grad():
+                a = {k: v.to(dev) for k, v in ac.items()}
+                x, ctx = x0.to(dev), tw["cpu"][0].to(dev)
+                cn = p.params["controlnet"]
+                dr, mr = cn(x, 999, ctx, cn.embed_cond(control.permute(0, 3, 1, 2).to(dev)), 0.75, a)
+                return p.params["unet"](x, 999, ctx, dr, mr, a).float().cpu()
+
+        t = time.perf_counter()
+        eps_cpu = step(cpu)
+        cpu_step_s = time.perf_counter() - t
+        reset_counts()
+        eps_card = step(pipe)
+        step_counts = read_counts()
+        del cpu
+        gc.collect()
+        cos_eps = cosine(eps_card, eps_cpu)
+        xl["card_vs_cpu"] = {
+            "hidden_row_cosine_min": float(cos_hidden.min()), "pooled_cosine": float(cos_pooled.min()),
+            "eps_cosine": cos_eps, "eps_rel_err": rel_norm(eps_card, eps_cpu), "step_launches": step_counts,
+            "cpu_setup_s": cpu_setup_s, "towers_cpu_s": tw["cpu_s"], "towers_card_s": tw["card_s"],
+            "cpu_step_s": cpu_step_s, "cpu_threads": torch.get_num_threads()}
+        require(float(cos_hidden.min()) >= 0.99, "xl towers' hidden states card vs CPU, row cosine",
+                float(cos_hidden.min()))
+        require(float(cos_pooled.min()) >= 0.99, "xl pooled embedding card vs CPU, cosine", float(cos_pooled.min()))
+        require(cos_eps >= 0.99, "xl UNet + ControlNet step card vs CPU, eps cosine", cos_eps)
+        require(all(step_counts[k] > 0 for k in ("attention_packed", "ln_geglu", "group_norm", "layernorm")),
+                "xl card step missed a kernel", step_counts)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # sd_xl, the same network under CFG 7.5 (leading timesteps, 2 of the
+        # recipe's 30): the latents go in at 2B, every K1 site at B16
+        t = time.perf_counter()
+        sdxl = init_pipeline("sd_xl", "canny")
+        torch.cuda.synchronize()
+        init_cfg_s = time.perf_counter() - t
+        require(sdxl.scheduler.cfg.timestep_spacing == "leading", "sd_xl's spacing", sdxl.scheduler.cfg)
+        nids = sdxl.tokenizer([NEGATIVE_PROMPT] * b, pad="eot")
+        sites, handles = record_sites(sdxl)
+        fused_run(sdxl, 1, 7.5, nids)  # warm-up at B16, hooked
+        for h in handles:
+            h.remove()
+        require({(bb, ll, hh) for bb, ll, _, hh in sites["self_attention"]} == {(2 * b, 1024, 10), (2 * b, 256, 20)},
+                "sd_xl CFG self-attention sites", sorted(sites["self_attention"]))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (u8_cfg, images_cfg), ts_cfg = fused_run(sdxl, steps, 7.5, nids)
+        counts_cfg = read_counts()
+        peak_cfg = torch.cuda.max_memory_allocated()
+        require(u8_cfg.shape == (b, size, size, 3) and bool(torch.isfinite(images_cfg).all()),
+                "sd_xl output", tuple(u8_cfg.shape))
+        require(counts_cfg == want, "sd_xl launch counts", counts_cfg, "expected", want)
+        _, t_more_cfg = fused_run(sdxl, steps + XL_EXTRA_STEPS, 7.5, nids)
+        xl["sd_xl_cfg"] = {"guidance_scale": 7.5, "steps": steps,
+                           "timesteps": [int(x) for x in sdxl.scheduler.timesteps(steps)], "init_s": init_cfg_s,
+                           "wall_s": ts_cfg, f"wall_{steps + XL_EXTRA_STEPS}step_s": t_more_cfg,
+                           "s_per_step": (t_more_cfg - ts_cfg) / XL_EXTRA_STEPS,
+                           "img_per_s": b / ts_cfg, "peak_mem_bytes": peak_cfg, "launches": counts_cfg,
+                           "self_attention_sites": sorted(sites["self_attention"]),
+                           "uint8_mean": float(u8_cfg.float().mean())}
+        emit(xl)
+        del sdxl, u8_cfg, images_cfg
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"xl": counts, "xl_cfg": counts_cfg}
+    finally:
         root_logger.removeHandler(tele)
         root_logger.setLevel(old_level)
         if old_root is None:
@@ -2537,6 +2872,17 @@ def main() -> int:
 
     # ---- the paper's best train recipes: dtd classic-cutmix, compcars-parts randaug-cutmix ----
     counts["train_recipes"] = run_train_recipes_phase(args.seed, smi)
+
+    # ---- SDXL-Turbo: cli gen --dataset cub; sd_xl under CFG; the XL kernel sites ----
+    pipes.clear()  # the main path's two SD1.5 pipelines
+    torch.cuda.empty_cache()
+    xl_profile = None
+    if args.profile:
+        from pathlib import Path
+
+        out = Path(args.profile)
+        xl_profile = str(out.with_name(f"{out.stem}_xl{out.suffix}"))
+    counts.update(run_xl_phase(args.seed, checks, sites, xl_profile))
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

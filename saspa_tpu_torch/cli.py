@@ -14,10 +14,11 @@ folder of generated images; `merge-jsons` merges aug-JSONs.  `train` trains
 the WSDAN-CAL classifier on the originals mixed with the aug-JSON's images
 (`fgvc/runner.py::run_training`), with the JAX CLI's flags; `--gpu_id` is
 accepted and ignored, as there.  Ported so far:
-SD1.5 (planes' default) and BLIP-Diffusion (every other dataset's default:
-cars, dtd, compcars-parts; cub goes to SDXL-Turbo, not ported) with a canny
-ControlNet (or none), DDIM; the presets come with SDEdit and ip2p (ROADMAP
-Queue 1 item 12), the other subcommands with later slices.
+SD1.5 (planes' default), BLIP-Diffusion (the default of cars, dtd and
+compcars-parts) and SDXL-Turbo (cub's: 2 trailing DDIM steps, guidance 0),
+and SDXL under CFG (`--base_model sd_xl`), each with a canny ControlNet (or
+none), DDIM; the presets come with SDEdit and ip2p (ROADMAP Queue 1 item
+12), the other subcommands with later slices.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import logging
 def _add_gen(sub):
     p = sub.add_parser("gen", help="generate augmentations (run_aug equivalent)")
     p.add_argument("--dataset", default="planes")
-    p.add_argument("--base_model", default=None, help="default: sd_v1.5 for planes, blip_diffusion otherwise")
+    p.add_argument("--base_model", default=None,
+                   help="default: sd_v1.5 for planes, sd_xl-turbo for cub, blip_diffusion otherwise")
     p.add_argument("--controlnet", default="canny", choices=["canny", "hed", "none"])
     p.add_argument("--sdedit", action="store_true")
     p.add_argument("--sdedit_strength", type=float, default=0.85)

@@ -1,20 +1,27 @@
-"""SD1.5 + canny-ControlNet generation (counterpart of saspa_tpu/diffusion/pipelines.py).
+"""SD1.5 and SDXL(-Turbo) + canny-ControlNet generation (counterpart of
+saspa_tpu/diffusion/pipelines.py).
 
-`DiffusionPipeline(...)` owns the text tower, UNet, ControlNet and VAE
+`DiffusionPipeline(...)` owns the text towers, UNet, ControlNet and VAE
 decoder; `make_fused_generate(...)` returns the whole-batch generation
-function: on-device Canny, the text tower for the prompt and the negative
+function: on-device Canny, the text towers for the prompt and the negative
 prompt, the CFG DDIM loop over UNet + ControlNet, VAE decode and the uint8
-quantisation.  Without converted weights the models take a seeded random
-init (`torch.Generator`); `load_flax_params` carries a flax param tree in
+quantisation.  SDXL (`sd_xl`, `sd_xl-turbo`) runs two towers (ViT-L and
+OpenCLIP bigG, hidden states concatenated to 2048, bigG's projected pooled
+output) and the text_time added conditions (the pooled embedding and the
+time ids (h, w, 0, 0, h, w)); SDXL-Turbo samples on trailing-spaced DDIM
+steps, and its recipe's guidance scale 0 runs no negative tower.  Without
+converted weights the models take a seeded random init
+(`torch.Generator`); `load_flax_params` carries a flax param tree in
 through the bridge.  BLIP-Diffusion (`blip_diffusion`,
-`blip_diffusion-controlnet`) is this SD1.5 pipeline plus a vision tower and
-a Q-Former (`models/blip_diffusion.py`); `init_pipeline` builds either.
+`blip_diffusion-controlnet`) is the SD1.5 pipeline plus a vision tower and a
+Q-Former (`models/blip_diffusion.py`); `init_pipeline` builds any of them.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,16 +29,46 @@ from saspa_tpu_torch import default_dtype, resolve_device
 from saspa_tpu_torch.bridge import params_from_flax
 from saspa_tpu_torch.diffusion.sampler import make_sample_loop
 from saspa_tpu_torch.diffusion.schedulers import DDIMScheduler, SchedulerConfig
-from saspa_tpu_torch.gen.tokenizer import default_tokenizer
+from saspa_tpu_torch.gen.tokenizer import EOT, default_tokenizer
 from saspa_tpu_torch.models.controlnet import ZERO_INIT_PREFIXES, ControlNet
 from saspa_tpu_torch.models.layers import init_weights, nearest_resize
-from saspa_tpu_torch.models.text_encoder import SD15_TEXT, CLIPTextEncoder
-from saspa_tpu_torch.models.unet import SD15_UNET, UNet2DCondition
-from saspa_tpu_torch.models.vae import SD_VAE, AutoencoderKL
+from saspa_tpu_torch.models.text_encoder import SD15_TEXT, SDXL_TEXT_BIGG, SDXL_TEXT_L, CLIPTextEncoder
+from saspa_tpu_torch.models.unet import UNET_CONFIGS, UNet2DCondition
+from saspa_tpu_torch.models.vae import SD_VAE, SDXL_VAE, AutoencoderKL
 from saspa_tpu_torch.ops.canny import canny_control_image
 
+XL_BASE_MODELS = ("sd_xl", "sd_xl-turbo")
+BASE_MODELS = ("sd_v1.5", "blip_diffusion", "blip_diffusion-controlnet") + XL_BASE_MODELS  # ported so far
 
-SD15_BASE_MODELS = ("sd_v1.5", "blip_diffusion", "blip_diffusion-controlnet")  # the SD1.5 spec
+
+@dataclass
+class PipelineSpec:
+    is_xl: bool
+    text_cfgs: Tuple
+    vae_cfg: object
+    scheduler_cfg: SchedulerConfig
+
+
+def _spec(base_model: str) -> PipelineSpec:
+    """The JAX package's `_spec` for the ported base models: SD1.5's tower
+    and VAE, or SDXL's two towers and VAE (scaling 0.13025); DDIM with
+    trailing spacing for SDXL-Turbo, leading otherwise."""
+    if base_model not in BASE_MODELS:
+        raise ValueError(base_model)
+    is_xl = base_model in XL_BASE_MODELS
+    text_cfgs = (SDXL_TEXT_L, SDXL_TEXT_BIGG) if is_xl else (SD15_TEXT,)
+    sched = SchedulerConfig(timestep_spacing="trailing" if base_model == "sd_xl-turbo" else "leading")
+    return PipelineSpec(is_xl, text_cfgs, SDXL_VAE if is_xl else SD_VAE, sched)
+
+
+def openclip_pad(ids: torch.Tensor) -> torch.Tensor:
+    """EOT padding rewritten to OpenCLIP's zero padding: rows are [SOT,
+    tokens..., EOT, EOT, ...]; the first EOT stays, later ones become 0
+    (the OpenCLIP tokenizers pad with "!" = id 0, and padded positions feed
+    cross-attention)."""
+    is_eot = ids == EOT
+    first = is_eot & (torch.cumsum(is_eot.int(), dim=1) == 1)
+    return torch.where(is_eot & ~first, torch.zeros_like(ids), ids)
 
 
 class DiffusionPipeline:
@@ -49,17 +86,18 @@ class DiffusionPipeline:
         is the default path's function): GroupNorm with the TPU kernel's
         numerics where its split plan admits the site, and the self-attention
         block kernel where `attention_block_eligible` admits it."""
-        if base_model not in SD15_BASE_MODELS or sampler != "ddim" or controlnet not in (None, "canny"):
-            raise NotImplementedError(f"ported so far: {'/'.join(SD15_BASE_MODELS)} + canny/None + ddim, got "
+        if base_model not in BASE_MODELS or sampler != "ddim" or controlnet not in (None, "canny"):
+            raise NotImplementedError(f"ported so far: {'/'.join(BASE_MODELS)} + canny/None + ddim, got "
                                       f"{base_model}, {controlnet}, {sampler}")
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else default_dtype(self.device)
         self.base_model, self.controlnet_kind = base_model, controlnet
-        self.unet_cfg = unet_cfg or SD15_UNET
-        self.vae_cfg = vae_cfg or SD_VAE
-        self.text_cfgs = tuple(text_cfgs or (SD15_TEXT,))
+        self.spec = _spec(base_model)
+        self.unet_cfg = unet_cfg or UNET_CONFIGS[base_model]
+        self.vae_cfg = vae_cfg or self.spec.vae_cfg
+        self.text_cfgs = tuple(text_cfgs or self.spec.text_cfgs)
         self.tokenizer = default_tokenizer(weights_dir)
-        self.scheduler = DDIMScheduler(SchedulerConfig(), device=self.device)
+        self.scheduler = DDIMScheduler(self.spec.scheduler_cfg, device=self.device)
         self.latent_factor = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
 
         dev, dt = self.device, self.dtype
@@ -79,9 +117,9 @@ class DiffusionPipeline:
             self._random_init(init_seed)
 
         self._sample = make_sample_loop(
-            lambda p, lat, t, ctx, dr, mr: p(lat, t, ctx, dr, mr),
+            lambda p, lat, t, ctx, ac, dr, mr: p(lat, t, ctx, dr, mr, ac),
             self.scheduler,
-            (lambda p, lat, t, ctx, emb, scale: p(lat, t, ctx, emb, scale)) if controlnet else None,
+            (lambda p, lat, t, ctx, emb, scale, ac: p(lat, t, ctx, emb, scale, ac)) if controlnet else None,
             lambda p, z: p.decode(z),
             self.vae_cfg.scaling_factor,
             controlnet_embed=(lambda p, cimg: p.embed_cond(cimg)) if controlnet else None,
@@ -113,37 +151,63 @@ class DiffusionPipeline:
         self.weights_loaded = True
         return skipped
 
+    def encode_ids(self, text_params, ids):
+        """Every text tower on EOT-padded ids (B, 77) -> (context, pooled):
+        the towers' hidden states concatenated on the last axis, and the last
+        tower's projected pooled output where it has a projection (SDXL's
+        bigG), else its pooled output.  The OpenCLIP (gelu) towers take
+        `openclip_pad`'s ids."""
+        ids = torch.as_tensor(ids, device=self.device).long()
+        hiddens, pooled = [], None
+        for te in text_params:
+            out = te(openclip_pad(ids) if te.cfg.act == "gelu" else ids)
+            hiddens.append(out["hidden"])
+            pooled = out.get("proj", out["pooled"])
+        return (hiddens[0] if len(hiddens) == 1 else torch.cat(hiddens, dim=-1)), pooled
+
+    def make_time_ids(self, b: int, height: int, width: int) -> torch.Tensor:
+        """SDXL's time ids, (B, 6) f32: (original h, w, crop top, left, target h, w)."""
+        row = torch.tensor([[height, width, 0, 0, height, width]], dtype=torch.float32, device=self.device)
+        return row.repeat(b, 1)
+
     def make_fused_generate(self, height: int, width: int, num_inference_steps: int, guidance_scale: float,
                             controlnet_scale: float = 0.75, canny_low: float = 120.0, canny_high: float = 200.0):
         """Returns fn(params, ids, neg_ids, src_images, latents) -> (B, H, W, 3)
-        uint8 images on the pipeline's device.  ids/neg_ids: (B, 77) token ids;
-        src_images: (B, H, W, 3) uint8 (or float in [0, 255]); latents:
-        (B, H/f, W/f, 4) f32; numpy arrays or tensors.  With
-        return_images=True it also returns the [0, 1] f32 images before
-        quantisation."""
-        dev = self.device
+        uint8 images on the pipeline's device.  ids/neg_ids: (B, 77) token ids
+        (neg_ids unused without CFG, guidance_scale <= 1); src_images: (B, H,
+        W, 3) uint8 (or float in [0, 255]); latents: (B, H/f, W/f, 4) f32;
+        numpy arrays or tensors.  With return_images=True it also returns the
+        [0, 1] f32 images before quantisation."""
         denoise = self._denoise(height, width, num_inference_steps, guidance_scale, controlnet_scale, canny_low,
                                 canny_high)
+        do_cfg = guidance_scale > 1.0
 
         @torch.no_grad()
         def fused(params, ids, neg_ids, src_images, latents, return_images: bool = False):
-            te = params["text"][0]
-            ctx = te(torch.as_tensor(ids, device=dev).long())["hidden"]
-            nctx = te(torch.as_tensor(neg_ids, device=dev).long())["hidden"] if guidance_scale > 1.0 else None
-            return denoise(params, ctx, nctx, src_images, latents, return_images)
+            ctx, pooled = self.encode_ids(params["text"], ids)
+            nctx = ac = nac = None
+            if do_cfg:
+                nctx, npooled = self.encode_ids(params["text"], neg_ids)
+            if self.spec.is_xl:
+                tids = self.make_time_ids(ctx.shape[0], height, width)
+                ac = {"text_embeds": pooled, "time_ids": tids}
+                if do_cfg:
+                    nac = {"text_embeds": npooled, "time_ids": tids}
+            return denoise(params, ctx, nctx, src_images, latents, return_images, ac, nac)
 
         return fused
 
     def _denoise(self, height: int, width: int, num_inference_steps: int, guidance_scale: float,
                  controlnet_scale: float, canny_low: float, canny_high: float):
         """The fused function's part after the text towers:
-        fn(params, ctx, nctx, src_images, latents, return_images) -> uint8
-        images (and the [0, 1] f32 images): on-device Canny, the CFG DDIM
-        loop, VAE decode, quantisation.  nctx is None without CFG."""
+        fn(params, ctx, nctx, src_images, latents, return_images, ac, nac)
+        -> uint8 images (and the [0, 1] f32 images): on-device Canny, the CFG
+        DDIM loop, VAE decode, quantisation.  nctx is None without CFG; ac and
+        nac are SDXL's added conditions of the prompt and the negative."""
         timesteps = self.scheduler.timesteps(num_inference_steps)
         dev = self.device
 
-        def denoise(params, ctx, nctx, src_images, latents, return_images):
+        def denoise(params, ctx, nctx, src_images, latents, return_images, ac=None, nac=None):
             # uint8 sources: values 0-255 are exact in f32, so the cast is exact
             src = torch.as_tensor(src_images, device=dev).float()
             control = None
@@ -155,7 +219,8 @@ class DiffusionPipeline:
                     control = nearest_resize(control, ch, cw)
             lat = torch.as_tensor(latents, device=dev).float()
             out = self._sample(params, lat, ctx, nctx, timesteps, guidance_scale=float(guidance_scale),
-                               control_image=control, controlnet_scale=float(controlnet_scale))
+                               control_image=control, controlnet_scale=float(controlnet_scale), added_cond=ac,
+                               uncond_added_cond=nac)
             u8 = torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
             return (u8, out) if return_images else u8
 
@@ -166,18 +231,22 @@ def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = Fal
                   weights_dir: Optional[str] = None, dtype: Optional[torch.dtype] = None,
                   device=None) -> DiffusionPipeline:
     """Name-compatible with the reference's init_pipeline (run_aug/run_aug.py:128)
-    and the JAX package's: SD1.5 or BLIP-Diffusion, with a canny ControlNet
-    or none, DDIM.  Without weights the models take the seeded random init
-    (seed 0)."""
+    and the JAX package's: SD1.5, SDXL, SDXL-Turbo or BLIP-Diffusion, with a
+    canny ControlNet or none, DDIM.  Without weights the models take the
+    seeded random init (seed 0)."""
     blip = base_model in ("blip_diffusion", "blip_diffusion-controlnet")
     if SDEdit and blip:
         # the JAX package's refusal: the reference's blip + SDEdit call passes
         # arguments its BLIP pipelines do not declare
         raise ValueError("SDEdit is not supported with blip_diffusion; use "
                          "base_model='blip_diffusion-edit' for the inversion-edit path")
-    if base_model not in SD15_BASE_MODELS or SDEdit or controlnet not in (None, "canny") or sampler != "ddim":
+    if base_model == "sd_xl" and SDEdit and controlnet is None:
+        # the JAX package maps sd_xl + SDEdit to the SDXL refiner (run_aug/run_aug.py:149-151)
+        raise NotImplementedError("sd_xl + SDEdit runs the SDXL refiner, which comes with SDEdit and the VAE "
+                                  "encoder (ROADMAP Queue 1 item 12)")
+    if base_model not in BASE_MODELS or SDEdit or controlnet not in (None, "canny") or sampler != "ddim":
         raise NotImplementedError(
-            f"ported so far: {'/'.join(SD15_BASE_MODELS)} + canny/None + ddim; {base_model}, "
+            f"ported so far: {'/'.join(BASE_MODELS)} + canny/None + ddim; {base_model}, "
             f"controlnet={controlnet}, SDEdit={SDEdit}, {sampler} come with the other generation families "
             "(ROADMAP Queue 1 item 12; blip_diffusion-edit's DDIM inversion needs the VAE encoder, which comes "
             "with SDEdit)")

@@ -2,9 +2,12 @@
 
 2-way CFG with the shared prefix: the UNet and ControlNet take the B-sized
 latent against the 2B [uncond, cond] context and fork to 2B at their first
-cross-attention.  The ControlNet conditioning embedding is computed once,
-before the step loop.  Latents, control images and outputs are NHWC at this
-boundary, NCHW inside.
+cross-attention.  Not for SDXL: its added conditions enter the time
+embedding, which feeds every resnet, so under CFG the latents, the
+ControlNet's conditioning embedding and the [uncond, cond] added conditions
+go in at 2B.  The ControlNet conditioning embedding is computed once, before
+the step loop, on the B control images, and tiled.  Latents, control images
+and outputs are NHWC at this boundary, NCHW inside.
 """
 
 from __future__ import annotations
@@ -16,19 +19,25 @@ import torch
 
 def make_sample_loop(unet_apply, scheduler, controlnet_apply=None, vae_decode=None, vae_scaling: float = 0.18215,
                      controlnet_embed=None):
-    """unet_apply(params_unet, lat, t, ctx, down_res, mid_res) -> eps (f32)
-    controlnet_apply(params_cn, lat, t, ctx, cond_emb, scale) -> (down_res, mid_res)
+    """unet_apply(params_unet, lat, t, ctx, added_cond, down_res, mid_res) -> eps (f32)
+    controlnet_apply(params_cn, lat, t, ctx, cond_emb, scale, added_cond) -> (down_res, mid_res)
     controlnet_embed(params_cn, cond_img) -> cond embedding
     vae_decode(params_vae, z) -> images in [-1, 1]"""
 
     @torch.no_grad()
     def sample(params: dict, latents, context, uncond_context: Optional[torch.Tensor], timesteps,
-               guidance_scale: float, control_image=None, controlnet_scale: float = 1.0):
+               guidance_scale: float, control_image=None, controlnet_scale: float = 1.0,
+               added_cond: Optional[dict] = None, uncond_added_cond: Optional[dict] = None):
         """latents (B, h, w, 4) f32; context (B, 77, D); timesteps: descending
-        ints.  Returns (B, H, W, 3) images in [0, 1] (or the final NHWC latents
-        without a decoder)."""
+        ints; added_cond / uncond_added_cond: SDXL's {"text_embeds",
+        "time_ids"} of the prompt and the negative prompt.  Returns (B, H, W,
+        3) images in [0, 1] (or the final NHWC latents without a decoder)."""
         do_cfg = uncond_context is not None
         ctx = torch.cat([uncond_context, context], dim=0) if do_cfg else context
+        ac = added_cond
+        if do_cfg and added_cond is not None:
+            ac = {k: torch.cat([uncond_added_cond[k], added_cond[k]], dim=0) for k in added_cond}
+        n_rep = 2 if do_cfg and added_cond is not None else 1  # 1: the shared prefix forks inside the network
         lat = latents.float().permute(0, 3, 1, 2)  # channels-last in memory, as the convs keep it
         ts = [int(t) for t in timesteps]
         prev_ts = ts[1:] + [-1]
@@ -37,12 +46,16 @@ def make_sample_loop(unet_apply, scheduler, controlnet_apply=None, vae_decode=No
         use_cn = controlnet_apply is not None and control_image is not None
         if use_cn:
             cond_emb = controlnet_embed(params["controlnet"], control_image.permute(0, 3, 1, 2))
+            if n_rep > 1:
+                cond_emb = torch.cat([cond_emb] * n_rep, dim=0)
 
         for t, prev_t in zip(ts, prev_ts):
+            model_in = torch.cat([lat] * n_rep, dim=0) if n_rep > 1 else lat
             down_res = mid_res = None
             if use_cn:
-                down_res, mid_res = controlnet_apply(params["controlnet"], lat, t, ctx, cond_emb, controlnet_scale)
-            eps = unet_apply(params["unet"], lat, t, ctx, down_res, mid_res)
+                down_res, mid_res = controlnet_apply(params["controlnet"], model_in, t, ctx, cond_emb,
+                                                     controlnet_scale, ac)
+            eps = unet_apply(params["unet"], model_in, t, ctx, ac, down_res, mid_res)
             if do_cfg:
                 eps_u, eps_c = eps.chunk(2, dim=0)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)

@@ -8,13 +8,14 @@ become a flat worklist of (image, prompt) items that is
     and world size when a process group is initialised, else one process);
   * bucketed by the resized source shape (a header read per file);
   * run in batches: the host reads and resizes the sources, the card runs
-    Canny, the text tower, the CFG DDIM loop and the VAE decode
-    (`DiffusionPipeline.make_fused_generate`), and the host writes the PNGs
-    of batch i while the card works on batch i + 1.  BLIP-Diffusion
-    (`blip_diffusion[-controlnet]`) also reads each item's same-class
-    subject image, writes it as `{stem}_subject_{i}.png`, and hands it at
-    224^2 to the fused function with the dataset's meta class as the
-    subject category.
+    Canny, the text tower(s), the CFG DDIM loop and the VAE decode
+    (`DiffusionPipeline.make_fused_generate`; SDXL-Turbo, cub's model, at
+    its recipe's guidance scale 0 runs no negative tower), and the host
+    writes the PNGs of batch i while the card works on batch i + 1.
+    BLIP-Diffusion (`blip_diffusion[-controlnet]`) also reads each item's
+    same-class subject image, writes it as `{stem}_subject_{i}.png`, and
+    hands it at 224^2 to the fused function with the dataset's meta class
+    as the subject category.
 Every item's noise derives from (seed, image index, prompt index) through
 `utils.rng.item_normal`, jax.random.normal's draw in numpy, so results do not
 depend on batch composition, shard count or resume point, and match the JAX
@@ -152,16 +153,16 @@ def _save_source_and_control(cfg, indexed_paths, output_folder, device="cpu"):
 
 
 def _check_supported(cfg: GenerationConfig) -> None:
-    from saspa_tpu_torch.diffusion.pipelines import SD15_BASE_MODELS
+    from saspa_tpu_torch.diffusion.pipelines import BASE_MODELS
 
     if cfg.base_model == "ip2p" and cfg.controlnet is not None:
         raise ValueError("ip2p does not support a ControlNet")
     if cfg.sdedit and "blip_diffusion" in cfg.base_model:
         raise ValueError("SDEdit is not supported with blip_diffusion; use "
                          "base_model='blip_diffusion-edit' for the inversion-edit path")
-    if cfg.base_model not in SD15_BASE_MODELS or cfg.sdedit or cfg.controlnet not in (None, "canny"):
+    if cfg.base_model not in BASE_MODELS or cfg.sdedit or cfg.controlnet not in (None, "canny"):
         raise NotImplementedError(
-            f"ported so far: {'/'.join(SD15_BASE_MODELS)} text(+canny)->image; {cfg.base_model}, "
+            f"ported so far: {'/'.join(BASE_MODELS)} text(+canny)->image; {cfg.base_model}, "
             f"controlnet={cfg.controlnet}, sdedit={cfg.sdedit} come with the other generation families "
             "(ROADMAP Queue 1 item 12)")
 

@@ -1,8 +1,10 @@
-"""Canny ControlNet for SD1.5 (counterpart of saspa_tpu/models/controlnet.py).
+"""Canny ControlNet for SD1.5 and SDXL (counterpart of saspa_tpu/models/controlnet.py).
 
-A copy of the UNet encoder plus zero-initialised 1x1 output convs.  The
-conditioning embedding (`embed_cond`) is timestep-invariant; the sampler
-computes it once per batch, outside the step loop.
+A copy of the UNet encoder plus zero-initialised 1x1 output convs; for SDXL
+(ControlNet-XL) the encoder's time embedding takes the text_time added
+conditions, as the UNet's does.  The conditioning embedding (`embed_cond`)
+is timestep-invariant; the sampler computes it once per batch, outside the
+step loop.
 """
 
 from __future__ import annotations
@@ -53,10 +55,12 @@ class ControlNet(UNetEncoder):
         """(B, 3, 8h, 8w) cond image in [0, 1] -> (B, C0, h, w) embedding."""
         return self.controlnet_cond_embedding(cond.to(self.conv_in.kernel.dtype))
 
-    def forward(self, sample, timesteps, encoder_hidden_states, cond_emb, conditioning_scale: float = 1.0):
-        """Returns (down residuals, mid residual), each scaled by conditioning_scale."""
+    def forward(self, sample, timesteps, encoder_hidden_states, cond_emb, conditioning_scale: float = 1.0,
+                added_cond=None):
+        """Returns (down residuals, mid residual), each scaled by
+        conditioning_scale; added_cond as UNetEncoder.temb's (SDXL)."""
         dt = self.conv_in.kernel.dtype
-        temb = self.temb(sample, timesteps)
+        temb = self.temb(sample, timesteps, added_cond)
         context = encoder_hidden_states.to(dt)
         x = self.conv_in(sample.to(dt)) + cond_emb.to(dt)
         x, down_res = self.down(x, temb, context)

@@ -1,8 +1,11 @@
-"""OpenAI CLIP text towers (counterpart of saspa_tpu/models/text_encoder.py):
-SD1.5's conditioning tower (ViT-L/14 text, last_hidden_state) and the CLIP
-RN50 filter's tower (12 layers of 512 with a 1024-wide text_projection).
+"""CLIP text towers (counterpart of saspa_tpu/models/text_encoder.py):
+SD1.5's conditioning tower (ViT-L/14 text, last_hidden_state), SDXL's two
+(ViT-L and OpenCLIP bigG, both the raw penultimate layer; bigG's pooled
+output through its 1280-wide projection) and the CLIP RN50 filter's tower
+(12 layers of 512 with a 1024-wide text_projection).
 
-Causal masking, quick-gelu MLP, f32 LayerNorm islands, `output_layer`
+Causal masking, the MLP's activation (quick-gelu for the OpenAI towers,
+exact-erf GELU for OpenCLIP's), f32 LayerNorm islands, `output_layer`
 selection, the final LayerNorm, EOT pooling (argmax over the token ids) and
 the optional projection, with the flax tree's names.  Attention over 77
 tokens is plain torch.
@@ -16,6 +19,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from saspa_tpu_torch.models.layers import Dense, Embed, NormParams, flax_layer_norm
 
@@ -28,11 +32,13 @@ class CLIPTextConfig:
     heads: int = 12
     context_length: int = 77
     projection_dim: Optional[int] = None  # set for CLIP similarity towers
-    act: str = "quick_gelu"
+    act: str = "quick_gelu"  # quick_gelu (OpenAI) | gelu (OpenCLIP, exact erf)
     output_layer: int = -1  # -1 = last (after ln_final); -2 = raw penultimate
 
 
 SD15_TEXT = CLIPTextConfig()
+SDXL_TEXT_L = CLIPTextConfig(output_layer=-2)
+SDXL_TEXT_BIGG = CLIPTextConfig(width=1280, layers=32, heads=20, act="gelu", output_layer=-2, projection_dim=1280)
 CLIP_RN50_TEXT = CLIPTextConfig(width=512, layers=12, heads=8, projection_dim=1024)
 
 
@@ -47,7 +53,9 @@ class CLIPTextBlock(nn.Module):
         self.ln_2 = NormParams(w, device)
         self.mlp_fc = Dense(w, 4 * w, dtype=dtype, device=device)
         self.mlp_proj = Dense(4 * w, w, dtype=dtype, device=device)
-        assert cfg.act == "quick_gelu", "only the OpenAI CLIP towers (quick-gelu) are ported"
+        if cfg.act not in ("quick_gelu", "gelu"):
+            raise ValueError(f"unknown text tower activation {cfg.act!r}")
+        self.act = cfg.act
 
     def forward(self, x, mask_bias):
         b, l, w = x.shape
@@ -59,7 +67,8 @@ class CLIPTextBlock(nn.Module):
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, l, w)
         x = x + self.attn_out(out)
         h = self.mlp_fc(flax_layer_norm(x, self.ln_2.scale, self.ln_2.bias).to(x.dtype))
-        h = h * torch.sigmoid(1.702 * h)
+        # OpenCLIP's nn.GELU() is the exact erf form, not the tanh approximation
+        h = h * torch.sigmoid(1.702 * h) if self.act == "quick_gelu" else F.gelu(h)
         return x + self.mlp_proj(h)
 
 

@@ -1,4 +1,12 @@
-"""SD1.5 conditional UNet in PyTorch (counterpart of saspa_tpu/models/unet.py).
+"""SD1.5 and SDXL conditional UNets in PyTorch (counterpart of saspa_tpu/models/unet.py).
+
+SDXL (`SDXL_UNET`: three levels 320/640/1280, transformer depth 1/2/10,
+heads of d 64, cross-attention width 2048) adds linear proj_in/proj_out
+(`use_linear_projection`) and the text_time added conditions: the pooled
+text embedding and six time ids enter `temb` through `add_embedding`, in
+`UNetEncoder.temb`, so the ControlNet takes them too.  Since they feed
+every resnet, XL runs without the CFG shared prefix (below): its sampler
+hands the UNet 2B latents under CFG.
 
 NCHW inside (channels-last in memory from the latents on, the format the
 convolutions keep); module and parameter names follow the flax tree.  By default
@@ -66,6 +74,10 @@ class UNetConfig:
     transformer_layers_per_block: Tuple[int, ...] = (1, 1, 1, 1)
     num_attention_heads: Tuple[int, ...] = (8, 8, 8, 8)  # head COUNT per block (diffusers' naming)
     cross_attention_dim: int = 768
+    use_linear_projection: bool = False
+    addition_embed_type: Optional[str] = None  # None | "text_time" (SDXL)
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: Optional[int] = None  # SDXL: 2816 = 1280 pooled + 6 x 256
     norm_num_groups: int = 32
     freq_shift: int = 0
     flip_sin_to_cos: bool = True
@@ -75,6 +87,26 @@ class UNetConfig:
 
 
 SD15_UNET = UNetConfig()
+
+SDXL_UNET = UNetConfig(
+    block_out_channels=(320, 640, 1280),
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+    transformer_layers_per_block=(1, 2, 10),
+    num_attention_heads=(5, 10, 20),
+    cross_attention_dim=2048,
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    projection_class_embeddings_input_dim=2816,
+)
+
+UNET_CONFIGS = {
+    "sd_v1.5": SD15_UNET,
+    "sd_xl": SDXL_UNET,
+    "sd_xl-turbo": SDXL_UNET,
+    "blip_diffusion": SD15_UNET,  # BLIP-Diffusion rides an SD1.5 UNet
+    "blip_diffusion-controlnet": SD15_UNET,
+}
 
 
 def timestep_embedding(t, dim: int, flip_sin_to_cos=True, freq_shift=0.0, max_period=10000.0):
@@ -243,28 +275,45 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
+    """proj_in/proj_out: 1x1 convs, or dense layers on the tokens with
+    use_linear_projection (SD2.x, SDXL)."""
+
     def __init__(self, channels, context_dim, heads, depth, dtype, device, pallas_group_norm=False,
-                 attention_megakernel=False):
+                 attention_megakernel=False, use_linear_projection=False):
         super().__init__()
         # diffusers' Transformer2DModel uses eps 1e-6 for this norm
         self.norm = GroupNorm32(channels, 32, eps=1e-6, device=device, tpu_numerics=pallas_group_norm)
-        self.proj_in = Conv(channels, channels, 1, dtype=dtype, device=device)
+        self.linear = use_linear_projection
+        if use_linear_projection:
+            self.proj_in = Dense(channels, channels, dtype=dtype, device=device)
+        else:
+            self.proj_in = Conv(channels, channels, 1, dtype=dtype, device=device)
         for i in range(depth):
             setattr(self, f"blocks_{i}", BasicTransformerBlock(channels, context_dim, heads, dtype, device,
                                                                megakernel=attention_megakernel))
         self.depth = depth
-        self.proj_out = Conv(channels, channels, 1, dtype=dtype, device=device)
+        if use_linear_projection:
+            self.proj_out = Dense(channels, channels, dtype=dtype, device=device)
+        else:
+            self.proj_out = Conv(channels, channels, 1, dtype=dtype, device=device)
 
     def forward(self, x, context):
         b, c, h, w = x.shape
         residual = x
-        x = self.proj_in(self.norm(x))
-        x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        x = self.norm(x)
+        if self.linear:
+            x = self.proj_in(x.permute(0, 2, 3, 1).reshape(b, h * w, c))
+        else:
+            x = self.proj_in(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for i in range(self.depth):
             x = getattr(self, f"blocks_{i}")(x, context)
         # the batch may have grown B -> 2B at the CFG fork inside the blocks
-        x = x.reshape(x.shape[0], h, w, c).permute(0, 3, 1, 2)
-        return self.proj_out(x) + cfg_tile(residual, x.shape[0])
+        n = x.shape[0]
+        if self.linear:
+            x = self.proj_out(x).reshape(n, h, w, c).permute(0, 3, 1, 2)
+        else:
+            x = self.proj_out(x.reshape(n, h, w, c).permute(0, 3, 1, 2))
+        return x + cfg_tile(residual, n)
 
 
 class Downsample2D(nn.Module):
@@ -294,7 +343,7 @@ class UNetMidBlock2DCrossAttn(nn.Module):
         gn = pallas_group_norm
         self.resnets_0 = ResnetBlock2D(ch, ch, temb_dim, dtype, device, pallas_group_norm=gn)
         self.attentions_0 = Transformer2D(ch, cfg.cross_attention_dim, heads, cfg.transformer_layers_per_block[-1],
-                                          dtype, device, gn, attention_megakernel)
+                                          dtype, device, gn, attention_megakernel, cfg.use_linear_projection)
         self.resnets_1 = ResnetBlock2D(ch, ch, temb_dim, dtype, device, pallas_group_norm=gn)
 
     def forward(self, x, temb, context):
@@ -316,6 +365,12 @@ class UNetEncoder(nn.Module):
         boc = cfg.block_out_channels
         temb_dim = boc[0] * 4
         self.time_embedding = TimestepEmbedding(boc[0], temb_dim, dtype, device)
+        if cfg.addition_embed_type == "text_time":
+            if cfg.projection_class_embeddings_input_dim is None:
+                raise ValueError("text_time added conditions need projection_class_embeddings_input_dim")
+            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, temb_dim, dtype, device)
+        elif cfg.addition_embed_type is not None:
+            raise ValueError(f"unknown addition_embed_type {cfg.addition_embed_type!r}")
         self.conv_in = Conv(cfg.in_channels, boc[0], 3, padding=1, dtype=dtype, device=device)
         self.skip_channels = [boc[0]]
         cur = boc[0]
@@ -327,20 +382,39 @@ class UNetEncoder(nn.Module):
                 cur = ch
                 if block_type == "CrossAttnDownBlock2D":
                     setattr(self, f"down_{i}_attentions_{j}", Transformer2D(
-                        ch, cfg.cross_attention_dim, cfg.num_attention_heads[i], cfg.depth(i), dtype, device, gn, mk))
+                        ch, cfg.cross_attention_dim, cfg.num_attention_heads[i], cfg.depth(i), dtype, device, gn, mk,
+                        cfg.use_linear_projection))
                 self.skip_channels.append(ch)
             if i < len(boc) - 1:
                 setattr(self, f"down_{i}_downsample", Downsample2D(ch, dtype, device))
                 self.skip_channels.append(ch)
         self.mid_block = UNetMidBlock2DCrossAttn(cfg, temb_dim, dtype, device, gn, mk)
 
-    def temb(self, sample, timesteps):
+    def temb(self, sample, timesteps, added_cond=None):
+        """The time embedding; with text_time added conditions
+        ({"text_embeds": (B, pooled), "time_ids": (B, n)}, B the sample's
+        batch) plus add_embedding of [text_embeds, the time ids' sinusoidal
+        embeddings]."""
         cfg = self.cfg
+        dt = self.conv_in.kernel.dtype
         t = torch.as_tensor(timesteps, device=sample.device)
         if t.ndim == 0:
             t = t.expand(sample.shape[0])
         t_freq = timestep_embedding(t, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift)
-        return self.time_embedding(t_freq.to(self.conv_in.kernel.dtype))
+        temb = self.time_embedding(t_freq.to(dt))
+        if cfg.addition_embed_type == "text_time":
+            if added_cond is None:
+                raise ValueError("SDXL needs added_cond {text_embeds, time_ids}")
+            b = sample.shape[0]
+            # added conditions enter temb, which feeds every resnet: no CFG shared prefix for XL
+            if added_cond["text_embeds"].shape[0] != b:
+                raise ValueError(f"text_time added_cond batch {added_cond['text_embeds'].shape[0]} must match the "
+                                 f"sample's {b} (no CFG shared prefix for XL)")
+            time_ids = torch.as_tensor(added_cond["time_ids"], device=sample.device).reshape(-1)
+            tid = timestep_embedding(time_ids, cfg.addition_time_embed_dim, cfg.flip_sin_to_cos, cfg.freq_shift)
+            add = torch.cat([added_cond["text_embeds"].float(), tid.reshape(b, -1)], dim=-1).to(dt)
+            temb = temb + self.add_embedding(add)
+        return temb
 
     def down(self, x, temb, context):
         """Runs the down blocks; returns (x, skip list)."""
@@ -360,7 +434,8 @@ class UNetEncoder(nn.Module):
 
 class UNet2DCondition(UNetEncoder):
     """forward(sample (B, C, h, w), timesteps, context (B or 2B, 77, D),
-    down_res, mid_res) -> eps (B or 2B, C, h, w) in f32."""
+    down_res, mid_res, added_cond) -> eps (B or 2B, C, h, w) in f32;
+    added_cond as UNetEncoder.temb's (SDXL)."""
 
     def __init__(self, cfg: UNetConfig = SD15_UNET, dtype=torch.float32, device=None, pallas_group_norm=False,
                  attention_megakernel=False):
@@ -381,7 +456,7 @@ class UNet2DCondition(UNetEncoder):
                 if block_type == "CrossAttnUpBlock2D":
                     setattr(self, f"up_{i}_attentions_{j}", Transformer2D(
                         ch, cfg.cross_attention_dim, cfg.num_attention_heads[block_idx], cfg.depth(block_idx),
-                        dtype, device, gn, mk))
+                        dtype, device, gn, mk, cfg.use_linear_projection))
             if i < len(cfg.up_block_types) - 1:
                 setattr(self, f"up_{i}_upsample", Upsample2D(ch, dtype, device))
         self.conv_norm_out = GroupNorm32(boc[0], cfg.norm_num_groups, act="silu", device=device, tpu_numerics=gn)
@@ -389,10 +464,10 @@ class UNet2DCondition(UNetEncoder):
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
-                mid_block_additional_residual: Optional[torch.Tensor] = None):
+                mid_block_additional_residual: Optional[torch.Tensor] = None, added_cond: Optional[dict] = None):
         cfg = self.cfg
         dt = self.conv_in.kernel.dtype
-        temb = self.temb(sample, timesteps)
+        temb = self.temb(sample, timesteps, added_cond)
         context = encoder_hidden_states.to(dt)
         x = self.conv_in(sample.to(dt))
         x, down_res = self.down(x, temb, context)

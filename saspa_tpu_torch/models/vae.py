@@ -43,6 +43,7 @@ class VAEConfig:
 
 
 SD_VAE = VAEConfig()
+SDXL_VAE = VAEConfig(scaling_factor=0.13025)
 
 
 class VAEResnetBlock(nn.Module):

@@ -42,15 +42,17 @@ def test_attention_packed_kernel_matches_plain(gen, b, l, h, d, dp):
 
 @pytest.mark.parametrize("b,l,h,d,dp", [(2, 256, 8, 40, 64), (8, 1024, 8, 40, 64), (2, 384, 2, 40, 64),
                                         (2, 256, 4, 80, 128), (8, 1024, 8, 80, 128), (2, 384, 2, 80, 128),
-                                        (1, 128, 2, 160, 192), (2, 256, 2, 160, 192), (4, 1024, 8, 160, 192)])
+                                        (1, 128, 2, 160, 192), (2, 256, 2, 160, 192), (4, 1024, 8, 160, 192),
+                                        (8, 1024, 10, 64, 64), (8, 256, 20, 64, 64), (16, 256, 20, 64, 64)])
 def test_attention_packed_wgmma_kernel_peaked(gen, b, l, h, d, dp):
     """The wgmma kernel (head dims 64/128/192) on peaked scores: q of std 3
     before the scale puts each query's softmax on a few keys, so a permuted,
     half-swizzled or dropped K/V tile changes the output.  L = 128 and 256
     stay within one turn of the 3-stage K/V ring, L = 1024 wraps it several
     times; the L = 1024 cases launch 256 blocks (two waves on 132 SMs); L =
-    384 takes the 2-warpgroup blocks at head dims 64 and 128 (L % 256 != 0).
-    |diff| <= 1% of the largest output; pad columns exactly 0."""
+    384 takes the 2-warpgroup blocks at head dims 64 and 128 (L % 256 != 0);
+    SDXL's heads of d 64 (no padding) at 10 and 20 heads, batch 8 and its
+    CFG's 16.  |diff| <= 1% of the largest output; pad columns exactly 0."""
     def padded(x):
         return torch.nn.functional.pad(x, (0, dp - d)).reshape(b, l, h * dp).to(torch.bfloat16).contiguous()
 
@@ -77,12 +79,13 @@ def _geglu_args(gen, m, c):
 
 
 @pytest.mark.parametrize("m,c", [(256, 64), (96, 128), (32, 320), (96, 320), (200, 640), (96, 1280), (200, 1280),
-                                 (65536, 320)])
+                                 (65536, 320), (8192, 640), (2048, 1280)])
 def test_ln_geglu_kernel_matches_plain(gen, m, c):
     """Same bf16 rounding points; f32 summation order differs: |diff| <= 1%
     of the largest output.  Row counts that are not multiples of the 128-row
-    blocks at every main-path C (N tiles of 160 and 64), and the full
-    level-0 shape at 512^2."""
+    blocks at every main-path C (N tiles of 160 and 64), the full
+    level-0 shape at 512^2, and SDXL-Turbo's rows at 512^2 (8192 x 640,
+    2048 x 1280)."""
     args = _geglu_args(gen, m, c)
     before = geglu.launches
     out = geglu.fused_ln_geglu(*args)
@@ -242,7 +245,8 @@ def _block_args(gen, b, l, c, h):
     return x, res, wq, wk, wv, wo, bo, h
 
 
-@pytest.mark.parametrize("b,l,c,h", [(2, 256, 320, 8), (1, 1024, 640, 8), (2, 256, 1280, 8), (1, 128, 128, 2)])
+@pytest.mark.parametrize("b,l,c,h", [(2, 256, 320, 8), (1, 1024, 640, 8), (2, 256, 1280, 8), (1, 128, 128, 2),
+                                     (8, 1024, 640, 10), (8, 256, 1280, 20)])
 def test_attention_block_kernel_matches_plain(gen, b, l, c, h):
     """K5 vs its plain version: bf16 Q/K/V and packed rounding points are the
     same; online vs one-pass softmax and f32 product order differ: |diff|
@@ -250,7 +254,8 @@ def test_attention_block_kernel_matches_plain(gen, b, l, c, h):
     bo).  Scores of std ~4.3 bits peak each query's softmax on a few keys, so
     that term is of order 1, beside a small residual and bo.  The last case
     is a 128-token block (one 128-row attention block, one 128-key tile; C
-    128 takes the out product's 64-column tiles)."""
+    128 takes the out product's 64-column tiles); the two before it are
+    SDXL's sites at 512^2 (heads of d 64, no padding)."""
     args = _block_args(gen, b, l, c, h)
     x, res, bo = args[0], args[1], args[6]
     before = (attention.block_launches, attention.launches)

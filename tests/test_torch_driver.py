@@ -188,13 +188,16 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tcli.main(["gen", "--preset", "alia", "--skip_filter"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        init_pipeline("sd_xl", "canny")
+        init_pipeline("sd_xl", None, SDEdit=True)  # the SDXL refiner
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        init_pipeline("sd_v2.1", "canny")
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         init_pipeline("sd_v1.5", "canny", weights_dir="/nowhere")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tdriver._check_supported(GenerationConfig(controlnet="hed"))
     # BLIP-Diffusion + canny builds (its constructor stubbed: the full-width
-    # towers are the card's); its edit path, cub's SDXL-Turbo and HED raise
+    # towers are the card's), and so does cub's SDXL-Turbo + canny; BLIP's
+    # edit path and HED raise
     import saspa_tpu_torch.models.blip_diffusion as tblip
 
     monkeypatch.setattr(tblip, "BlipDiffusionPipeline", lambda **kw: ("blip", kw))
@@ -205,8 +208,10 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
         init_pipeline("blip_diffusion-edit", None)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tdriver._check_supported(GenerationConfig(base_model="blip_diffusion-edit"))
+    tdriver._check_supported(GenerationConfig(dataset="cub", base_model="blip_diffusion").with_dataset_overrides())
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tdriver._check_supported(GenerationConfig(dataset="cub", base_model="blip_diffusion").with_dataset_overrides())
+        tdriver._check_supported(GenerationConfig(dataset="cub", base_model="blip_diffusion",
+                                                  controlnet="hed").with_dataset_overrides())
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         init_pipeline("blip_diffusion", "hed")
     with pytest.raises(ValueError, match="SDEdit is not supported with blip_diffusion"):
@@ -274,6 +279,109 @@ def test_run_generation_blip_matches_jax(dtd_tree, caplog):
             assert np.array_equal(a, b), name
     tele = [r.getMessage() for r in caplog.records if r.getMessage().startswith("generation telemetry: ")]
     assert tele and '"num_errors": 0' in tele[-1] and '"total": 4' in tele[-1]
+
+
+CUB_SOURCES = ["001.Black_footed_Albatross/Black_Footed_Albatross_9001_1.jpg",
+               "001.Black_footed_Albatross/Black_Footed_Albatross_9002_2.jpg",
+               "002.Laysan_Albatross/Laysan_Albatross_9003_3.jpg"]  # not in datasets_files/cub_val.txt
+
+
+@pytest.fixture()
+def cub_tree(tmp_path, monkeypatch):
+    """A CUB-200-2011 train split of 3 sources in 2 classes (96x128 PNG
+    bytes under .jpg names): images.txt, train_test_split.txt, classes.txt,
+    image_class_labels.txt."""
+    from saspa_tpu.data.registry import CUBUtils as JaxCUB
+    from saspa_tpu_torch.data.registry import CUBUtils as PortCUB
+
+    root = tmp_path / "CUB/CUB_200_2011"
+    rng = np.random.RandomState(2)
+    for name in CUB_SOURCES:
+        (root / "images" / name).parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(rng.randint(0, 255, (96, 128, 3), np.uint8)).save(root / "images" / name, format="PNG")
+    (root / "images.txt").write_text("".join(f"{i + 1} {n}\n" for i, n in enumerate(CUB_SOURCES)))
+    (root / "train_test_split.txt").write_text("".join(f"{i + 1} 1\n" for i in range(len(CUB_SOURCES))))
+    (root / "classes.txt").write_text("1 001.Black_footed_Albatross\n2 002.Laysan_Albatross\n")
+    (root / "image_class_labels.txt").write_text("".join(f"{i + 1} {n[:3].lstrip('0')}\n"
+                                                         for i, n in enumerate(CUB_SOURCES)))
+    monkeypatch.setitem(JR.DS_UTILS_DICT, "cub", lambda print_func=print: JaxCUB(root_path=str(root),
+                                                                                  print_func=print_func))
+    monkeypatch.setitem(TR.DS_UTILS_DICT, "cub", lambda print_func=print: PortCUB(root_path=str(root),
+                                                                                  print_func=print_func))
+    return root
+
+
+def test_cli_gen_cub_matches_jax(cub_tree, monkeypatch, caplog):
+    """`gen --dataset cub --skip_filter --num_per_image 1 --resolution 64
+    --batch_size 2` through both CLIs.  cub resolves to the same
+    configuration in both: SDXL-Turbo + canny, 2 DDIM steps, guidance 0, no
+    negative prompt; both ask init_pipeline for sd_xl-turbo + canny, ddim,
+    no SDEdit, and get the tiny XL pipelines of tests/test_torch_xl.py with
+    the same params (the port's samples on trailing steps).  Both write the
+    same files under the same folder (controlnet/sd_xl-turbo/canny/...):
+    _source and _control PNGs bit-equal, the generated images within 1
+    uint8 level on >= 99% of the pixels."""
+    import saspa_tpu.cli as jcli
+    import saspa_tpu.diffusion.pipelines as jpipelines
+    import saspa_tpu.gen.driver as jdriver
+    import saspa_tpu.utils.logging_utils as jlog
+    import saspa_tpu_torch.cli as tcli
+    import saspa_tpu_torch.diffusion.pipelines as tpipelines
+    from tests.test_torch_xl import jax_pipe, port_pipe, xl_params
+
+    params = xl_params()
+    asked, cfgs, pipes = {}, {}, {}
+
+    def fake_init(kind, make):
+        def init(base_model, controlnet, SDEdit=False, sampler="ddim", weights_dir=None):
+            asked[kind] = (base_model, controlnet, SDEdit, sampler, weights_dir)
+            pipes[kind] = make(params, base_model, controlnet)
+            return pipes[kind]
+        return init
+
+    def recording(kind, run):
+        def run_generation(cfg, **kw):
+            cfgs[kind] = cfg
+            return run(cfg, **kw)
+        return run_generation
+
+    monkeypatch.setattr(jpipelines, "init_pipeline", fake_init("jax", jax_pipe))
+    monkeypatch.setattr(tpipelines, "init_pipeline", fake_init("port", port_pipe))
+    monkeypatch.setattr(jdriver, "run_generation", recording("jax", jdriver.run_generation))
+    monkeypatch.setattr(tdriver, "run_generation", recording("port", tdriver.run_generation))
+    monkeypatch.setattr(jlog, "init_logging", lambda **kw: None)
+    monkeypatch.setattr("saspa_tpu.utils.enable_compilation_cache", lambda *a, **k: None)
+    argv = ["gen", "--dataset", "cub", "--skip_filter", "--num_per_image", "1", "--resolution", "64",
+            "--batch_size", "2"]
+    jcli.main(argv)
+    want_dir = cfgs["jax"].with_dataset_overrides().output_folder(str(cub_tree))
+    want = _pngs(want_dir)
+    for p in Path(want_dir).glob("*.png"):
+        p.unlink()
+    caplog.set_level("INFO")
+    got_dir = tcli.main(argv)
+
+    resolved = cfgs["port"].with_dataset_overrides()
+    assert dataclasses.asdict(resolved) == dataclasses.asdict(cfgs["jax"].with_dataset_overrides())
+    assert (resolved.base_model, resolved.controlnet, resolved.num_inference_steps, resolved.guidance_scale,
+            resolved.negative_prompt) == ("sd_xl-turbo", "canny", 2, 0.0, None)
+    assert asked["port"] == asked["jax"] == ("sd_xl-turbo", "canny", False, "ddim", None)
+    assert pipes["port"].scheduler.cfg.timestep_spacing == "trailing"
+    assert got_dir == want_dir and "/aug_data/controlnet/sd_xl-turbo/canny/" in got_dir
+    got = _pngs(got_dir)
+    assert sorted(got) == sorted(want) and len(got) == 3 * 3
+    gen = [n for n in got if "_prompt_" in n]
+    assert len(gen) == 3
+    for name in got:
+        a, b = got[name].astype(np.int32), want[name].astype(np.int32)
+        assert a.shape == b.shape, name
+        if name in gen:
+            d = np.abs(a - b)
+            assert d.max() <= 1 and np.mean(d == 0) >= 0.99, (name, d.max(), np.mean(d == 0))
+        else:
+            assert np.array_equal(a, b), name
+    tele = [r.getMessage() for r in caplog.records if r.getMessage().startswith("generation telemetry: ")]
+    assert tele and '"num_errors": 0' in tele[-1] and '"total": 3' in tele[-1]
 
 
 def test_importing_the_entry_point_loads_no_jax_pil_or_cv2():
