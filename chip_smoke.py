@@ -168,6 +168,33 @@ Phases, each printing one JSON line:
                 steps, over 4), the towers' ms and device ms, the profiled
                 batch's device time by kernel and idle share, peak memory
                 and what earlier phases still held.
+ 11. weights -- the public checkpoint files through --weights_dir: a tree
+                in tools/weights_day.py's --src_dir layout written from
+                tools/synth_checkpoints.py's key layouts with seeded values
+                at full published width (SD1.5's UNet, VAE and text tower
+                and the canny ControlNet as F16 safetensors, OpenAI's
+                RN50.pt as a TorchScript archive, lpips' alex .pth, the
+                released WSDAN-CAL ResNet-101 .pth of planes with
+                feature_center under checkpoints/planes/; 1.55 G values,
+                3.5 GB), then  cli gen --dataset planes --skip_filter
+                --weights_dir TREE  at 512^2 (one batch of 8, 2 steps),
+                cli filter --weights_dir TREE --lpips_min 1e-06
+                --lpips_max 1000  (semantic and top-10 confidence filters;
+                the planes split widened to the baseline's 100 classes),
+                and  cli train --ckpt <the CAL .pth>  for 2 steps.  Every
+                model loads strictly (every key of its file taken, every
+                parameter from the file), its element count and f64 sum
+                equal the file's, its state after the load the file's values
+                rounded to its dtypes (1e-6); K1-K4 at (a)'s counts for the
+                steps run, K5/K6 0; the PNGs equal the fused output; card
+                bf16 vs the port on the CPU in f32 loaded from the same tree
+                (256^2, 2 steps, mean |diff| <= 0.02); LPIPS on the card
+                within 2% of the CPU's; the aug-JSON's log lists both LPIPS
+                counters; train --ckpt restores every parameter and the
+                feature centers.  Printed: the tree's seconds and bytes,
+                each file's load seconds and GB/s, the host's peak RSS
+                during gen's load, gen's img/s with and without the load,
+                LPIPS pairs/s (64 pairs, batch 64).
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -2648,6 +2675,382 @@ def run_train_recipes_phase(seed: int, smi: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+WEIGHTS_RESOLUTION = 512
+WEIGHTS_STEPS = 2  # the smoke's --steps took it 94 s past PR 13's 396 s (PERF.md, cell (i))
+WEIGHTS_REFERENCE_RESOLUTION = 256  # the card-vs-CPU fused run, as phase 4's
+WEIGHTS_CAL_CLASSES = TRAIN_CLASSES  # the released planes baseline: WSDAN-CAL ResNet-101, 100 classes
+# keys a loader leaves out of what it loads (weights/load.py): the file side of its sums skips them
+WEIGHTS_NOT_LOADED = ("position_ids", "num_batches_tracked", "input_resolution", "context_length", "vocab_size",
+                      "scaling_layer.")
+
+
+class NormalFill:
+    """tools/synth_checkpoints.py's `fill`: float32 normals from one
+    np.random.default_rng stream (a seeded tree of 1.57 G values in seconds),
+    times `scale` (the layouts multiply by 0.02)."""
+
+    def __init__(self, seed: int, scale: float = 1.0):
+        self.rng = np.random.default_rng(seed)
+        self.scale = np.float32(scale)
+
+    def randn(self, *shape):
+        if not shape:
+            return float(self.rng.standard_normal()) * float(self.scale)
+        x = self.rng.standard_normal(shape, dtype=np.float32)
+        return x if self.scale == 1 else x * self.scale
+
+
+class RssPeak:
+    """The host's peak resident set while the block runs, sampled every 20 ms."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.base = self.peak = self.rss()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+        return self
+
+    def rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def run(self):
+        while not self.stop.wait(0.02):
+            self.peak = max(self.peak, self.rss())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.rss())
+
+
+def write_weights_tree(root, seed: int) -> dict:
+    """The public files of the planes recipe in the weights_day --src_dir
+    layout, at full published width, from tools/synth_checkpoints.py's key
+    layouts with seeded values: SD1.5's UNet, VAE (the 2022 attention names)
+    and text tower and the canny ControlNet as F16 safetensors (the public
+    fp16 variants), OpenAI's RN50.pt as a TorchScript archive, the lpips
+    alex .pth, and the released WSDAN-CAL ResNet-101 of planes (100 classes,
+    with feature_center) under checkpoints/planes/.  Returns {path:
+    (elements, f64 sum)} of what each file holds for its model, the keys the
+    loaders leave out (WEIGHTS_NOT_LOADED, the VAE encoder) not counted."""
+    from pathlib import Path
+
+    from saspa_tpu_torch.weights.files import write_safetensors
+    from tools import synth_checkpoints as synth
+
+    root = Path(root)
+    fill = NormalFill(seed)
+    sums = {}
+
+    def record(path, sd, skip_prefixes=()):
+        n, total = 0, 0.0
+        for k, v in sd.items():
+            if any(x in k for x in WEIGHTS_NOT_LOADED) or k.startswith(skip_prefixes):
+                continue
+            n += v.size
+            total += float(np.sum(v, dtype=np.float64))
+        sums[str(path)] = (n, total)
+
+    def f16(sd):  # torch's cast: 3x numpy's
+        return {k: torch.from_numpy(v).half().numpy() if v.dtype == np.float32 else v for k, v in sd.items()}
+
+    for rel, make, skip in (
+            ("sd_v1.5/unet/diffusion_pytorch_model.fp16.safetensors", synth.diffusers_unet_state_dict, ()),
+            ("sd_v1.5/vae/diffusion_pytorch_model.fp16.safetensors", synth.diffusers_vae_state_dict,
+             ("encoder.", "quant_conv.")),
+            ("sd_v1.5/text_encoder/model.fp16.safetensors", synth.hf_clip_text_state_dict, ()),
+            ("controlnet_canny_sd15/diffusion_pytorch_model.fp16.safetensors",
+             synth.diffusers_controlnet_state_dict, ())):
+        sd = f16(make(fill=fill))
+        path = root / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_safetensors(path, sd)
+        record(path, sd, skip)
+        del sd
+    sd = synth.openai_clip_rn50_state_dict(fill=fill)
+    module = torch.nn.Module()  # OpenAI's RN50.pt is a scripted model: its state as buffers
+    for key, v in sd.items():
+        *mods, leaf = key.split(".")
+        m = module
+        for name in mods:
+            if not hasattr(m, name):
+                m.add_module(name, torch.nn.Module())
+            m = getattr(m, name)
+        m.register_buffer(leaf, torch.from_numpy(np.asarray(v)))
+    torch.jit.save(torch.jit.script(module), str(root / "RN50.pt"))
+    record(root / "RN50.pt", sd)
+    # lpips at weights of std 0.08 (near He's for the alexnet convs; 0.02 leaves
+    # every deep feature map at its bias, and every distance near 0), its
+    # heads non-negative, as trained lpips's are
+    sd = synth.lpips_alex_state_dict(fill=NormalFill(seed + 1, scale=4.0))
+    sd.update({k: np.abs(v) for k, v in sd.items() if k.startswith("lin")})
+    (root / "lpips").mkdir()
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}, root / "lpips" / "alex.pth")
+    record(root / "lpips" / "alex.pth", sd)
+    sd = synth.cal_checkpoint_state_dict(depth=101, num_classes=WEIGHTS_CAL_CLASSES, fill=fill)
+    center = fill.randn(WEIGHTS_CAL_CLASSES, 32 * 2048) * np.float32(0.02)
+    (root / "checkpoints" / "planes").mkdir(parents=True)
+    torch.save({"logs": {"epoch": 80, "val_topk_accuracy": [0.9]},
+                "state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
+                "feature_center": torch.from_numpy(center)}, root / "checkpoints" / "planes" / "model_bestacc.pth")
+    record(root / "checkpoints" / "planes" / "model_bestacc.pth", sd)
+    return sums
+
+
+def write_wide_planes_tree(root, gen_root, ids, n: int, seed: int) -> None:
+    """A planes train split of n images in n variants (the released
+    baseline's class count) under root: the gen tree's sources under their
+    ids, then seeded 64^2 PNGs."""
+    import shutil
+    from pathlib import Path
+
+    from saspa_tpu_torch.gen.image_io import write_png
+
+    src = Path(gen_root) / "FGVC-Aircraft/fgvc-aircraft-2013b/data"
+    data = Path(root) / "FGVC-Aircraft/fgvc-aircraft-2013b/data"
+    (data / "images").mkdir(parents=True)
+    all_ids = list(ids) + [f"{1900000 + j:07d}" for j in range(n - len(ids))]
+    rng = np.random.RandomState(seed)
+    for i, image_id in enumerate(all_ids):
+        if i < len(ids):
+            shutil.copyfile(src / "images" / f"{image_id}.jpg", data / "images" / f"{image_id}.jpg")
+        else:
+            write_png(data / "images" / f"{image_id}.jpg", synthetic_sources(rng, 1, 64)[0])
+    (data / "images_train.txt").write_text("".join(f"{i}\n" for i in all_ids))
+    (data / "images_manufacturer_train.txt").write_text("".join(f"{i} Maker\n" for i in all_ids))
+    (data / "images_variant_train.txt").write_text("".join(f"{i} V-{k:03d}\n" for k, i in enumerate(all_ids)))
+    (data / "variants.txt").write_text("".join(f"V-{k:03d}\n" for k in range(n)))
+
+
+def check_load_reports(reports, file_sums, what: str) -> list:
+    """Each model: every key of its file taken, every parameter loaded, the
+    element count and f64 sum equal to the file's, and the module's state
+    after the load equal to the file's values rounded to its dtypes
+    (relative 1e-6).  Returns one summary row a model."""
+    rows = []
+    for r in reports:
+        n, total = file_sums[r["file"]]
+        require(r["unconsumed"] == 0 and r["params"] == r["module_params"], what, "load report", r)
+        require(r["elements"] == n, what, r["model"], "elements", r["elements"], "file", n)
+        require(abs(r["sum"] - total) <= 1e-6 * max(abs(total), 1.0), what, r["model"], "sum", r["sum"], "file", total)
+        require(abs(r["loaded_sum"] - r["rounded_sum"]) <= 1e-6 * max(abs(r["rounded_sum"]), 1.0), what,
+                r["model"], "loaded", r["loaded_sum"], "rounded file", r["rounded_sum"])
+        rows.append({k: r[k] for k in ("model", "file", "kind", "file_keys", "params", "skipped", "elements", "sum",
+                                       "loaded_sum", "rounded_sum", "bytes", "seconds")})
+    return rows
+
+
+def run_weights_phase(steps: int, seed: int, smi: str) -> dict:
+    """Loading the public checkpoint files (module docstring, phase 11);
+    returns the launch counts of its `gen` run."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion import pipelines as tpipelines
+    from saspa_tpu_torch.filters import lpips_filter
+    from saspa_tpu_torch.filters.batches import new_timings
+    from saspa_tpu_torch.gen.image_io import read_png, read_rgb
+    from saspa_tpu_torch.gen.prompts import PromptEngine
+    from saspa_tpu_torch.gen.tokenizer import NEGATIVE_PROMPT
+    from saspa_tpu_torch.ops.image import resize_image
+    from saspa_tpu_torch.utils import rng as rngs
+    from saspa_tpu_torch.weights import load as wload
+
+    size, b = WEIGHTS_RESOLUTION, 8
+    root = Path(tempfile.mkdtemp(prefix="saspa_weights_"))
+    tree = root / "weights"
+    env = {k: os.environ.get(k) for k in ("SASPA_DATA_ROOT", "SASPA_CHECKPOINTS")}
+    os.environ["SASPA_DATA_ROOT"] = str(root / "data")
+    os.environ["SASPA_CHECKPOINTS"] = str(root / "no_checkpoints")  # the baseline must come from the tree
+    root_logger = logging.getLogger()
+    old_handlers, old_level = root_logger.handlers[:], root_logger.level
+    root_logger.setLevel(logging.INFO)
+    real_init = tpipelines.init_pipeline
+    made = []
+
+    def recording_init(*a, **k):
+        t0 = time.perf_counter()
+        with RssPeak() as rss:
+            pipe = real_init(*a, **k)
+            torch.cuda.synchronize()
+        made.append((pipe, rss, time.perf_counter() - t0))
+        return pipe
+
+    wload.REPORT_SUMS = True
+    try:
+        t = time.perf_counter()
+        file_sums = write_weights_tree(tree, seed + 501)
+        tree_s = time.perf_counter() - t
+        tree_bytes = sum(f.stat().st_size for f in tree.rglob("*") if f.is_file())
+        ids = write_planes_tree(root / "data", np.random.RandomState(seed + 502), b, size)
+
+        # ---- cli gen from the tree: the planes recipe's SD1.5 + canny, loaded
+        argv = ["gen", "--dataset", "planes", "--skip_filter", "--weights_dir", str(tree), "--resolution", str(size),
+                "--num_per_image", "1", "--num_inference_steps", str(steps), "--batch_size", str(b), "--seed",
+                str(seed + 3)]
+        wload.REPORTS.clear()
+        tpipelines.init_pipeline = recording_init
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        folder = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        tpipelines.init_pipeline = real_init
+        counts = read_counts()
+        want = expected_counts(steps, "default")
+        require(counts == want, "weights: gen launch counts", counts, "expected", want)
+        (pipe, rss, init_s), = made
+        require(pipe.weights_loaded and pipe.params["controlnet"] is not None, "weights: the pipeline did not load")
+        gen_rows = check_load_reports(pipe.load_report, file_sums, "weights: gen")
+        require(sorted(r["model"] for r in gen_rows) == ["controlnet", "text", "unet", "vae"], "weights: gen models",
+                gen_rows)
+        load_s = sum(r["seconds"] for r in gen_rows)
+        files = {f.name.split("_prompt_")[0]: f for f in Path(folder).glob("*.png") if "_prompt_" in f.name}
+        require(sorted(files) == sorted(ids), "weights: gen files", sorted(files))
+
+        # the same batch through the loaded pipeline's fused function: the PNGs bit for bit
+        cfg = cli.gen_config(cli.build_parser().parse_args(argv)).with_dataset_overrides()
+        ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        engine = PromptEngine(cfg, ds, ds.get_image_stem_to_class_str_dict())
+        paths = ds.original_images_paths
+        prompts = [engine.build(pth, i, 0) for i, pth in enumerate(paths)]
+        src = np.stack([resize_image(read_rgb(pth), size) for pth in paths])
+        lf = pipe.latent_factor
+        lat = np.stack([rngs.item_normal(cfg.seed, "noise", i, 0, shape=(size // lf, size // lf, 4)) for i in range(b)])
+        tok_ids = pipe.tokenizer(prompts, pad="eot")
+        neg_ids = pipe.tokenizer([NEGATIVE_PROMPT] * b, pad="eot")
+        u8 = pipe.make_fused_generate(size, size, steps, 7.5, 0.75, 120.0, 200.0)(pipe.params, tok_ids, neg_ids, src,
+                                                                                 lat).cpu().numpy()
+        same = [bool(np.array_equal(read_png(files[Path(pth).stem]), u8[k])) for k, pth in enumerate(paths)]
+        require(all(same), "weights: gen PNGs differ from the fused function's output", same)
+
+        # card bf16 against the port on the CPU in f32, both loaded from the tree (phase 4's bound)
+        rs = WEIGHTS_REFERENCE_RESOLUTION
+        small = (tok_ids[:1], neg_ids[:1], src[:1, ::2, ::2], lat[:1, ::2, ::2])
+        t = time.perf_counter()
+        cpu = tpipelines.DiffusionPipeline("sd_v1.5", "canny", dtype=torch.float32, device="cpu",
+                                           weights_dir=str(tree))
+        cpu_load_s = time.perf_counter() - t
+        require(cpu.weights_loaded and len(cpu.load_report) == 4, "weights: the CPU pipeline did not load")
+        _, img_cpu = cpu.make_fused_generate(rs, rs, 2, 7.5)(cpu.params, *small, return_images=True)
+        del cpu
+        _, img_gpu = pipe.make_fused_generate(rs, rs, 2, 7.5)(pipe.params, *small, return_images=True)
+        diff = (img_gpu.float().cpu() - img_cpu).abs()
+        mean_diff, max_diff = diff.mean().item(), diff.max().item()
+        require(mean_diff <= 0.02, "weights: card vs CPU mean |diff|", mean_diff)
+        del pipe, made[:]
+        torch.cuda.empty_cache()
+
+        # ---- cli filter from the tree: CLIP RN50, WSDAN-CAL and LPIPS loaded.  The
+        # planes classes are the train split's: a split of the baseline's 100
+        # classes whose first 8 images are the gen tree's sources
+        write_wide_planes_tree(root / "wide", root / "data", ids, WEIGHTS_CAL_CLASSES, seed + 504)
+        os.environ["SASPA_DATA_ROOT"] = str(root / "wide")
+        argv_f = ["filter", "--dataset", "planes", "--aug_folder", str(folder), "--weights_dir", str(tree),
+                  "--lpips_min", "1e-06", "--lpips_max", "1000"]
+        wload.REPORTS.clear()
+        reset_counts()
+        t = time.perf_counter()
+        json_path = cli.main(argv_f)
+        torch.cuda.synchronize()
+        filter_wall = time.perf_counter() - t
+        require(all(v == 0 for v in read_counts().values()), "weights: filter launched a kernel of K1-K6")
+        filter_rows = check_load_reports(wload.REPORTS, file_sums, "weights: filter")
+        require(sorted(r["model"] for r in filter_rows) == ["cal", "clip", "lpips"], "weights: filter models",
+                filter_rows)
+        kept = json.loads(Path(json_path).read_text())
+        log = "".join(f.read_text() for f in Path(json_path).parent.glob(Path(json_path).stem + "*.log"))
+        counters = re.findall(r"For filter = (lpips_min|lpips_max), filtered (\d+) images", log)
+        require(sorted(c[0] for c in counters) == ["lpips_max", "lpips_min"] and all(c[1] == "0" for c in counters),
+                "weights: the LPIPS counters of the aug-JSON's log", counters)
+
+        # LPIPS on the card (bf16) against the port on the CPU (f32), both from the tree
+        wide = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        require(wide.num_classes == WEIGHTS_CAL_CLASSES, "weights: the wide tree's classes", wide.num_classes)
+        by_stem = {Path(p).stem: p for p in wide.original_images_paths}
+        origs, augs = [by_stem[i] for i in sorted(files)], [str(files[i]) for i in sorted(files)]
+        d_card = lpips_filter.batched_lpips(origs, augs, weights_dir=str(tree), batch_size=b)
+        d_cpu = lpips_filter.batched_lpips(origs, augs, weights_dir=str(tree), batch_size=b, device="cpu")
+        rel = np.abs(d_card - d_cpu) / np.abs(d_cpu)
+        require(bool(np.all(rel <= 0.02)), "weights: LPIPS card vs CPU", d_card.tolist(), d_cpu.tolist())
+        model = lpips_filter.load_lpips(str(tree))
+        reps = 8  # 64 pairs, one batch of 64
+        lpips_filter.batched_lpips(origs * reps, augs * reps, batch_size=64, model=model)  # warm-up
+        timings = new_timings()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lpips_filter.batched_lpips(origs * reps, augs * reps, batch_size=64, model=model, timings=timings)
+        torch.cuda.synchronize()
+        lpips_s = time.perf_counter() - t
+        del model
+
+        # ---- cli train --ckpt: the released baseline's file, 2 steps
+        ckpt = tree / "checkpoints" / "planes" / "model_bestacc.pth"
+        train_root = root / "train"
+        os.environ["SASPA_DATA_ROOT"] = str(train_root)
+        aug_json = write_train_tree(train_root, seed + 503)
+        argv_t = ["train", "--dataset", "planes", "--aug_json", str(aug_json), "--aug_sample_ratio", "0.4",
+                  "--limit_aug_per_image", "2", "--special_aug", "classic", "--epochs", "1", "--seed", "1",
+                  "--train_sample_ratio", "0.125", "--ckpt", str(ckpt), "--logdir", str(root / "logs")]
+        reset_counts()
+        t = time.perf_counter()
+        logs = cli.main(argv_t)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t
+        require(all(v == 0 for v in read_counts().values()), "weights: train launched a kernel of K1-K6")
+        restored = logs["restored"]
+        require(restored is not None and restored["skipped"] == [] and restored["missing"] == []
+                and restored["feature_center"], "weights: train --ckpt did not restore every parameter", restored)
+        epoch = json.loads((Path(logs["save_dir"]) / "metrics.jsonl").read_text().splitlines()[0])
+        require(epoch["steps"] == 2 and math.isfinite(epoch["train_loss"]), "weights: train steps", epoch)
+
+        def gbps(rows):
+            by_file = {r["file"]: r for r in rows}.values()
+            nbytes, secs = sum(r["bytes"] for r in by_file), sum(r["seconds"] for r in by_file)
+            return {"files": len(by_file), "bytes": nbytes, "seconds": secs, "gb_per_s": nbytes / 1e9 / secs}
+
+        emit({"phase": "weights", "tree_s": tree_s, "tree_bytes": tree_bytes,
+              "tree_values": sum(n for n, _ in file_sums.values()), "gen_argv": argv, "steps": steps, "batch": b,
+              "resolution": size, "gen_wall_s": wall, "gen_init_s": init_s, "gen_img_per_s": b / (wall - init_s),
+              "gen_img_per_s_with_load": b / wall, "launches": counts,
+              "launches_expected": want, "pngs_equal_fused": all(same),
+              "load": {"sd_v1.5": gbps([r for r in gen_rows if r["model"] != "controlnet"]),
+                       "controlnet_canny_sd15": gbps([r for r in gen_rows if r["model"] == "controlnet"]),
+                       **{r["model"]: gbps([r]) for r in filter_rows}},
+              "gen_load_s": load_s, "gen_init_host_rss_peak_bytes": rss.peak,
+              "gen_init_host_rss_before_bytes": rss.base,
+              "models": gen_rows + filter_rows, "cpu_f32_load_s": cpu_load_s,
+              "reference": {"resolution": rs, "steps": 2, "mean_abs_diff": mean_diff, "max_abs_diff": max_diff},
+              "filter_argv": argv_f, "filter_wall_s": filter_wall, "kept": sum(len(v) for v in kept.values()),
+              "lpips_counters": counters, "lpips_card": d_card.tolist(), "lpips_cpu": d_cpu.tolist(),
+              "lpips_max_rel_diff": float(rel.max()), "lpips_pairs": len(origs) * reps,
+              "lpips_pairs_per_s": len(origs) * reps / lpips_s, "lpips_timings": timings,
+              "train_argv": argv_t, "train_wall_s": train_wall, "restored": restored, "train_epoch": epoch,
+              "nvidia_smi": smi})
+        return counts
+    finally:
+        tpipelines.init_pipeline = real_init
+        wload.REPORT_SUMS = False
+        root_logger.handlers[:] = old_handlers
+        root_logger.setLevel(old_level)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def train_profile_path(profile):
     from pathlib import Path
 
@@ -2883,6 +3286,10 @@ def main() -> int:
         out = Path(args.profile)
         xl_profile = str(out.with_name(f"{out.stem}_xl{out.suffix}"))
     counts.update(run_xl_phase(args.seed, checks, sites, xl_profile))
+
+    # ---- the public checkpoint files: cli gen / filter / train --ckpt from a --weights_dir tree ----
+    torch.cuda.empty_cache()
+    counts["weights"] = run_weights_phase(WEIGHTS_STEPS, args.seed, smi)
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

@@ -10,10 +10,14 @@
 then runs the port's `run_generation_and_filter` on the card (the CLIP
 semantic filter and the baseline's top-10 confidence filter), or
 `run_generation` with `--skip_filter`.  `filter` rebuilds the aug-JSON of a
-folder of generated images; `merge-jsons` merges aug-JSONs.  `train` trains
-the WSDAN-CAL classifier on the originals mixed with the aug-JSON's images
-(`fgvc/runner.py::run_training`), with the JAX CLI's flags; `--gpu_id` is
-accepted and ignored, as there.  Ported so far:
+folder of generated images (`--lpips_min`/`--lpips_max`: the LPIPS filter);
+`merge-jsons` merges aug-JSONs.  `train` trains the WSDAN-CAL classifier on
+the originals mixed with the aug-JSON's images (`fgvc/runner.py::
+run_training`), with the JAX CLI's flags; `--ckpt` takes the port's
+checkpoint or a released WSDAN-CAL .pth; `--gpu_id` is accepted and
+ignored, as there.  `--weights_dir` names a tree of the public checkpoint
+files (README; `weights/sources.py`); without it every model takes a
+seeded init.  Ported so far:
 SD1.5 (planes' default), BLIP-Diffusion (the default of cars, dtd and
 compcars-parts) and SDXL-Turbo (cub's: 2 trailing DDIM steps, guidance 0),
 and SDXL under CFG (`--base_model sd_xl`), each with a canny ControlNet (or

@@ -8,9 +8,9 @@ split-file formats, the repo's datasets_files/).  $SASPA_DATA_ROOT is read
 when a dataset is constructed.  The biased-planes split is read with the
 csv module (the machine with the card has no pandas).  A missing dataset
 raises (the reference downloads it).  The filter stage's baseline
-classifier (`load_baseline_model`, converted checkpoints under
-$SASPA_CHECKPOINTS, default <repo>/checkpoints) and its ALIA thresholds
-live here too; the class ids come from `data.datasets`.
+classifier (`load_baseline_model`: the released .pth from the weights dir
+or under $SASPA_CHECKPOINTS/<dataset>, default <repo>/checkpoints) and its
+ALIA thresholds live here too; the class ids come from `data.datasets`.
 """
 
 from __future__ import annotations
@@ -113,15 +113,15 @@ class BaseUtils:
             return [p for p in paths if key(p) in val_files]
         return [p for p in paths if key(p) not in val_files]
 
-    def load_baseline_model(self, resize=(224, 224), device=None):
+    def load_baseline_model(self, resize=(224, 224), device=None, weights_dir=None):
         """The dataset's WSDAN_CAL baseline for confidence filtering
         (all_utils/dataset_utils.py:87-115): (model, preprocess_fn)."""
         from saspa_tpu_torch.filters.confidence import load_cal_baseline
 
         name = "compcars" if "compcars" in self.name else self.name
-        return load_cal_baseline(name, self.num_classes, resize=resize, device=device)
+        return load_cal_baseline(name, self.num_classes, resize=resize, device=device, weights_dir=weights_dir)
 
-    def get_baseline_conf_threshold(self, device=None) -> Dict[str, float]:
+    def get_baseline_conf_threshold(self, device=None, weights_dir=None) -> Dict[str, float]:
         """Per-class mean-confidence thresholds for ALIA filtering, computed
         once and cached in alia_confidence_thresholds/<name>.json under the
         working directory (all_utils/dataset_utils.py:117-146)."""
@@ -131,7 +131,7 @@ class BaseUtils:
                 return json.load(f)
         from saspa_tpu_torch.filters.confidence import compute_alia_thresholds
 
-        thresholds = compute_alia_thresholds(self, device=device)
+        thresholds = compute_alia_thresholds(self, device=device, weights_dir=weights_dir)
         json_path.parent.mkdir(parents=True, exist_ok=True)
         with open(json_path, "w") as f:
             json.dump(thresholds, f)

@@ -9,10 +9,12 @@ quantisation.  SDXL (`sd_xl`, `sd_xl-turbo`) runs two towers (ViT-L and
 OpenCLIP bigG, hidden states concatenated to 2048, bigG's projected pooled
 output) and the text_time added conditions (the pooled embedding and the
 time ids (h, w, 0, 0, h, w)); SDXL-Turbo samples on trailing-spaced DDIM
-steps, and its recipe's guidance scale 0 runs no negative tower.  Without
-converted weights the models take a seeded random init
-(`torch.Generator`); `load_flax_params` carries a flax param tree in
-through the bridge.  BLIP-Diffusion (`blip_diffusion`,
+steps, and its recipe's guidance scale 0 runs no negative tower.  With
+`weights_dir` the models load from the public checkpoint files of a tree
+(weights/sources.py: the family's files whole, the ControlNet's on its own);
+what the tree lacks takes a seeded random init (`torch.Generator`) with a
+warning, or raises under SASPA_STRICT_WEIGHTS=1.  `load_flax_params`
+carries a flax param tree in through the bridge.  BLIP-Diffusion (`blip_diffusion`,
 `blip_diffusion-controlnet`) is the SD1.5 pipeline plus a vision tower and a
 Q-Former (`models/blip_diffusion.py`); `init_pipeline` builds any of them.
 """
@@ -76,7 +78,10 @@ class DiffusionPipeline:
                  dtype: Optional[torch.dtype] = None, device=None, weights_dir: Optional[str] = None,
                  init_seed: Optional[int] = 0, unet_cfg=None, vae_cfg=None, text_cfgs=None,
                  pallas_group_norm: bool = False, attention_megakernel: bool = False):
-        """init_seed=None leaves the parameters at zero for a caller that
+        """weights_dir: a tree of public checkpoint files (weights/sources.py),
+        loaded strictly; `weights_loaded` says whether the base family came
+        from it, `load_report` holds one report per model loaded.
+        init_seed=None leaves what was not loaded at zero for a caller that
         loads weights next (load_flax_params or load_state_dict).
 
         The kernel configuration: by default what the JAX main path runs by
@@ -110,11 +115,22 @@ class DiffusionPipeline:
         if controlnet:
             self.params["controlnet"] = ControlNet(self.unet_cfg, dt, dev, pallas_group_norm=gn,
                                                    attention_megakernel=mk)
+        self.params.update(self._extra_modules())
         for m in self._modules():
             m.eval()
         self.weights_loaded = False
-        if init_seed is not None:
-            self._random_init(init_seed)
+        self.load_report = []
+        unloaded = list(self.params)
+        if weights_dir is not None:
+            from saspa_tpu_torch.weights.load import load_pipeline_weights, missing_weights
+
+            loaded, self.load_report = load_pipeline_weights(self, weights_dir)
+            self.weights_loaded = "unet" in loaded
+            unloaded = [k for k in self.params if k not in loaded]
+            if unloaded:
+                missing_weights(f"checkpoint files for {base_model}'s {', '.join(unloaded)}", weights_dir)
+        if init_seed is not None and unloaded:
+            self._random_init(init_seed, unloaded)
 
         self._sample = make_sample_loop(
             lambda p, lat, t, ctx, ac, dr, mr: p(lat, t, ctx, dr, mr, ac),
@@ -128,15 +144,23 @@ class DiffusionPipeline:
     def _modules(self):
         return [m for v in self.params.values() for m in (v if isinstance(v, list) else [v])]
 
-    def _random_init(self, seed: int) -> None:
-        logging.warning("no converted weights for %s: seeded random init (outputs are not meaningful images)",
-                        self.base_model)
-        for i, te in enumerate(self.params["text"]):
-            init_weights(te, seed + 2 + i)
-        init_weights(self.params["unet"], seed)
-        init_weights(self.params["vae"], seed + 1)
-        if "controlnet" in self.params:
-            init_weights(self.params["controlnet"], seed + 7, zero_prefixes=ZERO_INIT_PREFIXES)
+    def _extra_modules(self) -> dict:
+        """Models a subclass adds to params before they are loaded or seeded."""
+        return {}
+
+    def _random_init(self, seed: int, names=None) -> None:
+        """Seeded init of params[name] for each name (default: all)."""
+        names = list(self.params) if names is None else names
+        logging.warning("no weights for %s's %s: seeded random init (outputs are not meaningful images)",
+                        self.base_model, ", ".join(names))
+        seeds = {"unet": seed, "vae": seed + 1, "controlnet": seed + 7}
+        for name in names:
+            if name == "text":
+                for i, te in enumerate(self.params["text"]):
+                    init_weights(te, seed + 2 + i)
+            else:
+                init_weights(self.params[name], seeds[name],
+                             zero_prefixes=ZERO_INIT_PREFIXES if name == "controlnet" else ())
 
     def load_flax_params(self, flax_params) -> list:
         """Loads a flax param tree (numpy leaves) strictly: one subtree per
@@ -232,8 +256,8 @@ def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = Fal
                   device=None) -> DiffusionPipeline:
     """Name-compatible with the reference's init_pipeline (run_aug/run_aug.py:128)
     and the JAX package's: SD1.5, SDXL, SDXL-Turbo or BLIP-Diffusion, with a
-    canny ControlNet or none, DDIM.  Without weights the models take the
-    seeded random init (seed 0)."""
+    canny ControlNet or none, DDIM, loaded from the public files under
+    weights_dir; what it lacks takes the seeded random init (seed 0)."""
     blip = base_model in ("blip_diffusion", "blip_diffusion-controlnet")
     if SDEdit and blip:
         # the JAX package's refusal: the reference's blip + SDEdit call passes
@@ -250,13 +274,10 @@ def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = Fal
             f"controlnet={controlnet}, SDEdit={SDEdit}, {sampler} come with the other generation families "
             "(ROADMAP Queue 1 item 12; blip_diffusion-edit's DDIM inversion needs the VAE encoder, which comes "
             "with SDEdit)")
-    if weights_dir is not None:
-        raise NotImplementedError("loading converted checkpoints from a weights directory is ROADMAP Queue 1 "
-                                  "item 13; load a flax tree with DiffusionPipeline.load_flax_params")
     if blip:
         from saspa_tpu_torch.models.blip_diffusion import BlipDiffusionPipeline
 
         return BlipDiffusionPipeline(controlnet=controlnet, sampler=sampler, dtype=dtype, device=device,
-                                     init_seed=0)
+                                     weights_dir=weights_dir, init_seed=0)
     return DiffusionPipeline(base_model, controlnet=controlnet, sampler=sampler, dtype=dtype, device=device,
-                             init_seed=0)
+                             weights_dir=weights_dir, init_seed=0)

@@ -127,5 +127,5 @@ def run_training(args, device=None) -> dict:
             logging.info("Validation accuracy has not improved in the last %d validations, stopping",
                          cfg.early_stop_patience)
             break
-    return {**trainer.logs, "save_dir": save_dir, "ckpt_path": ckpt_path,
+    return {**trainer.logs, "save_dir": save_dir, "ckpt_path": ckpt_path, "restored": trainer.restored,
             "pipeline_timings": {k: p.timings for k, p in pipes.items() if p is not None}}

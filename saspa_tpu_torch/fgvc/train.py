@@ -180,12 +180,17 @@ class Trainer:
         self.num_classes = num_classes
         self.num_batches_per_epoch = num_batches_per_epoch
         self.state = create_train_state(cfg, num_classes, device)
+        self.restored = None
         if cfg.ckpt:
             ckpt = load_checkpoint(cfg.ckpt)
-            restore_into(self.state.model, ckpt)
+            own = self.state.model.state_dict()
+            skipped = restore_into(self.state.model, ckpt)
             if "feature_center" in ckpt:
                 self.state.feature_center.copy_(ckpt["feature_center"])
-            logging.info("restored checkpoint from %s", cfg.ckpt)
+            loaded = {**ckpt.get("params", {}), **ckpt.get("batch_stats", {})}
+            self.restored = {"file": cfg.ckpt, "skipped": skipped, "missing": [k for k in own if k not in loaded],
+                             "feature_center": "feature_center" in ckpt}
+            logging.info("restored checkpoint from %s: %s", cfg.ckpt, self.restored)
         self.train_step = make_train_step(cfg, num_batches_per_epoch)
         self.best_val_acc = float("-inf")
         self.best_val_history: list = []

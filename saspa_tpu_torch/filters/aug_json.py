@@ -14,8 +14,10 @@ The filter sweep itself is batched: all aug images are scored in padded
 batches on the card (CLIP features and CAL logits computed once), then the
 keep/drop predicates run on the host in the reference's order with the
 reference's counters.  Files are checked with `gen.image_io.verify_image`
-(PIL's verify, without PIL for PNG and JPEG).  The LPIPS filter is ROADMAP
-Queue 1 item 10c.
+(PIL's verify, without PIL for PNG and JPEG).  The LPIPS filter
+(lpips_min <= d <= lpips_max) scores each aug against its original in
+padded batches (filters/lpips_filter.py), after the confidence filter and
+before CLIP, in the JAX builder's order.
 """
 
 from __future__ import annotations
@@ -160,8 +162,6 @@ def create_json_of_image_name_to_augmented_images_paths(
     path.  The models run on `device` (None: the card)."""
     if clip_filtering and model_confidence_based_filtering:
         raise ValueError("can't use both clip_filtering and model_confidence_based_filtering")
-    if lpips_min or lpips_max:
-        raise NotImplementedError("the LPIPS filter comes with ROADMAP Queue 1 item 10c")
     from saspa_tpu_torch.data.registry import DS_UTILS_DICT
     from saspa_tpu_torch.filters.batches import new_timings
 
@@ -215,7 +215,7 @@ def create_json_of_image_name_to_augmented_images_paths(
 
     baseline_logits = None
     if model_confidence_based_filtering or alia_conf_filtering:
-        model, preprocess = utils_to_use.load_baseline_model(device=device)
+        model, preprocess = utils_to_use.load_baseline_model(device=device, weights_dir=weights_dir)
         from saspa_tpu_torch.filters.confidence import batched_logits
 
         baseline_logits = batched_logits(model, flat_paths, preprocess, batch_size, timings)
@@ -239,6 +239,17 @@ def create_json_of_image_name_to_augmented_images_paths(
             too_high = conf > filter_confidence_higher_than
             counters["too_high_confidence"] = int((keep & too_high).sum())
             keep &= ~too_high
+
+    if (lpips_min or lpips_max) and len(flat_paths):
+        from saspa_tpu_torch.filters.lpips_filter import batched_lpips
+
+        dists = batched_lpips([original_images_paths[o] for o in flat_owner], flat_paths, resize=resize,
+                              weights_dir=weights_dir, batch_size=batch_size, device=device, timings=timings)
+        lo = lpips_min if lpips_min is not None else -np.inf
+        hi = lpips_max if lpips_max is not None else np.inf
+        counters["lpips_min"] = int((keep & (dists < lo)).sum())
+        counters["lpips_max"] = int((keep & (dists > hi)).sum())
+        keep &= (dists >= lo) & (dists <= hi)
 
     clip_scorer = None
     if (clip_filtering or semantic_filtering) and len(flat_paths):
@@ -277,7 +288,7 @@ def create_json_of_image_name_to_augmented_images_paths(
         keep &= mask
 
     if alia_conf_filtering and len(flat_paths):
-        thresholds = utils_to_use.get_baseline_conf_threshold(device=device)
+        thresholds = utils_to_use.get_baseline_conf_threshold(device=device, weights_dir=weights_dir)
         max_conf = baseline_logits.max(axis=-1)
         pred = baseline_logits.argmax(axis=-1)
         for j in range(len(flat_paths)):

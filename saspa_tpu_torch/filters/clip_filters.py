@@ -9,17 +9,15 @@ Reference semantics (all_utils/utils.py:139-191,272-312):
 
 Text features are encoded once per battery, image features once per aug
 image in padded batches on the card; the logits are one matmul on the host,
-the softmax float32, as in the JAX package.  Without converted weights the
-model takes a seeded init, with a warning, or raises under
-SASPA_STRICT_WEIGHTS=1; reading a converted checkpoint
-(<weights_dir>/clip_rn50, orbax) is ROADMAP Queue 1 item 13.
+the softmax float32, as in the JAX package.  The weights are OpenAI's
+RN50.pt under the weights dir (weights/sources.py), parameters and
+BatchNorm statistics; without it the model takes a seeded init, with a
+warning, or raises under SASPA_STRICT_WEIGHTS=1.
 """
 
 from __future__ import annotations
 
-import logging
 import os
-from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -33,6 +31,7 @@ from saspa_tpu_torch.models.clip import CLIP_MEAN, CLIP_STD, CLIPModel, CLIPVisi
 from saspa_tpu_torch.models.layers import init_weights
 from saspa_tpu_torch.models.text_encoder import CLIP_RN50_TEXT
 from saspa_tpu_torch.ops.image import pil_resize
+from saspa_tpu_torch.weights.load import load_one
 
 NEGATIVE_SEMANTIC_PROMPTS = [
     "a photo of an object",
@@ -69,20 +68,13 @@ class CLIPScorer:
         self.vision_kind = vision_kind
         weights_dir = weights_dir or os.environ.get("SASPA_WEIGHTS_DIR")
         self.tokenizer = default_tokenizer(weights_dir)
-        ckpt = Path(weights_dir) / f"clip_{vision_kind}" if weights_dir else None
-        if ckpt is not None and ckpt.exists():
-            raise NotImplementedError(f"{ckpt} holds a converted CLIP checkpoint (orbax), which the port cannot "
-                                      "read yet (ROADMAP Queue 1 item 13)")
-        if os.environ.get("SASPA_STRICT_WEIGHTS", "") == "1":
-            raise FileNotFoundError(
-                f"no converted CLIP {vision_kind} checkpoint under "
-                f"{weights_dir or '$SASPA_WEIGHTS_DIR (unset)'} and SASPA_STRICT_WEIGHTS=1 — filter scores "
-                "would be noise")
-        logging.warning("no CLIP %s weights — seeded random init", vision_kind)
         self.device = resolve_device(device)
         self.model = CLIPModel(vision_kind, VISION_CFG, TEXT_CFG, dtype=default_dtype(self.device),
                                device=self.device).eval()
-        init_weights(self.model, seed)
+        self.load_report = load_one(weights_dir, f"clip_{vision_kind}", self.model, f"CLIP {vision_kind} file",
+                                    orbax=f"clip_{vision_kind}")
+        if self.load_report is None:
+            init_weights(self.model, seed)
 
     @property
     def logit_scale(self) -> float:

@@ -5,17 +5,18 @@ The reference scores generated images one at a time with the dataset's
 released WSDAN_CAL (all_utils/utils.py:357-375); here every aug image of the
 sweep goes through padded batches of one shape on the card, and the
 predicates (top-k membership, too-high confidence, ALIA per-class
-thresholds) read the precomputed logits on the host.  Without a converted
-checkpoint the baseline takes a seeded init, with a warning, or raises under
-SASPA_STRICT_WEIGHTS=1.  Reading a converted checkpoint
-(checkpoints/<dataset>/meta.json, orbax) is ROADMAP Queue 1 item 13.
+thresholds) read the precomputed logits on the host.  The baseline is the
+dataset's released WSDAN-CAL .pth: the weights dir's (weights/sources.py)
+or the one file under checkpoints/<dataset>/ (the reference's rule,
+all_utils/dataset_utils.py:89-93), ResNet-101 or ResNet-50 as its keys
+say.  Without one the baseline takes a seeded init, with a warning, or
+raises under SASPA_STRICT_WEIGHTS=1.
 """
 
 from __future__ import annotations
 
-import logging
-import os
 from functools import partial
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,6 +28,10 @@ from saspa_tpu_torch.gen.image_io import read_rgb
 from saspa_tpu_torch.models.cal import WSDAN_CAL
 from saspa_tpu_torch.models.layers import init_weights
 from saspa_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD, pil_resize
+from saspa_tpu_torch.weights.convert import cal_net
+from saspa_tpu_torch.weights.files import read_state_dict
+from saspa_tpu_torch.weights.load import load_file, missing_weights, refuse_orbax
+from saspa_tpu_torch.weights.sources import find_source
 
 BASELINE_NET = "resnet101"  # the net of the released baselines
 
@@ -42,20 +47,38 @@ def val_preprocess(path: str, resize: Tuple[int, int] = (224, 224)) -> np.ndarra
     return (x - IMAGENET_MEAN) / IMAGENET_STD
 
 
-def load_cal_baseline(name: str, num_classes: int, resize: Tuple[int, int] = (224, 224), device=None):
+def baseline_file(name: str, weights_dir: Optional[str] = None) -> Optional[Path]:
+    """The released baseline .pth of dataset `name`: the weights dir's, else
+    the one .pth under checkpoints/<name>/ (more than one raises, as the
+    reference asserts exactly one)."""
+    path = find_source(weights_dir, f"cal_{name}") if weights_dir else None
+    if path is None:
+        cp_dir = checkpoints_dir() / name
+        pths = sorted(cp_dir.glob("*.pth"))
+        if len(pths) > 1:
+            raise ValueError(f"{cp_dir} holds {len(pths)} .pth files; the baseline is exactly one")
+        path = pths[0] if pths else None
+    return path
+
+
+def load_cal_baseline(name: str, num_classes: int, resize: Tuple[int, int] = (224, 224), device=None,
+                      weights_dir: Optional[str] = None):
     """(model, preprocess_fn) of the dataset's baseline on `device` (None:
     the card), bf16 there and f32 on the CPU."""
-    cp_dir = checkpoints_dir() / name
-    if (cp_dir / "meta.json").exists():
-        raise NotImplementedError(f"{cp_dir} holds a converted baseline checkpoint (orbax), which the port "
-                                  "cannot read yet (ROADMAP Queue 1 item 13)")
-    if os.environ.get("SASPA_STRICT_WEIGHTS", "") == "1":
-        raise FileNotFoundError(f"no converted baseline CAL checkpoint under {cp_dir} and "
-                                "SASPA_STRICT_WEIGHTS=1 — confidence filtering would be noise")
-    logging.warning("no baseline checkpoint for %s — seeded random init", name)
     device = resolve_device(device)
-    model = WSDAN_CAL(num_classes=num_classes, M=32, net=BASELINE_NET, dtype=default_dtype(device), device=device)
-    init_weights(model, 0)
+    path = baseline_file(name, weights_dir)
+    if path is None:
+        cp_dir = checkpoints_dir() / name
+        if (cp_dir / "meta.json").exists():
+            refuse_orbax(cp_dir)
+        missing_weights(f"baseline CAL checkpoint for {name}", cp_dir)
+        model = WSDAN_CAL(num_classes=num_classes, M=32, net=BASELINE_NET, dtype=default_dtype(device),
+                          device=device)
+        init_weights(model, 0)
+    else:
+        sd = read_state_dict(path)
+        model = WSDAN_CAL(num_classes=num_classes, M=32, net=cal_net(sd), dtype=default_dtype(device), device=device)
+        model.load_report = load_file(path, "cal", model, sd=sd)
     return model.eval(), partial(val_preprocess, resize=resize)
 
 
@@ -68,10 +91,10 @@ def batched_logits(model: WSDAN_CAL, paths: Sequence[str], preprocess: Callable[
                             timings)
 
 
-def compute_alia_thresholds(ds_utils, device=None) -> Dict[str, float]:
+def compute_alia_thresholds(ds_utils, device=None, weights_dir: Optional[str] = None) -> Dict[str, float]:
     """Per-class mean confidence of the baseline on the original train
     images (all_utils/dataset_utils.py:117-146)."""
-    model, preprocess = ds_utils.load_baseline_model(device=device)
+    model, preprocess = ds_utils.load_baseline_model(device=device, weights_dir=weights_dir)
     path_to_class = ds_utils.get_image_path_to_class_id_dict()
     paths = list(ds_utils.original_images_paths)
     logits = batched_logits(model, paths, preprocess)

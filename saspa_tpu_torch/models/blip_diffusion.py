@@ -174,21 +174,25 @@ class BlipDiffusionPipeline(DiffusionPipeline):
                  dtype: Optional[torch.dtype] = None, device=None, init_seed: Optional[int] = 0, unet_cfg=None,
                  vae_cfg=None, text_cfgs=None, vision_cfg: CLIPVisionViTConfig = BLIP_VISION,
                  qformer_cfg: QFormerConfig = QFormerConfig()):
+        self.vision_cfg, self.qformer_cfg = vision_cfg, qformer_cfg
         super().__init__("blip_diffusion-controlnet" if controlnet else "blip_diffusion", controlnet=controlnet,
-                         sampler=sampler, dtype=dtype, device=device, weights_dir=weights_dir, init_seed=None,
+                         sampler=sampler, dtype=dtype, device=device, weights_dir=weights_dir, init_seed=init_seed,
                          unet_cfg=unet_cfg, vae_cfg=vae_cfg, text_cfgs=text_cfgs)
-        self.qformer_cfg = qformer_cfg
-        self.params["blip_vision"] = CLIPVisionViT(vision_cfg, self.dtype, self.device).eval()
-        self.params["blip_qformer"] = QFormer(qformer_cfg, self.dtype, self.device).eval()
         vocab = Path(weights_dir or "") / "tokenizer" / "vocab.txt"
         self.bert_tokenizer = WordPieceTokenizer(str(vocab) if vocab.exists() else None)
-        if init_seed is not None:
-            self._random_init(init_seed)
 
-    def _random_init(self, seed: int) -> None:
-        super()._random_init(seed)
-        init_weights(self.params["blip_vision"], seed + 11)
-        init_weights(self.params["blip_qformer"], seed + 12)
+    def _extra_modules(self) -> dict:
+        # the Q-Former and the ViT-L tower load from one file (weights/load.py)
+        return {"blip_vision": CLIPVisionViT(self.vision_cfg, self.dtype, self.device),
+                "blip_qformer": QFormer(self.qformer_cfg, self.dtype, self.device)}
+
+    def _random_init(self, seed: int, names=None) -> None:
+        names = list(self.params) if names is None else names
+        own = {"blip_vision": seed + 11, "blip_qformer": seed + 12}
+        super()._random_init(seed, [n for n in names if n not in own])
+        for n in names:
+            if n in own:
+                init_weights(self.params[n], own[n])
 
     def bert_category_ids(self, category: str, batch: int):
         """(ids, mask), (batch, _CAT_LEN) int32: [CLS] category [SEP], zero-padded."""

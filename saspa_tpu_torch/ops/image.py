@@ -16,8 +16,9 @@ this module implements cv2's uint8 arithmetic of both in numpy:
   * INTER_AREA otherwise (an upscale after the 1.2 MP cap): cv2's emulation
     by a fixed-point bilinear filter with area-mode offsets.
 tests/test_torch_image.py holds each against cv2.  `pil_resize` is
-Pillow's 8-bit resample, and `jax_resize_weights` the weight matrices of
-jax.image.resize (triangle and Keys cubic kernels).
+Pillow's 8-bit resample, `pil_convert_l` Pillow's RGB -> L luma, and
+`jax_resize_weights` the weight matrices of jax.image.resize (triangle and
+Keys cubic kernels).
 """
 
 from __future__ import annotations
@@ -353,6 +354,14 @@ def pil_resize(img: np.ndarray, size: Tuple[int, int], method: str = "bicubic") 
     if out_h != h:
         x = _pil_pass(x.astype(np.int32), yidx - y0, yw)
     return x
+
+
+def pil_convert_l(img: np.ndarray) -> np.ndarray:
+    """`np.asarray(Image.fromarray(img).convert("L"))` on uint8 (H, W, 3):
+    Pillow's fixed-point ITU-R 601-2 luma, (R 19595 + G 38470 + B 7471 +
+    2^15) >> 16 (libImaging/Convert.c)."""
+    x = img.astype(np.uint32)
+    return ((x[..., 0] * 19595 + x[..., 1] * 38470 + x[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
 
 
 def _fma(a, b, c, f):

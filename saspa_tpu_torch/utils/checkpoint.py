@@ -9,8 +9,11 @@ flax paths with "." for "/"), and the logs also in a JSON sidecar beside
 it.  Restoring into a model is size-tolerant, as the JAX package's
 `_merge_size_tolerant` (and the reference's forgiving load_state_dict):
 entries whose shape differs keep the model's value, with a warning; strict
-raises.  An orbax checkpoint directory (the JAX package's) is not read
-here (ROADMAP Queue 1 item 13) and raises.
+raises.  `load_checkpoint` also reads a released WSDAN-CAL .pth (the
+reference's {"logs", "state_dict", "feature_center"}, ResNet nets): its
+state_dict goes through the CAL converter (weights/convert.py), every key
+consumed, into the same params/batch_stats form.  An orbax checkpoint
+directory (the JAX package's) raises.
 """
 
 from __future__ import annotations
@@ -23,6 +26,11 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from saspa_tpu_torch.bridge import state_dict_from_flax
+from saspa_tpu_torch.weights.convert import cal_net, convert_cal
+from saspa_tpu_torch.weights.files import unwrap
+from saspa_tpu_torch.weights.load import TrackingStateDict, WeightsMismatch, refuse_orbax, unconsumed
 
 
 def _jsonable(obj):
@@ -65,11 +73,26 @@ def save_checkpoint(path: str, model: torch.nn.Module, feature_center=None, logs
 
 
 def load_checkpoint(path: str) -> dict:
+    """The port's checkpoint, or a released WSDAN-CAL .pth in the same form
+    (with "net": the ResNet its keys say)."""
     path = os.path.abspath(path)
     if os.path.isdir(path):
-        raise NotImplementedError(f"{path} is a directory (an orbax checkpoint of the JAX package?), which the "
-                                  "port cannot read yet (ROADMAP Queue 1 item 13)")
-    return torch.load(path, map_location="cpu", weights_only=True)
+        refuse_orbax(path)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" not in obj:
+        return obj
+    sd = TrackingStateDict(unwrap(obj, path))
+    params, stats = convert_cal(sd)
+    left = unconsumed(sd)
+    if left:
+        raise WeightsMismatch(f"{path}: {len(left)} keys a WSDAN-CAL does not take: {left[:8]}")
+    ckpt = {"params": state_dict_from_flax(params)[0], "batch_stats": state_dict_from_flax(stats)[0],
+            "net": cal_net(sd)}
+    if isinstance(obj.get("feature_center"), torch.Tensor):
+        ckpt["feature_center"] = obj["feature_center"].float()
+    if "logs" in obj:
+        ckpt["logs"] = obj["logs"]
+    return ckpt
 
 
 def restore_into(model: torch.nn.Module, ckpt: dict, strict: bool = False) -> list:

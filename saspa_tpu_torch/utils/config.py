@@ -158,7 +158,7 @@ class GenerationConfig:
     # execution
     batch_size: int = 8  # generation items per device batch
     mesh_shape: Optional[Tuple[int, ...]] = None
-    weights_dir: Optional[str] = None  # directory with converted checkpoints
+    weights_dir: Optional[str] = None  # a tree of public checkpoint files (weights/sources.py)
 
     debug: bool = False
     specific_file_strs: Optional[Tuple[str, ...]] = None

@@ -191,8 +191,14 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
         init_pipeline("sd_xl", None, SDEdit=True)  # the SDXL refiner
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         init_pipeline("sd_v2.1", "canny")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        init_pipeline("sd_v1.5", "canny", weights_dir="/nowhere")
+    # weights_dir reaches the pipeline, which loads the tree's files (tests/test_torch_weights.py)
+    import saspa_tpu_torch.diffusion.pipelines as tpipelines
+
+    with monkeypatch.context() as m:
+        m.setattr(tpipelines, "DiffusionPipeline", lambda *a, **kw: ("sd", a, kw))
+        assert init_pipeline("sd_v1.5", "canny", weights_dir="/nowhere") == \
+            ("sd", ("sd_v1.5",), {"controlnet": "canny", "sampler": "ddim", "dtype": None, "device": None,
+                                  "weights_dir": "/nowhere", "init_seed": 0})
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tdriver._check_supported(GenerationConfig(controlnet="hed"))
     # BLIP-Diffusion + canny builds (its constructor stubbed: the full-width
@@ -202,7 +208,8 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
 
     monkeypatch.setattr(tblip, "BlipDiffusionPipeline", lambda **kw: ("blip", kw))
     assert init_pipeline("blip_diffusion", "canny") == \
-        ("blip", {"controlnet": "canny", "sampler": "ddim", "dtype": None, "device": None, "init_seed": 0})
+        ("blip", {"controlnet": "canny", "sampler": "ddim", "dtype": None, "device": None, "weights_dir": None,
+                  "init_seed": 0})
     tdriver._check_supported(GenerationConfig(dataset="dtd", base_model="blip_diffusion", controlnet="canny"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         init_pipeline("blip_diffusion-edit", None)

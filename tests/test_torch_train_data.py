@@ -205,7 +205,7 @@ def test_checkpoint_round_trip(tmp_path):
     assert torch.equal(c.model.attentions_bn.mean, a.model.attentions_bn.mean)
     with pytest.raises(ValueError, match="strict"):
         tckpt.restore_into(c.model, ck, strict=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="orbax"):
         tckpt.load_checkpoint(str(tmp_path))
 
 
