@@ -195,6 +195,37 @@ Phases, each printing one JSON line:
                 each file's load seconds and GB/s, the host's peak RSS
                 during gen's load, gen's img/s with and without the load,
                 LPIPS pairs/s (64 pairs, batch 64).
+ 12. sdedit -- the generation families of the VAE encoder, in-process on
+                synthetic trees of 8 seeded 512^2 sources (full published
+                widths, seeded bf16 weights, batch 8, --num_per_image 1):
+                cli gen --preset real_guidance --dataset cars  (a Stanford
+                Cars tree with the devkit's .mat files: SD1.5 SDEdit at
+                strength 0.15 of 50 steps, 7 run, txt2sentence prompts, CFG
+                7.5, no ControlNet; the CLIP per-class aug-JSON),  cli gen
+                --preset alia --dataset planes  (SDEdit 0.5 of 30 steps, 15
+                run, ALIA's prompts; the semantic + ALIA-confidence aug-JSON,
+                thresholds from the seeded WSDAN-CAL),  cli gen --dataset
+                planes --sdedit --sdedit_strength 0.5 --num_inference_steps 4
+                --skip_filter  (SDEdit with the canny ControlNet, 2 steps run),
+                cli gen --preset alia --dataset cub  (SDXL-Turbo + SDEdit: 1
+                trailing step from t = 499, guidance 0; on a synthetic CUB
+                tree), and  cli gen --dataset dtd --base_model
+                blip_diffusion-edit --skip_filter  (49 DDIM inversion calls up
+                50 steps, then 30 CFG steps under the subject embeddings).
+                Launch counts as expected_sdedit_counts; the PNGs equal
+                pipe.generate's / pipe.edit's output for the same prompts,
+                sources and noise bit for bit; the _subject_ files a host
+                replay.  K1 at the encoder's mid attention on the
+                encoder's own activations, and the encoder's K3 sites the
+                kernels phase did not check (rows with "cell": "sdedit").
+                Card bf16 against the port on the CPU in f32 (same
+                weights): the encoder's mean on one 256^2 source at cosine
+                >= 0.99, and one SDEdit batch there (2 denoise steps) within
+                mean |diff| <= 0.02.  Printed: each run's wall s, img/s and
+                peak memory, s/step (15 steps against 7), the encode's ms by
+                CUDA events and its device ms (torch.profiler), the idle
+                share of one profiled Real-Guidance batch, the inversion's
+                s/call.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -206,8 +237,9 @@ torch.profiler writes the device time by kernel to OUT.json and
 OUT_opt_in.json, one 1024^2 batch to OUT_gen_1024.json and the filter's
 scoring of its 256 augs to OUT_filter.json, the train phase's 2
 profiled steps at batch 4 and 16 to OUT_train.json and OUT_train_b16.json,
-the blip phase's profiled batch to OUT_blip.json and the xl phase's to
-OUT_xl.json, and prints a summary line each.
+the blip phase's profiled batch to OUT_blip.json, the xl phase's to
+OUT_xl.json and the sdedit phase's Real-Guidance batch to OUT_sdedit.json,
+and prints a summary line each.
 Then the kernels line, the card's name and power limit (nvidia-smi) and, as
 the last line, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Needs one CUDA card; imports nothing of JAX.
@@ -936,7 +968,7 @@ def record_sites(pipe):
 
     handles = []
     for key in ("unet", "controlnet", "vae"):
-        for m in pipe.params[key].modules():
+        for m in (pipe.params[key].modules() if key in pipe.params else ()):
             if isinstance(m, GroupNorm32):
                 handles.append(m.register_forward_pre_hook(gn_hook))
             elif isinstance(m, LayerNorm32):
@@ -2737,7 +2769,8 @@ def write_weights_tree(root, seed: int) -> dict:
     alex .pth, and the released WSDAN-CAL ResNet-101 of planes (100 classes,
     with feature_center) under checkpoints/planes/.  Returns {path:
     (elements, f64 sum)} of what each file holds for its model, the keys the
-    loaders leave out (WEIGHTS_NOT_LOADED, the VAE encoder) not counted."""
+    loaders leave out (WEIGHTS_NOT_LOADED) not counted: the VAE file's
+    encoder counts, as it loads."""
     from pathlib import Path
 
     from saspa_tpu_torch.weights.files import write_safetensors
@@ -2747,10 +2780,10 @@ def write_weights_tree(root, seed: int) -> dict:
     fill = NormalFill(seed)
     sums = {}
 
-    def record(path, sd, skip_prefixes=()):
+    def record(path, sd):
         n, total = 0, 0.0
         for k, v in sd.items():
-            if any(x in k for x in WEIGHTS_NOT_LOADED) or k.startswith(skip_prefixes):
+            if any(x in k for x in WEIGHTS_NOT_LOADED):
                 continue
             n += v.size
             total += float(np.sum(v, dtype=np.float64))
@@ -2759,18 +2792,16 @@ def write_weights_tree(root, seed: int) -> dict:
     def f16(sd):  # torch's cast: 3x numpy's
         return {k: torch.from_numpy(v).half().numpy() if v.dtype == np.float32 else v for k, v in sd.items()}
 
-    for rel, make, skip in (
-            ("sd_v1.5/unet/diffusion_pytorch_model.fp16.safetensors", synth.diffusers_unet_state_dict, ()),
-            ("sd_v1.5/vae/diffusion_pytorch_model.fp16.safetensors", synth.diffusers_vae_state_dict,
-             ("encoder.", "quant_conv.")),
-            ("sd_v1.5/text_encoder/model.fp16.safetensors", synth.hf_clip_text_state_dict, ()),
-            ("controlnet_canny_sd15/diffusion_pytorch_model.fp16.safetensors",
-             synth.diffusers_controlnet_state_dict, ())):
+    for rel, make in (
+            ("sd_v1.5/unet/diffusion_pytorch_model.fp16.safetensors", synth.diffusers_unet_state_dict),
+            ("sd_v1.5/vae/diffusion_pytorch_model.fp16.safetensors", synth.diffusers_vae_state_dict),
+            ("sd_v1.5/text_encoder/model.fp16.safetensors", synth.hf_clip_text_state_dict),
+            ("controlnet_canny_sd15/diffusion_pytorch_model.fp16.safetensors", synth.diffusers_controlnet_state_dict)):
         sd = f16(make(fill=fill))
         path = root / rel
         path.parent.mkdir(parents=True, exist_ok=True)
         write_safetensors(path, sd)
-        record(path, sd, skip)
+        record(path, sd)
         del sd
     sd = synth.openai_clip_rn50_state_dict(fill=fill)
     module = torch.nn.Module()  # OpenAI's RN50.pt is a scripted model: its state as buffers
@@ -2840,7 +2871,7 @@ def check_load_reports(reports, file_sums, what: str) -> list:
         require(abs(r["sum"] - total) <= 1e-6 * max(abs(total), 1.0), what, r["model"], "sum", r["sum"], "file", total)
         require(abs(r["loaded_sum"] - r["rounded_sum"]) <= 1e-6 * max(abs(r["rounded_sum"]), 1.0), what,
                 r["model"], "loaded", r["loaded_sum"], "rounded file", r["rounded_sum"])
-        rows.append({k: r[k] for k in ("model", "file", "kind", "file_keys", "params", "skipped", "elements", "sum",
+        rows.append({k: r[k] for k in ("model", "file", "kind", "file_keys", "params", "elements", "sum",
                                        "loaded_sum", "rounded_sum", "bytes", "seconds")})
     return rows
 
@@ -3048,6 +3079,424 @@ def run_weights_phase(steps: int, seed: int, smi: str) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+SDEDIT_RESOLUTION = 512
+SDEDIT_SOURCES = 8
+SDEDIT_REFERENCE_RESOLUTION = 256  # the card-vs-CPU SDEdit batch, as phase 4's
+SDEDIT_REFERENCE_STEPS = (4, 0.5)  # 4 steps at strength 0.5: 2 denoise steps
+EDIT_INVERSION_STEPS = 50  # LAVIS' num_inversion_steps: 49 UNet calls
+CARS_CLASSES = ["Acura TL Sedan 2012", "Audi R8 Coupe 2012", "BMW M3 Coupe 2012", "Kia Rio Sedan 2011"]
+
+
+def expected_sdedit_counts(steps: int, inversion_calls: int = 0, controlnet: bool = False, xl: bool = False) -> dict:
+    """Launches of one 512^2 batch through SDEdit (steps denoise steps) or
+    BLIP-Diffusion's edit (inversion_calls UNet calls, then steps), default
+    configuration.  Per UNet call, under CFG or not: 15 self-attentions over
+    >= 256 tokens, 16 transformer blocks (norm1 and norm2 each), 61
+    GroupNorms; the ControlNet adds 6, 7 and 27 a step; SDXL's UNet runs 70
+    blocks and 46 GroupNorms (expected_xl_counts); per encode: its mid
+    attention (K1 at 4096 tokens, d 512) and 22 GroupNorms; per decode: its
+    attention and 30."""
+    attn, blocks, norms = (70, 70, 46) if xl else (15, 16, 61)
+    if controlnet:
+        attn, blocks, norms = attn + 6, blocks + 7, norms + 27
+    calls = steps + inversion_calls
+    return {"attention_packed": attn * calls + 2, "ln_geglu": blocks * calls, "group_norm": norms * calls + 22 + 30,
+            "group_norm_tpu": 0, "layernorm": 2 * blocks * calls, "attention_block": 0, "flash_attention": 0}
+
+
+def write_cars_tree(root, rng, n: int, size: int) -> list:
+    """A synthetic Stanford Cars train split at root/stanford_cars/stanford_cars
+    (the layout CarsUtils reads): n seeded size x size sources in 4 classes
+    as PNG bytes under .jpg names none of which is in
+    datasets_files/cars_val.txt, with the devkit's cars_meta.mat and
+    cars_train_annos.mat (scipy.io.savemat).  Returns the file names."""
+    from pathlib import Path
+
+    import scipy.io as sio
+
+    from saspa_tpu_torch.gen.image_io import write_png
+
+    cars = Path(root) / "stanford_cars/stanford_cars"
+    (cars / "devkit").mkdir(parents=True)
+    (cars / "cars_train").mkdir()
+    names = [f"{9001 + 7 * i:05d}.jpg" for i in range(n)]
+    val = set((Path(__file__).resolve().parent / "datasets_files/cars_val.txt").read_text().split())
+    require(not val & set(names), "synthetic Cars names in the val carve-out", sorted(val & set(names)))
+    for name, img in zip(names, synthetic_sources(rng, n, size)):
+        write_png(cars / "cars_train" / name, img)
+    meta = np.empty((1, len(CARS_CLASSES)), dtype=object)
+    for k, c in enumerate(CARS_CLASSES):
+        meta[0, k] = np.array([c])
+    sio.savemat(str(cars / "devkit/cars_meta.mat"), {"class_names": meta})
+    fields = ("bbox_x1", "bbox_y1", "bbox_x2", "bbox_y2", "class", "fname")
+    annos = np.zeros((1, n), dtype=[(f, "O") for f in fields])
+    for i, name in enumerate(names):
+        for f in fields[:4]:
+            annos[0, i][f] = np.array([[0 if f.endswith("1") else size - 1]], dtype=np.uint16)
+        annos[0, i]["class"] = np.array([[i % len(CARS_CLASSES) + 1]], dtype=np.uint8)
+        annos[0, i]["fname"] = np.array([name])
+    sio.savemat(str(cars / "devkit/cars_train_annos.mat"), {"annotations": annos})
+    return names
+
+
+def check_k1_encoder(pipe, images) -> dict:
+    """K1 at the VAE encoder's mid attention on the encoder's own activations
+    (images (B, H, W, 3) in [0, 1] on the card) against its plain version:
+    q, k, v made as VAEAttentionBlock makes them; times and bound as
+    check_k1's rows."""
+    from saspa_tpu_torch.ops import attention as att
+
+    blk = pipe.params["vae"].encoder.mid_attn
+    held = {}
+    hook = blk.register_forward_pre_hook(lambda m, a: held.setdefault("x", a[0]))
+    try:
+        pipe.encode_image(images)
+    finally:
+        hook.remove()
+    x = held["x"]
+    b, c, h, w = x.shape
+    with torch.no_grad():
+        xn = blk.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        q = att.fold_scale(blk.to_q(xn), (1.0 / math.sqrt(c)) * att.LOG2E).contiguous()
+        k, v = blk.to_k(xn).contiguous(), blk.to_v(xn).contiguous()
+        out = att.flash_attention_packed(q, k, v, 1)
+        ref = att.flash_attention_packed_plain(q, k, v, 1)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    require(err <= 1e-2 * ref_max, "vae encoder mid attention", "max |kernel - plain|", err, "> 1% of", ref_max)
+    l = h * w
+    qh, kh, vh = (t.reshape(b, l, 1, c).transpose(1, 2) for t in (q, k, v))
+    ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, 1), 10)
+    plain_ms = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, 1), 3, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=math.log(2.0)), 10)
+    b_ms, b_by = bound(4.0 * b * l * l * c, 4 * b * l * c * 2, exps=b * l * l)
+    return dict(shape="vae encoder mid attention", cell="sdedit", B=b, L=l, H=1, d=c, d_pad=c, max_abs_err=err,
+                ref_max=ref_max, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                lib_ratio=ms / lib_ms, bound_share=b_ms / ms)
+
+
+def run_sdedit_phase(seed: int, checks: dict, checked_sites: dict, profile_path=None) -> dict:
+    """SDEdit and BLIP-Diffusion's inversion edit through `cli gen` (module
+    docstring, phase 12); returns the launch counts of its runs and appends
+    the encoder's K1 row and K3 sites to `checks`."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion.pipelines import DiffusionPipeline, init_pipeline, quantize
+    from saspa_tpu_torch.diffusion.schedulers import sdedit_start_step
+    from saspa_tpu_torch.filters.aug_json import get_aug_json_path
+    from saspa_tpu_torch.gen.image_io import read_png, read_rgb
+    from saspa_tpu_torch.gen.prompts import PromptEngine
+    from saspa_tpu_torch.ops.image import pil_resize, resize_image
+    from saspa_tpu_torch.utils import rng as rngs
+
+    size, b = SDEDIT_RESOLUTION, SDEDIT_SOURCES
+    if profile_path:  # the edit runs in another directory
+        profile_path = str(Path(profile_path).resolve())
+    root = Path(tempfile.mkdtemp(prefix="saspa_sdedit_"))
+    env = {k: os.environ.get(k) for k in ("SASPA_DATA_ROOT", "SASPA_CHECKPOINTS")}
+    os.environ["SASPA_DATA_ROOT"] = str(root)
+    os.environ["SASPA_CHECKPOINTS"] = str(root / "checkpoints")  # none: seeded baselines
+    old_cwd = os.getcwd()
+    # ALIA's confidence thresholds are cached in alia_confidence_thresholds/
+    # under the working directory: the phase runs in its temporary root, so
+    # the seeded ones go with it and a cache already there is not read
+    thresholds = Path(old_cwd) / "alia_confidence_thresholds"
+    thresholds_before = sorted(thresholds.iterdir()) if thresholds.is_dir() else None
+    tele = TelemetryHandler()
+    root_logger = logging.getLogger()
+    old_level = root_logger.level
+    root_logger.setLevel(logging.INFO)
+    root_logger.addHandler(tele)
+    out = {"phase": "sdedit", "batch": b, "resolution": size}
+    counts = {}
+
+    def run_cli(name, argv, want):
+        """One `cli gen` run: its resolved configuration, its launch counts
+        against want, wall s, img/s, peak memory, telemetry; returns (the
+        configuration, cli.main's result)."""
+        args = cli.build_parser().parse_args(argv)
+        cfg = (cli.preset_config(args) if args.preset else cli.gen_config(args)).with_dataset_overrides()
+        tele.lines.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts[name] = read_counts()
+        require(len(tele.lines) == 1 and tele.lines[0]["num_errors"] == 0 and tele.lines[0]["total"] == b,
+                name, "telemetry", tele.lines, *tele.errors)
+        require(counts[name] == want, name, "launch counts", counts[name], "expected", want)
+        out[name] = {"argv": argv, "wall_s": wall, "img_per_s": b / wall,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": counts[name],
+                     "launches_expected": want, "telemetry": tele.lines[0]}
+        return cfg, result
+
+    def denoise_steps(cfg):
+        return cfg.num_inference_steps - sdedit_start_step(cfg.num_inference_steps, cfg.sdedit_strength)
+
+    def outputs(cfg, ds):
+        """The run's PNGs by source stem, in the tree's order."""
+        stems = [Path(p).stem for p in ds.original_images_paths]
+        files = sorted(Path(cfg.output_folder(str(ds.root_path))).glob("*.png"))
+        outs = {f.name.split("_prompt_")[0]: f for f in files if "_prompt_" in f.name}
+        require(sorted(outs) == sorted(stems), "sdedit files", [f.name for f in files])
+        return [read_png(outs[s]) for s in stems]
+
+    def same_as(name, pngs, images):
+        """The run's PNGs against quantize(images), bit for bit."""
+        u8 = quantize(images).cpu().numpy()
+        same = [bool(np.array_equal(png, u)) for png, u in zip(pngs, u8)]
+        require(all(same), name, "PNGs differ from the pipeline's output", same)
+        out[name].update({"pngs_equal_pipeline": True, "uint8_mean": float(u8.mean())})
+
+    def batch(pipe, cfg, ds, classes):
+        """The driver's inputs of the tree's 8 items (sources / 255 on the
+        card, noise, prompts, control image); returns them and generate(strength)."""
+        paths, res = ds.original_images_paths, cfg.resolution
+        src = np.stack([resize_image(read_rgb(p), res) for p in paths])
+        lf = pipe.latent_factor
+        lat = np.stack([rngs.item_normal(cfg.seed, "noise", i, 0, shape=(res // lf, res // lf, 4))
+                        for i in range(b)])
+        engine = PromptEngine(cfg, ds, classes)
+        prompts = [engine.build(p, i, 0) for i, p in enumerate(paths)]
+        init = torch.as_tensor(src, device=pipe.device).float() / 255.0
+        control = pipe.control_from_src(src, res, res, cfg.low_threshold_canny, cfg.high_threshold_canny)
+
+        def generate(strength=None):
+            return pipe.generate(prompts, lat, height=res, width=res, num_inference_steps=cfg.num_inference_steps,
+                                 guidance_scale=cfg.guidance_scale, negative_prompt=cfg.negative_prompt,
+                                 control_image=control, controlnet_scale=cfg.controlnet_conditioning_scale,
+                                 init_image=init, sdedit_strength=strength or cfg.sdedit_strength)
+
+        return {"src": src, "init": init, "lat": lat, "prompts": prompts}, generate
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    try:
+        os.chdir(root)
+        # ---- Real-Guidance on cars: SDEdit 0.15 of 50 steps, the CLIP per-class filter
+        write_cars_tree(root, np.random.RandomState(seed + 501), b, size)
+        argv = ["gen", "--preset", "real_guidance", "--dataset", "cars", "--num_per_image", "1", "--batch_size",
+                str(b), "--seed", str(seed + 1)]
+        rg, json_rg = run_cli("real_guidance", argv, expected_sdedit_counts(7))
+        require((rg.base_model, rg.controlnet, rg.sdedit, rg.sdedit_strength, rg.num_inference_steps,
+                 denoise_steps(rg), rg.prompt_type) == ("sd_v1.5", None, True, 0.15, 50, 7, "txt2sentence"),
+                "real_guidance", rg)
+        ds = DS_UTILS_DICT["cars"](print_func=lambda *a: None)
+        folder = rg.output_folder(str(ds.root_path))
+        require(json_rg == get_aug_json_path(folder, clip_filtering="per_class", clip_filtering_discount=1) and
+                Path(json_rg).name == "clip_filtering_per_class_discount_1-aug.json", "real_guidance JSON", json_rg)
+        require(sorted(json.loads(Path(json_rg).read_text())) == sorted(Path(p).name for p in
+                                                                         ds.original_images_paths),
+                "real_guidance JSON keys", json_rg)
+        pngs = outputs(rg, ds)
+
+        # the same batch through pipe.generate: same seeded weights, prompts,
+        # sources / 255 and noise -> the PNGs' pixels, bit for bit
+        pipe, init_s = timed(lambda: init_pipeline("sd_v1.5", None, SDEdit=True))
+        inputs, generate = batch(pipe, rg, ds, ds.get_image_stem_to_class_str_dict())
+        # one hooked call of 1 denoise step (50 x 0.02): the encoder's,
+        # UNet's and decoder's norm and attention sites
+        sites, handles = record_sites(pipe)
+        generate(0.02)
+        for h in handles:
+            h.remove()
+        images, ts = timed(generate)
+        require(bool(torch.isfinite(images).all()), "real_guidance: non-finite images")
+        same_as("real_guidance", pngs, images)
+        _, t_more = timed(lambda: generate(0.3))  # 15 denoise steps
+        init = inputs["init"]
+        encode_ms = cuda_ms(lambda: pipe.encode_image(init), 5)
+        enc = profile_run(lambda: timed(lambda: pipe.encode_image(init)))
+        prof = profile_run(lambda: timed(generate))
+        if profile_path:
+            Path(profile_path).parent.mkdir(parents=True, exist_ok=True)
+            Path(profile_path).write_text(json.dumps({"config": "sdedit real_guidance", "steps": 7, **{
+                k: prof[k] for k in ("wall_s", "device_busy_s", "groups_ms", "kernels")}}, indent=1))
+        out["real_guidance"].update({
+            "init_s": init_s, "denoise_steps": 7, "generate_s": ts, "generate_15step_s": t_more,
+            "s_per_step": (t_more - ts) / (15 - 7), "encode_ms": encode_ms,
+            "encode_device_ms": enc["device_busy_s"] * 1e3, "encode_kernels": sum(k["calls"] for k in enc["kernels"]),
+            "encode_groups_ms": enc["groups_ms"], "idle_share": prof["idle_share"],
+            "profiled_wall_s": prof["wall_s"], "device_busy_s": prof["device_busy_s"], "groups_ms": prof["groups_ms"],
+            "profile": profile_path})
+
+        # the encoder's sites: K1 at its mid attention on its own activations,
+        # and the K3 sites the kernels phase has not checked
+        k1_row = check_k1_encoder(pipe, init)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 502)
+        checks["attention_packed"].append(k1_row)
+        new_gn = sites["group_norm"] - checked_sites["group_norm"]
+        require(new_gn, "the encoder added no GroupNorm site", sorted(sites["group_norm"], key=str))
+        k3_rows = [dict(r, cell="sdedit") for r in check_k3(gen, new_gn)]
+        checks["group_norm"] += k3_rows
+        emit({"phase": "kernels", "kernel": "attention_packed", "cell": "sdedit", "shapes": [k1_row]})
+        emit({"phase": "kernels", "kernel": "group_norm", "cell": "sdedit", "shapes": k3_rows})
+        checked_sites["group_norm"] |= new_gn
+        out["new_group_norm_sites"] = sorted(map(list, new_gn), key=str)
+
+        # ---- ALIA on planes: SDEdit 0.5 of 30 steps, semantic + ALIA confidence filters
+        ids = write_planes_tree(root, np.random.RandomState(seed + 503), b, size)
+        argv = ["gen", "--preset", "alia", "--dataset", "planes", "--num_per_image", "1", "--batch_size", str(b),
+                "--seed", str(seed + 2)]
+        al, json_al = run_cli("alia", argv, expected_sdedit_counts(15))
+        require((al.base_model, al.controlnet, al.sdedit, al.sdedit_strength, al.num_inference_steps,
+                 denoise_steps(al), al.prompt_type) == ("sd_v1.5", None, True, 0.5, 30, 15, "ALIA"), "alia", al)
+        ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        folder = al.output_folder(str(ds.root_path))
+        require(Path(json_al).name == "semantic_filtering-alia_conf_filtering-aug.json" and
+                json_al == get_aug_json_path(folder, semantic_filtering=True, alia_conf_filtering=True),
+                "alia JSON", json_al)
+        require(sorted(json.loads(Path(json_al).read_text())) == sorted(f"{i}.jpg" for i in ids), "alia JSON keys")
+        inputs, generate = batch(pipe, al, ds, ds.get_image_stem_to_class_str_dict())
+        images, ts = timed(generate)
+        same_as("alia", outputs(al, ds), images)
+        out["alia"].update({"denoise_steps": 15, "generate_s": ts})
+
+        # ---- card bf16 against the port on the CPU in f32, same weights: the
+        # encoder's mean on one 256^2 source, then one SDEdit batch there
+        t = time.perf_counter()
+        cpu = DiffusionPipeline("sd_v1.5", controlnet=None, dtype=torch.float32, device="cpu", init_seed=None)
+        copy_weights(pipe, cpu)
+        cpu_setup_s = time.perf_counter() - t
+        rs = SDEDIT_REFERENCE_RESOLUTION
+        k = size // rs
+        small, small_lat = inputs["src"][:1, ::k, ::k], inputs["lat"][:1, ::k, ::k]
+        steps, strength = SDEDIT_REFERENCE_STEPS
+        ref = {}
+        for name, p in (("cpu", cpu), ("card", pipe)):
+            init = torch.as_tensor(small, device=p.device).float() / 255.0
+            mean = p.encode_image(init).float().cpu()
+            reset_counts()
+            t = time.perf_counter()
+            img = p.generate(inputs["prompts"][:1], small_lat, height=rs, width=rs, num_inference_steps=steps,
+                             init_image=init, sdedit_strength=strength).float().cpu()
+            ref[name] = (mean, img, time.perf_counter() - t, read_counts())
+        del cpu, pipe, inputs, generate, images
+        gc.collect()
+        torch.cuda.empty_cache()
+        cos_mean = cosine(ref["card"][0], ref["cpu"][0])
+        diff = (ref["card"][1] - ref["cpu"][1]).abs()
+        out["card_vs_cpu"] = {
+            "resolution": rs, "steps": steps, "strength": strength,
+            "denoise_steps": steps - sdedit_start_step(steps, strength), "encoder_mean_cosine": cos_mean,
+            "encoder_mean_rel_err": rel_norm(ref["card"][0], ref["cpu"][0]), "mean_abs_diff": diff.mean().item(),
+            "max_abs_diff": diff.max().item(), "launches": ref["card"][3], "cpu_setup_s": cpu_setup_s,
+            "cpu_s": ref["cpu"][2], "gpu_s": ref["card"][2], "cpu_threads": torch.get_num_threads()}
+        require(cos_mean >= 0.99, "sdedit encoder mean card vs CPU, cosine", cos_mean)
+        require(diff.mean().item() <= 0.02, "sdedit card vs CPU mean |diff|", diff.mean().item())
+        ran = [key for key, v in expected_sdedit_counts(2).items() if v > 0]
+        require(all(ref["card"][3][key] > 0 for key in ran), "sdedit reference run missed a kernel", ref["card"][3])
+
+        # ---- --sdedit with the canny ControlNet (planes): 0.5 of 4 steps
+        argv = ["gen", "--dataset", "planes", "--sdedit", "--sdedit_strength", "0.5", "--num_inference_steps", "4",
+                "--skip_filter", "--num_per_image", "1", "--batch_size", str(b), "--seed", str(seed + 4)]
+        cn, _ = run_cli("sdedit_canny", argv, expected_sdedit_counts(2, controlnet=True))
+        require((cn.base_model, cn.controlnet, denoise_steps(cn)) == ("sd_v1.5", "canny", 2), "sdedit canny", cn)
+        pipe = init_pipeline("sd_v1.5", "canny", SDEdit=True)
+        _, generate = batch(pipe, cn, ds, ds.get_image_stem_to_class_str_dict())
+        images, ts = timed(generate)
+        same_as("sdedit_canny", outputs(cn, ds), images)
+        out["sdedit_canny"].update({"denoise_steps": 2, "generate_s": ts})
+        del pipe, generate, images
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- ALIA on cub: SDXL-Turbo + SDEdit, 0.5 of 2 trailing steps, guidance 0
+        write_cub_tree(root, np.random.RandomState(seed + 505), b, size)
+        argv = ["gen", "--preset", "alia", "--dataset", "cub", "--num_per_image", "1", "--batch_size", str(b),
+                "--seed", str(seed + 5)]
+        xc, json_xc = run_cli("alia_cub", argv, expected_sdedit_counts(1, xl=True))
+        require((xc.base_model, xc.controlnet, xc.sdedit, xc.guidance_scale, denoise_steps(xc)) ==
+                ("sd_xl-turbo", None, True, 0.0, 1) and Path(json_xc).name ==
+                "semantic_filtering-alia_conf_filtering-aug.json", "alia on cub", xc, json_xc)
+        ds = DS_UTILS_DICT["cub"](print_func=lambda *a: None)
+        xpipe, init_xl_s = timed(lambda: init_pipeline("sd_xl-turbo", None, SDEdit=True))
+        _, generate = batch(xpipe, xc, ds, ds.get_image_path_to_class_str_dict())
+        images, ts = timed(generate)
+        same_as("alia_cub", outputs(xc, ds), images)
+        out["alia_cub"].update({"denoise_steps": 1, "init_s": init_xl_s, "generate_s": ts,
+                                "timesteps": [int(x) for x in xpipe.scheduler.timesteps(2)]})
+        del xpipe, generate, images
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        require(sorted(p.name for p in (root / "alia_confidence_thresholds").iterdir()) == ["cub.json", "planes.json"],
+                "ALIA thresholds were not computed in the phase's root")
+
+        # ---- blip_diffusion-edit on dtd: 49 inversion calls, then 30 CFG steps
+        os.environ["SASPA_DATA_ROOT"] = "data"  # DTD's captions are keyed by paths under data/
+        write_dtd_tree(root, np.random.RandomState(seed + 504), size)
+        argv = ["gen", "--dataset", "dtd", "--base_model", "blip_diffusion-edit", "--skip_filter", "--num_per_image",
+                "1", "--resolution", str(size), "--batch_size", str(b), "--seed", str(seed + 3)]
+        calls = EDIT_INVERSION_STEPS - 1
+        ed, folder = run_cli("blip_edit", argv, expected_sdedit_counts(30, calls))
+        ds = DS_UTILS_DICT["dtd"](print_func=lambda *a: None)
+        require("/blip_diffusion-edit/" in folder and ed.num_inference_steps == 30, "edit", folder, ed)
+        paths = ds.original_images_paths
+        subject_u8 = []
+        for i, pth in enumerate(paths):
+            same_class = ds.get_image_path_with_same_class(pth)
+            pick = same_class[rngs.host_choice(len(same_class), ed.seed, "subject_choice", i, 0)]
+            subject_u8.append((resize_image(read_rgb(pick), size).astype(np.float32) / 255.0 * 255).astype(np.uint8))
+        subjects_equal = [bool(np.array_equal(read_png(Path(folder) / f"{Path(p).stem}_subject_0.png"), u))
+                          for p, u in zip(paths, subject_u8)]
+        require(all(subjects_equal), "edit _subject_ files differ from the host replay", subjects_equal)
+        refs = np.stack([pil_resize(u, (224, 224)) for u in subject_u8]).astype(np.float32) / np.float32(255.0)
+        bpipe, init_s = timed(lambda: init_pipeline("blip_diffusion-edit", "canny"))
+        require("controlnet" not in bpipe.params, "the edit pipeline holds a ControlNet")
+        src_t = torch.as_tensor(np.stack([resize_image(read_rgb(p), size) for p in paths]),
+                                device=bpipe.device).float() / 255.0
+        engine = PromptEngine(ed, ds, ds.get_image_path_to_class_str_dict())
+        prompts = [engine.build(p, i, 0) for i, p in enumerate(paths)]
+        meta = ds.meta_class
+        images, ts = timed(lambda: bpipe.edit(src_t, refs, prompts, source_subject=meta, target_subject=meta,
+                                              guidance_scale=ed.guidance_scale,
+                                              num_inference_steps=ed.num_inference_steps,
+                                              negative_prompt=ed.negative_prompt))
+        same_as("blip_edit", outputs(ed, ds), images)
+        with torch.no_grad():
+            inv_ctx = bpipe.params["text"][0](torch.as_tensor(bpipe.tokenizer([f"a {meta}"] * b, pad="eot"),
+                                                              device=bpipe.device).long())["hidden"]
+        _, t_inv = timed(lambda: bpipe.invert(src_t, inv_ctx, EDIT_INVERSION_STEPS))
+        out["blip_edit"].update({"init_s": init_s, "inversion_calls": calls, "regeneration_steps": 30, "edit_s": ts,
+                                 "invert_s": t_inv, "s_per_inversion_call": t_inv / calls,
+                                 "subjects_equal_replay": all(subjects_equal)})
+        emit(out)
+        del bpipe, src_t, images, inv_ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.chdir(old_cwd)
+        require((sorted(thresholds.iterdir()) if thresholds.is_dir() else None) == thresholds_before,
+                "the sdedit phase changed", thresholds)
+        return counts
+    finally:
+        os.chdir(old_cwd)
+        root_logger.removeHandler(tele)
+        root_logger.setLevel(old_level)
+        for key, v in env.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -3290,6 +3739,16 @@ def main() -> int:
     # ---- the public checkpoint files: cli gen / filter / train --ckpt from a --weights_dir tree ----
     torch.cuda.empty_cache()
     counts["weights"] = run_weights_phase(WEIGHTS_STEPS, args.seed, smi)
+
+    # ---- SDEdit (Real-Guidance, ALIA) and BLIP-Diffusion's inversion edit through cli gen ----
+    torch.cuda.empty_cache()
+    sdedit_profile = None
+    if args.profile:
+        from pathlib import Path
+
+        out = Path(args.profile)
+        sdedit_profile = str(out.with_name(f"{out.stem}_sdedit{out.suffix}"))
+    counts.update(run_sdedit_phase(args.seed, checks, sites, sdedit_profile))
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

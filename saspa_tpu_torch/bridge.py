@@ -11,9 +11,7 @@ Subtrees: "text" (a list with one tower per text encoder), "unet",
 "blip_qformer" (params), and the filter stage's "clip" (CLIP RN50) and
 "cal" (WSDAN_CAL), which are flax variables: {"params", "batch_stats"}.
 BatchNorm's mean and var live in flax's batch_stats collection and land on
-the module's buffers of the same name.  Keys of the VAE encoder are not
-ported yet; the bridge skips exactly the keys under VAE_SKIPPED_PREFIXES
-and drops nothing else.
+the module's buffers of the same name.  Every leaf maps to one entry.
 
 `train_state_from_flax` carries the JAX package's WSDAN-CAL TrainState
 across: params and batch_stats as the "cal" state_dict, optax's momentum
@@ -24,13 +22,10 @@ JAX continues in the port (`load_train_state`).
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
-
-# flax VAE subtrees the port has no module for yet (encoder incl. quant_conv)
-VAE_SKIPPED_PREFIXES: Tuple[str, ...] = ("encoder/",)
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -54,15 +49,9 @@ def _to_torch(path: str, leaf: np.ndarray) -> torch.Tensor:
     return t.contiguous()
 
 
-def state_dict_from_flax(tree, skip_prefixes: Tuple[str, ...] = ()) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """One module's flax subtree -> (state_dict, skipped flax paths)."""
-    sd, skipped = {}, []
-    for path, leaf in _flatten(tree).items():
-        if path.startswith(skip_prefixes):
-            skipped.append(path)
-            continue
-        sd[path.replace("/", ".")] = _to_torch(path, leaf)
-    return sd, skipped
+def state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """One module's flax subtree -> its state_dict."""
+    return {path.replace("/", "."): _to_torch(path, leaf) for path, leaf in _flatten(tree).items()}
 
 
 def state_dict_from_flax_variables(variables) -> Dict[str, torch.Tensor]:
@@ -71,8 +60,8 @@ def state_dict_from_flax_variables(variables) -> Dict[str, torch.Tensor]:
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"no port of the flax collections {sorted(unknown)}")
-    sd = state_dict_from_flax(variables["params"])[0]
-    stats = state_dict_from_flax(variables.get("batch_stats", {}))[0]
+    sd = state_dict_from_flax(variables["params"])
+    stats = state_dict_from_flax(variables.get("batch_stats", {}))
     clash = sorted(set(sd) & set(stats))
     if clash:
         raise KeyError(f"paths in both params and batch_stats: {clash[:5]}")
@@ -80,24 +69,21 @@ def state_dict_from_flax_variables(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def params_from_flax(params) -> Tuple[dict, List[str]]:
+def params_from_flax(params) -> dict:
     """{"text": [tower, ...], "unet", "controlnet"?, "vae", "blip_vision"?,
     "blip_qformer"?, "clip"?, "cal"?} flax params (variables for "clip" and
-    "cal") -> ({same keys: state_dict(s)}, skipped "vae/..." paths)."""
-    out, skipped = {}, []
+    "cal") -> {same keys: state_dict(s)}."""
+    out = {}
     for name, sub in params.items():
         if name in ("clip", "cal"):
             out[name] = state_dict_from_flax_variables(sub)
         elif name == "text":
-            out["text"] = [state_dict_from_flax(t)[0] for t in sub]
-        elif name == "vae":
-            out["vae"], sk = state_dict_from_flax(sub, VAE_SKIPPED_PREFIXES)
-            skipped += [f"vae/{p}" for p in sk]
-        elif name in ("unet", "controlnet", "blip_vision", "blip_qformer"):
-            out[name] = state_dict_from_flax(sub)[0]
+            out["text"] = [state_dict_from_flax(t) for t in sub]
+        elif name in ("unet", "controlnet", "vae", "blip_vision", "blip_qformer"):
+            out[name] = state_dict_from_flax(sub)
         else:
             raise KeyError(f"no port of the flax subtree {name!r}")
-    return out, skipped
+    return out
 
 
 def train_state_from_flax(params, batch_stats, opt_state, feature_center, step=0) -> dict:
@@ -109,7 +95,7 @@ def train_state_from_flax(params, batch_stats, opt_state, feature_center, step=0
     if len(traces) != 1:
         raise KeyError(f"expected one optax TraceState in the chain's state, found {len(traces)}")
     return {"cal": state_dict_from_flax_variables({"params": params, "batch_stats": batch_stats}),
-            "momentum": state_dict_from_flax(traces[0])[0],
+            "momentum": state_dict_from_flax(traces[0]),
             "feature_center": torch.from_numpy(np.array(feature_center, dtype=np.float32)),
             "step": int(np.asarray(step))}
 

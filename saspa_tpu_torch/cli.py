@@ -21,8 +21,11 @@ seeded init.  Ported so far:
 SD1.5 (planes' default), BLIP-Diffusion (the default of cars, dtd and
 compcars-parts) and SDXL-Turbo (cub's: 2 trailing DDIM steps, guidance 0),
 and SDXL under CFG (`--base_model sd_xl`), each with a canny ControlNet (or
-none), DDIM; the presets come with SDEdit and ip2p (ROADMAP Queue 1 item
-12), the other subcommands with later slices.
+none), text to image or SDEdit (`--sdedit [--sdedit_strength s]`), DDIM;
+BLIP-Diffusion's inversion edit (`--base_model blip_diffusion-edit`); and
+the baseline presets `--preset real_guidance` and `--preset alia` with the
+JAX CLI's filter recipes (ALIA on planes_biased runs ip2p, which waits
+with the SDXL refiner, UniPC, SD2.1 and HED for ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -141,12 +144,28 @@ def gen_config(args):
     )
 
 
+def preset_config(args):
+    """The GenerationConfig of --preset real_guidance or alia (saspa_tpu/cli.py:160-182)."""
+    from saspa_tpu_torch.utils.config import GenerationConfig
+
+    make = {"real_guidance": GenerationConfig.real_guidance, "alia": GenerationConfig.alia}[args.preset]
+    return make(args.dataset, num_per_image=args.num_per_image, seed=args.seed, batch_size=args.batch_size,
+                weights_dir=args.weights_dir, debug=args.debug, version=args.version)
+
+
+# each preset's filter recipe, the JAX CLI's (saspa_tpu/cli.py:167-182)
+PRESET_FILTERS = {
+    "real_guidance": dict(clip_filtering="per_class", semantic_filtering=False,
+                          model_confidence_based_filtering=False),
+    "alia": dict(semantic_filtering=True, model_confidence_based_filtering=False, alia_conf_filtering=True),
+}
+
+
 def cmd_gen(args):
     from saspa_tpu_torch.gen.driver import run_generation, run_generation_and_filter
 
-    if args.preset is not None:
-        raise NotImplementedError(f"--preset {args.preset} comes with SDEdit and ip2p, the generation families "
-                                  "of ROADMAP Queue 1 item 12")
+    if args.preset is not None:  # filters whatever --skip_filter says, as the JAX CLI
+        return run_generation_and_filter(preset_config(args), **PRESET_FILTERS[args.preset])
     if args.skip_filter:
         return run_generation(gen_config(args))
     return run_generation_and_filter(gen_config(args), semantic_filtering=True,

@@ -1,22 +1,29 @@
-"""SD1.5 and SDXL(-Turbo) + canny-ControlNet generation (counterpart of
-saspa_tpu/diffusion/pipelines.py).
+"""SD1.5 and SDXL(-Turbo) generation, with a canny ControlNet or none, text
+to image or SDEdit (counterpart of saspa_tpu/diffusion/pipelines.py).
 
-`DiffusionPipeline(...)` owns the text towers, UNet, ControlNet and VAE
-decoder; `make_fused_generate(...)` returns the whole-batch generation
-function: on-device Canny, the text towers for the prompt and the negative
-prompt, the CFG DDIM loop over UNet + ControlNet, VAE decode and the uint8
-quantisation.  SDXL (`sd_xl`, `sd_xl-turbo`) runs two towers (ViT-L and
-OpenCLIP bigG, hidden states concatenated to 2048, bigG's projected pooled
-output) and the text_time added conditions (the pooled embedding and the
-time ids (h, w, 0, 0, h, w)); SDXL-Turbo samples on trailing-spaced DDIM
-steps, and its recipe's guidance scale 0 runs no negative tower.  With
-`weights_dir` the models load from the public checkpoint files of a tree
-(weights/sources.py: the family's files whole, the ControlNet's on its own);
-what the tree lacks takes a seeded random init (`torch.Generator`) with a
-warning, or raises under SASPA_STRICT_WEIGHTS=1.  `load_flax_params`
-carries a flax param tree in through the bridge.  BLIP-Diffusion (`blip_diffusion`,
-`blip_diffusion-controlnet`) is the SD1.5 pipeline plus a vision tower and a
-Q-Former (`models/blip_diffusion.py`); `init_pipeline` builds any of them.
+`DiffusionPipeline(...)` owns the text towers, UNet, ControlNet and VAE;
+`make_fused_generate(...)` returns the whole-batch text(+canny) function:
+on-device Canny, the text towers for the prompt and the negative prompt,
+the CFG DDIM loop over UNet + ControlNet, VAE decode and the uint8
+quantisation.  `generate(...)` is the JAX package's unfused entry point:
+the same loop from prompts, and given an `init_image` SDEdit (img2img): the
+source's posterior mean through the VAE encoder, scaled, noised to the
+first timestep kept by the strength, then the truncated schedule.  SDXL
+(`sd_xl`, `sd_xl-turbo`) runs two towers (ViT-L and OpenCLIP bigG, hidden
+states concatenated to 2048, bigG's projected pooled output) and the
+text_time added conditions (the pooled embedding and the time ids (h, w, 0,
+0, h, w)); SDXL-Turbo samples on trailing-spaced DDIM steps, and its
+recipe's guidance scale 0 runs no negative tower.  With `weights_dir` the
+models load from the public checkpoint files of a tree
+(weights/sources.py: the family's files whole, the ControlNet's on its
+own); what the tree lacks takes a seeded random init (`torch.Generator`)
+with a warning, or raises under SASPA_STRICT_WEIGHTS=1.
+`load_flax_params` carries a flax param tree in through the bridge.
+BLIP-Diffusion (`blip_diffusion`, `blip_diffusion-controlnet`, and the
+inversion edit `blip_diffusion-edit`) is the SD1.5 pipeline plus a vision
+tower and a Q-Former (`models/blip_diffusion.py`); `init_pipeline` builds
+any of them.  The families the port lacks raise where they are asked for
+(`refuse_unported`).
 """
 
 from __future__ import annotations
@@ -30,8 +37,8 @@ import torch
 from saspa_tpu_torch import default_dtype, resolve_device
 from saspa_tpu_torch.bridge import params_from_flax
 from saspa_tpu_torch.diffusion.sampler import make_sample_loop
-from saspa_tpu_torch.diffusion.schedulers import DDIMScheduler, SchedulerConfig
-from saspa_tpu_torch.gen.tokenizer import EOT, default_tokenizer
+from saspa_tpu_torch.diffusion.schedulers import DDIMScheduler, SchedulerConfig, sdedit_start_step
+from saspa_tpu_torch.gen.tokenizer import EOT, NEGATIVE_PROMPT, default_tokenizer
 from saspa_tpu_torch.models.controlnet import ZERO_INIT_PREFIXES, ControlNet
 from saspa_tpu_torch.models.layers import init_weights, nearest_resize
 from saspa_tpu_torch.models.text_encoder import SD15_TEXT, SDXL_TEXT_BIGG, SDXL_TEXT_L, CLIPTextEncoder
@@ -41,6 +48,36 @@ from saspa_tpu_torch.ops.canny import canny_control_image
 
 XL_BASE_MODELS = ("sd_xl", "sd_xl-turbo")
 BASE_MODELS = ("sd_v1.5", "blip_diffusion", "blip_diffusion-controlnet") + XL_BASE_MODELS  # ported so far
+BLIP_BASE_MODELS = ("blip_diffusion", "blip_diffusion-controlnet", "blip_diffusion-edit")
+
+
+def unported_family(base_model: str, controlnet: Optional[str], sampler: str = "ddim",
+                    sdedit: bool = False) -> Optional[str]:
+    """The generation family a configuration needs that the port lacks (ROADMAP
+    Queue 1 item 12), or None."""
+    if base_model == "ip2p":
+        return "ip2p (InstructPix2Pix)"
+    if base_model == "sd_xl" and sdedit and controlnet is None:
+        return "the SDXL refiner (the JAX package runs sd_xl + SDEdit on it)"
+    if sampler == "unipcmultistep":
+        return "UniPC"
+    if base_model == "sd_v2.1":
+        return "SD2.1"
+    if controlnet == "hed":
+        return "the HED ControlNet"
+    return None
+
+
+def refuse_unported(base_model: str, controlnet: Optional[str], sampler: str = "ddim", sdedit: bool = False) -> None:
+    family = unported_family(base_model, controlnet, sampler, sdedit)
+    if family is not None:
+        raise NotImplementedError(f"{base_model}, controlnet={controlnet}, sampler={sampler}, sdedit={sdedit} needs "
+                                  f"{family}, which is not ported yet (ROADMAP Queue 1 item 12)")
+
+
+def quantize(images: torch.Tensor) -> torch.Tensor:
+    """[0, 1] images -> uint8, on their device."""
+    return torch.clamp(torch.round(images * 255.0), 0, 255).to(torch.uint8)
 
 
 @dataclass
@@ -91,9 +128,9 @@ class DiffusionPipeline:
         is the default path's function): GroupNorm with the TPU kernel's
         numerics where its split plan admits the site, and the self-attention
         block kernel where `attention_block_eligible` admits it."""
-        if base_model not in BASE_MODELS or sampler != "ddim" or controlnet not in (None, "canny"):
-            raise NotImplementedError(f"ported so far: {'/'.join(BASE_MODELS)} + canny/None + ddim, got "
-                                      f"{base_model}, {controlnet}, {sampler}")
+        refuse_unported(base_model, controlnet, sampler)
+        if base_model not in BASE_MODELS or controlnet not in (None, "canny"):
+            raise ValueError(f"no pipeline {base_model} with controlnet={controlnet}")
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else default_dtype(self.device)
         self.base_model, self.controlnet_kind = base_model, controlnet
@@ -162,18 +199,16 @@ class DiffusionPipeline:
                 init_weights(self.params[name], seeds[name],
                              zero_prefixes=ZERO_INIT_PREFIXES if name == "controlnet" else ())
 
-    def load_flax_params(self, flax_params) -> list:
+    def load_flax_params(self, flax_params) -> None:
         """Loads a flax param tree (numpy leaves) strictly: one subtree per
-        model of the pipeline, every key.  Returns the flax paths the bridge
-        skipped (the VAE encoder)."""
-        sds, skipped = params_from_flax(flax_params)
+        model of the pipeline, every key."""
+        sds = params_from_flax(flax_params)
         if set(sds) != set(self.params) or len(sds["text"]) != len(self.params["text"]):
             raise KeyError(f"flax subtrees {sorted(sds)} do not match the pipeline's {sorted(self.params)}")
         for k, sd in sds.items():
             for mod, msd in (zip(self.params[k], sd) if k == "text" else [(self.params[k], sd)]):
                 mod.load_state_dict(msd, strict=True)
         self.weights_loaded = True
-        return skipped
 
     def encode_ids(self, text_params, ids):
         """Every text tower on EOT-padded ids (B, 77) -> (context, pooled):
@@ -194,6 +229,22 @@ class DiffusionPipeline:
         row = torch.tensor([[height, width, 0, 0, height, width]], dtype=torch.float32, device=self.device)
         return row.repeat(b, 1)
 
+    def _conditions(self, text_params, ids, neg_ids, height: int, width: int, do_cfg: bool):
+        """The UNet's conditions of the prompt ids and, under CFG, of the
+        negative ids: (ctx, nctx, ac, nac), nctx None without CFG; ac and nac
+        SDXL's added conditions (the pooled embedding and the time ids), None
+        for SD1.5."""
+        ctx, pooled = self.encode_ids(text_params, ids)
+        nctx = ac = nac = None
+        if do_cfg:
+            nctx, npooled = self.encode_ids(text_params, neg_ids)
+        if self.spec.is_xl:
+            tids = self.make_time_ids(ctx.shape[0], height, width)
+            ac = {"text_embeds": pooled, "time_ids": tids}
+            if do_cfg:
+                nac = {"text_embeds": npooled, "time_ids": tids}
+        return ctx, nctx, ac, nac
+
     def make_fused_generate(self, height: int, width: int, num_inference_steps: int, guidance_scale: float,
                             controlnet_scale: float = 0.75, canny_low: float = 120.0, canny_high: float = 200.0):
         """Returns fn(params, ids, neg_ids, src_images, latents) -> (B, H, W, 3)
@@ -208,15 +259,7 @@ class DiffusionPipeline:
 
         @torch.no_grad()
         def fused(params, ids, neg_ids, src_images, latents, return_images: bool = False):
-            ctx, pooled = self.encode_ids(params["text"], ids)
-            nctx = ac = nac = None
-            if do_cfg:
-                nctx, npooled = self.encode_ids(params["text"], neg_ids)
-            if self.spec.is_xl:
-                tids = self.make_time_ids(ctx.shape[0], height, width)
-                ac = {"text_embeds": pooled, "time_ids": tids}
-                if do_cfg:
-                    nac = {"text_embeds": npooled, "time_ids": tids}
+            ctx, nctx, ac, nac = self._conditions(params["text"], ids, neg_ids, height, width, do_cfg)
             return denoise(params, ctx, nctx, src_images, latents, return_images, ac, nac)
 
         return fused
@@ -229,26 +272,63 @@ class DiffusionPipeline:
         DDIM loop, VAE decode, quantisation.  nctx is None without CFG; ac and
         nac are SDXL's added conditions of the prompt and the negative."""
         timesteps = self.scheduler.timesteps(num_inference_steps)
-        dev = self.device
 
         def denoise(params, ctx, nctx, src_images, latents, return_images, ac=None, nac=None):
-            # uint8 sources: values 0-255 are exact in f32, so the cast is exact
-            src = torch.as_tensor(src_images, device=dev).float()
-            control = None
-            if self.controlnet_kind == "canny":
-                control = canny_control_image(src, canny_low, canny_high)
-                lf = self.latent_factor
-                ch, cw = (height // lf) * 8, (width // lf) * 8
-                if (ch, cw) != (height, width):
-                    control = nearest_resize(control, ch, cw)
-            lat = torch.as_tensor(latents, device=dev).float()
+            control = self.control_from_src(src_images, height, width, canny_low, canny_high)
+            lat = torch.as_tensor(latents, device=self.device).float()
             out = self._sample(params, lat, ctx, nctx, timesteps, guidance_scale=float(guidance_scale),
                                control_image=control, controlnet_scale=float(controlnet_scale), added_cond=ac,
                                uncond_added_cond=nac)
-            u8 = torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
+            u8 = quantize(out)
             return (u8, out) if return_images else u8
 
         return denoise
+
+    def control_from_src(self, src_images, height: int, width: int, canny_low: float = 120.0,
+                         canny_high: float = 200.0) -> Optional[torch.Tensor]:
+        """The ControlNet's conditioning image of (B, H, W, 3) sources in [0,
+        255] (uint8 or float) on the pipeline's device: Canny edges,
+        nearest-resized to latent size * 8 (the identity for the SD VAEs), or
+        None without a ControlNet."""
+        if self.controlnet_kind != "canny":
+            return None
+        # uint8 sources: values 0-255 are exact in f32, so the cast is exact
+        control = canny_control_image(torch.as_tensor(src_images, device=self.device).float(), canny_low, canny_high)
+        lf = self.latent_factor
+        ch, cw = (height // lf) * 8, (width // lf) * 8
+        return control if (ch, cw) == (height, width) else nearest_resize(control, ch, cw)
+
+    @torch.no_grad()
+    def encode_image(self, images) -> torch.Tensor:
+        """(B, H, W, 3) images in [0, 1] -> the scaled posterior mean
+        z0 = mean * scaling_factor, (B, H/8, W/8, 4) in the VAE's dtype."""
+        x = torch.as_tensor(images, device=self.device).float() * 2.0 - 1.0
+        mean, _ = self.params["vae"].encode(x.permute(0, 3, 1, 2))
+        return (mean * self.vae_cfg.scaling_factor).permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def generate(self, prompts, latents, height: int = 512, width: int = 512, num_inference_steps: int = 30,
+                 guidance_scale: float = 7.5, negative_prompt: Optional[str] = NEGATIVE_PROMPT, control_image=None,
+                 controlnet_scale: float = 0.75, init_image=None, sdedit_strength: float = 0.85, token_ids=None,
+                 negative_token_ids=None) -> torch.Tensor:
+        """Batched text(+control) -> image, or SDEdit from init_image (B, H, W,
+        3) in [0, 1] when one is given: (B, H, W, 3) f32 images in [0, 1] on
+        the pipeline's device.  latents: the (B, H/8, W/8, 4) initial noise (for SDEdit the noise added to z0);
+        control_image: control_from_src's; token_ids / negative_token_ids:
+        (B, 77) ids instead of the tokenizer's."""
+        do_cfg = guidance_scale > 1.0
+        ids = token_ids if token_ids is not None else self.tokenizer(list(prompts), pad="eot")
+        if do_cfg and negative_token_ids is None:
+            negative_token_ids = self.tokenizer([negative_prompt or ""] * len(prompts), pad="eot")
+        ctx, nctx, ac, nac = self._conditions(self.params["text"], ids, negative_token_ids, height, width, do_cfg)
+        timesteps = self.scheduler.timesteps(num_inference_steps)
+        lat = torch.as_tensor(latents, device=self.device).float()
+        if init_image is not None:
+            timesteps = timesteps[sdedit_start_step(num_inference_steps, sdedit_strength):]
+            lat = self.scheduler.add_noise(self.encode_image(init_image), lat, timesteps[0])
+        return self._sample(self.params, lat, ctx, nctx, timesteps, guidance_scale=float(guidance_scale),
+                            control_image=control_image, controlnet_scale=float(controlnet_scale), added_cond=ac,
+                            uncond_added_cond=nac)
 
 
 def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = False, sampler: str = "ddim",
@@ -256,28 +336,26 @@ def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = Fal
                   device=None) -> DiffusionPipeline:
     """Name-compatible with the reference's init_pipeline (run_aug/run_aug.py:128)
     and the JAX package's: SD1.5, SDXL, SDXL-Turbo or BLIP-Diffusion, with a
-    canny ControlNet or none, DDIM, loaded from the public files under
-    weights_dir; what it lacks takes the seeded random init (seed 0)."""
-    blip = base_model in ("blip_diffusion", "blip_diffusion-controlnet")
-    if SDEdit and blip:
-        # the JAX package's refusal: the reference's blip + SDEdit call passes
-        # arguments its BLIP pipelines do not declare
-        raise ValueError("SDEdit is not supported with blip_diffusion; use "
-                         "base_model='blip_diffusion-edit' for the inversion-edit path")
-    if base_model == "sd_xl" and SDEdit and controlnet is None:
-        # the JAX package maps sd_xl + SDEdit to the SDXL refiner (run_aug/run_aug.py:149-151)
-        raise NotImplementedError("sd_xl + SDEdit runs the SDXL refiner, which comes with SDEdit and the VAE "
-                                  "encoder (ROADMAP Queue 1 item 12)")
-    if base_model not in BASE_MODELS or SDEdit or controlnet not in (None, "canny") or sampler != "ddim":
-        raise NotImplementedError(
-            f"ported so far: {'/'.join(BASE_MODELS)} + canny/None + ddim; {base_model}, "
-            f"controlnet={controlnet}, SDEdit={SDEdit}, {sampler} come with the other generation families "
-            "(ROADMAP Queue 1 item 12; blip_diffusion-edit's DDIM inversion needs the VAE encoder, which comes "
-            "with SDEdit)")
-    if blip:
+    canny ControlNet or none, text to image or SDEdit, and BLIP-Diffusion's
+    inversion edit; DDIM; loaded from the public files under weights_dir,
+    what it lacks takes the seeded random init (seed 0).  SDEdit only selects
+    the model and the JAX package's refusals: any DiffusionPipeline runs
+    SDEdit when its `generate` is given an init_image."""
+    if base_model in BLIP_BASE_MODELS:
+        if SDEdit and base_model != "blip_diffusion-edit":
+            # the JAX package's refusal: the reference's blip + SDEdit call passes
+            # arguments its BLIP pipelines do not declare
+            raise ValueError("SDEdit is not supported with blip_diffusion; use "
+                             "base_model='blip_diffusion-edit' for the inversion-edit path")
+        # the edit path takes no ControlNet (the reference's edit() call has no conditioning image)
+        controlnet = None if base_model == "blip_diffusion-edit" else controlnet
+        refuse_unported(base_model, controlnet, sampler)
         from saspa_tpu_torch.models.blip_diffusion import BlipDiffusionPipeline
 
         return BlipDiffusionPipeline(controlnet=controlnet, sampler=sampler, dtype=dtype, device=device,
                                      weights_dir=weights_dir, init_seed=0)
+    if base_model == "ip2p" and controlnet is not None:
+        raise ValueError("ip2p does not support a ControlNet")
+    refuse_unported(base_model, controlnet, sampler, SDEdit)
     return DiffusionPipeline(base_model, controlnet=controlnet, sampler=sampler, dtype=dtype, device=device,
                              weights_dir=weights_dir, init_seed=0)

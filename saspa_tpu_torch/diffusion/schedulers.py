@@ -2,7 +2,8 @@
 
 SD1.5 defaults: scaled-linear betas 0.00085 -> 0.012 over 1000 train steps,
 epsilon prediction, steps_offset 1, leading spacing; deterministic DDIM
-(eta = 0).  UniPC is not ported yet.
+(eta = 0).  `add_noise` and `sdedit_start_step` are SDEdit's forward
+noising and strength-truncated schedule.  UniPC is not ported yet.
 """
 
 from __future__ import annotations
@@ -77,3 +78,18 @@ class DDIMScheduler:
         else:
             raise ValueError(self.cfg.prediction_type)
         return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
+
+    def add_noise(self, original, noise, t: int):
+        """sqrt(a_t) * original + sqrt(1 - a_t) * noise, a_t read from the f32
+        alphas_cumprod (as the JAX package reads it); f32 whatever the
+        inputs' dtype, as JAX promotes a bf16 latent against the f32 a_t."""
+        a = self.alphas_cumprod[int(t)]
+        return torch.sqrt(a) * original.float() + torch.sqrt(1.0 - a) * noise.float()
+
+
+def sdedit_start_step(num_inference_steps: int, strength: float) -> int:
+    """img2img: the index of the first timestep that runs, skipping the first
+    (1 - strength) of the schedule; int() truncates the float product, so
+    50 steps at strength 0.15 run 7 (diffusers' get_timesteps)."""
+    init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
+    return max(num_inference_steps - init_timestep, 0)

@@ -16,13 +16,19 @@ become a flat worklist of (image, prompt) items that is
     same-class subject image, writes it as `{stem}_subject_{i}.png`, and
     hands it at 224^2 to the fused function with the dataset's meta class
     as the subject category.
+SDEdit (`cfg.sdedit`: the Real-Guidance and ALIA presets) and BLIP-Diffusion's
+inversion edit (`blip_diffusion-edit`) take the unfused entry points,
+`pipe.generate` with the source / 255 as the image to edit (and its canny
+image from `pipe.control_from_src` with a ControlNet) and `pipe.edit` with
+the source and the subject references, as the JAX driver does.
 Every item's noise derives from (seed, image index, prompt index) through
 `utils.rng.item_normal`, jax.random.normal's draw in numpy, so results do not
 depend on batch composition, shard count or resume point, and match the JAX
 driver's.  Sources are read and PNGs written by `gen.image_io`; resizing is
 `ops.image.resize_image`.  `run_generation_and_filter` then builds the
-aug-JSON of the folder (`filters.aug_json`).  The paths of other families
-(HED, SDEdit, blip_diffusion-edit, ip2p) come with ROADMAP Queue 1 item 12.
+aug-JSON of the folder (`filters.aug_json`).  The families the port lacks
+(ip2p, the SDXL refiner, UniPC, SD2.1, HED) raise, naming ROADMAP Queue 1
+item 12.
 """
 
 from __future__ import annotations
@@ -153,18 +159,17 @@ def _save_source_and_control(cfg, indexed_paths, output_folder, device="cpu"):
 
 
 def _check_supported(cfg: GenerationConfig) -> None:
-    from saspa_tpu_torch.diffusion.pipelines import BASE_MODELS
+    """The JAX driver's refusals, and the port's of the families it lacks
+    (also for an injected pipe)."""
+    from saspa_tpu_torch.diffusion.pipelines import refuse_unported
 
     if cfg.base_model == "ip2p" and cfg.controlnet is not None:
         raise ValueError("ip2p does not support a ControlNet")
     if cfg.sdedit and "blip_diffusion" in cfg.base_model:
         raise ValueError("SDEdit is not supported with blip_diffusion; use "
                          "base_model='blip_diffusion-edit' for the inversion-edit path")
-    if cfg.base_model not in BASE_MODELS or cfg.sdedit or cfg.controlnet not in (None, "canny"):
-        raise NotImplementedError(
-            f"ported so far: {'/'.join(BASE_MODELS)} text(+canny)->image; {cfg.base_model}, "
-            f"controlnet={cfg.controlnet}, sdedit={cfg.sdedit} come with the other generation families "
-            "(ROADMAP Queue 1 item 12)")
+    edit = cfg.base_model == "blip_diffusion-edit"  # takes no ControlNet
+    refuse_unported(cfg.base_model, None if edit else cfg.controlnet, cfg.sampler, cfg.sdedit)
 
 
 def _subject_references(cfg: GenerationConfig, chunk: List[WorkItem], output_folder: str) -> np.ndarray:
@@ -189,6 +194,7 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
     """Generate augmentations; returns the output folder.  `pipe` can be
     injected (tests); otherwise `init_pipeline` builds it on the card."""
     from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion.pipelines import quantize
     from saspa_tpu_torch.gen.prompts import PromptEngine
 
     cfg = cfg.with_dataset_overrides()
@@ -273,15 +279,18 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
     lf = pipe.latent_factor
     neg = [cfg.negative_prompt or ""] * cfg.batch_size
     is_blip = "blip_diffusion" in cfg.base_model
+    is_edit = cfg.base_model == "blip_diffusion-edit"
+    use_fused = not (cfg.sdedit or is_edit)  # SDEdit and the edit take the unfused entry points
     meta = ds_utils.meta_class  # BLIP's source and target subject category
     aborted = False  # MAX_ERRORS stops every bucket, not just the current one
     for (h, w), bucket_items in buckets.items():
         if aborted:
             break
         bs = cfg.batch_size
-        fused = pipe.make_fused_generate(h, w, cfg.num_inference_steps, cfg.guidance_scale,
-                                         cfg.controlnet_conditioning_scale, cfg.low_threshold_canny,
-                                         cfg.high_threshold_canny)
+        if use_fused:
+            fused = pipe.make_fused_generate(h, w, cfg.num_inference_steps, cfg.guidance_scale,
+                                             cfg.controlnet_conditioning_scale, cfg.low_threshold_canny,
+                                             cfg.high_threshold_canny)
         for lo in range(0, len(bucket_items), bs):
             chunk = bucket_items[lo:lo + bs]
             # pad the last batch to a full one (repeating its last item);
@@ -306,13 +315,29 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
             t_disp = time.perf_counter()
             try:
                 prompts = [it.prompt for it in chunk]
-                neg_ids = pipe.tokenizer(neg, pad="eot")
-                if is_blip:
+                if is_edit:
+                    # the source inverted, then regenerated under the subject
+                    # embeddings; the meta class is the source and the target subject
+                    dispatched = quantize(pipe.edit(
+                        torch.as_tensor(src, device=pipe.device).float() / 255.0, refs, prompts,
+                        source_subject=meta, target_subject=meta, guidance_scale=cfg.guidance_scale,
+                        num_inference_steps=cfg.num_inference_steps, negative_prompt=cfg.negative_prompt))
+                elif cfg.sdedit:
+                    control = pipe.control_from_src(src, h, w, cfg.low_threshold_canny, cfg.high_threshold_canny)
+                    dispatched = quantize(pipe.generate(
+                        prompts, height=h, width=w, num_inference_steps=cfg.num_inference_steps,
+                        guidance_scale=cfg.guidance_scale, negative_prompt=cfg.negative_prompt,
+                        control_image=control, controlnet_scale=cfg.controlnet_conditioning_scale,
+                        init_image=torch.as_tensor(src, device=pipe.device).float() / 255.0,
+                        sdedit_strength=cfg.sdedit_strength, latents=latents))
+                elif is_blip:
                     ids = pipe.build_subject_prompt_ids(prompts, meta)
                     cat_ids, cat_mask = pipe.bert_category_ids(meta, len(chunk))
-                    dispatched = fused(pipe.params, ids, neg_ids, cat_ids, cat_mask, refs, src, latents)
+                    dispatched = fused(pipe.params, ids, pipe.tokenizer(neg, pad="eot"), cat_ids, cat_mask, refs,
+                                       src, latents)
                 else:
-                    dispatched = fused(pipe.params, pipe.tokenizer(prompts, pad="eot"), neg_ids, src, latents)
+                    dispatched = fused(pipe.params, pipe.tokenizer(prompts, pad="eot"), pipe.tokenizer(neg, pad="eot"),
+                                       src, latents)
             except RuntimeError as e:
                 if count_error("on batch", e):
                     aborted = True

@@ -17,6 +17,10 @@ every dataset but planes:
     repeated 20 times, comma-joined, tokenized to 77 - 16 positions;
   * the SD1.5 UNet, canny ControlNet and VAE of `DiffusionPipeline`.
 The fused function runs the towers once a batch, then the SD1.5 denoise.
+`edit` is the `blip_diffusion-edit` subject swap (LAVIS' edit): the source
+DDIM-inverted under its plain description (`invert`: the VAE encoder, then
+49 UNet calls up the ascending schedule of 50 steps, no CFG), then sampled
+back under the subject-spliced prompt.
 """
 
 from __future__ import annotations
@@ -264,3 +268,48 @@ class BlipDiffusionPipeline(DiffusionPipeline):
 
         return fused
 
+
+    @torch.no_grad()
+    def invert(self, images, context, num_inversion_steps: int = 50) -> torch.Tensor:
+        """DDIM inversion (the JAX package's `invert`): (B, H, W, 3) images
+        in [0, 1] -> the scaled posterior mean -> len(ts) - 1 deterministic
+        DDIM steps t_i -> t_{i+1} up the ascending timesteps ts of
+        num_inversion_steps, each one UNet call under `context` (B, 77, D)
+        without CFG.  Returns (B, H/8, W/8, 4) f32 latents; the latents are
+        f32 from the start (the UNet's eps is)."""
+        ac = self.scheduler.alphas_cumprod
+        ts = [int(t) for t in self.scheduler.timesteps(num_inversion_steps)[::-1]]
+        unet = self.params["unet"]
+        lat = self.encode_image(images).float().permute(0, 3, 1, 2)
+        for t, t_next in zip(ts[:-1], ts[1:]):
+            eps = unet(lat, t, context, None, None, None)
+            a_t, a_next = ac[t], ac[t_next]
+            x0 = (lat - torch.sqrt(1 - a_t) * eps) / torch.sqrt(a_t)
+            lat = torch.sqrt(a_next) * x0 + torch.sqrt(1 - a_next) * eps
+        return lat.permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def edit(self, source_images, subject_images, prompts, source_subject: str, target_subject: str,
+             guidance_scale: float = 7.5, num_inference_steps: int = 50, num_inversion_steps: int = 50,
+             negative_prompt: Optional[str] = None) -> torch.Tensor:
+        """Subject-swap edit (the JAX package's `edit`): the subject
+        embeddings of subject_images (B, h, w, 3) in [0, 1] with the source
+        category; source_images (B, H, W, 3) in [0, 1] inverted under the plain
+        text of "a {source_subject}"; then the DDIM loop from the inverted
+        latents under the prompts with the target subject spliced in, with
+        CFG against negative_prompt when guidance_scale > 1 (the path draws
+        no noise).  Returns (B, H, W, 3) f32 images in [0, 1]."""
+        b, params, dev = len(prompts), self.params, self.device
+        text = params["text"][0]
+        cat_ids, cat_mask = self.bert_category_ids(source_subject, b)
+        subject = self.subject_embeddings(params, subject_images, cat_ids, cat_mask)
+        ctx = self._encode_with_ctx(params, self.build_subject_prompt_ids(list(prompts), target_subject), subject)
+        nctx = None
+        if guidance_scale > 1:
+            nids = self.tokenizer([negative_prompt or ""] * b, pad="eot")
+            nctx = text(torch.as_tensor(nids, device=dev).long())["hidden"]
+        src_ids = self.tokenizer([f"a {source_subject}"] * b, pad="eot")
+        inv_ctx = text(torch.as_tensor(src_ids, device=dev).long())["hidden"]
+        latents = self.invert(source_images, inv_ctx, num_inversion_steps)
+        return self._sample(params, latents, ctx, nctx, self.scheduler.timesteps(num_inference_steps),
+                            guidance_scale=float(guidance_scale))

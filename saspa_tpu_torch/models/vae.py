@@ -1,14 +1,16 @@
-"""AutoencoderKL decoder (counterpart of saspa_tpu/models/vae.py::decode).
+"""AutoencoderKL (counterpart of saspa_tpu/models/vae.py), NCHW with
+channels-last memory, as the latents arrive.
 
-Only the decoder is ported so far; the encoder (SDEdit, ip2p) comes with
-those paths.  The mid-block's one-head attention (d = 512 at SD width)
+`encode` (SDEdit, BLIP-Diffusion's inversion) returns the posterior's mean
+and clipped logvar; `decode` the image in [-1, 1].  The encoder's stride-2
+downsamples pad one row and column at the bottom and right only, flax's
+((0, 1), (0, 1)).  Both mid-blocks' one-head attention (d = 512 at SD width)
 takes the packed kernel when its head dim is already lane-aligned and the
 packed predicate admits the token count, as the JAX package routes it; past
 the packed guard (16384 tokens at 1024^2) it takes the plain path, as JAX
-takes XLA there.  Every GroupNorm runs
-K3; `pallas_group_norm` gives it the TPU kernel's numerics where that
-kernel's split plan admits the site (not the 512^2 tail, see
-ops/groupnorm.py::split_plan).
+takes XLA there.  Every GroupNorm runs K3; `pallas_group_norm` gives it the
+TPU kernel's numerics where that kernel's split plan admits the site (not
+the 512^2 levels, see ops/groupnorm.py::split_plan).
 """
 
 from __future__ import annotations
@@ -84,6 +86,39 @@ class VAEAttentionBlock(nn.Module):
         return res + out.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, dtype, device, pallas_group_norm=False):
+        super().__init__()
+        self.cfg = cfg
+        gn = pallas_group_norm
+        boc = cfg.block_out_channels
+        cur = boc[0]
+        self.conv_in = Conv(cfg.in_channels, cur, 3, padding=1, dtype=dtype, device=device)
+        for i, ch in enumerate(boc):
+            for j in range(cfg.layers_per_block):
+                setattr(self, f"down_{i}_block_{j}", VAEResnetBlock(cur, ch, dtype, device, gn))
+                cur = ch
+            if i < len(boc) - 1:
+                setattr(self, f"down_{i}_downsample", Conv(ch, ch, 3, stride=2, dtype=dtype, device=device))
+        self.mid_block_1 = VAEResnetBlock(cur, cur, dtype, device, gn)
+        self.mid_attn = VAEAttentionBlock(cur, dtype, device, gn)
+        self.mid_block_2 = VAEResnetBlock(cur, cur, dtype, device, gn)
+        self.conv_norm_out = GroupNorm32(cur, 32, eps=1e-6, act="silu", device=device, tpu_numerics=gn)
+        self.conv_out = Conv(cur, 2 * cfg.latent_channels, 3, padding=1, dtype=dtype, device=device)
+        self.quant_conv = Conv(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1, dtype=dtype, device=device)
+
+    def forward(self, x):
+        cfg = self.cfg
+        x = self.conv_in(x)
+        for i in range(len(cfg.block_out_channels)):
+            for j in range(cfg.layers_per_block):
+                x = getattr(self, f"down_{i}_block_{j}")(x)
+            if i < len(cfg.block_out_channels) - 1:
+                x = getattr(self, f"down_{i}_downsample")(F.pad(x, (0, 1, 0, 1)))
+        x = self.mid_block_2(self.mid_attn(self.mid_block_1(x)))
+        return self.quant_conv(self.conv_out(self.conv_norm_out(x)))
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig, dtype, device, pallas_group_norm=False):
         super().__init__()
@@ -118,12 +153,20 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """decode(z (B, 4, h, w)) -> image (B, 3, 8h, 8w) in [-1, 1], f32."""
+    """encode(x (B, 3, H, W) in [-1, 1]) -> (mean, logvar), (B, 4, H/8, W/8)
+    each in the VAE's dtype; decode(z (B, 4, h, w)) -> image (B, 3, 8h, 8w)
+    in [-1, 1], f32.  Latent scaling lives in the pipeline."""
 
     def __init__(self, cfg: VAEConfig = SD_VAE, dtype=torch.float32, device=None, pallas_group_norm=False):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg, dtype, device, pallas_group_norm)
         self.decoder = Decoder(cfg, dtype, device, pallas_group_norm)
+
+    def encode(self, x):
+        moments = self.encoder(x.to(self.encoder.conv_in.kernel.dtype))
+        mean, logvar = moments.chunk(2, dim=1)  # the channel axis: 4 means, then 4 logvars
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def decode(self, z):
         return self.decoder(z.to(self.decoder.conv_in.kernel.dtype)).float()

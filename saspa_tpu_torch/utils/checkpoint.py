@@ -86,7 +86,7 @@ def load_checkpoint(path: str) -> dict:
     left = unconsumed(sd)
     if left:
         raise WeightsMismatch(f"{path}: {len(left)} keys a WSDAN-CAL does not take: {left[:8]}")
-    ckpt = {"params": state_dict_from_flax(params)[0], "batch_stats": state_dict_from_flax(stats)[0],
+    ckpt = {"params": state_dict_from_flax(params), "batch_stats": state_dict_from_flax(stats),
             "net": cal_net(sd)}
     if isinstance(obj.get("feature_center"), torch.Tensor):
         ckpt["feature_center"] = obj["feature_center"].float()

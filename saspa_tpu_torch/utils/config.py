@@ -6,9 +6,9 @@ JAX package's field for field, but for its mesh and buffer-donation
 fields, which have no meaning on one card.  `GenerationConfig` mirrors the reference's module constants of
 run_aug/run_aug.py:513-556, with its dataset overrides, the prompt
 descriptor and the output-folder layout, field for field the JAX package's
-copy, so the CLI maps onto the same configuration.  The baseline presets
-(`real_guidance`, `alia`) come with the paths they run (SDEdit, ip2p, the
-filter stage).
+copy, so the CLI maps onto the same configuration, and the two baseline
+presets: `real_guidance` (SDEdit at strength 0.15) and `alia` (SDEdit at
+0.5; ip2p for planes_biased).
 """
 
 from __future__ import annotations
@@ -165,6 +165,28 @@ class GenerationConfig:
 
     def replace(self, **kw) -> "GenerationConfig":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def real_guidance(cls, dataset: str, **kw) -> "GenerationConfig":
+        """The Real-Guidance baseline (the reference's run_aug_real_guidance.py,
+        :505-556): SDEdit at strength 0.15 over 50 steps, no ControlNet,
+        txt2sentence prompts without artistic suffixes; the CLIP per-class
+        filter downstream."""
+        base = dict(dataset=dataset, base_model="sd_v1.5", controlnet=None, sdedit=True, sdedit_strength=0.15,
+                    prompt_type="txt2sentence", use_artistic_prompts=False, num_inference_steps=50)
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def alia(cls, dataset: str, **kw) -> "GenerationConfig":
+        """The ALIA baseline: SDEdit at strength 0.5 with ALIA's GPT prompts
+        (run_aug_real_guidance.py:524,540); ip2p for planes_biased, as ALIA
+        (run_aug/run_aug.py:252-255)."""
+        base = dict(dataset=dataset, base_model="ip2p" if dataset == "planes_biased" else "sd_v1.5",
+                    controlnet=None, sdedit=dataset != "planes_biased", sdedit_strength=0.5, prompt_type="ALIA",
+                    use_artistic_prompts=False)
+        base.update(kw)
+        return cls(**base)
 
     def with_dataset_overrides(self) -> "GenerationConfig":
         """Dataset-conditional overrides (run_aug/run_aug.py:560-586)."""

@@ -9,9 +9,7 @@ ones the JAX converters document: HF's and BERT's `position_ids` buffers,
 BatchNorm's `num_batches_tracked` counters, the OpenAI RN50 archive's
 scalar metadata (`input_resolution`, `context_length`, `vocab_size`), the
 lpips `scaling_layer` constants (checked against the model's, not
-loaded), and the VAE encoder, which the bridge skips
-(`bridge.VAE_SKIPPED_PREFIXES`) until SDEdit ports it.  Anything else
-raises and names the keys.
+loaded).  Anything else raises and names the keys.
 
 Each load returns a report: the file, its keys, the parameters and
 elements loaded, bytes and seconds; with REPORT_SUMS set (the chip smoke's
@@ -30,7 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from saspa_tpu_torch.bridge import VAE_SKIPPED_PREFIXES, state_dict_from_flax, state_dict_from_flax_variables
+from saspa_tpu_torch.bridge import state_dict_from_flax, state_dict_from_flax_variables
 from saspa_tpu_torch.weights import convert
 from saspa_tpu_torch.weights.files import read_state_dict
 from saspa_tpu_torch.weights.sources import CONTROLNETS, FAMILIES, PARTS, family_of, find_source
@@ -104,10 +102,8 @@ def state_sums(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> dict:
             "rounded_sum": _sum64(sd[k].to(after[k].dtype) for k in after)}
 
 
-def _bridged(kind: str, tree) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    if kind in ("clip_rn50", "cal"):
-        return state_dict_from_flax_variables(tree), []
-    return state_dict_from_flax(tree, VAE_SKIPPED_PREFIXES if kind == "vae" else ())
+def _bridged(kind: str, tree) -> Dict[str, torch.Tensor]:
+    return state_dict_from_flax_variables(tree) if kind in ("clip_rn50", "cal") else state_dict_from_flax(tree)
 
 
 def _convert(kind: str, sd, module) -> list:
@@ -151,10 +147,10 @@ def load_file(path, kind: str, module, sd=None) -> List[dict]:
         raise WeightsMismatch(f"{path}: {len(left)} keys the {kind} model does not take: {left[:8]}")
     reports, loaded = [], []
     for tree, mod, name in converted:
-        msd, skipped = _bridged(kind, tree)
+        msd = _bridged(kind, tree)
         rep = load_module(mod, msd, f"{path} ({name})")
         reports.append({"model": name, "file": str(path), "kind": kind, "file_keys": len(tsd),
-                        "unconsumed": 0, "skipped": len(skipped), **rep})
+                        "unconsumed": 0, **rep})
         loaded.append((mod, msd))
     if torch.cuda.is_available():
         torch.cuda.synchronize()

@@ -217,7 +217,7 @@ def test_vit_matches_jax(params, return_tokens):
 def _flat_state_dict(tree):
     from saspa_tpu_torch.bridge import state_dict_from_flax
 
-    return state_dict_from_flax(tree)[0]
+    return state_dict_from_flax(tree)
 
 
 @pytest.mark.parametrize("h,w", [(224, 224), (300, 400), (150, 100)])

@@ -174,8 +174,9 @@ def test_cli_flags_map_to_the_same_config(argv, monkeypatch):
 
 def test_cli_refuses_what_is_not_ported(monkeypatch):
     """`gen` filters unless --skip_filter is passed (the JAX CLI's
-    semantic + top-10 confidence recipe); the presets raise, and so do the
-    generation families not ported yet."""
+    semantic + top-10 confidence recipe); the presets run with their
+    filter recipes, but ALIA on planes_biased (ip2p); the generation
+    families not ported yet raise, each naming its family."""
     import saspa_tpu_torch.cli as tcli
 
     calls = []
@@ -183,14 +184,20 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
     monkeypatch.setattr(tdriver, "run_generation_and_filter", lambda cfg, **kw: calls.append(("filter", kw)))
     tcli.main(["gen", "--resolution", "1024"])
     tcli.main(["gen", "--resolution", "1024", "--skip_filter"])
+    tcli.main(["gen", "--preset", "alia", "--skip_filter"])
     assert calls == [("filter", {"semantic_filtering": True, "model_confidence_based_filtering": True}),
-                     ("gen", {})]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tcli.main(["gen", "--preset", "alia", "--skip_filter"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        init_pipeline("sd_xl", None, SDEdit=True)  # the SDXL refiner
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+                     ("gen", {}),
+                     ("filter", {"semantic_filtering": True, "model_confidence_based_filtering": False,
+                                 "alia_conf_filtering": True})]
+    monkeypatch.undo()
+    with pytest.raises(NotImplementedError, match=r"ip2p.*Queue 1 item 12"):
+        tcli.main(["gen", "--preset", "alia", "--dataset", "planes_biased"])
+    with pytest.raises(NotImplementedError, match=r"SDXL refiner.*Queue 1 item 12"):
+        init_pipeline("sd_xl", None, SDEdit=True)
+    with pytest.raises(NotImplementedError, match=r"SD2\.1.*Queue 1 item 12"):
         init_pipeline("sd_v2.1", "canny")
+    with pytest.raises(NotImplementedError, match=r"UniPC.*Queue 1 item 12"):
+        init_pipeline("sd_v1.5", "canny", sampler="unipcmultistep")
     # weights_dir reaches the pipeline, which loads the tree's files (tests/test_torch_weights.py)
     import saspa_tpu_torch.diffusion.pipelines as tpipelines
 
@@ -199,11 +206,20 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
         assert init_pipeline("sd_v1.5", "canny", weights_dir="/nowhere") == \
             ("sd", ("sd_v1.5",), {"controlnet": "canny", "sampler": "ddim", "dtype": None, "device": None,
                                   "weights_dir": "/nowhere", "init_seed": 0})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        # SDEdit builds for every base model the port has, canny or not (the
+        # pipeline runs it when generate is given an init_image); sd_xl with
+        # canny is no refiner
+        plain = {"sampler": "ddim", "dtype": None, "device": None, "weights_dir": None, "init_seed": 0}
+        for base in ("sd_v1.5", "sd_xl-turbo", "sd_xl"):
+            assert init_pipeline(base, "canny", SDEdit=True) == ("sd", (base,), {"controlnet": "canny", **plain})
+        assert init_pipeline("sd_v1.5", None, SDEdit=True) == ("sd", ("sd_v1.5",), {"controlnet": None, **plain})
+    with pytest.raises(NotImplementedError, match=r"HED.*Queue 1 item 12"):
         tdriver._check_supported(GenerationConfig(controlnet="hed"))
+    tdriver._check_supported(GenerationConfig(sdedit=True, controlnet=None))
+    tdriver._check_supported(GenerationConfig(sdedit=True, controlnet="canny"))
     # BLIP-Diffusion + canny builds (its constructor stubbed: the full-width
     # towers are the card's), and so does cub's SDXL-Turbo + canny; BLIP's
-    # edit path and HED raise
+    # edit path builds without a ControlNet; HED raises
     import saspa_tpu_torch.models.blip_diffusion as tblip
 
     monkeypatch.setattr(tblip, "BlipDiffusionPipeline", lambda **kw: ("blip", kw))
@@ -211,18 +227,20 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
         ("blip", {"controlnet": "canny", "sampler": "ddim", "dtype": None, "device": None, "weights_dir": None,
                   "init_seed": 0})
     tdriver._check_supported(GenerationConfig(dataset="dtd", base_model="blip_diffusion", controlnet="canny"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        init_pipeline("blip_diffusion-edit", None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tdriver._check_supported(GenerationConfig(base_model="blip_diffusion-edit"))
+    assert init_pipeline("blip_diffusion-edit", "canny") == \
+        ("blip", {"controlnet": None, "sampler": "ddim", "dtype": None, "device": None, "weights_dir": None,
+                  "init_seed": 0})
+    tdriver._check_supported(GenerationConfig(base_model="blip_diffusion-edit"))
     tdriver._check_supported(GenerationConfig(dataset="cub", base_model="blip_diffusion").with_dataset_overrides())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match=r"HED.*Queue 1 item 12"):
         tdriver._check_supported(GenerationConfig(dataset="cub", base_model="blip_diffusion",
                                                   controlnet="hed").with_dataset_overrides())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match=r"HED.*Queue 1 item 12"):
         init_pipeline("blip_diffusion", "hed")
     with pytest.raises(ValueError, match="SDEdit is not supported with blip_diffusion"):
         init_pipeline("blip_diffusion", "canny", SDEdit=True)
+    with pytest.raises(ValueError, match="SDEdit is not supported with blip_diffusion"):
+        tdriver._check_supported(GenerationConfig(base_model="blip_diffusion-edit", sdedit=True))
 
 
 DTD_SOURCES = ["banded/banded_0005.jpg", "banded/banded_0011.jpg", "blotchy/blotchy_0009.jpg",

@@ -18,7 +18,7 @@ from tests.test_torch_pipeline import _close, _ids, _inputs, _nchw, pipes  # noq
 
 
 def test_text_tower_matches(pipes):
-    jp, tp, _, _ = pipes
+    jp, tp, _ = pipes
     ids, neg = _ids()
     for x in (ids, neg):
         want = jp.text_encoders[0].apply({"params": jp.params["text"][0]}, jnp.asarray(x))["hidden"]
@@ -36,7 +36,7 @@ def _context(jp, b=2):
 
 def test_unet_matches(pipes):
     """One UNet call at 16x16 latents (256-token packed self-attention)."""
-    jp, tp, _, _ = pipes
+    jp, tp, _ = pipes
     _, lat = _inputs(1)
     ctx = _context(jp)[:2]
     want = jax.jit(jp.unet.apply)({"params": jp.params["unet"]}, jnp.asarray(lat), jnp.asarray(501), jnp.asarray(ctx))
@@ -48,7 +48,7 @@ def test_controlnet_and_shared_prefix_unet_match(pipes):
     """The ControlNet (embed_cond + residuals, scale 0.75) and one UNet call
     with the CFG shared prefix: B-sized latents against the 2B [uncond, cond]
     context, forking at the first cross-attention, with the residuals."""
-    jp, tp, _, _ = pipes
+    jp, tp, _ = pipes
     src, lat = _inputs(2)
     ctx = _context(jp)  # (4, 77, 16)
     rng = np.random.RandomState(4)
@@ -76,7 +76,7 @@ def test_controlnet_and_shared_prefix_unet_match(pipes):
 def test_vae_decode_matches(pipes):
     """16x16 latents: the mid attention has 256 tokens but a 16-wide head,
     so both packages take the plain path there."""
-    jp, tp, _, _ = pipes
+    jp, tp, _ = pipes
     _, lat = _inputs(3)
     want = jax.jit(lambda p, z: jp.vae.apply({"params": p}, z, method=JaxVAE.decode))(jp.params["vae"], jnp.asarray(lat))
     got = tp.params["vae"].decode(_nchw(lat)).permute(0, 2, 3, 1)

@@ -198,13 +198,15 @@ def test_layer_norm32_is_the_one_pass_function():
 def test_norm_inputs_are_in_a_layout_the_kernels_take():
     """The kernels take dense inputs and raise on others; on the CPU the plain
     versions take any layout, so this test holds the layout: every GroupNorm
-    input of a tiny canny generation, in both kernel configurations, is a
-    4-d channels-last tensor (the UNet, ControlNet and VAE run channels-last
-    from the latents on), and every LayerNorm input is contiguous."""
+    input of a tiny canny generation and of a canny SDEdit generation (the
+    VAE encoder's norms too, behind its bottom/right padding), in both
+    kernel configurations, is a 4-d channels-last tensor (the UNet,
+    ControlNet and VAE run channels-last from the latents and the image on),
+    and every LayerNorm input is contiguous."""
     from tests.test_torch_pipeline import P_TEXT, P_UNET, P_VAE, _ids, _inputs
     from saspa_tpu_torch.diffusion.pipelines import DiffusionPipeline
 
-    seen = []
+    seen, encoder_norms = [], set()
 
     def hook(mod, args):
         x = args[0]
@@ -213,6 +215,7 @@ def test_norm_inputs_are_in_a_layout_the_kernels_take():
         else:
             dense = x.is_contiguous()
         seen.append(dense)
+        encoder_norms.discard(id(mod))
 
     src, lat = _inputs(5)
     ids, neg = _ids()
@@ -223,8 +226,12 @@ def test_norm_inputs_are_in_a_layout_the_kernels_take():
             for m in tp.params[key].modules():
                 if isinstance(m, (t_unet.GroupNorm32, t_unet.LayerNorm32)):
                     m.register_forward_pre_hook(hook)
+        encoder_norms |= {id(m) for m in tp.params["vae"].encoder.modules() if isinstance(m, t_unet.GroupNorm32)}
         tp.make_fused_generate(32, 32, 2, 7.5)(tp.params, ids, neg, src, lat)
-    assert len(seen) > 100 and all(seen)
+        tp.generate(["a", "b"], height=32, width=32, num_inference_steps=2, control_image=tp.control_from_src(
+            src, 32, 32), init_image=torch.from_numpy(src).float() / 255.0, sdedit_strength=0.5, latents=lat,
+            token_ids=ids, negative_token_ids=neg)
+    assert len(seen) > 100 and all(seen) and not encoder_norms
 
 
 # ---- K3 on the card: its launch plan and its sum order, replayed here --------

@@ -24,7 +24,7 @@ import torch
 from saspa_tpu.diffusion.pipelines import DiffusionPipeline as JaxPipeline
 from saspa_tpu.gen.tokenizer import CLIPTokenizer as JaxTokenizer
 from saspa_tpu.utils.config import NEGATIVE_PROMPT as JAX_NEGATIVE_PROMPT
-from saspa_tpu_torch.bridge import VAE_SKIPPED_PREFIXES, params_from_flax
+from saspa_tpu_torch.bridge import params_from_flax
 from saspa_tpu_torch.diffusion.pipelines import DiffusionPipeline
 from saspa_tpu_torch.gen.tokenizer import NEGATIVE_PROMPT, CLIPTokenizer
 from saspa_tpu_torch.models import text_encoder as t_text
@@ -89,8 +89,8 @@ def pipes():
                             unet_cfg=G_UNET, vae_cfg=G_VAE, text_cfgs=G_TEXT)
     tp = DiffusionPipeline(controlnet="canny", device="cpu", dtype=torch.float32, init_seed=None,
                            unet_cfg=P_UNET, vae_cfg=P_VAE, text_cfgs=P_TEXT)
-    skipped = tp.load_flax_params(params)
-    return jp, tp, params, skipped
+    tp.load_flax_params(params)
+    return jp, tp, params
 
 
 def _inputs(seed, b=2, size=32):
@@ -131,18 +131,18 @@ def _close(got, want, rel=1e-4):
 
 def test_bridge_maps_every_leaf_strictly(pipes):
     """load_state_dict(strict=True) passed in the fixture for text, UNet,
-    ControlNet and VAE; the only flax leaves left out are the VAE encoder's,
-    named by the skip list."""
-    _, tp, params, skipped = pipes
+    ControlNet and VAE; every flax leaf maps to one torch entry, the VAE
+    encoder's (quant_conv included) too."""
+    _, tp, params = pipes
     n_leaves = len(jax.tree_util.tree_leaves(params))
     n_torch = sum(len(m.state_dict()) for m in tp._modules())
-    assert skipped and all(p.startswith(tuple(f"vae/{s}" for s in VAE_SKIPPED_PREFIXES)) for p in skipped)
-    assert len(jax.tree_util.tree_leaves(params["vae"]["encoder"])) == len(skipped)
-    assert n_torch == n_leaves - len(skipped)
-    sds, sk = params_from_flax(params)
+    assert n_torch == n_leaves
+    sds = params_from_flax(params)
+    enc = {k for k in sds["vae"] if k.startswith("encoder.")}
+    assert len(enc) == len(jax.tree_util.tree_leaves(params["vae"]["encoder"])) > 0
+    assert "encoder.quant_conv.kernel" in enc
     w = sds["unet"]["down_0_resnets_0.conv1.kernel"]
     assert tuple(w.shape) == np.asarray(params["unet"]["down_0_resnets_0"]["conv1"]["kernel"]).shape[::-1][:2] + (3, 3)
-    assert sk == skipped
 
 
 def test_tokenizer_copy_matches():
@@ -159,7 +159,7 @@ def test_fused_generate_matches_jax(pipes):
     control image is resized 32 -> 128 for the 16x16 latents), 2 DDIM steps,
     CFG 7.5, scale 0.75, f32.  uint8 outputs agree to 1 level (a rounding
     boundary can fall between the two f32 results), >= 99% exactly."""
-    jp, tp, _, _ = pipes
+    jp, tp, _ = pipes
     src, lat = _inputs(5)
     ids, neg = _ids()
     want = np.asarray(jp.make_fused_generate(32, 32, 2, 7.5)(jp.params, jnp.asarray(ids), jnp.asarray(neg),
@@ -171,7 +171,7 @@ def test_fused_generate_matches_jax(pipes):
 
 
 def test_uint8_and_float_sources_give_the_same_output(pipes):
-    _, tp, _, _ = pipes
+    _, tp, _ = pipes
     src, lat = _inputs(6)
     ids, neg = _ids()
     fn = tp.make_fused_generate(32, 32, 2, 7.5)

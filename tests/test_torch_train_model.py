@@ -131,7 +131,7 @@ def test_training_forward_from_a_key_matches_jax(tiny_backbone, seed):
     for g, w in zip(got[:3], want[:3]):
         assert _rel(g, w) <= 1e-3
     assert _rel(got[3], want[3]) <= 1e-3  # the two picked maps a sample: the picks agree
-    stats = state_dict_from_flax(mut["batch_stats"])[0]
+    stats = state_dict_from_flax(mut["batch_stats"])
     sd = tm.state_dict()
     for k, w in stats.items():
         assert _rel(sd[k], w.numpy()) <= 1e-4, k

@@ -220,7 +220,7 @@ def test_unet_matches_jax(params):
         {"params": params["unet"]}, jnp.asarray(sample), jnp.asarray(499), jnp.asarray(ctx),
         added_cond=jax.tree_util.tree_map(jnp.asarray, ac))
     unet = t_unet.UNet2DCondition(P_LX_UNET, F32, "cpu").eval()
-    unet.load_state_dict(state_dict_from_flax(params["unet"])[0], strict=True)
+    unet.load_state_dict(state_dict_from_flax(params["unet"]), strict=True)
     tac = {k: torch.from_numpy(v) for k, v in ac.items()}
     with torch.no_grad():
         got = unet(_nchw(sample), 499, torch.from_numpy(ctx), added_cond=tac)
@@ -242,7 +242,7 @@ def test_controlnet_matches_jax(params):
         {"params": params["controlnet"]}, jnp.asarray(sample), jnp.asarray(999), jnp.asarray(ctx),
         jnp.asarray(cond), 0.75, added_cond=jax.tree_util.tree_map(jnp.asarray, ac))
     cn = ControlNet(P_LX_UNET, F32, "cpu").eval()
-    cn.load_state_dict(state_dict_from_flax(params["controlnet"])[0], strict=True)
+    cn.load_state_dict(state_dict_from_flax(params["controlnet"]), strict=True)
     with torch.no_grad():
         emb = cn.embed_cond(_nchw(cond))
         down, mid = cn(_nchw(sample), 999, torch.from_numpy(ctx), emb, 0.75,
