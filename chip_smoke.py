@@ -226,6 +226,33 @@ Phases, each printing one JSON line:
                 CUDA events and its device ms (torch.profiler), the idle
                 share of one profiled Real-Guidance batch, the inversion's
                 s/call.
+ 13. planes_biased -- the contextual-bias path and the soft-CE teacher, in
+                its own temporary root, on a synthetic FGVC-Aircraft tree
+                with a PNG (under its .jpg name) for every row of the
+                planes_biased split csv (409 train, 715 val, 707 test; the
+                first 8 train rows' at 512^2, the rest 64^2):  cli gen
+                --preset alia --dataset planes_biased --weights_dir TREE
+                --max_items 8  (InstructPix2Pix from seeded F16 safetensors
+                of its unet/vae/text_encoder at full SD1.5 width, the UNet's
+                conv_in 8 channels; one batch: 100 DDIM steps of 3-way
+                guidance, text 7.5 and image 1.3, the UNet at B24; then the
+                semantic + ALIA-confidence aug-JSON).  Launch counts as
+                expected_sdedit_counts(100) (K1 1502, K2 1600, K3 6152 calls,
+                K4 3200); every file loads strictly; the PNGs equal
+                pipe.generate's for the same prompts, sources and noise bit
+                for bit; the ip2p UNet's K3 and K4 sites at B24 that earlier
+                phases did not check (rows with "cell": "ip2p"; K1's and
+                K2's B24 shapes are in the kernels phase's lists).  Then
+                cli filter  with ALIA's recipe rebuilds the aug-JSON byte for
+                byte,  cli train --dataset planes_biased  runs 4 steps at
+                batch 4 on it,  cli train --dataset planes
+                --use_target_soft_cross_entropy  4 steps with the CLIP RN50
+                teacher's logits (finite loss; the planes split of the same
+                images, 2 variants), each saving a checkpoint, and  cli
+                eval-biased --ckpt_folder  scores both on the whole test
+                split (n_id 552, n_ood 155).  Printed: gen's wall s
+                and img/s, generate's s/step at B24, each run's seconds,
+                eval-biased's accuracies, the phase's seconds.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -281,6 +308,10 @@ K1_SHAPES = [
     ("xl level 2 and mid", 8, 256, 20, 64, 64),
     ("xl CFG level 1", 16, 1024, 10, 64, 64),
     ("xl CFG level 2 and mid", 16, 256, 20, 64, 64),
+    # the planes_biased phase's: ip2p's 3-way guidance runs the UNet at B24 (no shared prefix)
+    ("ip2p level 0", 24, 4096, 8, 40, 64),
+    ("ip2p level 1", 24, 1024, 8, 80, 128),
+    ("ip2p level 2", 24, 256, 8, 160, 192),
 ]
 # K6 shapes: (what, B, L, H, d); d pads to 64 in shared memory
 K6_SHAPES = [
@@ -301,6 +332,10 @@ K2_SHAPES = [
     ("1024^2 level 2", 16, 1024, 1280),
     ("xl level 1", 8, 1024, 640),  # sd_xl-turbo at 512^2; sd_xl's CFG B16 shapes are levels 1 and 2 above
     ("xl level 2 and mid", 8, 256, 1280),
+    ("ip2p level 0", 24, 4096, 320),  # the planes_biased phase's UNet at B24
+    ("ip2p level 1", 24, 1024, 640),
+    ("ip2p level 2", 24, 256, 1280),
+    ("ip2p mid", 24, 64, 1280),
 ]
 
 
@@ -3500,6 +3535,312 @@ def run_sdedit_phase(seed: int, checks: dict, checked_sites: dict, profile_path=
         shutil.rmtree(root, ignore_errors=True)
 
 
+PB_RESOLUTION = 512
+PB_SOURCES = 8  # one ip2p batch: the UNet at B24 under 3-way guidance
+PB_SMALL_HW = 64  # the split's other rows: small seeded PNGs (the train and eval runs resize them)
+PB_VARIANTS = {"Boeing": "737-800", "Airbus": "A320"}  # the planes tree's variant of each manufacturer
+PB_TRAIN_SAMPLE_RATIO = "0.04"  # 16 of the 409 train rows: 4 steps at batch 4
+PB_PLANES_EVAL_ROWS = 16  # the planes split's val and test rows for the teacher run
+PB_SPLIT = ("train", "val", "test")
+# the gen run's seed: its 8 ALIA prompts name two augs whose 20% amnesty coin
+# keeps them through the confidence filter; the seeded baseline's logits put
+# every other aug over its class's threshold, and train needs a non-empty JSON
+PB_GEN_SEED = 1
+
+
+def write_planes_biased_tree(root, seed: int, n_gen: int, size: int) -> list:
+    """A synthetic FGVC-Aircraft tree for every row of
+    datasets_files/aircraft_biased_dataset/alia_cotextual_bias_split.csv
+    (409 train, 715 val, 707 test): PNG bytes under the rows' .jpg names,
+    the first n_gen train rows' at size^2 (the gen run's sources), the
+    others' at 64^2; the manufacturer and variant files of the train rows
+    (the gen side's class strings, "Boeing 737-800" and "Airbus A320"), and a
+    planes split over the same images for the teacher's run (variants.txt,
+    images_variant_{train,val,test}.txt: the csv's train rows and the first
+    16 val and test rows).  Returns the gen sources' ids."""
+    import csv
+    from pathlib import Path
+
+    from saspa_tpu_torch.gen.image_io import write_png
+
+    here = Path(__file__).resolve().parent
+    with open(here / "datasets_files/aircraft_biased_dataset/alia_cotextual_bias_split.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    data = Path(root) / "FGVC-Aircraft/fgvc-aircraft-2013b/data"
+    (data / "images").mkdir(parents=True)
+    by_split = {s: [r for r in rows if r["Split"] == s] for s in PB_SPLIT}
+    gen_ids = [Path(r["Filename"]).stem for r in by_split["train"][:n_gen]]
+    rng = np.random.RandomState(seed)
+    big = dict(zip(gen_ids, synthetic_sources(rng, n_gen, size)))
+    small = synthetic_sources(rng, len(rows), PB_SMALL_HW)
+    for r, img in zip(rows, small):
+        stem = Path(r["Filename"]).stem
+        write_png(data / "images" / f"{stem}.jpg", big.get(stem, img))
+    for split, rs in by_split.items():
+        if split != "train":
+            rs = rs[:PB_PLANES_EVAL_ROWS]
+        ids = [(Path(r["Filename"]).stem, r["Plane"]) for r in rs]
+        (data / f"images_{split}.txt").write_text("".join(f"{i}\n" for i, _ in ids))
+        (data / f"images_manufacturer_{split}.txt").write_text("".join(f"{i} {m}\n" for i, m in ids))
+        (data / f"images_variant_{split}.txt").write_text("".join(f"{i} {PB_VARIANTS[m]}\n" for i, m in ids))
+    (data / "variants.txt").write_text("".join(f"{v}\n" for v in PB_VARIANTS.values()))
+    return gen_ids
+
+
+def write_ip2p_weights(root, seed: int) -> dict:
+    """InstructPix2Pix's public files (timbrooks/instruct-pix2pix's unet, vae
+    and text_encoder) in the weights_day --src_dir layout, ip2p/...: F16
+    safetensors from tools/synth_checkpoints.py's key layouts with seeded
+    values at full published width (the UNet's conv_in takes 8 channels, the
+    VAE carries the 2022 attention names).  Returns {path: (elements, f64
+    sum)} as write_weights_tree's."""
+    from pathlib import Path
+
+    from saspa_tpu_torch.weights.files import write_safetensors
+    from tools import synth_checkpoints as synth
+
+    fill = NormalFill(seed)
+    sums = {}
+    for rel, make in (
+            ("ip2p/unet/diffusion_pytorch_model.fp16.safetensors",
+             lambda: synth.diffusers_unet_state_dict(synth.IP2P_TORCH_CFG, fill=fill)),
+            ("ip2p/vae/diffusion_pytorch_model.fp16.safetensors", lambda: synth.diffusers_vae_state_dict(fill=fill)),
+            ("ip2p/text_encoder/model.fp16.safetensors", lambda: synth.hf_clip_text_state_dict(fill=fill))):
+        sd = {k: torch.from_numpy(v).half().numpy() if v.dtype == np.float32 else v for k, v in make().items()}
+        path = Path(root) / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_safetensors(path, sd)
+        kept = [v for k, v in sd.items() if not any(x in k for x in WEIGHTS_NOT_LOADED)]
+        sums[str(path)] = (sum(v.size for v in kept), float(sum(np.sum(v, dtype=np.float64) for v in kept)))
+        del sd, kept
+    return sums
+
+
+def run_planes_biased_phase(seed: int, checks: dict, checked_sites: dict) -> dict:
+    """The planes_biased path (module docstring, phase 13); returns the
+    launch counts of its `gen` run and appends the ip2p K3 and K4 sites the
+    earlier phases did not check to `checks`."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion import pipelines as tpipelines
+    from saspa_tpu_torch.fgvc import runner
+    from saspa_tpu_torch.gen import driver as tdriver
+    from saspa_tpu_torch.gen.image_io import read_png, read_rgb
+    from saspa_tpu_torch.gen.prompts import PromptEngine
+    from saspa_tpu_torch.ops.image import resize_image
+    from saspa_tpu_torch.utils import rng as rngs
+    from saspa_tpu_torch.weights import load as wload
+
+    t_phase = time.perf_counter()
+    size, b = PB_RESOLUTION, PB_SOURCES
+    root = Path(tempfile.mkdtemp(prefix="saspa_planes_biased_"))
+    env = {k: os.environ.get(k) for k in ("SASPA_DATA_ROOT", "SASPA_CHECKPOINTS")}
+    os.environ["SASPA_DATA_ROOT"] = str(root)
+    os.environ["SASPA_CHECKPOINTS"] = str(root / "checkpoints")  # none: seeded baselines
+    old_cwd = os.getcwd()
+    thresholds = Path(old_cwd) / "alia_confidence_thresholds"
+    thresholds_before = sorted(thresholds.iterdir()) if thresholds.is_dir() else None
+    root_logger = logging.getLogger()
+    old_handlers, old_level = root_logger.handlers[:], root_logger.level
+    tele = TelemetryHandler()
+    root_logger.setLevel(logging.INFO)
+    root_logger.addHandler(tele)
+    real_init = tpipelines.init_pipeline
+    made = []
+
+    def recording_init(*a, **k):
+        pipe = real_init(*a, **k)
+        made.append(pipe)
+        return pipe
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    out = {"phase": "planes_biased", "batch": b, "resolution": size}
+    wload.REPORT_SUMS = True
+    try:
+        os.chdir(root)
+        (tree_ids, tree_s) = timed(lambda: write_planes_biased_tree(root, seed + 601, b, size))
+        file_sums, weights_s = timed(lambda: write_ip2p_weights(root / "weights", seed + 602))
+        out.update(tree_s=tree_s, weights_s=weights_s)
+
+        # ---- cli gen --preset alia --dataset planes_biased: ip2p, 100 steps, 3-way CFG at B24, then the filters
+        argv = ["gen", "--preset", "alia", "--dataset", "planes_biased", "--num_per_image", "1", "--batch_size",
+                str(b), "--seed", str(PB_GEN_SEED), "--weights_dir", str(root / "weights"), "--max_items", str(b)]
+        args = cli.build_parser().parse_args(argv)
+        cfg = cli.preset_config(args).with_dataset_overrides()
+        require((cfg.base_model, cfg.controlnet, cfg.sdedit, cfg.prompt_type, cfg.guidance_scale) ==
+                ("ip2p", None, False, "ALIA", 7.5), "planes_biased: the ALIA preset", cfg)
+        want = expected_sdedit_counts(tdriver.IP2P_STEPS)
+        wload.REPORTS.clear()
+        tpipelines.init_pipeline = recording_init
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        json_path, wall = timed(lambda: cli.main(argv))
+        counts = read_counts()
+        tpipelines.init_pipeline = real_init
+        require(len(tele.lines) == 1 and tele.lines[0]["num_errors"] == 0 and tele.lines[0]["total"] == b,
+                "planes_biased gen telemetry", tele.lines, *tele.errors)
+        require(counts == want, "planes_biased gen launch counts", counts, "expected", want)
+        (pipe,) = made
+        require(pipe.base_model == "ip2p" and pipe.unet_cfg.in_channels == 8 and pipe.weights_loaded,
+                "planes_biased: the ip2p pipeline", pipe.base_model)
+        load_rows = check_load_reports(pipe.load_report, file_sums, "planes_biased: ip2p")
+        require(sorted(r["model"] for r in load_rows) == ["text", "unet", "vae"], "ip2p models", load_rows)
+        ds = DS_UTILS_DICT["planes_biased"](print_func=lambda *a: None)
+        folder = Path(cfg.output_folder(str(ds.root_path)))
+        require(str(folder).endswith(f"/regular/ip2p/None/ALIA_prompt_w_sub_class_seed_{cfg.seed}/images") and
+                Path(json_path).name == "semantic_filtering-alia_conf_filtering-aug.json", "planes_biased outputs",
+                folder, json_path)
+        files = {f.name.split("_prompt_")[0]: f for f in folder.glob("*.png") if "_prompt_" in f.name}
+        require(sorted(files) == sorted(tree_ids), "planes_biased gen files", sorted(files))
+        out["gen"] = {"argv": argv, "wall_s": wall, "img_per_s": b / wall, "launches": counts,
+                      "launches_expected": want, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "telemetry": tele.lines[0], "load": load_rows}
+
+        # the same batch through pipe.generate: the PNGs bit for bit; then s/step at B24
+        paths = ds.original_images_paths[:b]
+        engine = PromptEngine(cfg, ds, ds.get_image_stem_to_class_str_dict())
+        prompts = [engine.build(p, i, 0) for i, p in enumerate(paths)]
+        src = np.stack([resize_image(read_rgb(p), size) for p in paths])
+        lf = pipe.latent_factor
+        lat = np.stack([rngs.item_normal(cfg.seed, "noise", i, 0, shape=(size // lf, size // lf, 4))
+                        for i in range(b)])
+        init = torch.as_tensor(src, device=pipe.device).float() / 255.0
+
+        def generate(steps):
+            return pipe.generate(prompts, lat, height=size, width=size, num_inference_steps=steps,
+                                 guidance_scale=cfg.guidance_scale, negative_prompt=cfg.negative_prompt,
+                                 init_image=init, image_guidance_scale=tdriver.IP2P_IMAGE_GUIDANCE)
+
+        images, t100 = timed(lambda: generate(tdriver.IP2P_STEPS))
+        require(bool(torch.isfinite(images).all()), "planes_biased: non-finite images")
+        u8 = tpipelines.quantize(images).cpu().numpy()
+        same = [bool(np.array_equal(read_png(files[Path(p).stem]), u)) for p, u in zip(paths, u8)]
+        require(all(same), "planes_biased PNGs differ from pipe.generate's", same)
+        _, t10 = timed(lambda: generate(10))
+        s_step = (t100 - t10) / (tdriver.IP2P_STEPS - 10)
+        out["gen"].update({"pngs_equal_pipeline": True, "uint8_mean": float(u8.mean()), "generate_s": t100,
+                           "s_per_step": s_step, "unet_batch": 3 * b, "img_per_s_generate": b / t100})
+        del images
+
+        # the ip2p UNet's K3 and K4 sites at B24 (one hooked step) that earlier phases did not check
+        sites, handles = record_sites(pipe)
+        generate(1)
+        for h in handles:
+            h.remove()
+        gen = torch.Generator(device="cuda").manual_seed(seed + 603)
+        new_gn = sites["group_norm"] - checked_sites["group_norm"]
+        new_ln = sites["layernorm"] - checked_sites["layernorm"]
+        require(any(s[0] == 3 * b for s in new_gn) and any(m % (3 * b) == 0 for m, _ in new_ln),
+                "planes_biased: no new B24 norm site", sorted(new_gn, key=str), sorted(new_ln))
+        k3_rows = [dict(r, cell="ip2p") for r in check_k3(gen, new_gn)]
+        k4_rows = [dict(r, cell="ip2p") for r in check_k4(gen, new_ln)]
+        checks["group_norm"] += k3_rows
+        checks["layernorm"] += k4_rows
+        checked_sites["group_norm"] |= new_gn
+        checked_sites["layernorm"] |= new_ln
+        emit({"phase": "kernels", "kernel": "group_norm", "cell": "ip2p", "shapes": k3_rows})
+        emit({"phase": "kernels", "kernel": "layernorm", "cell": "ip2p", "shapes": k4_rows})
+        del pipe, made[:], init
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- cli filter with ALIA's recipe rebuilds the gen run's aug-JSON
+        before = Path(json_path).read_bytes()
+        filt = cli.main(["filter", "--dataset", "planes_biased", "--aug_folder", str(folder), "--alia_conf_filtering",
+                         "--no_model_confidence", "--weights_dir", str(root / "weights")])
+        require(filt == json_path and Path(filt).read_bytes() == before, "planes_biased: cli filter's JSON", filt)
+        kept = {k: len(v) for k, v in json.loads(before).items()}
+        out["filter"] = {"json": Path(json_path).name, "sources": len(kept), "kept": sum(kept.values())}
+        require(sorted(kept) == sorted(Path(p).name for p in ds.original_images_paths) and
+                sum(kept[f"{i}.jpg"] for i in tree_ids) == sum(kept.values()) > 0, "planes_biased aug-JSON",
+                {k: v for k, v in kept.items() if v})
+
+        # ---- cli train on the aug-JSON: 4 steps at batch 4, the validation's checkpoint
+        ckpts = root / "ckpts"
+        argv = ["train", "--dataset", "planes_biased", "--aug_json", json_path, "--aug_sample_ratio", "0.4",
+                "--epochs", "1", "--batch_size", "4", "--train_sample_ratio", PB_TRAIN_SAMPLE_RATIO, "--seed", "1",
+                "--logdir", str(ckpts / "aug")]
+        logs, t = timed(lambda: cli.main(argv))
+        require(Path(logs["ckpt_path"]).is_file() and logs["train_steps"] > 0 and np.isfinite(logs["train_train_loss"]),
+                "planes_biased train", logs.get("ckpt_path"))
+        out["train"] = {"argv": argv, "wall_s": t, "steps": logs["train_steps"], "loss": logs["train_train_loss"]}
+        ckpt_files = [logs["ckpt_path"]]
+
+        # ---- the CLIP soft-target teacher: cli train --dataset planes --use_target_soft_cross_entropy (the
+        # planes split of the same images, 2 variants: its checkpoint fits the planes_biased net too)
+        teacher_calls = []
+        real_teacher = runner.make_clip_teacher
+
+        def recording_teacher(*a, **k):
+            teacher = real_teacher(*a, **k)
+
+            def run(X):
+                logits = teacher(X)
+                teacher_calls.append((tuple(X.shape), tuple(logits.shape), bool(torch.isfinite(logits).all())))
+                return logits
+
+            return run
+
+        runner.make_clip_teacher = recording_teacher
+        try:
+            argv = ["train", "--dataset", "planes", "--use_target_soft_cross_entropy", "--epochs", "1",
+                    "--batch_size", "4", "--train_sample_ratio", PB_TRAIN_SAMPLE_RATIO, "--seed", "1", "--logdir",
+                    str(ckpts / "teacher"), "--weights_dir", str(root / "weights")]
+            logs, t = timed(lambda: cli.main(argv))
+        finally:
+            runner.make_clip_teacher = real_teacher
+        n = logs["train_steps"]
+        require(n > 0 and np.isfinite(logs["train_train_loss"]) and teacher_calls ==
+                [((4, 3, 224, 224), (4, len(PB_VARIANTS)), True)] * n, "teacher train", n, teacher_calls[:2])
+        out["teacher"] = {"argv": argv, "wall_s": t, "steps": n, "loss": logs["train_train_loss"],
+                          "s_per_step_with_epoch": t / n}
+        ckpt_files.append(logs["ckpt_path"])
+
+        # ---- cli eval-biased over both checkpoints, the whole test split
+        results, t = timed(lambda: cli.main(["eval-biased", "--ckpt_folder", str(ckpts)]))
+        require(sorted(results) == sorted(ckpt_files), "eval-biased sweep", sorted(results))
+        for path, r in results.items():
+            require((r["n_id"], r["n_ood"]) == (552, 155) and all(
+                0.0 <= r[k] <= 100.0 for k in ("mean_class_acc", "overall_acc", "id_acc", "ood_acc")),
+                "eval-biased", path, r)
+        out["eval_biased"] = {"wall_s": t, "images": 707 * len(results), "img_per_s": 707 * len(results) / t,
+                              "results": {Path(k).parent.name: v for k, v in results.items()}}
+        out["phase_s"] = time.perf_counter() - t_phase
+        emit(out)
+        os.chdir(old_cwd)
+        require((sorted(thresholds.iterdir()) if thresholds.is_dir() else None) == thresholds_before,
+                "the planes_biased phase changed", thresholds)
+        return {"planes_biased": counts}
+    finally:
+        os.chdir(old_cwd)
+        tpipelines.init_pipeline = real_init
+        wload.REPORT_SUMS = False
+        for h in root_logger.handlers[:]:
+            root_logger.removeHandler(h)
+        for h in old_handlers:
+            root_logger.addHandler(h)
+        root_logger.setLevel(old_level)
+        for key, v in env.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def train_profile_path(profile):
     from pathlib import Path
 
@@ -3749,6 +4090,10 @@ def main() -> int:
         out = Path(args.profile)
         sdedit_profile = str(out.with_name(f"{out.stem}_sdedit{out.suffix}"))
     counts.update(run_sdedit_phase(args.seed, checks, sites, sdedit_profile))
+
+    # ---- the planes_biased path: ip2p through cli gen, filter, train, eval-biased; the soft-CE teacher ----
+    torch.cuda.empty_cache()
+    counts.update(run_planes_biased_phase(args.seed, checks, sites))
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

@@ -5,27 +5,32 @@
     python -m saspa_tpu_torch.cli merge-jsons --jsons A.json B.json --output OUT.json
     python -m saspa_tpu_torch.cli train --dataset planes --aug_json AUG.json --aug_sample_ratio 0.4 \
         --limit_aug_per_image 2 --special_aug classic
+    python -m saspa_tpu_torch.cli eval-biased --ckpt_folder LOGDIR
 
 `gen` takes the JAX package's flags and builds the same GenerationConfig,
 then runs the port's `run_generation_and_filter` on the card (the CLIP
 semantic filter and the baseline's top-10 confidence filter), or
 `run_generation` with `--skip_filter`.  `filter` rebuilds the aug-JSON of a
 folder of generated images (`--lpips_min`/`--lpips_max`: the LPIPS filter);
-`merge-jsons` merges aug-JSONs.  `train` trains the WSDAN-CAL classifier on
-the originals mixed with the aug-JSON's images (`fgvc/runner.py::
-run_training`), with the JAX CLI's flags; `--ckpt` takes the port's
-checkpoint or a released WSDAN-CAL .pth; `--gpu_id` is accepted and
-ignored, as there.  `--weights_dir` names a tree of the public checkpoint
-files (README; `weights/sources.py`); without it every model takes a
-seeded init.  Ported so far:
+`merge-jsons` merges aug-JSONs.  `gen --max_items N` (the port's own
+flag) generates only the first N items of the worklist.  `train` trains
+the WSDAN-CAL classifier on the originals mixed with the aug-JSON's images
+(`fgvc/runner.py::run_training`), with the JAX CLI's flags; `--ckpt` takes
+the port's checkpoint or a released WSDAN-CAL .pth; `--gpu_id` is accepted
+and ignored, as there; `--use_target_soft_cross_entropy` blends in the
+CLIP RN50 teacher's soft targets (planes and cars).  `eval-biased` scores
+every checkpoint of a folder on planes_biased's test split, in domain and
+out of domain (`fgvc/val_biased.py`).  `--weights_dir` names a tree of the
+public checkpoint files (README; `weights/sources.py`); without it every
+model takes a seeded init.  Ported so far:
 SD1.5 (planes' default), BLIP-Diffusion (the default of cars, dtd and
 compcars-parts) and SDXL-Turbo (cub's: 2 trailing DDIM steps, guidance 0),
 and SDXL under CFG (`--base_model sd_xl`), each with a canny ControlNet (or
 none), text to image or SDEdit (`--sdedit [--sdedit_strength s]`), DDIM;
 BLIP-Diffusion's inversion edit (`--base_model blip_diffusion-edit`); and
 the baseline presets `--preset real_guidance` and `--preset alia` with the
-JAX CLI's filter recipes (ALIA on planes_biased runs ip2p, which waits
-with the SDXL refiner, UniPC, SD2.1 and HED for ROADMAP Queue 1 item 12).
+JAX CLI's filter recipes (ALIA on planes_biased runs InstructPix2Pix).  The
+SDXL refiner, UniPC, SD2.1 and HED wait for ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ def _add_gen(sub):
     p.add_argument("--version", default="v1")
     p.add_argument("--preset", default=None, choices=["real_guidance", "alia"],
                    help="baseline presets (run_aug_real_guidance.py equivalents)")
+    p.add_argument("--max_items", type=int, default=None,
+                   help="generate at most this many of the worklist's items (not in the JAX CLI)")
     return p
 
 
@@ -105,6 +112,14 @@ def _add_train(sub):
     p.add_argument("--plot_per_class_acc", action="store_true", default=False,
                    help="write samples-per-class vs class-accuracy scatter PNGs each validation")
     p.add_argument("--weights_dir", default=None, help="converted-checkpoint dir for the CLIP soft-CE teacher")
+    return p
+
+
+def _add_eval_biased(sub):
+    p = sub.add_parser("eval-biased", help="OOD/ID eval on planes_biased (val_biased equivalent)")
+    p.add_argument("--ckpt_folder", required=True)
+    p.add_argument("--net", default="resnet101")
+    p.add_argument("--batch_size", type=int, default=16)
     return p
 
 
@@ -164,12 +179,13 @@ PRESET_FILTERS = {
 def cmd_gen(args):
     from saspa_tpu_torch.gen.driver import run_generation, run_generation_and_filter
 
+    cut = {} if args.max_items is None else {"max_items": args.max_items}
     if args.preset is not None:  # filters whatever --skip_filter says, as the JAX CLI
-        return run_generation_and_filter(preset_config(args), **PRESET_FILTERS[args.preset])
+        return run_generation_and_filter(preset_config(args), **cut, **PRESET_FILTERS[args.preset])
     if args.skip_filter:
-        return run_generation(gen_config(args))
+        return run_generation(gen_config(args), **cut)
     return run_generation_and_filter(gen_config(args), semantic_filtering=True,
-                                     model_confidence_based_filtering=True)
+                                     model_confidence_based_filtering=True, **cut)
 
 
 def cmd_filter(args):
@@ -207,12 +223,19 @@ def cmd_train(args, device=None):
     return run_training(args, device=device)
 
 
+def cmd_eval_biased(args, device=None):
+    from saspa_tpu_torch.fgvc.val_biased import main as vb_main
+
+    return vb_main(args.ckpt_folder, net=args.net, batch_size=args.batch_size, device=device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="saspa_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_gen(sub)
     _add_filter(sub)
     _add_train(sub)
+    _add_eval_biased(sub)
     _add_merge(sub)
     return parser
 
@@ -220,7 +243,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    return {"gen": cmd_gen, "filter": cmd_filter, "train": cmd_train, "merge-jsons": cmd_merge}[args.command](args)
+    return {"gen": cmd_gen, "filter": cmd_filter, "train": cmd_train, "eval-biased": cmd_eval_biased,
+            "merge-jsons": cmd_merge}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -47,8 +47,9 @@ class InputPipeline:
 
     def __init__(self, dataset: FGVCDataset, batch_size: int, resize: Tuple[int, int] = (224, 224),
                  train_transform: Optional[str] = "classic", use_cutmix: bool = False, seed: int = 1,
-                 num_threads: int = 8, device=None):
+                 num_threads: int = 8, device=None, drop_last: bool = True):
         self.ds = dataset
+        self.drop_last = drop_last
         self.batch_size = batch_size
         self.resize = resize
         self.pre_size = (int(resize[0] / 0.875), int(resize[1] / 0.875))
@@ -61,8 +62,10 @@ class InputPipeline:
 
     def __len__(self):
         """Full batches only: a partial last batch is dropped, at eval too,
-        as the reference's DataLoaders (fgvc/train.py:316-319)."""
-        return len(self.ds) // self.batch_size
+        as the reference's DataLoaders (fgvc/train.py:316-319); with
+        drop_last=False the partial last batch is one more."""
+        n = len(self.ds)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _index_order(self, epoch: int, shuffle: bool) -> np.ndarray:
         idx = np.arange(len(self.ds))
@@ -79,7 +82,8 @@ class InputPipeline:
     def host_batches(self, epoch: int, shuffle: bool) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """uint8 (B, pre_h, pre_w, 3) and int32 (B,) labels, prefetched."""
         idx = self._index_order(epoch, shuffle)
-        bounds = [(i * self.batch_size, (i + 1) * self.batch_size) for i in range(len(self))]
+        bounds = [(lo, min(lo + self.batch_size, len(idx))) for lo in range(0, len(self) * self.batch_size,
+                                                                          self.batch_size)]
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
 

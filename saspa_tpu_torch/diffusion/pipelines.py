@@ -21,9 +21,11 @@ with a warning, or raises under SASPA_STRICT_WEIGHTS=1.
 `load_flax_params` carries a flax param tree in through the bridge.
 BLIP-Diffusion (`blip_diffusion`, `blip_diffusion-controlnet`, and the
 inversion edit `blip_diffusion-edit`) is the SD1.5 pipeline plus a vision
-tower and a Q-Former (`models/blip_diffusion.py`); `init_pipeline` builds
-any of them.  The families the port lacks raise where they are asked for
-(`refuse_unported`).
+tower and a Q-Former (`models/blip_diffusion.py`).  InstructPix2Pix (`ip2p`,
+ALIA's editor for planes_biased) is SD1.5 with an 8-channel UNet input: its
+`generate` takes the image to edit and runs 3-way guidance (the sampler's
+`image_latents`).  `init_pipeline` builds any of them.  The families the
+port lacks raise where they are asked for (`refuse_unported`).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from saspa_tpu_torch.models.vae import SD_VAE, SDXL_VAE, AutoencoderKL
 from saspa_tpu_torch.ops.canny import canny_control_image
 
 XL_BASE_MODELS = ("sd_xl", "sd_xl-turbo")
-BASE_MODELS = ("sd_v1.5", "blip_diffusion", "blip_diffusion-controlnet") + XL_BASE_MODELS  # ported so far
+BASE_MODELS = ("sd_v1.5", "ip2p", "blip_diffusion", "blip_diffusion-controlnet") + XL_BASE_MODELS  # ported so far
 BLIP_BASE_MODELS = ("blip_diffusion", "blip_diffusion-controlnet", "blip_diffusion-edit")
 
 
@@ -55,8 +57,6 @@ def unported_family(base_model: str, controlnet: Optional[str], sampler: str = "
                     sdedit: bool = False) -> Optional[str]:
     """The generation family a configuration needs that the port lacks (ROADMAP
     Queue 1 item 12), or None."""
-    if base_model == "ip2p":
-        return "ip2p (InstructPix2Pix)"
     if base_model == "sd_xl" and sdedit and controlnet is None:
         return "the SDXL refiner (the JAX package runs sd_xl + SDEdit on it)"
     if sampler == "unipcmultistep":
@@ -90,8 +90,8 @@ class PipelineSpec:
 
 def _spec(base_model: str) -> PipelineSpec:
     """The JAX package's `_spec` for the ported base models: SD1.5's tower
-    and VAE, or SDXL's two towers and VAE (scaling 0.13025); DDIM with
-    trailing spacing for SDXL-Turbo, leading otherwise."""
+    and VAE (also InstructPix2Pix's), or SDXL's two towers and VAE (scaling
+    0.13025); DDIM with trailing spacing for SDXL-Turbo, leading otherwise."""
     if base_model not in BASE_MODELS:
         raise ValueError(base_model)
     is_xl = base_model in XL_BASE_MODELS
@@ -129,6 +129,8 @@ class DiffusionPipeline:
         numerics where its split plan admits the site, and the self-attention
         block kernel where `attention_block_eligible` admits it."""
         refuse_unported(base_model, controlnet, sampler)
+        if base_model == "ip2p" and controlnet is not None:
+            raise ValueError("ip2p does not support a ControlNet")
         if base_model not in BASE_MODELS or controlnet not in (None, "canny"):
             raise ValueError(f"no pipeline {base_model} with controlnet={controlnet}")
         self.device = resolve_device(device)
@@ -299,30 +301,47 @@ class DiffusionPipeline:
         return control if (ch, cw) == (height, width) else nearest_resize(control, ch, cw)
 
     @torch.no_grad()
+    def encode_mean(self, images) -> torch.Tensor:
+        """(B, H, W, 3) images in [0, 1] -> the VAE encoder's unscaled
+        posterior mean, NCHW (B, 4, H/8, W/8) in the VAE's dtype."""
+        x = torch.as_tensor(images, device=self.device).float() * 2.0 - 1.0
+        return self.params["vae"].encode(x.permute(0, 3, 1, 2))[0]
+
+    @torch.no_grad()
     def encode_image(self, images) -> torch.Tensor:
         """(B, H, W, 3) images in [0, 1] -> the scaled posterior mean
         z0 = mean * scaling_factor, (B, H/8, W/8, 4) in the VAE's dtype."""
-        x = torch.as_tensor(images, device=self.device).float() * 2.0 - 1.0
-        mean, _ = self.params["vae"].encode(x.permute(0, 3, 1, 2))
-        return (mean * self.vae_cfg.scaling_factor).permute(0, 2, 3, 1)
+        return (self.encode_mean(images) * self.vae_cfg.scaling_factor).permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def generate(self, prompts, latents, height: int = 512, width: int = 512, num_inference_steps: int = 30,
                  guidance_scale: float = 7.5, negative_prompt: Optional[str] = NEGATIVE_PROMPT, control_image=None,
                  controlnet_scale: float = 0.75, init_image=None, sdedit_strength: float = 0.85, token_ids=None,
-                 negative_token_ids=None) -> torch.Tensor:
+                 negative_token_ids=None, image_guidance_scale: float = 1.3) -> torch.Tensor:
         """Batched text(+control) -> image, or SDEdit from init_image (B, H, W,
         3) in [0, 1] when one is given: (B, H, W, 3) f32 images in [0, 1] on
         the pipeline's device.  latents: the (B, H/8, W/8, 4) initial noise (for SDEdit the noise added to z0);
         control_image: control_from_src's; token_ids / negative_token_ids:
-        (B, 77) ids instead of the tokenizer's."""
-        do_cfg = guidance_scale > 1.0
+        (B, 77) ids instead of the tokenizer's.  InstructPix2Pix (`ip2p`)
+        edits init_image instead: its unscaled posterior mean is the image
+        condition, the loop runs every step from the noise, under 3-way
+        guidance when guidance_scale > 1 and image_guidance_scale >= 1
+        (diffusers' rule), else one forward a step."""
+        is_ip2p = self.base_model == "ip2p"
+        do_cfg = guidance_scale > 1.0 and (not is_ip2p or image_guidance_scale >= 1.0)
         ids = token_ids if token_ids is not None else self.tokenizer(list(prompts), pad="eot")
         if do_cfg and negative_token_ids is None:
             negative_token_ids = self.tokenizer([negative_prompt or ""] * len(prompts), pad="eot")
         ctx, nctx, ac, nac = self._conditions(self.params["text"], ids, negative_token_ids, height, width, do_cfg)
         timesteps = self.scheduler.timesteps(num_inference_steps)
         lat = torch.as_tensor(latents, device=self.device).float()
+        if is_ip2p:
+            if init_image is None:
+                raise ValueError("ip2p needs the image to edit (init_image)")
+            return self._sample(self.params, lat, ctx, nctx, timesteps, guidance_scale=float(guidance_scale),
+                                control_image=control_image, added_cond=ac,
+                                image_latents=self.encode_mean(init_image).permute(0, 2, 3, 1),
+                                image_guidance_scale=float(image_guidance_scale))
         if init_image is not None:
             timesteps = timesteps[sdedit_start_step(num_inference_steps, sdedit_strength):]
             lat = self.scheduler.add_noise(self.encode_image(init_image), lat, timesteps[0])
@@ -336,9 +355,10 @@ def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = Fal
                   device=None) -> DiffusionPipeline:
     """Name-compatible with the reference's init_pipeline (run_aug/run_aug.py:128)
     and the JAX package's: SD1.5, SDXL, SDXL-Turbo or BLIP-Diffusion, with a
-    canny ControlNet or none, text to image or SDEdit, and BLIP-Diffusion's
-    inversion edit; DDIM; loaded from the public files under weights_dir,
-    what it lacks takes the seeded random init (seed 0).  SDEdit only selects
+    canny ControlNet or none, text to image or SDEdit, BLIP-Diffusion's
+    inversion edit, and InstructPix2Pix without a ControlNet; DDIM; loaded
+    from the public files under weights_dir, what it lacks takes the seeded
+    random init (seed 0).  SDEdit only selects
     the model and the JAX package's refusals: any DiffusionPipeline runs
     SDEdit when its `generate` is given an init_image."""
     if base_model in BLIP_BASE_MODELS:

@@ -3,13 +3,14 @@ CLI args -> per-dataset config -> datasets and input pipelines -> the
 Trainer's epoch loop with the reference's cadence (fgvc/train.py main()):
 validation every 10 epochs and at the tail, the best validation's
 checkpoint (with feature_center), early stop after 20 stale validations,
-the divergence abort (val acc < 2% after epoch 30, fgvc/train.py:699-701)
-and the stop_aug_after_epoch switch.
+the divergence abort (val acc < 2% after epoch 30, fgvc/train.py:699-701),
+the stop_aug_after_epoch switch, and with --use_target_soft_cross_entropy
+the CLIP RN50 zero-shot teacher whose logits each step blends in
+(`make_clip_teacher`).
 
 Runs on the card unless `device="cpu"` is passed.  Not ported, and raising
-with the ROADMAP item: the CLIP soft-target teacher
-(--use_target_soft_cross_entropy, CLIP ViT-B/16), --plot_per_class_acc
-(matplotlib) and the Inception and CBAM nets.
+with the ROADMAP item: --plot_per_class_acc (matplotlib) and the Inception
+and CBAM nets.
 """
 
 from __future__ import annotations
@@ -21,9 +22,6 @@ import numpy as np
 
 
 def _check_supported(args) -> None:
-    if getattr(args, "use_target_soft_cross_entropy", False):
-        raise NotImplementedError("--use_target_soft_cross_entropy needs the CLIP ViT-B/16 teacher, which is not "
-                                  "ported yet (ROADMAP Queue 1 item 11)")
     if getattr(args, "plot_per_class_acc", False):
         raise NotImplementedError("--plot_per_class_acc needs matplotlib (fgvc/plots.py is not ported; ROADMAP "
                                   "Queue 1 item 11)")
@@ -40,7 +38,9 @@ def train_config(args):
         aug_sample_ratio=args.aug_sample_ratio, limit_aug_per_image=args.limit_aug_per_image,
         stop_aug_after_epoch=args.stop_aug_after_epoch, special_aug=args.special_aug,
         train_sample_ratio=args.train_sample_ratio, dont_use_wsdan=args.dont_use_wsdan or None,
-        use_cutmix=args.use_cutmix or None, few_shot=args.few_shot, ckpt=getattr(args, "ckpt", None))
+        use_cutmix=args.use_cutmix or None,
+        use_target_soft_cross_entropy=getattr(args, "use_target_soft_cross_entropy", False) or None,
+        few_shot=args.few_shot, ckpt=getattr(args, "ckpt", None))
 
 
 def pipelines(cfg, device):
@@ -99,6 +99,9 @@ def run_training(args, device=None) -> dict:
         raise ValueError(f"train split ({len(train_ds)} samples) smaller than batch_size {cfg.batch_size}: "
                          "zero train batches per epoch; lower --batch_size")
     trainer = Trainer(cfg, num_classes=info["num_classes"], num_batches_per_epoch=len(train_pipe), device=device)
+    teacher = None
+    if cfg.use_target_soft_cross_entropy:
+        teacher = make_clip_teacher(cfg.dataset, info["classes"], getattr(args, "weights_dir", None), device)
 
     def log_eval(ev: dict, epoch: int):
         metrics.log({"epoch": epoch, **{k: (v[0] if isinstance(v, list) else v) for k, v in ev.items()
@@ -109,7 +112,10 @@ def run_training(args, device=None) -> dict:
         if cfg.aug_json and cfg.stop_aug_after_epoch and epoch >= cfg.stop_aug_after_epoch:
             train_ds.stop_aug = True
             logging.info("Reached stop_aug_after_epoch=%d, stopped augmentation", cfg.stop_aug_after_epoch)
-        out = trainer.run_epoch(epoch, train_pipe.iter_train(epoch))
+        batches = train_pipe.iter_train(epoch)
+        if teacher is not None:
+            batches = ((X, y, y_soft, teacher(X)) for X, y, y_soft in batches)
+        out = trainer.run_epoch(epoch, batches)
         metrics.log({"epoch": epoch, **{k: v for k, v in out.items() if np.isscalar(v)}})
 
         if trainer.should_validate(epoch):
@@ -129,3 +135,34 @@ def run_training(args, device=None) -> dict:
             break
     return {**trainer.logs, "save_dir": save_dir, "ckpt_path": ckpt_path, "restored": trainer.restored,
             "pipeline_timings": {k: p.timings for k, p in pipes.items() if p is not None}}
+
+
+def make_clip_teacher(dataset: str, classnames, weights_dir=None, device=None):
+    """The soft-target CE path's teacher (saspa_tpu/fgvc/runner.py:163-191):
+    teacher(X) -> (B, num_classes) f32 zero-shot logits, logit_scale * the
+    unit image features of the ImageNet-normalised train batch X (B, 3, S,
+    S), fed to CLIP RN50 as it is (as the reference does, fgvc/train.py:489),
+    against the unit text features of one prompt a class, encoded once.
+    `classnames` are in label-id order, so column j is the student's class j
+    (the reference's set order scrambles them; the JAX package's
+    documented divergence).  Planes and cars only.  The tower's attention
+    pool takes 224^2 batches only, and raises on others, as the JAX
+    teacher's does."""
+    import torch
+
+    from saspa_tpu_torch.filters.clip_filters import CLIPScorer
+
+    assert dataset in ("planes", "cars"), "soft-target CE supports planes/cars (reference parity)"
+    kind = "aircraft" if dataset == "planes" else "car"
+    scorer = CLIPScorer("rn50", weights_dir=weights_dir, device=device)
+    txt = torch.from_numpy(scorer.text_features([f"a photo of a {n}, a type of {kind}." for n in classnames]))
+    txt = txt.to(scorer.device)
+    scale = scorer.logit_scale
+
+    @torch.no_grad()
+    def teacher(X):
+        feats = scorer.model.encode_image(X).float()
+        return scale * feats @ txt.T
+
+    teacher.scorer, teacher.text_features = scorer, txt
+    return teacher

@@ -3,7 +3,10 @@
 
 Behavioural spec is fgvc/train.py:339-623:
   * 3-view forward (raw, attention crop, attention drop), composite loss
-    CE(raw)/3 + CE(aux_cat) + CE(aug)*2/3 + center loss;
+    CE(raw)/3 + CE(aux_cat) + CE(aug)*2/3 + center loss; with the CLIP
+    teacher's logits (--use_target_soft_cross_entropy, fgvc/train.py:480-494)
+    the CE terms become 0.5 * CE + 0.5 * the same three terms of the
+    soft-target CE at T = 2 against the teacher's logits (WSDAN only);
   * feature-center EMA fc[y] += beta * (feat - normalize(fc[y])), beta 5e-2,
     a scatter that ACCUMULATES duplicate labels of a batch, as the JAX
     package's `.at[y].add` (torch's `fc[y] += d` would keep the last write);
@@ -94,23 +97,31 @@ def sgd_update(state: TrainState, lr: float, weight_decay: float, momentum: floa
         p.grad = None
 
 
+REGULAR_CE_RATIO = 0.5  # the hard CE's share of the blend with the teacher's soft targets
+
+
 def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int):
     """train_step(state, X (B, 3, H, W) f32, y (B,) int, key, y_soft=None,
-    draws=None) -> metrics (device tensors), updating `state` in place.
+    draws=None, clip_logits=None) -> metrics (device tensors), updating
+    `state` in place.
 
     y_soft (B, num_classes) f32, CutMix's soft labels, replaces y in every
     cross-entropy term (the aug and aux views repeat it as they repeat y);
-    the metrics stay on the hard y.  draws injects every stochastic draw:
+    the metrics stay on the hard y.  clip_logits (B, num_classes): the CLIP
+    teacher's, blended in when cfg.use_target_soft_cross_entropy and WSDAN
+    is on (ignored otherwise, as in the JAX step).  draws injects every
+    stochastic draw:
     {fake1 (B, M, h, w), pick1 (B, 2), fake2 (2B, M, h, w), pick2 (2B, 2),
     crop_theta (B,), drop_theta (B,)}."""
     beta = cfg.beta
     use_wsdan = not cfg.dont_use_wsdan
+    use_soft_target = cfg.use_target_soft_cross_entropy
 
     def ce(logits, labels, soft):
         return L.cross_entropy(logits, labels) if soft is None else L.cross_entropy_soft(logits, soft)
 
     def train_step(state: TrainState, X: torch.Tensor, y: torch.Tensor, key, y_soft: Optional[torch.Tensor] = None,
-                   draws: Optional[dict] = None):
+                   draws: Optional[dict] = None, clip_logits: Optional[torch.Tensor] = None):
         k_model1, k_model2, k_crop, k_drop = rngs.split(key, 4)
         draws = draws or {}
         model = state.model
@@ -138,8 +149,18 @@ def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int):
             y_aux = torch.cat([y, y_aug])
             soft_aug = None if y_soft is None else torch.cat([y_soft, y_soft])
             soft_aux = None if y_soft is None else torch.cat([y_soft, soft_aug])
-            loss = L.center_loss(feature_matrix, fc_batch) + (
-                ce(p_raw, y, y_soft) / 3.0 + ce(p_aux_cat, y_aux, soft_aux) + ce(p_aug, y_aug, soft_aug) * 2.0 / 3.0)
+            ce_term = (ce(p_raw, y, y_soft) / 3.0 + ce(p_aux_cat, y_aux, soft_aux)
+                       + ce(p_aug, y_aug, soft_aug) * 2.0 / 3.0)
+            loss = L.center_loss(feature_matrix, fc_batch)
+            if use_soft_target and clip_logits is not None:
+                t_aug = torch.cat([clip_logits, clip_logits])
+                t_aux = torch.cat([clip_logits, t_aug])
+                soft_term = (L.soft_target_cross_entropy_T(p_raw, clip_logits) / 3.0
+                             + L.soft_target_cross_entropy_T(p_aux_cat, t_aux)
+                             + L.soft_target_cross_entropy_T(p_aug, t_aug) * 2.0 / 3.0)
+                loss = loss + REGULAR_CE_RATIO * ce_term + (1 - REGULAR_CE_RATIO) * soft_term
+            else:
+                loss = loss + ce_term
 
         loss.backward()
         f = np.float64 if model.fc.kernel.dtype == torch.float64 else np.float32
@@ -173,7 +194,8 @@ def eval_step(state: TrainState, X: torch.Tensor, y: torch.Tensor, key, num_clas
 
 class Trainer:
     """The epoch loop over the input pipeline's device batches (X, y,
-    y_soft or None)."""
+    y_soft or None), with the teacher's clip_logits as a fourth item when
+    the soft-target CE is on."""
 
     def __init__(self, cfg: TrainConfig, num_classes: int, num_batches_per_epoch: int, device=None):
         self.cfg = cfg
@@ -211,8 +233,9 @@ class Trainer:
             aux_acc.update(m["aux_correct"].cpu().numpy(), bs * den_aux)
 
         pending = None  # a step's metrics are read one step behind, so the host does not wait on the card
-        for i, (X, y, y_soft) in enumerate(batches):
-            m = self.train_step(self.state, X, y, rngs.item_key(cfg.seed, "dropout", epoch, i), y_soft=y_soft)
+        for i, (X, y, y_soft, *teacher) in enumerate(batches):
+            m = self.train_step(self.state, X, y, rngs.item_key(cfg.seed, "dropout", epoch, i), y_soft=y_soft,
+                                clip_logits=teacher[0] if teacher else None)
             n += 1
             if pending is not None:
                 consume(*pending)

@@ -21,14 +21,18 @@ inversion edit (`blip_diffusion-edit`) take the unfused entry points,
 `pipe.generate` with the source / 255 as the image to edit (and its canny
 image from `pipe.control_from_src` with a ControlNet) and `pipe.edit` with
 the source and the subject references, as the JAX driver does.
+InstructPix2Pix (`ip2p`, ALIA's editor for planes_biased) takes
+`pipe.generate` too, with the source / 255 as the image to edit, image
+guidance 1.3 and 100 steps whatever cfg.num_inference_steps says (the JAX
+driver's recipe, run_aug/run_aug.py:252-255).
 Every item's noise derives from (seed, image index, prompt index) through
 `utils.rng.item_normal`, jax.random.normal's draw in numpy, so results do not
 depend on batch composition, shard count or resume point, and match the JAX
 driver's.  Sources are read and PNGs written by `gen.image_io`; resizing is
 `ops.image.resize_image`.  `run_generation_and_filter` then builds the
 aug-JSON of the folder (`filters.aug_json`).  The families the port lacks
-(ip2p, the SDXL refiner, UniPC, SD2.1, HED) raise, naming ROADMAP Queue 1
-item 12.
+(the SDXL refiner, UniPC, SD2.1, HED) raise, naming ROADMAP Queue 1 item
+12.
 """
 
 from __future__ import annotations
@@ -50,6 +54,8 @@ from saspa_tpu_torch.utils import rng as rngs
 from saspa_tpu_torch.utils.config import MAX_FILENAME_LENGTH, GenerationConfig
 
 MAX_ERRORS = 20  # runtime errors tolerated before the run stops (run_aug/run_aug.py:492-500)
+IP2P_STEPS = 100  # ALIA's ip2p recipe (run_aug/run_aug.py:252-255)
+IP2P_IMAGE_GUIDANCE = 1.3
 
 
 @dataclass
@@ -211,7 +217,8 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
     )
     engine = PromptEngine(cfg, ds_utils, image_classes_dict)
 
-    # host-side time, reported in one JSON line at the end
+    # host-side time, reported in one JSON line at the end (side_files_s: the
+    # _source/_control PNGs of every source of the split, before the batches)
     tele = {"worklist_s": 0.0, "decode_s": 0.0, "dispatch_s": 0.0, "fetch_s": 0.0, "png_s": 0.0}
 
     def _items_and_buckets():
@@ -241,7 +248,9 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
     src_paths = ds_utils.original_images_paths
     if cfg.debug:
         src_paths = _debug_paths(cfg, src_paths)
+    t = time.perf_counter()
     _save_source_and_control(cfg, _shard_for_host(list(enumerate(src_paths))), output_folder, pipe.device)
+    tele["side_files_s"] = time.perf_counter() - t
     logging.info("Shape buckets: %s", {k: len(v) for k, v in buckets.items()})
 
     total, t0 = 0, time.time()
@@ -280,7 +289,8 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
     neg = [cfg.negative_prompt or ""] * cfg.batch_size
     is_blip = "blip_diffusion" in cfg.base_model
     is_edit = cfg.base_model == "blip_diffusion-edit"
-    use_fused = not (cfg.sdedit or is_edit)  # SDEdit and the edit take the unfused entry points
+    is_ip2p = cfg.base_model == "ip2p"
+    use_fused = not (cfg.sdedit or is_edit or is_ip2p)  # these take the unfused entry points
     meta = ds_utils.meta_class  # BLIP's source and target subject category
     aborted = False  # MAX_ERRORS stops every bucket, not just the current one
     for (h, w), bucket_items in buckets.items():
@@ -322,6 +332,12 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
                         torch.as_tensor(src, device=pipe.device).float() / 255.0, refs, prompts,
                         source_subject=meta, target_subject=meta, guidance_scale=cfg.guidance_scale,
                         num_inference_steps=cfg.num_inference_steps, negative_prompt=cfg.negative_prompt))
+                elif is_ip2p:
+                    dispatched = quantize(pipe.generate(
+                        prompts, height=h, width=w, num_inference_steps=IP2P_STEPS,
+                        guidance_scale=cfg.guidance_scale, negative_prompt=cfg.negative_prompt,
+                        init_image=torch.as_tensor(src, device=pipe.device).float() / 255.0,
+                        image_guidance_scale=IP2P_IMAGE_GUIDANCE, latents=latents))
                 elif cfg.sdedit:
                     control = pipe.control_from_src(src, h, w, cfg.low_threshold_canny, cfg.high_threshold_canny)
                     dispatched = quantize(pipe.generate(
@@ -369,11 +385,13 @@ def run_generation(cfg: GenerationConfig, pipe=None, max_items: Optional[int] = 
     return output_folder
 
 
-def run_generation_and_filter(cfg: GenerationConfig, filter_cfg=None, pipe=None, **filter_kw) -> str:
+def run_generation_and_filter(cfg: GenerationConfig, filter_cfg=None, pipe=None, max_items: Optional[int] = None,
+                              **filter_kw) -> str:
     """Generate, then build the aug-JSON (run_aug/run_aug.py:713-733);
     returns the JSON's path (the output folder after a debug run with
     `specific_file_strs`, which skips the JSON).
 
+    max_items: run_generation's cut of this process's worklist.
     Filter options: the defaults, then `filter_cfg` (a FilterConfig or a
     dict; its `dataset` field gives way to cfg.dataset), then `filter_kw`.
     The filter runs on the injected pipe's device, else on the card.  With a
@@ -386,7 +404,7 @@ def run_generation_and_filter(cfg: GenerationConfig, filter_cfg=None, pipe=None,
     from saspa_tpu_torch.filters.aug_json import create_json_of_image_name_to_augmented_images_paths, \
         get_aug_json_path
 
-    output_folder = run_generation(cfg, pipe=pipe)
+    output_folder = run_generation(cfg, pipe=pipe, max_items=max_items)
     if cfg.debug and cfg.specific_file_strs:
         logging.info("Skipping json creation (SPECIFIC_FILE_STRs debug run)")
         return output_folder

@@ -12,9 +12,9 @@ q/k/v projections and a QuickGELU MLP, ln_post; its LayerNorms are flax's
 (the JAX modules pass use_pallas=False), the scale folded into q in q's
 dtype.  `clip_preprocess` is the JAX package's, as its fused BLIP program
 runs it.  `CLIPModel` pairs RN50 with its text tower; `encode_image` /
-`encode_text` return features divided by (norm + 1e-8).  The ViT-B/16
-pairing has one caller, the train stage's soft-CE teacher, and comes with it
-(ROADMAP Queue 1 item 11 [11b]).
+`encode_text` return features divided by (norm + 1e-8).  The JAX
+package's ViT-B/16 pairing has no caller: its filters and the train stage's
+soft-CE teacher score with RN50.
 """
 
 from __future__ import annotations
@@ -119,6 +119,9 @@ class AttentionPool2d(nn.Module):
         b, c, h, w = x.shape
         tokens = x.flatten(2).transpose(1, 2)  # (B, HW, C)
         tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        if tokens.shape[1] != self.positional_embedding.shape[0]:  # flax's param shape check raises here too
+            raise ValueError(f"the attention pool's positional embedding holds {self.positional_embedding.shape[0]} "
+                             f"tokens; a {h}x{w} feature map gives {tokens.shape[1]} (the tower's image size only)")
         tokens = tokens + self.positional_embedding[None].to(tokens.dtype)
         q, k, v = self.q_proj(tokens[:, :1]), self.k_proj(tokens), self.v_proj(tokens)
         return self.c_proj(attention(q, k, v, self.heads, use_kernels=False)[:, 0])
@@ -230,9 +233,10 @@ class CLIPModel(nn.Module):
                  text_cfg: CLIPTextConfig = CLIP_RN50_TEXT, dtype=torch.float32, device=None):
         super().__init__()
         if vision_kind != "rn50":
-            raise NotImplementedError(f"CLIP {vision_kind}: the ViT-B/16 pairing (CLIPVisionViT with the 512-wide "
-                                      "text tower) comes with its only caller, the soft-CE teacher "
-                                      "(ROADMAP Queue 1 item 11 [11b])")
+            raise NotImplementedError(f"CLIP {vision_kind}: only RN50 is paired with a text tower here; the JAX "
+                                      "package's CLIPModel offers vit-b-16, but none of its paths calls it (the "
+                                      "filters and the soft-CE teacher score with RN50; ROADMAP Queue 1 item 11 "
+                                      "[11b])")
         self.visual = CLIPVisionRN(vision_cfg, dtype, device)
         self.text = CLIPTextEncoder(text_cfg, dtype, device)
         self.logit_scale = nn.Parameter(torch.zeros((), device=device), requires_grad=False)

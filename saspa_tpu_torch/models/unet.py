@@ -30,12 +30,14 @@ CFG shared prefix (`cfg_tile`): under classifier-free guidance both halves
 share one latent, so the network runs at batch B until the first
 cross-attention, which meets the 2B [uncond, cond] context and forks the
 batch to 2B; pre-fork tensors are tiled wherever they join post-fork ones.
+A sample batch equal to the context's (no CFG, SDXL's CFG, InstructPix2Pix's
+3-way CFG at 3B) runs plain, with no fork.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -106,6 +108,7 @@ UNET_CONFIGS = {
     "sd_xl-turbo": SDXL_UNET,
     "blip_diffusion": SD15_UNET,  # BLIP-Diffusion rides an SD1.5 UNet
     "blip_diffusion-controlnet": SD15_UNET,
+    "ip2p": replace(SD15_UNET, in_channels=8),  # InstructPix2Pix: latents ++ image latents
 }
 
 

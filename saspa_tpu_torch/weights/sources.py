@@ -37,6 +37,11 @@ PARTS: Dict[str, Part] = {p.name: p for p in [
     Part("controlnet_canny_sd15", "controlnet",
          ("*control_v11p_sd15_canny*/*.safetensors", "controlnet_canny/*.safetensors",
           "controlnet_canny_sd15/*.safetensors")),
+    # InstructPix2Pix (ALIA's editor for planes_biased): an 8-channel conv_in
+    Part("ip2p_unet", "unet", ("*instruct-pix2pix*/unet/*.safetensors", "ip2p/unet/*.safetensors")),
+    Part("ip2p_vae", "vae", ("*instruct-pix2pix*/vae/*.safetensors", "ip2p/vae/*.safetensors")),
+    Part("ip2p_text", "clip_text",
+         ("*instruct-pix2pix*/text_encoder/*.safetensors", "ip2p/text_encoder/*.safetensors")),
     # SDXL-Turbo (cub's recipe), SDXL base, the fp16-fix VAE both use
     Part("xl_unet", "unet", ("sdxl-turbo/unet/*.safetensors", "*sdxl-turbo*/unet/*.safetensors")),
     Part("xl_vae", "vae", ("sdxl-vae-fp16-fix/*.safetensors", "*sdxl*vae*fp16*fix*/*.safetensors")),
@@ -73,6 +78,7 @@ PARTS: Dict[str, Part] = {p.name: p for p in [
 # blip_diffusion-controlnet shares blip_diffusion's weights
 FAMILIES: Dict[str, Dict[str, object]] = {
     "sd_v1.5": {"unet": "sd15_unet", "vae": "sd15_vae", "text": ("sd15_text",)},
+    "ip2p": {"unet": "ip2p_unet", "vae": "ip2p_vae", "text": ("ip2p_text",)},
     "sd_xl-turbo": {"unet": "xl_unet", "vae": "xl_vae", "text": ("xl_text_l", "xl_text_bigg")},
     "sd_xl": {"unet": "xlbase_unet", "vae": "xl_vae", "text": ("xlbase_text_l", "xlbase_text_bigg")},
     "blip_diffusion": {"unet": "bd_unet", "vae": "bd_vae", "text": ("bd_text",), "blip": "bd_qformer"},

@@ -175,8 +175,8 @@ def test_cli_flags_map_to_the_same_config(argv, monkeypatch):
 def test_cli_refuses_what_is_not_ported(monkeypatch):
     """`gen` filters unless --skip_filter is passed (the JAX CLI's
     semantic + top-10 confidence recipe); the presets run with their
-    filter recipes, but ALIA on planes_biased (ip2p); the generation
-    families not ported yet raise, each naming its family."""
+    filter recipes, ALIA on planes_biased too (ip2p, tests/test_torch_ip2p.py);
+    the generation families not ported yet raise, each naming its family."""
     import saspa_tpu_torch.cli as tcli
 
     calls = []
@@ -185,13 +185,13 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
     tcli.main(["gen", "--resolution", "1024"])
     tcli.main(["gen", "--resolution", "1024", "--skip_filter"])
     tcli.main(["gen", "--preset", "alia", "--skip_filter"])
+    tcli.main(["gen", "--preset", "alia", "--dataset", "planes_biased"])
+    alia = ("filter", {"semantic_filtering": True, "model_confidence_based_filtering": False,
+                       "alia_conf_filtering": True})
     assert calls == [("filter", {"semantic_filtering": True, "model_confidence_based_filtering": True}),
-                     ("gen", {}),
-                     ("filter", {"semantic_filtering": True, "model_confidence_based_filtering": False,
-                                 "alia_conf_filtering": True})]
+                     ("gen", {}), alia, alia]
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match=r"ip2p.*Queue 1 item 12"):
-        tcli.main(["gen", "--preset", "alia", "--dataset", "planes_biased"])
+    tdriver._check_supported(GenerationConfig.alia("planes_biased").with_dataset_overrides())
     with pytest.raises(NotImplementedError, match=r"SDXL refiner.*Queue 1 item 12"):
         init_pipeline("sd_xl", None, SDEdit=True)
     with pytest.raises(NotImplementedError, match=r"SD2\.1.*Queue 1 item 12"):

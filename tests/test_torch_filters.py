@@ -323,7 +323,7 @@ def test_run_generation_and_filter_options_and_ranks(monkeypatch):
     that skips the JSON, and a rank other than 0, which meets the barrier
     and returns the writer's path without scoring."""
     seen = {}
-    monkeypatch.setattr(tdriver, "run_generation", lambda cfg, pipe=None: "/d/aug/images")
+    monkeypatch.setattr(tdriver, "run_generation", lambda cfg, pipe=None, max_items=None: "/d/aug/images")
     monkeypatch.setattr(taug, "create_json_of_image_name_to_augmented_images_paths",
                         lambda ds, **kw: seen.setdefault("kw", kw) and "written")
     cfg = GenerationConfig(dataset="planes")

@@ -11,6 +11,13 @@ CPU, against the JAX package where it has a counterpart.
 * `cli train` for 1 epoch on the tree (ResNet-50, the planes preset patched
   to 64^2) writes metrics.jsonl and a checkpoint, and the checkpoint
   restored through --ckpt gives the run's test metrics again.
+* The CLIP soft-target teacher (--use_target_soft_cross_entropy): its
+  prompts equal the JAX teacher's, in label-id order; its logits are
+  logit_scale * unit image features of the batch as it is @ the unit text
+  features; it raises off the tower's image size, as the JAX teacher does;
+  `cli train` with it takes every step with the teacher's logits (towers
+  narrowed, at 64^2).  The step's blend is held against JAX's in
+  tests/test_torch_train_step_soft.py.
 """
 
 import json
@@ -239,9 +246,89 @@ def test_cli_train_one_epoch_writes_metrics_and_a_checkpoint_that_restores(tree,
     assert again["test_mean_class_acc"] == test["test_mean_class_acc"]
 
 
-@pytest.mark.parametrize("flag", ["--wandb", "--use_target_soft_cross_entropy", "--plot_per_class_acc",
-                                  "--net=inception_mixed_6e"])
+@pytest.mark.parametrize("flag", ["--wandb", "--plot_per_class_acc", "--net=inception_mixed_6e"])
 def test_cli_train_options_not_ported_raise(tree, tmp_path, monkeypatch, flag):
     _small_planes(monkeypatch, tree)
     with pytest.raises(NotImplementedError):
         cli.cmd_train(_train_args(tree, tmp_path, flag), device="cpu")
+
+
+def _narrow_clip(monkeypatch, size=64):
+    """The teacher's CLIP RN50 towers narrowed (layers 1 a stage, width 16)
+    with their attention pool sized for size^2 batches."""
+    from saspa_tpu_torch.filters import clip_filters as tclip_filters
+    from saspa_tpu_torch.models.clip import CLIPVisionRNConfig
+    from saspa_tpu_torch.models.text_encoder import CLIPTextConfig
+
+    monkeypatch.setattr(tclip_filters, "VISION_CFG", CLIPVisionRNConfig(layers=(1, 1, 1, 1), width=16, output_dim=32,
+                                                                        image_size=size))
+    monkeypatch.setattr(tclip_filters, "TEXT_CFG", CLIPTextConfig(width=32, layers=2, heads=2, projection_dim=32))
+
+
+def test_clip_teacher_prompts_logits_and_refusals(monkeypatch):
+    """The prompts of both packages' teachers, one per class in label-id
+    order ("a photo of a {name}, a type of aircraft." for planes, "... car."
+    for cars); cub is refused by both; the port's logits on a batch, as
+    they are, against logit_scale * unit(image) @ unit(text)^T; a batch off
+    the tower's image size raises (flax's ScopeParamShapeError in the JAX
+    teacher at 448^2)."""
+    import saspa_tpu.filters.clip_filters as jclip_filters
+
+    seen = {}
+
+    class Recorder:
+        def __init__(self, kind, *a, **k):
+            assert kind == "rn50"
+
+        def text_features(self, prompts):
+            seen["jax"] = list(prompts)
+            return np.zeros((len(prompts), 4), np.float32)
+
+    monkeypatch.setattr(jclip_filters, "CLIPScorer", Recorder)
+    from saspa_tpu.fgvc.runner import _make_clip_teacher as jax_teacher
+
+    _narrow_clip(monkeypatch)
+    names = ["Boeing 737-800", "Airbus A320", "Cessna 172"]
+    for dataset, kind in (("planes", "aircraft"), ("cars", "car")):
+        jax_teacher(dataset, names)
+        teacher = runner.make_clip_teacher(dataset, names, device="cpu")
+        scorer = teacher.scorer
+        assert seen["jax"] == [f"a photo of a {n}, a type of {kind}." for n in names]
+        want_txt = torch.from_numpy(scorer.text_features(seen["jax"]))
+        assert torch.equal(teacher.text_features, want_txt)
+    for make in (lambda: jax_teacher("cub", names), lambda: runner.make_clip_teacher("cub", names, device="cpu")):
+        with pytest.raises(AssertionError, match="planes/cars"):
+            make()
+    X = torch.from_numpy(np.random.RandomState(1).randn(2, 3, 64, 64).astype(np.float32))
+    got = teacher(X)
+    with torch.no_grad():
+        img = scorer.model.visual(X)
+        img = img / (torch.linalg.vector_norm(img, dim=-1, keepdim=True) + 1e-8)
+    want = scorer.logit_scale * img @ want_txt.T
+    assert got.shape == (2, 3) and got.dtype == torch.float32
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="positional embedding"):
+        teacher(torch.zeros(1, 3, 128, 128))
+
+
+def test_cli_train_with_the_clip_teacher(tree, tmp_path, monkeypatch):
+    """`cli train --use_target_soft_cross_entropy` for 1 epoch: every step
+    gets the teacher's (B, 4) logits of its own batch, the loss is finite."""
+    _small_planes(monkeypatch, tree)
+    _narrow_clip(monkeypatch)
+    seen = []
+    step = ttrain.make_train_step
+
+    def recording_step(cfg, n):
+        inner = step(cfg, n)
+
+        def run(state, X, y, key, y_soft=None, draws=None, clip_logits=None):
+            seen.append((cfg.use_target_soft_cross_entropy, tuple(X.shape), tuple(clip_logits.shape)))
+            return inner(state, X, y, key, y_soft=y_soft, draws=draws, clip_logits=clip_logits)
+
+        return run
+
+    monkeypatch.setattr(ttrain, "make_train_step", recording_step)
+    logs = cli.cmd_train(_train_args(tree, tmp_path, "--use_target_soft_cross_entropy"), device="cpu")
+    assert seen == [(True, (2, 3, 64, 64), (2, 4))] * 4
+    assert np.isfinite(logs["train_train_loss"])
