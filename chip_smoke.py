@@ -253,6 +253,46 @@ Phases, each printing one JSON line:
                 split (n_id 552, n_ood 155).  Printed: gen's wall s
                 and img/s, generate's s/step at B24, each run's seconds,
                 eval-biased's accuracies, the phase's seconds.
+ 14. unipc  -- the main path's batch (SD1.5 + canny, B8, 512^2, full width,
+                the default kernels) with the sampler set to UniPC
+                (--sampler unipcmultistep: bh2, order 2, on the multistep
+                grid), the main path's seeded weights: K1-K6 launch as DDIM's
+                at the same steps; the fused function's uint8 images equal
+                `generate`'s on the same ids, noise and control image, bit
+                for bit.  Printed: s/step beside DDIM's from the same call.
+ 15. jpeg   -- JPEG sources without PIL: every tests/fixtures/jpeg/*.jpg
+                (written by PIL: baseline, progressive, restart markers,
+                optimised tables, grey, 4:2:0 / 4:2:2 / 4:4:4, 1x1 to
+                1000x667) decoded by gen/jpeg.py bit-equal to PIL's pixels in
+                the .pil.png beside it (read with read_png: there is no PIL on
+                this machine); decode ms a JPEG at 512^2 (baseline and
+                progressive) and 1000x667 beside read_png of the same pixels,
+                and with the train pipeline's 8 threads.  Then a synthetic
+                FGVC-Aircraft tree whose sources are those JPEG bytes (train:
+                8 copies of the 512^2 baseline and progressive files; val and
+                test: 8 files of other sizes and kinds):  cli gen --dataset
+                planes --num_inference_steps 2  (the default recipe: SD1.5 +
+                canny, then the semantic and top-10 confidence filters' aug-
+                JSON; K1-K4 at (a)'s counts for 2 steps),  cli filter
+                rebuilding that JSON byte for byte, and  cli train --epochs 1
+                on it (2 steps at batch 4, validation and test): every source
+                and every val and test original read through decode_jpeg.
+ 16. refiner -- the SDXL refiner:  cli gen --dataset planes --base_model sd_xl
+                --sdedit --sdedit_strength 0.5 --controlnet none
+                --num_inference_steps 4 --skip_filter  in-process on 8 seeded
+                512^2 sources (init_pipeline maps sd_xl + SDEdit without a
+                ControlNet to the refiner, as the JAX package does: UNet
+                384/768/1536/1536, depth 4, heads of d 64, the bigG tower
+                alone, the SDXL VAE; about 3 B seeded bf16 parameters); 2
+                denoise steps under CFG 7.5 at B16 with the aesthetic score
+                6.0 / 2.5 in the time ids.  Launch counts as
+                expected_sdedit_counts(2, refiner=True); the PNGs equal
+                `generate`'s bit for bit; its self-attention sites the
+                expected three; its K1 (H12 L1024, H24 L256) and K2 (C768,
+                C1536) shapes are in the kernels phase's lists, its K3
+                (C384, 12 channels a group) and K4 sites no earlier phase
+                checked are checked here (rows with "cell": "refiner").
+                Printed: init s, wall s, s/step, peak memory.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -312,6 +352,10 @@ K1_SHAPES = [
     ("ip2p level 0", 24, 4096, 8, 40, 64),
     ("ip2p level 1", 24, 1024, 8, 80, 128),
     ("ip2p level 2", 24, 256, 8, 160, 192),
+    # the refiner phase's: the SDXL refiner's UNet under CFG at B16 (no
+    # shared prefix), heads of d 64; its mid block (64 tokens) runs plain
+    ("refiner level 1", 16, 1024, 12, 64, 64),
+    ("refiner level 2", 16, 256, 24, 64, 64),
 ]
 # K6 shapes: (what, B, L, H, d); d pads to 64 in shared memory
 K6_SHAPES = [
@@ -336,6 +380,9 @@ K2_SHAPES = [
     ("ip2p level 1", 24, 1024, 640),
     ("ip2p level 2", 24, 256, 1280),
     ("ip2p mid", 24, 64, 1280),
+    ("refiner level 1", 16, 1024, 768),  # the refiner's UNet at B16: 64-column down tiles (768, 1536 % 160 != 0)
+    ("refiner level 2", 16, 256, 1536),
+    ("refiner mid", 16, 64, 1536),
 ]
 
 
@@ -3125,16 +3172,21 @@ EDIT_INVERSION_STEPS = 50  # LAVIS' num_inversion_steps: 49 UNet calls
 CARS_CLASSES = ["Acura TL Sedan 2012", "Audi R8 Coupe 2012", "BMW M3 Coupe 2012", "Kia Rio Sedan 2011"]
 
 
-def expected_sdedit_counts(steps: int, inversion_calls: int = 0, controlnet: bool = False, xl: bool = False) -> dict:
+def expected_sdedit_counts(steps: int, inversion_calls: int = 0, controlnet: bool = False, xl: bool = False,
+                           refiner: bool = False) -> dict:
     """Launches of one 512^2 batch through SDEdit (steps denoise steps) or
     BLIP-Diffusion's edit (inversion_calls UNet calls, then steps), default
     configuration.  Per UNet call, under CFG or not: 15 self-attentions over
     >= 256 tokens, 16 transformer blocks (norm1 and norm2 each), 61
     GroupNorms; the ControlNet adds 6, 7 and 27 a step; SDXL's UNet runs 70
-    blocks and 46 GroupNorms (expected_xl_counts); per encode: its mid
-    attention (K1 at 4096 tokens, d 512) and 22 GroupNorms; per decode: its
-    attention and 30."""
-    attn, blocks, norms = (70, 70, 46) if xl else (15, 16, 61)
+    blocks and 46 GroupNorms (expected_xl_counts); the SDXL refiner's runs 44
+    blocks (levels 1 and 2: 2 down and 3 up transformers each, 4 deep: 20 +
+    20; the mid block's 4), the 40 of levels 1 and 2 with a self-attention
+    on K1 (1024 and 256 tokens; the mid block's 64 run plain), and 56
+    GroupNorms (22 resnets x 2, 11 Transformer2D norms, conv_norm_out); per
+    encode: its mid attention (K1 at 4096 tokens, d 512) and 22 GroupNorms;
+    per decode: its attention and 30."""
+    attn, blocks, norms = (70, 70, 46) if xl else ((40, 44, 56) if refiner else (15, 16, 61))
     if controlnet:
         attn, blocks, norms = attn + 6, blocks + 7, norms + 27
     calls = steps + inversion_calls
@@ -3841,6 +3893,387 @@ def run_planes_biased_phase(seed: int, checks: dict, checked_sites: dict) -> dic
         shutil.rmtree(root, ignore_errors=True)
 
 
+UNIPC_SAMPLER = "unipcmultistep"
+
+
+def run_unipc_phase(base, src, ids, neg_ids, latents, steps: int) -> dict:
+    """The main path's batch on UniPC (module docstring, phase 14): `base`
+    is the default configuration's DDIM pipeline, whose weights a UniPC
+    pipeline takes; returns the UniPC batch's launch counts."""
+    import gc
+
+    from saspa_tpu_torch.diffusion.pipelines import DiffusionPipeline, quantize
+    from saspa_tpu_torch.diffusion.schedulers import UniPCScheduler, make_timesteps
+
+    b, size = src.shape[0], src.shape[1]
+    t = time.perf_counter()
+    pipe = DiffusionPipeline("sd_v1.5", controlnet="canny", sampler=UNIPC_SAMPLER, dtype=torch.bfloat16,
+                             init_seed=None)
+    copy_weights(base, pipe)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    grid = [int(x) for x in pipe.scheduler.timesteps(steps)]
+    require(isinstance(pipe.scheduler, UniPCScheduler) and
+            grid == [int(x) for x in make_timesteps(pipe.scheduler.cfg, steps, multistep=True)], "UniPC grid", grid)
+
+    def run(p, n):
+        fn = p.make_fused_generate(size, size, n, 7.5, 0.75, 120.0, 200.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(p.params, ids, neg_ids, src, latents, return_images=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run(pipe, 1)  # warm-up
+    _, t1 = run(pipe, 1)
+    reset_counts()
+    (u8, images), ts = run(pipe, steps)
+    counts = read_counts()
+    want = expected_counts(steps, "default")
+    require(counts == want, "unipc launch counts", counts, "expected DDIM's", want)
+    require(u8.shape == (b, size, size, 3) and bool(torch.isfinite(images).all()), "unipc output", tuple(u8.shape))
+    # the unfused entry point on the same ids, noise and control image
+    control = pipe.control_from_src(src, size, size, 120.0, 200.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unfused = quantize(pipe.generate([""] * b, latents, size, size, steps, 7.5, control_image=control,
+                                     controlnet_scale=0.75, token_ids=ids, negative_token_ids=neg_ids))
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    same = bool(torch.equal(unfused, u8))
+    require(same, "unipc: the fused path differs from generate", (unfused != u8).float().mean().item())
+    _, d1 = run(base, 1)  # DDIM, same weights, timed the same way
+    (ddim_u8, _), dts = run(base, steps)
+    out = {"phase": "unipc", "sampler": UNIPC_SAMPLER, "batch": b, "resolution": size, "steps": steps,
+           "timesteps": grid, "ddim_timesteps": [int(x) for x in base.scheduler.timesteps(steps)], "init_s": init_s,
+           "wall_s": ts, "wall_1step_s": t1, "s_per_step": (ts - t1) / (steps - 1), "img_per_s": b / ts,
+           "ddim_wall_s": dts, "ddim_s_per_step": (dts - d1) / (steps - 1), "generate_s": generate_s,
+           "launches": counts, "launches_expected": want, "fused_equals_generate": same,
+           "uint8_mean": u8.float().mean().item(),
+           "mean_abs_diff_vs_ddim": (u8.float() - ddim_u8.float()).abs().mean().item() / 255.0}
+    emit(out)
+    del pipe, u8, images, unfused, ddim_u8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+JPEG_FIXTURES = "tests/fixtures/jpeg"  # PIL-written JPEGs beside PIL's pixels (tests/test_torch_jpeg.py)
+JPEG_GEN_SOURCES = ("q90_420_512x512", "prog_420_512x512")  # baseline and progressive: one 512^2 bucket
+JPEG_EVAL_SOURCES = ("q75_420_375x500", "prog_420_375x500", "q90_420_667x1000", "grey_q75_17x33",
+                     "rst_rows_422_60x90", "opt_420_90x120", "q100_420_64x48", "prog_grey_47x61")
+JPEG_TIMED = ("q90_420_512x512", "prog_420_512x512", "q90_420_667x1000")
+JPEG_STEPS = 2
+JPEG_THREADS = 8  # the train pipeline's decode threads
+
+
+def write_jpeg_planes_tree(root, fixtures) -> dict:
+    """A synthetic FGVC-Aircraft tree (4 variants) whose sources are real
+    JPEG bytes: the train split 8 copies of JPEG_GEN_SOURCES, val and test
+    one of each JPEG_EVAL_SOURCES, under FGVC-Aircraft ids, with the files
+    PlanesUtils (gen) and the train datasets read.  Returns {split: [path]}."""
+    import shutil
+    from pathlib import Path
+
+    data = Path(root) / "FGVC-Aircraft/fgvc-aircraft-2013b/data"
+    (data / "images").mkdir(parents=True)
+    makers = [("Boeing", "737-800"), ("Airbus", "A320"), ("Embraer", "E-190"), ("Cessna", "172")]
+    splits = {"train": [JPEG_GEN_SOURCES[k % 2] for k in range(8)], "val": list(JPEG_EVAL_SOURCES),
+              "test": list(JPEG_EVAL_SOURCES[::-1])}
+    paths, k = {}, 0
+    for split, names in splits.items():
+        ids = []
+        for name in names:
+            ids.append(f"{3000000 + 11 * k:07d}")
+            shutil.copyfile(Path(fixtures) / f"{name}.jpg", data / "images" / f"{ids[-1]}.jpg")
+            k += 1
+        (data / f"images_variant_{split}.txt").write_text("".join(
+            f"{i} {makers[j % 4][1]}\n" for j, i in enumerate(ids)))
+        if split == "train":
+            (data / "images_train.txt").write_text("".join(f"{i}\n" for i in ids))
+            (data / "images_manufacturer_train.txt").write_text("".join(
+                f"{i} {makers[j % 4][0]}\n" for j, i in enumerate(ids)))
+        paths[split] = [str(data / "images" / f"{i}.jpg") for i in ids]
+    (data / "variants.txt").write_text("".join(f"{m[1]}\n" for m in makers))
+    return paths
+
+
+def run_jpeg_phase(seed: int) -> dict:
+    """JPEG sources without PIL (module docstring, phase 15); returns the
+    launch counts of its gen run."""
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.gen import jpeg as tjpeg
+    from saspa_tpu_torch.gen.image_io import read_png
+
+    fixtures = Path(__file__).resolve().parent / JPEG_FIXTURES
+    names = sorted(p.name[:-len(".jpg")] for p in fixtures.glob("*.jpg"))
+    require(len(names) >= 15, "JPEG fixtures", names)
+    out = {"phase": "jpeg", "fixtures": len(names)}
+    # ---- every fixture bit-equal to PIL's pixels, which PIL wrote as PNG beside it
+    kinds = {}
+    for name in names:
+        data = (fixtures / f"{name}.jpg").read_bytes()
+        got = tjpeg.decode_jpeg(data, name)
+        want = read_png(fixtures / f"{name}.pil.png")
+        rgb = np.repeat(got, 3, axis=2) if got.shape[2] == 1 else got
+        require(rgb.shape == want.shape and np.array_equal(rgb, want), "JPEG decode differs from PIL's pixels", name)
+        kinds[name] = list(got.shape)
+    out["bit_equal_to_pil"] = kinds
+    # ---- decode time a JPEG, beside read_png of the same pixels, and with the pipeline's threads
+    timing = {}
+    for name in JPEG_TIMED:
+        data, png = (fixtures / f"{name}.jpg").read_bytes(), fixtures / f"{name}.pil.png"
+        n = 20
+        t = time.perf_counter()
+        for _ in range(n):
+            tjpeg.decode_jpeg(data)
+        jpeg_ms = (time.perf_counter() - t) / n * 1e3
+        t = time.perf_counter()
+        for _ in range(n):
+            read_png(png)
+        png_ms = (time.perf_counter() - t) / n * 1e3
+        with ThreadPoolExecutor(JPEG_THREADS) as ex:
+            t = time.perf_counter()
+            list(ex.map(lambda _: tjpeg.decode_jpeg(data), range(4 * JPEG_THREADS)))
+            threads_ms = (time.perf_counter() - t) / (4 * JPEG_THREADS) * 1e3
+        timing[name] = {"bytes": len(data), "decode_ms": jpeg_ms, "read_png_ms": png_ms,
+                        f"decode_ms_{JPEG_THREADS}_threads": threads_ms, "thread_speedup": jpeg_ms / threads_ms}
+    out["timing"] = timing
+    out["host_cpus"] = os.cpu_count()
+
+    root = Path(tempfile.mkdtemp(prefix="saspa_jpeg_"))
+    env = {k: os.environ.get(k) for k in ("SASPA_DATA_ROOT", "SASPA_CHECKPOINTS")}
+    os.environ["SASPA_DATA_ROOT"] = str(root)
+    os.environ["SASPA_CHECKPOINTS"] = str(root / "checkpoints")  # none: seeded baselines
+    root_logger = logging.getLogger()
+    old_handlers, old_level = root_logger.handlers[:], root_logger.level
+    real_decode = tjpeg.decode_jpeg
+    decoded = []
+
+    def counting_decode(data, name="<bytes>"):
+        decoded.append(name)
+        return real_decode(data, name)
+
+    tjpeg.decode_jpeg = counting_decode
+    try:
+        paths = write_jpeg_planes_tree(root, fixtures)
+        # ---- cli gen, the default recipe (SD1.5 + canny, then the semantic and top-10 filters), 2 steps
+        argv = ["gen", "--dataset", "planes", "--resolution", "512", "--num_per_image", "1", "--num_inference_steps",
+                str(JPEG_STEPS), "--batch_size", "8", "--seed", str(seed + 1)]
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        json_path = cli.main(argv)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        counts = read_counts()
+        want = expected_counts(JPEG_STEPS, "default")  # one batch of 8 at 512^2
+        require(counts == want, "jpeg gen launch counts", counts, "expected", want)
+        require(set(paths["train"]) <= set(decoded), "jpeg gen: sources not read through decode_jpeg",
+                sorted(set(paths["train"]) - set(decoded)))
+        gen_decodes = len(decoded)
+        recipe_bytes = Path(json_path).read_bytes()
+        recipe = json.loads(recipe_bytes)
+        require(sorted(recipe) == sorted(Path(p).name for p in paths["train"]), "jpeg aug-JSON keys", sorted(recipe))
+        # ---- cli filter rebuilds the recipe's JSON byte for byte
+        ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        folder = cli.gen_config(cli.build_parser().parse_args(argv)).with_dataset_overrides().output_folder(
+            str(ds.root_path))
+        require(sorted(ds.original_images_paths) == sorted(paths["train"]), "jpeg tree's sources",
+                ds.original_images_paths)
+        t = time.perf_counter()
+        rebuilt = cli.main(["filter", "--dataset", "planes", "--aug_folder", folder])
+        filter_s = time.perf_counter() - t
+        require(rebuilt == json_path and Path(rebuilt).read_bytes() == recipe_bytes,
+                "jpeg: cli filter's JSON differs from gen's", rebuilt)
+        # ---- cli train on the aug-JSON: the JPEG originals in its batches, val and test
+        del decoded[:]
+        argv_train = ["train", "--dataset", "planes", "--aug_json", json_path, "--special_aug", "classic",
+                      "--epochs", "1", "--seed", "1", "--logdir", str(root / "logs")]
+        reset_counts()
+        t = time.perf_counter()
+        logs = cli.main(argv_train)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        lines = [json.loads(ln) for ln in (Path(logs["save_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        epoch = lines[0]
+        require(epoch["steps"] == len(paths["train"]) // 4 and math.isfinite(epoch["train_loss"]),
+                "jpeg train: the epoch's metrics", epoch)
+        require(set(paths["val"]) | set(paths["test"]) <= set(decoded) and set(paths["train"]) & set(decoded),
+                "jpeg train: originals not read through decode_jpeg", sorted(set(decoded)))
+        require(not any(read_counts().values()), "jpeg train launched a kernel of K1-K6", read_counts())
+        out.update({"gen_argv": argv, "gen_s": gen_s, "gen_decodes": gen_decodes, "launches": counts,
+                    "launches_expected": want, "aug_json": Path(json_path).name,
+                    "augs_kept": sum(len(v) for v in recipe.values()), "filter_s": filter_s,
+                    "filter_rebuilt_equal": True, "train_argv": argv_train, "train_s": train_s,
+                    "train_steps": epoch["steps"], "train_loss": epoch["train_loss"],
+                    "train_decodes": len(decoded)})
+        emit(out)
+        return counts
+    finally:
+        tjpeg.decode_jpeg = real_decode
+        root_logger.handlers[:] = old_handlers
+        root_logger.setLevel(old_level)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+REFINER_RESOLUTION = 512
+REFINER_SOURCES = 8
+REFINER_STEPS, REFINER_STRENGTH = 4, 0.5  # 2 denoise steps: 2 UNet calls at B16 under CFG 7.5
+
+
+def run_refiner_phase(seed: int, checks: dict, checked_sites: dict) -> dict:
+    """The SDXL refiner through `cli gen --base_model sd_xl --sdedit
+    --controlnet none` (module docstring, phase 16); returns its launch
+    counts and appends its K3 and K4 sites' rows to `checks`."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion.pipelines import init_pipeline, quantize
+    from saspa_tpu_torch.diffusion.schedulers import sdedit_start_step
+    from saspa_tpu_torch.gen.image_io import read_png, read_rgb
+    from saspa_tpu_torch.gen.prompts import PromptEngine
+    from saspa_tpu_torch.ops.image import resize_image
+    from saspa_tpu_torch.utils import rng as rngs
+
+    size, b = REFINER_RESOLUTION, REFINER_SOURCES
+    n_steps = REFINER_STEPS - sdedit_start_step(REFINER_STEPS, REFINER_STRENGTH)
+    root = tempfile.mkdtemp(prefix="saspa_refiner_")
+    old_root = os.environ.get("SASPA_DATA_ROOT")
+    os.environ["SASPA_DATA_ROOT"] = root
+    tele = TelemetryHandler()
+    root_logger = logging.getLogger()
+    old_level = root_logger.level
+    root_logger.setLevel(logging.INFO)
+    root_logger.addHandler(tele)
+    want = expected_sdedit_counts(n_steps, refiner=True)
+    try:
+        ids = write_planes_tree(root, np.random.RandomState(seed + 601), b, size)
+        argv = ["gen", "--dataset", "planes", "--base_model", "sd_xl", "--sdedit", "--sdedit_strength",
+                str(REFINER_STRENGTH), "--controlnet", "none", "--num_inference_steps", str(REFINER_STEPS),
+                "--skip_filter", "--num_per_image", "1", "--batch_size", str(b), "--seed", str(seed + 1)]
+        cfg = cli.gen_config(cli.build_parser().parse_args(argv)).with_dataset_overrides()
+        require((cfg.base_model, cfg.controlnet, cfg.sdedit, cfg.guidance_scale) == ("sd_xl", None, True, 7.5),
+                "refiner recipe", cfg)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        gc.collect()  # the driver's pipeline
+        torch.cuda.empty_cache()
+        require(len(tele.lines) == 1 and tele.lines[0]["num_errors"] == 0 and tele.lines[0]["total"] == b,
+                "refiner telemetry", tele.lines, *tele.errors)
+        require(counts == want, "refiner launch counts", counts, "expected", want)
+        ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        folder = Path(cfg.output_folder(str(ds.root_path)))
+        require("regular/sd_xl-SDEdit_strength_0.5/None/" in str(folder), "refiner folder", folder)
+        files = sorted(folder.glob("*.png"))
+        outs = {f.name.split("_prompt_")[0]: f for f in files if "_prompt_" in f.name}
+        require(sorted(outs) == sorted(ids), "refiner files", [f.name for f in files])
+
+        # the same batch through pipe.generate: same seeded weights, prompts,
+        # sources / 255 and noise -> the PNGs' pixels, bit for bit
+        t = time.perf_counter()
+        pipe = init_pipeline("sd_xl", None, SDEdit=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        n_unet = sum(p.numel() for p in pipe.params["unet"].parameters())
+        require(pipe.base_model == "sd_xl-refiner" and 2.2e9 < n_unet < 2.35e9 and len(pipe.params["text"]) == 1,
+                "init_pipeline's refiner", pipe.base_model, n_unet)
+        paths = ds.original_images_paths
+        src = np.stack([resize_image(read_rgb(p), size) for p in paths])
+        lf = pipe.latent_factor
+        lat = np.stack([rngs.item_normal(cfg.seed, "noise", i, 0, shape=(size // lf, size // lf, 4))
+                        for i in range(b)])
+        engine = PromptEngine(cfg, ds, ds.get_image_stem_to_class_str_dict())
+        prompts = [engine.build(p, i, 0) for i, p in enumerate(paths)]
+        init = torch.as_tensor(src, device=pipe.device).float() / 255.0
+
+        def generate(strength=REFINER_STRENGTH):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images = pipe.generate(prompts, lat, height=size, width=size, num_inference_steps=REFINER_STEPS,
+                                   guidance_scale=cfg.guidance_scale, negative_prompt=cfg.negative_prompt,
+                                   init_image=init, sdedit_strength=strength)
+            torch.cuda.synchronize()
+            return images, time.perf_counter() - t0
+
+        # one hooked call of 1 denoise step: the refiner's norm and attention sites
+        sites, handles = record_sites(pipe)
+        generate(0.25)
+        for h in handles:
+            h.remove()
+        want_attn = {(2 * b, 1024, 768, 12), (2 * b, 256, 1536, 24), (2 * b, 64, 1536, 24)}
+        require(sites["self_attention"] == want_attn, "refiner self-attention sites", sorted(sites["self_attention"]))
+        _, t1 = generate(0.25)  # 1 denoise step, unhooked
+        images, ts = generate()
+        require(bool(torch.isfinite(images).all()), "refiner: non-finite images")
+        u8 = quantize(images).cpu().numpy()
+        same = [bool(np.array_equal(read_png(outs[i]), u8[k])) for k, i in enumerate(Path(p).stem for p in paths)]
+        require(all(same), "refiner PNGs differ from generate's output", same)
+        _, t3 = generate(0.75)  # 3 denoise steps
+
+        # the refiner's K1/K2 shapes are in the kernels phase's lists; its K3
+        # and K4 sites that no earlier phase checked are checked here
+        for name, tag in (("attention_packed", "refiner level"), ("ln_geglu", "refiner")):
+            require(sum(r["shape"].startswith(tag) for r in checks[name]) >= 2, "refiner rows missing", name)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 602)
+        rows = {}
+        for name, check in (("group_norm", check_k3), ("layernorm", check_k4)):
+            new = sites[name] - checked_sites[name]
+            rows[name] = [dict(r, cell="refiner") for r in check(gen, new)]
+            checks[name] += rows[name]
+            checked_sites[name] |= new
+            emit({"phase": "kernels", "kernel": name, "cell": "refiner", "shapes": rows[name]})
+        require(any(r["C"] == 384 for r in rows["group_norm"]) and
+                {r["C"] for r in rows["layernorm"]} >= {768, 1536}, "refiner K3/K4 sites",
+                sorted(sites["group_norm"], key=str), sorted(sites["layernorm"]))
+        emit({"phase": "refiner", "argv": argv, "base_model": pipe.base_model, "unet_params": n_unet,
+              "params": sum(p.numel() for m in pipe._modules() for p in m.parameters()), "batch": b,
+              "resolution": size, "steps": REFINER_STEPS, "strength": REFINER_STRENGTH, "denoise_steps": n_steps,
+              "time_ids": pipe.make_time_ids(1, size, size).tolist()[0],
+              "negative_time_ids": pipe.make_time_ids(1, size, size, negative=True).tolist()[0],
+              "init_s": init_s, "wall_s": wall, "img_per_s": b / wall, "generate_s": ts, "generate_1step_s": t1,
+              "generate_3step_s": t3, "s_per_step": (t3 - t1) / 2, "peak_mem_bytes": peak, "launches": counts,
+              "launches_expected": want, "self_attention_sites": sorted(sites["self_attention"]),
+              "telemetry": tele.lines[0], "pngs_equal_generate": True, "uint8_mean": float(u8.mean())})
+        del pipe, images, init
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"refiner": counts}
+    finally:
+        root_logger.removeHandler(tele)
+        root_logger.setLevel(old_level)
+        if old_root is None:
+            os.environ.pop("SASPA_DATA_ROOT", None)
+        else:
+            os.environ["SASPA_DATA_ROOT"] = old_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def train_profile_path(profile):
     from pathlib import Path
 
@@ -3984,6 +4417,9 @@ def main() -> int:
               "launches": counts[config], "launches_expected": want, "uint8_mean": u8.float().mean().item()})
         del u8, images
 
+    # ---- the main path's batch on UniPC: DDIM's launches, fused == generate ----
+    counts["unipc"] = run_unipc_phase(pipes["default"], src, ids, neg_ids, latents, args.steps)
+
     if args.profile:
         from pathlib import Path
 
@@ -4094,6 +4530,14 @@ def main() -> int:
     # ---- the planes_biased path: ip2p through cli gen, filter, train, eval-biased; the soft-CE teacher ----
     torch.cuda.empty_cache()
     counts.update(run_planes_biased_phase(args.seed, checks, sites))
+
+    # ---- JPEG sources without PIL: the fixtures bit-equal to PIL's pixels; gen, filter, train on a JPEG tree ----
+    torch.cuda.empty_cache()
+    counts["jpeg"] = run_jpeg_phase(args.seed)
+
+    # ---- the SDXL refiner: cli gen --base_model sd_xl --sdedit --controlnet none ----
+    torch.cuda.empty_cache()
+    counts.update(run_refiner_phase(args.seed, checks, sites))
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

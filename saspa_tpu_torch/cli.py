@@ -26,11 +26,14 @@ model takes a seeded init.  Ported so far:
 SD1.5 (planes' default), BLIP-Diffusion (the default of cars, dtd and
 compcars-parts) and SDXL-Turbo (cub's: 2 trailing DDIM steps, guidance 0),
 and SDXL under CFG (`--base_model sd_xl`), each with a canny ControlNet (or
-none), text to image or SDEdit (`--sdedit [--sdedit_strength s]`), DDIM;
+none), text to image or SDEdit (`--sdedit [--sdedit_strength s]`), on DDIM
+or UniPC (`--sampler unipcmultistep`); the SDXL refiner, which `--base_model
+sd_xl --sdedit --controlnet none` runs, as in the JAX package;
 BLIP-Diffusion's inversion edit (`--base_model blip_diffusion-edit`); and
 the baseline presets `--preset real_guidance` and `--preset alia` with the
-JAX CLI's filter recipes (ALIA on planes_biased runs InstructPix2Pix).  The
-SDXL refiner, UniPC, SD2.1 and HED wait for ROADMAP Queue 1 item 12.
+JAX CLI's filter recipes (ALIA on planes_biased runs InstructPix2Pix).
+Sources may be PNG or JPEG (decoded without PIL, `gen/jpeg.py`).  SD2.1
+and HED wait for ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 saspa_tpu/data/pipeline.py): threaded decode and resize on the host, the
 batch uploaded as uint8, the transforms on the device.
 
-The host decodes each file (`gen/image_io.read_rgb`: PNG in numpy; JPEG
-only where PIL is installed, raising otherwise) and resizes it to the
+The host decodes each file (`gen/image_io.read_rgb`: PNG in numpy, JPEG
+with the host decoder of `gen/jpeg.py`, PIL's pixels without PIL) and resizes it to the
 pre-crop size (size / 0.875) with the JAX package's native resize
 (`ops/host_resize.py`), in a thread pool; a producer thread keeps 2
 batches ahead and re-raises its errors in the consumer.  The epoch's order

@@ -4,7 +4,7 @@ to image or SDEdit (counterpart of saspa_tpu/diffusion/pipelines.py).
 `DiffusionPipeline(...)` owns the text towers, UNet, ControlNet and VAE;
 `make_fused_generate(...)` returns the whole-batch text(+canny) function:
 on-device Canny, the text towers for the prompt and the negative prompt,
-the CFG DDIM loop over UNet + ControlNet, VAE decode and the uint8
+the CFG DDIM (or UniPC) loop over UNet + ControlNet, VAE decode and the uint8
 quantisation.  `generate(...)` is the JAX package's unfused entry point:
 the same loop from prompts, and given an `init_image` SDEdit (img2img): the
 source's posterior mean through the VAE encoder, scaled, noised to the
@@ -39,7 +39,7 @@ import torch
 from saspa_tpu_torch import default_dtype, resolve_device
 from saspa_tpu_torch.bridge import params_from_flax
 from saspa_tpu_torch.diffusion.sampler import make_sample_loop
-from saspa_tpu_torch.diffusion.schedulers import DDIMScheduler, SchedulerConfig, sdedit_start_step
+from saspa_tpu_torch.diffusion.schedulers import SchedulerConfig, get_scheduler, sdedit_start_step
 from saspa_tpu_torch.gen.tokenizer import EOT, NEGATIVE_PROMPT, default_tokenizer
 from saspa_tpu_torch.models.controlnet import ZERO_INIT_PREFIXES, ControlNet
 from saspa_tpu_torch.models.layers import init_weights, nearest_resize
@@ -48,7 +48,7 @@ from saspa_tpu_torch.models.unet import UNET_CONFIGS, UNet2DCondition
 from saspa_tpu_torch.models.vae import SD_VAE, SDXL_VAE, AutoencoderKL
 from saspa_tpu_torch.ops.canny import canny_control_image
 
-XL_BASE_MODELS = ("sd_xl", "sd_xl-turbo")
+XL_BASE_MODELS = ("sd_xl", "sd_xl-turbo", "sd_xl-refiner")
 BASE_MODELS = ("sd_v1.5", "ip2p", "blip_diffusion", "blip_diffusion-controlnet") + XL_BASE_MODELS  # ported so far
 BLIP_BASE_MODELS = ("blip_diffusion", "blip_diffusion-controlnet", "blip_diffusion-edit")
 
@@ -57,10 +57,6 @@ def unported_family(base_model: str, controlnet: Optional[str], sampler: str = "
                     sdedit: bool = False) -> Optional[str]:
     """The generation family a configuration needs that the port lacks (ROADMAP
     Queue 1 item 12), or None."""
-    if base_model == "sd_xl" and sdedit and controlnet is None:
-        return "the SDXL refiner (the JAX package runs sd_xl + SDEdit on it)"
-    if sampler == "unipcmultistep":
-        return "UniPC"
     if base_model == "sd_v2.1":
         return "SD2.1"
     if controlnet == "hed":
@@ -90,12 +86,16 @@ class PipelineSpec:
 
 def _spec(base_model: str) -> PipelineSpec:
     """The JAX package's `_spec` for the ported base models: SD1.5's tower
-    and VAE (also InstructPix2Pix's), or SDXL's two towers and VAE (scaling
-    0.13025); DDIM with trailing spacing for SDXL-Turbo, leading otherwise."""
+    and VAE (also InstructPix2Pix's), SDXL's two towers and VAE (scaling
+    0.13025), or the refiner's bigG tower alone with SDXL's VAE; trailing
+    spacing for SDXL-Turbo, leading otherwise."""
     if base_model not in BASE_MODELS:
         raise ValueError(base_model)
     is_xl = base_model in XL_BASE_MODELS
-    text_cfgs = (SDXL_TEXT_L, SDXL_TEXT_BIGG) if is_xl else (SD15_TEXT,)
+    if base_model == "sd_xl-refiner":
+        text_cfgs = (SDXL_TEXT_BIGG,)
+    else:
+        text_cfgs = (SDXL_TEXT_L, SDXL_TEXT_BIGG) if is_xl else (SD15_TEXT,)
     sched = SchedulerConfig(timestep_spacing="trailing" if base_model == "sd_xl-turbo" else "leading")
     return PipelineSpec(is_xl, text_cfgs, SDXL_VAE if is_xl else SD_VAE, sched)
 
@@ -141,7 +141,7 @@ class DiffusionPipeline:
         self.vae_cfg = vae_cfg or self.spec.vae_cfg
         self.text_cfgs = tuple(text_cfgs or self.spec.text_cfgs)
         self.tokenizer = default_tokenizer(weights_dir)
-        self.scheduler = DDIMScheduler(self.spec.scheduler_cfg, device=self.device)
+        self.scheduler = get_scheduler(sampler, self.spec.scheduler_cfg, self.device)
         self.latent_factor = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
 
         dev, dt = self.device, self.dtype
@@ -226,10 +226,17 @@ class DiffusionPipeline:
             pooled = out.get("proj", out["pooled"])
         return (hiddens[0] if len(hiddens) == 1 else torch.cat(hiddens, dim=-1)), pooled
 
-    def make_time_ids(self, b: int, height: int, width: int) -> torch.Tensor:
-        """SDXL's time ids, (B, 6) f32: (original h, w, crop top, left, target h, w)."""
-        row = torch.tensor([[height, width, 0, 0, height, width]], dtype=torch.float32, device=self.device)
-        return row.repeat(b, 1)
+    def make_time_ids(self, b: int, height: int, width: int, negative: bool = False) -> torch.Tensor:
+        """SDXL's time ids, (B, n) f32: for the base models (original h, w,
+        crop top, left, target h, w), the prompt's and the negative's alike;
+        the refiner puts the aesthetic score in place of the target pair, 6.0
+        for the prompt and 2.5 for the negative (diffusers' XL img2img
+        defaults)."""
+        if self.base_model == "sd_xl-refiner":
+            row = [height, width, 0, 0, 2.5 if negative else 6.0]
+        else:
+            row = [height, width, 0, 0, height, width]
+        return torch.tensor([row], dtype=torch.float32, device=self.device).repeat(b, 1)
 
     def _conditions(self, text_params, ids, neg_ids, height: int, width: int, do_cfg: bool):
         """The UNet's conditions of the prompt ids and, under CFG, of the
@@ -241,10 +248,9 @@ class DiffusionPipeline:
         if do_cfg:
             nctx, npooled = self.encode_ids(text_params, neg_ids)
         if self.spec.is_xl:
-            tids = self.make_time_ids(ctx.shape[0], height, width)
-            ac = {"text_embeds": pooled, "time_ids": tids}
+            ac = {"text_embeds": pooled, "time_ids": self.make_time_ids(ctx.shape[0], height, width)}
             if do_cfg:
-                nac = {"text_embeds": npooled, "time_ids": tids}
+                nac = {"text_embeds": npooled, "time_ids": self.make_time_ids(ctx.shape[0], height, width, True)}
         return ctx, nctx, ac, nac
 
     def make_fused_generate(self, height: int, width: int, num_inference_steps: int, guidance_scale: float,
@@ -377,5 +383,7 @@ def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = Fal
     if base_model == "ip2p" and controlnet is not None:
         raise ValueError("ip2p does not support a ControlNet")
     refuse_unported(base_model, controlnet, sampler, SDEdit)
+    if base_model == "sd_xl" and SDEdit and controlnet is None:
+        base_model = "sd_xl-refiner"  # the reference's sd_xl img2img runs the refiner (run_aug/run_aug.py:149-151)
     return DiffusionPipeline(base_model, controlnet=controlnet, sampler=sampler, dtype=dtype, device=device,
                              weights_dir=weights_dir, init_seed=0)

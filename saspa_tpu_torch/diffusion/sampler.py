@@ -12,7 +12,9 @@ latents at 3B against the [cond, uncond, uncond] context, each third's
 input the latents concatenated on the channel axis with the image latents
 of [img, img, 0] (diffusers' order), eps = eps_u + gs (eps_t - eps_i) +
 igs (eps_i - eps_u); without guidance one forward on [lat, img] against
-the cond context.  DDIM's scale_model_input is the identity, so the model
+the cond context.  The scheduler (DDIM or UniPC) carries its state from
+step to step as the JAX package's scan does (`init_state`, then `step(state,
+...)`); both schedulers' scale_model_input is the identity, so the model
 input is the latents themselves.  Latents, control images, image latents
 and outputs are NHWC at this boundary, NCHW inside.
 """
@@ -59,6 +61,7 @@ def make_sample_loop(unet_apply, scheduler, controlnet_apply=None, vae_decode=No
         lat = latents.float().permute(0, 3, 1, 2)  # channels-last in memory, as the convs keep it
         ts = [int(t) for t in timesteps]
         prev_ts = ts[1:] + [-1]
+        state = scheduler.init_state(len(ts), tuple(lat.shape))
 
         cond_emb = None
         use_cn = controlnet_apply is not None and control_image is not None
@@ -82,7 +85,7 @@ def make_sample_loop(unet_apply, scheduler, controlnet_apply=None, vae_decode=No
             elif do_cfg:
                 eps_u, eps_c = eps.chunk(2, dim=0)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)
-            lat = scheduler.step(eps, t, prev_t, lat)
+            state, lat = scheduler.step(state, eps, t, prev_t, lat)
 
         if vae_decode is None:
             return lat.permute(0, 2, 3, 1)

@@ -8,7 +8,7 @@ become a flat worklist of (image, prompt) items that is
     and world size when a process group is initialised, else one process);
   * bucketed by the resized source shape (a header read per file);
   * run in batches: the host reads and resizes the sources, the card runs
-    Canny, the text tower(s), the CFG DDIM loop and the VAE decode
+    Canny, the text tower(s), the CFG DDIM (or UniPC) loop and the VAE decode
     (`DiffusionPipeline.make_fused_generate`; SDXL-Turbo, cub's model, at
     its recipe's guidance scale 0 runs no negative tower), and the host
     writes the PNGs of batch i while the card works on batch i + 1.
@@ -31,8 +31,7 @@ depend on batch composition, shard count or resume point, and match the JAX
 driver's.  Sources are read and PNGs written by `gen.image_io`; resizing is
 `ops.image.resize_image`.  `run_generation_and_filter` then builds the
 aug-JSON of the folder (`filters.aug_json`).  The families the port lacks
-(the SDXL refiner, UniPC, SD2.1, HED) raise, naming ROADMAP Queue 1 item
-12.
+(SD2.1, HED) raise, naming ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations

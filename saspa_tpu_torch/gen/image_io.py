@@ -11,8 +11,9 @@ card has neither PIL nor cv2, so the port carries its own:
   * `read_rgb`: an (H, W, 3) uint8 array as `np.asarray(Image.open(p).
     convert("RGB"))` gives it.  The format is told by the file's first bytes,
     not its name (FGVC-Aircraft paths end in .jpg whatever they hold).  PNG
-    decodes here; JPEG and every other format decode through PIL where PIL
-    is installed, and raise otherwise.
+    decodes here, JPEG through `gen/jpeg.py` (a host decoder bit-exact to
+    PIL's libjpeg-turbo, never PIL itself); every other format decodes
+    through PIL where PIL is installed, and raises otherwise.
   * `verify_image`: the check of `Image.open(p).verify()`, which the filter
     stage runs on every generated file: PNG chunks walked to IEND with each
     CRC checked, JPEG markers parsed to the start of scan; other formats
@@ -29,6 +30,8 @@ from pathlib import Path
 from typing import Tuple
 
 import numpy as np
+
+from saspa_tpu_torch.gen.jpeg import read_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8"
@@ -93,8 +96,8 @@ def _pil_image(path):
     try:
         from PIL import Image
     except ImportError as e:
-        raise RuntimeError(f"{path}: only PNG decodes without PIL, and PIL is not installed here "
-                           f"(JPEG sources need PIL; see ROADMAP Queue 1 item 9)") from e
+        raise RuntimeError(f"{path}: only PNG and JPEG decode without PIL, "
+                           f"and PIL is not installed here") from e
     return Image
 
 
@@ -193,8 +196,9 @@ def _verify_jpeg(data: bytes, path) -> None:
 def read_rgb(path) -> np.ndarray:
     """(H, W, 3) uint8 RGB, as PIL's convert("RGB") gives it (alpha dropped,
     gray replicated)."""
-    if sniff(path) == "png":
-        img = read_png(path)
+    kind = sniff(path)
+    if kind in ("png", "jpeg"):
+        img = read_png(path) if kind == "png" else read_jpeg(path)
         if img.shape[2] == 1:
             return np.repeat(img, 3, axis=2)
         return np.ascontiguousarray(img[:, :, :3])

@@ -3,7 +3,9 @@
 SDXL (`SDXL_UNET`: three levels 320/640/1280, transformer depth 1/2/10,
 heads of d 64, cross-attention width 2048) adds linear proj_in/proj_out
 (`use_linear_projection`) and the text_time added conditions: the pooled
-text embedding and six time ids enter `temb` through `add_embedding`, in
+text embedding and six time ids (five for the refiner, `SDXL_REFINER_UNET`:
+four levels 384/768/1536/1536, depth 4, heads of d 64, cross-attention
+width 1280) enter `temb` through `add_embedding`, in
 `UNetEncoder.temb`, so the ControlNet takes them too.  Since they feed
 every resnet, XL runs without the CFG shared prefix (below): its sampler
 hands the UNet 2B latents under CFG.
@@ -102,10 +104,27 @@ SDXL_UNET = UNetConfig(
     projection_class_embeddings_input_dim=2816,
 )
 
+# the SDXL refiner (stabilityai/stable-diffusion-xl-refiner-1.0): plain
+# blocks at levels 0 and 3, 4-deep transformers at levels 1 and 2 and in
+# the mid block (which reads the last entry), heads of d 64, bigG-only
+# text (1280), add_embedding input 2560 = pooled 1280 + 5 time ids x 256
+SDXL_REFINER_UNET = UNetConfig(
+    block_out_channels=(384, 768, 1536, 1536),
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+    transformer_layers_per_block=(1, 4, 4, 4),
+    num_attention_heads=(6, 12, 24, 24),
+    cross_attention_dim=1280,
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    projection_class_embeddings_input_dim=2560,
+)
+
 UNET_CONFIGS = {
     "sd_v1.5": SD15_UNET,
     "sd_xl": SDXL_UNET,
     "sd_xl-turbo": SDXL_UNET,
+    "sd_xl-refiner": SDXL_REFINER_UNET,
     "blip_diffusion": SD15_UNET,  # BLIP-Diffusion rides an SD1.5 UNet
     "blip_diffusion-controlnet": SD15_UNET,
     "ip2p": replace(SD15_UNET, in_channels=8),  # InstructPix2Pix: latents ++ image latents

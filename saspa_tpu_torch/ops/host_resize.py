@@ -27,32 +27,44 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_host_build"
 GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def load_host_library(src: Path, stem: str, declare) -> ctypes.CDLL:
+    """Builds `src` with g++ into BUILD_DIR/lib<stem>-<hash>.so at first use
+    (the hash covers the source and flags; a temporary file is renamed into
+    place, so processes that build at once do not clash) and loads it under a
+    lock; `declare(lib)` sets the functions' argtypes.  A failed build
+    raises."""
     with _lock:
-        if _lib is None:
-            digest = hashlib.sha256(SRC.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:12]
-            out = BUILD_DIR / f"libsaspa_host-{digest}.so"
+        if stem not in _libs:
+            digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:12]
+            out = BUILD_DIR / f"lib{stem}-{digest}.so"
             if not out.exists():
                 gxx = shutil.which("g++")
                 if gxx is None:
-                    raise RuntimeError("g++ not found: the train pipeline's host resize builds with g++")
+                    raise RuntimeError(f"g++ not found: {src.name} builds with g++")
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                done = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(SRC), "-lpthread"],
+                done = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src), "-lpthread"],
                                       capture_output=True, text=True)
                 if done.returncode != 0:
-                    raise RuntimeError(f"building {SRC.name} failed:\n{done.stderr}")
+                    raise RuntimeError(f"building {src.name} failed:\n{done.stderr}")
                 tmp.replace(out)
             lib = ctypes.CDLL(str(out))
-            u8p, i = ctypes.POINTER(ctypes.c_uint8), ctypes.c_int
-            lib.resize_bilinear_u8.argtypes = [u8p, i, i, i, u8p, i, i]
-            lib.resize_bilinear_u8.restype = None
-            _lib = lib
-    return _lib
+            declare(lib)
+            _libs[stem] = lib
+    return _libs[stem]
+
+
+def _declare(lib) -> None:
+    u8p, i = ctypes.POINTER(ctypes.c_uint8), ctypes.c_int
+    lib.resize_bilinear_u8.argtypes = [u8p, i, i, i, u8p, i, i]
+    lib.resize_bilinear_u8.restype = None
+
+
+def _load() -> ctypes.CDLL:
+    return load_host_library(SRC, "saspa_host", _declare)
 
 
 def resize_bilinear_u8(src: np.ndarray, dh: int, dw: int) -> np.ndarray:

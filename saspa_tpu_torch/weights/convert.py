@@ -7,7 +7,8 @@ BatchNorm -> {params: {scale, bias}, batch_stats: {mean, var}}.  The port
 then loads that tree through `bridge` (weights/load.py), the path its
 tests already hold against JAX, at the cost of a second transpose of each
 tensor at load.  The UNet, ControlNet and VAE converters take the port's
-configs (models/unet.py UNET_CONFIGS, models/vae.py).
+configs (models/unet.py UNET_CONFIGS, models/vae.py): the SDXL refiner's
+UNet converts through `convert_sd_unet` with SDXL_REFINER_UNET.
 
 Converters read their source through `sd[key]` only, so a dict that
 records its reads (weights/load.py) tells which keys of a file went

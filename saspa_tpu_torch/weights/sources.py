@@ -8,7 +8,9 @@ order (`find_source`, weights_day's `_find_src`).  The patterns are
 weights_day's (`default_parts`) for the families the port has, plus two
 the JAX package loads without a weights_day part: the SDXL canny
 ControlNet (`controlnet_canny_xl/`, saspa_tpu/diffusion/pipelines.py:314)
-and SDXL base (`sd_xl/`, for `--base_model sd_xl`).  The CLIP tokenizer's
+and SDXL base (`sd_xl/`, for `--base_model sd_xl`).  The SDXL refiner
+(`--base_model sd_xl --sdedit --controlnet none`) is weights_day's
+`sd_xl-refiner`: `*xl-refiner*/unet/`, SDXL's VAE and the bigG tower.  The CLIP tokenizer's
 merges.txt and BLIP's WordPiece vocab.txt stay under `tokenizer/`, where
 both packages look for them; the released WSDAN-CAL baselines under
 `checkpoints/<dataset>/`, one `.pth` each (the reference's rule).
@@ -56,6 +58,9 @@ PARTS: Dict[str, Part] = {p.name: p for p in [
          ("sd_xl/text_encoder_2/*.safetensors", "*stable-diffusion-xl-base*/text_encoder_2/*.safetensors")),
     Part("controlnet_canny_xl", "controlnet",
          ("controlnet_canny_xl/*.safetensors", "*controlnet-canny-sdxl*/*.safetensors")),
+    # the SDXL refiner (sd_xl + SDEdit without a ControlNet): its own UNet,
+    # SDXL's fp16-fix VAE and the bigG tower
+    Part("refiner_unet", "unet", ("*xl-refiner*/unet/*.safetensors",)),
     # BLIP-Diffusion (cars, dtd, compcars-parts): the qformer file also holds
     # the vision tower (vision_model.*), so one file feeds two converters
     Part("bd_unet", "unet", ("*blipdiffusion*/unet/*.safetensors", "blip_diffusion/unet/*.safetensors")),
@@ -81,6 +86,7 @@ FAMILIES: Dict[str, Dict[str, object]] = {
     "ip2p": {"unet": "ip2p_unet", "vae": "ip2p_vae", "text": ("ip2p_text",)},
     "sd_xl-turbo": {"unet": "xl_unet", "vae": "xl_vae", "text": ("xl_text_l", "xl_text_bigg")},
     "sd_xl": {"unet": "xlbase_unet", "vae": "xl_vae", "text": ("xlbase_text_l", "xlbase_text_bigg")},
+    "sd_xl-refiner": {"unet": "refiner_unet", "vae": "xl_vae", "text": ("xl_text_bigg",)},
     "blip_diffusion": {"unet": "bd_unet", "vae": "bd_vae", "text": ("bd_text",), "blip": "bd_qformer"},
 }
 CONTROLNETS = {("canny", False): "controlnet_canny_sd15", ("canny", True): "controlnet_canny_xl"}

@@ -192,12 +192,8 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
                      ("gen", {}), alia, alia]
     monkeypatch.undo()
     tdriver._check_supported(GenerationConfig.alia("planes_biased").with_dataset_overrides())
-    with pytest.raises(NotImplementedError, match=r"SDXL refiner.*Queue 1 item 12"):
-        init_pipeline("sd_xl", None, SDEdit=True)
     with pytest.raises(NotImplementedError, match=r"SD2\.1.*Queue 1 item 12"):
         init_pipeline("sd_v2.1", "canny")
-    with pytest.raises(NotImplementedError, match=r"UniPC.*Queue 1 item 12"):
-        init_pipeline("sd_v1.5", "canny", sampler="unipcmultistep")
     # weights_dir reaches the pipeline, which loads the tree's files (tests/test_torch_weights.py)
     import saspa_tpu_torch.diffusion.pipelines as tpipelines
 
@@ -213,6 +209,10 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
         for base in ("sd_v1.5", "sd_xl-turbo", "sd_xl"):
             assert init_pipeline(base, "canny", SDEdit=True) == ("sd", (base,), {"controlnet": "canny", **plain})
         assert init_pipeline("sd_v1.5", None, SDEdit=True) == ("sd", ("sd_v1.5",), {"controlnet": None, **plain})
+        # sd_xl + SDEdit without a ControlNet is the refiner, and UniPC builds
+        assert init_pipeline("sd_xl", None, SDEdit=True) == ("sd", ("sd_xl-refiner",), {"controlnet": None, **plain})
+        assert init_pipeline("sd_v1.5", "canny", sampler="unipcmultistep") == \
+            ("sd", ("sd_v1.5",), {"controlnet": "canny", **plain, "sampler": "unipcmultistep"})
     with pytest.raises(NotImplementedError, match=r"HED.*Queue 1 item 12"):
         tdriver._check_supported(GenerationConfig(controlnet="hed"))
     tdriver._check_supported(GenerationConfig(sdedit=True, controlnet=None))

@@ -104,11 +104,16 @@ def test_probes_match_pil_and_format_is_read_from_content(tmp_path, progressive)
 
 
 def test_jpeg_without_pil_raises(tmp_path, monkeypatch):
-    """Where PIL is missing (the card's machine) a JPEG source raises, and
-    nothing else decodes it."""
+    """Where PIL is missing (the card's machine) a JPEG source decodes all
+    the same, to PIL's pixels (gen/jpeg.py; tests/test_torch_jpeg.py holds
+    the decoder), and a format that only PIL reads raises, naming PIL."""
     p = tmp_path / "a.jpg"
     Image.fromarray(_source(16, 16, 0)).save(p, format="JPEG")
+    bmp = tmp_path / "a.bmp"
+    Image.fromarray(_source(16, 16, 1)).save(bmp, format="BMP")
+    want = np.asarray(Image.open(p).convert("RGB"))
     monkeypatch.setitem(__import__("sys").modules, "PIL", None)
+    assert np.array_equal(image_io.read_rgb(p), want)
     with pytest.raises(RuntimeError, match="PIL"):
-        image_io.read_rgb(p)
+        image_io.read_rgb(bmp)
     assert image_io.image_size(p) == (16, 16)  # the header probe needs no PIL

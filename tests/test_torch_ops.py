@@ -235,5 +235,7 @@ def test_ddim_step_matches():
     steps = list(js.timesteps(5))
     for t, prev in zip(steps, steps[1:] + [-1]):
         _, want = js.step((), jnp.asarray(eps), int(t), int(prev), jnp.asarray(x))
-        got = ts.step(torch.from_numpy(eps), int(t), int(prev), torch.from_numpy(x))
+        state, got = ts.step(ts.init_state(5, x.shape), torch.from_numpy(eps), int(t), int(prev),
+                             torch.from_numpy(x))
+        assert state == ()
         np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
