@@ -293,6 +293,46 @@ Phases, each printing one JSON line:
                 (C384, 12 channels a group) and K4 sites no earlier phase
                 checked are checked here (rows with "cell": "refiner").
                 Printed: init s, wall s, s/step, peak memory.
+ 17. sd21   -- SD2.1 + canny:  cli gen --dataset planes --base_model sd_v2.1
+                --skip_filter --num_inference_steps 2  in-process on 8 seeded
+                512^2 sources (UNet 865,910,724 parameters, heads of d 64 at
+                5/10/20/20, context 1024, linear projections; OpenCLIP-H's
+                23-layer tower; seeded bf16): launch counts as one main-path
+                batch's at 2 steps (43 / 46 / 206 / 92: the levels hold
+                SD1.5's transformers, the mid block's 64 tokens run plain);
+                the PNGs equal the fused function's and generate's output
+                bit for bit.  K1's four SD2.1 shapes (H5 L4096 before and
+                after the CFG fork, H10 L1024, H20 L256) are in the kernels
+                phase's list.  Printed: init s, wall s, s/step, the
+                parameter counts.
+ 18. hed    -- the HED ControlNet:  cli gen --dataset planes --controlnet hed
+                --skip_filter  (SD1.5, the fused path, HED inside it),  the
+                same with  --sdedit --sdedit_strength 0.5
+                --num_inference_steps 4  (generate, 2 denoise steps), and
+                cli gen --dataset dtd --controlnet hed  (BLIP-Diffusion), 2
+                steps each on 8 seeded 512^2 sources: HED adds no kernel
+                launch (counts as canny's); the SD1.5 and SDEdit PNGs equal
+                the fused function's and generate's bit for bit.  HED's
+                CUDA-event and device ms at B8 512^2, and the card's bf16 HED
+                against an f32 CPU run of the same weights on 2 sources at
+                256^2, calibrated on them (the seeded edge map saturates at
+                0): mean |diff| <= 0.01 of the [0, 1] edge map, whose spread
+                (std) must reach 0.05.
+ 19. xl_vae_f32 -- SASPA_XL_VAE_FP32=1:  cli gen --dataset cub --skip_filter
+                (SDXL-Turbo + ControlNet-XL, the decode in f32) and  cli gen
+                --preset alia --dataset cub  (SDEdit, the encode and the
+                decode in f32; then the preset's semantic and ALIA-confidence
+                filters, seeded, in the phase's temporary root): the f32 K1
+                and K3 launches
+                counted apart from the bf16 ones (1 and 30 a decode, 1 and 22
+                an encode); the PNGs equal the fused function's and
+                generate's bit for bit.  K1 in f32 at both mid attentions on
+                their own activations (1e-4 of the largest output), K3 in
+                f32 at every GroupNorm site of one encode and decode, both
+                epilogues (2e-5 of the largest output), with times, bounds
+                (f32 at 67 TFLOP/s) and SDPA / F.group_norm in f32 beside
+                them; the PNGs' mean |f32 - bf16| in uint8 levels against the
+                same latents through the bf16 VAE of the same weights.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -356,6 +396,13 @@ K1_SHAPES = [
     # shared prefix), heads of d 64; its mid block (64 tokens) runs plain
     ("refiner level 1", 16, 1024, 12, 64, 64),
     ("refiner level 2", 16, 256, 24, 64, 64),
+    # the sd21 phase's: SD2.1's UNet and ControlNet at 512^2, heads of d 64
+    # (5/10/20); level 0 runs before the CFG fork at B8 (its mid block's 64
+    # tokens run plain)
+    ("sd21 level 0, before the CFG fork", 8, 4096, 5, 64, 64),
+    ("sd21 level 0", 16, 4096, 5, 64, 64),
+    ("sd21 level 1", 16, 1024, 10, 64, 64),
+    ("sd21 level 2", 16, 256, 20, 64, 64),
 ]
 # K6 shapes: (what, B, L, H, d); d pads to 64 in shared memory
 K6_SHAPES = [
@@ -633,18 +680,31 @@ def k5_ptxas(log: str) -> dict:
 
 def k3_ptxas(log: str) -> dict:
     """K3's statistics kernel and its normalize per epilogue (TPU numerics
-    or not, SiLU or not): registers and spills; requires all five and no
-    spills."""
+    or not, SiLU or not), each for bf16 and f32: registers and spills;
+    requires all ten and no spills."""
     def key(m):
-        return "stats" if m[1] == "stats" else f"apply_{'tpu' if m[2] == '1' else 'xla'}{'_silu' * (m[3] == '1')}"
+        t = "bf16" if m[2] == "13__nv_bfloat16" else "f32"
+        if m[1] == "stats":
+            return f"stats_{t}"
+        return f"apply_{t}_{'tpu' if m[3] == '1' else 'xla'}{'_silu' * (m[4] == '1')}"
 
-    pat = r"gn_(stats|apply)_kernel(?:ILi(\d)ELi(\d)E)?"
+    pat = r"gn_(stats|apply)_kernelI(13__nv_bfloat16|f)(?:Li(\d)ELi(\d)E)?"
     rep = {key(m): r for fn, r in ptxas_report(log).items() if (m := re.search(pat, fn))}
-    require(sorted(rep) == ["apply_tpu", "apply_tpu_silu", "apply_xla", "apply_xla_silu", "stats"],
-            "K3 kernels in the ptxas report", sorted(rep))
+    want = sorted([f"stats_{t}" for t in ("bf16", "f32")] + [f"apply_{t}_{e}{a}" for t in ("bf16", "f32")
+                                                              for e in ("tpu", "xla") for a in ("", "_silu")])
+    require(sorted(rep) == want, "K3 kernels in the ptxas report", sorted(rep))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()), "K3 kernels spill",
             rep)
     return rep
+
+
+def k1_f32_ptxas(log: str) -> dict:
+    """K1's f32 kernel (head dim 512): registers and spills; requires no
+    spill (its 64 accumulator registers a thread would go to local memory)."""
+    rep = {fn: r for fn, r in ptxas_report(log).items() if "attention_packed_f32_kernel" in fn}
+    require(len(rep) == 1 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()),
+            "K1 f32 kernel in the ptxas report, without spills", rep)
+    return next(iter(rep.values()))
 
 
 K6_INSTANCES = sorted([f"dp64_trim_bn{bn}_wg{wg}" for bn in (128, 64) for wg in (4, 2, 1)]
@@ -1144,7 +1204,8 @@ def read_counts() -> dict:
 
     return {"attention_packed": attention.launches, "ln_geglu": geglu.launches, "group_norm": groupnorm.launches,
             "group_norm_tpu": groupnorm.launches_tpu, "layernorm": layernorm.launches,
-            "attention_block": attention.block_launches, "flash_attention": attention.flash_launches}
+            "attention_block": attention.block_launches, "flash_attention": attention.flash_launches,
+            "attention_packed_f32": attention.launches_f32, "group_norm_f32": groupnorm.launches_f32}
 
 
 def reset_counts() -> None:
@@ -1152,6 +1213,10 @@ def reset_counts() -> None:
 
     attention.launches = attention.block_launches = attention.flash_launches = geglu.launches = 0
     groupnorm.launches = groupnorm.launches_tpu = layernorm.launches = 0
+    attention.launches_f32 = groupnorm.launches_f32 = 0
+
+
+F32_NONE = {"attention_packed_f32": 0, "group_norm_f32": 0}  # no f32 launch: the VAE in bf16
 
 
 def expected_counts(steps: int, config: str) -> dict:
@@ -1162,10 +1227,11 @@ def expected_counts(steps: int, config: str) -> dict:
     refuses."""
     if config == "default":
         return {"attention_packed": 21 * steps + 1, "ln_geglu": 23 * steps, "group_norm": 88 * steps + 30,
-                "group_norm_tpu": 0, "layernorm": 46 * steps, "attention_block": 0, "flash_attention": 0}
+                "group_norm_tpu": 0, "layernorm": 46 * steps, "attention_block": 0, "flash_attention": 0,
+                **F32_NONE}
     return {"attention_packed": 1, "ln_geglu": 23 * steps, "group_norm": 88 * steps + 30,
             "group_norm_tpu": 88 * steps + 23, "layernorm": 46 * steps, "attention_block": 21 * steps,
-            "flash_attention": 0}
+            "flash_attention": 0, **F32_NONE}
 
 
 def expected_gen_counts(steps: int) -> dict:
@@ -1177,7 +1243,8 @@ def expected_gen_counts(steps: int) -> dict:
     ControlNet 2 + 2 + 1 = 16).  The VAE's 16384-token attention takes the
     plain path.  Norms and feed-forwards as at 512^2."""
     return {"attention_packed": 16 * steps, "ln_geglu": 23 * steps, "group_norm": 88 * steps + 30,
-            "group_norm_tpu": 0, "layernorm": 46 * steps, "attention_block": 0, "flash_attention": 7 * steps}
+            "group_norm_tpu": 0, "layernorm": 46 * steps, "attention_block": 0, "flash_attention": 7 * steps,
+            **F32_NONE}
 
 
 def write_planes_tree(root, rng, n: int, size: int) -> list:
@@ -1566,7 +1633,7 @@ def expected_xl_counts(steps: int) -> dict:
     on K1 and its 30 GroupNorms.  The towers' 77-token attention and every
     cross-attention run plain; level 0 (64^2) has no attention."""
     return {"attention_packed": 104 * steps + 1, "ln_geglu": 104 * steps, "group_norm": 67 * steps + 30,
-            "group_norm_tpu": 0, "layernorm": 208 * steps, "attention_block": 0, "flash_attention": 0}
+            "group_norm_tpu": 0, "layernorm": 208 * steps, "attention_block": 0, "flash_attention": 0, **F32_NONE}
 
 
 def write_cub_tree(root, rng, n: int, size: int) -> list:
@@ -3191,7 +3258,8 @@ def expected_sdedit_counts(steps: int, inversion_calls: int = 0, controlnet: boo
         attn, blocks, norms = attn + 6, blocks + 7, norms + 27
     calls = steps + inversion_calls
     return {"attention_packed": attn * calls + 2, "ln_geglu": blocks * calls, "group_norm": norms * calls + 22 + 30,
-            "group_norm_tpu": 0, "layernorm": 2 * blocks * calls, "attention_block": 0, "flash_attention": 0}
+            "group_norm_tpu": 0, "layernorm": 2 * blocks * calls, "attention_block": 0, "flash_attention": 0,
+            **F32_NONE}
 
 
 def write_cars_tree(root, rng, n: int, size: int) -> list:
@@ -4274,6 +4342,526 @@ def run_refiner_phase(seed: int, checks: dict, checked_sites: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+NEW_RESOLUTION = 512
+NEW_SOURCES = 8  # one batch of 8 a run
+SD21_STEPS = 2
+HED_STEPS = 2
+HED_REFERENCE_RESOLUTION = 256  # the card-vs-CPU HED run, 2 sources
+SD21_UNET_PARAMS = 865_910_724  # stabilityai/stable-diffusion-2-1's UNet (tests/test_convert_real_layout.py)
+
+
+class PhaseRoot:
+    """A temporary root for one phase: the working directory there, the
+    variables of `env` set (SASPA_DATA_ROOT the root unless given), the
+    driver's telemetry and errors captured in `tele`; all restored and the
+    tree removed on exit."""
+
+    def __init__(self, prefix: str, env=None):
+        self.prefix, self.env = prefix, dict(env or {})
+
+    def __enter__(self):
+        import os
+        import tempfile
+        from pathlib import Path
+
+        self.root = Path(tempfile.mkdtemp(prefix=self.prefix))
+        env = {"SASPA_DATA_ROOT": str(self.root), "SASPA_CHECKPOINTS": str(self.root / "checkpoints"), **self.env}
+        self.saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        self.cwd = os.getcwd()
+        os.chdir(self.root)
+        self.tele = TelemetryHandler()
+        self.logger = logging.getLogger()
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.tele)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        import shutil
+
+        os.chdir(self.cwd)
+        self.logger.removeHandler(self.tele)
+        self.logger.setLevel(self.level)
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(self.root, ignore_errors=True)
+        return False
+
+    def gen(self, name: str, argv, want: dict, b: int):
+        """One `cli gen` run with its launch counts against want; returns
+        (its resolved configuration, cli.main's result, a record of the run)."""
+        import gc
+
+        from saspa_tpu_torch import cli
+
+        args = cli.build_parser().parse_args(argv)
+        cfg = (cli.preset_config(args) if args.preset else cli.gen_config(args)).with_dataset_overrides()
+        self.tele.lines.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        gc.collect()  # the driver's pipeline
+        torch.cuda.empty_cache()
+        require(len(self.tele.lines) == 1 and self.tele.lines[0]["num_errors"] == 0 and
+                self.tele.lines[0]["total"] == b, name, "telemetry", self.tele.lines, *self.tele.errors)
+        require(counts == want, name, "launch counts", counts, "expected", want)
+        return cfg, result, {"argv": argv, "wall_s": wall, "img_per_s": b / wall, "peak_mem_bytes": peak,
+                             "launches": counts, "launches_expected": want, "telemetry": self.tele.lines[0]}
+
+
+def generated_pngs(cfg, ds) -> list:
+    """A run's generated PNGs in the tree's order of sources."""
+    from pathlib import Path
+
+    from saspa_tpu_torch.gen.image_io import read_png
+
+    stems = [Path(p).stem for p in ds.original_images_paths]
+    files = sorted(Path(cfg.output_folder(str(ds.root_path))).glob("*.png"))
+    outs = {f.name.split("_prompt_")[0]: f for f in files if "_prompt_" in f.name}
+    require(sorted(outs) == sorted(stems), "generated files", [f.name for f in files])
+    return [read_png(outs[s]) for s in stems]
+
+
+def driver_batch(pipe, cfg, ds, classes):
+    """The driver's inputs of a tree's 8 items: uint8 sources, noise,
+    prompts, and their token ids and the negative prompt's."""
+    from saspa_tpu_torch.gen.image_io import read_rgb
+    from saspa_tpu_torch.gen.prompts import PromptEngine
+    from saspa_tpu_torch.ops.image import resize_image
+    from saspa_tpu_torch.utils import rng as rngs
+
+    paths, res = ds.original_images_paths, cfg.resolution
+    src = np.stack([resize_image(read_rgb(p), res) for p in paths])
+    lf = pipe.latent_factor
+    lat = np.stack([rngs.item_normal(cfg.seed, "noise", i, 0, shape=(res // lf, res // lf, 4))
+                    for i in range(len(paths))])
+    engine = PromptEngine(cfg, ds, classes)
+    prompts = [engine.build(p, i, 0) for i, p in enumerate(paths)]
+    return {"src": src, "lat": lat, "prompts": prompts, "ids": pipe.tokenizer(prompts, pad="eot"),
+            "neg_ids": pipe.tokenizer([cfg.negative_prompt or ""] * len(paths), pad="eot")}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def same_pngs(what, pngs, u8) -> None:
+    same = [bool(np.array_equal(p, u)) for p, u in zip(pngs, u8)]
+    require(len(same) == len(u8) and all(same), what, "PNGs differ from the pipeline's output", same)
+
+
+def run_sd21_phase(seed: int, checks: dict) -> dict:
+    """SD2.1 + canny through `cli gen --base_model sd_v2.1` (module
+    docstring, phase 17); returns its launch counts."""
+    import gc
+
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion.pipelines import init_pipeline, quantize
+
+    size, b, steps = NEW_RESOLUTION, NEW_SOURCES, SD21_STEPS
+    with PhaseRoot("saspa_sd21_") as ph:
+        write_planes_tree(ph.root, np.random.RandomState(seed + 701), b, size)
+        argv = ["gen", "--dataset", "planes", "--base_model", "sd_v2.1", "--skip_filter", "--num_per_image", "1",
+                "--num_inference_steps", str(steps), "--batch_size", str(b), "--seed", str(seed + 1)]
+        want = expected_counts(steps, "default")
+        cfg, _, run = ph.gen("sd21", argv, want, b)
+        require((cfg.base_model, cfg.controlnet, cfg.resolution) == ("sd_v2.1", "canny", size), "sd21 recipe", cfg)
+        ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        pngs = generated_pngs(cfg, ds)
+
+        # the same batch through the fused function and through generate:
+        # same seeded weights, prompts, sources and noise, bit for bit
+        pipe, init_s = timed(lambda: init_pipeline("sd_v2.1", "canny"))
+        n_unet = sum(p.numel() for p in pipe.params["unet"].parameters())
+        n_text = sum(p.numel() for p in pipe.params["text"][0].parameters())
+        require(n_unet == SD21_UNET_PARAMS and 3.39e8 < n_text < 3.41e8, "SD2.1 widths", n_unet, n_text)
+        x = driver_batch(pipe, cfg, ds, ds.get_image_stem_to_class_str_dict())
+
+        def fused(n_steps):
+            fn = pipe.make_fused_generate(size, size, n_steps, cfg.guidance_scale, 0.75, 120.0, 200.0)
+            return timed(lambda: fn(pipe.params, x["ids"], x["neg_ids"], x["src"], x["lat"]))
+
+        sites, handles = record_sites(pipe)
+        fused(1)  # warm-up, hooked: the self-attention sites
+        for h in handles:
+            h.remove()
+        k1_sites = {(bb, ll, hh) for bb, ll, _, hh in sites["self_attention"] if ll >= 256}
+        k1_rows = {(r["B"], r["L"], r["H"]) for r in checks["attention_packed"] if r["shape"].startswith("sd21")}
+        require(k1_sites == k1_rows == {(b, 4096, 5), (2 * b, 4096, 5), (2 * b, 1024, 10), (2 * b, 256, 20)},
+                "sd21 K1 sites", sorted(k1_sites), sorted(k1_rows))
+        u8, ts = fused(steps)
+        u8 = u8.cpu().numpy()
+        same_pngs("sd21 (fused)", pngs, u8)
+        _, t1 = fused(1)
+        images, tg = timed(lambda: pipe.generate(
+            x["prompts"], x["lat"], size, size, steps, cfg.guidance_scale, cfg.negative_prompt,
+            control_image=pipe.control_from_src(x["src"], size, size), controlnet_scale=0.75))
+        require(bool(torch.isfinite(images).all()), "sd21: non-finite images")
+        same_pngs("sd21 (generate)", pngs, quantize(images).cpu().numpy())
+        emit({"phase": "sd21", **run, "base_model": pipe.base_model, "unet_params": n_unet, "text_params": n_text,
+              "params": sum(p.numel() for m in pipe._modules() for p in m.parameters()), "batch": b,
+              "resolution": size, "steps": steps, "init_s": init_s, "fused_s": ts, "fused_1step_s": t1,
+              "s_per_step": (ts - t1) / (steps - 1), "generate_s": tg, "pngs_equal_fused": True,
+              "pngs_equal_generate": True, "self_attention_sites": sorted(sites["self_attention"]),
+              "uint8_mean": float(u8.mean())})
+        del pipe, images
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"sd21": run["launches"]}
+
+
+def calibrated_hed(hed, images):
+    """An f32 CPU copy of `hed` whose offset is the images' mean colour
+    (x 255) and whose five projections are scaled and shifted so that each
+    side output has mean 0 and std 1 on `images` ((B, H, W, 3) in [0, 1],
+    CPU f32): seeded weights put every side output far from 0 and saturate
+    the sigmoid; calibrated, the edge map spreads over (0, 1)."""
+    from saspa_tpu_torch.models.hed import HED, STAGES
+
+    cpu = HED(torch.float32, "cpu")
+    cpu.load_state_dict({n: t.float().cpu() for n, t in hed.state_dict().items()})
+    cpu.norm.copy_((images * 255.0).mean(dim=(0, 1, 2)).reshape(1, 1, 1, 3))
+    moments, handles = {}, []
+
+    def record(si):
+        def hook(mod, args, out):
+            moments[si] = (out.mean().item(), out.std().item())
+        return hook
+
+    for si in range(1, len(STAGES) + 1):
+        handles.append(getattr(cpu, f"block{si}_projection").register_forward_hook(record(si)))
+    cpu(images)
+    for h in handles:
+        h.remove()
+    for si, (mean, std) in moments.items():
+        proj = getattr(cpu, f"block{si}_projection")
+        proj.kernel.div_(std)
+        proj.bias.sub_(mean).div_(std)
+    return cpu
+
+
+def run_hed_phase(seed: int) -> dict:
+    """The HED ControlNet through `cli gen --controlnet hed` on SD1.5, with
+    SDEdit and on BLIP-Diffusion (module docstring, phase 18); returns the
+    launch counts of its runs."""
+    import gc
+    import os
+
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion.pipelines import init_pipeline, quantize
+    from saspa_tpu_torch.models.hed import HED, hed_control_image
+
+    size, b = NEW_RESOLUTION, NEW_SOURCES
+    out, counts = {"phase": "hed", "batch": b, "resolution": size}, {}
+    with PhaseRoot("saspa_hed_") as ph:
+        write_planes_tree(ph.root, np.random.RandomState(seed + 711), b, size)
+        # ---- SD1.5 + HED, the fused path
+        argv = ["gen", "--dataset", "planes", "--controlnet", "hed", "--skip_filter", "--num_per_image", "1",
+                "--num_inference_steps", str(HED_STEPS), "--batch_size", str(b), "--seed", str(seed + 1)]
+        cfg, _, out["hed"] = ph.gen("hed", argv, expected_counts(HED_STEPS, "default"), b)
+        counts["hed"] = out["hed"]["launches"]
+        require(cfg.controlnet == "hed" and cfg.base_model == "sd_v1.5", "hed recipe", cfg)
+        ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        pngs = generated_pngs(cfg, ds)
+        pipe, init_s = timed(lambda: init_pipeline("sd_v1.5", "hed"))
+        hed = pipe.params["hed"]
+        x = driver_batch(pipe, cfg, ds, ds.get_image_stem_to_class_str_dict())
+        fn = pipe.make_fused_generate(size, size, HED_STEPS, cfg.guidance_scale, 0.75, 120.0, 200.0)
+        u8, ts = timed(lambda: fn(pipe.params, x["ids"], x["neg_ids"], x["src"], x["lat"]))
+        same_pngs("hed (fused)", pngs, u8.cpu().numpy())
+        control = pipe.control_from_src(x["src"], size, size)
+        images = pipe.generate(x["prompts"], x["lat"], size, size, HED_STEPS, cfg.guidance_scale,
+                               cfg.negative_prompt, control_image=control, controlnet_scale=0.75)
+        same_pngs("hed (generate)", pngs, quantize(images).cpu().numpy())
+        # HED's time on the card at B8 512^2 (sources / 255 in f32, bf16 convolutions)
+        src01 = torch.as_tensor(x["src"], device="cuda").float() / 255.0
+        with torch.no_grad():
+            hed_ms = cuda_ms(lambda: hed_control_image(hed, src01), 5)
+            prof = profile_run(lambda: timed(lambda: hed_control_image(hed, src01)))
+            # card bf16 against an f32 CPU run of the same weights on 2 sources
+            # at 256^2; the seeded weights saturate the edge map at 0, so both
+            # take them calibrated on these sources (calibrated_hed)
+            k = size // HED_REFERENCE_RESOLUTION
+            small = torch.as_tensor(x["src"][:2, ::k, ::k]).float() / 255.0
+            cpu_hed = calibrated_hed(hed, small)
+            card_hed = HED(torch.bfloat16, "cuda")
+            card_hed.load_state_dict(cpu_hed.state_dict())
+            t = time.perf_counter()
+            ref = hed_control_image(cpu_hed, small)
+            cpu_s = time.perf_counter() - t
+            card = hed_control_image(card_hed, small.cuda()).float().cpu()
+        require(ref.std().item() >= 0.05, "the calibrated HED's edge map does not spread", ref.std().item())
+        diff = (card - ref).abs()
+        out["hed"].update({"init_s": init_s, "fused_s": ts, "pngs_equal_fused": True, "pngs_equal_generate": True,
+                           "hed_ms": hed_ms, "hed_device_ms": prof["device_busy_s"] * 1e3,
+                           "hed_kernels": sum(r["calls"] for r in prof["kernels"]),
+                           "hed_params": sum(p.numel() for p in hed.parameters()),
+                           "edge_mean": float(control.mean()),
+                           "card_vs_cpu": {"resolution": HED_REFERENCE_RESOLUTION, "calibrated": True,
+                                           "mean_abs_diff": diff.mean().item(), "max_abs_diff": diff.max().item(),
+                                           "cpu_s": cpu_s, "edge_spread": float(ref.std()),
+                                           "edge_mean": float(ref.mean())}})
+        # bf16 convolutions through 13 layers against f32: the edge maps (in
+        # [0, 1]) agree to 0.01 on average
+        require(diff.mean().item() <= 0.01, "hed card vs CPU mean |diff|", diff.mean().item())
+
+        # ---- SDEdit + HED: the unfused path, the control image of the sources
+        argv = ["gen", "--dataset", "planes", "--controlnet", "hed", "--sdedit", "--sdedit_strength", "0.5",
+                "--num_inference_steps", "4", "--skip_filter", "--num_per_image", "1", "--batch_size", str(b),
+                "--seed", str(seed + 2)]
+        cfg, _, out["sdedit_hed"] = ph.gen("sdedit_hed", argv, expected_sdedit_counts(2, controlnet=True), b)
+        counts["sdedit_hed"] = out["sdedit_hed"]["launches"]
+        x = driver_batch(pipe, cfg, ds, ds.get_image_stem_to_class_str_dict())
+        init = torch.as_tensor(x["src"], device="cuda").float() / 255.0
+        images = pipe.generate(x["prompts"], x["lat"], size, size, 4, cfg.guidance_scale, cfg.negative_prompt,
+                               control_image=pipe.control_from_src(x["src"], size, size), controlnet_scale=0.75,
+                               init_image=init, sdedit_strength=0.5)
+        same_pngs("sdedit_hed", generated_pngs(cfg, ds), quantize(images).cpu().numpy())
+        out["sdedit_hed"]["pngs_equal_generate"] = True
+        del pipe, images, init, src01, hed, card_hed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- BLIP-Diffusion + HED on dtd (the fused path, HED inside it)
+        os.environ["SASPA_DATA_ROOT"] = "data"  # DTD's captions are keyed by paths under data/
+        write_dtd_tree(ph.root, np.random.RandomState(seed + 712), size)
+        argv = ["gen", "--dataset", "dtd", "--controlnet", "hed", "--skip_filter", "--num_per_image", "1",
+                "--resolution", str(size), "--num_inference_steps", str(HED_STEPS), "--batch_size", str(b),
+                "--seed", str(seed + 3)]
+        cfg, folder, out["blip_hed"] = ph.gen("blip_hed", argv, expected_counts(HED_STEPS, "default"), b)
+        counts["blip_hed"] = out["blip_hed"]["launches"]
+        require(cfg.base_model == "blip_diffusion" and "/hed/" in folder, "blip + hed", cfg, folder)
+        blip = generated_pngs(cfg, DS_UTILS_DICT["dtd"](print_func=lambda *a: None))
+        require(all(p.shape == (size, size, 3) for p in blip), "blip_hed PNGs", [p.shape for p in blip])
+        out["blip_hed"]["uint8_mean"] = float(np.mean(blip))
+        emit(out)
+        return counts
+
+
+def f32_vae_counts(want: dict, decodes: int, encodes: int = 0) -> dict:
+    """`want` with the XL VAE in f32: its attention (one a decode, one an
+    encode) and its GroupNorms (30 a decode, 22 an encode) move from the bf16
+    counts to the f32 kernels'."""
+    k1, k3 = decodes + encodes, 30 * decodes + 22 * encodes
+    return {**want, "attention_packed": want["attention_packed"] - k1, "group_norm": want["group_norm"] - k3,
+            "attention_packed_f32": k1, "group_norm_f32": k3}
+
+
+def vae_f32_sites(pipe, images) -> dict:
+    """The f32 VAE's GroupNorm sites {(B, C, H, W, act, eps)} and the inputs
+    of its two mid attentions ("encoder", "decoder": (B, C, h, w) f32) over
+    one encode of images and one decode of the result."""
+    from saspa_tpu_torch.models.unet import GroupNorm32
+
+    vae = pipe.params["vae"]
+    sites, attn, handles = set(), {}, []
+    for m in vae.modules():
+        if isinstance(m, GroupNorm32):
+            handles.append(m.register_forward_pre_hook(lambda mod, a: sites.add((*a[0].shape, mod.act, mod.eps))))
+    for part in ("encoder", "decoder"):
+        blk = getattr(vae, part).mid_attn
+        handles.append(blk.register_forward_pre_hook(lambda mod, a, p=part: attn.setdefault(p, a[0])))
+    with torch.no_grad():
+        vae.decode(vae.encode(images.permute(0, 3, 1, 2) * 2.0 - 1.0)[0])
+    for h in handles:
+        h.remove()
+    return {"group_norm": sites, "attention": attn}
+
+
+def check_k1_f32(pipe, attn_inputs) -> list:
+    """K1 in f32 at the VAE's two mid attentions, on their own activations
+    (q, k, v made as VAEAttentionBlock makes them) against the plain version:
+    within 1e-4 of the largest output (f32 throughout; the online softmax
+    and the products sum in other orders); times, bound (f32 operations at
+    67 TFLOP/s), SDPA in f32 as the yardstick."""
+    from saspa_tpu_torch.ops import attention as att
+
+    rows = []
+    for part, x in sorted(attn_inputs.items()):
+        blk = getattr(pipe.params["vae"], part).mid_attn
+        b, c, h, w = x.shape
+        with torch.no_grad():
+            xn = blk.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+            q = att.fold_scale(blk.to_q(xn), (1.0 / math.sqrt(c)) * att.LOG2E).contiguous()
+            k, v = blk.to_k(xn).contiguous(), blk.to_v(xn).contiguous()
+            require(q.dtype == torch.float32, "the f32 VAE's attention in", q.dtype)
+            out = att.flash_attention_packed(q, k, v, 1)
+            ref = att.flash_attention_packed_plain(q, k, v, 1)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        what = f"xl vae {part} mid attention, f32"
+        require(err <= 1e-4 * ref_max, what, "max |kernel - plain|", err, "> 1e-4 of", ref_max)
+        l = h * w
+        qh, kh, vh = (t.reshape(b, l, 1, c).transpose(1, 2) for t in (q, k, v))
+
+        def kernel():
+            return att.flash_attention_packed(q, k, v, 1)
+
+        b_ms, b_by = bound(4.0 * b * l * l * c, 4 * b * l * c * 4, H100_F32_FLOPS, exps=b * l * l)
+        ms = cuda_ms(kernel, 5)
+        dev_ms, _ = device_ms(kernel, floor_ms=b_ms)
+        rows.append(dict(shape=what, cell="xl_vae_f32", B=b, L=l, H=1, d=c, d_pad=c, max_abs_err=err,
+                         ref_max=ref_max, rel_err=err / ref_max, ms=ms, device_ms=dev_ms,
+                         plain_ms=cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, 1), 2, warmup=1),
+                         library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                             qh, kh, vh, scale=math.log(2.0)), 3),
+                         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms))
+        del q, k, v, out, ref, xn
+    return rows
+
+
+def check_k3_f32(gen, sites) -> list:
+    """K3 in f32 at every f32 site: both epilogues against their plain
+    versions, within 2e-5 of the largest output (f32 out; the statistics
+    sum in another order); times of the xla order (the path's) with
+    F.group_norm as the yardstick where there is no SiLU, the TPU
+    numerics' time at the largest site."""
+    from saspa_tpu_torch.ops import groupnorm as gn
+
+    rows = []
+    order = sorted(sites, key=lambda s: (s[0] * s[1] * s[2] * s[3], s[1], str(s[4])))
+    for (b, c, h, w, act, eps) in order:
+        x = torch.randn(b, c, h, w, generator=gen, device="cuda").mul_(3.0).add_(0.5)
+        x = x.to(memory_format=torch.channels_last)
+        gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+        beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+        n = x.numel()
+        b_ms, b_by = bound((10.0 if act else 6.0) * n, 8 * n + 8 * c, H100_F32_FLOPS)
+        lib = {"library_ms": None, "library_device_ms": None}
+        if act is None:
+            def library():
+                return torch.nn.functional.group_norm(x, gn.groups_for(c, 32), gamma, beta, eps)
+
+            lib = {"library_ms": cuda_ms(library, 5), "library_device_ms": device_ms(library)[0]}
+        for tpu in (False, True):
+            plain = gn.group_norm_tpu_plain if tpu else gn.group_norm_plain
+
+            def kernel():
+                return gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
+
+            out, ref = kernel(), plain(x, gamma, beta, 32, eps, act)
+            err, ref_max = (out - ref).abs().max().item(), ref.abs().max().item()
+            what = f"f32 B{b} C{c} {h}x{w} act={act} {'tpu' if tpu else 'xla'}"
+            require(out.dtype == torch.float32 and err <= 2e-5 * ref_max, what, "max |kernel - plain|", err,
+                    "> 2e-5 of", ref_max)
+            del out, ref
+            timed_row = not tpu or (h, w, c) == max((s[2], s[3], s[1]) for s in sites)
+            row = dict(shape=what, cell="xl_vae_f32", B=b, C=c, HW=h * w, act=act, eps=eps, tpu_numerics=tpu,
+                       plan=list(gn.gn_plan(b, h * w, c, gn.sm_count(x.device), 4)), max_abs_err=err,
+                       ref_max=ref_max, rel_err=err / ref_max, bound_ms=b_ms, bound_by=b_by, **lib)
+            if timed_row:
+                ms = cuda_ms(kernel, 5)
+                row.update(ms=ms, plain_ms=cuda_ms(lambda: plain(x, gamma, beta, 32, eps, act), 2, warmup=1),
+                           host_us=host_us(kernel), bound_share=b_ms / ms)
+            rows.append(row)
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_xl_vae_f32_phase(seed: int, checks: dict) -> dict:
+    """The XL VAE in f32 (SASPA_XL_VAE_FP32=1) through `cli gen --dataset
+    cub` and `--preset alia --dataset cub` (module docstring, phase 19);
+    returns the launch counts of both runs and puts the f32 kernels' rows in
+    `checks`."""
+    import gc
+
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion.pipelines import init_pipeline, quantize
+    from saspa_tpu_torch.models.vae import AutoencoderKL
+
+    size, b, steps = NEW_RESOLUTION, NEW_SOURCES, XL_STEPS
+    out, counts = {"phase": "xl_vae_f32", "batch": b, "resolution": size}, {}
+    with PhaseRoot("saspa_xl_vae_f32_", {"SASPA_XL_VAE_FP32": "1"}) as ph:
+        write_cub_tree(ph.root, np.random.RandomState(seed + 801), b, size)
+        ds = DS_UTILS_DICT["cub"](print_func=lambda *a: None)
+        classes = ds.get_image_path_to_class_str_dict()
+        # ---- cub's recipe: SDXL-Turbo + ControlNet-XL, 2 steps, guidance 0; the decode in f32
+        argv = ["gen", "--dataset", "cub", "--skip_filter", "--num_per_image", "1", "--batch_size", str(b),
+                "--seed", str(seed + 1)]
+        cfg, _, out["cub"] = ph.gen("xl_vae_f32 cub", argv, f32_vae_counts(expected_xl_counts(steps), 1), b)
+        counts["xl_vae_f32"] = out["cub"]["launches"]
+        require((cfg.base_model, cfg.controlnet, cfg.guidance_scale) == ("sd_xl-turbo", "canny", 0.0), "cub", cfg)
+        pngs = generated_pngs(cfg, ds)
+        pipe, init_s = timed(lambda: init_pipeline("sd_xl-turbo", "canny"))
+        require(pipe.vae_dtype == torch.float32 and pipe.params["unet"].conv_in.kernel.dtype == torch.bfloat16,
+                "SASPA_XL_VAE_FP32: the VAE in f32, the UNet in bf16", pipe.vae_dtype)
+        x = driver_batch(pipe, cfg, ds, classes)
+        fn = pipe.make_fused_generate(size, size, steps, 0.0, 0.75, 120.0, 200.0)
+        (u8, _), ts = timed(lambda: fn(pipe.params, x["ids"], x["neg_ids"], x["src"], x["lat"], return_images=True))
+        u8 = u8.cpu().numpy()
+        same_pngs("xl_vae_f32 cub (fused)", pngs, u8)
+        # the same latents through the bf16 VAE of the same weights, rounded: for information
+        vae32 = pipe.params["vae"]
+        vae16 = AutoencoderKL(vae32.cfg, torch.bfloat16, "cuda")
+        vae16.load_state_dict(vae32.state_dict())  # each parameter in vae16's dtype: kernels bf16, norms f32
+        pipe.params["vae"] = vae16
+        reset_counts()
+        u8_16 = fn(pipe.params, x["ids"], x["neg_ids"], x["src"], x["lat"]).cpu().numpy()
+        require(read_counts()["group_norm_f32"] == 0, "the bf16 decode launched the f32 kernels")
+        pipe.params["vae"] = vae32
+        del vae16
+        out["cub"].update({"init_s": init_s, "fused_s": ts, "pngs_equal_fused": True,
+                           "mean_abs_levels_f32_vs_bf16_vae": float(np.abs(u8.astype(np.int32) - u8_16).mean()),
+                           "max_abs_levels_f32_vs_bf16_vae": int(np.abs(u8.astype(np.int32) - u8_16).max())})
+        # the f32 sites of one encode and one decode of the sources: K1 at both
+        # mid attentions, K3 at every GroupNorm (both epilogues)
+        src01 = torch.as_tensor(x["src"], device="cuda").float() / 255.0
+        sites = vae_f32_sites(pipe, src01)
+        require(len(sites["attention"]) == 2 and sites["group_norm"], "f32 VAE sites", sites["group_norm"])
+        checks["attention_packed_f32"] = check_k1_f32(pipe, sites["attention"])
+        emit({"phase": "kernels", "kernel": "attention_packed_f32", "cell": "xl_vae_f32",
+              "shapes": checks["attention_packed_f32"]})
+        del pipe, src01, sites["attention"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(seed + 802)
+        checks["group_norm_f32"] = check_k3_f32(gen, sites["group_norm"])
+        emit({"phase": "kernels", "kernel": "group_norm_f32", "cell": "xl_vae_f32",
+              "shapes": checks["group_norm_f32"]})
+
+        # ---- ALIA on cub: SDXL-Turbo + SDEdit, 1 trailing step; the encode and the decode in f32
+        argv = ["gen", "--preset", "alia", "--dataset", "cub", "--num_per_image", "1", "--batch_size", str(b),
+                "--seed", str(seed + 2)]
+        cfg, _, out["alia_cub"] = ph.gen("xl_vae_f32 alia_cub", argv,
+                                         f32_vae_counts(expected_sdedit_counts(1, xl=True), 1, 1), b)
+        counts["xl_vae_f32_alia"] = out["alia_cub"]["launches"]
+        require((cfg.base_model, cfg.controlnet, cfg.sdedit, cfg.guidance_scale) == ("sd_xl-turbo", None, True, 0.0),
+                "alia on cub", cfg)
+        xpipe = init_pipeline("sd_xl-turbo", None, SDEdit=True)
+        x = driver_batch(xpipe, cfg, ds, classes)
+        init = torch.as_tensor(x["src"], device="cuda").float() / 255.0
+        images, tg = timed(lambda: xpipe.generate(
+            x["prompts"], x["lat"], size, size, cfg.num_inference_steps, cfg.guidance_scale, cfg.negative_prompt,
+            init_image=init, sdedit_strength=cfg.sdedit_strength))
+        require(bool(torch.isfinite(images).all()), "alia cub: non-finite images")
+        same_pngs("xl_vae_f32 alia_cub (generate)", generated_pngs(cfg, ds), quantize(images).cpu().numpy())
+        encode_ms = cuda_ms(lambda: xpipe.encode_image(init), 3)
+        out["alia_cub"].update({"generate_s": tg, "pngs_equal_generate": True, "encode_ms": encode_ms})
+        emit(out)
+        del xpipe, images, init
+        gc.collect()
+        torch.cuda.empty_cache()
+        return counts
+
+
 def train_profile_path(profile):
     from pathlib import Path
 
@@ -4323,7 +4911,8 @@ def main() -> int:
           "k1_wgmma": k1_ptxas(_build.build_log.get("attention_packed", "")),
           "k2_wgmma": k2_ptxas(_build.build_log.get("ln_geglu", "")),
           "k5_wgmma": k5_ptxas(_build.build_log.get("attention_block", "")),
-          "k3": k3_ptxas(_build.build_log.get("group_norm", "")), "k6_wgmma": k6})
+          "k3": k3_ptxas(_build.build_log.get("group_norm", "")), "k6_wgmma": k6,
+          "k1_f32": k1_f32_ptxas(_build.build_log.get("attention_packed_f32", ""))})
     require(sorted(k6) == K6_INSTANCES, "K6 instantiations in the ptxas report", sorted(k6))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in k6.values()),
             "K6 kernels spill", k6)
@@ -4539,6 +5128,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts.update(run_refiner_phase(args.seed, checks, sites))
 
+    # ---- SD2.1 + canny, the HED ControlNet (SD1.5, SDEdit, BLIP-Diffusion), the XL VAE in f32 ----
+    torch.cuda.empty_cache()
+    counts.update(run_sd21_phase(args.seed, checks))
+    counts.update(run_hed_phase(args.seed))
+    counts.update(run_xl_vae_f32_phase(args.seed, checks))
+
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [
         ("attention_packed", "attention_packed.cu", "saspa_tpu/ops/attention.py:181",
@@ -4551,6 +5146,11 @@ def main() -> int:
          lambda r: (r["B"], r["L"]) == (16, 4096)),
         ("flash_attention", "flash_attention.cu", "saspa_tpu/ops/attention.py:80",
          lambda r: r["shape"] == "1024^2 level 0"),
+        # the f32 variants: the XL VAE's decode under SASPA_XL_VAE_FP32=1
+        ("attention_packed_f32", "attention_packed_f32.cu", "saspa_tpu/ops/attention.py:181",
+         lambda r: r["shape"] == "xl vae decoder mid attention, f32"),
+        ("group_norm_f32", "group_norm.cu", "saspa_tpu/ops/groupnorm.py:111",
+         lambda r: (r["B"], r["C"], r["HW"], r["act"], r["tpu_numerics"]) == (8, 256, 512 * 512, "silu", False)),
     ]
     kernels = []
     for name, source, replaces, pick in lines:

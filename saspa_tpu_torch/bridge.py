@@ -7,8 +7,8 @@ padding for the packed attention kernel is not stored; the models build
 their padded weights once from these unpadded kernels.
 
 Subtrees: "text" (a list with one tower per text encoder), "unet",
-"controlnet", "vae", BLIP-Diffusion's "blip_vision" (CLIP ViT) and
-"blip_qformer" (params), and the filter stage's "clip" (CLIP RN50) and
+"controlnet", "vae", "hed" (the HED ControlNet's annotator),
+BLIP-Diffusion's "blip_vision" (CLIP ViT) and "blip_qformer" (params), and the filter stage's "clip" (CLIP RN50) and
 "cal" (WSDAN_CAL), which are flax variables: {"params", "batch_stats"}.
 BatchNorm's mean and var live in flax's batch_stats collection and land on
 the module's buffers of the same name.  Every leaf maps to one entry.
@@ -70,7 +70,7 @@ def state_dict_from_flax_variables(variables) -> Dict[str, torch.Tensor]:
 
 
 def params_from_flax(params) -> dict:
-    """{"text": [tower, ...], "unet", "controlnet"?, "vae", "blip_vision"?,
+    """{"text": [tower, ...], "unet", "controlnet"?, "vae", "hed"?, "blip_vision"?,
     "blip_qformer"?, "clip"?, "cal"?} flax params (variables for "clip" and
     "cal") -> {same keys: state_dict(s)}."""
     out = {}
@@ -79,7 +79,7 @@ def params_from_flax(params) -> dict:
             out[name] = state_dict_from_flax_variables(sub)
         elif name == "text":
             out["text"] = [state_dict_from_flax(t) for t in sub]
-        elif name in ("unet", "controlnet", "vae", "blip_vision", "blip_qformer"):
+        elif name in ("unet", "controlnet", "vae", "hed", "blip_vision", "blip_qformer"):
             out[name] = state_dict_from_flax(sub)
         else:
             raise KeyError(f"no port of the flax subtree {name!r}")

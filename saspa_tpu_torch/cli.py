@@ -22,18 +22,20 @@ CLIP RN50 teacher's soft targets (planes and cars).  `eval-biased` scores
 every checkpoint of a folder on planes_biased's test split, in domain and
 out of domain (`fgvc/val_biased.py`).  `--weights_dir` names a tree of the
 public checkpoint files (README; `weights/sources.py`); without it every
-model takes a seeded init.  Ported so far:
-SD1.5 (planes' default), BLIP-Diffusion (the default of cars, dtd and
-compcars-parts) and SDXL-Turbo (cub's: 2 trailing DDIM steps, guidance 0),
-and SDXL under CFG (`--base_model sd_xl`), each with a canny ControlNet (or
-none), text to image or SDEdit (`--sdedit [--sdedit_strength s]`), on DDIM
+model takes a seeded init.  Every generation family of the JAX CLI runs:
+SD1.5 (planes' default), SD2.1 (`--base_model sd_v2.1`), BLIP-Diffusion
+(the default of cars, dtd and compcars-parts) and SDXL-Turbo (cub's: 2
+trailing DDIM steps, guidance 0), and SDXL under CFG (`--base_model sd_xl`),
+each with a canny or HED ControlNet (`--controlnet hed`) or none, text to
+image or SDEdit (`--sdedit [--sdedit_strength s]`), on DDIM
 or UniPC (`--sampler unipcmultistep`); the SDXL refiner, which `--base_model
 sd_xl --sdedit --controlnet none` runs, as in the JAX package;
 BLIP-Diffusion's inversion edit (`--base_model blip_diffusion-edit`); and
 the baseline presets `--preset real_guidance` and `--preset alia` with the
 JAX CLI's filter recipes (ALIA on planes_biased runs InstructPix2Pix).
-Sources may be PNG or JPEG (decoded without PIL, `gen/jpeg.py`).  SD2.1
-and HED wait for ROADMAP Queue 1 item 12.
+Sources may be PNG or JPEG (decoded without PIL, `gen/jpeg.py`).
+SASPA_XL_VAE_FP32=1 runs the XL families' VAE in f32, as in the JAX
+package.
 """
 
 from __future__ import annotations

@@ -1,44 +1,51 @@
 // GroupNorm(+SiLU) for Hopper (K3).
 //
 // Replaces saspa_tpu/ops/groupnorm.py::_gn_pallas (Pallas kernel _gn_kernel).
-// x: (B, C, H, W) bf16, channels-last (NHWC in memory: a row of C channels
-// per pixel), the format the port's convolutions keep from the latents on.
-// Statistics in f32: sum and sum of squares, mean = S1/n, var = S2/n -
-// mean^2, rstd = rsqrt(var + eps).  Two epilogues:
+// x: (B, C, H, W) bf16 or f32, channels-last (NHWC in memory: a row of C
+// channels per pixel), the format the port's convolutions keep from the
+// latents on.  Statistics in f32: sum and sum of squares, mean = S1/n, var =
+// S2/n - mean^2, rstd = rsqrt(var + eps).  Two epilogues:
 //   xla order (tpu = 0), the JAX main path's default _xla_group_norm:
-//     var clamped at 0; y = bf16((x - mean) * (rstd * gamma_c) + beta_c) in
+//     var clamped at 0; y = T((x - mean) * (rstd * gamma_c) + beta_c) in
 //     f32; SiLU of the rounded value in f32, rounded once: y / (1 + exp(-y));
-//   TPU numerics (tpu = 1), _gn_kernel with its bf16 normalize:
-//     no clamp; scale_c = bf16(gamma_c * rstd), shift_c = bf16(beta_c - mean *
-//     gamma_c * rstd); o = bf16(bf16(x * scale_c) + shift_c) and SiLU as
-//     o * (1 / (1 + exp(-o))) with a bf16 rounding after each op.
+//   TPU numerics (tpu = 1), _gn_kernel: no clamp; scale_c = T(gamma_c *
+//     rstd), shift_c = T(beta_c - mean * gamma_c * rstd); o = T(T(x * scale_c)
+//     + shift_c) and SiLU as o * (1 / (1 + exp(-o))) with a T rounding after
+//     each op: the bf16 normalize for bf16 input, every op in f32 (no
+//     rounding, no fused multiply-add) for f32 input, as _gn_kernel runs an
+//     f32 block.
+// T is the input's type: bf16, or f32 for the XL VAE under
+// SASPA_XL_VAE_FP32=1 (_gn_pallas on f32 input; the default path's
+// _xla_group_norm in f32).
 //
-// What bounds it on an H100: a few flops per element against 4 bytes (one
-// bf16 read, one bf16 write): HBM bandwidth.  The TPU kernel kept one
+// What bounds it on an H100: a few flops per element against 2 * sizeof(T)
+// bytes (one read, one write): HBM bandwidth.  The TPU kernel kept one
 // sample's channel block resident in VMEM (one read, one write) and summed
 // per-channel f32 moments over rows before folding channels into groups
 // with a one-hot matmul; a group here reaches 2,097,152 elements (the VAE's
 // 256 channels at 512^2), far beyond a block's shared memory, so x is read
 // twice (the second read partly from L2), in two launches on one host plan
 // (ops/groupnorm.py::gn_plan):
-//   gn_stats_kernel: a thread owns one 16-byte vector (8 consecutive
-//     channels) of a pixel row, whatever C/G is; `rows` pixel rows of C/8
-//     threads each run side by side in a block of `threads` (whole warps),
-//     and grid (blocks, B) blocks walk their sample's rows grid-stride,
-//     four loads in flight a thread.  Each thread sums its 8 channels' f32
-//     moments over its rows in row order; the block adds its row offsets per
-//     channel, in order, then folds channels into groups once (a vector may
-//     span a group boundary: C/G = 10, 20, 30), all groups at once (gn_fold:
-//     lane-strided sums, then a butterfly), and writes one (sum, sum of
-//     squares) per group;
-//   gn_apply_kernel<TPU, SILU>: its prologue folds the sample's `blocks`
+//   gn_stats_kernel<T>: a thread owns one 16-byte vector (8 bf16 or 4 f32
+//     consecutive channels) of a pixel row, whatever C/G is; `rows` pixel
+//     rows of C/VEC threads each run side by side in a block of `threads`
+//     (whole warps), and grid (blocks, B) blocks walk their sample's rows
+//     grid-stride, four loads in flight a thread.  Each thread sums its
+//     channels' f32 moments over its rows in row order; the block adds its
+//     row offsets per channel, in order, then folds channels into groups
+//     once (a vector may span a group boundary: C/G = 10, 20, 30), all
+//     groups at once (gn_fold: lane-strided sums, then a butterfly), and
+//     writes one (sum, sum of squares) per group;
+//   gn_apply_kernel<T, TPU, SILU>: its prologue folds the sample's `blocks`
 //     partials of each group the same way, in the same fixed order in every
-//     block, into (mean, rstd); then the same walk as the statistics, its 8
+//     block, into (mean, rstd); then the same walk as the statistics, its
 //     channels' coefficients in registers, normalizes each vector and stores
 //     16 bytes.  With SiLU the normalize is bound by its arithmetic (expf and
-//     an IEEE division or reciprocal an element, and in the TPU numerics a
-//     bf16 rounding after each op) as much as by HBM.
-// The sums are deterministic; their order differs from the plain versions'.
+//     an IEEE division or reciprocal an element, and in the bf16 TPU
+//     numerics a rounding after each op) as much as by HBM.
+// Element offsets are 64-bit: the XL VAE's f32 site at 1024^2, B8, holds
+// 2^31 elements.  The sums are deterministic; their order differs from the
+// plain versions'.
 #include "mma_bf16.cuh"
 
 namespace saspa {
@@ -46,29 +53,51 @@ namespace saspa {
 constexpr int GN_MAX_THREADS = 512;  // a block's threads (ops/groupnorm.py::GN_MAX_THREADS)
 constexpr int GN_MAX_GROUPS = 64;
 
+// The element type's vector width (16 bytes), its rounding and conversions.
+template <typename T>
+struct GnType;
+template <>
+struct GnType<bf16> {
+    static constexpr int VEC = 8;
+    __device__ static __forceinline__ float rnd(float x) { return round_bf16(x); }
+    __device__ static __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+    __device__ static __forceinline__ bf16 from_f(float v) { return __float2bfloat16_rn(v); }
+};
+template <>
+struct GnType<float> {
+    static constexpr int VEC = 4;
+    __device__ static __forceinline__ float rnd(float x) { return x; }
+    __device__ static __forceinline__ float to_f(float v) { return v; }
+    __device__ static __forceinline__ float from_f(float v) { return v; }
+};
+
 // Per-channel coefficients: xla order (a, b) = (rstd * gamma, beta) with the
-// mean subtracted first; TPU numerics (a, b) = (bf16(scale), bf16(shift)).
+// mean subtracted first; TPU numerics (a, b) = (T(scale), T(shift)).
 struct GnCoef {
     float a, b;
 };
 
+template <typename T>
 __device__ __forceinline__ GnCoef gn_coef(float gamma, float beta, float mean, float rstd, int tpu) {
     if (tpu) {
         const float sc = gamma * rstd;
-        return {round_bf16(sc), round_bf16(beta - __fmul_rn(mean, sc))};
+        return {GnType<T>::rnd(sc), GnType<T>::rnd(beta - __fmul_rn(mean, sc))};
     }
     return {rstd * gamma, beta};
 }
 
-// One element; the result is rounded to bf16 by the store.
-template <int TPU, int SILU>
+// One element; the result is rounded to T by the store.  __fmul_rn and
+// __fadd_rn keep each product and sum rounded on its own, as the plain
+// versions compute them (no fused multiply-add).
+template <typename T, int TPU, int SILU>
 __device__ __forceinline__ float gn_elem(float x, GnCoef k, float mean) {
+    using G = GnType<T>;
     if (TPU) {
-        float y = round_bf16(round_bf16(x * k.a) + k.b);
-        if (SILU) y = y * round_bf16(__frcp_rn(round_bf16(1.f + round_bf16(expf(-y)))));  // 1 / z, rounded once
+        float y = G::rnd(__fadd_rn(G::rnd(__fmul_rn(x, k.a)), k.b));
+        if (SILU) y = y * G::rnd(__frcp_rn(G::rnd(1.f + G::rnd(expf(-y)))));  // 1 / z, rounded once
         return y;
     }
-    float y = round_bf16(__fmul_rn(x - mean, k.a) + k.b);  // no fma: the plain order
+    float y = G::rnd(__fmul_rn(x - mean, k.a) + k.b);  // no fma: the plain order
     if (SILU) y = y / (1.f + expf(-y));
     return y;
 }
@@ -104,12 +133,12 @@ __device__ __forceinline__ bool gn_fold(int G, int n, Term term, int& g, float2&
     return g < G && tid % L == 0;
 }
 
-// Thread tid < rows * C/8 of a block owns channels 8s .. 8s + 7 (s = tid %
-// (C/8)) of the pixel rows blockIdx.x * rows + tid / (C/8) + k * gridDim.x *
-// rows, k = 0, 1, ... of sample blockIdx.y; fn(v, r) runs on each row's
-// vector, U loads ahead, in row order.
-template <int U, class Fn>
-__device__ __forceinline__ void gn_walk(const bf16* xs, int HW, int C, int rows, int ro, Fn fn) {
+// Thread tid < rows * C/VEC of a block owns channels VEC*s .. VEC*s + VEC-1
+// (s = tid % (C/VEC)) of the pixel rows blockIdx.x * rows + tid / (C/VEC) +
+// k * gridDim.x * rows, k = 0, 1, ... of sample blockIdx.y; fn(v, r) runs on
+// each row's 16-byte vector, U loads ahead, in row order.
+template <int U, typename T, class Fn>
+__device__ __forceinline__ void gn_walk(const T* xs, int HW, int C, int rows, int ro, Fn fn) {
     const int step = gridDim.x * rows;
     int r = blockIdx.x * rows + ro;
     for (; r + (U - 1) * step < HW; r += U * step) {
@@ -124,26 +153,28 @@ __device__ __forceinline__ void gn_walk(const bf16* xs, int HW, int C, int rows,
 
 // partial[(b * G + g) * gridDim.x + blockIdx.x] = this block's (sum, sum of
 // squares) of group g.
+template <typename T>
 __global__ void __launch_bounds__(GN_MAX_THREADS, 2)
-gn_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ partial, int HW, int C, int G, int rows) {
+gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ partial, int HW, int C, int G, int rows) {
+    constexpr int VEC = GnType<T>::VEC;
     extern __shared__ float2 sch[];  // [rows][C]: each row offset's per-channel moments
-    const int b = blockIdx.y, nv = C / 8, tid = threadIdx.x;
+    const int b = blockIdx.y, nv = C / VEC, tid = threadIdx.x;
     if (tid < rows * nv) {
         const int s = tid % nv, ro = tid / nv;
-        float s1[8], s2[8];
+        float s1[VEC], s2[VEC];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) s1[e] = s2[e] = 0.f;
-        gn_walk<4>(x + (size_t)b * HW * C + s * 8, HW, C, rows, ro, [&](const uint4& v, int) {
-            const bf16* h = reinterpret_cast<const bf16*>(&v);
+        for (int e = 0; e < VEC; ++e) s1[e] = s2[e] = 0.f;
+        gn_walk<4>(x + (size_t)b * HW * C + s * VEC, HW, C, rows, ro, [&](const uint4& v, int) {
+            const T* h = reinterpret_cast<const T*>(&v);
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
-                const float f = __bfloat162float(h[e]);
+            for (int e = 0; e < VEC; ++e) {
+                const float f = GnType<T>::to_f(h[e]);
                 s1[e] += f;
                 s2[e] += f * f;
             }
         });
 #pragma unroll
-        for (int e = 0; e < 8; ++e) sch[ro * C + s * 8 + e] = make_float2(s1[e], s2[e]);
+        for (int e = 0; e < VEC; ++e) sch[ro * C + s * VEC + e] = make_float2(s1[e], s2[e]);
     }
     __syncthreads();
     for (int c = tid; c < C; c += blockDim.x) {  // the row offsets, in order
@@ -165,16 +196,17 @@ gn_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ partial, int HW
         partial[((size_t)b * G + g) * gridDim.x + blockIdx.x] = m;
 }
 
-// One instantiation per epilogue (TPU numerics or the xla order, with or
-// without SiLU), so that no per-element branch or unused operand takes
-// registers.
-template <int TPU, int SILU>
+// One instantiation per type and epilogue (TPU numerics or the xla order,
+// with or without SiLU), so that no per-element branch or unused operand
+// takes registers.
+template <typename T, int TPU, int SILU>
 __global__ void __launch_bounds__(GN_MAX_THREADS, 2)
-gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-                bf16* __restrict__ out, const float2* __restrict__ partial, int HW, int C, int G, int rows, float n,
+gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+                T* __restrict__ out, const float2* __restrict__ partial, int HW, int C, int G, int rows, float n,
                 float eps) {
+    constexpr int VEC = GnType<T>::VEC;
     __shared__ float2 sst[GN_MAX_GROUPS];  // (mean, rstd) of this sample's groups
-    const int b = blockIdx.y, nv = C / 8, tid = threadIdx.x;
+    const int b = blockIdx.y, nv = C / VEC, tid = threadIdx.x;
     int g;
     float2 m;
     if (gn_fold(G, gridDim.x, [&](int grp, int i, float& s1, float& s2) {  // the blocks' partials
@@ -190,56 +222,68 @@ gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma, con
     __syncthreads();
     if (tid >= rows * nv) return;
     const int s = tid % nv, ro = tid / nv, CG = C / G;
-    GnCoef k[8];
-    float mean[8];
+    GnCoef k[VEC];
+    float mean[VEC];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-        const int c = s * 8 + e;
+    for (int e = 0; e < VEC; ++e) {
+        const int c = s * VEC + e;
         const float2 st = sst[c / CG];
         mean[e] = st.x;
-        k[e] = gn_coef(gamma[c], beta[c], st.x, st.y, TPU);
+        k[e] = gn_coef<T>(gamma[c], beta[c], st.x, st.y, TPU);
     }
-    const size_t base = (size_t)b * HW * C + s * 8;
+    const size_t base = (size_t)b * HW * C + s * VEC;
     gn_walk<TPU ? 4 : 2>(x + base, HW, C, rows, ro, [&](const uint4& v, int r) {
-        const bf16* h = reinterpret_cast<const bf16*>(&v);
-        __align__(16) bf16 o[8];
+        const T* h = reinterpret_cast<const T*>(&v);
+        __align__(16) T o[VEC];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-            o[e] = __float2bfloat16_rn(gn_elem<TPU, SILU>(__bfloat162float(h[e]), k[e], mean[e]));
+        for (int e = 0; e < VEC; ++e)
+            o[e] = GnType<T>::from_f(gn_elem<T, TPU, SILU>(GnType<T>::to_f(h[e]), k[e], mean[e]));
         *reinterpret_cast<uint4*>(out + base + (size_t)r * C) = *reinterpret_cast<const uint4*>(o);
     });
 }
 
-typedef void (*GnApplyKernel)(const bf16*, const float*, const float*, bf16*, const float2*, int, int, int, int,
-                              float, float);
-static const GnApplyKernel kGnApply[2][2] = {{gn_apply_kernel<0, 0>, gn_apply_kernel<0, 1>},
-                                             {gn_apply_kernel<1, 0>, gn_apply_kernel<1, 1>}};  // [tpu][silu]
+template <typename T>
+static cudaError_t launch_group_norm(const void* x, const void* gamma, const void* beta, void* out, void* ws,
+                                     int B, int C, int HW, int G, int threads, int rows, int blocks, float eps,
+                                     int silu, int tpu, cudaStream_t s) {
+    typedef void (*ApplyKernel)(const T*, const float*, const float*, T*, const float2*, int, int, int, int, float,
+                                float);
+    static const ApplyKernel apply[2][2] = {{gn_apply_kernel<T, 0, 0>, gn_apply_kernel<T, 0, 1>},
+                                            {gn_apply_kernel<T, 1, 0>, gn_apply_kernel<T, 1, 1>}};  // [tpu][silu]
+    if (C % GnType<T>::VEC || C > GnType<T>::VEC * GN_MAX_THREADS || rows * (C / GnType<T>::VEC) > threads)
+        return cudaErrorInvalidValue;
+    const T* xp = static_cast<const T*>(x);
+    float2* part = static_cast<float2*>(ws);
+    const dim3 grid(blocks, B);
+    gn_stats_kernel<T><<<grid, threads, sizeof(float2) * rows * C, s>>>(xp, part, HW, C, G, rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    apply[tpu != 0][silu != 0]<<<grid, threads, 0, s>>>(xp, static_cast<const float*>(gamma),
+                                                        static_cast<const float*>(beta), static_cast<T*>(out), part,
+                                                        HW, C, G, rows, (float)((long long)(C / G) * HW), eps);
+    return cudaGetLastError();
+}
 
 }  // namespace saspa
 
-// x, out: (B, C, HW) bf16, NHWC in memory; gamma, beta: (C,) f32; ws:
-// (B * G * blocks) float2 scratch (each block's group moments).  threads,
-// rows, blocks: the launch plan (ops/groupnorm.py::gn_plan): threads a
-// multiple of 32 and at most 512, rows * C/8 <= threads, grid (blocks, B).
-// All contiguous and 16-byte aligned on the device; C % 8 == 0, C <= 4096,
-// C % G == 0, G <= 64, B <= 65535.  Returns a cudaError_t (0 on success).
+// x, out: (B, C, HW), NHWC in memory, bf16 (f32 = 0) or f32 (f32 = 1);
+// gamma, beta: (C,) f32; ws: (B * G * blocks) float2 scratch (each block's
+// group moments).  threads, rows, blocks: the launch plan
+// (ops/groupnorm.py::gn_plan): threads a multiple of 32 and at most 512,
+// rows * C/VEC <= threads (VEC = 8 for bf16, 4 for f32), grid (blocks, B).
+// All contiguous and 16-byte aligned on the device; C % VEC == 0, C <= VEC *
+// 512, C % G == 0, G <= 64, B <= 65535.  Returns a cudaError_t (0 on
+// success).
 extern "C" int saspa_group_norm(const void* x, const void* gamma, const void* beta, void* out, void* ws, int B,
                                 int C, int HW, int G, int threads, int rows, int blocks, float eps, int silu, int tpu,
-                                void* stream) {
+                                int f32, void* stream) {
     using namespace saspa;
-    if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || C % 8 || C > 4096 || G <= 0 || G > GN_MAX_GROUPS || C % G ||
-        threads % 32 || threads <= 0 || threads > GN_MAX_THREADS || rows <= 0 || rows * (C / 8) > threads ||
-        blocks <= 0)
+    if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || G <= 0 || G > GN_MAX_GROUPS || C % G || threads % 32 ||
+        threads <= 0 || threads > GN_MAX_THREADS || rows <= 0 || blocks <= 0)
         return (int)cudaErrorInvalidValue;
-    const bf16* xp = static_cast<const bf16*>(x);
-    float2* part = static_cast<float2*>(ws);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid(blocks, B);
-    gn_stats_kernel<<<grid, threads, sizeof(float2) * rows * C, s>>>(xp, part, HW, C, G, rows);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    kGnApply[tpu != 0][silu != 0]<<<grid, threads, 0, s>>>(xp, static_cast<const float*>(gamma),
-                                                           static_cast<const float*>(beta), static_cast<bf16*>(out),
-                                                           part, HW, C, G, rows, (float)((long long)(C / G) * HW), eps);
-    return (int)cudaGetLastError();
+    if (f32) return (int)launch_group_norm<float>(x, gamma, beta, out, ws, B, C, HW, G, threads, rows, blocks, eps,
+                                                  silu, tpu, s);
+    return (int)launch_group_norm<bf16>(x, gamma, beta, out, ws, B, C, HW, G, threads, rows, blocks, eps, silu, tpu,
+                                        s);
 }

@@ -1,36 +1,46 @@
-"""SD1.5 and SDXL(-Turbo) generation, with a canny ControlNet or none, text
-to image or SDEdit (counterpart of saspa_tpu/diffusion/pipelines.py).
+"""SD1.5, SD2.1 and SDXL(-Turbo) generation, with a canny or HED ControlNet
+or none, text to image or SDEdit (counterpart of
+saspa_tpu/diffusion/pipelines.py).
 
 `DiffusionPipeline(...)` owns the text towers, UNet, ControlNet and VAE;
-`make_fused_generate(...)` returns the whole-batch text(+canny) function:
-on-device Canny, the text towers for the prompt and the negative prompt,
-the CFG DDIM (or UniPC) loop over UNet + ControlNet, VAE decode and the uint8
+`make_fused_generate(...)` returns the whole-batch text(+control) function:
+the control image on the device (Canny, or the HED network of
+`models/hed.py`, which the pipeline holds as params["hed"] beside a HED
+ControlNet), the text towers for the prompt and the negative prompt, the
+CFG DDIM (or UniPC) loop over UNet + ControlNet, VAE decode and the uint8
 quantisation.  `generate(...)` is the JAX package's unfused entry point:
 the same loop from prompts, and given an `init_image` SDEdit (img2img): the
 source's posterior mean through the VAE encoder, scaled, noised to the
-first timestep kept by the strength, then the truncated schedule.  SDXL
-(`sd_xl`, `sd_xl-turbo`) runs two towers (ViT-L and OpenCLIP bigG, hidden
-states concatenated to 2048, bigG's projected pooled output) and the
-text_time added conditions (the pooled embedding and the time ids (h, w, 0,
-0, h, w)); SDXL-Turbo samples on trailing-spaced DDIM steps, and its
-recipe's guidance scale 0 runs no negative tower.  With `weights_dir` the
+first timestep kept by the strength, then the truncated schedule.  SD2.1
+(`sd_v2.1`) is SD1.5's pipeline with OpenCLIP-H's 23-layer tower (padded
+as OpenCLIP pads, `openclip_pad`) and a UNet of d-64 heads, epsilon
+prediction and leading spacing, as the JAX package's `_spec` leaves them.
+SDXL (`sd_xl`, `sd_xl-turbo`) runs two towers (ViT-L and OpenCLIP bigG,
+hidden states concatenated to 2048, bigG's projected pooled output) and
+the text_time added conditions (the pooled embedding and the time ids (h,
+w, 0, 0, h, w)); SDXL-Turbo samples on trailing-spaced DDIM steps, and its
+recipe's guidance scale 0 runs no negative tower.  With
+SASPA_XL_VAE_FP32=1 at construction (the reference's upcast_vae, the JAX
+package's switch of the same name) the XL families' VAE, encoder and
+decoder, runs in f32 while the towers, UNet and ControlNet keep the
+pipeline's dtype; the latents reach it in f32.  With `weights_dir` the
 models load from the public checkpoint files of a tree
-(weights/sources.py: the family's files whole, the ControlNet's on its
-own); what the tree lacks takes a seeded random init (`torch.Generator`)
-with a warning, or raises under SASPA_STRICT_WEIGHTS=1.
+(weights/sources.py: the family's files whole, the ControlNet's and HED's
+on their own); what the tree lacks takes a seeded random init
+(`torch.Generator`) with a warning, or raises under SASPA_STRICT_WEIGHTS=1.
 `load_flax_params` carries a flax param tree in through the bridge.
 BLIP-Diffusion (`blip_diffusion`, `blip_diffusion-controlnet`, and the
 inversion edit `blip_diffusion-edit`) is the SD1.5 pipeline plus a vision
 tower and a Q-Former (`models/blip_diffusion.py`).  InstructPix2Pix (`ip2p`,
 ALIA's editor for planes_biased) is SD1.5 with an 8-channel UNet input: its
 `generate` takes the image to edit and runs 3-way guidance (the sampler's
-`image_latents`).  `init_pipeline` builds any of them.  The families the
-port lacks raise where they are asked for (`refuse_unported`).
+`image_latents`).  `init_pipeline` builds any of them.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -42,33 +52,17 @@ from saspa_tpu_torch.diffusion.sampler import make_sample_loop
 from saspa_tpu_torch.diffusion.schedulers import SchedulerConfig, get_scheduler, sdedit_start_step
 from saspa_tpu_torch.gen.tokenizer import EOT, NEGATIVE_PROMPT, default_tokenizer
 from saspa_tpu_torch.models.controlnet import ZERO_INIT_PREFIXES, ControlNet
+from saspa_tpu_torch.models.hed import HED, hed_control_image
 from saspa_tpu_torch.models.layers import init_weights, nearest_resize
-from saspa_tpu_torch.models.text_encoder import SD15_TEXT, SDXL_TEXT_BIGG, SDXL_TEXT_L, CLIPTextEncoder
+from saspa_tpu_torch.models.text_encoder import SD15_TEXT, SD21_TEXT, SDXL_TEXT_BIGG, SDXL_TEXT_L, CLIPTextEncoder
 from saspa_tpu_torch.models.unet import UNET_CONFIGS, UNet2DCondition
 from saspa_tpu_torch.models.vae import SD_VAE, SDXL_VAE, AutoencoderKL
 from saspa_tpu_torch.ops.canny import canny_control_image
 
 XL_BASE_MODELS = ("sd_xl", "sd_xl-turbo", "sd_xl-refiner")
-BASE_MODELS = ("sd_v1.5", "ip2p", "blip_diffusion", "blip_diffusion-controlnet") + XL_BASE_MODELS  # ported so far
+BASE_MODELS = ("sd_v1.5", "sd_v2.1", "ip2p", "blip_diffusion", "blip_diffusion-controlnet") + XL_BASE_MODELS
 BLIP_BASE_MODELS = ("blip_diffusion", "blip_diffusion-controlnet", "blip_diffusion-edit")
-
-
-def unported_family(base_model: str, controlnet: Optional[str], sampler: str = "ddim",
-                    sdedit: bool = False) -> Optional[str]:
-    """The generation family a configuration needs that the port lacks (ROADMAP
-    Queue 1 item 12), or None."""
-    if base_model == "sd_v2.1":
-        return "SD2.1"
-    if controlnet == "hed":
-        return "the HED ControlNet"
-    return None
-
-
-def refuse_unported(base_model: str, controlnet: Optional[str], sampler: str = "ddim", sdedit: bool = False) -> None:
-    family = unported_family(base_model, controlnet, sampler, sdedit)
-    if family is not None:
-        raise NotImplementedError(f"{base_model}, controlnet={controlnet}, sampler={sampler}, sdedit={sdedit} needs "
-                                  f"{family}, which is not ported yet (ROADMAP Queue 1 item 12)")
+CONTROLNET_KINDS = (None, "canny", "hed")
 
 
 def quantize(images: torch.Tensor) -> torch.Tensor:
@@ -85,15 +79,18 @@ class PipelineSpec:
 
 
 def _spec(base_model: str) -> PipelineSpec:
-    """The JAX package's `_spec` for the ported base models: SD1.5's tower
-    and VAE (also InstructPix2Pix's), SDXL's two towers and VAE (scaling
-    0.13025), or the refiner's bigG tower alone with SDXL's VAE; trailing
-    spacing for SDXL-Turbo, leading otherwise."""
+    """The JAX package's `_spec`: SD1.5's tower and VAE (also
+    InstructPix2Pix's), SD2.1's OpenCLIP-H tower with the SD VAE, SDXL's two
+    towers and VAE (scaling 0.13025), or the refiner's bigG tower alone with
+    SDXL's VAE; trailing spacing for SDXL-Turbo, leading otherwise; the
+    scheduler's default prediction type (epsilon) throughout."""
     if base_model not in BASE_MODELS:
         raise ValueError(base_model)
     is_xl = base_model in XL_BASE_MODELS
     if base_model == "sd_xl-refiner":
         text_cfgs = (SDXL_TEXT_BIGG,)
+    elif base_model == "sd_v2.1":
+        text_cfgs = (SD21_TEXT,)
     else:
         text_cfgs = (SDXL_TEXT_L, SDXL_TEXT_BIGG) if is_xl else (SD15_TEXT,)
     sched = SchedulerConfig(timestep_spacing="trailing" if base_model == "sd_xl-turbo" else "leading")
@@ -127,11 +124,14 @@ class DiffusionPipeline:
         SASPA_PALLAS_LN=1, which needs no switch here: the one-pass LayerNorm
         is the default path's function): GroupNorm with the TPU kernel's
         numerics where its split plan admits the site, and the self-attention
-        block kernel where `attention_block_eligible` admits it."""
-        refuse_unported(base_model, controlnet, sampler)
+        block kernel where `attention_block_eligible` admits it.
+
+        controlnet="hed" also builds the HED network (params["hed"]) that
+        makes its conditioning image.  The XL families' VAE takes f32 where
+        dtype is f32 or SASPA_XL_VAE_FP32=1 (`vae_dtype`)."""
         if base_model == "ip2p" and controlnet is not None:
             raise ValueError("ip2p does not support a ControlNet")
-        if base_model not in BASE_MODELS or controlnet not in (None, "canny"):
+        if base_model not in BASE_MODELS or controlnet not in CONTROLNET_KINDS:
             raise ValueError(f"no pipeline {base_model} with controlnet={controlnet}")
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else default_dtype(self.device)
@@ -146,14 +146,19 @@ class DiffusionPipeline:
 
         dev, dt = self.device, self.dtype
         gn, mk = pallas_group_norm, attention_megakernel
+        # the reference upcasts only the XL VAE (upcast_vae, run_aug/run_aug.py:189)
+        fp32_vae = dt == torch.float32 or os.environ.get("SASPA_XL_VAE_FP32", "") == "1"
+        self.vae_dtype = torch.float32 if self.spec.is_xl and fp32_vae else dt
         self.params = {
             "text": [CLIPTextEncoder(c, dt, dev) for c in self.text_cfgs],
             "unet": UNet2DCondition(self.unet_cfg, dt, dev, pallas_group_norm=gn, attention_megakernel=mk),
-            "vae": AutoencoderKL(self.vae_cfg, dt, dev, pallas_group_norm=gn),
+            "vae": AutoencoderKL(self.vae_cfg, self.vae_dtype, dev, pallas_group_norm=gn),
         }
         if controlnet:
             self.params["controlnet"] = ControlNet(self.unet_cfg, dt, dev, pallas_group_norm=gn,
                                                    attention_megakernel=mk)
+        if controlnet == "hed":
+            self.params["hed"] = HED(dt, dev)
         self.params.update(self._extra_modules())
         for m in self._modules():
             m.eval()
@@ -192,7 +197,7 @@ class DiffusionPipeline:
         names = list(self.params) if names is None else names
         logging.warning("no weights for %s's %s: seeded random init (outputs are not meaningful images)",
                         self.base_model, ", ".join(names))
-        seeds = {"unet": seed, "vae": seed + 1, "controlnet": seed + 7}
+        seeds = {"unet": seed, "vae": seed + 1, "controlnet": seed + 7, "hed": seed + 13}
         for name in names:
             if name == "text":
                 for i, te in enumerate(self.params["text"]):
@@ -276,8 +281,8 @@ class DiffusionPipeline:
                  controlnet_scale: float, canny_low: float, canny_high: float):
         """The fused function's part after the text towers:
         fn(params, ctx, nctx, src_images, latents, return_images, ac, nac)
-        -> uint8 images (and the [0, 1] f32 images): on-device Canny, the CFG
-        DDIM loop, VAE decode, quantisation.  nctx is None without CFG; ac and
+        -> uint8 images (and the [0, 1] f32 images): the control image on the
+        device, the CFG DDIM loop, VAE decode, quantisation.  nctx is None without CFG; ac and
         nac are SDXL's added conditions of the prompt and the negative."""
         timesteps = self.scheduler.timesteps(num_inference_steps)
 
@@ -295,13 +300,17 @@ class DiffusionPipeline:
     def control_from_src(self, src_images, height: int, width: int, canny_low: float = 120.0,
                          canny_high: float = 200.0) -> Optional[torch.Tensor]:
         """The ControlNet's conditioning image of (B, H, W, 3) sources in [0,
-        255] (uint8 or float) on the pipeline's device: Canny edges,
-        nearest-resized to latent size * 8 (the identity for the SD VAEs), or
-        None without a ControlNet."""
-        if self.controlnet_kind != "canny":
+        255] (uint8 or float) on the pipeline's device: Canny edges, or HED's
+        edges of the sources / 255 in f32, nearest-resized to latent size * 8
+        (the identity for the SD VAEs), or None without a ControlNet."""
+        if self.controlnet_kind is None:
             return None
         # uint8 sources: values 0-255 are exact in f32, so the cast is exact
-        control = canny_control_image(torch.as_tensor(src_images, device=self.device).float(), canny_low, canny_high)
+        src = torch.as_tensor(src_images, device=self.device).float()
+        if self.controlnet_kind == "hed":
+            control = hed_control_image(self.params["hed"], src / 255.0)
+        else:
+            control = canny_control_image(src, canny_low, canny_high)
         lf = self.latent_factor
         ch, cw = (height // lf) * 8, (width // lf) * 8
         return control if (ch, cw) == (height, width) else nearest_resize(control, ch, cw)
@@ -360,8 +369,8 @@ def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = Fal
                   weights_dir: Optional[str] = None, dtype: Optional[torch.dtype] = None,
                   device=None) -> DiffusionPipeline:
     """Name-compatible with the reference's init_pipeline (run_aug/run_aug.py:128)
-    and the JAX package's: SD1.5, SDXL, SDXL-Turbo or BLIP-Diffusion, with a
-    canny ControlNet or none, text to image or SDEdit, BLIP-Diffusion's
+    and the JAX package's: SD1.5, SD2.1, SDXL, SDXL-Turbo or BLIP-Diffusion,
+    with a canny or HED ControlNet or none, text to image or SDEdit, BLIP-Diffusion's
     inversion edit, and InstructPix2Pix without a ControlNet; DDIM; loaded
     from the public files under weights_dir, what it lacks takes the seeded
     random init (seed 0).  SDEdit only selects
@@ -375,14 +384,12 @@ def init_pipeline(base_model: str, controlnet: Optional[str], SDEdit: bool = Fal
                              "base_model='blip_diffusion-edit' for the inversion-edit path")
         # the edit path takes no ControlNet (the reference's edit() call has no conditioning image)
         controlnet = None if base_model == "blip_diffusion-edit" else controlnet
-        refuse_unported(base_model, controlnet, sampler)
         from saspa_tpu_torch.models.blip_diffusion import BlipDiffusionPipeline
 
         return BlipDiffusionPipeline(controlnet=controlnet, sampler=sampler, dtype=dtype, device=device,
                                      weights_dir=weights_dir, init_seed=0)
     if base_model == "ip2p" and controlnet is not None:
         raise ValueError("ip2p does not support a ControlNet")
-    refuse_unported(base_model, controlnet, sampler, SDEdit)
     if base_model == "sd_xl" and SDEdit and controlnet is None:
         base_model = "sd_xl-refiner"  # the reference's sd_xl img2img runs the refiner (run_aug/run_aug.py:149-151)
     return DiffusionPipeline(base_model, controlnet=controlnet, sampler=sampler, dtype=dtype, device=device,

@@ -18,9 +18,14 @@ become a flat worklist of (image, prompt) items that is
     as the subject category.
 SDEdit (`cfg.sdedit`: the Real-Guidance and ALIA presets) and BLIP-Diffusion's
 inversion edit (`blip_diffusion-edit`) take the unfused entry points,
-`pipe.generate` with the source / 255 as the image to edit (and its canny
+`pipe.generate` with the source / 255 as the image to edit (and its control
 image from `pipe.control_from_src` with a ControlNet) and `pipe.edit` with
-the source and the subject references, as the JAX driver does.
+the source and the subject references, as the JAX driver does.  With
+`--controlnet hed` that control image is the pipeline's own HED network
+(params["hed"]) on the source / 255, the image JAX's `_hed_control` makes
+from the pipeline's HED; where JAX's driver falls back to a HED of its own
+(a pipeline that holds none), the port has no such case: every HED
+ControlNet pipeline holds its HED.
 InstructPix2Pix (`ip2p`, ALIA's editor for planes_biased) takes
 `pipe.generate` too, with the source / 255 as the image to edit, image
 guidance 1.3 and 100 steps whatever cfg.num_inference_steps says (the JAX
@@ -30,8 +35,7 @@ Every item's noise derives from (seed, image index, prompt index) through
 depend on batch composition, shard count or resume point, and match the JAX
 driver's.  Sources are read and PNGs written by `gen.image_io`; resizing is
 `ops.image.resize_image`.  `run_generation_and_filter` then builds the
-aug-JSON of the folder (`filters.aug_json`).  The families the port lacks
-(SD2.1, HED) raise, naming ROADMAP Queue 1 item 12.
+aug-JSON of the folder (`filters.aug_json`).
 """
 
 from __future__ import annotations
@@ -164,17 +168,12 @@ def _save_source_and_control(cfg, indexed_paths, output_folder, device="cpu"):
 
 
 def _check_supported(cfg: GenerationConfig) -> None:
-    """The JAX driver's refusals, and the port's of the families it lacks
-    (also for an injected pipe)."""
-    from saspa_tpu_torch.diffusion.pipelines import refuse_unported
-
+    """The JAX driver's refusals (also for an injected pipe)."""
     if cfg.base_model == "ip2p" and cfg.controlnet is not None:
         raise ValueError("ip2p does not support a ControlNet")
     if cfg.sdedit and "blip_diffusion" in cfg.base_model:
         raise ValueError("SDEdit is not supported with blip_diffusion; use "
                          "base_model='blip_diffusion-edit' for the inversion-edit path")
-    edit = cfg.base_model == "blip_diffusion-edit"  # takes no ControlNet
-    refuse_unported(cfg.base_model, None if edit else cfg.controlnet, cfg.sampler, cfg.sdedit)
 
 
 def _subject_references(cfg: GenerationConfig, chunk: List[WorkItem], output_folder: str) -> np.ndarray:

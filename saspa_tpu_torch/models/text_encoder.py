@@ -1,5 +1,7 @@
 """CLIP text towers (counterpart of saspa_tpu/models/text_encoder.py):
-SD1.5's conditioning tower (ViT-L/14 text, last_hidden_state), SDXL's two
+SD1.5's conditioning tower (ViT-L/14 text, last_hidden_state), SD2.1's
+(OpenCLIP ViT-H text as HF ships it: 23 of its 24 layers of 1024, exact-erf
+GELU, last_hidden_state after ln_final), SDXL's two
 (ViT-L and OpenCLIP bigG, both the raw penultimate layer; bigG's pooled
 output through its 1280-wide projection) and the CLIP RN50 filter's tower
 (12 layers of 512 with a 1024-wide text_projection).
@@ -37,6 +39,9 @@ class CLIPTextConfig:
 
 
 SD15_TEXT = CLIPTextConfig()
+# SD2.1: HF's 23-layer CLIPTextModel (OpenCLIP ViT-H without its last block),
+# read after ln_final, as the diffusers pipeline reads last_hidden_state
+SD21_TEXT = CLIPTextConfig(width=1024, layers=23, heads=16, act="gelu", output_layer=-1)
 SDXL_TEXT_L = CLIPTextConfig(output_layer=-2)
 SDXL_TEXT_BIGG = CLIPTextConfig(width=1280, layers=32, heads=20, act="gelu", output_layer=-2, projection_dim=1280)
 CLIP_RN50_TEXT = CLIPTextConfig(width=512, layers=12, heads=8, projection_dim=1024)

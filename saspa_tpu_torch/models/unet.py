@@ -1,4 +1,7 @@
-"""SD1.5 and SDXL conditional UNets in PyTorch (counterpart of saspa_tpu/models/unet.py).
+"""SD1.5, SD2.1 and SDXL conditional UNets in PyTorch (counterpart of saspa_tpu/models/unet.py).
+
+SD2.1 (`SD21_UNET`) keeps SD1.5's four levels with heads of d 64 (5, 10,
+20, 20 heads), a 1024-wide context and linear proj_in/proj_out.
 
 SDXL (`SDXL_UNET`: three levels 320/640/1280, transformer depth 1/2/10,
 heads of d 64, cross-attention width 2048) adds linear proj_in/proj_out
@@ -92,6 +95,14 @@ class UNetConfig:
 
 SD15_UNET = UNetConfig()
 
+# SD2.1 (stabilityai/stable-diffusion-2-1): SD1.5's levels with heads of d 64
+# (5/10/20/20 heads), OpenCLIP-H's 1024-wide context and linear projections
+SD21_UNET = UNetConfig(
+    num_attention_heads=(5, 10, 20, 20),
+    cross_attention_dim=1024,
+    use_linear_projection=True,
+)
+
 SDXL_UNET = UNetConfig(
     block_out_channels=(320, 640, 1280),
     down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
@@ -122,6 +133,7 @@ SDXL_REFINER_UNET = UNetConfig(
 
 UNET_CONFIGS = {
     "sd_v1.5": SD15_UNET,
+    "sd_v2.1": SD21_UNET,
     "sd_xl": SDXL_UNET,
     "sd_xl-turbo": SDXL_UNET,
     "sd_xl-refiner": SDXL_REFINER_UNET,

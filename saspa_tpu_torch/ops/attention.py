@@ -3,7 +3,9 @@ block kernel (K5), the streamed flash kernel (K6) and the plain path.
 
 Counterpart of saspa_tpu/ops/attention.py.  Self-attention over image tokens
 that `packed_flash_eligible` admits (lq == lk >= 256, lq % 128 == 0, and the
-packed kernel's 48 MiB guard) runs `flash_attention_packed` on packed
+packed kernel's 48 MiB guard, counted in the activations' bytes: the XL
+VAE's f32 head of 512 at 4096 tokens is admitted, at 16384 it is not) runs
+`flash_attention_packed` (bf16, or f32 at the VAE's head of 512) on packed
 (B, L, H*D_pad) tensors whose head dims are zero-padded in the projection
 weights (64/128/192 for SD1.5's 40/80/160; the VAE's 512 as is).  Past that
 guard (SD1.5's level 0 at 1024^2: 16384 tokens) the projections stay
@@ -33,7 +35,10 @@ PACKED_HEAD_DIMS = (64, 128, 192, 512)
 FLASH_HEAD_DIMS = (64, 128, 192)  # the padded head dims K6 takes
 PLAIN_SCORE_BYTES = 1 << 30  # f32 scores K6's plain version holds at once
 
-launches = 0  # kernel launches of flash_attention_packed since the last reset
+launches = 0  # bf16 kernel launches of flash_attention_packed since the last reset
+launches_f32 = 0  # f32 kernel launches of flash_attention_packed (csrc/attention_packed_f32.cu) since the last reset
+F32_HEAD_DIMS = (512,)  # the f32 kernel's head dim: the XL VAE's one head under SASPA_XL_VAE_FP32=1
+F32_BLOCK_L = 32  # the f32 kernel's query rows (and keys) a tile
 block_launches = 0  # calls of attention_block_fused / attention_block_stages that launched K5 since the last reset
 flash_launches = 0  # kernel launches of flash_attention (K6) since the last reset
 BLOCK_HEAD_DIMS = (64, 128, 192)
@@ -216,8 +221,8 @@ def flash_attention(q, k, v, scale: float):
 def flash_attention_packed_plain(q, k, v, heads: int):
     """Plain version of K1 (same function, f32 scores and accumulation):
     q pre-scaled by scale*log2(e); exp2 softmax; P cast to v's dtype before
-    the P.V product; output in q's dtype.  Loops over heads to bound the
-    (B, L, L) f32 score memory."""
+    the P.V product (a no-op in f32); output in q's dtype.  Loops over heads
+    to bound the (B, L, L) f32 score memory."""
     b, lq, hd = q.shape
     dp = hd // heads
     out = torch.empty_like(q)
@@ -233,26 +238,38 @@ def flash_attention_packed_plain(q, k, v, heads: int):
 def flash_attention_packed(q, k, v, heads: int):
     """q: (B, L, H*D_pad) with softmax_scale*log2(e) folded in; k, v: (B, L,
     H*D_pad).  Returns (B, L, H*D_pad); padded output columns are exactly 0.
-    CPU tensors run the plain version; CUDA tensors launch the kernel: bf16,
-    contiguous and 16-byte aligned (its TMA loads), D_pad 64/128/192 with
-    L % 128 == 0 (its 128- or 256-row query blocks; `packed_flash_eligible`
-    admits no other L), or the VAE's D_pad 512 with L % 64 == 0."""
-    global launches
+    CPU tensors run the plain version; CUDA tensors launch a kernel, all
+    three contiguous and 16-byte aligned: bf16 (its TMA loads), D_pad
+    64/128/192 with L % 128 == 0 (its 128- or 256-row query blocks;
+    `packed_flash_eligible` admits no other L), or the VAE's D_pad 512 with
+    L % 64 == 0; or f32 at D_pad 512 with L % 32 == 0 (the f32 kernel,
+    csrc/attention_packed_f32.cu: the XL VAE's one head under
+    SASPA_XL_VAE_FP32=1)."""
+    global launches, launches_f32
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, heads)
     b, l, hd = q.shape
     dp = hd // heads
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_packed takes bf16 on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_packed takes bf16 or f32 on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != q.shape or v.shape != q.shape or hd != heads * dp:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} heads {heads}")
+    if not (all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)) and q.device == k.device == v.device):
+        raise ValueError("flash_attention_packed needs contiguous, 16-byte aligned q, k, v on one device")
+    if q.dtype == torch.float32:
+        if dp not in F32_HEAD_DIMS or l % F32_BLOCK_L:
+            raise ValueError(f"the f32 packed kernel takes head dim in {F32_HEAD_DIMS} with L % {F32_BLOCK_L} == 0, "
+                             f"got {dp}, {l}")
+        out = torch.empty_like(q)
+        fn = _build.kernel("attention_packed_f32")
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, heads, stream),
+                     "attention_packed_f32")
+        launches_f32 += 1
+        return out
     if dp not in PACKED_HEAD_DIMS or l % (64 if dp == 512 else 128):
         raise ValueError(f"packed kernel takes head dim in {PACKED_HEAD_DIMS} with L % 128 == 0 (L % 64 == 0 at "
                          f"512), got {dp}, {l}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
-        raise ValueError("flash_attention_packed needs contiguous, 16-byte aligned q, k, v")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v on different devices")
     out = torch.empty_like(q)
     fn = _build.kernel("attention_packed")
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -17,7 +17,9 @@ Counterparts in saspa_tpu/ops/groupnorm.py:
 `group_norm(..., tpu_numerics)` computes one of the two: on CPU tensors
 through the plain version, on CUDA tensors through K3
 (csrc/group_norm.cu), two launches (statistics, normalize) with both
-epilogues, on a launch plan chosen here (`gn_plan`).  Input (B, C,
+epilogues, on a launch plan chosen here (`gn_plan`), for bf16 or f32 input
+(the XL VAE under SASPA_XL_VAE_FP32=1; the TPU kernel's numerics then
+normalize and apply SiLU in f32, `_gn_kernel` on f32 blocks).  Input (B, C,
 *spatial); group g holds channels [g*C/G, (g+1)*C/G).  On the card the
 input is channels-last (NHWC in memory), the format the port's
 convolutions keep from the latents on, and the output keeps it.
@@ -34,18 +36,19 @@ import torch.nn.functional as F
 from saspa_tpu_torch.ops import _build
 from saspa_tpu_torch.ops.layernorm import aligned16, sm_count
 
-launches = 0  # calls of group_norm that launched K3 since the last reset
+launches = 0  # calls of group_norm that launched K3 on bf16 since the last reset
 launches_tpu = 0  # of which with the TPU kernel's numerics
+launches_f32 = 0  # calls of group_norm that launched K3 on f32 since the last reset
 
 VMEM_LIMIT = 44 * 1024 * 1024  # _split_plan's per-sample block budget
-# csrc/group_norm.cu: a thread owns one 16-byte vector (8 channels) of a
-# pixel row; blocks of whole warps, at most GN_MAX_THREADS, and two of the
-# largest resident an SM (__launch_bounds__(512, 2)), so the grid aims at
-# GN_THREADS_PER_SM threads an SM
+# csrc/group_norm.cu: a thread owns one 16-byte vector (8 bf16 or 4 f32
+# channels) of a pixel row; blocks of whole warps, at most GN_MAX_THREADS,
+# and two of the largest resident an SM (__launch_bounds__(512, 2)), so the
+# grid aims at GN_THREADS_PER_SM threads an SM
 GN_MAX_THREADS = 512
 GN_THREADS_PER_SM = 1024
 GN_MAX_GROUPS = 64
-GN_MAX_C = 8 * GN_MAX_THREADS
+GN_MAX_C = 8 * GN_MAX_THREADS  # bf16; f32 takes 4 * GN_MAX_THREADS
 
 
 class GnPlan(NamedTuple):
@@ -58,16 +61,17 @@ class GnPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def gn_plan(b: int, hw: int, c: int, sms: int) -> GnPlan:
-    """The plan for B samples of hw pixel rows of c channels (c % 8 == 0, c
-    <= GN_MAX_C) on a card of `sms` SMs: the rows a block holds side by side
+def gn_plan(b: int, hw: int, c: int, sms: int, vec: int = 8) -> GnPlan:
+    """The plan for B samples of hw pixel rows of c channels in vectors of
+    `vec` (8 bf16 or 4 f32: c % vec == 0, c <= vec * GN_MAX_THREADS) on a
+    card of `sms` SMs: the rows a block holds side by side
     that leave the fewest idle threads in its whole warps, then the block
     nearest 256 threads (C320: 8 rows of 40 threads, 320; C960: 4 of 120;
     C1280: 2 of 160; C128: 16 of 16); then as many blocks a sample as the
     card holds at once, GN_THREADS_PER_SM an SM, shared by the B samples
     (rounded down: a block past one wave would double the kernel's time),
     but no more than the sample has row groups."""
-    nv = c // 8
+    nv = c // vec
     best = None
     for rows in range(1, GN_MAX_THREADS // nv + 1):
         threads = -(-rows * nv // 32) * 32
@@ -149,24 +153,28 @@ def group_norm_tpu_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5
 def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activation=None,
                tpu_numerics: bool = False):
     """x: (B, C, *spatial); gamma, beta: (C,) f32.  CPU tensors run the plain
-    version; CUDA tensors launch K3 (bf16 x, 4-d channels-last, C % 8 == 0,
-    16-byte aligned) or raise."""
-    global launches, launches_tpu
+    version; CUDA tensors launch K3 (bf16 or f32 x, 4-d channels-last, C a
+    whole number of 16-byte vectors, 16-byte aligned) or raise."""
+    global launches, launches_tpu, launches_f32
     if x.device.type == "cpu":
         plain = group_norm_tpu_plain if tpu_numerics else group_norm_plain
         return plain(x, gamma, beta, num_groups, eps, activation)
     b, c = x.shape[:2]
     groups = groups_for(c, num_groups)
-    if x.dtype != torch.bfloat16 or gamma.dtype != torch.float32 or beta.dtype != torch.float32:
-        raise TypeError(f"group_norm on CUDA takes bf16 x and f32 gamma/beta, got {x.dtype}/{gamma.dtype}/{beta.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or gamma.dtype != torch.float32 \
+            or beta.dtype != torch.float32:
+        raise TypeError(f"group_norm on CUDA takes bf16 or f32 x and f32 gamma/beta, got "
+                        f"{x.dtype}/{gamma.dtype}/{beta.dtype}")
     if gamma.shape != (c,) or beta.shape != (c,):
         raise ValueError(f"group_norm: gamma {tuple(gamma.shape)} / beta {tuple(beta.shape)} for {c} channels")
     if activation not in (None, "silu"):
         raise ValueError(f"group_norm: activation {activation!r}")
     if x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("group_norm on CUDA needs a 4-d channels-last x")
-    if c % 8 or c > GN_MAX_C or groups > GN_MAX_GROUPS:
-        raise ValueError(f"group_norm: needs C % 8 == 0, C <= {GN_MAX_C}, G <= {GN_MAX_GROUPS}; got {c}, {groups}")
+    vec = 16 // x.element_size()
+    if c % vec or c > vec * GN_MAX_THREADS or groups > GN_MAX_GROUPS:
+        raise ValueError(f"group_norm: needs C % {vec} == 0, C <= {vec * GN_MAX_THREADS}, G <= {GN_MAX_GROUPS} for "
+                         f"{x.dtype}; got {c}, {groups}")
     if not (gamma.is_contiguous() and beta.is_contiguous()):
         raise ValueError("group_norm needs contiguous gamma, beta")
     if not (x.device == gamma.device == beta.device):
@@ -174,13 +182,17 @@ def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activati
     if not aligned16(x, gamma, beta):
         raise ValueError("group_norm needs 16-byte aligned x, gamma, beta")
     hw = x.shape[2] * x.shape[3]
-    plan = gn_plan(b, hw, c, sm_count(x.device))
+    plan = gn_plan(b, hw, c, sm_count(x.device), vec)
     ws = torch.empty((b * groups * plan.blocks, 2), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)  # in x's memory format
     fn = _build.kernel("group_norm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), ws.data_ptr(), b, c, hw,
-                    groups, *plan, float(eps), int(activation == "silu"), int(tpu_numerics), stream), "group_norm")
-    launches += 1
-    launches_tpu += int(tpu_numerics)
+                    groups, *plan, float(eps), int(activation == "silu"), int(tpu_numerics), int(vec == 4), stream),
+                 "group_norm")
+    if vec == 4:
+        launches_f32 += 1
+    else:
+        launches += 1
+        launches_tpu += int(tpu_numerics)
     return out

@@ -341,6 +341,23 @@ def convert_clip_text_hf(sd, num_layers: int):
     return p
 
 
+def convert_hed(sd):
+    """controlnet_aux ControlNetHED_Apache2 (lllyasviel/Annotators
+    ControlNetHED.pth): `norm` (1, 3, 1, 1), the learned input offset,
+    blockN.convs.M.{weight,bias}, blockN.projection.{weight,bias}."""
+    p: dict = {}
+    p["norm"] = np.asarray(sd["norm"]).reshape(1, 1, 1, 3)
+    for bi, n in enumerate((2, 2, 3, 3, 3), start=1):
+        for ci in range(n):
+            src = f"block{bi}.convs.{ci}"
+            dst = f"block{bi}_conv{ci + 1}"
+            _set(p, f"{dst}/kernel", t2f_conv(sd[f"{src}.weight"]))
+            _set(p, f"{dst}/bias", sd[f"{src}.bias"])
+        _set(p, f"block{bi}_projection/kernel", t2f_conv(sd[f"block{bi}.projection.weight"]))
+        _set(p, f"block{bi}_projection/bias", sd[f"block{bi}.projection.bias"])
+    return p
+
+
 def convert_clip_rn50(sd):
     """OpenAI CLIP naming (visual.*, transformer.resblocks.*) -> (params,
     batch_stats) of CLIPModel."""

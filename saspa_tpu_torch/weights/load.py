@@ -31,7 +31,7 @@ import torch
 from saspa_tpu_torch.bridge import state_dict_from_flax, state_dict_from_flax_variables
 from saspa_tpu_torch.weights import convert
 from saspa_tpu_torch.weights.files import read_state_dict
-from saspa_tpu_torch.weights.sources import CONTROLNETS, FAMILIES, PARTS, family_of, find_source
+from saspa_tpu_torch.weights.sources import FAMILIES, PARTS, controlnet_part, family_of, find_source
 
 EXEMPT_KEYS = ("position_ids", "num_batches_tracked")
 RN50_METADATA = ("input_resolution", "context_length", "vocab_size")
@@ -129,6 +129,8 @@ def _convert(kind: str, sd, module) -> list:
         return [({"params": params, "batch_stats": stats}, module, "cal")]
     if kind == "lpips":
         return [(convert.convert_lpips(sd), module, "lpips")]
+    if kind == "hed":
+        return [(convert.convert_hed(sd), module, "hed")]
     raise ValueError(f"no converter of kind {kind!r}")
 
 
@@ -167,11 +169,15 @@ def load_pipeline_weights(pipe, weights_dir) -> Tuple[List[str], List[dict]]:
     """Loads the pipeline's models whose files the tree holds.  The base
     family (text towers, UNet, VAE, and BLIP's towers) loads whole or not at
     all: a tree with some of its files but not all raises.  The ControlNet
-    loads on its own.  Returns (the names of pipe.params loaded, reports)."""
+    and HED load on their own; a ControlNet no file rule provides
+    (`controlnet_part`) raises first.  Returns (the names of pipe.params
+    loaded, reports)."""
     root = Path(weights_dir)
     family = FAMILIES.get(family_of(pipe.base_model))
     if family is None:
         raise ValueError(f"no weights-dir family for {pipe.base_model}")
+    cn_part = controlnet_part(pipe.base_model, pipe.controlnet_kind, pipe.spec.is_xl) \
+        if "controlnet" in pipe.params else None
     wanted = {"unet": family["unet"], "vae": family["vae"]}
     for i, part in enumerate(family["text"]):
         wanted[f"text{i}"] = part
@@ -193,13 +199,12 @@ def load_pipeline_weights(pipe, weights_dir) -> Tuple[List[str], List[dict]]:
                 reports += load_file(path, "blip_diffusion", towers)
             else:
                 reports += load_file(path, k, pipe.params[k])
-        loaded += [k for k in pipe.params if k != "controlnet"]
-    if "controlnet" in pipe.params:
-        part = CONTROLNETS[(pipe.controlnet_kind, pipe.spec.is_xl)]
-        path = find_source(root, part)
+        loaded += [k for k in pipe.params if k not in ("controlnet", "hed")]
+    for name, part in (("controlnet", cn_part), ("hed", "hed")):
+        path = find_source(root, part) if name in pipe.params else None
         if path is not None:
-            reports += load_file(path, "controlnet", pipe.params["controlnet"])
-            loaded.append("controlnet")
+            reports += load_file(path, PARTS[part].kind, pipe.params[name])
+            loaded.append(name)
     return loaded, reports
 
 

@@ -8,7 +8,12 @@ order (`find_source`, weights_day's `_find_src`).  The patterns are
 weights_day's (`default_parts`) for the families the port has, plus two
 the JAX package loads without a weights_day part: the SDXL canny
 ControlNet (`controlnet_canny_xl/`, saspa_tpu/diffusion/pipelines.py:314)
-and SDXL base (`sd_xl/`, for `--base_model sd_xl`).  The SDXL refiner
+and SDXL base (`sd_xl/`, for `--base_model sd_xl`), and SD2.1's UNet, VAE
+and text tower (`sd_v2.1/`, HF's 23-layer CLIPTextModel).  The HED
+ControlNet is SD1.5's (`controlnet_hed_sd15/`) and its annotator is
+controlnet_aux's `ControlNetHED.pth` (weights_day's `hed`).  No public file
+rule exists, in either package, for an SD2.1 ControlNet or an XL HED
+ControlNet: `controlnet_part` refuses both.  The SDXL refiner
 (`--base_model sd_xl --sdedit --controlnet none`) is weights_day's
 `sd_xl-refiner`: `*xl-refiner*/unet/`, SDXL's VAE and the bigG tower.  The CLIP tokenizer's
 merges.txt and BLIP's WordPiece vocab.txt stay under `tokenizer/`, where
@@ -39,6 +44,14 @@ PARTS: Dict[str, Part] = {p.name: p for p in [
     Part("controlnet_canny_sd15", "controlnet",
          ("*control_v11p_sd15_canny*/*.safetensors", "controlnet_canny/*.safetensors",
           "controlnet_canny_sd15/*.safetensors")),
+    Part("controlnet_hed_sd15", "controlnet",
+         ("controlnet_hed_sd15/*.safetensors", "*sd-controlnet-hed*/*.safetensors")),
+    Part("hed", "hed", ("ControlNetHED.pth", "*Annotators*/ControlNetHED.pth")),
+    # SD2.1 (--base_model sd_v2.1): OpenCLIP-H's tower as HF's 23-layer CLIPTextModel
+    Part("sd21_unet", "unet", ("sd_v2.1/unet/*.safetensors", "*stable-diffusion-2-1*/unet/*.safetensors")),
+    Part("sd21_vae", "vae", ("sd_v2.1/vae/*.safetensors", "*stable-diffusion-2-1*/vae/*.safetensors")),
+    Part("sd21_text", "clip_text",
+         ("sd_v2.1/text_encoder/*.safetensors", "*stable-diffusion-2-1*/text_encoder/*.safetensors")),
     # InstructPix2Pix (ALIA's editor for planes_biased): an 8-channel conv_in
     Part("ip2p_unet", "unet", ("*instruct-pix2pix*/unet/*.safetensors", "ip2p/unet/*.safetensors")),
     Part("ip2p_vae", "vae", ("*instruct-pix2pix*/vae/*.safetensors", "ip2p/vae/*.safetensors")),
@@ -83,13 +96,31 @@ PARTS: Dict[str, Part] = {p.name: p for p in [
 # blip_diffusion-controlnet shares blip_diffusion's weights
 FAMILIES: Dict[str, Dict[str, object]] = {
     "sd_v1.5": {"unet": "sd15_unet", "vae": "sd15_vae", "text": ("sd15_text",)},
+    "sd_v2.1": {"unet": "sd21_unet", "vae": "sd21_vae", "text": ("sd21_text",)},
     "ip2p": {"unet": "ip2p_unet", "vae": "ip2p_vae", "text": ("ip2p_text",)},
     "sd_xl-turbo": {"unet": "xl_unet", "vae": "xl_vae", "text": ("xl_text_l", "xl_text_bigg")},
     "sd_xl": {"unet": "xlbase_unet", "vae": "xl_vae", "text": ("xlbase_text_l", "xlbase_text_bigg")},
     "sd_xl-refiner": {"unet": "refiner_unet", "vae": "xl_vae", "text": ("xl_text_bigg",)},
     "blip_diffusion": {"unet": "bd_unet", "vae": "bd_vae", "text": ("bd_text",), "blip": "bd_qformer"},
 }
-CONTROLNETS = {("canny", False): "controlnet_canny_sd15", ("canny", True): "controlnet_canny_xl"}
+CONTROLNETS = {("canny", False): "controlnet_canny_sd15", ("canny", True): "controlnet_canny_xl",
+               ("hed", False): "controlnet_hed_sd15"}
+
+
+def controlnet_part(base_model: str, kind: str, is_xl: bool) -> str:
+    """The part of a pipeline's ControlNet, or a FileNotFoundError naming
+    the file no rule provides: an SD2.1 ControlNet (SD1.5's, which the JAX
+    package would load there, has a 768-wide context and conv projections)
+    and an XL HED ControlNet."""
+    if base_model == "sd_v2.1":
+        raise FileNotFoundError(f"no file rule for an SD2.1 {kind} ControlNet (controlnet_{kind}_sd21): SD1.5's "
+                                f"controlnet_{kind}_sd15 does not fit SD2.1's UNet (cross-attention 1024, linear "
+                                "projections); run SD2.1 with --controlnet none, or without --weights_dir")
+    part = CONTROLNETS.get((kind, is_xl))
+    if part is None:
+        raise FileNotFoundError(f"no file rule for a{'n XL' if is_xl else ''} {kind} ControlNet "
+                                f"(controlnet_{kind}_{'xl' if is_xl else 'sd15'})")
+    return part
 
 
 def family_of(base_model: str) -> str:

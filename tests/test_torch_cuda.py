@@ -209,6 +209,58 @@ def test_group_norm_kernel_matches_plain(gen, b, c, h, w, act, eps, tpu):
     assert (out == ref).float().mean() >= 0.99
 
 
+@pytest.mark.parametrize("b,c,h,w,act,eps", [(2, 128, 64, 64, "silu", 1e-6), (1, 256, 32, 32, None, 1e-6),
+                                               (2, 512, 16, 16, "silu", 1e-6), (2, 64, 5, 7, "silu", 1e-5),
+                                               (2, 2048, 8, 8, None, 1e-5), (1, 96, 9, 9, "silu", 1e-5)])
+@pytest.mark.parametrize("tpu", [False, True])
+def test_group_norm_f32_kernel_matches_plain(gen, b, c, h, w, act, eps, tpu):
+    """f32 x (the XL VAE under SASPA_XL_VAE_FP32=1), both epilogues, 16-byte
+    vectors of 4 channels: f32 out within 2e-5 of the largest output (the
+    statistics' sum order), counted by launches_f32 alone."""
+    x = (0.5 + 3.0 * torch.randn(b, c, h, w, generator=gen, device="cuda")).to(memory_format=torch.channels_last)
+    gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    before = (groupnorm.launches, groupnorm.launches_tpu, groupnorm.launches_f32)
+    out = groupnorm.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
+    assert (groupnorm.launches, groupnorm.launches_tpu, groupnorm.launches_f32) == (*before[:2], before[2] + 1)
+    plain = groupnorm.group_norm_tpu_plain if tpu else groupnorm.group_norm_plain
+    ref = plain(x, gamma, beta, 32, eps, act)
+    assert out.dtype == torch.float32 and out.shape == x.shape and out.stride() == x.stride()
+    assert (out - ref).abs().max() <= 2e-5 * ref.abs().max()
+
+
+def test_group_norm_f32_at_2_31_elements(gen):
+    """The XL VAE's f32 site at 1024^2, B8 (C256): 2^31 elements, past a
+    32-bit offset.  The last sample (the elements past 2^31 - 2^28) against
+    the plain version on that sample alone (samples are independent)."""
+    x = torch.empty(8, 256, 1024, 1024, device="cuda").to(memory_format=torch.channels_last)
+    x.normal_(generator=gen).mul_(3.0).add_(0.5)
+    gamma = 1.0 + 0.2 * torch.randn(256, generator=gen, device="cuda")
+    beta = 0.2 * torch.randn(256, generator=gen, device="cuda")
+    out = groupnorm.group_norm(x, gamma, beta, 32, 1e-6, "silu")
+    ref = groupnorm.group_norm_plain(x[7:], gamma, beta, 32, 1e-6, "silu")
+    assert (out[7:] - ref).abs().max() <= 2e-5 * ref.abs().max()
+    assert bool(torch.isfinite(out[0]).all())
+
+
+@pytest.mark.parametrize("b,l,h", [(1, 256, 1), (2, 1024, 1), (1, 96, 2), (8, 4096, 1)])
+def test_attention_packed_f32_kernel_matches_plain(gen, b, l, h):
+    """f32 at head dim 512 (the XL VAE's one head under SASPA_XL_VAE_FP32=1),
+    peaked scores (q of 3x the unit scale): f32 out within 1e-4 of the
+    largest output (online against one-pass softmax, other product sum
+    orders), counted by launches_f32 alone; L = 96 is three 32-key tiles,
+    L = 4096 at B8 the VAE's decode shape."""
+    d = 512
+    q = (torch.randn(b, l, h * d, generator=gen, device="cuda") * (3.0 * attention.LOG2E / math.sqrt(d)))
+    k, v = (torch.randn(b, l, h * d, generator=gen, device="cuda") for _ in range(2))
+    before = (attention.launches, attention.launches_f32)
+    out = attention.flash_attention_packed(q, k, v, h)
+    assert (attention.launches, attention.launches_f32) == (before[0], before[1] + 1)
+    ref = attention.flash_attention_packed_plain(q, k, v, h)
+    assert out.dtype == torch.float32 and ref.abs().max() >= 1.5
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
 @pytest.mark.parametrize("m,c", [(4096, 320), (1000, 640), (64, 1280), (3, 2048), (4099, 320), (1003, 640),
                                  (67, 1280), (13, 8), (257, 64), (999, 1000), (5, 2048), (65536, 320)])
 def test_layernorm_kernel_matches_plain(gen, m, c):
@@ -350,9 +402,14 @@ def test_flash_attention_wgmma_kernel_peaked(gen, b, lq, lk, h, d):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
-    x = torch.zeros(1, 256, 64, device="cuda")  # f32 on the card
-    with pytest.raises(TypeError):
+    x = torch.zeros(1, 256, 64, device="cuda")  # f32 on the card: the f32 kernel takes head dim 512 only
+    with pytest.raises(ValueError):
         attention.flash_attention_packed(x, x, x, 1)
+    with pytest.raises(TypeError):  # f64
+        attention.flash_attention_packed(x.double(), x.double(), x.double(), 1)
+    x512 = torch.zeros(1, 80, 512, device="cuda")
+    with pytest.raises(ValueError):  # f32 at L = 80: the f32 kernel's tiles take L % 32 == 0
+        attention.flash_attention_packed(x512, x512, x512, 1)
     y = x[:, :, :40].to(torch.bfloat16).contiguous()  # head dim 40: not padded
     with pytest.raises(ValueError):
         attention.flash_attention_packed(y, y, y, 1)
@@ -361,8 +418,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         with pytest.raises(ValueError):
             attention.flash_attention_packed(x192, x192, x192, 2)
     ones = torch.ones(64, device="cuda")
-    with pytest.raises(TypeError):  # f32 activations
+    with pytest.raises(TypeError):  # f64 activations
+        groupnorm.group_norm(x.reshape(1, 64, 16, 16).double().to(memory_format=torch.channels_last), ones, ones)
+    with pytest.raises(ValueError):  # 3-d
         groupnorm.group_norm(x.reshape(1, 64, 256), ones, ones)
+    wide = torch.zeros(1, 2056, 2, 2, device="cuda").to(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):  # f32 rows of 2056 channels: past 512 threads of 4
+        groupnorm.group_norm(wide, torch.ones(2056, device="cuda"), torch.ones(2056, device="cuda"), 8)
     with pytest.raises(ValueError):  # contiguous NCHW, not channels-last
         groupnorm.group_norm(y.reshape(1, 40, 16, 16), ones[:40], ones[:40])
     with pytest.raises(TypeError):

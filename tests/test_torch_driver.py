@@ -176,7 +176,8 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
     """`gen` filters unless --skip_filter is passed (the JAX CLI's
     semantic + top-10 confidence recipe); the presets run with their
     filter recipes, ALIA on planes_biased too (ip2p, tests/test_torch_ip2p.py);
-    the generation families not ported yet raise, each naming its family."""
+    no generation family is refused any more (SD2.1 and HED build); what
+    the JAX package refuses, the port refuses."""
     import saspa_tpu_torch.cli as tcli
 
     calls = []
@@ -192,8 +193,6 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
                      ("gen", {}), alia, alia]
     monkeypatch.undo()
     tdriver._check_supported(GenerationConfig.alia("planes_biased").with_dataset_overrides())
-    with pytest.raises(NotImplementedError, match=r"SD2\.1.*Queue 1 item 12"):
-        init_pipeline("sd_v2.1", "canny")
     # weights_dir reaches the pipeline, which loads the tree's files (tests/test_torch_weights.py)
     import saspa_tpu_torch.diffusion.pipelines as tpipelines
 
@@ -213,13 +212,16 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
         assert init_pipeline("sd_xl", None, SDEdit=True) == ("sd", ("sd_xl-refiner",), {"controlnet": None, **plain})
         assert init_pipeline("sd_v1.5", "canny", sampler="unipcmultistep") == \
             ("sd", ("sd_v1.5",), {"controlnet": "canny", **plain, "sampler": "unipcmultistep"})
-    with pytest.raises(NotImplementedError, match=r"HED.*Queue 1 item 12"):
-        tdriver._check_supported(GenerationConfig(controlnet="hed"))
+        # SD2.1 and the HED ControlNet build (tests/test_torch_sd21.py, tests/test_torch_hed.py)
+        assert init_pipeline("sd_v2.1", "canny") == ("sd", ("sd_v2.1",), {"controlnet": "canny", **plain})
+        assert init_pipeline("sd_v1.5", "hed", SDEdit=True) == ("sd", ("sd_v1.5",), {"controlnet": "hed", **plain})
+    tdriver._check_supported(GenerationConfig(controlnet="hed"))
+    tdriver._check_supported(GenerationConfig(base_model="sd_v2.1", sdedit=True, controlnet="hed"))
     tdriver._check_supported(GenerationConfig(sdedit=True, controlnet=None))
     tdriver._check_supported(GenerationConfig(sdedit=True, controlnet="canny"))
     # BLIP-Diffusion + canny builds (its constructor stubbed: the full-width
     # towers are the card's), and so does cub's SDXL-Turbo + canny; BLIP's
-    # edit path builds without a ControlNet; HED raises
+    # edit path builds without a ControlNet; so does BLIP-Diffusion + HED
     import saspa_tpu_torch.models.blip_diffusion as tblip
 
     monkeypatch.setattr(tblip, "BlipDiffusionPipeline", lambda **kw: ("blip", kw))
@@ -232,11 +234,11 @@ def test_cli_refuses_what_is_not_ported(monkeypatch):
                   "init_seed": 0})
     tdriver._check_supported(GenerationConfig(base_model="blip_diffusion-edit"))
     tdriver._check_supported(GenerationConfig(dataset="cub", base_model="blip_diffusion").with_dataset_overrides())
-    with pytest.raises(NotImplementedError, match=r"HED.*Queue 1 item 12"):
-        tdriver._check_supported(GenerationConfig(dataset="cub", base_model="blip_diffusion",
-                                                  controlnet="hed").with_dataset_overrides())
-    with pytest.raises(NotImplementedError, match=r"HED.*Queue 1 item 12"):
-        init_pipeline("blip_diffusion", "hed")
+    tdriver._check_supported(GenerationConfig(dataset="cub", base_model="blip_diffusion",
+                                              controlnet="hed").with_dataset_overrides())
+    assert init_pipeline("blip_diffusion", "hed") == \
+        ("blip", {"controlnet": "hed", "sampler": "ddim", "dtype": None, "device": None, "weights_dir": None,
+                  "init_seed": 0})
     with pytest.raises(ValueError, match="SDEdit is not supported with blip_diffusion"):
         init_pipeline("blip_diffusion", "canny", SDEdit=True)
     with pytest.raises(ValueError, match="SDEdit is not supported with blip_diffusion"):

@@ -195,15 +195,21 @@ def test_init_pipeline_maps_sd_xl_sdedit_to_the_refiner(monkeypatch, base_model,
 
 
 def test_refusals_left(monkeypatch):
-    """The refiner and UniPC are ported; SD2.1 and the HED ControlNet still
-    refuse, naming ROADMAP Queue 1 item 12."""
-    assert tpipelines.unported_family("sd_xl", None, "ddim", sdedit=True) is None
-    assert tpipelines.unported_family("sd_v1.5", "canny", "unipcmultistep") is None
-    assert tpipelines.unported_family("sd_xl-refiner", None, "unipcmultistep", sdedit=True) is None
-    with pytest.raises(NotImplementedError, match="SD2.1.*item 12"):
-        tpipelines.init_pipeline("sd_v2.1", "canny")
-    with pytest.raises(NotImplementedError, match="HED.*item 12"):
-        tpipelines.init_pipeline("sd_v1.5", "hed")
+    """No generation family is refused any more: the refiner and UniPC, and
+    SD2.1 and the HED ControlNet, build the pipeline JAX's init_pipeline
+    builds (the refusal helpers are gone)."""
+    assert not hasattr(tpipelines, "unported_family") and not hasattr(tpipelines, "refuse_unported")
+    got = []
+    for mod in (jpipelines, tpipelines):
+        _Recorder.calls = []
+        monkeypatch.setattr(mod, "DiffusionPipeline", _Recorder)
+        for args, kw in ((("sd_v2.1", "canny"), {}), (("sd_v1.5", "hed"), {}), (("sd_xl", None), {"SDEdit": True}),
+                         (("sd_v1.5", "canny"), {"sampler": "unipcmultistep"})):
+            mod.init_pipeline(*args, **kw)
+        got.append([(kwargs.get("base_model", a[0] if a else None), kwargs["controlnet"], kwargs["sampler"])
+                    for a, kwargs in _Recorder.calls])
+    assert got[0] == got[1] == [("sd_v2.1", "canny", "ddim"), ("sd_v1.5", "hed", "ddim"),
+                                ("sd_xl-refiner", None, "ddim"), ("sd_v1.5", "canny", "unipcmultistep")]
 
 
 def _tiny_specs(monkeypatch):
