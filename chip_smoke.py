@@ -333,6 +333,29 @@ Phases, each printing one JSON line:
                 (f32 at 67 TFLOP/s) and SDPA / F.group_norm in f32 beside
                 them; the PNGs' mean |f32 - bf16| in uint8 levels against the
                 same latents through the bf16 VAE of the same weights.
+ 20. captions -- the prompt and caption tools, in-process from a temporary
+                root:  cli prep-captions --dataset planes  over 8 sources (4
+                seeded PNGs of 300-900 px a side, 4 of tests/fixtures/jpeg's
+                JPEGs) with two --questions, and  cli prep-prompts
+                --dataset planes --num 16, on full-width seeded public
+                files written to a --weights_dir tree: LAVIS's BLIP caption
+                and VQA .pth (tools/synth_checkpoints.py's layouts, norm
+                weights near 1), the keytotext T5's pytorch_model.bin and a
+                30522-line vocab.txt; everything in f32.  Gates: the load
+                reports (every key taken, element counts and f64 sums equal
+                to the files'), the captions JSON's and the LE JSON's
+                schemas, the first-step logits of the captioner, the VQA
+                decoder and the T5 on the card against the port's CPU f32
+                within 1e-4 of the largest logit, and the ids (greedy
+                captions of a PNG and a JPEG, greedy answers to both
+                questions, sampled T5 sentences of 2 prompts under one key)
+                equal to the CPU's up to the first step whose CPU top-2
+                margin is below 1e-3 (reported); K1-K6 launch 0 times.
+                The decode loops replay from CUDA graphs; a caption and a
+                greedy T5 decode launched eagerly give the same ids.
+                Printed: write, load s and GB/s, captions/s, answers/s,
+                sentences/s, s a decode step (graphed and eager), the
+                host's noise draw a T5 call, peak memory.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -4862,6 +4885,319 @@ def run_xl_vae_f32_phase(seed: int, checks: dict) -> dict:
         return counts
 
 
+# ---- phase 20: the prompt and caption tools ---------------------------------
+CAPTION_JPEGS = ("q75_420_375x500", "prog_420_375x500", "q90_420_667x1000", "opt_420_90x120")
+CAPTION_PNG_HW = ((480, 640), (375, 500), (300, 300), (900, 600))  # larger and smaller than BLIP's 384 / 480
+CAPTION_QUESTIONS = ("what color is the plane?", "is it day or night?")
+PROMPTS_NUM = 16
+CAPTION_MARGIN = 1e-3  # ids are held card vs CPU up to the first step whose CPU top-2 margin is below this
+# read but not loaded: BERT's tied MLM bias (cls.predictions.bias is loaded) and T5's tied copies of shared.weight
+CAPTION_NOT_LOADED = WEIGHTS_NOT_LOADED + ("cls.predictions.decoder.bias", "embed_tokens", "lm_head")
+
+
+def unit_norms(sd: dict, rng) -> dict:
+    """The layouts' LayerNorm and RMS weights at 1 + N(0, 0.1^2) instead of
+    N(0, 0.02^2): seeded networks whose activations keep their scale, so the
+    logits' top-2 margins are not all below CAPTION_MARGIN."""
+    for k in sd:
+        leaf = k.rsplit(".", 2)
+        if k.endswith(".weight") and ("norm" in leaf[-2].lower() or "LayerNorm" in k or "layer_norm" in k):
+            sd[k] = (1 + 0.1 * rng.standard_normal(sd[k].shape)).astype(np.float32)
+    return sd
+
+
+def hf_t5_state_dict(fill) -> dict:
+    """mrm8488/t5-base-finetuned-common_gen's pytorch_model.bin layout at
+    t5-base's width (12 + 12 blocks, d_model 768, 12 heads of 64, FFN 3072,
+    32128 tokens, 32 buckets), seeded; the tied copies hold shared.weight's
+    values, as the .bin does."""
+    from tools.synth_checkpoints import _SD
+
+    sd = _SD(fill)
+    d, inner, heads = 768, 768, 12
+    sd.t("shared.weight", 32128, d)
+    for stack, n_sub in (("encoder", 2), ("decoder", 3)):
+        for i in range(12):
+            b = f"{stack}.block.{i}.layer"
+            attns = [(f"{b}.0.SelfAttention", i == 0)] + ([(f"{b}.1.EncDecAttention", False)] if n_sub == 3 else [])
+            for name, rel in attns:
+                for m in "qkv":
+                    sd.linear(f"{name}.{m}", inner, d, bias=False)
+                sd.linear(f"{name}.o", d, inner, bias=False)
+                if rel:
+                    sd.t(f"{name}.relative_attention_bias.weight", 32, heads)
+            for j in range(n_sub):
+                sd.t(f"{b}.{j}.layer_norm.weight", d)
+            sd.linear(f"{b}.{n_sub - 1}.DenseReluDense.wi", 3072, d, bias=False)
+            sd.linear(f"{b}.{n_sub - 1}.DenseReluDense.wo", d, 3072, bias=False)
+        sd.t(f"{stack}.final_layer_norm.weight", d)
+    return dict(sd)
+
+
+def write_caption_weights(root, seed: int) -> dict:
+    """The prompt tools' public files under root, full width, seeded:
+    LAVIS's model_base_caption_capfilt_large.pth and
+    model_base_vqa_capfilt_large.pth ({"model": sd}, tools/
+    synth_checkpoints.py's layouts), the T5's pytorch_model.bin (tied copies
+    sharing one tensor), and a 30522-line WordPiece vocab.txt.  Returns
+    {path: (elements, f64 sum)} of what each file holds for its model."""
+    from pathlib import Path
+
+    from tools import synth_checkpoints as synth
+
+    root = Path(root)
+    fill = NormalFill(seed)
+    rng = np.random.default_rng(seed + 1)
+    sums = {}
+    for name, make in (("model_base_caption_capfilt_large.pth", synth.lavis_blip_caption_state_dict),
+                       ("model_base_vqa_capfilt_large.pth", synth.lavis_blip_vqa_state_dict)):
+        sd = unit_norms(make(fill=fill), rng)  # cls.predictions.bias is decoder.bias, as HF's head saves it
+        torch.save({"model": {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}}, root / name)
+        sums[str(root / name)] = caption_file_sum(sd)
+        del sd
+    sd = unit_norms(hf_t5_state_dict(fill), rng)
+    shared = torch.from_numpy(sd["shared.weight"])
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    tensors.update({k: shared for k in ("encoder.embed_tokens.weight", "decoder.embed_tokens.weight",
+                                        "lm_head.weight")})
+    folder = root / "t5-base-finetuned-common_gen"
+    folder.mkdir()
+    torch.save(tensors, folder / "pytorch_model.bin")
+    sums[str(folder / "pytorch_model.bin")] = caption_file_sum(sd)
+    # bert-base-uncased's specials where BERT has them, the caption prompt's
+    # words, then made-up words and word pieces
+    words = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    words += ["a", "picture", "of", "the", "plane", "white", "blue", "day", "night", "sky"]
+    words += [f"w{i}" if i % 2 else f"##p{i}" for i in range(30522 - len(words))]
+    (root / "tokenizer").mkdir()
+    (root / "tokenizer" / "vocab.txt").write_text("\n".join(words) + "\n")
+    return sums
+
+
+def caption_file_sum(sd: dict):
+    kept = [v for k, v in sd.items() if not any(x in k for x in CAPTION_NOT_LOADED)]
+    return sum(v.size for v in kept), float(sum(np.sum(v, dtype=np.float64) for v in kept))
+
+
+def rel_err(card: torch.Tensor, cpu: torch.Tensor) -> float:
+    return float((card.float().cpu() - cpu).abs().max() / cpu.abs().max())
+
+
+def ids_agree(card_ids: torch.Tensor, cpu_ids: torch.Tensor, cpu_margins: torch.Tensor, start: int) -> dict:
+    """Card and CPU ids (B, L) equal at every generated position up to the
+    first step whose CPU top-2 margin (B, steps) is below CAPTION_MARGIN."""
+    low = (cpu_margins < CAPTION_MARGIN).any(dim=0).nonzero()
+    cut = int(low[0]) if len(low) else cpu_margins.shape[1]
+    equal = bool(torch.equal(card_ids.cpu()[:, start:start + cut], cpu_ids[:, start:start + cut]))
+    return {"first_low_margin_step": int(low[0]) if len(low) else None, "steps_held": cut, "equal": equal,
+            "min_margin": float(cpu_margins.min()), "all_steps_equal": bool(torch.equal(card_ids.cpu(), cpu_ids))}
+
+
+def run_captions_phase(seed: int) -> dict:
+    """The prompt and caption tools through `cli prep-captions` and `cli
+    prep-prompts` (module docstring, phase 20); returns their launch counts,
+    which must be 0."""
+    import gc
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.gen import caption_tools
+    from saspa_tpu_torch.gen.image_io import read_rgb, write_png
+    from saspa_tpu_torch.models import blip_caption as bc
+    from saspa_tpu_torch.models import blip_vqa as bv
+    from saspa_tpu_torch.models import t5 as t5m
+    from saspa_tpu_torch.utils import graphs
+    from saspa_tpu_torch.utils import rng as rngs
+    from saspa_tpu_torch.weights import load as wload
+
+    fixtures = Path(__file__).resolve().parent / JPEG_FIXTURES
+    out = {"phase": "captions"}
+    made = {}
+    factories = {k: getattr(caption_tools, k) for k in ("_default_captioner", "_default_vqa",
+                                                         "_default_sentence_generator")}
+
+    def recording(name):
+        return lambda *a: made.setdefault(name, factories[name](*a))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    wload.REPORT_SUMS = True
+    try:
+        with PhaseRoot("saspa_captions_") as ph:
+            for name in factories:
+                setattr(caption_tools, name, recording(name))
+            wd = ph.root / "weights"
+            wd.mkdir()
+            file_sums, out["write_s"] = timed(lambda: write_caption_weights(wd, seed + 801))
+            out["tree_bytes"] = sum(f.stat().st_size for f in wd.rglob("*") if f.is_file())
+            srcs = []
+            rs = np.random.RandomState(seed + 802)
+            for i, (h, w) in enumerate(CAPTION_PNG_HW):
+                path = ph.root / "sources" / f"png_{i}_{h}x{w}.png"
+                path.parent.mkdir(exist_ok=True)
+                write_png(path, synthetic_sources(rs, 1, max(h, w))[0][:h, :w])
+                srcs.append(str(path))
+            srcs += [str(fixtures / f"{name}.jpg") for name in CAPTION_JPEGS]
+
+            # ---- cli prep-captions: the captioner and VQA load, caption and answer
+            wload.REPORTS.clear()
+            cap_json = ph.root / "captions" / "planes_captions.json"
+            argv = ["prep-captions", "--dataset", "planes", "--images", *srcs, "--output", str(cap_json),
+                    "--questions", *CAPTION_QUESTIONS, "--weights_dir", str(wd)]
+            caps, out["prep_captions_s"] = timed(lambda: cli.main(argv))
+            reports = list(wload.REPORTS)
+            written = json.loads(cap_json.read_text())
+            require(written == caps and list(written) == srcs, "captions JSON keys", list(written))
+            require(all(set(e) == {"caption", *CAPTION_QUESTIONS} and all(isinstance(v, str) for v in e.values())
+                        for e in written.values()), "captions JSON schema", written)
+            cap, vqa = made["_default_captioner"], made["_default_vqa"]
+            require(cap.tokenizer.has_vocab and cap.device.type == "cuda" and vqa.device.type == "cuda",
+                    "the captioner's vocab and device", cap.device, vqa.device)
+            out["captions"] = {Path(p).name: e for p, e in written.items()}
+
+            # ---- throughput, warm: captions/s, answers/s, s a decode step from the
+            # CUDA graph and launched eagerly (the same ids)
+            _, t_cap = timed(lambda: [cap(p) for p in srcs])
+            _, t_vqa = timed(lambda: [vqa.answer_questions(p, list(CAPTION_QUESTIONS)) for p in srcs])
+            images = bc.blip_preprocess(read_rgb(srcs[0])[None], 384, "cuda")
+            prompt = cap.prompt_ids()
+            steps = cap.max_len - len(prompt)
+            with torch.no_grad():
+                _, t_vit = timed(lambda: cap.model.encode_image(images))
+            ids_graph, t_graph = timed(lambda: bc.greedy_caption_ids(cap.model, images, prompt, cap.max_len))
+            graphs.ENABLED = False
+            try:
+                ids_eager, t_eager = timed(lambda: bc.greedy_caption_ids(cap.model, images, prompt, cap.max_len))
+            finally:
+                graphs.ENABLED = True
+            require(torch.equal(ids_graph, ids_eager), "caption ids: CUDA graph vs eager", ids_graph, ids_eager)
+            out.update({"sources": len(srcs), "captions_per_s": len(srcs) / t_cap,
+                        "answers_per_s": len(srcs) * len(CAPTION_QUESTIONS) / t_vqa, "caption_vit_s": t_vit,
+                        "caption_s_per_decode_step": (t_graph - t_vit) / steps,
+                        "caption_s_per_decode_step_eager": (t_eager - t_vit) / steps})
+
+            # ---- card against the port's CPU f32 on 2 sources (a PNG and a JPEG), one
+            # batch each model; the card decodes through the graphed functions
+            raw = [read_rgb(p)[None] for p in (srcs[0], srcs[len(CAPTION_PNG_HW)])]
+            qs = list(CAPTION_QUESTIONS)
+            cap_cpu, out["cpu_load_caption_s"] = timed(lambda: bc.TorchBlipCaptioner(weights_dir=str(wd),
+                                                                                       device="cpu"))
+            n0, first, held = len(prompt), {}, {}
+            with torch.no_grad():
+                for tool, dev in ((cap, "cuda"), (cap_cpu, "cpu")):
+                    x = torch.cat([bc.blip_preprocess(r, 384, dev) for r in raw])
+                    tokens = tool.model.encode_image(x)
+                    ids = torch.full((len(raw), tool.max_len), bc.PAD_ID, dtype=torch.long, device=dev)
+                    ids[:, :n0] = torch.tensor(prompt, device=dev)
+                    first[dev] = tool.model.text_decoder(ids, tokens)[:, n0 - 1]
+                    if dev == "cuda":
+                        card_ids = bc.greedy_caption_ids(tool.model, x, prompt, tool.max_len)
+                    else:
+                        dec = tool.model.text_decoder
+                        cpu_ids, cpu_margins = bc.greedy_decode(lambda t: dec.decoder_hidden(t, tokens), dec.head,
+                                                                ids, n0, return_margins=True)
+            held["caption"] = {"first_step_rel_err": rel_err(first["cuda"], first["cpu"]),
+                               **ids_agree(card_ids, cpu_ids, cpu_margins, n0)}
+            del cap_cpu
+            vqa_cpu, out["cpu_load_vqa_s"] = timed(lambda: bv.TorchBlipVQA(weights_dir=str(wd), device="cpu"))
+            with torch.no_grad():
+                for tool, dev in ((vqa, "cuda"), (vqa_cpu, "cpu")):
+                    x = torch.cat([bc.blip_preprocess(r, bv.VQA_IMAGE_SIZE, dev) for r in raw])
+                    qids, qmask = tool.tokenize_questions(qs * len(raw))
+                    tokens = tool.model.encode_image(x).repeat_interleave(len(qs), dim=0)  # image i, question j
+                    states = tool.model.encode_question(qids, tokens, qmask)
+                    a0 = torch.full((len(qids), bv.MAX_ANSWER_LEN), bc.PAD_ID, dtype=torch.long, device=dev)
+                    a0[:, 0] = bc.BOS_ID
+                    first[dev] = tool.model.text_decoder(a0, states, qmask)[:, 0]
+                    if dev == "cuda":
+                        card_ids = bv.greedy_answer_ids_from_states(tool.model, states, qmask)
+                    else:
+                        cpu_ids, cpu_margins = bv.greedy_answer_ids_from_states(tool.model, states, qmask,
+                                                                                return_margins=True)
+            held["vqa"] = {"first_step_rel_err": rel_err(first["cuda"], first["cpu"]),
+                           **ids_agree(card_ids, cpu_ids, cpu_margins, 1)}
+            del vqa_cpu
+            out["card_vs_cpu"] = held
+
+            # ---- cli prep-prompts: the keytotext T5 samples 16 sentences a class
+            wload.REPORTS.clear()
+            argv = ["prep-prompts", "--dataset", "planes", "--num", str(PROMPTS_NUM), "--output_path",
+                    str(ph.root / "prompts"), "--weights_dir", str(wd)]
+            path, out["prep_prompts_s"] = timed(lambda: cli.main(argv))
+            reports += list(wload.REPORTS)
+            pool = json.loads(Path(path).read_text())
+            classes = caption_tools.DATASET_TO_LABEL_DICT["planes"]
+            require(Path(path).name == f"LE_{PROMPTS_NUM}_planes_all_classes_False.json" and
+                    list(pool) == list(dict.fromkeys(classes)) and
+                    all(isinstance(v, list) and all(isinstance(s, str) for s in v) for v in pool.values()),
+                    "LE JSON schema", path, pool)
+            t5 = made["_default_sentence_generator"]
+            t5_load_s = wload.REPORTS[-1]["seconds"]
+            n_sentences = PROMPTS_NUM * len(classes)
+            ids, mask = t5.encode_batch(["airplane"])
+            with torch.no_grad():
+                _, t_enc = timed(lambda: t5.model.encode(ids, mask))
+            t5m.t5_generate_ids(t5.model, ids, mask, t5.max_new_tokens)  # records the greedy loop's graph
+            greedy_graph, t_graph = timed(lambda: t5m.t5_generate_ids(t5.model, ids, mask, t5.max_new_tokens))
+            graphs.ENABLED = False
+            try:
+                greedy_eager, t_eager = timed(lambda: t5m.t5_generate_ids(t5.model, ids, mask, t5.max_new_tokens))
+            finally:
+                graphs.ENABLED = True
+            require(torch.equal(greedy_graph, greedy_eager), "T5 ids: CUDA graph vs eager", greedy_graph, greedy_eager)
+            _, t_noise = timed(lambda: t5m.sampling_noise(rngs.prng_key(0), 1, t5.max_new_tokens,
+                                                          t5.cfg.vocab_size))
+            out.update({"sentences": n_sentences, "sentences_kept": sum(len(v) for v in pool.values()),
+                        "sentences_per_s": n_sentences / (out["prep_prompts_s"] - t5_load_s),
+                        "t5_s_per_decode_step": (t_graph - t_enc) / t5.max_new_tokens,
+                        "t5_s_per_decode_step_eager": (t_eager - t_enc) / t5.max_new_tokens,
+                        "t5_host_noise_s_per_call": t_noise,
+                        "tokenizer": "sentencepiece" if t5.tokenizer.has_vocab else "hash-fallback"})
+            t5_cpu, out["cpu_load_t5_s"] = timed(lambda: t5m.TorchKeytotextT5(weights_dir=str(wd), device="cpu"))
+            key = rngs.split(rngs.prng_key(seed + 803))[1]
+            texts = ["airplane", "jet"]
+            with torch.no_grad():
+                logits = []
+                for tool in (t5, t5_cpu):
+                    tids, tmask = tool.encode_batch(texts)
+                    enc = tool.model.encode(tids, tmask)
+                    d0 = torch.zeros((len(texts), 1 + tool.max_new_tokens), dtype=torch.long, device=tids.device)
+                    logits.append(tool.model.lm_logits(tool.model.decoder_hidden(d0, enc, tmask)[:, 0]))
+                tids, tmask = t5.encode_batch(texts)
+                card_ids = t5m.t5_generate_ids(t5.model, tids, tmask, t5.max_new_tokens, key=key)
+                tids, tmask = t5_cpu.encode_batch(texts)
+                cpu_ids, cpu_margins = t5m.t5_generate_ids(t5_cpu.model, tids, tmask, t5.max_new_tokens, key=key,
+                                                           return_margins=True)
+            held["t5"] = {"prompts": texts, "first_step_rel_err": rel_err(*logits),
+                          **ids_agree(card_ids, cpu_ids, cpu_margins, 1)}
+            del t5_cpu
+            counts = read_counts()
+            out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            for r in held.values():
+                # f32 on the card (TF32 off) against f32 on the CPU, 12-24 layers deep
+                require(r["first_step_rel_err"] <= 1e-4, "captions: first-step logits card vs CPU", r)
+                require(r["equal"], "captions: ids card vs CPU before the first low-margin step", r)
+            out["load"] = [{**row, "gb_per_s": row["bytes"] / row["seconds"] / 1e9}
+                           for row in check_load_reports(reports, file_sums, "captions")]
+            require(sorted(r["model"] for r in reports) == ["blip_caption", "blip_vqa", "t5"], "captions loads",
+                    [r["model"] for r in reports])
+            require(all(v == 0 for v in counts.values()), "captions: the prompt tools launched a kernel", counts)
+            out.update({"launches": counts, "models_params": {
+                "blip_caption": sum(p.numel() for p in cap.model.parameters()),
+                "blip_vqa": sum(p.numel() for p in vqa.model.parameters()),
+                "t5": sum(p.numel() for p in t5.model.parameters())}})
+            emit(out)
+    finally:
+        for name, fn in factories.items():
+            setattr(caption_tools, name, fn)
+        wload.REPORT_SUMS = False
+        made.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"captions": counts}
+
+
 def train_profile_path(profile):
     from pathlib import Path
 
@@ -5133,6 +5469,10 @@ def main() -> int:
     counts.update(run_sd21_phase(args.seed, checks))
     counts.update(run_hed_phase(args.seed))
     counts.update(run_xl_vae_f32_phase(args.seed, checks))
+
+    # ---- the prompt and caption tools: cli prep-captions (BLIP, VQA) and prep-prompts (keytotext T5) ----
+    torch.cuda.empty_cache()
+    counts.update(run_captions_phase(args.seed))
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

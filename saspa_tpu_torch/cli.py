@@ -6,6 +6,9 @@
     python -m saspa_tpu_torch.cli train --dataset planes --aug_json AUG.json --aug_sample_ratio 0.4 \
         --limit_aug_per_image 2 --special_aug classic
     python -m saspa_tpu_torch.cli eval-biased --ckpt_folder LOGDIR
+    python -m saspa_tpu_torch.cli prep-captions --dataset planes --images A.jpg B.png --output CAPTIONS.json \
+        [--questions "what color is the plane?"] --weights_dir TREE
+    python -m saspa_tpu_torch.cli prep-prompts --dataset planes --num 100 --output_path DIR --weights_dir TREE
 
 `gen` takes the JAX package's flags and builds the same GenerationConfig,
 then runs the port's `run_generation_and_filter` on the card (the CLIP
@@ -35,7 +38,14 @@ the baseline presets `--preset real_guidance` and `--preset alia` with the
 JAX CLI's filter recipes (ALIA on planes_biased runs InstructPix2Pix).
 Sources may be PNG or JPEG (decoded without PIL, `gen/jpeg.py`).
 SASPA_XL_VAE_FP32=1 runs the XL families' VAE in f32, as in the JAX
-package.
+package.  The offline prompt tools take the JAX CLI's flags and write its
+files: `prep-captions` BLIP-captions the images (LAVIS's caption model;
+with `--questions`, BLIP VQA answers each question beside the caption) into
+the captions JSON that `--prompt_type captions` reads; `prep-prompts`
+writes the keytotext T5's sentence pool LE_{num}_{dataset}_all_classes_
+{bool}.json under --output_path and prints its path.  Both read the public
+files (LAVIS's .pth, the T5's HF files) under --weights_dir (else
+$SASPA_WEIGHTS_DIR, else ./weights) and raise without them.
 """
 
 from __future__ import annotations
@@ -133,6 +143,34 @@ def _add_merge(sub):
     p.add_argument("--jsons", nargs="+", required=True)
     p.add_argument("--output", required=True)
     p.add_argument("--amount_per_json", type=int, default=None)
+    return p
+
+
+def _add_prep_captions(sub):
+    p = sub.add_parser(
+        "prep-captions",
+        help="offline: BLIP-caption a dataset into the captions JSON "
+             "(prompts_engineering/blip_utils.py equivalent)",
+    )
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--images", nargs="+", required=True, help="image paths to caption")
+    p.add_argument("--output", required=True)
+    p.add_argument("--questions", nargs="*", default=[])
+    p.add_argument("--weights_dir", default=None)
+    return p
+
+
+def _add_prep_prompts(sub):
+    p = sub.add_parser(
+        "prep-prompts",
+        help="offline: keytotext-T5 sentence pool with keyword filter "
+             "(prompts_engineering/txt2sentance_prompts.py equivalent)",
+    )
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--num", type=int, default=100)
+    p.add_argument("--output_path", required=True)
+    p.add_argument("--all_classes", action="store_true")
+    p.add_argument("--weights_dir", default=None)
     return p
 
 
@@ -234,6 +272,22 @@ def cmd_eval_biased(args, device=None):
     return vb_main(args.ckpt_folder, net=args.net, batch_size=args.batch_size, device=device)
 
 
+def cmd_prep_captions(args, device=None):
+    from saspa_tpu_torch.gen.caption_tools import write_captions_of_a_dataset_to_json
+
+    return write_captions_of_a_dataset_to_json(args.dataset, args.images, args.output, questions=args.questions,
+                                               weights_dir=args.weights_dir, device=device)
+
+
+def cmd_prep_prompts(args, device=None):
+    from saspa_tpu_torch.gen.caption_tools import generate_txt2sentence_prompts
+
+    path = generate_txt2sentence_prompts(args.dataset, args.num, args.output_path, all_classes=args.all_classes,
+                                         weights_dir=args.weights_dir, device=device)
+    print(path)
+    return path
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="saspa_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -242,6 +296,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_train(sub)
     _add_eval_biased(sub)
     _add_merge(sub)
+    _add_prep_captions(sub)
+    _add_prep_prompts(sub)
     return parser
 
 
@@ -249,7 +305,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     return {"gen": cmd_gen, "filter": cmd_filter, "train": cmd_train, "eval-biased": cmd_eval_biased,
-            "merge-jsons": cmd_merge}[args.command](args)
+            "merge-jsons": cmd_merge, "prep-captions": cmd_prep_captions,
+            "prep-prompts": cmd_prep_prompts}[args.command](args)
 
 
 if __name__ == "__main__":

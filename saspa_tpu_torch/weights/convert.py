@@ -541,3 +541,150 @@ def convert_blip_diffusion_vision(sd, layers: int = 24):
         dense(f"{src}.mlp.fc2", f"{dst}_mlp_proj")
     ln("post_layernorm", "ln_post")
     return p
+
+
+# --------------------------------------------------------------------------
+# LAVIS BLIP: the captioner and VQA (models/blip_caption.py, blip_vqa.py)
+# --------------------------------------------------------------------------
+def _blip_dense_ln(sd, p):
+    def dense(src, dst):
+        _set(p, f"{dst}/kernel", t2f_linear(sd[f"{src}.weight"]))
+        _set(p, f"{dst}/bias", sd[f"{src}.bias"])
+
+    def ln(src, dst):
+        _set(p, f"{dst}/scale", sd[f"{src}.weight"])
+        _set(p, f"{dst}/bias", sd[f"{src}.bias"])
+
+    return dense, ln
+
+
+def _convert_blip_vit(sd, p: dict, layers: int):
+    """LAVIS's timm ViT visual_encoder.* -> BlipViT (fused qkv with bias)."""
+    dense, ln = _blip_dense_ln(sd, p)
+    v = "visual_encoder"
+    p.setdefault(v, {})
+    p[v]["cls_token"] = np.asarray(sd[f"{v}.cls_token"])
+    p[v]["pos_embed"] = np.asarray(sd[f"{v}.pos_embed"])
+    _set(p, f"{v}/patch_embed/kernel", t2f_conv(sd[f"{v}.patch_embed.proj.weight"]))
+    _set(p, f"{v}/patch_embed/bias", sd[f"{v}.patch_embed.proj.bias"])
+    for i in range(layers):
+        src, dst = f"{v}.blocks.{i}", f"{v}/blocks_{i}"
+        ln(f"{src}.norm1", f"{dst}/norm1")
+        dense(f"{src}.attn.qkv", f"{dst}/attn_qkv")
+        dense(f"{src}.attn.proj", f"{dst}/attn_proj")
+        ln(f"{src}.norm2", f"{dst}/norm2")
+        dense(f"{src}.mlp.fc1", f"{dst}/mlp_fc1")
+        dense(f"{src}.mlp.fc2", f"{dst}/mlp_fc2")
+    ln(f"{v}.norm", f"{v}/norm")
+
+
+def _convert_blip_bert(sd, p: dict, src_root: str, dst_root: str, layers: int):
+    """med.py's BertModel (embeddings, layers with self- and cross-attention)
+    -> BlipTextDecoder / BlipTextEncoder."""
+    dense, ln = _blip_dense_ln(sd, p)
+    tb, t = src_root, dst_root
+    _set(p, f"{t}/word_embeddings/embedding", sd[f"{tb}.embeddings.word_embeddings.weight"])
+    _set(p, f"{t}/position_embeddings", sd[f"{tb}.embeddings.position_embeddings.weight"])
+    _set(p, f"{t}/token_type_embeddings", sd[f"{tb}.embeddings.token_type_embeddings.weight"])
+    ln(f"{tb}.embeddings.LayerNorm", f"{t}/embeddings_ln")
+    for i in range(layers):
+        src, dst = f"{tb}.encoder.layer.{i}", f"{t}/layer_{i}"
+        for kind, pre in (("attention", "self"), ("crossattention", "cross")):
+            dense(f"{src}.{kind}.self.query", f"{dst}/{pre}_query")
+            dense(f"{src}.{kind}.self.key", f"{dst}/{pre}_key")
+            dense(f"{src}.{kind}.self.value", f"{dst}/{pre}_value")
+            dense(f"{src}.{kind}.output.dense", f"{dst}/{pre}_out_dense")
+            ln(f"{src}.{kind}.output.LayerNorm", f"{dst}/{pre}_out_ln")
+        dense(f"{src}.intermediate.dense", f"{dst}/intermediate_dense")
+        dense(f"{src}.output.dense", f"{dst}/output_dense")
+        ln(f"{src}.output.LayerNorm", f"{dst}/output_ln")
+
+
+def _convert_blip_mlm_head(sd, p: dict, src_root: str, dst_root: str):
+    """BERT's MLM head; HF ties cls.predictions.bias to decoder.bias, and
+    either key carries it (both, where both are present, must agree)."""
+    dense, ln = _blip_dense_ln(sd, p)
+    pred, t = f"{src_root}.cls.predictions", dst_root
+    dense(f"{pred}.transform.dense", f"{t}/transform_dense")
+    ln(f"{pred}.transform.LayerNorm", f"{t}/transform_ln")
+    _set(p, f"{t}/decoder/kernel", t2f_linear(sd[f"{pred}.decoder.weight"]))
+    bias_key = f"{pred}.bias" if f"{pred}.bias" in sd else f"{pred}.decoder.bias"
+    _set(p, f"{t}/decoder/bias", sd[bias_key])
+    if bias_key == f"{pred}.bias" and f"{pred}.decoder.bias" in sd \
+            and not np.array_equal(sd[f"{pred}.decoder.bias"], sd[bias_key]):
+        raise ValueError(f"{pred}.bias and {pred}.decoder.bias differ")
+
+
+def convert_blip_caption(sd, vit_layers: int = 12, text_layers: int = 12):
+    """LAVIS's blip_caption checkpoint: visual_encoder.* (timm ViT),
+    text_decoder.bert.* (BERT decoder), text_decoder.cls.predictions.*."""
+    p: dict = {}
+    _convert_blip_vit(sd, p, vit_layers)
+    _convert_blip_bert(sd, p, "text_decoder.bert", "text_decoder", text_layers)
+    _convert_blip_mlm_head(sd, p, "text_decoder", "text_decoder")
+    return p
+
+
+def convert_blip_vqa(sd, vit_layers: int = 12, text_layers: int = 12):
+    """LAVIS's blip_vqa (vqav2) checkpoint: visual_encoder.* at 480^2,
+    text_encoder.* (the question encoder, no .bert. wrapper) and the answer
+    decoder text_decoder.bert.* + text_decoder.cls.*."""
+    p: dict = {}
+    _convert_blip_vit(sd, p, vit_layers)
+    _convert_blip_bert(sd, p, "text_encoder", "text_encoder", text_layers)
+    _convert_blip_bert(sd, p, "text_decoder.bert", "text_decoder", text_layers)
+    _convert_blip_mlm_head(sd, p, "text_decoder", "text_decoder")
+    return p
+
+
+# --------------------------------------------------------------------------
+# HF T5ForConditionalGeneration (models/t5.py)
+# --------------------------------------------------------------------------
+T5_TIED = ("encoder.embed_tokens.weight", "decoder.embed_tokens.weight", "lm_head.weight")
+
+
+def convert_t5(sd, layers: int = 12):
+    """mrm8488/t5-base-finetuned-common_gen's HF layout: shared.weight (the
+    tied lm_head), {encoder,decoder}.block.N.layer.K.{SelfAttention,
+    EncDecAttention,DenseReluDense}.*, scale-only layer norms, the relative
+    attention bias on block 0 only.  The tied copies a .bin holds
+    (T5_TIED) are read and must equal shared.weight: an untied lm_head
+    (T5 v1.1) does not fit the tied model."""
+    p: dict = {}
+
+    def dense(src, dst):
+        _set(p, f"{dst}/kernel", t2f_linear(sd[f"{src}.weight"]))
+
+    def rms(src, dst):
+        _set(p, f"{dst}/weight", sd[f"{src}.weight"])
+
+    def attn(src, dst, rel_bias: bool):
+        for m in ("q", "k", "v", "o"):
+            dense(f"{src}.{m}", f"{dst}/{m}")
+        if rel_bias:
+            _set(p, f"{dst}/relative_attention_bias", sd[f"{src}.relative_attention_bias.weight"])
+
+    shared = np.asarray(sd["shared.weight"])
+    _set(p, "shared/embedding", shared)
+    for key in T5_TIED:
+        if key in sd and not np.array_equal(sd[key], shared):
+            raise ValueError(f"{key} differs from shared.weight: an untied T5 does not fit T5ForGeneration")
+    for i in range(layers):
+        src, dst = f"encoder.block.{i}", f"encoder/block_{i}"
+        rms(f"{src}.layer.0.layer_norm", f"{dst}_ln0")
+        attn(f"{src}.layer.0.SelfAttention", f"{dst}_attn", rel_bias=(i == 0))
+        rms(f"{src}.layer.1.layer_norm", f"{dst}_ffn/layer_norm")
+        dense(f"{src}.layer.1.DenseReluDense.wi", f"{dst}_ffn/wi")
+        dense(f"{src}.layer.1.DenseReluDense.wo", f"{dst}_ffn/wo")
+    rms("encoder.final_layer_norm", "encoder/final_ln")
+    for i in range(layers):
+        src, dst = f"decoder.block.{i}", f"decoder/block_{i}"
+        rms(f"{src}.layer.0.layer_norm", f"{dst}_ln0")
+        attn(f"{src}.layer.0.SelfAttention", f"{dst}_self", rel_bias=(i == 0))
+        rms(f"{src}.layer.1.layer_norm", f"{dst}_ln1")
+        attn(f"{src}.layer.1.EncDecAttention", f"{dst}_cross", rel_bias=False)
+        rms(f"{src}.layer.2.layer_norm", f"{dst}_ffn/layer_norm")
+        dense(f"{src}.layer.2.DenseReluDense.wi", f"{dst}_ffn/wi")
+        dense(f"{src}.layer.2.DenseReluDense.wo", f"{dst}_ffn/wo")
+    rms("decoder.final_layer_norm", "decoder/final_ln")
+    return p

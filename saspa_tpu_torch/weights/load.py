@@ -9,7 +9,8 @@ ones the JAX converters document: HF's and BERT's `position_ids` buffers,
 BatchNorm's `num_batches_tracked` counters, the OpenAI RN50 archive's
 scalar metadata (`input_resolution`, `context_length`, `vocab_size`), the
 lpips `scaling_layer` constants (checked against the model's, not
-loaded).  Anything else raises and names the keys.
+loaded), and the keys of `KIND_EXEMPT`.  Tied copies (BERT's MLM bias, T5's
+embed_tokens and lm_head) are read and checked equal to the key loaded.  Anything else raises and names the keys.
 
 Each load returns a report: the file, its keys, the parameters and
 elements loaded, bytes and seconds; with REPORT_SUMS set (the chip smoke's
@@ -35,6 +36,13 @@ from saspa_tpu_torch.weights.sources import FAMILIES, PARTS, controlnet_part, fa
 
 EXEMPT_KEYS = ("position_ids", "num_batches_tracked")
 RN50_METADATA = ("input_resolution", "context_length", "vocab_size")
+# keys a kind's file may hold that its model does not take: the RN50
+# archive's metadata; the momentum copies of a LAVIS pretraining checkpoint
+# (the JAX CLI drops them before convert_blip_vqa); the cross-attention
+# bias table of old t5 checkpoints, which HF's T5ForConditionalGeneration
+# ignores too (_keys_to_ignore_on_load_unexpected)
+KIND_EXEMPT = {"clip_rn50": RN50_METADATA, "blip_vqa": ("_m.", "momentum"),
+               "t5": ("decoder.block.0.layer.1.EncDecAttention.relative_attention_bias.weight",)}
 REPORT_SUMS = False
 REPORTS: List[dict] = []  # every load's reports, for a caller that loads through an entry point
 
@@ -131,6 +139,14 @@ def _convert(kind: str, sd, module) -> list:
         return [(convert.convert_lpips(sd), module, "lpips")]
     if kind == "hed":
         return [(convert.convert_hed(sd), module, "hed")]
+    if kind == "blip_caption":
+        vit, text = module.visual_encoder.cfg.layers, module.text_decoder.cfg.layers
+        return [(convert.convert_blip_caption(sd, vit, text), module, "blip_caption")]
+    if kind == "blip_vqa":
+        vit, text = module.visual_encoder.cfg.layers, module.text_decoder.cfg.layers
+        return [(convert.convert_blip_vqa(sd, vit, text), module, "blip_vqa")]
+    if kind == "t5":
+        return [(convert.convert_t5(sd, module.cfg.layers), module, "t5")]
     raise ValueError(f"no converter of kind {kind!r}")
 
 
@@ -144,7 +160,7 @@ def load_file(path, kind: str, module, sd=None) -> List[dict]:
         converted = _convert(kind, tsd, module)
     except KeyError as e:
         raise WeightsMismatch(f"{path}: the {kind} converter found no key {e.args[0]!r}") from e
-    left = unconsumed(tsd, RN50_METADATA if kind == "clip_rn50" else ())
+    left = unconsumed(tsd, KIND_EXEMPT.get(kind, ()))
     if left:
         raise WeightsMismatch(f"{path}: {len(left)} keys the {kind} model does not take: {left[:8]}")
     reports, loaded = [], []
@@ -212,6 +228,22 @@ def refuse_orbax(path) -> None:
     """The JAX package's converted (orbax) checkpoints are not read here."""
     raise NotImplementedError(f"{path} is a checkpoint converted for the JAX package (orbax); the port reads the "
                               "public checkpoint files (README: the --weights_dir layout)")
+
+
+def load_or_init(module, part: str, what: str, weights_dir, params, seed: int) -> Optional[List[dict]]:
+    """A prompt tool's weights: a flax-shaped tree `params` (bridged), else
+    the public file of `part` under weights_dir (the JAX package's converted
+    directory of the same name refused), else the seeded init.  Returns the
+    load reports or None."""
+    from saspa_tpu_torch.models.layers import init_weights
+
+    if params is not None:
+        module.load_state_dict(state_dict_from_flax(params))
+        return None
+    reports = load_one(weights_dir, part, module, what, orbax=part) if weights_dir else None
+    if reports is None:
+        init_weights(module, seed)
+    return reports
 
 
 def load_one(weights_dir, part: str, module, what: str, orbax: Optional[str] = None) -> Optional[List[dict]]:

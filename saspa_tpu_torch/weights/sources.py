@@ -16,9 +16,14 @@ rule exists, in either package, for an SD2.1 ControlNet or an XL HED
 ControlNet: `controlnet_part` refuses both.  The SDXL refiner
 (`--base_model sd_xl --sdedit --controlnet none`) is weights_day's
 `sd_xl-refiner`: `*xl-refiner*/unet/`, SDXL's VAE and the bigG tower.  The CLIP tokenizer's
-merges.txt and BLIP's WordPiece vocab.txt stay under `tokenizer/`, where
-both packages look for them; the released WSDAN-CAL baselines under
-`checkpoints/<dataset>/`, one `.pth` each (the reference's rule).
+merges.txt, BLIP's WordPiece vocab.txt and T5's spiece.model stay under
+`tokenizer/`, where both packages look for them; the released WSDAN-CAL
+baselines under `checkpoints/<dataset>/`, one `.pth` each (the reference's
+rule).  The prompt and caption tools read LAVIS's BLIP caption and VQA
+checkpoints (weights_day's patterns, led by the released file names) and
+mrm8488/t5-base-finetuned-common_gen's HF files; the JAX package's
+converted `blip_caption/`, `blip_vqa/` and `t5_keytotext/` directories
+hold no such file and are refused (weights/load.py `refuse_orbax`).
 """
 
 from __future__ import annotations
@@ -86,6 +91,17 @@ PARTS: Dict[str, Part] = {p.name: p for p in [
     # the filter stage's scorers
     Part("clip_rn50", "clip_rn50", ("RN50.pt", "clip/RN50.pt")),
     Part("lpips", "lpips", ("lpips*.pth", "lpips/*.pth")),
+    # the prompt and caption tools (cli prep-captions / prep-prompts): LAVIS's
+    # checkpoints ({"model": sd}) and the keytotext T5's HF files
+    Part("blip_caption", "blip_caption",
+         ("model_base_caption_capfilt_large.pth", "*blip*caption*base*.pth", "blip_caption/*.pth")),
+    Part("blip_vqa", "blip_vqa", ("model_base_vqa_capfilt_large.pth", "*blip_vqa*.pth", "blip_vqa/*.pth")),
+    Part("t5_keytotext", "t5",
+         ("*t5*common_gen*/*.safetensors", "t5_keytotext/*.safetensors", "*t5*common_gen*/*.bin",
+          "t5_keytotext/*.bin")),
+    # their tokenizers, where the JAX wrappers look (read as text, not converted)
+    Part("blip_vocab", "tokenizer", ("tokenizer/vocab.txt",)),
+    Part("t5_spiece", "tokenizer", ("tokenizer/spiece.model",)),
     # the released WSDAN-CAL baselines, under the registry's dataset names
     *[Part(f"cal_{name}", "cal", (f"checkpoints/{name}/*.pth", f"cal/{ds}/*.pth", f"*cal*{ds}*.pth"))
       for name, ds in (("planes", "planes"), ("cars", "cars"), ("cub", "cub"), ("dtd", "dtd"),

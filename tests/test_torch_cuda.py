@@ -465,3 +465,34 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     za = torch.zeros(256 * 2 * 40 + 4, dtype=torch.bfloat16, device="cuda")[4:].view(1, 256, 2, 40)
     with pytest.raises(ValueError):  # contiguous but 8-byte aligned: TMA needs 16
         attention.flash_attention(za, za, za, 0.1)
+
+
+def test_graphed_decodes_match_eager(gen):
+    """The prompt tools' decode loops from CUDA graphs (utils/graphs.py)
+    give the eager loops' ids, on the graph's first inputs and on new ones."""
+    import numpy as np
+
+    from saspa_tpu_torch.models import blip_caption as bc
+    from saspa_tpu_torch.models import t5 as t5m
+    from saspa_tpu_torch.utils import graphs
+
+    cap = bc.TorchBlipCaptioner(vit=bc.BlipViTConfig(image_size=32, width=32, layers=1, heads=2),
+                                text=bc.BlipTextConfig(width=32, layers=2, heads=2, intermediate=64), max_len=12,
+                                device="cuda", seed=1)
+    t5 = t5m.TorchKeytotextT5(cfg=t5m.T5Config(d_model=32, d_kv=16, d_ff=64, layers=2, heads=2), max_new_tokens=8,
+                              device="cuda", seed=2)
+    rs = np.random.RandomState(0)
+    for _ in range(2):
+        img = rs.randint(0, 256, (2, 40, 56, 3)).astype(np.uint8)
+        key = t5.next_key()
+        ids, mask = t5.encode_batch(["airplane", "a jet, of type 747"])
+        runs = []
+        for enabled in (True, False):
+            graphs.ENABLED = enabled
+            try:
+                runs.append((cap.caption_ids(img, return_margins=True),
+                             t5m.t5_generate_ids(t5.model, ids, mask, 8, key=key, return_margins=True)))
+            finally:
+                graphs.ENABLED = True
+        for graphed, eager in zip(*runs):
+            assert all(torch.equal(a, b) for a, b in zip(graphed, eager))

@@ -205,6 +205,10 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'saspa_tpu'))\n"
         "assert not bad, bad\n"
+        # the prompt and caption tools' modules are among them
+        "new = ['saspa_tpu_torch.models.blip_caption', 'saspa_tpu_torch.models.blip_vqa', 'saspa_tpu_torch.models.t5',\n"
+        "       'saspa_tpu_torch.gen.caption_tools', 'saspa_tpu_torch.gen.recipes', 'saspa_tpu_torch.utils.misc_tools']\n"
+        "assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
     import ast
