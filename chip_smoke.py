@@ -356,6 +356,28 @@ Phases, each printing one JSON line:
                 Printed: write, load s and GB/s, captions/s, answers/s,
                 sentences/s, s a decode step (graphed and eager), the
                 host's noise draw a T5 call, peak memory.
+ 21. backbones -- the Inception-v3 and CBAM backbones of WS-DAN/CAL and CLIP
+                ViT-B/16, in-process from a temporary root on phase 7's
+                tree:  cli train --net inception_mixed_6e  (the planes
+                recipe, batch 4 at 224^2, M 32, bf16, one epoch: 16 steps,
+                validation, test, checkpoint; with --plot_per_class_acc
+                where matplotlib is installed, which must write the val and
+                test PNGs, else that flag must fail before the first step
+                with an error naming matplotlib);  cli train --ckpt  from
+                seeded reference-layout WSDAN-CAL .pth files of mixed_6e
+                and mixed_7c (torchvision's Inception layout under the
+                reference Sequential's index names, 100 classes, with
+                feature_center), 2 steps each, every key read but 7c's
+                attention head (reported skipped), and  --net resnet50_cbam
+                for 2 steps;  cli filter --alia_conf_filtering  with the 6e
+                file as the planes baseline (--weights_dir) on a train
+                split of 100 variants; s/step fed by the input pipeline for
+                6e at batch 4 (profiled: idle share) and 16, 7c and
+                resnet50_cbam at 4, with peak memory; one f32 step of each
+                net card vs CPU (the train phase's f32 bounds) and one f64
+                step of each Inception net (its f64 bounds); and
+                CLIPScorer("vit-b-16") (seeded) on 4 images, card bf16 vs
+                CPU f32 (cosines >= 0.99).  K1-K6 launch 0 times.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -2329,8 +2351,17 @@ def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
-def card_vs_cpu(cfg, dtype, lr: float, seed: int, soft: bool = False) -> list:
-    """TRAIN_COMPARE_STEPS train steps of one seeded full-width model on the
+def feature_side(net: str, size: int) -> int:
+    """The side of a WSDAN-CAL backbone's feature map at size^2 (a forward on
+    the meta device)."""
+    from saspa_tpu_torch.models.cal import WSDAN_CAL
+
+    model = WSDAN_CAL(num_classes=1, net=net, device="meta")
+    return int(model.features(torch.zeros(1, 3, size, size, device="meta")).shape[-1])
+
+
+def card_vs_cpu(cfg, dtype, lr: float, seed: int, soft: bool = False, steps: int = TRAIN_COMPARE_STEPS) -> list:
+    """`steps` train steps of one seeded full-width model (cfg.net) on the
     card and through the port on the CPU (weights moved by state_dict), on
     the same seeded batches with the same injected draws, all in `dtype`;
     the per-step agreement.  With soft, each step also takes seeded soft
@@ -2339,6 +2370,7 @@ def card_vs_cpu(cfg, dtype, lr: float, seed: int, soft: bool = False) -> list:
 
     cfg = cfg.replace(compute_dtype="float32", learning_rate=lr)
     b, m = cfg.batch_size, cfg.num_attentions
+    hw = feature_side(cfg.net, cfg.image_size[0])
     states = {}
     for dev in ("cuda", "cpu"):
         st = ttrain.create_train_state(cfg, TRAIN_CLASSES, device=dev, init_seed=seed)
@@ -2354,10 +2386,10 @@ def card_vs_cpu(cfg, dtype, lr: float, seed: int, soft: bool = False) -> list:
     step = ttrain.make_train_step(cfg, 16)
     rng = np.random.RandomState(seed + 1)
     rows = []
-    for s in range(TRAIN_COMPARE_STEPS):
+    for s in range(steps):
         X = rng.randn(b, 3, *cfg.image_size)
         y = rng.randint(0, TRAIN_CLASSES, b)
-        draws = train_draws(rng, b, m, cfg.image_size[0] // 16)
+        draws = train_draws(rng, b, m, hw)
         y_soft = None
         if soft:
             lam, eye = rng.uniform(0.2, 1.0, (b, 1)), np.eye(TRAIN_CLASSES)
@@ -5198,6 +5230,304 @@ def run_captions_phase(seed: int) -> dict:
     return {"captions": counts}
 
 
+BACKBONE_NETS = ("inception_mixed_6e", "inception_mixed_7c", "resnet50_cbam")
+BACKBONE_TIMED_STEPS = 10
+BACKBONE_PROFILED_STEPS = 2
+BACKBONE_AUGS = 2  # seeded 256^2 PNG augs for each of the filter's first 8 train images
+CLIP_VITB16_IMAGES = 4
+
+
+def inception_cal_state_dict(net: str, num_classes: int, m: int, fill) -> dict:
+    """The reference's WSDAN-CAL state_dict of an Inception net: torchvision's
+    Inception layout (tools/synth_checkpoints.py) under the index names of
+    get_features_mixed_6e/7c's Sequential (weights/convert.py
+    INCEPTION_SEQUENTIAL), the BasicConv2d attention head (which a mixed_7c
+    file holds and its forward never uses) and the bias-free fc."""
+    from saspa_tpu_torch.models.cal import cal_num_features
+    from saspa_tpu_torch.weights.convert import INCEPTION_SEQUENTIAL
+    from tools import synth_checkpoints as synth
+
+    index = {name: i for i, name in enumerate(INCEPTION_SEQUENTIAL) if name}
+    last = index["Mixed_6e" if net == "inception_mixed_6e" else "Mixed_7c"]
+    sd = synth._SD(fill)
+    for k, v in synth.torchvision_inception_state_dict(fill=fill, with_aux=False).items():
+        block, rest = k.split(".", 1)
+        if block in index and index[block] <= last:  # not torchvision's fc
+            sd[f"features.{index[block]}.{rest}"] = v
+    sd.conv("attentions.conv", m, cal_num_features(net), 1, bias=False)
+    sd.bn("attentions.bn", m)
+    sd.linear("fc", num_classes, m * cal_num_features(net), bias=False)
+    return dict(sd)
+
+
+def write_cal_pth(path, sd: dict, center) -> None:
+    from pathlib import Path
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"logs": {"epoch": 80, "val_topk_accuracy": [0.9]},
+                "state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
+                "feature_center": torch.from_numpy(center)}, path)
+
+
+def backbone_step_times(net: str, b: int, aug_json, seed: int, profile: bool = False) -> dict:
+    """s/step of one net's train step fed by the input pipeline (the planes
+    recipe at batch b, bf16 over f32 masters): 3 warm-up steps, then
+    BACKBONE_TIMED_STEPS timed; peak memory above what the state holds; with
+    profile, BACKBONE_PROFILED_STEPS more under torch.profiler (idle share)."""
+    from saspa_tpu_torch.data import datasets as tds
+    from saspa_tpu_torch.data.pipeline import InputPipeline
+    from saspa_tpu_torch.fgvc import train as ttrain
+    from saspa_tpu_torch.utils import rng as rngs
+    from saspa_tpu_torch.utils.config import get_train_config
+
+    cfg = get_train_config("planes", batch_size=b, net=net)
+    state = ttrain.create_train_state(cfg, TRAIN_CLASSES, device="cuda", init_seed=seed)
+    ds = tds.get_datasets("planes", aug_json=str(aug_json), aug_sample_ratio=0.4, limit_aug_per_image=2,
+                          special_aug="classic", seed=1, print_func=lambda *a: None)[0]
+    pipe = InputPipeline(ds, b, resize=cfg.image_size, train_transform="classic", seed=1,
+                         num_threads=cfg.workers * 2, device="cuda")
+    step = ttrain.make_train_step(cfg, len(pipe))
+
+    def batches():
+        e = 0
+        while True:
+            yield from pipe.iter_train(e)
+            e += 1
+
+    it = batches()
+
+    def run_steps(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            X, y, _ = next(it)
+            met = step(state, X, y, rngs.item_key(1, "dropout", 9, i))
+        torch.cuda.synchronize()
+        require(math.isfinite(met["loss"].item()), "backbones:", net, "a non-finite loss")
+        return None, time.perf_counter() - t0
+
+    run_steps(3)  # warm-up: cuDNN's heuristics, the allocator
+    held = sum(t.numel() * t.element_size() for t in (*state.model.parameters(), *state.model.buffers(),
+                                                      *state.momentum.values(), state.feature_center))
+    base = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    _, wall = run_steps(BACKBONE_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    row = {"net": net, "batch": b, "steps": BACKBONE_TIMED_STEPS, "wall_s": wall,
+           "s_per_step": wall / BACKBONE_TIMED_STEPS, "img_per_s": b * BACKBONE_TIMED_STEPS / wall,
+           "peak_mem_bytes": peak, "peak_mem_above_base_bytes": peak - base, "state_bytes": held,
+           "parameters": sum(p.numel() for p in state.model.parameters())}
+    if profile:
+        prof = profile_run(lambda: run_steps(BACKBONE_PROFILED_STEPS))
+        row.update({"profiled_steps": BACKBONE_PROFILED_STEPS, "profiled_wall_s": prof["wall_s"],
+                    "device_busy_s": prof["device_busy_s"], "idle_share": prof["idle_share"],
+                    "kernels_per_step": sum(r["calls"] for r in prof["kernels"]) / BACKBONE_PROFILED_STEPS,
+                    "groups_ms": prof["groups_ms"]})
+    del state, it, pipe
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_backbones_phase(seed: int, smi: str) -> dict:
+    """The Inception-v3 and CBAM backbones of WS-DAN/CAL and CLIP ViT-B/16
+    (module docstring, phase 21); returns the phase's launch counts, which
+    must be 0."""
+    import importlib.util
+    import os
+    from pathlib import Path
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.filters.clip_filters import CLIPScorer, clip_preprocess_path
+    from saspa_tpu_torch.gen.image_io import write_png
+    from saspa_tpu_torch.models.cal import cal_num_features
+    from saspa_tpu_torch.utils.config import get_train_config
+    from saspa_tpu_torch.weights import load as wload
+
+    t_phase = time.perf_counter()
+    with PhaseRoot("saspa_backbones_") as pr:
+        root = pr.root
+        t = time.perf_counter()
+        aug_json = write_train_tree(root, seed + 701)
+        tree_s = time.perf_counter() - t
+        recipe = ["--dataset", "planes", "--aug_json", str(aug_json), "--aug_sample_ratio", "0.4",
+                  "--limit_aug_per_image", "2", "--special_aug", "classic", "--epochs", "1", "--seed", "1"]
+        reset_counts()
+
+        # ---- cli train --net inception_mixed_6e: the planes recipe, one epoch (16 steps), validation, checkpoint;
+        # --plot_per_class_acc too where matplotlib is installed
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        argv = ["train", *recipe, "--net", "inception_mixed_6e", "--logdir", str(root / "logs_6e")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        logs = cli.main(argv + (["--plot_per_class_acc"] if has_mpl else []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        lines = [json.loads(ln) for ln in (Path(logs["save_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        epoch = lines[0]
+        val = next(ln for ln in lines if "val_loss" in ln)
+        test = next(ln for ln in lines if "test_loss" in ln)
+        require(epoch["steps"] == TRAIN_SPLITS["train"] // 4 and math.isfinite(epoch["train_loss"]),
+                "backbones: the 6e epoch's metrics", epoch)
+        require(math.isfinite(val["val_loss"]) and math.isfinite(test["test_loss"]), "backbones: 6e eval", lines)
+        require(Path(logs["ckpt_path"]).is_file(), "backbones: no 6e checkpoint at", logs["ckpt_path"])
+        if has_mpl:
+            plots = sorted(str(p.relative_to(logs["save_dir"])) for p in Path(logs["save_dir"]).glob("plots/*/*.png"))
+            require(plots == [f"plots/{t}/num_samples_per_class_vs_class_accuracy_epoch_0.png" for t in ("test", "val")],
+                    "backbones: the per-class accuracy plots", plots)
+            plot = {"matplotlib": True, "pngs": plots}
+        else:  # the card's machine: the flag must fail before the first step, naming matplotlib
+            try:
+                cli.main(argv[:-1] + [str(root / "logs_plot"), "--plot_per_class_acc"])
+                plot_error = None
+            except ImportError as e:
+                plot_error = str(e)
+            require(plot_error is not None and "matplotlib" in plot_error and not list(root.glob("*logs_plot*")),
+                    "backbones: --plot_per_class_acc without matplotlib did not fail before its first step",
+                    plot_error)
+            plot = {"matplotlib": False, "error": plot_error}
+        run_6e = {"argv": argv, "wall_s": wall, "steps": epoch["steps"], "epoch": epoch, "val": val, "test": test,
+                  "peak_mem_bytes": peak, "plot": plot}
+
+        # ---- --ckpt: seeded reference-layout .pth files of 6e and 7c, 2 steps each; resnet50_cbam, 2 steps
+        fill = NormalFill(seed + 702)
+        files, restores = {}, {}
+        for net in ("inception_mixed_6e", "inception_mixed_7c"):
+            sd = inception_cal_state_dict(net, TRAIN_CLASSES, 32, fill)
+            center = fill.randn(TRAIN_CLASSES, 32 * cal_num_features(net)) * np.float32(0.02)
+            files[net] = (root / "pth" / net / "model_bestacc.pth", sd)
+            write_cal_pth(files[net][0], sd, center)
+        short = ["--train_sample_ratio", "0.125"]  # 8 of the 64 train images: 2 steps at batch 4
+        short_runs = {}
+        for net, ckpt in (("inception_mixed_6e", files["inception_mixed_6e"][0]),
+                          ("inception_mixed_7c", files["inception_mixed_7c"][0]), ("resnet50_cbam", None)):
+            argv_n = ["train", *recipe, *short, "--net", net, "--logdir", str(root / f"logs_{net}")]
+            argv_n += ["--ckpt", str(ckpt)] if ckpt else []
+            t = time.perf_counter()
+            logs_n = cli.main(argv_n)
+            torch.cuda.synchronize()
+            wall_n = time.perf_counter() - t
+            ep = json.loads((Path(logs_n["save_dir"]) / "metrics.jsonl").read_text().splitlines()[0])
+            require(ep["steps"] == 2 and math.isfinite(ep["train_loss"]), "backbones:", net, "steps", ep)
+            short_runs[net] = {"argv": argv_n, "wall_s": wall_n, "epoch": ep}
+            if ckpt:
+                sd = files[net][1]
+                r = logs_n["restored"]
+                dropped = sorted(k for k in sd if k.startswith("attentions.")) if net == "inception_mixed_7c" else []
+                nbt = sum(1 for k in sd if "num_batches_tracked" in k)
+                require(r is not None and r["skipped"] == [] and r["missing"] == [] and r["feature_center"]
+                        and r["pth"]["skipped"] == dropped and len(dropped) in (0, 6)
+                        and r["pth"]["read"] == len(sd) - nbt - sum(1 for k in dropped if "num_batches" not in k),
+                        "backbones: --ckpt did not restore every key", net, r)
+                restores[net] = {"file_keys": r["pth"]["file_keys"], "read": r["pth"]["read"],
+                                 "skipped": r["pth"]["skipped"], "num_batches_tracked": nbt,
+                                 "restored_params": len(torch.load(logs_n["ckpt_path"], weights_only=True)["params"])}
+
+        # ---- cli filter with the 6e file as the planes baseline (--weights_dir), the confidence and ALIA
+        # filters, on a planes train split of 100 images in the file's 100 variants
+        tree = root / "weights"
+        (tree / "checkpoints" / "planes").mkdir(parents=True)
+        os.link(files["inception_mixed_6e"][0], tree / "checkpoints" / "planes" / "model_bestacc.pth")
+        write_wide_planes_tree(root / "wide", root, [], TRAIN_CLASSES, seed + 703)
+        os.environ["SASPA_DATA_ROOT"] = str(root / "wide")
+        aug_dir = root / "filter_augs" / "images"  # the filter reads a folder's images/
+        aug_dir.mkdir(parents=True)
+        rng = np.random.RandomState(seed + 704)
+        train_ids = (root / "wide/FGVC-Aircraft/fgvc-aircraft-2013b/data/images_train.txt").read_text().split()[:8]
+        for i in train_ids:
+            for j in range(BACKBONE_AUGS):
+                write_png(aug_dir / f"{i}_prompt_synthetic_{j}.png", synthetic_sources(rng, 1, 256)[0])
+        argv_f = ["filter", "--dataset", "planes", "--aug_folder", str(aug_dir), "--weights_dir", str(tree),
+                  "--alia_conf_filtering"]
+        wload.REPORTS.clear()
+        t = time.perf_counter()
+        json_path = cli.main(argv_f)
+        torch.cuda.synchronize()
+        filter_wall = time.perf_counter() - t
+        os.environ["SASPA_DATA_ROOT"] = str(root)
+        cal_reports = [r for r in wload.REPORTS if r["kind"] == "cal"]
+        require(len(cal_reports) >= 1 and all(r["unconsumed"] == 0 and r["skipped"] == [] and
+                                              r["params"] == r["module_params"] for r in cal_reports),
+                "backbones: filter's baseline load", cal_reports)
+        kept = json.loads(Path(json_path).read_text())
+        thresholds = sorted(Path(root).glob("alia_confidence_thresholds/*"))
+        filter_row = {"argv": argv_f, "wall_s": filter_wall, "augs": len(train_ids) * BACKBONE_AUGS,
+                      "kept": sum(len(v) for v in kept.values()), "cal_loads": len(cal_reports),
+                      "cal_report": {k: cal_reports[0][k] for k in ("file_keys", "params", "elements", "skipped")},
+                      "alia_threshold_files": [p.name for p in thresholds]}
+
+        counts = read_counts()
+        require(all(v == 0 for v in counts.values()), "backbones: the train and filter runs launched K1-K6", counts)
+        emit({"phase": "backbones", "tree_s": tree_s, "train_6e": run_6e, "short_runs": short_runs,
+              "ckpt_restores": restores, "filter": filter_row, "launches": counts})
+
+        # ---- s/step: 6e at batch 4 (profiled) and 16 (cub's recipe), 7c and resnet50_cbam at batch 4
+        rows = []
+        for net, b in (("inception_mixed_6e", 4), ("inception_mixed_6e", 16), ("inception_mixed_7c", 4),
+                       ("resnet50_cbam", 4)):
+            rows.append(backbone_step_times(net, b, aug_json, seed + 705, profile=(net, b) == ("inception_mixed_6e", 4)))
+            emit({"phase": "backbones_throughput", **rows[-1], "nvidia_smi": smi})
+
+        # ---- one f32 step of each net, card against the port on the CPU (the train phase's f32 bounds), and
+        # one f64 step of the Inception nets (its f64 bounds): the f32 gaps are rounding
+        cfg = get_train_config("planes")
+        cmp = {"f32": {}, "f64": {}}
+        t = time.perf_counter()
+        for net in BACKBONE_NETS:
+            cmp["f32"][net] = card_vs_cpu(cfg.replace(net=net), torch.float32, cfg.learning_rate, seed + 706, steps=1)
+        for net in BACKBONE_NETS[:2]:
+            cmp["f64"][net] = card_vs_cpu(cfg.replace(net=net), torch.float64, cfg.learning_rate, seed + 706, steps=1)
+        emit({"phase": "backbones_card_vs_cpu", "cpu_threads": torch.get_num_threads(),
+              "seconds": time.perf_counter() - t, **cmp})
+        for net, rs in cmp["f32"].items():
+            for r in rs:
+                require(r["loss_rel"] <= 1e-2 and r["feature_center_cos"] >= 0.99 and r["fc_update_cos"] >= 0.98
+                        and r["running_stats_rel"] <= 0.1, "backbones: the card's f32 step differs from the CPU's",
+                        net, r)
+        for net, rs in cmp["f64"].items():
+            for r in rs:
+                require(r["loss_rel"] <= 1e-6 and r["running_stats_rel"] <= 1e-4 and r["feature_center_cos"] >= 0.9999
+                        and r["fc_update_cos"] >= 0.9999, "backbones: the card's f64 step differs from the CPU's",
+                        net, r)
+
+        # ---- CLIP ViT-B/16: seeded, card (bf16) against the CPU (f32) on the same weights
+        paths = []
+        rng = np.random.RandomState(seed + 707)
+        for i, hw in enumerate(((300, 400), (224, 224), (512, 384), (260, 260))[:CLIP_VITB16_IMAGES]):
+            paths.append(str(root / f"clip_{i}.png"))
+            write_png(paths[-1], synthetic_sources(rng, 1, hw[0], hw[1])[0])
+        prompts = ["a photo of a 737-800, a type of aircraft.", "a photo of an A320, a type of aircraft.",
+                   "a photo of an object", "an image"]
+        t = time.perf_counter()
+        card = CLIPScorer("vit-b-16", seed=seed + 708)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        cpu = CLIPScorer("vit-b-16", device="cpu", seed=seed + 708)
+        cpu.model.load_state_dict({k: v.float().cpu() for k, v in card.model.state_dict().items()})
+        (f_card, _), card_s = timed(lambda: (card.image_features(paths, batch_size=CLIP_VITB16_IMAGES), None))
+        f_cpu = cpu.image_features(paths, batch_size=CLIP_VITB16_IMAGES)
+        t_card, t_cpu = card.text_features(prompts), cpu.text_features(prompts)
+        img_cos = row_cosines(torch.from_numpy(f_card), torch.from_numpy(f_cpu)).tolist()
+        txt_cos = row_cosines(torch.from_numpy(t_card), torch.from_numpy(t_cpu)).tolist()
+        x = torch.from_numpy(np.stack([clip_preprocess_path(p) for p in paths])).permute(0, 3, 1, 2)
+        enc_ms = cuda_ms(lambda: card.model.encode_image(x.to("cuda", torch.bfloat16)), iters=10)
+        emit({"phase": "backbones_clip_vitb16", "images": len(paths), "init_s": init_s, "image_features_s": card_s,
+              "encode_image_ms": enc_ms, "image_cosines": img_cos, "text_cosines": txt_cos,
+              "parameters": sum(p.numel() for p in card.model.parameters()),
+              "logits_card": card.logits(f_card, t_card).tolist(), "logits_cpu": cpu.logits(f_cpu, t_cpu).tolist()})
+        require(f_card.shape == (len(paths), 512) and min(img_cos) >= 0.99 and min(txt_cos) >= 0.99,
+                "backbones: CLIP ViT-B/16 card vs CPU", img_cos, txt_cos)
+        del card, cpu
+        torch.cuda.empty_cache()
+    emit({"phase": "backbones_summary", "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi,
+          "s_per_step": {f"{r['net']}_b{r['batch']}": r["s_per_step"] for r in rows},
+          "peak_mem_bytes": {f"{r['net']}_b{r['batch']}": r["peak_mem_bytes"] for r in rows},
+          "idle_share_6e_b4": rows[0].get("idle_share")})
+    require(all(v == 0 for v in read_counts().values()), "backbones: the phase launched K1-K6", read_counts())
+    return read_counts()
+
+
 def train_profile_path(profile):
     from pathlib import Path
 
@@ -5473,6 +5803,10 @@ def main() -> int:
     # ---- the prompt and caption tools: cli prep-captions (BLIP, VQA) and prep-prompts (keytotext T5) ----
     torch.cuda.empty_cache()
     counts.update(run_captions_phase(args.seed))
+
+    # ---- the Inception-v3 and CBAM backbones through cli train, --ckpt, filter; CLIP ViT-B/16 ----
+    torch.cuda.empty_cache()
+    counts["backbones"] = run_backbones_phase(args.seed, smi)
 
     # (name, source, TPU kernel, the check row reported in the line: level 0 after the CFG fork)
     lines = [

@@ -21,7 +21,12 @@ the WSDAN-CAL classifier on the originals mixed with the aug-JSON's images
 (`fgvc/runner.py::run_training`), with the JAX CLI's flags; `--ckpt` takes
 the port's checkpoint or a released WSDAN-CAL .pth; `--gpu_id` is accepted
 and ignored, as there; `--use_target_soft_cross_entropy` blends in the
-CLIP RN50 teacher's soft targets (planes and cars).  `eval-biased` scores
+CLIP RN50 teacher's soft targets (planes and cars); `--net` takes
+resnet101 (the default), resnet50, resnet50_cbam, resnet101_cbam,
+inception_mixed_6e and inception_mixed_7c, as `eval-biased --net` does;
+`--plot_per_class_acc` writes the per-class accuracy plots (matplotlib,
+which the H100 machine lacks: there the flag fails before the first
+step).  `eval-biased` scores
 every checkpoint of a folder on planes_biased's test split, in domain and
 out of domain (`fgvc/val_biased.py`).  `--weights_dir` names a tree of the
 public checkpoint files (README; `weights/sources.py`); without it every

@@ -4,34 +4,33 @@ Trainer's epoch loop with the reference's cadence (fgvc/train.py main()):
 validation every 10 epochs and at the tail, the best validation's
 checkpoint (with feature_center), early stop after 20 stale validations,
 the divergence abort (val acc < 2% after epoch 30, fgvc/train.py:699-701),
-the stop_aug_after_epoch switch, and with --use_target_soft_cross_entropy
+the stop_aug_after_epoch switch, with --use_target_soft_cross_entropy
 the CLIP RN50 zero-shot teacher whose logits each step blends in
-(`make_clip_teacher`).
+(`make_clip_teacher`), and with --plot_per_class_acc a scatter of each
+class's train samples against its accuracy at each validation and test
+(fgvc/plots.py, under save_dir/plots/{val,test}/).  That flag needs
+matplotlib: without it `train_config` raises, before the first step.
 
-Runs on the card unless `device="cpu"` is passed.  Not ported, and raising
-with the ROADMAP item: --plot_per_class_acc (matplotlib) and the Inception
-and CBAM nets.
+Runs on the card unless `device="cpu"` is passed.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+from collections import Counter
 
 import numpy as np
-
-
-def _check_supported(args) -> None:
-    if getattr(args, "plot_per_class_acc", False):
-        raise NotImplementedError("--plot_per_class_acc needs matplotlib (fgvc/plots.py is not ported; ROADMAP "
-                                  "Queue 1 item 11)")
 
 
 def train_config(args):
     """The TrainConfig of the train flags (saspa_tpu/fgvc/runner.py:27-48)."""
     from saspa_tpu_torch.utils.config import get_train_config
 
-    _check_supported(args)
+    if getattr(args, "plot_per_class_acc", False):
+        from saspa_tpu_torch.fgvc.plots import require_matplotlib
+
+        require_matplotlib()
     return get_train_config(
         args.dataset, seed=args.seed, epochs=args.epochs, learning_rate=args.learning_rate,
         batch_size=args.batch_size, weight_decay=args.weight_decay, net=args.net, aug_json=args.aug_json,
@@ -103,9 +102,22 @@ def run_training(args, device=None) -> dict:
     if cfg.use_target_soft_cross_entropy:
         teacher = make_clip_teacher(cfg.dataset, info["classes"], getattr(args, "weights_dir", None), device)
 
-    def log_eval(ev: dict, epoch: int):
+    plot_per_class = getattr(args, "plot_per_class_acc", False)
+    if plot_per_class:
+        counts = Counter(train_ds.labels)
+        train_samples_per_class = {c: counts.get(c, 0) for c in range(info["num_classes"])}
+
+    def log_eval(ev: dict, epoch: int, tag: str):
         metrics.log({"epoch": epoch, **{k: (v[0] if isinstance(v, list) else v) for k, v in ev.items()
                                         if not k.endswith("_acc_per_class")}})
+        if plot_per_class:
+            import matplotlib.pyplot as plt
+
+            from saspa_tpu_torch.fgvc.plots import plot_samples_per_class_vs_accuracy
+
+            plt.close(plot_samples_per_class_vs_accuracy(train_samples_per_class,
+                                                         dict(enumerate(ev[f"{tag}_acc_per_class"])), epoch,
+                                                         os.path.join(save_dir, "plots", tag)))
 
     ckpt_path = os.path.join(save_dir, cfg.model_name)
     for epoch in range(cfg.epochs):
@@ -123,9 +135,9 @@ def run_training(args, device=None) -> dict:
             val_acc = ev["val_topk_accuracy"][0]
             trainer.best_val_history.append(max(val_acc, trainer.best_val_acc))
             trainer.maybe_save_best(val_acc, ckpt_path)
-            log_eval(ev, epoch)
+            log_eval(ev, epoch, "val")
             if test_pipe is not None:
-                log_eval(trainer.evaluate(test_pipe.iter_eval(), epoch=epoch, is_test=True), epoch)
+                log_eval(trainer.evaluate(test_pipe.iter_eval(), epoch=epoch, is_test=True), epoch, "test")
             if epoch > 30 and trainer.best_val_acc < 2 and len(val_pipe) > 0:
                 logging.info("Validation accuracy is too low, stopping training")
                 break

@@ -211,7 +211,7 @@ class Trainer:
                 self.state.feature_center.copy_(ckpt["feature_center"])
             loaded = {**ckpt.get("params", {}), **ckpt.get("batch_stats", {})}
             self.restored = {"file": cfg.ckpt, "skipped": skipped, "missing": [k for k in own if k not in loaded],
-                             "feature_center": "feature_center" in ckpt}
+                             "feature_center": "feature_center" in ckpt, "pth": ckpt.get("report")}
             logging.info("restored checkpoint from %s: %s", cfg.ckpt, self.restored)
         self.train_step = make_train_step(cfg, num_batches_per_epoch)
         self.best_val_acc = float("-inf")

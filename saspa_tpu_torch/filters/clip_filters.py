@@ -12,12 +12,16 @@ image in padded batches on the card; the logits are one matmul on the host,
 the softmax float32, as in the JAX package.  The weights are OpenAI's
 RN50.pt under the weights dir (weights/sources.py), parameters and
 BatchNorm statistics; without it the model takes a seeded init, with a
-warning, or raises under SASPA_STRICT_WEIGHTS=1.
+warning, or raises under SASPA_STRICT_WEIGHTS=1.  `CLIPScorer("vit-b-16")`
+scores with CLIP ViT-B/16 (the JAX package's other pairing); no public
+file rule exists for it in either package, so it always takes the seeded
+init, under the same rule.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -31,7 +35,7 @@ from saspa_tpu_torch.models.clip import CLIP_MEAN, CLIP_STD, CLIPModel, CLIPVisi
 from saspa_tpu_torch.models.layers import init_weights
 from saspa_tpu_torch.models.text_encoder import CLIP_RN50_TEXT
 from saspa_tpu_torch.ops.image import pil_resize
-from saspa_tpu_torch.weights.load import load_one
+from saspa_tpu_torch.weights.load import load_one, missing_weights, refuse_orbax
 
 NEGATIVE_SEMANTIC_PROMPTS = [
     "a photo of an object",
@@ -69,10 +73,15 @@ class CLIPScorer:
         weights_dir = weights_dir or os.environ.get("SASPA_WEIGHTS_DIR")
         self.tokenizer = default_tokenizer(weights_dir)
         self.device = resolve_device(device)
-        self.model = CLIPModel(vision_kind, VISION_CFG, TEXT_CFG, dtype=default_dtype(self.device),
-                               device=self.device).eval()
-        self.load_report = load_one(weights_dir, f"clip_{vision_kind}", self.model, f"CLIP {vision_kind} file",
-                                    orbax=f"clip_{vision_kind}")
+        towers = (VISION_CFG, TEXT_CFG) if vision_kind == "rn50" else (None, CLIP_RN50_TEXT)
+        self.model = CLIPModel(vision_kind, *towers, dtype=default_dtype(self.device), device=self.device).eval()
+        if vision_kind == "rn50":
+            self.load_report = load_one(weights_dir, "clip_rn50", self.model, "CLIP rn50 file", orbax="clip_rn50")
+        else:  # no public file rule: the JAX package's converted directory is refused, else the seeded init
+            if weights_dir and (Path(weights_dir) / f"clip_{vision_kind}").exists():
+                refuse_orbax(Path(weights_dir) / f"clip_{vision_kind}")
+            missing_weights(f"CLIP {vision_kind} weights (no public file rule)", weights_dir or "(no --weights_dir)")
+            self.load_report = None
         if self.load_report is None:
             init_weights(self.model, seed)
 
@@ -87,7 +96,7 @@ class CLIPScorer:
 
     def image_features(self, paths: Sequence[str], batch_size: int = 64, timings: Optional[dict] = None) -> np.ndarray:
         return score_in_batches(paths, clip_preprocess_path, self.model.encode_image, batch_size,
-                                VISION_CFG.output_dim, self.device, timings)
+                                self.model.output_dim, self.device, timings)
 
     def logits(self, image_features: np.ndarray, text_features: np.ndarray) -> np.ndarray:
         return self.logit_scale * image_features @ text_features.T

@@ -8,9 +8,10 @@ predicates (top-k membership, too-high confidence, ALIA per-class
 thresholds) read the precomputed logits on the host.  The baseline is the
 dataset's released WSDAN-CAL .pth: the weights dir's (weights/sources.py)
 or the one file under checkpoints/<dataset>/ (the reference's rule,
-all_utils/dataset_utils.py:89-93), ResNet-101 or ResNet-50 as its keys
-say.  Without one the baseline takes a seeded init, with a warning, or
-raises under SASPA_STRICT_WEIGHTS=1.
+all_utils/dataset_utils.py:89-93), with the net its keys say (ResNet-101
+or -50, with or without CBAM, or Inception-v3 at mixed_6e or mixed_7c;
+weights/convert.py `cal_net`).  Without one the baseline takes a seeded
+init, with a warning, or raises under SASPA_STRICT_WEIGHTS=1.
 """
 
 from __future__ import annotations

@@ -10,8 +10,13 @@ attention map; the training forward pools it with a uniform [0, 2) fake
 attention and samples two attention maps a sample with probability
 proportional to sqrt(energy).  Its randomness comes from a numpy threefry
 key split as the JAX module splits its `rngs_key`, so the fake maps and the
-picks are jax's (utils/rng.py); `fake_att` and `pick_idx` inject them.  The
-Inception backbones are not ported (ROADMAP Queue 1 item 11) and raise.
+picks are jax's (utils/rng.py); `fake_att` and `pick_idx` inject them.
+The backbone is a ResNet (models/resnet.py, with or without CBAM) or
+Inception-v3 truncated at mixed_6e (768 channels) or mixed_7c (2048;
+models/inception.py).  inception_mixed_7c owns no attention head: its
+attention maps are the first M feature channels, in f32
+(fgvc/models/cal.py:174-177), and the JAX module's head, defined in setup
+but never called, holds no parameters there either.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from saspa_tpu_torch import to_device
+from saspa_tpu_torch.models.inception import NUM_FEATURES_INCEPTION, InceptionV3Features
 from saspa_tpu_torch.models.layers import BatchNorm, Conv, Dense, acc_dtype
 from saspa_tpu_torch.models.resnet import BACKBONES, NUM_FEATURES
 from saspa_tpu_torch.utils import rng as rngs
@@ -78,8 +84,11 @@ def sample_attention_maps(attentions: torch.Tensor, key=None, pick_idx: Optional
 
 
 def cal_num_features(net: str) -> int:
+    """The backbone's feature width, which also sizes the feature centers."""
     if "inception" in net:
-        raise NotImplementedError(f"{net}: the Inception backbones are not ported yet (ROADMAP Queue 1 item 11)")
+        if net not in NUM_FEATURES_INCEPTION:
+            raise ValueError(f"Unsupported net: {net}")
+        return NUM_FEATURES_INCEPTION[net]
     return NUM_FEATURES.get(net.replace("_cbam", ""), 2048)
 
 
@@ -94,12 +103,17 @@ class WSDAN_CAL(nn.Module):
         super().__init__()
         self.num_classes, self.M, self.net = num_classes, M, net
         self.num_features = cal_num_features(net)
-        if net not in BACKBONES:
+        if "inception" in net:
+            self.features = InceptionV3Features(net[len("inception_"):], dtype=dtype, device=device,
+                                                param_dtype=param_dtype)
+        elif net in BACKBONES:
+            self.features = BACKBONES[net](dtype=dtype, features_only=True, device=device, param_dtype=param_dtype)
+        else:
             raise ValueError(f"Unsupported net: {net}")
-        self.features = BACKBONES[net](dtype=dtype, features_only=True, device=device, param_dtype=param_dtype)
-        self.attentions_conv = Conv(self.num_features, M, 1, dtype=dtype, device=device, bias=False,
-                                    param_dtype=param_dtype)
-        self.attentions_bn = BatchNorm(M, eps=1e-3, device=device)
+        if net != "inception_mixed_7c":
+            self.attentions_conv = Conv(self.num_features, M, 1, dtype=dtype, device=device, bias=False,
+                                        param_dtype=param_dtype)
+            self.attentions_bn = BatchNorm(M, eps=1e-3, device=device)
         self.fc = Dense(M * self.num_features, num_classes, bias=False, dtype=dtype, device=device,
                         param_dtype=param_dtype)
 
@@ -108,8 +122,12 @@ class WSDAN_CAL(nn.Module):
         """train=True needs `rngs_key` (a numpy threefry key) unless both
         `fake_att` (B, M, h, w) and `pick_idx` (B, 2) are given."""
         feature_maps = self.features(x, train)  # (B, C, h, w)
-        attention_maps = F.relu(self.attentions_bn(self.attentions_conv(feature_maps), train))
-        fm32, am32 = acc_dtype(feature_maps), acc_dtype(attention_maps)  # BAP in f32 (f64 stays f64)
+        if self.net == "inception_mixed_7c":
+            attention_maps = feature_maps[:, :self.M].float()
+        else:
+            attention_maps = F.relu(self.attentions_bn(self.attentions_conv(feature_maps), train))
+        fm32 = acc_dtype(feature_maps)  # BAP in f32 (f64 stays f64)
+        am32 = attention_maps.to(fm32.dtype)
         if train:
             if fake_att is None or pick_idx is None:
                 if rngs_key is None:

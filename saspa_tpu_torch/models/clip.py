@@ -11,10 +11,10 @@ q/k/v projections and a QuickGELU MLP, ln_post; its LayerNorms are flax's
 (f32, fast variance, eps 1e-5).  Both towers' attention is the plain path
 (the JAX modules pass use_pallas=False), the scale folded into q in q's
 dtype.  `clip_preprocess` is the JAX package's, as its fused BLIP program
-runs it.  `CLIPModel` pairs RN50 with its text tower; `encode_image` /
-`encode_text` return features divided by (norm + 1e-8).  The JAX
-package's ViT-B/16 pairing has no caller: its filters and the train stage's
-soft-CE teacher score with RN50.
+runs it.  `CLIPModel` pairs RN50 with its text tower (projection 1024), or
+with vision_kind="vit-b-16" the ViT-B/16 (patch 16, width 768, 12 layers,
+projection 512) with the 512-wide text tower of projection 512;
+`encode_image` / `encode_text` return features divided by (norm + 1e-8).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from saspa_tpu_torch import to_device
 from saspa_tpu_torch.models.layers import BatchNorm, Conv, Dense, NormParams, flax_layer_norm
-from saspa_tpu_torch.models.text_encoder import CLIP_RN50_TEXT, CLIPTextConfig, CLIPTextEncoder
+from saspa_tpu_torch.models.text_encoder import CLIP_RN50_TEXT, CLIP_VITB16_TEXT, CLIPTextConfig, CLIPTextEncoder
 from saspa_tpu_torch.ops.attention import attention
 from saspa_tpu_torch.ops.image import jax_resize_weights
 
@@ -132,7 +132,7 @@ class CLIPVisionRN(nn.Module):
 
     def __init__(self, cfg: CLIPVisionRNConfig = CLIPVisionRNConfig(), dtype=torch.float32, device=None):
         super().__init__()
-        self.dtype = dtype
+        self.cfg, self.dtype = cfg, dtype
         w = cfg.width
         conv = partial(Conv, dtype=dtype, device=device, bias=False)
         self.conv1 = conv(3, w // 2, 3, stride=2, padding=1)
@@ -227,19 +227,28 @@ def _unit(feats):
 
 
 class CLIPModel(nn.Module):
-    """Image and text towers of CLIP RN50 and the logit scale."""
+    """Image and text towers of CLIP RN50 or ViT-B/16 and the logit scale.
+    vision_cfg: the tower's config (None: the kind's published one); with
+    "vit-b-16", the default text_cfg (RN50's) becomes CLIP_VITB16_TEXT, as
+    in the JAX module."""
 
-    def __init__(self, vision_kind: str = "rn50", vision_cfg: CLIPVisionRNConfig = CLIPVisionRNConfig(),
-                 text_cfg: CLIPTextConfig = CLIP_RN50_TEXT, dtype=torch.float32, device=None):
+    def __init__(self, vision_kind: str = "rn50", vision_cfg=None, text_cfg: CLIPTextConfig = CLIP_RN50_TEXT,
+                 dtype=torch.float32, device=None):
         super().__init__()
-        if vision_kind != "rn50":
-            raise NotImplementedError(f"CLIP {vision_kind}: only RN50 is paired with a text tower here; the JAX "
-                                      "package's CLIPModel offers vit-b-16, but none of its paths calls it (the "
-                                      "filters and the soft-CE teacher score with RN50; ROADMAP Queue 1 item 11 "
-                                      "[11b])")
-        self.visual = CLIPVisionRN(vision_cfg, dtype, device)
+        if vision_kind == "rn50":
+            self.visual = CLIPVisionRN(vision_cfg or CLIPVisionRNConfig(), dtype, device)
+        elif vision_kind == "vit-b-16":
+            self.visual = CLIPVisionViT(vision_cfg or CLIPVisionViTConfig(), dtype, device)
+            text_cfg = CLIP_VITB16_TEXT if text_cfg is CLIP_RN50_TEXT else text_cfg
+        else:
+            raise ValueError(f"CLIP vision_kind: rn50 or vit-b-16, not {vision_kind!r}")
         self.text = CLIPTextEncoder(text_cfg, dtype, device)
         self.logit_scale = nn.Parameter(torch.zeros((), device=device), requires_grad=False)
+
+    @property
+    def output_dim(self) -> int:
+        """The width of the image features."""
+        return self.visual.cfg.output_dim
 
     def encode_image(self, images):
         """images (B, 3, S, S), CLIP-normalised -> unit features (B, output_dim)."""

@@ -46,13 +46,15 @@ class Dense(nn.Module):
 
 
 class Conv(nn.Module):
-    """NCHW conv with symmetric padding; param_dtype as Dense's."""
+    """NCHW conv with symmetric padding; kernel_size and padding an int or
+    an (h, w) pair; param_dtype as Dense's."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, dtype=torch.float32, device=None, bias=True,
                  param_dtype=None):
         super().__init__()
         self.dtype = dtype
-        self.kernel = _empty((out_ch, in_ch, kernel_size, kernel_size), param_dtype or dtype, device)
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
+        self.kernel = _empty((out_ch, in_ch, kh, kw), param_dtype or dtype, device)
         self.bias = _empty((out_ch,), param_dtype or dtype, device) if bias else None
         self.stride, self.padding = stride, padding
 

@@ -7,8 +7,10 @@ backbone is overall stride 16 and a 224^2 input gives 14x14x2048 features.
 `features_only` returns that map.  forward(x) runs BatchNorm with its
 running statistics (eval), forward(x, train=True) with the batch's,
 updating the running ones (`layers.BatchNorm`).  `param_dtype=torch.float32`
-keeps f32 master weights for training.  The CBAM variants are not ported
-(ROADMAP Queue 1 item 11) and raise.
+keeps f32 master weights for training.  `use_cbam` (resnet50_cbam,
+resnet101_cbam) gates each block's bn3 output with CBAM (models/blocks.py)
+before the residual add, as saspa_tpu/models/resnet.py:52-55; CBAM computes
+in f32 in a bf16 net, so its blocks' outputs are f32, as in the JAX net.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from saspa_tpu_torch.models.blocks import CBAMLayer
 from saspa_tpu_torch.models.layers import BatchNorm, Conv, Dense
 
 
@@ -27,7 +30,7 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_ch: int, features: int, strides: int = 1, dtype=torch.float32, device=None,
-                 param_dtype=None):
+                 param_dtype=None, use_cbam: bool = False):
         super().__init__()
         out = features * self.expansion
         conv = partial(Conv, dtype=dtype, device=device, bias=False, param_dtype=param_dtype)
@@ -41,12 +44,16 @@ class Bottleneck(nn.Module):
         if in_ch != out or strides != 1:
             self.downsample_conv = conv(in_ch, out, 1, stride=strides)
             self.downsample_bn = BatchNorm(out, device=device)
+        if use_cbam:
+            self.cbam = CBAMLayer(out, device=device)
 
     def forward(self, x, train: bool = False):
         y = F.relu(self.bn1(self.conv1(x), train))
         y = F.relu(self.bn2(self.conv2(y), train))
         y = self.bn3(self.conv3(y), train)
         residual = self.downsample_bn(self.downsample_conv(x), train) if hasattr(self, "downsample_conv") else x
+        if hasattr(self, "cbam"):
+            y = self.cbam(y)
         return F.relu(y + residual)
 
 
@@ -55,7 +62,7 @@ class ResNet(nn.Module):
     at layer4_stride=1, else (B, num_classes) logits."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: Optional[int] = None, features_only: bool = True,
-                 layer4_stride: int = 1, dtype=torch.float32, device=None, param_dtype=None):
+                 layer4_stride: int = 1, dtype=torch.float32, device=None, param_dtype=None, use_cbam: bool = False):
         super().__init__()
         self.features_only = features_only
         self.dtype = dtype
@@ -70,7 +77,7 @@ class ResNet(nn.Module):
                 if i == 3 and j == 0:
                     strides = layer4_stride
                 name = f"layer{i + 1}_{j}"
-                setattr(self, name, Bottleneck(in_ch, 64 * 2**i, strides, dtype, device, param_dtype))
+                setattr(self, name, Bottleneck(in_ch, 64 * 2**i, strides, dtype, device, param_dtype, use_cbam))
                 self.blocks.append(name)
                 in_ch = 64 * 2**i * Bottleneck.expansion
         self.num_features = in_ch
@@ -95,15 +102,11 @@ def resnet101(**kw) -> ResNet:
     return ResNet(stage_sizes=(3, 4, 23, 3), **kw)
 
 
-def _cbam(name: str, **kw):
-    raise NotImplementedError(f"{name}: the CBAM backbones are not ported yet (ROADMAP Queue 1 item 11)")
-
-
 NUM_FEATURES = {"resnet50": 2048, "resnet101": 2048}
 
 BACKBONES: dict[str, Callable[..., ResNet]] = {
     "resnet50": resnet50,
     "resnet101": resnet101,
-    "resnet50_cbam": partial(_cbam, "resnet50_cbam"),
-    "resnet101_cbam": partial(_cbam, "resnet101_cbam"),
+    "resnet50_cbam": partial(resnet50, use_cbam=True),
+    "resnet101_cbam": partial(resnet101, use_cbam=True),
 }

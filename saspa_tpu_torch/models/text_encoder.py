@@ -45,6 +45,7 @@ SD21_TEXT = CLIPTextConfig(width=1024, layers=23, heads=16, act="gelu", output_l
 SDXL_TEXT_L = CLIPTextConfig(output_layer=-2)
 SDXL_TEXT_BIGG = CLIPTextConfig(width=1280, layers=32, heads=20, act="gelu", output_layer=-2, projection_dim=1280)
 CLIP_RN50_TEXT = CLIPTextConfig(width=512, layers=12, heads=8, projection_dim=1024)
+CLIP_VITB16_TEXT = CLIPTextConfig(width=512, layers=12, heads=8, projection_dim=512)
 
 
 class CLIPTextBlock(nn.Module):

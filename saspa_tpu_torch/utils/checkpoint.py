@@ -10,9 +10,11 @@ it.  Restoring into a model is size-tolerant, as the JAX package's
 `_merge_size_tolerant` (and the reference's forgiving load_state_dict):
 entries whose shape differs keep the model's value, with a warning; strict
 raises.  `load_checkpoint` also reads a released WSDAN-CAL .pth (the
-reference's {"logs", "state_dict", "feature_center"}, ResNet nets): its
-state_dict goes through the CAL converter (weights/convert.py), every key
-consumed, into the same params/batch_stats form.  An orbax checkpoint
+reference's {"logs", "state_dict", "feature_center"}; ResNet, CBAM ResNet
+or Inception nets): its state_dict goes through the CAL converter
+(weights/convert.py), every key consumed but an Inception mixed_7c's
+attention head (`cal_dropped_keys`), into the same params/batch_stats
+form, with a report of the keys.  An orbax checkpoint
 directory (the JAX package's) raises.
 """
 
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from saspa_tpu_torch.bridge import state_dict_from_flax
-from saspa_tpu_torch.weights.convert import cal_net, convert_cal
+from saspa_tpu_torch.weights.convert import cal_dropped_keys, cal_net, convert_cal
 from saspa_tpu_torch.weights.files import unwrap
 from saspa_tpu_torch.weights.load import TrackingStateDict, WeightsMismatch, refuse_orbax, unconsumed
 
@@ -74,7 +76,8 @@ def save_checkpoint(path: str, model: torch.nn.Module, feature_center=None, logs
 
 def load_checkpoint(path: str) -> dict:
     """The port's checkpoint, or a released WSDAN-CAL .pth in the same form
-    (with "net": the ResNet its keys say)."""
+    (with "net": the net its keys say, and "report": the file's key count,
+    the keys read and the keys skipped)."""
     path = os.path.abspath(path)
     if os.path.isdir(path):
         refuse_orbax(path)
@@ -82,12 +85,14 @@ def load_checkpoint(path: str) -> dict:
     if "state_dict" not in obj:
         return obj
     sd = TrackingStateDict(unwrap(obj, path))
-    params, stats = convert_cal(sd)
-    left = unconsumed(sd)
+    net = cal_net(sd)
+    params, stats = convert_cal(sd, net)
+    skipped = cal_dropped_keys(sd, net)
+    left = [k for k in unconsumed(sd) if k not in skipped]
     if left:
         raise WeightsMismatch(f"{path}: {len(left)} keys a WSDAN-CAL does not take: {left[:8]}")
-    ckpt = {"params": state_dict_from_flax(params), "batch_stats": state_dict_from_flax(stats),
-            "net": cal_net(sd)}
+    ckpt = {"params": state_dict_from_flax(params), "batch_stats": state_dict_from_flax(stats), "net": net,
+            "report": {"file_keys": len(sd), "read": len(sd.read), "skipped": skipped}}
     if isinstance(obj.get("feature_center"), torch.Tensor):
         ckpt["feature_center"] = obj["feature_center"].float()
     if "logs" in obj:

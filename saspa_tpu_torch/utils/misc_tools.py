@@ -1,9 +1,8 @@
 """Small host utilities from the reference's all_utils/utils.py
 (counterpart of saspa_tpu/utils/misc_tools.py): same-class id sampling
 (with the cars front/back matching through the VQA captions), deleting
-files by substring, and the folder -> augmented paths dict.  The debug grid
-`plot_images_in_row` needs matplotlib, which the card's machine lacks, and
-raises.
+files by substring, the folder -> augmented paths dict, and the debug
+grid `plot_images_in_row` (matplotlib, imported at the call).
 """
 
 from __future__ import annotations
@@ -90,6 +89,17 @@ def create_dict_image_path_to_augmented_images_paths(aug_data_folder, original_i
 
 
 def plot_images_in_row(images_list, titles=None):
-    """The debug grid of all_utils/utils.py:562-573: not ported."""
-    raise NotImplementedError("plot_images_in_row needs matplotlib (the plots are not ported; ROADMAP Queue 1 "
-                              "item 11 [11b])")
+    """The debug grid of all_utils/utils.py:562-573: the images side by side
+    in one 20 x 20 inch figure, titled, without ticks, then plt.show()."""
+    import matplotlib.pyplot as plt
+    import numpy as np
+
+    plt.figure(figsize=(20, 20))
+    for i, image in enumerate(images_list):
+        plt.subplot(1, len(images_list), i + 1)
+        plt.imshow(np.asarray(image))
+        if titles is not None:
+            plt.title(titles[i])
+        plt.xticks([])
+        plt.yticks([])
+    plt.show()

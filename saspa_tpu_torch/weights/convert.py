@@ -65,8 +65,25 @@ class _KeyRemapView:
         return self._src_key(k) in self._sd
 
 
+class _RenamedView:
+    """Read-through view of some of a state dict's keys under new names
+    ({new: old}), iterable over the new names."""
+
+    def __init__(self, sd, names: Dict[str, str]):
+        self._sd, self._names = sd, names
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __getitem__(self, k):
+        return self._sd[self._names[k]]
+
+    def __contains__(self, k):
+        return k in self._names
+
+
 # --------------------------------------------------------------------------
-# torchvision ResNet and the released WSDAN-CAL
+# torchvision ResNet and Inception-v3, and the released WSDAN-CAL
 # --------------------------------------------------------------------------
 def convert_torchvision_resnet(sd, prefix: str = ""):
     """(params, batch_stats) of ResNet(features_only=True)."""
@@ -102,28 +119,120 @@ def convert_torchvision_resnet(sd, prefix: str = ""):
     return params, stats
 
 
-def cal_net(sd) -> str:
-    """ResNet-101 when layer3 has a 23rd block, else ResNet-50."""
-    return "resnet101" if any(k in sd for k in ("features.layer3.22.conv1.weight", "features.6.22.conv1.weight")) \
-        else "resnet50"
-
-
-def convert_cal(sd):
-    """The reference's WSDAN_CAL state_dict (ResNet nets): the backbone is an
-    index-named nn.Sequential (features.0 = conv1, .1 = bn1, .4-.7 =
-    layer1-4), the attention head a BasicConv2d, fc bias-free."""
-    remap = {"features.0": "features.conv1", "features.1": "features.bn1",
-             "features.4": "features.layer1", "features.5": "features.layer2",
-             "features.6": "features.layer3", "features.7": "features.layer4"}
-    sd = _KeyRemapView(sd, remap)
+def convert_inception(sd, truncate_at: str = "mixed_7c"):
+    """torchvision inception_v3's state_dict -> (params, batch_stats) of
+    InceptionV3Features.  The module names are torchvision's (Conv2d_1a_3x3,
+    Mixed_5b..Mixed_7c, branch1x1, ...), so the walk follows the keys.
+    AuxLogits.* and fc.* belong to the classifier head the WS-DAN
+    truncations drop, and so do Mixed_7* for mixed_6e: those keys are not
+    read.  BatchNorm's num_batches_tracked is not read either."""
     params: dict = {}
     stats: dict = {}
-    params["features"], stats["features"] = convert_torchvision_resnet(sd, prefix="features.")
-    _set(params, "attentions_conv/kernel", t2f_conv(sd["attentions.conv.weight"]))
-    _set(params, "attentions_bn/scale", sd["attentions.bn.weight"])
-    _set(params, "attentions_bn/bias", sd["attentions.bn.bias"])
-    _set(stats, "attentions_bn/mean", sd["attentions.bn.running_mean"])
-    _set(stats, "attentions_bn/var", sd["attentions.bn.running_var"])
+    last = "Mixed_7c" if truncate_at == "mixed_7c" else "Mixed_6e"
+    blocks = INCEPTION_BLOCKS[:INCEPTION_BLOCKS.index(last) + 1]
+    fields = {"weight": (params, "scale"), "bias": (params, "bias"), "running_mean": (stats, "mean"),
+              "running_var": (stats, "var")}
+    consumed = 0
+    for key in list(sd):
+        root = key.split(".")[0]
+        if root in ("AuxLogits", "fc") or (truncate_at == "mixed_6e" and root.startswith("Mixed_7")):
+            continue
+        if root not in blocks:
+            raise KeyError(f"unexpected inception key {key}")
+        *dst, leaf, field = key.split(".")  # <block>[.<branch>].conv.weight | .bn.<field>
+        dst = "/".join(dst)
+        if leaf == "conv" and field == "weight":
+            _set(params, f"{dst}/conv/kernel", t2f_conv(sd[key]))
+        elif leaf == "bn" and field in fields:
+            tree, name = fields[field]
+            _set(tree, f"{dst}/bn/{name}", sd[key])
+        elif leaf == "bn" and field == "num_batches_tracked":
+            continue
+        else:
+            raise KeyError(f"unexpected inception key {key}")
+        consumed += 1
+    if not consumed:
+        raise KeyError("no inception key in the state dict")
+    return params, stats
+
+
+INCEPTION_BLOCKS = ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3", "Conv2d_3b_1x1", "Conv2d_4a_3x3", "Mixed_5b",
+                    "Mixed_5c", "Mixed_5d", "Mixed_6a", "Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e", "Mixed_7a",
+                    "Mixed_7b", "Mixed_7c")
+# the reference's get_features_mixed_6e/7c Sequential (fgvc/models/inception.py:130-170): its index of each
+# block, with the two parameter-free max pools at 3 and 6
+INCEPTION_SEQUENTIAL = INCEPTION_BLOCKS[:3] + (None,) + INCEPTION_BLOCKS[3:5] + (None,) + INCEPTION_BLOCKS[5:]
+
+
+def cal_net(sd) -> str:
+    """The net of a reference WSDAN-CAL state_dict, by its keys: an
+    Inception branch under the index names (features.7.branch1x1.*) means
+    Inception, mixed_7c when it has a features.15.* block; a `.cbam.` key a
+    CBAM ResNet; a 23rd block of layer3 ResNet-101, else ResNet-50."""
+    keys = list(sd)
+    if any(k.startswith("features.7.branch") for k in keys):
+        return "inception_mixed_7c" if any(k.startswith("features.15.") for k in keys) else "inception_mixed_6e"
+    depth = "resnet101" if any(k in sd for k in ("features.layer3.22.conv1.weight", "features.6.22.conv1.weight")) \
+        else "resnet50"
+    return depth + "_cbam" if any(".cbam." in k for k in keys) else depth
+
+
+def cal_dropped_keys(sd, net: str) -> list:
+    """The file's keys convert_cal leaves unread on purpose: the attention
+    head of inception_mixed_7c, whose forward uses feature channels as the
+    maps (the JAX converter drops them too)."""
+    return sorted(k for k in sd if k.startswith("attentions.")) if net == "inception_mixed_7c" else []
+
+
+# a block's CBAM gate in torch: CBAMLayer(mlp = Sequential(conv, ReLU, conv), conv), the layer the reference's
+# fgvc/models/blocks.py:14 follows; no released CBAM checkpoint exists to confirm the file's names
+CBAM_KEYS = {"mlp_down": "mlp.0", "mlp_up": "mlp.2", "spatial_conv": "conv"}
+
+
+def _convert_cbam(sd, params, src: str, dst: str) -> None:
+    for name, key in CBAM_KEYS.items():
+        _set(params, f"{dst}/cbam/{name}/kernel", t2f_conv(sd[f"{src}.cbam.{key}.weight"]))
+
+
+def convert_cal(sd, net=None):
+    """The reference's WSDAN_CAL state_dict -> (params, batch_stats); `net`
+    by default as `cal_net` reads the keys.  ResNet nets: the backbone is an
+    index-named nn.Sequential (features.0 = conv1, .1 = bn1, .4-.7 =
+    layer1-4), with a block's CBAM gate (if any) under .cbam. (CBAM_KEYS);
+    Inception nets: INCEPTION_SEQUENTIAL's indices.
+    The attention head is a BasicConv2d (none is read for
+    inception_mixed_7c: `cal_dropped_keys`), fc bias-free."""
+    net = net or cal_net(sd)
+    params: dict = {}
+    stats: dict = {}
+    if "inception" in net:
+        names = {}  # torchvision's key -> the file's
+        for k in sd:
+            if k.startswith("features."):
+                _, idx, rest = k.split(".", 2)
+                name = INCEPTION_SEQUENTIAL[int(idx)] if int(idx) < len(INCEPTION_SEQUENTIAL) else None
+                if name is None:
+                    raise KeyError(f"no Inception block at {k}")
+                names[f"{name}.{rest}"] = k
+        params["features"], stats["features"] = convert_inception(_RenamedView(sd, names),
+                                                                  truncate_at=net[len("inception_"):])
+    else:
+        remap = {"features.0": "features.conv1", "features.1": "features.bn1",
+                 "features.4": "features.layer1", "features.5": "features.layer2",
+                 "features.6": "features.layer3", "features.7": "features.layer4"}
+        view = _KeyRemapView(sd, remap)
+        params["features"], stats["features"] = convert_torchvision_resnet(view, prefix="features.")
+        if net.endswith("_cbam"):
+            for dst in params["features"]:
+                if dst.startswith("layer"):
+                    li, bi = dst[len("layer"):].split("_")
+                    _convert_cbam(view, params["features"], f"features.layer{li}.{bi}", dst)
+    if net != "inception_mixed_7c":
+        _set(params, "attentions_conv/kernel", t2f_conv(sd["attentions.conv.weight"]))
+        _set(params, "attentions_bn/scale", sd["attentions.bn.weight"])
+        _set(params, "attentions_bn/bias", sd["attentions.bn.bias"])
+        _set(stats, "attentions_bn/mean", sd["attentions.bn.running_mean"])
+        _set(stats, "attentions_bn/var", sd["attentions.bn.running_var"])
     _set(params, "fc/kernel", t2f_linear(sd["fc.weight"]))
     return params, stats
 

@@ -9,7 +9,9 @@ ones the JAX converters document: HF's and BERT's `position_ids` buffers,
 BatchNorm's `num_batches_tracked` counters, the OpenAI RN50 archive's
 scalar metadata (`input_resolution`, `context_length`, `vocab_size`), the
 lpips `scaling_layer` constants (checked against the model's, not
-loaded), and the keys of `KIND_EXEMPT`.  Tied copies (BERT's MLM bias, T5's
+loaded), the keys of `KIND_EXEMPT`, and the attention head of an
+Inception mixed_7c WSDAN-CAL, which its forward does not use (listed in
+the report as `skipped`).  Tied copies (BERT's MLM bias, T5's
 embed_tokens and lm_head) are read and checked equal to the key loaded.  Anything else raises and names the keys.
 
 Each load returns a report: the file, its keys, the parameters and
@@ -133,7 +135,7 @@ def _convert(kind: str, sd, module) -> list:
         params, stats = convert.convert_clip_rn50(sd)
         return [({"params": params, "batch_stats": stats}, module, "clip")]
     if kind == "cal":
-        params, stats = convert.convert_cal(sd)
+        params, stats = convert.convert_cal(sd, module.net)
         return [({"params": params, "batch_stats": stats}, module, "cal")]
     if kind == "lpips":
         return [(convert.convert_lpips(sd), module, "lpips")]
@@ -160,7 +162,8 @@ def load_file(path, kind: str, module, sd=None) -> List[dict]:
         converted = _convert(kind, tsd, module)
     except KeyError as e:
         raise WeightsMismatch(f"{path}: the {kind} converter found no key {e.args[0]!r}") from e
-    left = unconsumed(tsd, KIND_EXEMPT.get(kind, ()))
+    skipped = convert.cal_dropped_keys(tsd, module.net) if kind == "cal" else []
+    left = [k for k in unconsumed(tsd, KIND_EXEMPT.get(kind, ())) if k not in skipped]
     if left:
         raise WeightsMismatch(f"{path}: {len(left)} keys the {kind} model does not take: {left[:8]}")
     reports, loaded = [], []
@@ -168,7 +171,7 @@ def load_file(path, kind: str, module, sd=None) -> List[dict]:
         msd = _bridged(kind, tree)
         rep = load_module(mod, msd, f"{path} ({name})")
         reports.append({"model": name, "file": str(path), "kind": kind, "file_keys": len(tsd),
-                        "unconsumed": 0, **rep})
+                        "unconsumed": 0, "skipped": skipped, **rep})
         loaded.append((mod, msd))
     if torch.cuda.is_available():
         torch.cuda.synchronize()

@@ -227,8 +227,20 @@ def test_file_tools_match_jax(tmp_path):
     assert TM.delete_files_in_folder_with_substr(str(tmp_path / "port"), "_tmp_", 1) == \
         JM.delete_files_in_folder_with_substr(str(tmp_path / "jax"), "_tmp_", 1)
     assert len(list((tmp_path / "port").iterdir())) == len(list((tmp_path / "jax").iterdir())) == 5
-    with pytest.raises(NotImplementedError, match="11b"):
-        TM.plot_images_in_row([np.zeros((2, 2, 3))])
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    images = [np.zeros((2, 2, 3)), np.ones((3, 2, 3))]
+    grids = []
+    for plot in (JM.plot_images_in_row, TM.plot_images_in_row):
+        plot(images, titles=["a", "b"])
+        fig = plt.gcf()
+        grids.append([(ax.get_title(), ax.images[0].get_array().shape, list(ax.get_xticks())) for ax in fig.axes]
+                     + [tuple(fig.get_size_inches())])
+        plt.close(fig)
+    assert grids[0] == grids[1] == [("a", (2, 2, 3), []), ("b", (3, 2, 3), []), (20.0, 20.0)]
 
 
 # ---- the loaders ------------------------------------------------------------------

@@ -139,8 +139,8 @@ def test_resnet101_layout():
     m = tresnet.resnet101(device="meta")
     assert [n for n in m.blocks if n.startswith("layer3_")][-1] == "layer3_22"
     assert m.layer4_0.conv2.stride == 1 and m.layer4_0.downsample_conv.stride == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tresnet.BACKBONES["resnet101_cbam"]()
+    cbam = tresnet.BACKBONES["resnet101_cbam"](device="meta")
+    assert [n for n in cbam.blocks] == m.blocks and all(hasattr(getattr(cbam, n), "cbam") for n in cbam.blocks)
 
 
 def test_bap_matches():
@@ -182,12 +182,12 @@ def test_what_the_train_slice_brings_raises(tiny_backbone):
     m = tcal.WSDAN_CAL(num_classes=3, net=tiny_backbone)
     with pytest.raises(ValueError, match="rng key"):  # the training forward is ported; it needs its draws
         m(torch.zeros(1, 3, 32, 32), train=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tresnet.BACKBONES["resnet50_cbam"]()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tcal.WSDAN_CAL(num_classes=3, net="inception_mixed_7c")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tclip.CLIPModel(vision_kind="vit-b-16")
+    # the backbones and the CLIP pairing of the later slice build (tests/test_torch_{cbam,inception,clip_vitb16}.py)
+    assert hasattr(tresnet.BACKBONES["resnet50_cbam"](device="meta").layer1_0, "cbam")
+    assert not hasattr(tcal.WSDAN_CAL(num_classes=3, net="inception_mixed_7c", device="meta"), "attentions_conv")
+    assert tclip.CLIPModel(vision_kind="vit-b-16", device="meta").output_dim == 512
+    with pytest.raises(ValueError, match="Unsupported net"):
+        tcal.WSDAN_CAL(num_classes=3, net="inception_mixed_5b", device="meta")
 
 
 def test_bridge_rejects_unknown_collections_and_clashes():

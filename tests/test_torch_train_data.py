@@ -22,6 +22,7 @@ CPU, against the JAX package where it has a counterpart.
 
 import json
 import logging
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -246,10 +247,15 @@ def test_cli_train_one_epoch_writes_metrics_and_a_checkpoint_that_restores(tree,
     assert again["test_mean_class_acc"] == test["test_mean_class_acc"]
 
 
-@pytest.mark.parametrize("flag", ["--wandb", "--plot_per_class_acc", "--net=inception_mixed_6e"])
+@pytest.mark.parametrize("flag", ["--wandb", "--plot_per_class_acc"])
 def test_cli_train_options_not_ported_raise(tree, tmp_path, monkeypatch, flag):
+    """--wandb is not ported (wandb is installed on neither machine);
+    --plot_per_class_acc raises where matplotlib is missing, as on the
+    card's machine (tests/test_torch_plots.py runs it with matplotlib)."""
     _small_planes(monkeypatch, tree)
-    with pytest.raises(NotImplementedError):
+    if flag == "--plot_per_class_acc":
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(NotImplementedError if flag == "--wandb" else ImportError):
         cli.cmd_train(_train_args(tree, tmp_path, flag), device="cpu")
 
 

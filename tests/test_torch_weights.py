@@ -21,6 +21,7 @@ or a raise under SASPA_STRICT_WEIGHTS=1) and a released CAL .pth through
 import dataclasses
 import logging
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -337,22 +338,23 @@ def test_sd15_models_from_files_match_jax_modules(tree):
     sample = rng.randn(2, 16, 16, 4).astype(np.float32)
     ctx = rng.randn(2, 77, 16).astype(np.float32)
     cond = rng.rand(2, 128, 128, 3).astype(np.float32)
-    want = j_unet.UNet2DCondition(cfg=G_UNET).apply({"params": jconv.convert_sd_unet(sds["sd15_unet"], G_UNET)},
-                                                    jnp.asarray(sample), jnp.asarray(499), jnp.asarray(ctx))
+    want = jax.jit(j_unet.UNet2DCondition(cfg=G_UNET).apply)(  # jitted: flax's eager dispatch costs more
+        {"params": jconv.convert_sd_unet(sds["sd15_unet"], G_UNET)}, jnp.asarray(sample), jnp.asarray(499),
+        jnp.asarray(ctx))
     with torch.no_grad():
         got = tp.params["unet"](_nchw(sample), 499, torch.from_numpy(ctx))
     _close(got.permute(0, 2, 3, 1), want, 1e-4)
-    want_down, want_mid = JaxControlNet(cfg=G_UNET).apply(
+    want_down, want_mid = jax.jit(lambda v, *a: JaxControlNet(cfg=G_UNET).apply(v, *a, 0.75))(
         {"params": jconv.convert_controlnet(sds["sd15_controlnet"], G_UNET)}, jnp.asarray(sample),
-        jnp.asarray(999), jnp.asarray(ctx), jnp.asarray(cond), 0.75)
+        jnp.asarray(999), jnp.asarray(ctx), jnp.asarray(cond))
     cn = tp.params["controlnet"]
     with torch.no_grad():
         down, mid = cn(_nchw(sample), 999, torch.from_numpy(ctx), cn.embed_cond(_nchw(cond)), 0.75)
     for g, w in zip(down + [mid], list(want_down) + [want_mid]):
         _close(g.permute(0, 2, 3, 1), w, 1e-4)
     z = rng.randn(1, 8, 8, 4).astype(np.float32)
-    want = JaxVAE(cfg=G_VAE).apply({"params": jconv.convert_vae(sds["vae_legacy_names"], G_VAE)}, jnp.asarray(z),
-                                   method=JaxVAE.decode)
+    want = jax.jit(lambda v, z: JaxVAE(cfg=G_VAE).apply(v, z, method=JaxVAE.decode))(
+        {"params": jconv.convert_vae(sds["vae_legacy_names"], G_VAE)}, jnp.asarray(z))
     with torch.no_grad():
         got = tp.params["vae"].decode(_nchw(z)).permute(0, 2, 3, 1)
     _close(got, want, 1e-4)
@@ -371,13 +373,13 @@ def test_blip_towers_from_files_match_jax(tree):
     rng = np.random.RandomState(4)
     x = rng.randn(2, 224, 224, 3).astype(np.float32)
     jv = JaxViTConfig(width=32, layers=2, heads=2, output_dim=None, patch_size=32)
-    tokens = JaxViT(cfg=jv).apply({"params": jconv.convert_blip_diffusion_vision(sds["blip_qformer"], 2)},
-                                  jnp.asarray(x), return_tokens=True)
+    tokens = jax.jit(lambda v, x: JaxViT(cfg=jv).apply(v, x, return_tokens=True))(
+        {"params": jconv.convert_blip_diffusion_vision(sds["blip_qformer"], 2)}, jnp.asarray(x))
     with torch.no_grad():
         got = tp.params["blip_vision"](_nchw(x), return_tokens=True)
     _close(got, tokens, 2e-5)
     ids, mask = tp.bert_category_ids("aston martin", 2)
-    want = JaxQFormer(width=32, layers=3, heads=2, out_dim=32).apply(
+    want = jax.jit(JaxQFormer(width=32, layers=3, heads=2, out_dim=32).apply)(
         {"params": jconv.convert_blip_diffusion_qformer(sds["blip_qformer"], 3)}, tokens, jnp.asarray(ids),
         jnp.asarray(mask))
     with torch.no_grad():
@@ -402,8 +404,11 @@ def test_clip_rn50_from_the_torchscript_file_matches_jax(tmp_path):
     with torch.no_grad():
         img = scorer.model.encode_image(_nchw(x))
         txt = scorer.model.encode_text(torch.from_numpy(ids).long())
-    _close(img, jm.apply(v, jnp.asarray(x), method=jclip.CLIPModel.encode_image), 1e-4)
-    _close(txt, jm.apply(v, jnp.asarray(ids), method=jclip.CLIPModel.encode_text), 1e-4)
+    want_img, want_txt = jax.jit(lambda v, x, ids: (jm.apply(v, x, method=jclip.CLIPModel.encode_image),
+                                                    jm.apply(v, ids, method=jclip.CLIPModel.encode_text)))(
+        v, jnp.asarray(x), jnp.asarray(ids))
+    _close(img, want_img, 1e-4)
+    _close(txt, want_txt, 1e-4)
     assert scorer.logit_scale == pytest.approx(float(np.exp(np.float32(sd["logit_scale"]))), rel=1e-6)
 
 
