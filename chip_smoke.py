@@ -378,6 +378,33 @@ Phases, each printing one JSON line:
                 step of each Inception net (its f64 bounds); and
                 CLIPScorer("vit-b-16") (seeded) on 4 images, card bf16 vs
                 CPU f32 (cosines >= 0.99).  K1-K6 launch 0 times.
+ 22. switches -- cell (t), run right after the reference phase: the JAX
+                package's kernel route and numerics switches through  cli
+                gen --dataset planes --skip_filter --resolution 512
+                --num_inference_steps 2 --batch_size 8  in-process on a
+                synthetic tree of 8 sources, once per set of SWITCH_SETS
+                (SASPA_PALLAS_GN + SASPA_ATTN_MEGAKERNEL, i.e. cell (b);
+                SASPA_PALLAS_GN + SASPA_GN_FP32_NORM; SASPA_DISABLE_PALLAS;
+                SASPA_PALLAS_GEGLU=0; SASPA_LN_FP32_NORM;
+                SASPA_CFG_FULL_BATCH; SASPA_SPLIT_SKIP_CONCAT), each
+                pipeline built by init_pipeline under the set's variables
+                with the main path's seeded weights copied in.  Gates: the
+                pipeline's record equals the variables' (KernelSwitches),
+                the launch counts equal expected_switch_counts (the
+                f32-normalize K3 only under SASPA_GN_FP32_NORM; no K1, K5,
+                K6 under SASPA_DISABLE_PALLAS; no K2 under
+                SASPA_PALLAS_GEGLU=0; no K2 or K4 under SASPA_LN_FP32_NORM;
+                one more K3 call a split-skip seam), no self-attention at
+                the pre-fork batch 8 under SASPA_CFG_FULL_BATCH, the PNGs
+                equal the fused function's output, and one source at
+                128^2 through the set's pipeline on the card and through
+                a CPU f32 pipeline built under the same variables (mean
+                |diff| <= 0.02).  The kernels phase holds the f32-normalize
+                K3 against group_norm_tpu_plain(bf16_norm=False) at every
+                512^2 GroupNorm site the TPU kernel's split plan admits
+                (check_k3_f32norm; 8 bf16 ulps, as K3), timed at
+                SWITCH_TIMED_SITES; its row in the kernels line is
+                group_norm_f32norm.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -724,19 +751,23 @@ def k5_ptxas(log: str) -> dict:
 
 
 def k3_ptxas(log: str) -> dict:
-    """K3's statistics kernel and its normalize per epilogue (TPU numerics
-    or not, SiLU or not), each for bf16 and f32: registers and spills;
-    requires all ten and no spills."""
+    """K3's statistics kernel and its normalize per epilogue (the xla order,
+    TPU numerics, and on bf16 TPU numerics with the f32 normalize; SiLU or
+    not), for bf16 and f32: registers and spills; requires all twelve and
+    no spills."""
+    epilogues = {"0": "xla", "1": "tpu", "2": "f32norm"}
+
     def key(m):
         t = "bf16" if m[2] == "13__nv_bfloat16" else "f32"
         if m[1] == "stats":
             return f"stats_{t}"
-        return f"apply_{t}_{'tpu' if m[3] == '1' else 'xla'}{'_silu' * (m[4] == '1')}"
+        return f"apply_{t}_{epilogues[m[3]]}{'_silu' * (m[4] == '1')}"
 
     pat = r"gn_(stats|apply)_kernelI(13__nv_bfloat16|f)(?:Li(\d)ELi(\d)E)?"
     rep = {key(m): r for fn, r in ptxas_report(log).items() if (m := re.search(pat, fn))}
-    want = sorted([f"stats_{t}" for t in ("bf16", "f32")] + [f"apply_{t}_{e}{a}" for t in ("bf16", "f32")
-                                                              for e in ("tpu", "xla") for a in ("", "_silu")])
+    want = sorted([f"stats_{t}" for t in ("bf16", "f32")]
+                  + [f"apply_{t}_{e}{a}" for t, es in (("bf16", ("tpu", "xla", "f32norm")), ("f32", ("tpu", "xla")))
+                     for e in es for a in ("", "_silu")])
     require(sorted(rep) == want, "K3 kernels in the ptxas report", sorted(rep))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()), "K3 kernels spill",
             rep)
@@ -1250,18 +1281,20 @@ def read_counts() -> dict:
     return {"attention_packed": attention.launches, "ln_geglu": geglu.launches, "group_norm": groupnorm.launches,
             "group_norm_tpu": groupnorm.launches_tpu, "layernorm": layernorm.launches,
             "attention_block": attention.block_launches, "flash_attention": attention.flash_launches,
-            "attention_packed_f32": attention.launches_f32, "group_norm_f32": groupnorm.launches_f32}
+            "attention_packed_f32": attention.launches_f32, "group_norm_f32": groupnorm.launches_f32,
+            "group_norm_f32norm": groupnorm.launches_tpu_f32norm}
 
 
 def reset_counts() -> None:
     from saspa_tpu_torch.ops import attention, geglu, groupnorm, layernorm
 
     attention.launches = attention.block_launches = attention.flash_launches = geglu.launches = 0
-    groupnorm.launches = groupnorm.launches_tpu = layernorm.launches = 0
+    groupnorm.launches = groupnorm.launches_tpu = groupnorm.launches_tpu_f32norm = layernorm.launches = 0
     attention.launches_f32 = groupnorm.launches_f32 = 0
 
 
-F32_NONE = {"attention_packed_f32": 0, "group_norm_f32": 0}  # no f32 launch: the VAE in bf16
+# no f32 launch (the VAE in bf16), no f32-normalize K3 (SASPA_GN_FP32_NORM unset)
+F32_NONE = {"attention_packed_f32": 0, "group_norm_f32": 0, "group_norm_f32norm": 0}
 
 
 def expected_counts(steps: int, config: str) -> dict:
@@ -5528,6 +5561,261 @@ def run_backbones_phase(seed: int, smi: str) -> dict:
     return read_counts()
 
 
+def check_k3_f32norm(gen, sites) -> list:
+    """K3's TPU numerics with the f32 normalize (SASPA_GN_FP32_NORM=1) at
+    every bf16 site of cell (b) that the TPU kernel's split plan admits:
+    against group_norm_tpu_plain(bf16_norm=False), held as check_k3 holds
+    K3 (require_ulps); times at SWITCH_TIMED_SITES, with F.group_norm as
+    the yardstick where there is no SiLU."""
+    from saspa_tpu_torch.ops import groupnorm as gn
+
+    rows = []
+    admitted = [st for st in sites if gn.split_plan(st[2] * st[3], st[1], gn.groups_for(st[1], 32), 2)]
+    for (b, c, h, w, act, eps) in sorted(admitted, key=lambda s: (s[0] * s[1] * s[2] * s[3], s[1], str(s[4]))):
+        x = torch.randn(b, c, h, w, generator=gen, device="cuda").mul_(3.0).add_(0.5).to(torch.bfloat16)
+        x = x.to(memory_format=torch.channels_last)
+        gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+        beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+        n, g = x.numel(), gn.groups_for(c, 32)
+
+        def mag_of(sl):
+            xs = x[sl].float()
+            xg = xs.reshape(xs.shape[0], g, -1)
+            mean = xg.mean(-1)
+            rstd = torch.rsqrt(((xg * xg).mean(-1) - mean * mean).clamp_min(0.0) + eps)
+            sc = (gamma.reshape(1, g, -1) * rstd[:, :, None]).abs().reshape(-1, c, 1, 1)
+            return (xs.abs() + mean.abs().repeat_interleave(c // g, 1)[:, :, None, None]) * sc \
+                + beta.abs().reshape(1, c, 1, 1)
+
+        def kernel():
+            return gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=True, bf16_norm=False)
+
+        def plain():
+            return gn.group_norm_tpu_plain(x, gamma, beta, 32, eps, act, bf16_norm=False)
+
+        what = f"B{b} C{c} {h}x{w} act={act} tpu f32 normalize"
+        out, ref = kernel(), plain()
+        err, ref_max, ulps, equal = require_ulps(what, out, ref, mag_of, [slice(i, i + 1) for i in range(b)])
+        del out, ref
+        b_ms, b_by = bound((10.0 if act else 6.0) * n, 4 * n + 8 * c, H100_F32_FLOPS)
+        row = dict(shape=what, B=b, C=c, HW=h * w, act=act, eps=eps, max_abs_err=err, ref_max=ref_max,
+                   max_ulps=ulps, equal_share=equal, bound_ms=b_ms, bound_by=b_by)
+        if (b, c, h, w, act) in SWITCH_TIMED_SITES:
+            lib = {"library_ms": None, "library_device_ms": None}
+            if act is None:
+                gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+
+                def library():
+                    return torch.nn.functional.group_norm(x, 32, gb, bb, eps)
+
+                lib = {"library_ms": cuda_ms(library, 10), "library_device_ms": device_ms(library)[0]}
+            ms = cuda_ms(kernel, 10)
+            dev_ms, by_kernel = device_ms(kernel, floor_ms=b_ms)
+            row.update(ms=ms, device_ms=dev_ms, launch_device_ms=breakdown(by_kernel, dev_ms, "gn_{}_kernel",
+                                                                           ("stats", "apply"), what),
+                       queued_ms=queued_ms(kernel, 10), host_us=host_us(kernel),
+                       plain_ms=cuda_ms(plain, 3, warmup=1), bound_share=b_ms / dev_ms, **lib)
+        rows.append(row)
+        del x
+        torch.cuda.empty_cache()
+    require(any((r["B"], r["C"], r["HW"], r["act"]) == (16, 320, 4096, "silu") and "ms" in r for r in rows),
+            "the f32-normalize K3 was not timed at B16 C320 64^2 SiLU", [r["shape"] for r in rows])
+    return rows
+
+
+# cell (t): each set of the JAX package's switches through cli gen (module
+# docstring, phase 22): the variables set, and the counts' change from a
+# default 512^2 batch at `steps` steps (expected_switch_counts)
+SWITCH_SETS = {
+    "pallas_gn_megakernel": {"SASPA_PALLAS_GN": "1", "SASPA_ATTN_MEGAKERNEL": "1"},
+    "gn_fp32_norm": {"SASPA_PALLAS_GN": "1", "SASPA_GN_FP32_NORM": "1"},
+    "disable_pallas": {"SASPA_DISABLE_PALLAS": "1"},
+    "pallas_geglu_off": {"SASPA_PALLAS_GEGLU": "0"},
+    "ln_fp32_norm": {"SASPA_LN_FP32_NORM": "1"},
+    "cfg_full_batch": {"SASPA_CFG_FULL_BATCH": "1"},
+    "split_skip_concat": {"SASPA_SPLIT_SKIP_CONCAT": "1"},
+}
+SWITCH_VARIABLES = ("SASPA_PALLAS_GN", "SASPA_DISABLE_PALLAS_GN", "SASPA_GN_FP32_NORM", "SASPA_ATTN_MEGAKERNEL",
+                    "SASPA_DISABLE_PALLAS", "SASPA_PALLAS_GEGLU", "SASPA_LN_FP32_NORM", "SASPA_CFG_FULL_BATCH",
+                    "SASPA_SPLIT_SKIP_CONCAT")
+SWITCH_STEPS = 2
+SWITCH_REFERENCE_RESOLUTION = 128  # the card-vs-CPU batch of each set: 1 source, 16^2 latents
+# the f32-normalize K3's timed sites: the UNet's level-0 resnet norm and the
+# transformers' norm, its largest site, its smallest
+SWITCH_TIMED_SITES = {(16, 320, 64, 64, "silu"), (16, 320, 64, 64, None), (16, 960, 64, 64, "silu"),
+                      (16, 1280, 8, 8, "silu")}
+
+
+def expected_switch_counts(steps: int, name: str) -> dict:
+    """Launches of one 512^2 batch through cli gen under a switch set:
+    configuration (b)'s for PALLAS_GN + ATTN_MEGAKERNEL; the TPU numerics'
+    88 * steps + 23 calls with the f32 normalize; no K1, K5 or K6; no K2
+    (norm3 on K4: 69 a step); no K2 or K4; the default's under full-batch
+    CFG (the sites' batches are checked apart); one more K3 call a step on
+    each split-skip seam (split_skip_seams)."""
+    if name == "pallas_gn_megakernel":
+        return expected_counts(steps, "opt_in")
+    want = expected_counts(steps, "default")
+    if name == "gn_fp32_norm":
+        want["group_norm_f32norm"] = 88 * steps + 23
+    elif name == "disable_pallas":
+        want["attention_packed"] = 0
+    elif name == "pallas_geglu_off":
+        want.update(ln_geglu=0, layernorm=69 * steps)
+    elif name == "ln_fp32_norm":
+        want.update(ln_geglu=0, layernorm=0)
+    elif name == "split_skip_concat":
+        want["group_norm"] += split_skip_seams() * steps
+    return want
+
+
+def split_skip_seams(cfg=None) -> int:
+    """The up blocks' skip seams that fall on a group boundary in one UNet
+    call (SD1.5: 8 of 12, the same-width ones), each one more K3 call under
+    SASPA_SPLIT_SKIP_CONCAT=1."""
+    from saspa_tpu_torch.models.unet import SD15_UNET, split_skip_eligible
+
+    cfg = cfg or SD15_UNET
+    boc, lpb = cfg.block_out_channels, cfg.layers_per_block
+    skips = [boc[0]]
+    for i, ch in enumerate(boc):
+        skips += [ch] * lpb + ([ch] if i < len(boc) - 1 else [])
+    x, n = boc[-1], 0
+    for ch in reversed(boc):
+        for _ in range(lpb + 1):
+            n += split_skip_eligible(x, skips.pop(), cfg.norm_num_groups)
+            x = ch
+    return n
+
+
+class SwitchEnv:
+    """The switch variables of `env` set and every other one unset; restored on exit."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.pop(k, None) for k in SWITCH_VARIABLES}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for k in SWITCH_VARIABLES:
+            os.environ.pop(k, None)
+            if self.saved[k] is not None:
+                os.environ[k] = self.saved[k]
+        return False
+
+
+def share_weights(src, dst) -> None:
+    """dst's modules take src's parameter tensors themselves (same device
+    and dtype): no copy."""
+    for k, mod in src.params.items():
+        mods = mod if isinstance(mod, list) else [mod]
+        dmods = dst.params[k] if isinstance(mod, list) else [dst.params[k]]
+        for m, dm in zip(mods, dmods):
+            dm.load_state_dict(m.state_dict(), assign=True)
+
+
+def run_switches_phase(base, cpu_base, seed: int) -> dict:
+    """Cell (t) (module docstring, phase 22): every set of SWITCH_SETS
+    through cli gen on a synthetic planes tree, base's seeded weights loaded
+    into each set's pipeline (built under the set's variables by
+    init_pipeline); each set's CPU f32 reference pipeline takes cpu_base's
+    weights (an f32 CPU copy of base's).  Returns each set's launch counts."""
+    import gc
+    import shutil
+
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion import pipelines as tpipelines
+    from saspa_tpu_torch.ops.switches import KernelSwitches
+
+    size, b, steps, rs = NEW_RESOLUTION, NEW_SOURCES, SWITCH_STEPS, SWITCH_REFERENCE_RESOLUTION
+    t0 = time.perf_counter()
+    real_init, made = tpipelines.init_pipeline, []
+
+    def init_pipeline(base_model, controlnet, SDEdit=False, sampler="ddim", weights_dir=None):
+        require((base_model, controlnet, SDEdit, sampler, weights_dir) == ("sd_v1.5", "canny", False, "ddim", None),
+                "switches: the planes recipe's pipeline", base_model, controlnet, SDEdit, sampler, weights_dir)
+        pipe = tpipelines.DiffusionPipeline(base_model, controlnet=controlnet, sampler=sampler,
+                                            dtype=torch.bfloat16, init_seed=None)
+        copy_weights(base, pipe)
+        made.append((pipe, *record_sites(pipe)))
+        return pipe
+
+    out = {}
+    tpipelines.init_pipeline = init_pipeline
+    try:
+        with PhaseRoot("saspa_switches_") as ph:
+            write_planes_tree(ph.root, np.random.RandomState(seed + 901), b, size)
+            ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+            argv = ["gen", "--dataset", "planes", "--skip_filter", "--num_per_image", "1", "--resolution", str(size),
+                    "--num_inference_steps", str(steps), "--batch_size", str(b), "--seed", str(seed + 902)]
+            for name, env in SWITCH_SETS.items():
+                t_set = time.perf_counter()
+                made.clear()
+                with SwitchEnv(env):
+                    want_sw = KernelSwitches.from_env()
+                    cfg, _, run = ph.gen(f"switches {name}", argv, expected_switch_counts(steps, name), b)
+                    require(len(made) == 1, "switches", name, "pipelines built", len(made))
+                    pipe, sites, handles = made[0]
+                    for h in handles:
+                        h.remove()
+                    require(pipe.switches == want_sw, "switches", name, "record", pipe.switches, want_sw)
+                    batches = sorted({st[0] for st in sites["self_attention"]})
+                    require(batches == ([2 * b] if want_sw.cfg_full_batch else [b, 2 * b]), "switches", name,
+                            "self-attention batches", batches)
+                    pngs = generated_pngs(cfg, ds)
+                    x = driver_batch(pipe, cfg, ds, ds.get_image_stem_to_class_str_dict())
+                    fn = pipe.make_fused_generate(size, size, steps, cfg.guidance_scale, 0.75, 120.0, 200.0)
+                    (u8, images), fused_s = timed(lambda: fn(pipe.params, x["ids"], x["neg_ids"], x["src"], x["lat"],
+                                                             return_images=True))
+                    require(bool(torch.isfinite(images).all()), "switches", name, "non-finite images")
+                    same_pngs(f"switches {name} (fused)", pngs, u8.cpu().numpy())
+                    del images
+                    shutil.rmtree(cfg.output_folder(str(ds.root_path)))  # the next set's run resumes nothing
+
+                    # card vs CPU f32 under the same switches: one source at rs^2
+                    small = (x["src"][:1, ::size // rs, ::size // rs], x["ids"][:1], x["neg_ids"][:1],
+                             x["lat"][:1, ::size // rs, ::size // rs])
+                    reset_counts()
+                    _, img_gpu = pipe.make_fused_generate(rs, rs, steps, cfg.guidance_scale)(
+                        pipe.params, small[1], small[2], small[0], small[3], return_images=True)
+                    small_counts = read_counts()
+                    t_cpu = time.perf_counter()
+                    cpu = tpipelines.DiffusionPipeline("sd_v1.5", controlnet="canny", sampler="ddim",
+                                                       dtype=torch.float32, device="cpu", init_seed=None)
+                    require(cpu.switches == want_sw, "switches", name, "CPU record", cpu.switches)
+                    share_weights(cpu_base, cpu)
+                    _, img_cpu = cpu.make_fused_generate(rs, rs, steps, cfg.guidance_scale)(
+                        cpu.params, small[1], small[2], small[0], small[3], return_images=True)
+                    cpu_s = time.perf_counter() - t_cpu
+                    diff = (img_gpu.float().cpu() - img_cpu).abs()
+                    mean_diff, max_diff = diff.mean().item(), diff.max().item()
+                    require(mean_diff <= 0.02, "switches", name, "card vs CPU mean |diff|", mean_diff)
+                    ran = [k for k, v in expected_switch_counts(2, name).items() if v > 0]
+                    require(all(small_counts[k] > 0 for k in ran), "switches", name, "reference run missed a kernel",
+                            small_counts)
+                    del cpu, pipe, made[:]
+                gc.collect()
+                torch.cuda.empty_cache()
+                emit({"phase": "switches", "set": name, "env": env, **run, "record": vars(want_sw),
+                      "fused_s": fused_s, "pngs_equal_fused": True, "self_attention_batches": batches,
+                      "reference_resolution": rs, "reference_launches": small_counts, "mean_abs_diff": mean_diff,
+                      "max_abs_diff": max_diff, "cpu_s": cpu_s, "set_s": time.perf_counter() - t_set,
+                      "uint8_mean": float(u8.float().mean().item())})
+                out[f"switches_{name}"] = run["launches"]
+    finally:
+        tpipelines.init_pipeline = real_init
+    gc.collect()
+    emit({"phase": "switches_total", "sets": list(SWITCH_SETS), "seconds": time.perf_counter() - t0})
+    return out
+
+
 def train_profile_path(profile):
     from pathlib import Path
 
@@ -5634,6 +5922,7 @@ def main() -> int:
         h.remove()
     del big, big_lat
     torch.cuda.empty_cache()
+    sites_512 = set(sites["group_norm"])  # cell (b)'s GroupNorm sites: the f32-normalize K3's
     for key in ("group_norm", "layernorm"):
         sites[key] |= sites_gen[key]
     # the VAE decoder's GroupNorm at B8 C256 1024^2 holds exactly 2^31 elements
@@ -5649,6 +5938,8 @@ def main() -> int:
                              ("attention_block", check_k5, "attention_block")):
         checks[name] = check(gen) if arg is None else check(gen, sites[arg])
         emit({"phase": "kernels", "kernel": name, "shapes": checks[name]})
+    checks["group_norm_f32norm"] = check_k3_f32norm(gen, sites_512)
+    emit({"phase": "kernels", "kernel": "group_norm_f32norm", "shapes": checks["group_norm_f32norm"]})
 
     # ---- main path, each configuration ---------------------------------------
     counts = {}
@@ -5701,7 +5992,6 @@ def main() -> int:
     _, img_cpu = cpu.make_fused_generate(rs, rs, 2, 7.5)(cpu.params, small[1], small[2], small[0], small[3],
                                                          return_images=True)
     cpu_setup_s, cpu_s = t_setup - t, time.perf_counter() - t_setup
-    del cpu
     for config in CONFIGS:
         pipe = pipes[config]
         reset_counts()
@@ -5723,6 +6013,11 @@ def main() -> int:
         require(all(small_counts[k] > 0 for k in ran), config, "reference run missed a kernel", small_counts)
         require(mean_diff <= 0.02, config, "card vs CPU mean |diff|", mean_diff)
         require(canny_equal, "Canny on the card differs from the CPU")
+
+    # ---- cell (t): the JAX package's switches through cli gen, each set ----------
+    torch.cuda.empty_cache()
+    counts.update(run_switches_phase(pipes["default"], cpu, args.seed))
+    del cpu
 
     # ---- the gen entry point at 1024^2 -----------------------------------------
     gen_profile = None
@@ -5825,6 +6120,9 @@ def main() -> int:
          lambda r: r["shape"] == "xl vae decoder mid attention, f32"),
         ("group_norm_f32", "group_norm.cu", "saspa_tpu/ops/groupnorm.py:111",
          lambda r: (r["B"], r["C"], r["HW"], r["act"], r["tpu_numerics"]) == (8, 256, 512 * 512, "silu", False)),
+        # the TPU numerics' f32 normalize on bf16: cell (t) under SASPA_GN_FP32_NORM=1
+        ("group_norm_f32norm", "group_norm.cu", "saspa_tpu/ops/groupnorm.py:111",
+         lambda r: (r["B"], r["C"], r["HW"], r["act"]) == (16, 320, 4096, "silu") and "ms" in r),
     ]
     kernels = []
     for name, source, replaces, pick in lines:

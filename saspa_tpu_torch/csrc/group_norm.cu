@@ -4,7 +4,7 @@
 // x: (B, C, H, W) bf16 or f32, channels-last (NHWC in memory: a row of C
 // channels per pixel), the format the port's convolutions keep from the
 // latents on.  Statistics in f32: sum and sum of squares, mean = S1/n, var =
-// S2/n - mean^2, rstd = rsqrt(var + eps).  Two epilogues:
+// S2/n - mean^2, rstd = rsqrt(var + eps).  Three epilogues:
 //   xla order (tpu = 0), the JAX main path's default _xla_group_norm:
 //     var clamped at 0; y = T((x - mean) * (rstd * gamma_c) + beta_c) in
 //     f32; SiLU of the rounded value in f32, rounded once: y / (1 + exp(-y));
@@ -14,6 +14,11 @@
 //     each op: the bf16 normalize for bf16 input, every op in f32 (no
 //     rounding, no fused multiply-add) for f32 input, as _gn_kernel runs an
 //     f32 block.
+//   TPU numerics with an f32 normalize (tpu = 2, bf16 input only), _gn_kernel
+//     at bf16_norm=False (SASPA_GN_FP32_NORM=1): the same statistics, scale_c
+//     and shift_c kept in f32, o = f32(x) * scale_c + shift_c and SiLU as
+//     o * (1 / (1 + exp(-o))), every op in f32 as in the f32 instantiation
+//     of tpu = 1; one rounding to bf16, at the store.
 // T is the input's type: bf16, or f32 for the XL VAE under
 // SASPA_XL_VAE_FP32=1 (_gn_pallas on f32 input; the default path's
 // _xla_group_norm in f32).
@@ -46,6 +51,8 @@
 // Element offsets are 64-bit: the XL VAE's f32 site at 1024^2, B8, holds
 // 2^31 elements.  The sums are deterministic; their order differs from the
 // plain versions'.
+#include <type_traits>
+
 #include "mma_bf16.cuh"
 
 namespace saspa {
@@ -72,7 +79,8 @@ struct GnType<float> {
 };
 
 // Per-channel coefficients: xla order (a, b) = (rstd * gamma, beta) with the
-// mean subtracted first; TPU numerics (a, b) = (T(scale), T(shift)).
+// mean subtracted first; TPU numerics (a, b) = (T(scale), T(shift)), T the
+// compute type (GnCompute: f32 under the f32 normalize).
 struct GnCoef {
     float a, b;
 };
@@ -86,12 +94,17 @@ __device__ __forceinline__ GnCoef gn_coef(float gamma, float beta, float mean, f
     return {rstd * gamma, beta};
 }
 
+// The type an epilogue rounds to after each op: T, or f32 for the f32
+// normalize (TPU = 2).
+template <typename T, int TPU>
+using GnCompute = typename std::conditional<TPU == 2, float, T>::type;
+
 // One element; the result is rounded to T by the store.  __fmul_rn and
 // __fadd_rn keep each product and sum rounded on its own, as the plain
 // versions compute them (no fused multiply-add).
 template <typename T, int TPU, int SILU>
 __device__ __forceinline__ float gn_elem(float x, GnCoef k, float mean) {
-    using G = GnType<T>;
+    using G = GnType<GnCompute<T, TPU>>;
     if (TPU) {
         float y = G::rnd(__fadd_rn(G::rnd(__fmul_rn(x, k.a)), k.b));
         if (SILU) y = y * G::rnd(__frcp_rn(G::rnd(1.f + G::rnd(expf(-y)))));  // 1 / z, rounded once
@@ -196,9 +209,9 @@ gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ partial, int HW, i
         partial[((size_t)b * G + g) * gridDim.x + blockIdx.x] = m;
 }
 
-// One instantiation per type and epilogue (TPU numerics or the xla order,
-// with or without SiLU), so that no per-element branch or unused operand
-// takes registers.
+// One instantiation per type and epilogue (the xla order, TPU numerics, or
+// TPU numerics with the f32 normalize on bf16; with or without SiLU), so
+// that no per-element branch or unused operand takes registers.
 template <typename T, int TPU, int SILU>
 __global__ void __launch_bounds__(GN_MAX_THREADS, 2)
 gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -229,7 +242,7 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const 
         const int c = s * VEC + e;
         const float2 st = sst[c / CG];
         mean[e] = st.x;
-        k[e] = gn_coef<T>(gamma[c], beta[c], st.x, st.y, TPU);
+        k[e] = gn_coef<GnCompute<T, TPU>>(gamma[c], beta[c], st.x, st.y, TPU);
     }
     const size_t base = (size_t)b * HW * C + s * VEC;
     gn_walk<TPU ? 4 : 2>(x + base, HW, C, rows, ro, [&](const uint4& v, int r) {
@@ -248,8 +261,11 @@ static cudaError_t launch_group_norm(const void* x, const void* gamma, const voi
                                      int silu, int tpu, cudaStream_t s) {
     typedef void (*ApplyKernel)(const T*, const float*, const float*, T*, const float2*, int, int, int, int, float,
                                 float);
-    static const ApplyKernel apply[2][2] = {{gn_apply_kernel<T, 0, 0>, gn_apply_kernel<T, 0, 1>},
-                                            {gn_apply_kernel<T, 1, 0>, gn_apply_kernel<T, 1, 1>}};  // [tpu][silu]
+    // the f32 normalize is epilogue 1 on f32 input: no instantiation of its own
+    constexpr int F32N = std::is_same<T, float>::value ? 1 : 2;
+    static const ApplyKernel apply[3][2] = {{gn_apply_kernel<T, 0, 0>, gn_apply_kernel<T, 0, 1>},
+                                            {gn_apply_kernel<T, 1, 0>, gn_apply_kernel<T, 1, 1>},
+                                            {gn_apply_kernel<T, F32N, 0>, gn_apply_kernel<T, F32N, 1>}};  // [tpu][silu]
     if (C % GnType<T>::VEC || C > GnType<T>::VEC * GN_MAX_THREADS || rows * (C / GnType<T>::VEC) > threads)
         return cudaErrorInvalidValue;
     const T* xp = static_cast<const T*>(x);
@@ -258,7 +274,7 @@ static cudaError_t launch_group_norm(const void* x, const void* gamma, const voi
     gn_stats_kernel<T><<<grid, threads, sizeof(float2) * rows * C, s>>>(xp, part, HW, C, G, rows);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    apply[tpu != 0][silu != 0]<<<grid, threads, 0, s>>>(xp, static_cast<const float*>(gamma),
+    apply[tpu][silu != 0]<<<grid, threads, 0, s>>>(xp, static_cast<const float*>(gamma),
                                                         static_cast<const float*>(beta), static_cast<T*>(out), part,
                                                         HW, C, G, rows, (float)((long long)(C / G) * HW), eps);
     return cudaGetLastError();
@@ -267,6 +283,8 @@ static cudaError_t launch_group_norm(const void* x, const void* gamma, const voi
 }  // namespace saspa
 
 // x, out: (B, C, HW), NHWC in memory, bf16 (f32 = 0) or f32 (f32 = 1);
+// tpu: the epilogue, 0 the xla order, 1 the TPU numerics, 2 the TPU
+// numerics with the f32 normalize (on f32 input the same as 1);
 // gamma, beta: (C,) f32; ws: (B * G * blocks) float2 scratch (each block's
 // group moments).  threads, rows, blocks: the launch plan
 // (ops/groupnorm.py::gn_plan): threads a multiple of 32 and at most 512,
@@ -279,7 +297,7 @@ extern "C" int saspa_group_norm(const void* x, const void* gamma, const void* be
                                 int f32, void* stream) {
     using namespace saspa;
     if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || G <= 0 || G > GN_MAX_GROUPS || C % G || threads % 32 ||
-        threads <= 0 || threads > GN_MAX_THREADS || rows <= 0 || blocks <= 0)
+        threads <= 0 || threads > GN_MAX_THREADS || rows <= 0 || blocks <= 0 || tpu < 0 || tpu > 2)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (f32) return (int)launch_group_norm<float>(x, gamma, beta, out, ws, B, C, HW, G, threads, rows, blocks, eps,

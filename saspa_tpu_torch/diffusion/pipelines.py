@@ -23,7 +23,12 @@ recipe's guidance scale 0 runs no negative tower.  With
 SASPA_XL_VAE_FP32=1 at construction (the reference's upcast_vae, the JAX
 package's switch of the same name) the XL families' VAE, encoder and
 decoder, runs in f32 while the towers, UNet and ControlNet keep the
-pipeline's dtype; the latents reach it in f32.  With `weights_dir` the
+pipeline's dtype; the latents reach it in f32.  The JAX package's kernel
+route and numerics switches (SASPA_PALLAS_GN, SASPA_GN_FP32_NORM,
+SASPA_ATTN_MEGAKERNEL, SASPA_DISABLE_PALLAS, ...; ops/switches.py) are read
+there too, into one `KernelSwitches` record that the models and the sampler
+are built with, so every family takes JAX's route for the same
+environment.  With `weights_dir` the
 models load from the public checkpoint files of a tree
 (weights/sources.py: the family's files whole, the ControlNet's and HED's
 on their own); what the tree lacks takes a seeded random init
@@ -58,6 +63,7 @@ from saspa_tpu_torch.models.text_encoder import SD15_TEXT, SD21_TEXT, SDXL_TEXT_
 from saspa_tpu_torch.models.unet import UNET_CONFIGS, UNet2DCondition
 from saspa_tpu_torch.models.vae import SD_VAE, SDXL_VAE, AutoencoderKL
 from saspa_tpu_torch.ops.canny import canny_control_image
+from saspa_tpu_torch.ops.switches import KernelSwitches
 
 XL_BASE_MODELS = ("sd_xl", "sd_xl-turbo", "sd_xl-refiner")
 BASE_MODELS = ("sd_v1.5", "sd_v2.1", "ip2p", "blip_diffusion", "blip_diffusion-controlnet") + XL_BASE_MODELS
@@ -111,20 +117,23 @@ class DiffusionPipeline:
     def __init__(self, base_model: str = "sd_v1.5", controlnet: Optional[str] = "canny", sampler: str = "ddim",
                  dtype: Optional[torch.dtype] = None, device=None, weights_dir: Optional[str] = None,
                  init_seed: Optional[int] = 0, unet_cfg=None, vae_cfg=None, text_cfgs=None,
-                 pallas_group_norm: bool = False, attention_megakernel: bool = False):
+                 switches: Optional[KernelSwitches] = None, pallas_group_norm: Optional[bool] = None,
+                 attention_megakernel: Optional[bool] = None):
         """weights_dir: a tree of public checkpoint files (weights/sources.py),
         loaded strictly; `weights_loaded` says whether the base family came
         from it, `load_report` holds one report per model loaded.
         init_seed=None leaves what was not loaded at zero for a caller that
         loads weights next (load_flax_params or load_state_dict).
 
-        The kernel configuration: by default what the JAX main path runs by
-        default.  pallas_group_norm=True and attention_megakernel=True are the
-        counterparts of SASPA_PALLAS_GN=1 and SASPA_ATTN_MEGAKERNEL=1 (with
-        SASPA_PALLAS_LN=1, which needs no switch here: the one-pass LayerNorm
-        is the default path's function): GroupNorm with the TPU kernel's
-        numerics where its split plan admits the site, and the self-attention
-        block kernel where `attention_block_eligible` admits it.
+        The kernel configuration: `switches`, or where none is given the
+        record the JAX package would read from the environment
+        (`KernelSwitches.from_env`: with no variable set, what the JAX main
+        path runs by default), kept as `self.switches`.  pallas_group_norm
+        and attention_megakernel, where given, override those two fields:
+        the counterparts of SASPA_PALLAS_GN=1 and SASPA_ATTN_MEGAKERNEL=1
+        (GroupNorm with the TPU kernel's numerics where its split plan admits
+        the site, the self-attention block kernel where
+        `attention_block_eligible` admits it).
 
         controlnet="hed" also builds the HED network (params["hed"]) that
         makes its conditioning image.  The XL families' VAE takes f32 where
@@ -145,18 +154,22 @@ class DiffusionPipeline:
         self.latent_factor = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
 
         dev, dt = self.device, self.dtype
-        gn, mk = pallas_group_norm, attention_megakernel
+        sw = KernelSwitches.from_env() if switches is None else switches
+        if pallas_group_norm is not None:
+            sw = sw.replace(pallas_group_norm=pallas_group_norm)
+        if attention_megakernel is not None:
+            sw = sw.replace(attention_megakernel=attention_megakernel)
+        self.switches = sw
         # the reference upcasts only the XL VAE (upcast_vae, run_aug/run_aug.py:189)
         fp32_vae = dt == torch.float32 or os.environ.get("SASPA_XL_VAE_FP32", "") == "1"
         self.vae_dtype = torch.float32 if self.spec.is_xl and fp32_vae else dt
         self.params = {
             "text": [CLIPTextEncoder(c, dt, dev) for c in self.text_cfgs],
-            "unet": UNet2DCondition(self.unet_cfg, dt, dev, pallas_group_norm=gn, attention_megakernel=mk),
-            "vae": AutoencoderKL(self.vae_cfg, self.vae_dtype, dev, pallas_group_norm=gn),
+            "unet": UNet2DCondition(self.unet_cfg, dt, dev, switches=sw),
+            "vae": AutoencoderKL(self.vae_cfg, self.vae_dtype, dev, switches=sw),
         }
         if controlnet:
-            self.params["controlnet"] = ControlNet(self.unet_cfg, dt, dev, pallas_group_norm=gn,
-                                                   attention_megakernel=mk)
+            self.params["controlnet"] = ControlNet(self.unet_cfg, dt, dev, switches=sw)
         if controlnet == "hed":
             self.params["hed"] = HED(dt, dev)
         self.params.update(self._extra_modules())
@@ -183,6 +196,7 @@ class DiffusionPipeline:
             lambda p, z: p.decode(z),
             self.vae_cfg.scaling_factor,
             controlnet_embed=(lambda p, cimg: p.embed_cond(cimg)) if controlnet else None,
+            cfg_full_batch=sw.cfg_full_batch,
         )
 
     def _modules(self):

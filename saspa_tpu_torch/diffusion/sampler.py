@@ -5,7 +5,8 @@ latent against the 2B [uncond, cond] context and fork to 2B at their first
 cross-attention.  Not for SDXL: its added conditions enter the time
 embedding, which feeds every resnet, so under CFG the latents, the
 ControlNet's conditioning embedding and the [uncond, cond] added conditions
-go in at 2B.  The ControlNet conditioning embedding is computed once, before
+go in at 2B; with cfg_full_batch (SASPA_CFG_FULL_BATCH=1) every family
+does so.  The ControlNet conditioning embedding is computed once, before
 the step loop, on the B control images, and tiled.  InstructPix2Pix
 (`image_latents` given) runs 3-way guidance with no shared prefix: the
 latents at 3B against the [cond, uncond, uncond] context, each third's
@@ -27,11 +28,12 @@ import torch
 
 
 def make_sample_loop(unet_apply, scheduler, controlnet_apply=None, vae_decode=None, vae_scaling: float = 0.18215,
-                     controlnet_embed=None):
+                     controlnet_embed=None, cfg_full_batch: bool = False):
     """unet_apply(params_unet, lat, t, ctx, added_cond, down_res, mid_res) -> eps (f32)
     controlnet_apply(params_cn, lat, t, ctx, cond_emb, scale, added_cond) -> (down_res, mid_res)
     controlnet_embed(params_cn, cond_img) -> cond embedding
-    vae_decode(params_vae, z) -> images in [-1, 1]"""
+    vae_decode(params_vae, z) -> images in [-1, 1]
+    cfg_full_batch: no CFG shared prefix, the model input at 2B under CFG."""
 
     @torch.no_grad()
     def sample(params: dict, latents, context, uncond_context: Optional[torch.Tensor], timesteps,
@@ -54,7 +56,8 @@ def make_sample_loop(unet_apply, scheduler, controlnet_apply=None, vae_decode=No
             n_rep = 3 if do_cfg else 1
         else:
             ctx = torch.cat([uncond_context, context], dim=0) if do_cfg else context
-            n_rep = 2 if do_cfg and added_cond is not None else 1  # 1: the shared prefix forks inside the network
+            # 1: the shared prefix forks inside the network
+            n_rep = 2 if do_cfg and (added_cond is not None or cfg_full_batch) else 1
         ac = added_cond
         if do_cfg and added_cond is not None:
             ac = {k: torch.cat([uncond_added_cond[k], added_cond[k]], dim=0) for k in added_cond}

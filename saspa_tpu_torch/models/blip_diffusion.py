@@ -39,6 +39,7 @@ from saspa_tpu_torch.gen.tokenizer import CONTEXT_LENGTH
 from saspa_tpu_torch.models.blip_caption import WordPieceTokenizer
 from saspa_tpu_torch.models.clip import CLIPVisionViT, CLIPVisionViTConfig, clip_preprocess
 from saspa_tpu_torch.models.layers import Dense, Embed, NormParams, flax_layer_norm, init_weights
+from saspa_tpu_torch.ops.switches import KernelSwitches
 
 CTX_BEGIN_POS = 2
 NUM_QUERY_TOKENS = 16
@@ -169,7 +170,7 @@ class QFormer(nn.Module):
 
 
 class BlipDiffusionPipeline(DiffusionPipeline):
-    """The SD1.5 pipeline (default kernel configuration) plus
+    """The SD1.5 pipeline (switches as DiffusionPipeline's) plus
     params["blip_vision"] (CLIP ViT) and params["blip_qformer"];
     `make_fused_generate` takes the category ids and the reference images
     besides the SD arguments."""
@@ -177,11 +178,11 @@ class BlipDiffusionPipeline(DiffusionPipeline):
     def __init__(self, controlnet: Optional[str] = "canny", sampler: str = "ddim", weights_dir: Optional[str] = None,
                  dtype: Optional[torch.dtype] = None, device=None, init_seed: Optional[int] = 0, unet_cfg=None,
                  vae_cfg=None, text_cfgs=None, vision_cfg: CLIPVisionViTConfig = BLIP_VISION,
-                 qformer_cfg: QFormerConfig = QFormerConfig()):
+                 qformer_cfg: QFormerConfig = QFormerConfig(), switches: Optional[KernelSwitches] = None):
         self.vision_cfg, self.qformer_cfg = vision_cfg, qformer_cfg
         super().__init__("blip_diffusion-controlnet" if controlnet else "blip_diffusion", controlnet=controlnet,
                          sampler=sampler, dtype=dtype, device=device, weights_dir=weights_dir, init_seed=init_seed,
-                         unet_cfg=unet_cfg, vae_cfg=vae_cfg, text_cfgs=text_cfgs)
+                         unet_cfg=unet_cfg, vae_cfg=vae_cfg, text_cfgs=text_cfgs, switches=switches)
         vocab = Path(weights_dir or "") / "tokenizer" / "vocab.txt"
         self.bert_tokenizer = WordPieceTokenizer(str(vocab) if vocab.exists() else None)
 

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from saspa_tpu_torch.models.layers import Conv
 from saspa_tpu_torch.models.unet import SD15_UNET, UNetConfig, UNetEncoder
+from saspa_tpu_torch.ops.switches import DEFAULT, KernelSwitches
 
 # parameters that flax initialises to zero
 ZERO_INIT_PREFIXES = ("controlnet_cond_embedding.conv_out.", "controlnet_down_blocks_", "controlnet_mid_block.")
@@ -42,9 +43,9 @@ class ControlNetConditioningEmbedding(nn.Module):
 
 
 class ControlNet(UNetEncoder):
-    def __init__(self, cfg: UNetConfig = SD15_UNET, dtype=torch.float32, device=None, pallas_group_norm=False,
-                 attention_megakernel=False):
-        super().__init__(cfg, dtype, device, pallas_group_norm, attention_megakernel)
+    def __init__(self, cfg: UNetConfig = SD15_UNET, dtype=torch.float32, device=None,
+                 switches: KernelSwitches = DEFAULT):
+        super().__init__(cfg, dtype, device, switches)
         self.controlnet_cond_embedding = ControlNetConditioningEmbedding(cfg.block_out_channels[0], dtype, device)
         for idx, ch in enumerate(self.skip_channels):
             setattr(self, f"controlnet_down_blocks_{idx}", Conv(ch, ch, 1, dtype=dtype, device=device))

@@ -24,12 +24,18 @@ LN+GEGLU kernel (K2), norm1/norm2 the one-pass LayerNorm (K4), every
 GroupNorm the GroupNorm kernel (K3) in `_xla_group_norm`'s order, and
 cross-attention over the 77 text tokens is plain torch.
 
-Two options select the counterpart of the JAX package's opt-in kernels
-(SASPA_PALLAS_GN=1 SASPA_ATTN_MEGAKERNEL=1): `pallas_group_norm` gives K3 the
-TPU kernel's bf16 numerics wherever that kernel's `_split_plan` admits the
-site, and `attention_megakernel` runs each self-attention that
+The JAX package's route and numerics switches reach the models as one
+record (`ops/switches.py::KernelSwitches`, passed to the constructors):
+`pallas_group_norm` gives K3 the TPU kernel's numerics wherever that
+kernel's `_split_plan` admits the site (with `gn_fp32_norm`, its f32
+normalize); `attention_megakernel` runs each self-attention that
 `attention_block_eligible` admits, with its residual add, through the block
-kernel (K5).
+kernel (K5); `disable_pallas` sends every attention to the plain path at
+its real head dim (no K1, K5, K6); without `pallas_geglu`, or under
+`ln_fp32_norm`, a block's norm3 + feed-forward run as separate ops (no K2;
+under `ln_fp32_norm` every LayerNorm normalizes in f32, no K4); and
+`split_skip_concat` hands an up block's resnet the skip beside x wherever
+the seam falls on a group boundary, so the concatenation is never built.
 
 CFG shared prefix (`cfg_tile`): under classifier-free guidance both halves
 share one latent, so the network runs at batch B until the first
@@ -62,8 +68,9 @@ from saspa_tpu_torch.ops.attention import (
 )
 from saspa_tpu_torch.ops.geglu import fused_ln_geglu
 from saspa_tpu_torch.ops.groupnorm import group_norm, groups_for, split_plan
-from saspa_tpu_torch.ops.layernorm import layer_norm_one_pass
+from saspa_tpu_torch.ops.layernorm import layer_norm_fp32_norm, layer_norm_one_pass
 from saspa_tpu_torch.ops.layernorm import layer_norm_one_pass_plain as _ln32_forward  # noqa: F401
+from saspa_tpu_torch.ops.switches import DEFAULT, KernelSwitches
 
 
 @dataclass(frozen=True)
@@ -165,31 +172,70 @@ class TimestepEmbedding(nn.Module):
 class GroupNorm32(nn.Module):
     """GroupNorm with f32 statistics (params under <name>.GroupNorm_0), K3.
     tpu_numerics: the TPU kernel's numerics at the sites its split plan
-    admits (decided per call from the input's shape and dtype)."""
+    admits (decided per call from the input's shape and dtype), with its
+    normalize in x's dtype (bf16_norm) or in f32.
 
-    def __init__(self, channels, num_groups=32, eps=1e-5, act=None, device=None, tpu_numerics=False):
+    forward(x, x2) normalizes the two halves of the channel concatenation
+    [x; x2] without building it (JAX's split-skip path): the caller puts the
+    seam on a group boundary, so each group lies in one half and the result
+    is the concatenation's, half by half."""
+
+    def __init__(self, channels, num_groups=32, eps=1e-5, act=None, device=None, tpu_numerics=False,
+                 bf16_norm=True):
         super().__init__()
         self.GroupNorm_0 = NormParams(channels, device)
-        self.num_groups, self.eps, self.act, self.tpu_numerics = num_groups, eps, act, tpu_numerics
+        self.num_groups, self.eps, self.act = num_groups, eps, act
+        self.tpu_numerics, self.bf16_norm = tpu_numerics, bf16_norm
 
-    def forward(self, x):
-        p = self.GroupNorm_0
+    def _norm(self, x, scale, bias, num_groups):
         c = x.shape[1]
         tpu = self.tpu_numerics and split_plan(
-            math.prod(x.shape[2:]), c, groups_for(c, self.num_groups), x.element_size()) is not None
-        return group_norm(x, p.scale, p.bias, self.num_groups, self.eps, self.act, tpu_numerics=tpu)
+            math.prod(x.shape[2:]), c, groups_for(c, num_groups), x.element_size()) is not None
+        return group_norm(x, scale, bias, num_groups, self.eps, self.act, tpu_numerics=tpu, bf16_norm=self.bf16_norm)
+
+    def forward(self, x, x2=None):
+        p = self.GroupNorm_0
+        if x2 is None:
+            return self._norm(x, p.scale, p.bias, self.num_groups)
+        c1 = x.shape[1]
+        c = c1 + x2.shape[1]
+        groups = min(self.num_groups, c)
+        g1 = groups * c1 // c
+        return (self._norm(x, p.scale[:c1], p.bias[:c1], g1),
+                self._norm(x2, p.scale[c1:], p.bias[c1:], groups - g1))
+
+
+def split_skip_eligible(cx: int, cs: int, groups: int) -> bool:
+    """JAX's `_split_skip_eligible` without its switch: the seam of the
+    concatenation [x (cx channels); skip (cs)] falls on a group boundary."""
+    c = cx + cs
+    return c % groups == 0 and cx % (c // groups) == 0
+
+
+def split_conv(conv, x1, x2):
+    """conv([x1; x2]) over the channel axis without building the
+    concatenation (JAX's `_SplitInputConv`): the convs of x1 and x2 with the
+    kernel's two input slices, summed in the compute dtype, the bias added
+    last."""
+    dt, c1 = conv.dtype, x1.shape[1]
+    k = conv.kernel.to(dt)
+    out = (F.conv2d(x1.to(dt), k[:, :c1], None, conv.stride, conv.padding)
+           + F.conv2d(x2.to(dt), k[:, c1:], None, conv.stride, conv.padding))
+    return out + conv.bias.to(dt)[:, None, None]
 
 
 class LayerNorm32(NormParams):
     """LayerNorm with f32 statistics and a normalize pass in x's dtype (K4;
-    `_ln32_forward` is its plain version)."""
+    `_ln32_forward` is its plain version), or with fp32_norm
+    (SASPA_LN_FP32_NORM=1) the normalize in f32 and one cast to x's dtype."""
 
-    def __init__(self, features, eps=1e-5, device=None):
+    def __init__(self, features, eps=1e-5, device=None, fp32_norm=False):
         super().__init__(features, device)
-        self.eps = eps
+        self.eps, self.fp32_norm = eps, fp32_norm
 
     def forward(self, x):
-        return layer_norm_one_pass(x, self.scale, self.bias, self.eps)
+        norm = layer_norm_fp32_norm if self.fp32_norm else layer_norm_one_pass
+        return norm(x, self.scale, self.bias, self.eps)
 
 
 def cfg_tile(x, n: int):
@@ -200,31 +246,50 @@ def cfg_tile(x, n: int):
     return torch.cat([x, x], dim=0)
 
 
+def gn_options(switches: KernelSwitches) -> dict:
+    """GroupNorm32's numerics options under the switches."""
+    return {"tpu_numerics": switches.pallas_group_norm, "bf16_norm": not switches.gn_fp32_norm}
+
+
 class ResnetBlock2D(nn.Module):
-    def __init__(self, in_ch, out_ch, temb_dim, dtype, device, groups=32, pallas_group_norm=False):
+    """forward(x, temb, skip): with a skip, the block of the concatenation
+    [x; skip] without building it (split_skip_eligible's seams): norm1 on
+    the halves, conv1 and conv_shortcut as split_conv pairs."""
+
+    def __init__(self, in_ch, out_ch, temb_dim, dtype, device, groups=32, switches: KernelSwitches = DEFAULT):
         super().__init__()
-        self.norm1 = GroupNorm32(in_ch, groups, act="silu", device=device, tpu_numerics=pallas_group_norm)
+        gn = gn_options(switches)
+        self.norm1 = GroupNorm32(in_ch, groups, act="silu", device=device, **gn)
         self.conv1 = Conv(in_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
         self.time_emb_proj = Dense(temb_dim, out_ch, dtype=dtype, device=device)
-        self.norm2 = GroupNorm32(out_ch, groups, act="silu", device=device, tpu_numerics=pallas_group_norm)
+        self.norm2 = GroupNorm32(out_ch, groups, act="silu", device=device, **gn)
         self.conv2 = Conv(out_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
         self.conv_shortcut = Conv(in_ch, out_ch, 1, dtype=dtype, device=device) if in_ch != out_ch else None
 
-    def forward(self, x, temb):
-        h = self.conv1(self.norm1(x))
+    def forward(self, x, temb, skip=None):
+        if skip is None:
+            h = self.conv1(self.norm1(x))
+        else:
+            h = split_conv(self.conv1, *self.norm1(x, skip))
         t = self.time_emb_proj(F.silu(temb))
         h = h + cfg_tile(t, h.shape[0])[:, :, None, None]
         h = self.conv2(self.norm2(h))
         if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
+            x = self.conv_shortcut(x) if skip is None else split_conv(self.conv_shortcut, x, skip)
+        elif skip is not None:
+            x = torch.cat([x, skip], dim=1)
         return x + h
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, query_dim, context_dim, heads, dtype, device, megakernel=False):
+    """megakernel: K5 where its predicate admits the self-attention;
+    kernels=False (SASPA_DISABLE_PALLAS=1): the plain path at the real head
+    dim everywhere, no head-padded weights."""
+
+    def __init__(self, query_dim, context_dim, heads, dtype, device, megakernel=False, kernels=True):
         super().__init__()
         self.heads = heads
-        self.megakernel = megakernel
+        self.megakernel, self.kernels = megakernel, kernels
         self.to_q = Dense(query_dim, query_dim, bias=False, dtype=dtype, device=device)
         self.to_k = Dense(context_dim, query_dim, bias=False, dtype=dtype, device=device)
         self.to_v = Dense(context_dim, query_dim, bias=False, dtype=dtype, device=device)
@@ -262,7 +327,7 @@ class CrossAttention(nn.Module):
         context = x if context is None else context
         inner = x.shape[-1]
         d = inner // self.heads
-        if packed_flash_eligible(x.shape[1], context.shape[1], self.heads, d, x.element_size()):
+        if self.kernels and packed_flash_eligible(x.shape[1], context.shape[1], self.heads, d, x.element_size()):
             wq, wk, wv, wo, wq_scaled = self.padded_weights()
             dt = wq.dtype
             if self.megakernel and is_self and residual is not None and attention_block_eligible(
@@ -276,33 +341,44 @@ class CrossAttention(nn.Module):
             out = F.linear(flash_attention_packed(qs, k, v, self.heads), wo, self.to_out.bias.to(dt))
         else:  # unpadded projections: cross-attention, and self-attention past the packed guard (K6)
             q = cfg_tile(self.to_q(x), context.shape[0])
-            out = self.to_out(attention(q, self.to_k(context), self.to_v(context), self.heads))
+            out = self.to_out(attention(q, self.to_k(context), self.to_v(context), self.heads, self.kernels))
         return out if residual is None else residual + out
 
 
 class FeedForwardGEGLU(nn.Module):
-    """GEGLU feed-forward weights; the block runs them through fused_ln_geglu (K2)."""
+    """GEGLU feed-forward weights.  The block runs them through
+    fused_ln_geglu (K2), or, off its route, through forward: the JAX
+    module's ops in its order (proj_in, h * gelu_erf(gate), proj_out)."""
 
     def __init__(self, dim, dtype, device, mult=4):
         super().__init__()
         self.proj_in = Dense(dim, dim * mult * 2, dtype=dtype, device=device)
         self.proj_out = Dense(dim * mult, dim, dtype=dtype, device=device)
 
+    def forward(self, x):
+        h, gate = self.proj_in(x).chunk(2, dim=-1)
+        return self.proj_out(h * F.gelu(gate))
+
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim, context_dim, heads, dtype, device, megakernel=False):
+    def __init__(self, dim, context_dim, heads, dtype, device, switches: KernelSwitches = DEFAULT):
         super().__init__()
-        self.attn1 = CrossAttention(dim, dim, heads, dtype, device, megakernel=megakernel)
-        self.attn2 = CrossAttention(dim, context_dim, heads, dtype, device)
-        self.norm1 = LayerNorm32(dim, device=device)
-        self.norm2 = LayerNorm32(dim, device=device)
-        self.norm3 = LayerNorm32(dim, device=device)
+        kernels = not switches.disable_pallas
+        self.attn1 = CrossAttention(dim, dim, heads, dtype, device, megakernel=switches.attention_megakernel,
+                                    kernels=kernels)
+        self.attn2 = CrossAttention(dim, context_dim, heads, dtype, device, kernels=kernels)
+        self.norm1 = LayerNorm32(dim, device=device, fp32_norm=switches.ln_fp32_norm)
+        self.norm2 = LayerNorm32(dim, device=device, fp32_norm=switches.ln_fp32_norm)
+        self.norm3 = LayerNorm32(dim, device=device, fp32_norm=switches.ln_fp32_norm)
         self.ff = FeedForwardGEGLU(dim, dtype, device)
+        self.fused_ff = switches.fused_ff
 
     def forward(self, x, context):
         x = self.attn1(self.norm1(x).to(x.dtype), residual=x)
         a2 = self.attn2(self.norm2(x).to(x.dtype), context)
         x = cfg_tile(x, a2.shape[0]) + a2  # CFG fork point (B -> 2B)
+        if not self.fused_ff:
+            return x + self.ff(self.norm3(x).to(x.dtype))
         ff = self.ff
         return fused_ln_geglu(x, self.norm3.scale, self.norm3.bias, ff.proj_in.kernel, ff.proj_in.bias,
                               ff.proj_out.kernel, ff.proj_out.bias, self.norm3.eps)
@@ -312,11 +388,11 @@ class Transformer2D(nn.Module):
     """proj_in/proj_out: 1x1 convs, or dense layers on the tokens with
     use_linear_projection (SD2.x, SDXL)."""
 
-    def __init__(self, channels, context_dim, heads, depth, dtype, device, pallas_group_norm=False,
-                 attention_megakernel=False, use_linear_projection=False):
+    def __init__(self, channels, context_dim, heads, depth, dtype, device, switches: KernelSwitches = DEFAULT,
+                 use_linear_projection=False):
         super().__init__()
         # diffusers' Transformer2DModel uses eps 1e-6 for this norm
-        self.norm = GroupNorm32(channels, 32, eps=1e-6, device=device, tpu_numerics=pallas_group_norm)
+        self.norm = GroupNorm32(channels, 32, eps=1e-6, device=device, **gn_options(switches))
         self.linear = use_linear_projection
         if use_linear_projection:
             self.proj_in = Dense(channels, channels, dtype=dtype, device=device)
@@ -324,7 +400,7 @@ class Transformer2D(nn.Module):
             self.proj_in = Conv(channels, channels, 1, dtype=dtype, device=device)
         for i in range(depth):
             setattr(self, f"blocks_{i}", BasicTransformerBlock(channels, context_dim, heads, dtype, device,
-                                                               megakernel=attention_megakernel))
+                                                               switches))
         self.depth = depth
         if use_linear_projection:
             self.proj_out = Dense(channels, channels, dtype=dtype, device=device)
@@ -369,16 +445,14 @@ class Upsample2D(nn.Module):
 
 
 class UNetMidBlock2DCrossAttn(nn.Module):
-    def __init__(self, cfg: UNetConfig, temb_dim, dtype, device, pallas_group_norm=False,
-                 attention_megakernel=False):
+    def __init__(self, cfg: UNetConfig, temb_dim, dtype, device, switches: KernelSwitches = DEFAULT):
         super().__init__()
         ch = cfg.block_out_channels[-1]
         heads = cfg.num_attention_heads[len(cfg.block_out_channels) - 1]
-        gn = pallas_group_norm
-        self.resnets_0 = ResnetBlock2D(ch, ch, temb_dim, dtype, device, pallas_group_norm=gn)
+        self.resnets_0 = ResnetBlock2D(ch, ch, temb_dim, dtype, device, switches=switches)
         self.attentions_0 = Transformer2D(ch, cfg.cross_attention_dim, heads, cfg.transformer_layers_per_block[-1],
-                                          dtype, device, gn, attention_megakernel, cfg.use_linear_projection)
-        self.resnets_1 = ResnetBlock2D(ch, ch, temb_dim, dtype, device, pallas_group_norm=gn)
+                                          dtype, device, switches, cfg.use_linear_projection)
+        self.resnets_1 = ResnetBlock2D(ch, ch, temb_dim, dtype, device, switches=switches)
 
     def forward(self, x, temb, context):
         x = self.resnets_0(x, temb)
@@ -388,13 +462,11 @@ class UNetMidBlock2DCrossAttn(nn.Module):
 
 class UNetEncoder(nn.Module):
     """time embedding + conv_in + down blocks + mid block: the part the UNet
-    and the ControlNet share (names as in the flax tree).  pallas_group_norm
-    and attention_megakernel select the opt-in kernel configuration (module
-    docstring)."""
+    and the ControlNet share (names as in the flax tree).  switches: the
+    kernel routes and numerics (module docstring)."""
 
-    def __init__(self, cfg: UNetConfig, dtype, device, pallas_group_norm=False, attention_megakernel=False):
+    def __init__(self, cfg: UNetConfig, dtype, device, switches: KernelSwitches = DEFAULT):
         super().__init__()
-        gn, mk = pallas_group_norm, attention_megakernel
         self.cfg = cfg
         boc = cfg.block_out_channels
         temb_dim = boc[0] * 4
@@ -412,17 +484,17 @@ class UNetEncoder(nn.Module):
             ch = boc[i]
             for j in range(cfg.layers_per_block):
                 setattr(self, f"down_{i}_resnets_{j}", ResnetBlock2D(cur, ch, temb_dim, dtype, device,
-                                                                     pallas_group_norm=gn))
+                                                                     switches=switches))
                 cur = ch
                 if block_type == "CrossAttnDownBlock2D":
                     setattr(self, f"down_{i}_attentions_{j}", Transformer2D(
-                        ch, cfg.cross_attention_dim, cfg.num_attention_heads[i], cfg.depth(i), dtype, device, gn, mk,
-                        cfg.use_linear_projection))
+                        ch, cfg.cross_attention_dim, cfg.num_attention_heads[i], cfg.depth(i), dtype, device,
+                        switches, cfg.use_linear_projection))
                 self.skip_channels.append(ch)
             if i < len(boc) - 1:
                 setattr(self, f"down_{i}_downsample", Downsample2D(ch, dtype, device))
                 self.skip_channels.append(ch)
-        self.mid_block = UNetMidBlock2DCrossAttn(cfg, temb_dim, dtype, device, gn, mk)
+        self.mid_block = UNetMidBlock2DCrossAttn(cfg, temb_dim, dtype, device, switches)
 
     def temb(self, sample, timesteps, added_cond=None):
         """The time embedding; with text_time added conditions
@@ -471,10 +543,10 @@ class UNet2DCondition(UNetEncoder):
     down_res, mid_res, added_cond) -> eps (B or 2B, C, h, w) in f32;
     added_cond as UNetEncoder.temb's (SDXL)."""
 
-    def __init__(self, cfg: UNetConfig = SD15_UNET, dtype=torch.float32, device=None, pallas_group_norm=False,
-                 attention_megakernel=False):
-        super().__init__(cfg, dtype, device, pallas_group_norm, attention_megakernel)
-        gn, mk = pallas_group_norm, attention_megakernel
+    def __init__(self, cfg: UNetConfig = SD15_UNET, dtype=torch.float32, device=None,
+                 switches: KernelSwitches = DEFAULT):
+        super().__init__(cfg, dtype, device, switches)
+        self.split_skip = switches.split_skip_concat
         boc = cfg.block_out_channels
         temb_dim = boc[0] * 4
         skips = list(self.skip_channels)
@@ -485,15 +557,16 @@ class UNet2DCondition(UNetEncoder):
             block_idx = len(boc) - 1 - i
             for j in range(cfg.layers_per_block + 1):
                 setattr(self, f"up_{i}_resnets_{j}", ResnetBlock2D(cur + skips.pop(), ch, temb_dim, dtype, device,
-                                                                   pallas_group_norm=gn))
+                                                                   switches=switches))
                 cur = ch
                 if block_type == "CrossAttnUpBlock2D":
                     setattr(self, f"up_{i}_attentions_{j}", Transformer2D(
                         ch, cfg.cross_attention_dim, cfg.num_attention_heads[block_idx], cfg.depth(block_idx),
-                        dtype, device, gn, mk, cfg.use_linear_projection))
+                        dtype, device, switches, cfg.use_linear_projection))
             if i < len(cfg.up_block_types) - 1:
                 setattr(self, f"up_{i}_upsample", Upsample2D(ch, dtype, device))
-        self.conv_norm_out = GroupNorm32(boc[0], cfg.norm_num_groups, act="silu", device=device, tpu_numerics=gn)
+        self.conv_norm_out = GroupNorm32(boc[0], cfg.norm_num_groups, act="silu", device=device,
+                                         **gn_options(switches))
         self.conv_out = Conv(boc[0], cfg.out_channels, 3, padding=1, dtype=dtype, device=device)
 
     def forward(self, sample, timesteps, encoder_hidden_states,
@@ -519,7 +592,11 @@ class UNet2DCondition(UNetEncoder):
         for i, block_type in enumerate(cfg.up_block_types):
             for j in range(cfg.layers_per_block + 1):
                 skip = cfg_tile(down_res.pop(), x.shape[0])
-                x = getattr(self, f"up_{i}_resnets_{j}")(torch.cat([x, skip], dim=1), temb)
+                resnet = getattr(self, f"up_{i}_resnets_{j}")
+                if self.split_skip and split_skip_eligible(x.shape[1], skip.shape[1], cfg.norm_num_groups):
+                    x = resnet(x, temb, skip=skip)
+                else:
+                    x = resnet(torch.cat([x, skip], dim=1), temb)
                 if block_type == "CrossAttnUpBlock2D":
                     x = getattr(self, f"up_{i}_attentions_{j}")(x, context)
             if i < len(cfg.up_block_types) - 1:

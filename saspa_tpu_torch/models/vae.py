@@ -8,9 +8,12 @@ downsamples pad one row and column at the bottom and right only, flax's
 takes the packed kernel when its head dim is already lane-aligned and the
 packed predicate admits the token count, as the JAX package routes it; past
 the packed guard (16384 tokens at 1024^2) it takes the plain path, as JAX
-takes XLA there.  Every GroupNorm runs K3; `pallas_group_norm` gives it the
-TPU kernel's numerics where that kernel's split plan admits the site (not
-the 512^2 levels, see ops/groupnorm.py::split_plan).
+takes XLA there.  Every GroupNorm runs K3.  The switches
+(ops/switches.py) reach the VAE as they reach the UNet: `pallas_group_norm`
+gives K3 the TPU kernel's numerics where that kernel's split plan admits
+the site (not the 512^2 levels, see ops/groupnorm.py::split_plan; with
+`gn_fp32_norm` its f32 normalize), and `disable_pallas` sends the mid-block
+attention to the plain path.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from saspa_tpu_torch.models.layers import Conv, Dense
-from saspa_tpu_torch.models.unet import GroupNorm32
+from saspa_tpu_torch.models.unet import GroupNorm32, gn_options
 from saspa_tpu_torch.ops.attention import (
     LOG2E,
     attention,
@@ -33,6 +36,7 @@ from saspa_tpu_torch.ops.attention import (
     packed_flash_eligible,
     pad_head_dim,
 )
+from saspa_tpu_torch.ops.switches import DEFAULT, KernelSwitches
 
 
 @dataclass(frozen=True)
@@ -49,11 +53,12 @@ SDXL_VAE = VAEConfig(scaling_factor=0.13025)
 
 
 class VAEResnetBlock(nn.Module):
-    def __init__(self, in_ch, out_ch, dtype, device, pallas_group_norm=False):
+    def __init__(self, in_ch, out_ch, dtype, device, switches: KernelSwitches = DEFAULT):
         super().__init__()
-        self.norm1 = GroupNorm32(in_ch, 32, eps=1e-6, act="silu", device=device, tpu_numerics=pallas_group_norm)
+        gn = gn_options(switches)
+        self.norm1 = GroupNorm32(in_ch, 32, eps=1e-6, act="silu", device=device, **gn)
         self.conv1 = Conv(in_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
-        self.norm2 = GroupNorm32(out_ch, 32, eps=1e-6, act="silu", device=device, tpu_numerics=pallas_group_norm)
+        self.norm2 = GroupNorm32(out_ch, 32, eps=1e-6, act="silu", device=device, **gn)
         self.conv2 = Conv(out_ch, out_ch, 3, padding=1, dtype=dtype, device=device)
         self.conv_shortcut = Conv(in_ch, out_ch, 1, dtype=dtype, device=device) if in_ch != out_ch else None
 
@@ -65,9 +70,10 @@ class VAEResnetBlock(nn.Module):
 
 
 class VAEAttentionBlock(nn.Module):
-    def __init__(self, ch, dtype, device, pallas_group_norm=False):
+    def __init__(self, ch, dtype, device, switches: KernelSwitches = DEFAULT):
         super().__init__()
-        self.group_norm = GroupNorm32(ch, 32, eps=1e-6, device=device, tpu_numerics=pallas_group_norm)
+        self.kernels = not switches.disable_pallas
+        self.group_norm = GroupNorm32(ch, 32, eps=1e-6, device=device, **gn_options(switches))
         self.to_q = Dense(ch, ch, dtype=dtype, device=device)
         self.to_k = Dense(ch, ch, dtype=dtype, device=device)
         self.to_v = Dense(ch, ch, dtype=dtype, device=device)
@@ -78,32 +84,31 @@ class VAEAttentionBlock(nn.Module):
         res = x
         x = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
-        if c == pad_head_dim(c) and packed_flash_eligible(h * w, h * w, 1, c, x.element_size()):
+        if self.kernels and c == pad_head_dim(c) and packed_flash_eligible(h * w, h * w, 1, c, x.element_size()):
             out = flash_attention_packed(fold_scale(q, (1.0 / math.sqrt(c)) * LOG2E), k, v, 1)
         else:
-            out = attention(q, k, v, 1)
+            out = attention(q, k, v, 1, self.kernels)
         out = self.to_out(out)
         return res + out.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: VAEConfig, dtype, device, pallas_group_norm=False):
+    def __init__(self, cfg: VAEConfig, dtype, device, switches: KernelSwitches = DEFAULT):
         super().__init__()
         self.cfg = cfg
-        gn = pallas_group_norm
         boc = cfg.block_out_channels
         cur = boc[0]
         self.conv_in = Conv(cfg.in_channels, cur, 3, padding=1, dtype=dtype, device=device)
         for i, ch in enumerate(boc):
             for j in range(cfg.layers_per_block):
-                setattr(self, f"down_{i}_block_{j}", VAEResnetBlock(cur, ch, dtype, device, gn))
+                setattr(self, f"down_{i}_block_{j}", VAEResnetBlock(cur, ch, dtype, device, switches))
                 cur = ch
             if i < len(boc) - 1:
                 setattr(self, f"down_{i}_downsample", Conv(ch, ch, 3, stride=2, dtype=dtype, device=device))
-        self.mid_block_1 = VAEResnetBlock(cur, cur, dtype, device, gn)
-        self.mid_attn = VAEAttentionBlock(cur, dtype, device, gn)
-        self.mid_block_2 = VAEResnetBlock(cur, cur, dtype, device, gn)
-        self.conv_norm_out = GroupNorm32(cur, 32, eps=1e-6, act="silu", device=device, tpu_numerics=gn)
+        self.mid_block_1 = VAEResnetBlock(cur, cur, dtype, device, switches)
+        self.mid_attn = VAEAttentionBlock(cur, dtype, device, switches)
+        self.mid_block_2 = VAEResnetBlock(cur, cur, dtype, device, switches)
+        self.conv_norm_out = GroupNorm32(cur, 32, eps=1e-6, act="silu", device=device, **gn_options(switches))
         self.conv_out = Conv(cur, 2 * cfg.latent_channels, 3, padding=1, dtype=dtype, device=device)
         self.quant_conv = Conv(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1, dtype=dtype, device=device)
 
@@ -120,24 +125,23 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig, dtype, device, pallas_group_norm=False):
+    def __init__(self, cfg: VAEConfig, dtype, device, switches: KernelSwitches = DEFAULT):
         super().__init__()
         self.cfg = cfg
-        gn = pallas_group_norm
         boc = cfg.block_out_channels
         self.post_quant_conv = Conv(cfg.latent_channels, cfg.latent_channels, 1, dtype=dtype, device=device)
         cur = boc[-1]
         self.conv_in = Conv(cfg.latent_channels, cur, 3, padding=1, dtype=dtype, device=device)
-        self.mid_block_1 = VAEResnetBlock(cur, cur, dtype, device, gn)
-        self.mid_attn = VAEAttentionBlock(cur, dtype, device, gn)
-        self.mid_block_2 = VAEResnetBlock(cur, cur, dtype, device, gn)
+        self.mid_block_1 = VAEResnetBlock(cur, cur, dtype, device, switches)
+        self.mid_attn = VAEAttentionBlock(cur, dtype, device, switches)
+        self.mid_block_2 = VAEResnetBlock(cur, cur, dtype, device, switches)
         for i, ch in enumerate(reversed(boc)):
             for j in range(cfg.layers_per_block + 1):
-                setattr(self, f"up_{i}_block_{j}", VAEResnetBlock(cur, ch, dtype, device, gn))
+                setattr(self, f"up_{i}_block_{j}", VAEResnetBlock(cur, ch, dtype, device, switches))
                 cur = ch
             if i < len(boc) - 1:
                 setattr(self, f"up_{i}_upsample", Conv(ch, ch, 3, padding=1, dtype=dtype, device=device))
-        self.conv_norm_out = GroupNorm32(cur, 32, eps=1e-6, act="silu", device=device, tpu_numerics=gn)
+        self.conv_norm_out = GroupNorm32(cur, 32, eps=1e-6, act="silu", device=device, **gn_options(switches))
         self.conv_out = Conv(cur, cfg.in_channels, 3, padding=1, dtype=dtype, device=device)
 
     def forward(self, z):
@@ -157,11 +161,12 @@ class AutoencoderKL(nn.Module):
     each in the VAE's dtype; decode(z (B, 4, h, w)) -> image (B, 3, 8h, 8w)
     in [-1, 1], f32.  Latent scaling lives in the pipeline."""
 
-    def __init__(self, cfg: VAEConfig = SD_VAE, dtype=torch.float32, device=None, pallas_group_norm=False):
+    def __init__(self, cfg: VAEConfig = SD_VAE, dtype=torch.float32, device=None,
+                 switches: KernelSwitches = DEFAULT):
         super().__init__()
         self.cfg = cfg
-        self.encoder = Encoder(cfg, dtype, device, pallas_group_norm)
-        self.decoder = Decoder(cfg, dtype, device, pallas_group_norm)
+        self.encoder = Encoder(cfg, dtype, device, switches)
+        self.decoder = Decoder(cfg, dtype, device, switches)
 
     def encode(self, x):
         moments = self.encoder(x.to(self.encoder.conv_in.kernel.dtype))

@@ -1,4 +1,4 @@
-"""GroupNorm(+SiLU): the fused kernel K3 and its two plain versions.
+"""GroupNorm(+SiLU): the fused kernel K3 and its plain versions.
 
 Counterparts in saspa_tpu/ops/groupnorm.py:
 - `group_norm_plain` is `_xla_group_norm`, what the JAX main path runs by
@@ -6,17 +6,20 @@ Counterparts in saspa_tpu/ops/groupnorm.py:
   variance max(E[x^2] - E[x]^2, 0), eps inside rsqrt, (x - mean) *
   (rsqrt(var + eps) * scale) + bias in f32, a cast to the input dtype, then
   SiLU in that dtype.
-- `group_norm_tpu_plain` is the Pallas kernel `_gn_kernel` with its default
-  bf16 normalize (SASPA_PALLAS_GN=1): the same statistics without the clamp,
-  folded per channel into scale = gamma * rstd and shift = beta - mean *
-  scale (f32, then rounded to the input dtype), o = x * scale + shift and
-  o * (1 / (1 + exp(-o))), each op in the input dtype.
+- `group_norm_tpu_plain` is the Pallas kernel `_gn_kernel` (SASPA_PALLAS_GN=1):
+  the same statistics without the clamp, folded per channel into scale =
+  gamma * rstd and shift = beta - mean * scale in f32.  With its default bf16
+  normalize (`bf16_norm=True`) scale and shift are rounded to the input dtype
+  and o = x * scale + shift and o * (1 / (1 + exp(-o))) run each op in the
+  input dtype; with `bf16_norm=False` (SASPA_GN_FP32_NORM=1) they run in f32
+  on f32(x), rounded once to the input dtype at the end.  On f32 input the
+  two coincide.
 - `split_plan` is the port's copy of `_split_plan`: the sites the TPU kernel
   admits (it fits one sample's channel block in 44 MiB of VMEM).
 
-`group_norm(..., tpu_numerics)` computes one of the two: on CPU tensors
-through the plain version, on CUDA tensors through K3
-(csrc/group_norm.cu), two launches (statistics, normalize) with both
+`group_norm(..., tpu_numerics, bf16_norm)` computes one of the three: on CPU
+tensors through the plain version, on CUDA tensors through K3
+(csrc/group_norm.cu), two launches (statistics, normalize) with three
 epilogues, on a launch plan chosen here (`gn_plan`), for bf16 or f32 input
 (the XL VAE under SASPA_XL_VAE_FP32=1; the TPU kernel's numerics then
 normalize and apply SiLU in f32, `_gn_kernel` on f32 blocks).  Input (B, C,
@@ -37,7 +40,8 @@ from saspa_tpu_torch.ops import _build
 from saspa_tpu_torch.ops.layernorm import aligned16, sm_count
 
 launches = 0  # calls of group_norm that launched K3 on bf16 since the last reset
-launches_tpu = 0  # of which with the TPU kernel's numerics
+launches_tpu = 0  # of which with the TPU kernel's numerics and its bf16 normalize
+launches_tpu_f32norm = 0  # of which with the TPU kernel's numerics and an f32 normalize (SASPA_GN_FP32_NORM=1)
 launches_f32 = 0  # calls of group_norm that launched K3 on f32 since the last reset
 
 VMEM_LIMIT = 44 * 1024 * 1024  # _split_plan's per-sample block budget
@@ -131,8 +135,10 @@ def group_norm_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, ac
     return out
 
 
-def group_norm_tpu_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activation=None):
-    """`_gn_kernel` numerics (bf16 normalize for bf16 input, f32 for f32)."""
+def group_norm_tpu_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activation=None,
+                         bf16_norm: bool = True):
+    """`_gn_kernel` numerics: the normalize and SiLU in x's dtype
+    (bf16_norm), else in f32 with one rounding to x's dtype."""
     b, c = x.shape[:2]
     groups = groups_for(c, num_groups)
     cg = c // groups
@@ -144,21 +150,27 @@ def group_norm_tpu_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5
     scale = gamma.float().reshape(1, groups, cg) * rstd[:, :, None]  # (B, G, C/G)
     shift = beta.float().reshape(1, groups, cg) - mean[:, :, None] * scale
     shape = (b, c) + (1,) * (x.dim() - 2)
-    o = x * scale.reshape(shape).to(x.dtype) + shift.reshape(shape).to(x.dtype)
+    if bf16_norm:
+        o = x * scale.reshape(shape).to(x.dtype) + shift.reshape(shape).to(x.dtype)
+    else:
+        o = x.float() * scale.reshape(shape) + shift.reshape(shape)
     if activation == "silu":
         o = o * (1.0 / (1.0 + torch.exp(-o)))
-    return o
+    return o.to(x.dtype)
 
 
 def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activation=None,
-               tpu_numerics: bool = False):
-    """x: (B, C, *spatial); gamma, beta: (C,) f32.  CPU tensors run the plain
-    version; CUDA tensors launch K3 (bf16 or f32 x, 4-d channels-last, C a
-    whole number of 16-byte vectors, 16-byte aligned) or raise."""
-    global launches, launches_tpu, launches_f32
+               tpu_numerics: bool = False, bf16_norm: bool = True):
+    """x: (B, C, *spatial); gamma, beta: (C,) f32.  tpu_numerics: the TPU
+    kernel's, with its normalize in x's dtype (bf16_norm) or in f32.  CPU
+    tensors run the plain version; CUDA tensors launch K3 (bf16 or f32 x,
+    4-d channels-last, C a whole number of 16-byte vectors, 16-byte aligned)
+    or raise."""
+    global launches, launches_tpu, launches_tpu_f32norm, launches_f32
     if x.device.type == "cpu":
-        plain = group_norm_tpu_plain if tpu_numerics else group_norm_plain
-        return plain(x, gamma, beta, num_groups, eps, activation)
+        if tpu_numerics:
+            return group_norm_tpu_plain(x, gamma, beta, num_groups, eps, activation, bf16_norm)
+        return group_norm_plain(x, gamma, beta, num_groups, eps, activation)
     b, c = x.shape[:2]
     groups = groups_for(c, num_groups)
     if x.dtype not in (torch.bfloat16, torch.float32) or gamma.dtype != torch.float32 \
@@ -185,14 +197,18 @@ def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activati
     plan = gn_plan(b, hw, c, sm_count(x.device), vec)
     ws = torch.empty((b * groups * plan.blocks, 2), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)  # in x's memory format
+    # the epilogue: 0 the xla order, 1 the TPU numerics, 2 with an f32
+    # normalize (on f32 input that is epilogue 1)
+    mode = 0 if not tpu_numerics else 1 if bf16_norm or vec == 4 else 2
     fn = _build.kernel("group_norm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), ws.data_ptr(), b, c, hw,
-                    groups, *plan, float(eps), int(activation == "silu"), int(tpu_numerics), int(vec == 4), stream),
+                    groups, *plan, float(eps), int(activation == "silu"), mode, int(vec == 4), stream),
                  "group_norm")
     if vec == 4:
         launches_f32 += 1
     else:
         launches += 1
-        launches_tpu += int(tpu_numerics)
+        launches_tpu += int(mode == 1)
+        launches_tpu_f32norm += int(mode == 2)
     return out

@@ -72,6 +72,13 @@ def layer_norm_one_pass_plain(x, scale, bias, eps: float = 1e-5):
     return (x - mean.to(d)) * mul.to(d) + bias.to(d)
 
 
+def layer_norm_fp32_norm(x, scale, bias, eps: float = 1e-5):
+    """`_ln32_forward` under SASPA_LN_FP32_NORM=1: the same statistics, the
+    normalize in f32, ((xf - mean) * mul + bias) cast once to x's dtype.
+    Plain torch on any device: the JAX package runs no kernel here."""
+    return layer_norm_one_pass_plain(x.float(), scale, bias, eps).to(x.dtype)
+
+
 def layer_norm_one_pass(x, scale, bias, eps: float = 1e-5):
     """x: (..., C); scale, bias: (C,) f32.  CPU tensors run the plain version;
     CUDA tensors launch K4 (bf16 x, C % 8 == 0, C <= 2048, 16-byte aligned)

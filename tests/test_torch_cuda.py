@@ -166,6 +166,111 @@ def test_group_norm_kernel_ulps_across_group_boundaries(gen, b, c, h, w, act, ep
     assert _bf16_ulps(out, ref, mag).max() <= 8
 
 
+@pytest.mark.parametrize("b,c,h,w,act,eps", [(16, 320, 64, 64, "silu", 1e-5), (16, 320, 64, 64, None, 1e-6),
+                                               (16, 960, 64, 64, "silu", 1e-5), (16, 640, 32, 32, "silu", 1e-5),
+                                               (16, 1280, 8, 8, "silu", 1e-5), (8, 256, 256, 256, "silu", 1e-6),
+                                               (8, 512, 64, 64, None, 1e-6), (2, 256, 9, 9, "silu", 1e-6)])
+def test_group_norm_f32norm_kernel_matches_plain(gen, b, c, h, w, act, eps):
+    """K3's TPU numerics with the f32 normalize (SASPA_GN_FP32_NORM=1) at
+    configuration (b)'s shapes (the UNet's largest and smallest sites, the
+    transformers' norm, the VAE's C256 256^2 and its attention's norm) and a
+    ragged one, against group_norm_tpu_plain(bf16_norm=False): held as
+    chip_smoke.py holds K3, >= 99.9% of elements equal and all within 8 bf16
+    ulps of the terms' magnitude; counted in launches and
+    launches_tpu_f32norm, not launches_tpu."""
+    x = (0.5 + 3.0 * torch.randn(b, c, h, w, generator=gen, device="cuda")).to(torch.bfloat16)
+    x = x.to(memory_format=torch.channels_last)
+    gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    before = (groupnorm.launches, groupnorm.launches_tpu, groupnorm.launches_tpu_f32norm)
+    out = groupnorm.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=True, bf16_norm=False)
+    assert (groupnorm.launches, groupnorm.launches_tpu, groupnorm.launches_tpu_f32norm) == \
+        (before[0] + 1, before[1], before[2] + 1)
+    ref = groupnorm.group_norm_tpu_plain(x, gamma, beta, 32, eps, act, bf16_norm=False)
+    xg = x.float().reshape(b, 32, -1)
+    mean = xg.mean(-1)
+    rstd = torch.rsqrt(((xg * xg).mean(-1) - mean * mean).clamp_min(0.0) + eps)
+    sc = (gamma.reshape(1, 32, -1) * rstd[:, :, None]).abs().reshape(b, c, 1, 1)
+    mag = (x.float().abs() + mean.abs().repeat_interleave(c // 32, 1)[:, :, None, None]) * sc \
+        + beta.abs().reshape(1, c, 1, 1)
+    assert out.dtype == torch.bfloat16 and out.stride() == x.stride()
+    assert (out == ref).float().mean() >= 0.999
+    assert _bf16_ulps(out, ref, mag).max() <= 8
+
+
+# a UNet at kernel-legal widths: C128 and C256 (K2's and K5's multiples of 64
+# and 128), heads of d 64, 32 groups; at 16x16 latents level 0's three
+# self-attentions see 256 tokens (K1, or K5), the mid block's 64 run plain
+SMALL_UNET = dict(block_out_channels=(128, 256), down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                  up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
+                  transformer_layers_per_block=(1, 1), num_attention_heads=(2, 4), cross_attention_dim=64)
+SWITCH_SETS = {"pallas_gn": {"pallas_group_norm": True}, "gn_fp32_norm": {"pallas_group_norm": True,
+               "gn_fp32_norm": True}, "megakernel": {"attention_megakernel": True},
+               "disable_pallas": {"disable_pallas": True, "attention_megakernel": True},
+               "pallas_geglu_off": {"pallas_geglu": False}, "ln_fp32_norm": {"ln_fp32_norm": True},
+               "split_skip_concat": {"split_skip_concat": True}, "cfg_full_batch": {"cfg_full_batch": True}}
+
+
+def _unet_call_counts(gen, switches):
+    """Launch counts and the UNet's input batch of one CFG step through the
+    sampler (B2 latents, the [uncond, cond] context at B4) on a seeded bf16
+    SMALL_UNET built with the switches."""
+    from saspa_tpu_torch.diffusion.sampler import make_sample_loop
+    from saspa_tpu_torch.diffusion.schedulers import SchedulerConfig, get_scheduler
+    from saspa_tpu_torch.models.layers import init_weights
+    from saspa_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+
+    unet = UNet2DCondition(UNetConfig(**SMALL_UNET), torch.bfloat16, "cuda", switches=switches).eval()
+    init_weights(unet, 0)
+    batches = []
+    unet.register_forward_pre_hook(lambda m, a: batches.append(a[0].shape[0]))
+    sample = make_sample_loop(lambda p, lat, t, ctx, ac, dr, mr: p(lat, t, ctx, dr, mr, ac),
+                              get_scheduler("ddim", SchedulerConfig(), "cuda"),
+                              cfg_full_batch=switches.cfg_full_batch)
+    lat = torch.randn(2, 16, 16, 4, generator=gen, device="cuda")
+    ctx = torch.randn(2, 77, 64, generator=gen, device="cuda")
+    counters = {"k1": (attention, "launches"), "k5": (attention, "block_launches"),
+                "k6": (attention, "flash_launches"), "k2": (geglu, "launches"), "k3": (groupnorm, "launches"),
+                "k3_tpu": (groupnorm, "launches_tpu"), "k3_f32norm": (groupnorm, "launches_tpu_f32norm"),
+                "k4": (layernorm, "launches")}
+    before = {k: getattr(m, a) for k, (m, a) in counters.items()}
+    out = sample({"unet": unet}, lat, ctx, torch.zeros_like(ctx), [500], 7.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    return {k: getattr(m, a) - before[k] for k, (m, a) in counters.items()}, batches
+
+
+@pytest.mark.parametrize("name", list(SWITCH_SETS))
+def test_switch_launch_counts_on_one_unet_call(gen, name):
+    """Each switch of ops/switches.py on one UNet call under CFG, against the
+    default record's counts: K3's TPU numerics (bf16 or f32 normalize) at
+    every GroupNorm, K5 at the admitted self-attention, no K1, K5, K6
+    anywhere, no K2 (norm3 then runs K4), no K2 and no K4, two K3 calls on
+    each split-skip seam's norm1, the UNet's input at 2B."""
+    from saspa_tpu_torch.ops.switches import KernelSwitches
+
+    base, base_batches = _unet_call_counts(gen, KernelSwitches())
+    sw = KernelSwitches(**SWITCH_SETS[name])
+    got, batches = _unet_call_counts(gen, sw)
+    assert base["k1"] == 3 and base["k2"] > 0 and base["k4"] == 2 * base["k2"] and base["k3_tpu"] == 0
+    want = dict(base)
+    if sw.pallas_group_norm:
+        want["k3_f32norm" if sw.gn_fp32_norm else "k3_tpu"] = base["k3"]
+    if sw.attention_megakernel and not sw.disable_pallas:
+        want["k1"], want["k5"] = 0, base["k1"]
+    if sw.disable_pallas:
+        want["k1"] = want["k5"] = want["k6"] = 0
+    if not sw.pallas_geglu:
+        want["k2"], want["k4"] = 0, 3 * base["k2"]
+    if sw.ln_fp32_norm:
+        want["k2"] = want["k4"] = 0
+    if sw.split_skip_concat:
+        assert got["k3"] > base["k3"]
+        want["k3"] = got["k3"]
+    assert got == want, (name, got, want)
+    assert batches == [4 if sw.cfg_full_batch else 2] and base_batches == [2]
+
+
 def test_group_norm_makes_two_launches(gen):
     """One call runs K3's two kernels (statistics, then normalize) and
     nothing else: no finalize launch, no memset."""

@@ -78,6 +78,45 @@ def test_group_norm_tpu_plain_matches_pallas_interpret(dtype, act, c, n_split):
     assert _bf16_ulps(got, want).max() <= 2
 
 
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("n_split", [1, 2])
+@pytest.mark.parametrize("c", [320, 640, 960, 256])
+def test_group_norm_tpu_f32norm_plain_matches_pallas_interpret(c, n_split, act):
+    """group_norm_tpu_plain(bf16_norm=False) vs _gn_pallas(bf16_norm=False)
+    (SASPA_GN_FP32_NORM=1) on bf16 input, 32 groups (C/G = 10, 20, 30, 8),
+    one or two programs a sample: the f32 normalize and SiLU round once, at
+    the end.  The statistics' f32 sum order, rsqrt's and exp's last bits
+    move the f32 result by a few f32 ulps of its terms, (|x| + |mean|)
+    |gamma rstd| + |beta|, which can flip that rounding, or, where the terms
+    cancel, move a small result by more of its own ulps: >= 99.9% of
+    elements equal, all within 2 bf16 ulps of the terms' magnitude (SiLU's
+    slope reaches 1.1)."""
+    b, hw, groups = 2, 64, 32
+    x, gamma, beta = _gn_inputs(b, hw, c, seed=3 * c + n_split)
+    gblk = groups // n_split
+    onehot = jnp.asarray(np.repeat(np.eye(gblk, dtype=np.float32), c // groups, axis=0))
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        want = _np(jgn._gn_pallas(xj, jnp.asarray(gamma).reshape(1, c), jnp.asarray(beta).reshape(1, c), onehot,
+                                  groups, 1e-5, act, jgn._pick_chunk(hw, c // n_split), n_split, False))
+    xt = torch.from_numpy(_np(xj)).to(torch.bfloat16).permute(0, 2, 1).reshape(b, c, 8, 8)
+    args = (torch.from_numpy(gamma), torch.from_numpy(beta), groups, 1e-5, act)
+    got = tgn.group_norm(xt, *args, tpu_numerics=True, bf16_norm=False)
+    assert got.dtype == torch.bfloat16
+    got = _np(got.reshape(b, c, hw).permute(0, 2, 1))
+    assert np.mean(got == want) >= 0.999
+    xg = _np(xj).reshape(b, hw, groups, -1)
+    mean = xg.mean((1, 3))
+    rstd = 1.0 / np.sqrt((xg * xg).mean((1, 3)) - mean * mean + 1e-5)
+    cg = c // groups
+    mag = (np.abs(_np(xj)) + np.abs(np.repeat(mean, cg, 1))[:, None]) * np.abs(gamma * np.repeat(rstd, cg, 1))[:, None] \
+        + np.abs(beta)
+    m = np.maximum(np.maximum(mag, np.abs(want)), 2.0 ** -126)
+    assert (np.abs(got - want) / 2.0 ** (np.floor(np.log2(m)) - 7)).max() <= 2
+    bf16 = _np(tgn.group_norm(xt, *args, tpu_numerics=True).reshape(b, c, hw).permute(0, 2, 1))
+    assert np.mean(bf16 != want) > 0.05  # the bf16 normalize is another function
+
+
 def test_group_norm_tpu_numerics_differ_from_xla_order():
     """The two epilogues are different functions: the TPU numerics round the
     normalize in bf16, the default order rounds once."""
@@ -351,7 +390,9 @@ def _kernel_moments(x, groups, plan):
 
 def _kernel_group_norm(x, gamma, beta, groups, eps, act, tpu, plan):
     """K3's function on x (B, HW, C) bf16 in its own sum order
-    (_kernel_moments) and its two epilogues (gn_coef, gn_elem), in torch."""
+    (_kernel_moments) and its three epilogues (gn_coef, gn_elem), in torch:
+    tpu False (the xla order), True (the TPU numerics), "f32norm" (the TPU
+    numerics with the f32 normalize)."""
     b, hw, c = x.shape
     s1, s2 = _kernel_moments(x.float(), groups, plan)
     n = float(c // groups * hw)
@@ -369,6 +410,9 @@ def _kernel_group_norm(x, gamma, beta, groups, eps, act, tpu, plan):
         return t.to(bf).float()
 
     if tpu:
+        if tpu == "f32norm":  # every op in f32, one rounding at the store
+            def r(t):
+                return t
         sc = gamma * rstd_c
         a, sh = r(sc), r(beta - mean_c * sc)
         y = r(r(xf * a) + sh)
@@ -382,15 +426,16 @@ def _kernel_group_norm(x, gamma, beta, groups, eps, act, tpu, plan):
 
 
 @pytest.mark.parametrize("c", [320, 640, 960, 256])
-@pytest.mark.parametrize("tpu", [False, True])
+@pytest.mark.parametrize("tpu", [False, True, "f32norm"])
 @pytest.mark.parametrize("sms", [4, H100_SMS])
 def test_kernel_sum_order_matches_plain_and_jax(c, tpu, sms):
     """K3's per-channel-then-group f32 sum order and its epilogues, emulated
     in torch at C/G = 10, 20, 30 and 8 (vectors of 8 channels that span
     group boundaries at 10, 20, 30), with the plan for an H100 (one row
     group a thread) and for 4 SMs (many rows a thread, a ragged last row
-    group), against group_norm_plain / group_norm_tpu_plain and against the
-    JAX package's _xla_group_norm / _gn_pallas in interpret mode, bf16, with
+    group), against group_norm_plain / group_norm_tpu_plain (with its bf16
+    or f32 normalize) and against the JAX package's _xla_group_norm /
+    _gn_pallas(bf16_norm=True / False) in interpret mode, bf16, with
     SiLU and without (HW 256: the TPU kernel takes power-of-two HW only).
     Only f32 sum orders differ; a flipped bf16 rounding of the mean or a
     folded scale moves an element by 2 ulps of its terms' magnitude and
@@ -414,13 +459,14 @@ def test_kernel_sum_order_matches_plain_and_jax(c, tpu, sms):
     onehot = jnp.asarray(np.repeat(np.eye(groups, dtype=np.float32), c // groups, axis=0))
     for act in (None, "silu"):
         got = _np(_kernel_group_norm(xb, gt, bt, groups, eps, act, tpu, plan))
-        plain = tgn.group_norm_tpu_plain if tpu else tgn.group_norm_plain
-        ref = _np(plain(x4, gt, bt, groups, eps, act).reshape(b, c, hw).permute(0, 2, 1))
+        bf16_norm = tpu != "f32norm"
+        ref = tgn.group_norm(x4, gt, bt, groups, eps, act, tpu_numerics=bool(tpu), bf16_norm=bf16_norm)
+        ref = _np(ref.reshape(b, c, hw).permute(0, 2, 1))
         xj = jnp.asarray(_np(xb)).astype(jnp.bfloat16)
         if tpu:
             with pltpu.force_tpu_interpret_mode():
                 want = _np(jgn._gn_pallas(xj, jnp.asarray(gamma).reshape(1, c), jnp.asarray(beta).reshape(1, c),
-                                          onehot, groups, eps, act, jgn._pick_chunk(hw, c), 1, True))
+                                          onehot, groups, eps, act, jgn._pick_chunk(hw, c), 1, bf16_norm))
         else:
             want = _np(jgn._xla_group_norm(xj, jnp.asarray(gamma), jnp.asarray(beta), groups, eps, act))
         for other in (ref, want):

@@ -66,6 +66,7 @@ def test_plot_matches_jax(tmp_path):
 def test_cli_train_writes_the_plots(tmp_path, monkeypatch):
     import matplotlib.pyplot as plt
 
+    plt.close("all")  # a figure another test of this worker left open (tests/test_metrics.py's plot)
     root = tiny_planes_tree(tmp_path / "data")
     small_planes(monkeypatch, root, 64)
     figs = []
