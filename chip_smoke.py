@@ -408,9 +408,11 @@ Phases, each printing one JSON line:
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
-With --parent DIR, the kernels phase also times another checkout's K3 and
-K5 (its own wrappers and kernels, built from DIR) on the same inputs
-(parent_ms, parent_device_ms, parent_host_us).
+With --parent DIR, the kernels phase also times another checkout's K3, K5
+and K1 at d 512 (bf16 at the VAE's mid attentions, and f32 in the
+xl_vae_f32 phase; its own wrappers and kernels, built from DIR) on the
+same inputs (parent_ms, parent_device_ms, parent_host_us); K1's d 512 rows
+carry their own device_ms beside them.
 With --profile, one more main-path run of each configuration under
 torch.profiler writes the device time by kernel to OUT.json and
 OUT_opt_in.json, one 1024^2 batch to OUT_gen_1024.json and the filter's
@@ -692,16 +694,24 @@ def ptxas_report(log: str) -> dict:
 
 
 def k1_ptxas(log: str) -> dict:
-    """K1's wgmma kernel per (head dim, warpgroups) instantiation; requires
-    all five and no spills (a spilled accumulator would stall every wgmma)."""
-    rep = {}
-    for fn, r in ptxas_report(log).items():
-        if m := re.search(r"attention_packed_wgmma_kernelILi(\d+)ELi(\d+)E", fn):
-            rep[f"dp{m.group(1)}_wg{m.group(2)}"] = r
-    require(sorted(rep) == ["dp128_wg2", "dp128_wg4", "dp192_wg2", "dp64_wg2", "dp64_wg4"],
-            "K1 wgmma instantiations in the ptxas report", sorted(rep))
-    require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()),
-            "K1 wgmma kernels spill", rep)
+    """K1's wgmma kernel per (head dim, warpgroups) instantiation and its
+    d 512 kernel (dp512): registers, spills, and wgmma_serialized where
+    ptxas serialised their wgmmas (warning C7514); requires all six, no
+    spills (a spilled accumulator would stall every wgmma) and no
+    serialisation."""
+    pat = r"attention_packed_(?:wgmma_kernelILi(\d+)ELi(\d+)E|(d512)_kernel)"
+
+    def key(m):
+        return "dp512" if m[3] else f"dp{m[1]}_wg{m[2]}"
+
+    rep = {key(m): r for fn, r in ptxas_report(log).items() if (m := re.search(pat, fn))}
+    for ln in log.splitlines():
+        if "C7514" in ln and (m := re.search(pat, ln)) and key(m) in rep:
+            rep[key(m)]["wgmma_serialized"] = True
+    require(sorted(rep) == ["dp128_wg2", "dp128_wg4", "dp192_wg2", "dp512", "dp64_wg2", "dp64_wg4"],
+            "K1 wgmma kernels in the ptxas report", sorted(rep))
+    require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 and not r.get("wgmma_serialized")
+                for r in rep.values()), "K1 wgmma kernels spill or serialise", rep)
     return rep
 
 
@@ -776,7 +786,8 @@ def k3_ptxas(log: str) -> dict:
 
 def k1_f32_ptxas(log: str) -> dict:
     """K1's f32 kernel (head dim 512): registers and spills; requires no
-    spill (its 64 accumulator registers a thread would go to local memory)."""
+    spill (its 128 output accumulators and the S tile's operands a thread
+    would go to local memory)."""
     rep = {fn: r for fn, r in ptxas_report(log).items() if "attention_packed_f32_kernel" in fn}
     require(len(rep) == 1 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()),
             "K1 f32 kernel in the ptxas report, without spills", rep)
@@ -803,15 +814,17 @@ def k6_ptxas(log: str) -> dict:
     return rep
 
 
-PARENT = {}  # with --parent: the parent checkout's K3 and K5 wrapper modules, on its own kernels
+PARENT = {}  # with --parent: the parent checkout's wrapper modules ("groupnorm", "attention"), on its own kernels
+PARENT_KERNELS = ("group_norm", "attention_block", "attention_packed", "attention_packed_f32")
 
 
 def load_parent(root: str) -> float:
-    """Builds the K3 and K5 libraries of another checkout (root/saspa_tpu_torch/
-    csrc, nvcc in parallel, into _build/parent) and loads that checkout's
-    wrapper modules (ops/groupnorm.py, ops/attention.py) as they are, their
-    `_build` answered by those libraries with that checkout's C signatures,
-    into PARENT.  Returns the seconds taken."""
+    """Builds the K3, K5 and K1 (bf16 and f32) libraries of another checkout
+    (root/saspa_tpu_torch/csrc, nvcc in parallel, into _build/parent) and
+    loads that checkout's wrapper modules (ops/groupnorm.py,
+    ops/attention.py) as they are, their `_build` answered by those
+    libraries with that checkout's C signatures, into PARENT.  Returns the
+    seconds taken."""
     import ctypes
     import importlib.util
     from pathlib import Path
@@ -833,7 +846,7 @@ def load_parent(root: str) -> float:
     out.mkdir(parents=True, exist_ok=True)
     jobs = {n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"),
                                  str(pkg / "csrc" / f"{n}.cu")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True) for n in ("group_norm", "attention_block")}
+                                text=True) for n in PARENT_KERNELS}
     fns = {}
     for n, proc in jobs.items():
         _, err = proc.communicate()
@@ -842,16 +855,26 @@ def load_parent(root: str) -> float:
         fn.argtypes, fn.restype = sigs[n][1], ctypes.c_int
         fns[n] = fn
     shim = SimpleNamespace(kernel=fns.__getitem__, check=_build.check)
-    for key, name in (("group_norm", "groupnorm"), ("attention_block", "attention")):
+    for name in ("groupnorm", "attention"):
         mod = module(f"parent_{name}", pkg / "ops" / f"{name}.py")
         mod._build = shim
-        PARENT[key] = mod
+        PARENT[name] = mod
     return time.perf_counter() - t0
 
 
 def parent_times(fn) -> dict:
     """The parent's wrapper timed as the change's is: ms, device_ms, host_us."""
     return {"parent_ms": cuda_ms(fn, 10), "parent_device_ms": device_ms(fn)[0], "parent_host_us": host_us(fn)}
+
+
+def d512_times(kernel, args, b_ms: float) -> dict:
+    """A d 512 row's device time (torch.profiler) and, with --parent, the
+    parent's K1 on the same inputs timed the same way (parent_ms,
+    parent_device_ms, parent_host_us)."""
+    out = {"device_ms": device_ms(kernel, floor_ms=b_ms)[0]}
+    if PARENT:
+        out.update(parent_times(lambda: PARENT["attention"].flash_attention_packed(*args)))
+    return out
 
 
 def check_k1(gen):
@@ -885,9 +908,10 @@ def check_k1(gen):
         plain_ms = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, h), 3, warmup=1)
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=math.log(2.0)), 10)
         b_ms, b_by = bound(4.0 * b * h * l * l * dp, 4 * b * l * h * dp * 2, exps=b * h * l * l)
+        extra = d512_times(lambda: att.flash_attention_packed(q, k, v, h), (q, k, v, h), b_ms) if dp == 512 else {}
         rows.append(dict(shape=what, B=b, L=l, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
                          pad_cols_zero=pad_zero, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by, lib_ratio=ms / lib_ms, bound_share=b_ms / ms))
+                         bound_ms=b_ms, bound_by=b_by, lib_ratio=ms / lib_ms, bound_share=b_ms / ms, **extra))
         del q, k, v, out, ref
     return rows
 
@@ -1030,7 +1054,7 @@ def check_k3(gen, sites):
             plain_ms = cuda_ms(lambda: plain(x, gamma, beta, 32, eps, act), 3, warmup=1)
             par = {}
             if PARENT:
-                pgn = PARENT["group_norm"]
+                pgn = PARENT["groupnorm"]
                 par = parent_times(lambda: pgn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu))
             rows.append(dict(shape=what, B=b, C=c, HW=h * w, act=act, eps=eps, tpu_numerics=tpu,
                              plan=list(gn.gn_plan(b, h * w, c, gn.sm_count(x.device))), max_abs_err=err,
@@ -1146,7 +1170,7 @@ def check_k5(gen, sites):
 
         route_ms = cuda_ms(route_a, 10)
         route_dev_ms, _ = device_ms(route_a, floor_ms=b_ms)
-        par = parent_times(lambda: PARENT["attention_block"].attention_block_fused(*args)) if PARENT else {}
+        par = parent_times(lambda: PARENT["attention"].attention_block_fused(*args)) if PARENT else {}
         rows.append(dict(shape=what, B=b, L=l, C=c, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
                          term_max=term_max, equal_share=equal, ms=ms, device_ms=dev_ms, phase_device_ms=phases,
                          host_us=host_us(kernel), plain_ms=plain_ms, library_ms=None, route_a_ms=route_ms,
@@ -3417,9 +3441,10 @@ def check_k1_encoder(pipe, images) -> dict:
     plain_ms = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, 1), 3, warmup=1)
     lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=math.log(2.0)), 10)
     b_ms, b_by = bound(4.0 * b * l * l * c, 4 * b * l * c * 2, exps=b * l * l)
+    extra = d512_times(lambda: att.flash_attention_packed(q, k, v, 1), (q, k, v, 1), b_ms)
     return dict(shape="vae encoder mid attention", cell="sdedit", B=b, L=l, H=1, d=c, d_pad=c, max_abs_err=err,
                 ref_max=ref_max, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                lib_ratio=ms / lib_ms, bound_share=b_ms / ms)
+                lib_ratio=ms / lib_ms, bound_share=b_ms / ms, **extra)
 
 
 def run_sdedit_phase(seed: int, checks: dict, checked_sites: dict, profile_path=None) -> dict:
@@ -4805,12 +4830,13 @@ def check_k1_f32(pipe, attn_inputs) -> list:
         b_ms, b_by = bound(4.0 * b * l * l * c, 4 * b * l * c * 4, H100_F32_FLOPS, exps=b * l * l)
         ms = cuda_ms(kernel, 5)
         dev_ms, _ = device_ms(kernel, floor_ms=b_ms)
+        par = parent_times(lambda: PARENT["attention"].flash_attention_packed(q, k, v, 1)) if PARENT else {}
         rows.append(dict(shape=what, cell="xl_vae_f32", B=b, L=l, H=1, d=c, d_pad=c, max_abs_err=err,
                          ref_max=ref_max, rel_err=err / ref_max, ms=ms, device_ms=dev_ms,
                          plain_ms=cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, 1), 2, warmup=1),
                          library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                              qh, kh, vh, scale=math.log(2.0)), 3),
-                         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms))
+                         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms, **par))
         del q, k, v, out, ref, xn
     return rows
 
@@ -4856,7 +4882,8 @@ def check_k3_f32(gen, sites) -> list:
                        ref_max=ref_max, rel_err=err / ref_max, bound_ms=b_ms, bound_by=b_by, **lib)
             if timed_row:
                 ms = cuda_ms(kernel, 5)
-                row.update(ms=ms, plain_ms=cuda_ms(lambda: plain(x, gamma, beta, 32, eps, act), 2, warmup=1),
+                row.update(ms=ms, device_ms=device_ms(kernel, floor_ms=b_ms)[0],
+                           plain_ms=cuda_ms(lambda: plain(x, gamma, beta, 32, eps, act), 2, warmup=1),
                            host_us=host_us(kernel), bound_share=b_ms / ms)
             rows.append(row)
         del x
@@ -5839,7 +5866,8 @@ def main() -> int:
     ap.add_argument("--profile", metavar="OUT.json",
                     help="also profile one main-path run of each configuration: OUT.json, OUT_opt_in.json")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also time another checkout's K3 and K5 wrappers and kernels beside these (parent_* keys)")
+                    help="also time another checkout's K1 (d 512, bf16 and f32), K3 and K5 wrappers and kernels "
+                         "beside these (parent_* keys)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card", file=sys.stderr)

@@ -74,13 +74,6 @@ struct FlashCfg {
     static_assert(SMEM + 128 <= 232448, "shared memory per block (the barriers are static)");
 };
 
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
-    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // Two bf16 times a bf16 scale, rounded to bf16 (the product is exact in f32).
 __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
     const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));

@@ -1,8 +1,8 @@
-// Warp-level bf16 tensor-core helpers shared by the port's kernels:
-// ldmatrix loads from shared memory and the m16n8k16 mma.sync product with
-// f32 accumulation (sm_80+ instructions, built here for sm_90a).
+// Small helpers shared by the port's kernels: shared-memory addresses, bf16
+// packing and rounding, and cp.async copies.
 //
-// Fragment layouts (PTX ISA, "mma.m16n8k16" with .bf16):
+// The m16n8k16 fragment layouts, which wgmma's register A operand and its
+// f32 accumulator repeat (PTX ISA, "mma.m16n8k16" with .bf16):
 //   A (16x16, row):  a0 = (row g,   k 2t..2t+1)  a1 = (row g+8, k 2t..2t+1)
 //                    a2 = (row g,   k 2t+8..9)   a3 = (row g+8, k 2t+8..9)
 //   B (16x8,  col):  b0 = (k 2t..2t+1, col g)    b1 = (k 2t+8..9, col g)
@@ -20,28 +20,6 @@ typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lane l supplies the row address of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-// c += a * b on one 16x8x16 tile.
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two floats -> one register of two bf16 (round to nearest even); lo in bits 0..15.

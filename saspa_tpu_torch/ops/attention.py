@@ -31,14 +31,11 @@ import torch.nn.functional as F
 from saspa_tpu_torch.ops import _build
 
 LOG2E = math.log2(math.e)
-PACKED_HEAD_DIMS = (64, 128, 192, 512)
 FLASH_HEAD_DIMS = (64, 128, 192)  # the padded head dims K6 takes
 PLAIN_SCORE_BYTES = 1 << 30  # f32 scores K6's plain version holds at once
 
 launches = 0  # bf16 kernel launches of flash_attention_packed since the last reset
 launches_f32 = 0  # f32 kernel launches of flash_attention_packed (csrc/attention_packed_f32.cu) since the last reset
-F32_HEAD_DIMS = (512,)  # the f32 kernel's head dim: the XL VAE's one head under SASPA_XL_VAE_FP32=1
-F32_BLOCK_L = 32  # the f32 kernel's query rows (and keys) a tile
 block_launches = 0  # calls of attention_block_fused / attention_block_stages that launched K5 since the last reset
 flash_launches = 0  # kernel launches of flash_attention (K6) since the last reset
 BLOCK_HEAD_DIMS = (64, 128, 192)
@@ -57,6 +54,20 @@ def _packed_block_q(lq: int) -> int:
         if cand <= lq and lq % cand == 0:
             return cand
     return lq
+
+
+def packed_kernel_takes(l: int, dp: int, dtype) -> bool:
+    """The packed kernels' contract on the token count L, the padded head
+    dim and the dtype: bf16 at d_pad 64/128/192 with L % 128 == 0 (the
+    wgmma blocks' 128 or 256 query rows), or bf16 and f32 at the VAE's
+    d_pad 512 with L % 64 == 0 (both d 512 kernels' 64-row query tiles; the
+    f32 kernel runs the XL VAE's head under SASPA_XL_VAE_FP32=1).  It takes
+    every L that `packed_flash_eligible` admits at these head dims."""
+    if l <= 0:
+        return False
+    if dp == 512:
+        return dtype in (torch.bfloat16, torch.float32) and l % 64 == 0
+    return dtype == torch.bfloat16 and dp in (64, 128, 192) and l % 128 == 0
 
 
 def packed_flash_eligible(lq: int, lk: int, heads: int, d: int, itemsize: int = 2) -> bool:
@@ -238,13 +249,10 @@ def flash_attention_packed_plain(q, k, v, heads: int):
 def flash_attention_packed(q, k, v, heads: int):
     """q: (B, L, H*D_pad) with softmax_scale*log2(e) folded in; k, v: (B, L,
     H*D_pad).  Returns (B, L, H*D_pad); padded output columns are exactly 0.
-    CPU tensors run the plain version; CUDA tensors launch a kernel, all
-    three contiguous and 16-byte aligned: bf16 (its TMA loads), D_pad
-    64/128/192 with L % 128 == 0 (its 128- or 256-row query blocks;
-    `packed_flash_eligible` admits no other L), or the VAE's D_pad 512 with
-    L % 64 == 0; or f32 at D_pad 512 with L % 32 == 0 (the f32 kernel,
-    csrc/attention_packed_f32.cu: the XL VAE's one head under
-    SASPA_XL_VAE_FP32=1)."""
+    CPU tensors run the plain version; CUDA tensors launch a kernel or
+    raise: q, k, v contiguous and 16-byte aligned, of the L, head dim and
+    dtype `packed_kernel_takes` admits (bf16: csrc/attention_packed.cu; f32:
+    csrc/attention_packed_f32.cu, counted in launches_f32)."""
     global launches, launches_f32
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, heads)
@@ -256,23 +264,18 @@ def flash_attention_packed(q, k, v, heads: int):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} heads {heads}")
     if not (all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)) and q.device == k.device == v.device):
         raise ValueError("flash_attention_packed needs contiguous, 16-byte aligned q, k, v on one device")
+    if not packed_kernel_takes(l, dp, q.dtype):
+        raise ValueError(f"the packed kernels take bf16 at head dim 64/128/192 with L % 128 == 0, or bf16 and f32 "
+                         f"at 512 with L % 64 == 0; got {q.dtype}, head dim {dp}, L {l}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.dtype == torch.float32:
-        if dp not in F32_HEAD_DIMS or l % F32_BLOCK_L:
-            raise ValueError(f"the f32 packed kernel takes head dim in {F32_HEAD_DIMS} with L % {F32_BLOCK_L} == 0, "
-                             f"got {dp}, {l}")
-        out = torch.empty_like(q)
         fn = _build.kernel("attention_packed_f32")
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, heads, stream),
                      "attention_packed_f32")
         launches_f32 += 1
         return out
-    if dp not in PACKED_HEAD_DIMS or l % (64 if dp == 512 else 128):
-        raise ValueError(f"packed kernel takes head dim in {PACKED_HEAD_DIMS} with L % 128 == 0 (L % 64 == 0 at "
-                         f"512), got {dp}, {l}")
-    out = torch.empty_like(q)
     fn = _build.kernel("attention_packed")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, heads, dp, stream),
                  "attention_packed")
     launches += 1

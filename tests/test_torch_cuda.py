@@ -67,6 +67,27 @@ def test_attention_packed_wgmma_kernel_peaked(gen, b, l, h, d, dp):
     assert (out.reshape(b, l, h, dp)[..., d:] == 0).all()
 
 
+@pytest.mark.parametrize("b,l,h", [(1, 256, 1), (2, 1024, 2), (8, 4096, 1), (1, 9216, 1), (1, 17536, 1)])
+def test_attention_packed_d512_kernel_peaked(gen, b, l, h):
+    """The bf16 kernel at head dim 512 (the VAE's one head; scores warpgroup
+    and two output warpgroups) on peaked scores: L = 256 is four 64-key
+    tiles, within the P double buffer's first turns; (2, 1024, 2 heads)
+    takes the head and batch offsets of the tensor maps; (8, 4096, 1) is the
+    VAE's decode shape (512 blocks, 3.9 waves); 9216 a 768^2 VAE; 17,536
+    the largest L the packed route admits at d 512 in bf16.  |diff| <= 1%
+    of the largest output, counted by launches alone."""
+    d = 512
+    q = (3.0 * torch.randn(b, l, h * d, generator=gen, device="cuda") * (attention.LOG2E / math.sqrt(d)))
+    q = q.to(torch.bfloat16)
+    k, v = (torch.randn(b, l, h * d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    before = (attention.launches, attention.launches_f32)
+    out = attention.flash_attention_packed(q, k, v, h)
+    assert (attention.launches, attention.launches_f32) == (before[0] + 1, before[1])
+    ref = attention.flash_attention_packed_plain(q, k, v, h)
+    assert out.dtype == torch.bfloat16 and ref.float().abs().max() >= 2.0
+    assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+
+
 def _geglu_args(gen, m, c):
     f = 4 * c
 
@@ -348,13 +369,14 @@ def test_group_norm_f32_at_2_31_elements(gen):
     assert bool(torch.isfinite(out[0]).all())
 
 
-@pytest.mark.parametrize("b,l,h", [(1, 256, 1), (2, 1024, 1), (1, 96, 2), (8, 4096, 1)])
+@pytest.mark.parametrize("b,l,h", [(1, 256, 1), (2, 1024, 1), (1, 384, 2), (8, 4096, 1), (1, 9600, 1)])
 def test_attention_packed_f32_kernel_matches_plain(gen, b, l, h):
     """f32 at head dim 512 (the XL VAE's one head under SASPA_XL_VAE_FP32=1),
     peaked scores (q of 3x the unit scale): f32 out within 1e-4 of the
     largest output (online against one-pass softmax, other product sum
-    orders), counted by launches_f32 alone; L = 96 is three 32-key tiles,
-    L = 4096 at B8 the VAE's decode shape."""
+    orders), counted by launches_f32 alone; L = 384 at 2 heads is six
+    64-row blocks a head, L = 4096 at B8 the VAE's decode shape, 9600 the
+    largest L the packed route admits at d 512 in f32."""
     d = 512
     q = (torch.randn(b, l, h * d, generator=gen, device="cuda") * (3.0 * attention.LOG2E / math.sqrt(d)))
     k, v = (torch.randn(b, l, h * d, generator=gen, device="cuda") for _ in range(2))
@@ -512,9 +534,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         attention.flash_attention_packed(x, x, x, 1)
     with pytest.raises(TypeError):  # f64
         attention.flash_attention_packed(x.double(), x.double(), x.double(), 1)
-    x512 = torch.zeros(1, 80, 512, device="cuda")
-    with pytest.raises(ValueError):  # f32 at L = 80: the f32 kernel's tiles take L % 32 == 0
-        attention.flash_attention_packed(x512, x512, x512, 1)
+    for l in (80, 96):  # f32 and bf16 at d 512: the kernels' 64-row query tiles take L % 64 == 0
+        x512 = torch.zeros(1, l, 512, device="cuda")
+        with pytest.raises(ValueError):
+            attention.flash_attention_packed(x512, x512, x512, 1)
+        with pytest.raises(ValueError):
+            attention.flash_attention_packed(*(x512.to(torch.bfloat16),) * 3, 1)
     y = x[:, :, :40].to(torch.bfloat16).contiguous()  # head dim 40: not padded
     with pytest.raises(ValueError):
         attention.flash_attention_packed(y, y, y, 1)

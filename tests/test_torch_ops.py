@@ -81,6 +81,46 @@ def test_packed_eligibility_is_shape_only():
     assert all(jatt.pad_head_dim(d) == tatt.pad_head_dim(d) for d in (16, 40, 80, 160, 512))
 
 
+def test_packed_attention_bf16_d512_plain_matches_pallas_interpret():
+    """bf16 at the VAE's one head of 512, (B, L, H, d) = (1, 256, 1, 512):
+    the port's plain K1 against flash_attention_packed in interpret mode on
+    the same bf16 inputs (q pre-scaled by scale * log2(e) and rounded to
+    bf16, 3x the unit scale, which peaks each softmax on a few keys).  Both
+    take f32 scores and sums, round P to bf16 before the P.V product and the
+    output to bf16; the f32 sums run in other orders, which can move an
+    output across a bf16 rounding boundary: within 2^-7 of the largest
+    output (one bf16 ulp or less at its magnitude)."""
+    rng = np.random.RandomState(512)
+    b, l, d = 1, 256, 512
+    q = (3.0 * rng.randn(b, l, d) * (tatt.LOG2E / math.sqrt(d))).astype(np.float32)
+    k, v = (rng.randn(b, l, d).astype(np.float32) for _ in range(2))
+    tq, tk, tv = (torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v))
+    got = tatt.flash_attention_packed(tq, tk, tv, 1)
+    assert got.dtype == torch.bfloat16
+    with pltpu.force_tpu_interpret_mode():
+        want = _np(jatt.flash_attention_packed(*(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tq, tk, tv)),
+                                               1))
+    assert np.abs(want).max() >= 2.0  # peaked: a few keys carry each output
+    np.testing.assert_allclose(_np(got), want, atol=2.0 ** -7 * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("d,dtype", [(512, torch.bfloat16), (512, torch.float32), (64, torch.bfloat16),
+                                     (128, torch.bfloat16), (192, torch.bfloat16)])
+def test_packed_kernel_takes_every_admitted_shape(d, dtype):
+    """Every L (a multiple of 128 up to 20,000) that the packed route admits
+    at one head of d_pad (and at 8 heads) is one the kernels' contract takes,
+    so the route never hands a CUDA tensor to a wrapper that raises."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    for heads in (1, 8):
+        admitted = [l for l in range(128, 20001, 128) if tatt.packed_flash_eligible(l, l, heads, d, itemsize)]
+        assert admitted and all(tatt.packed_kernel_takes(l, d, dtype) for l in admitted), (heads, admitted)
+    if d == 512:  # the guard's counts at one head: 122 values in bf16 (up to 17,536), 68 in f32 (up to 9,600)
+        admitted = [l for l in range(128, 20001, 128) if tatt.packed_flash_eligible(l, l, 1, d, itemsize)]
+        assert (len(admitted), admitted[-1]) == ((122, 17536) if dtype == torch.bfloat16 else (68, 9600))
+    assert not tatt.packed_kernel_takes(96, d, dtype) and not tatt.packed_kernel_takes(0, d, dtype)
+    assert not tatt.packed_kernel_takes(256, d, torch.float16)
+
+
 # ---- K2: fused LN + GEGLU ----------------------------------------------------
 
 def _geglu_inputs(b, l, c, seed):
