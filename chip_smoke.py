@@ -89,7 +89,7 @@ Phases, each printing one JSON line:
                 (--ckpt) gives the same test metrics; the AugSampler's
                 substitutions equal a host replay; the launch counters of
                 K1-K6 stay 0.  The transforms and attention crop/drop on the
-                card equal the CPU's (train_draws).  Three steps of one
+                card equal the CPU's (train_draws).  Two steps of one
                 seeded model on the card and through the port on the CPU,
                 same batches and injected draws: in f64 the loss within 1e-6,
                 running statistics within 1e-4 (norm), feature centers and
@@ -234,11 +234,12 @@ Phases, each printing one JSON line:
                 --preset alia --dataset planes_biased --weights_dir TREE
                 --max_items 8  (InstructPix2Pix from seeded F16 safetensors
                 of its unet/vae/text_encoder at full SD1.5 width, the UNet's
-                conv_in 8 channels; one batch: 100 DDIM steps of 3-way
-                guidance, text 7.5 and image 1.3, the UNet at B24; then the
-                semantic + ALIA-confidence aug-JSON).  Launch counts as
-                expected_sdedit_counts(100) (K1 1502, K2 1600, K3 6152 calls,
-                K4 3200); every file loads strictly; the PNGs equal
+                conv_in 8 channels; one batch: DDIM steps of 3-way guidance,
+                text 7.5 and image 1.3, the UNet at B24, 10 of the recipe's
+                100 (PB_IP2P_STEPS, set in the driver for the phase); then
+                the semantic + ALIA-confidence aug-JSON).  Launch counts as
+                expected_sdedit_counts(10) (K1 152, K2 160, K3 662 calls,
+                K4 320); every file loads strictly; the PNGs equal
                 pipe.generate's for the same prompts, sources and noise bit
                 for bit; the ip2p UNet's K3 and K4 sites at B24 that earlier
                 phases did not check (rows with "cell": "ip2p"; K1's and
@@ -337,7 +338,7 @@ Phases, each printing one JSON line:
                 root:  cli prep-captions --dataset planes  over 8 sources (4
                 seeded PNGs of 300-900 px a side, 4 of tests/fixtures/jpeg's
                 JPEGs) with two --questions, and  cli prep-prompts
-                --dataset planes --num 16, on full-width seeded public
+                --dataset planes --num 8, on full-width seeded public
                 files written to a --weights_dir tree: LAVIS's BLIP caption
                 and VQA .pth (tools/synth_checkpoints.py's layouts, norm
                 weights near 1), the keytotext T5's pytorch_model.bin and a
@@ -405,6 +406,29 @@ Phases, each printing one JSON line:
                 (check_k3_f32norm; 8 bf16 ulps, as K3), timed at
                 SWITCH_TIMED_SITES; its row in the kernels line is
                 group_norm_f32norm.
+ 23. f32    -- cell (u), after xl_vae_f32: SD1.5 + canny in f32,
+                init_pipeline("sd_v1.5", "canny", dtype=torch.float32) at
+                full width (seeded; the ControlNet's zero convs seeded
+                small), driven through gen/driver.py's run_generation(cfg,
+                pipe=...) on a synthetic planes tree of 8 seeded 1024^2
+                sources: at 512^2 (2 steps) and at 1024^2 (1 step), batch
+                8, CFG 7.5.  The launches are derived from the predicates
+                (f32_route_counts: hooks on one warm-up step and decode):
+                K1 in f32 at d_pad 64/128/192 (attention_f32, counted in
+                attention.launches_f32_heads), K1 f32 at the VAE's d 512,
+                K6 in f32 (flash_attention_f32) at 1024^2's level 0, K4 in
+                f32 at every norm1/norm2/norm3 (layernorm_f32), K3 in f32 at
+                every GroupNorm (the up blocks' 2560 channels in two 16-byte
+                vectors a thread), and 0 on every bf16 counter, K2's
+                included (its predicate refuses f32).  The PNGs equal the
+                fused function's output.  One source at 128^2, 2 steps, on
+                the card against a CPU f32 copy: pre-quantisation images
+                within 1e-3 of the largest value, uint8 within 1 level.
+                Every f32 shape of the path against the plain versions: K1
+                and K6 within 1e-4 of the largest output, K4 within 1e-6, K3
+                (both epilogues) within 2e-5, with times, bounds (f32 at 67
+                TFLOP/s, 3.35 TB/s) and SDPA / F.layer_norm /
+                F.group_norm in f32 (TF32 off) beside them.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -763,24 +787,41 @@ def k5_ptxas(log: str) -> dict:
 def k3_ptxas(log: str) -> dict:
     """K3's statistics kernel and its normalize per epilogue (the xla order,
     TPU numerics, and on bf16 TPU numerics with the f32 normalize; SiLU or
-    not), for bf16 and f32: registers and spills; requires all twelve and
+    not), for bf16, f32 (one 16-byte vector a thread) and f32x2 (two, rows
+    past 2048 channels): registers and spills; requires all seventeen and
     no spills."""
     epilogues = {"0": "xla", "1": "tpu", "2": "f32norm"}
 
     def key(m):
-        t = "bf16" if m[2] == "13__nv_bfloat16" else "f32"
+        t = "bf16" if m[2] == "13__nv_bfloat16" else "f32" if m[3] == "1" else f"f32x{m[3]}"
         if m[1] == "stats":
             return f"stats_{t}"
-        return f"apply_{t}_{epilogues[m[3]]}{'_silu' * (m[4] == '1')}"
+        return f"apply_{t}_{epilogues[m[4]]}{'_silu' * (m[5] == '1')}"
 
-    pat = r"gn_(stats|apply)_kernelI(13__nv_bfloat16|f)(?:Li(\d)ELi(\d)E)?"
+    pat = r"gn_(stats|apply)_kernelI(13__nv_bfloat16|f)Li(\d)E(?:Li(\d)ELi(\d)E)?"
     rep = {key(m): r for fn, r in ptxas_report(log).items() if (m := re.search(pat, fn))}
-    want = sorted([f"stats_{t}" for t in ("bf16", "f32")]
-                  + [f"apply_{t}_{e}{a}" for t, es in (("bf16", ("tpu", "xla", "f32norm")), ("f32", ("tpu", "xla")))
+    want = sorted([f"stats_{t}" for t in ("bf16", "f32", "f32x2")]
+                  + [f"apply_{t}_{e}{a}" for t, es in (("bf16", ("tpu", "xla", "f32norm")), ("f32", ("tpu", "xla")),
+                                                        ("f32x2", ("tpu", "xla")))
                      for e in es for a in ("", "_silu")])
     require(sorted(rep) == want, "K3 kernels in the ptxas report", sorted(rep))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()), "K3 kernels spill",
             rep)
+    return rep
+
+
+def f32_core_ptxas(log: str) -> dict:
+    """The f32 attention core (csrc/attention_f32.cu) per (padded head dim,
+    softmax base) instantiation: registers and spills; requires all six (K1's
+    exp2 and K6's exp at 64, 128, 192) and no spill (the accumulators and the
+    score tile's operands a thread would go to local memory)."""
+    pat = r"attention_f32_kernelILi(\d+)ELb([01])E"
+    rep = {f"dp{m[1]}_{'exp2' if m[2] == '1' else 'exp'}": r for fn, r in ptxas_report(log).items()
+           if (m := re.search(pat, fn))}
+    require(sorted(rep) == sorted(f"dp{d}_{e}" for d in (64, 128, 192) for e in ("exp2", "exp")),
+            "f32 attention kernels in the ptxas report", sorted(rep))
+    require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()),
+            "f32 attention kernels spill", rep)
     return rep
 
 
@@ -877,11 +918,15 @@ def d512_times(kernel, args, b_ms: float) -> dict:
     return out
 
 
-def check_k1(gen):
+def check_k1(gen, shapes=K1_SHAPES, dtype=torch.bfloat16):
+    """K1 against its plain version at each (what, B, L, H, d, d_pad) of
+    shapes, on head-padded packed inputs in dtype (bf16; f32 at the f32
+    UNet's sites, phase 23), with times, the bound and SDPA in dtype."""
     from saspa_tpu_torch.ops import attention as att
 
+    f32 = dtype == torch.float32
     rows = []
-    for what, b, l, h, d, dp in K1_SHAPES:
+    for what, b, l, h, d, dp in shapes:
         def padded(x):
             return torch.nn.functional.pad(x, (0, dp - d)).reshape(b, l, h * dp)
 
@@ -889,9 +934,9 @@ def check_k1(gen):
         scale = (1.0 / math.sqrt(d)) * att.LOG2E
         # q of std 3 peaks each query's softmax on a few keys (as in check_k6),
         # so a misplaced K/V tile or a wrong swizzle changes the output
-        q = padded(3.0 * torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16).contiguous()
-        k = padded(torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16).contiguous()
-        v = padded(torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16).contiguous()
+        q = padded(3.0 * torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype).contiguous()
+        k = padded(torch.randn(shape, generator=gen, device="cuda")).to(dtype).contiguous()
+        v = padded(torch.randn(shape, generator=gen, device="cuda")).to(dtype).contiguous()
         out = att.flash_attention_packed(q, k, v, h)
         ref = att.flash_attention_packed_plain(q, k, v, h)
         torch.cuda.synchronize()
@@ -899,34 +944,42 @@ def check_k1(gen):
         ref_max = ref.float().abs().max().item()
         # bf16 output (relative rounding 2^-9) and bf16 P in the P.V product:
         # the kernel's streamed online softmax sums in another order than the
-        # plain one-pass softmax, so allow 1% of the largest output
-        require(err <= 1e-2 * ref_max, what, "max |kernel - plain|", err, "> 1% of", ref_max)
+        # plain one-pass softmax, so allow 1% of the largest output; in f32
+        # only the sum orders differ: 1e-4 of it
+        tol = 1e-4 if f32 else 1e-2
+        require(err <= tol * ref_max, what, "max |kernel - plain|", err, "> tolerance", tol, "of", ref_max)
         pad_zero = bool((out.reshape(b, l, h, dp)[..., d:] == 0).all().item()) if dp > d else True
         require(pad_zero, what, "padded output columns are not exactly zero")
         qh, kh, vh = (x.reshape(b, l, h, dp).transpose(1, 2) for x in (q, k, v))
         ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, h), 10)
         plain_ms = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, h), 3, warmup=1)
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=math.log(2.0)), 10)
-        b_ms, b_by = bound(4.0 * b * h * l * l * dp, 4 * b * l * h * dp * 2, exps=b * h * l * l)
+        b_ms, b_by = bound(4.0 * b * h * l * l * dp, 4 * b * l * h * dp * q.element_size(),
+                           H100_F32_FLOPS if f32 else H100_BF16_FLOPS, exps=b * h * l * l)
         extra = d512_times(lambda: att.flash_attention_packed(q, k, v, h), (q, k, v, h), b_ms) if dp == 512 else {}
         rows.append(dict(shape=what, B=b, L=l, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
+                         rel_err=err / ref_max,
                          pad_cols_zero=pad_zero, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by, lib_ratio=ms / lib_ms, bound_share=b_ms / ms, **extra))
         del q, k, v, out, ref
     return rows
 
 
-def check_k6(gen):
+def check_k6(gen, shapes=K6_SHAPES, dtype=torch.bfloat16):
+    """K6 against its plain version at each (what, B, L, H, d) of shapes, on
+    unpadded heads in dtype (bf16; f32 at the f32 UNet's level 0, phase 23),
+    with times, the bound and SDPA in dtype."""
     from saspa_tpu_torch.ops import attention as att
 
+    f32 = dtype == torch.float32
     rows = []
-    for what, b, l, h, d in K6_SHAPES:
+    for what, b, l, h, d in shapes:
         dp = att.pad_head_dim(d)
         scale = d ** -0.5
         # q of std 3 peaks each query's softmax on a few keys (scores of std
         # ~3), so a dropped or misplaced K/V tile changes the output
-        q = (3.0 * torch.randn(b, l, h, d, generator=gen, device="cuda")).to(torch.bfloat16)
-        k, v = (torch.randn(b, l, h, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+        q = (3.0 * torch.randn(b, l, h, d, generator=gen, device="cuda")).to(dtype)
+        k, v = (torch.randn(b, l, h, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
         out = att.flash_attention(q, k, v, scale)
         ref = att.flash_attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
@@ -934,8 +987,10 @@ def check_k6(gen):
         ref_max = ref.float().abs().max().item()
         # the same bf16 rounding of q * scale, P and the output; the kernel
         # rounds P against the running max of 128-key tiles, the plain version
-        # of 512/256-key chunks: 1% of the largest output, as for K1
-        require(err <= 1e-2 * ref_max, what, "max |kernel - plain|", err, "> 1% of", ref_max)
+        # of 512/256-key chunks: 1% of the largest output, as for K1; in f32
+        # (64-key tiles) 1e-4 of it
+        tol = 1e-4 if f32 else 1e-2
+        require(err <= tol * ref_max, what, "max |kernel - plain|", err, "> tolerance", tol, "of", ref_max)
         del ref
         ms = cuda_ms(lambda: att.flash_attention(q, k, v, scale), 3)
         plain_ms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, scale), 1, warmup=1)
@@ -943,8 +998,10 @@ def check_k6(gen):
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale), 3)
         # the function's work is on d-wide heads (the padding is the kernel's
         # own choice; K1's inputs come padded), and one exp a score
-        b_ms, b_by = bound(4.0 * b * h * l * l * d, 4 * b * l * h * d * 2, exps=b * h * l * l)
-        rows.append(dict(shape=what, B=b, L=l, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max, ms=ms,
+        b_ms, b_by = bound(4.0 * b * h * l * l * d, 4 * b * l * h * d * q.element_size(),
+                           H100_F32_FLOPS if f32 else H100_BF16_FLOPS, exps=b * h * l * l)
+        rows.append(dict(shape=what, B=b, L=l, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
+                         rel_err=err / ref_max, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                          lib_ratio=ms / lib_ms, bound_share=b_ms / ms))
         del q, k, v, out, qh, kh, vh
@@ -1306,7 +1363,8 @@ def read_counts() -> dict:
             "group_norm_tpu": groupnorm.launches_tpu, "layernorm": layernorm.launches,
             "attention_block": attention.block_launches, "flash_attention": attention.flash_launches,
             "attention_packed_f32": attention.launches_f32, "group_norm_f32": groupnorm.launches_f32,
-            "group_norm_f32norm": groupnorm.launches_tpu_f32norm}
+            "group_norm_f32norm": groupnorm.launches_tpu_f32norm, "attention_f32": attention.launches_f32_heads,
+            "flash_attention_f32": attention.flash_launches_f32, "layernorm_f32": layernorm.launches_f32}
 
 
 def reset_counts() -> None:
@@ -1315,10 +1373,12 @@ def reset_counts() -> None:
     attention.launches = attention.block_launches = attention.flash_launches = geglu.launches = 0
     groupnorm.launches = groupnorm.launches_tpu = groupnorm.launches_tpu_f32norm = layernorm.launches = 0
     attention.launches_f32 = groupnorm.launches_f32 = 0
+    attention.launches_f32_heads = attention.flash_launches_f32 = layernorm.launches_f32 = 0
 
 
-# no f32 launch (the VAE in bf16), no f32-normalize K3 (SASPA_GN_FP32_NORM unset)
-F32_NONE = {"attention_packed_f32": 0, "group_norm_f32": 0, "group_norm_f32norm": 0}
+# no f32 launch (the VAE and the UNet in bf16), no f32-normalize K3 (SASPA_GN_FP32_NORM unset)
+F32_NONE = {"attention_packed_f32": 0, "group_norm_f32": 0, "group_norm_f32norm": 0, "attention_f32": 0,
+            "flash_attention_f32": 0, "layernorm_f32": 0}
 
 
 def expected_counts(steps: int, config: str) -> dict:
@@ -2337,9 +2397,9 @@ TRAIN_SPLITS = {"train": 64, "val": 16, "test": 16}
 TRAIN_SOURCE_HW = (700, 1000)  # about FGVC-Aircraft's image size
 TRAIN_AUGS = 2  # seeded 512^2 PNG augs a train image in the aug-JSON
 TRAIN_BATCHES = (4, 16)  # the planes preset's batch, and cub/dtd's
-TRAIN_TIMED_STEPS = 20
+TRAIN_TIMED_STEPS = 10
 TRAIN_PROFILED_STEPS = 2
-TRAIN_COMPARE_STEPS = 3
+TRAIN_COMPARE_STEPS = 2
 
 
 TRAIN_DISTINCT = 16  # distinct encoded images of each kind; the tree's files repeat their bytes
@@ -3779,6 +3839,9 @@ PB_SPLIT = ("train", "val", "test")
 # keeps them through the confidence filter; the seeded baseline's logits put
 # every other aug over its class's threshold, and train needs a non-empty JSON
 PB_GEN_SEED = 1
+# ip2p's steps in the phase: the recipe's 100 (gen/driver.py::IP2P_STEPS) cut to 10, as the main path runs 4
+# of 30 (the smoke's time: each step at B24 is the same UNet call)
+PB_IP2P_STEPS = 10
 
 
 def write_planes_biased_tree(root, seed: int, n_gen: int, size: int) -> list:
@@ -3885,6 +3948,7 @@ def run_planes_biased_phase(seed: int, checks: dict, checked_sites: dict) -> dic
     root_logger.setLevel(logging.INFO)
     root_logger.addHandler(tele)
     real_init = tpipelines.init_pipeline
+    recipe_steps = tdriver.IP2P_STEPS
     made = []
 
     def recording_init(*a, **k):
@@ -3902,12 +3966,14 @@ def run_planes_biased_phase(seed: int, checks: dict, checked_sites: dict) -> dic
     out = {"phase": "planes_biased", "batch": b, "resolution": size}
     wload.REPORT_SUMS = True
     try:
+        tdriver.IP2P_STEPS = PB_IP2P_STEPS
         os.chdir(root)
         (tree_ids, tree_s) = timed(lambda: write_planes_biased_tree(root, seed + 601, b, size))
         file_sums, weights_s = timed(lambda: write_ip2p_weights(root / "weights", seed + 602))
         out.update(tree_s=tree_s, weights_s=weights_s)
 
-        # ---- cli gen --preset alia --dataset planes_biased: ip2p, 100 steps, 3-way CFG at B24, then the filters
+        # ---- cli gen --preset alia --dataset planes_biased: ip2p, PB_IP2P_STEPS steps, 3-way CFG at B24, then the
+        # filters
         argv = ["gen", "--preset", "alia", "--dataset", "planes_biased", "--num_per_image", "1", "--batch_size",
                 str(b), "--seed", str(PB_GEN_SEED), "--weights_dir", str(root / "weights"), "--max_items", str(b)]
         args = cli.build_parser().parse_args(argv)
@@ -3957,15 +4023,16 @@ def run_planes_biased_phase(seed: int, checks: dict, checked_sites: dict) -> dic
                                  guidance_scale=cfg.guidance_scale, negative_prompt=cfg.negative_prompt,
                                  init_image=init, image_guidance_scale=tdriver.IP2P_IMAGE_GUIDANCE)
 
-        images, t100 = timed(lambda: generate(tdriver.IP2P_STEPS))
+        images, t_all = timed(lambda: generate(tdriver.IP2P_STEPS))
         require(bool(torch.isfinite(images).all()), "planes_biased: non-finite images")
         u8 = tpipelines.quantize(images).cpu().numpy()
         same = [bool(np.array_equal(read_png(files[Path(p).stem]), u)) for p, u in zip(paths, u8)]
         require(all(same), "planes_biased PNGs differ from pipe.generate's", same)
-        _, t10 = timed(lambda: generate(10))
-        s_step = (t100 - t10) / (tdriver.IP2P_STEPS - 10)
-        out["gen"].update({"pngs_equal_pipeline": True, "uint8_mean": float(u8.mean()), "generate_s": t100,
-                           "s_per_step": s_step, "unet_batch": 3 * b, "img_per_s_generate": b / t100})
+        _, t2 = timed(lambda: generate(2))
+        s_step = (t_all - t2) / (tdriver.IP2P_STEPS - 2)
+        out["gen"].update({"pngs_equal_pipeline": True, "uint8_mean": float(u8.mean()), "generate_s": t_all,
+                           "steps": tdriver.IP2P_STEPS, "recipe_steps": recipe_steps, "s_per_step": s_step,
+                           "unet_batch": 3 * b, "img_per_s_generate": b / t_all})
         del images
 
         # the ip2p UNet's K3 and K4 sites at B24 (one hooked step) that earlier phases did not check
@@ -4060,6 +4127,7 @@ def run_planes_biased_phase(seed: int, checks: dict, checked_sites: dict) -> dic
     finally:
         os.chdir(old_cwd)
         tpipelines.init_pipeline = real_init
+        tdriver.IP2P_STEPS = recipe_steps
         wload.REPORT_SUMS = False
         for h in root_logger.handlers[:]:
             root_logger.removeHandler(h)
@@ -4841,25 +4909,32 @@ def check_k1_f32(pipe, attn_inputs) -> list:
     return rows
 
 
-def check_k3_f32(gen, sites) -> list:
-    """K3 in f32 at every f32 site: both epilogues against their plain
-    versions, within 2e-5 of the largest output (f32 out; the statistics
-    sum in another order); times of the xla order (the path's) with
-    F.group_norm as the yardstick where there is no SiLU, the TPU
-    numerics' time at the largest site."""
+def check_k3_f32(gen, sites, cell: str = "xl_vae_f32", timed=None) -> list:
+    """K3 in f32 at every f32 site {(B, C, H, W, act, eps)}: both epilogues
+    against their plain versions, within 2e-5 of the largest output (f32
+    out; the statistics sum in another order), a site of >= 2^30 elements on
+    its first and last sample (samples are independent; the last lies past
+    2^31 - 2^28 elements at the VAE's 1024^2 sites).  Times of the rows
+    timed(site, tpu) picks (by default every row of the xla order, the
+    path's, and the TPU numerics' at the largest site), with F.group_norm as
+    the yardstick where there is no SiLU."""
     from saspa_tpu_torch.ops import groupnorm as gn
 
+    largest = max((s[2], s[3], s[1]) for s in sites)
+    timed = timed or (lambda site, tpu: not tpu or (site[2], site[3], site[1]) == largest)
     rows = []
     order = sorted(sites, key=lambda s: (s[0] * s[1] * s[2] * s[3], s[1], str(s[4])))
-    for (b, c, h, w, act, eps) in order:
+    for site in order:
+        b, c, h, w, act, eps = site
         x = torch.randn(b, c, h, w, generator=gen, device="cuda").mul_(3.0).add_(0.5)
         x = x.to(memory_format=torch.channels_last)
         gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
         beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
         n = x.numel()
+        parts = [slice(0, 1), slice(b - 1, b)] if n >= 2 ** 30 else [slice(None)]
         b_ms, b_by = bound((10.0 if act else 6.0) * n, 8 * n + 8 * c, H100_F32_FLOPS)
         lib = {"library_ms": None, "library_device_ms": None}
-        if act is None:
+        if act is None and timed(site, False):
             def library():
                 return torch.nn.functional.group_norm(x, gn.groups_for(c, 32), gamma, beta, eps)
 
@@ -4870,17 +4945,21 @@ def check_k3_f32(gen, sites) -> list:
             def kernel():
                 return gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
 
-            out, ref = kernel(), plain(x, gamma, beta, 32, eps, act)
-            err, ref_max = (out - ref).abs().max().item(), ref.abs().max().item()
+            out = kernel()
+            err = ref_max = 0.0
+            for sl in parts:
+                ref = plain(x[sl], gamma, beta, 32, eps, act)
+                err = max(err, (out[sl] - ref).abs().max().item())
+                ref_max = max(ref_max, ref.abs().max().item())
+                del ref
             what = f"f32 B{b} C{c} {h}x{w} act={act} {'tpu' if tpu else 'xla'}"
             require(out.dtype == torch.float32 and err <= 2e-5 * ref_max, what, "max |kernel - plain|", err,
                     "> 2e-5 of", ref_max)
-            del out, ref
-            timed_row = not tpu or (h, w, c) == max((s[2], s[3], s[1]) for s in sites)
-            row = dict(shape=what, cell="xl_vae_f32", B=b, C=c, HW=h * w, act=act, eps=eps, tpu_numerics=tpu,
-                       plan=list(gn.gn_plan(b, h * w, c, gn.sm_count(x.device), 4)), max_abs_err=err,
-                       ref_max=ref_max, rel_err=err / ref_max, bound_ms=b_ms, bound_by=b_by, **lib)
-            if timed_row:
+            del out
+            row = dict(shape=what, cell=cell, B=b, C=c, HW=h * w, act=act, eps=eps, tpu_numerics=tpu,
+                       plan=list(gn.gn_plan(b, h * w, c, gn.sm_count(x.device), gn.gn_vec(c, 4))),
+                       max_abs_err=err, ref_max=ref_max, rel_err=err / ref_max, bound_ms=b_ms, bound_by=b_by, **lib)
+            if timed(site, tpu):
                 ms = cuda_ms(kernel, 5)
                 row.update(ms=ms, device_ms=device_ms(kernel, floor_ms=b_ms)[0],
                            plain_ms=cuda_ms(lambda: plain(x, gamma, beta, 32, eps, act), 2, warmup=1),
@@ -4977,11 +5056,261 @@ def run_xl_vae_f32_phase(seed: int, checks: dict) -> dict:
         return counts
 
 
+# ---- phase 23: SD1.5 + canny in f32 through run_generation --------------------
+
+F32_SOURCES = 8
+F32_STEPS = {512: 2, 1024: 1}  # the 512^2 batch and the 1024^2 bucket
+F32_REFERENCE_RESOLUTION = 128  # the card-vs-CPU f32 run: 1 source, 2 steps, 16^2 latents
+F32_TIMED_K3 = {(16, 320, 64, 64, "silu"), (16, 2560, 8, 8, "silu"), (16, 2560, 16, 16, "silu"),
+                (16, 320, 64, 64, None)}  # (B, C, H, W, act): K3 f32 rows timed (the rest checked only)
+
+
+def f32_route_counts(pipe, run, steps: int) -> dict:
+    """The launches of one run of `run()` (`steps` steps and one decode)
+    derived from the JAX package's predicates (the port's copies), per model
+    call: every self-attention
+    takes K1 in f32 (d_pad 512: attention_packed_f32, else attention_f32)
+    where packed_flash_eligible admits it at 4-byte items, else K6 where
+    flash_attention_route does; every LayerNorm32 call K4; every
+    GroupNorm32 call K3; a block's norm3 and feed-forward K2 where
+    ln_geglu_eligible admits it.  Hooks on the modules count the calls;
+    returns {"step": ..., "decode": ...} (the UNet and ControlNet of one
+    step; the VAE of the decode) and run()'s result."""
+    from saspa_tpu_torch.models.unet import BasicTransformerBlock, CrossAttention, GroupNorm32, LayerNorm32
+    from saspa_tpu_torch.models.vae import VAEAttentionBlock
+    from saspa_tpu_torch.ops import attention as att
+    from saspa_tpu_torch.ops.geglu import ln_geglu_eligible
+
+    keys = ("attention_packed_f32", "attention_f32", "flash_attention_f32", "layernorm_f32", "group_norm_f32",
+            "ln_geglu")
+    out = {part: dict.fromkeys(keys, 0) for part in ("unet", "controlnet", "vae")}
+
+    def attention_route(part, b, l, heads, d, padded=True):
+        """padded: the heads' padding is in the weights (the UNet's
+        projections); the VAE's packed route takes only lane-aligned heads."""
+        if (padded or d == att.pad_head_dim(d)) and att.packed_flash_eligible(l, l, heads, d, 4):
+            out[part]["attention_packed_f32" if att.pad_head_dim(d) == 512 else "attention_f32"] += 1
+        elif att.flash_attention_route(l, l, d):
+            out[part]["flash_attention_f32"] += 1
+
+    handles = []
+    for part in out:
+        for m in pipe.params[part].modules():
+            if isinstance(m, GroupNorm32):
+                handles.append(m.register_forward_pre_hook(lambda mod, a, p=part: out[p].__setitem__(
+                    "group_norm_f32", out[p]["group_norm_f32"] + 1)))
+            elif isinstance(m, LayerNorm32):
+                handles.append(m.register_forward_pre_hook(lambda mod, a, p=part: out[p].__setitem__(
+                    "layernorm_f32", out[p]["layernorm_f32"] + 1)))
+            elif isinstance(m, CrossAttention):
+                handles.append(m.register_forward_pre_hook(
+                    lambda mod, a, kw, p=part: attention_route(p, *a[0].shape[:2], mod.heads,
+                                                               a[0].shape[2] // mod.heads)
+                    if len(a) == 1 and kw.get("context") is None else None, with_kwargs=True))
+            elif isinstance(m, VAEAttentionBlock):
+                handles.append(m.register_forward_pre_hook(
+                    lambda mod, a, p=part: attention_route(p, a[0].shape[0], a[0].shape[2] * a[0].shape[3], 1,
+                                                           a[0].shape[1], padded=False)))
+            elif isinstance(m, BasicTransformerBlock):
+                handles.append(m.register_forward_pre_hook(lambda mod, a, p=part: out[p].__setitem__(
+                    "ln_geglu", out[p]["ln_geglu"] + int(mod.fused_ff and ln_geglu_eligible(
+                        a[0].shape[1], a[0].shape[2], mod.ff.mult, a[0].dtype)))))
+    try:
+        result = run()
+    finally:
+        for h in handles:
+            h.remove()
+    both = {k: out["unet"][k] + out["controlnet"][k] for k in keys}
+    require(all(v % steps == 0 for v in both.values()), "f32 route counts: not the same every step", both, steps)
+    return {"step": {k: v // steps for k, v in both.items()}, "decode": out["vae"]}, result
+
+
+def expected_f32_counts(per: dict, steps: int) -> dict:
+    """One batch of `steps` steps and one decode, from f32_route_counts:
+    the f32 counters, and 0 on every bf16 counter (K2's included)."""
+    want = {k: 0 for k in ("attention_packed", "ln_geglu", "group_norm", "group_norm_tpu", "layernorm",
+                           "attention_block", "flash_attention")}
+    want.update(F32_NONE)
+    for k, v in per["step"].items():
+        want[k] += v * steps
+    for k, v in per["decode"].items():
+        want[k] += v
+    return want
+
+
+def check_k4_f32(gen, sites) -> list:
+    """K4 on f32 rows at every f32 LayerNorm site {(rows, C)}: within 1e-6
+    of the largest output (f32 statistics summed in another order, rsqrt's
+    last bits); times, the bound (8 bytes an element at 3.35 TB/s),
+    F.layer_norm in f32 as the yardstick."""
+    from saspa_tpu_torch.ops import layernorm as ln
+
+    rows = []
+    for m, c in sorted(sites):
+        x = 0.5 + 3.0 * torch.randn(1, m, c, generator=gen, device="cuda")
+        s, bias = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda"), 0.2 * torch.randn(c, generator=gen,
+                                                                                              device="cuda")
+
+        def kernel():
+            return ln.layer_norm_one_pass(x, s, bias)
+
+        out, ref = kernel(), ln.layer_norm_one_pass_plain(x, s, bias)
+        err, ref_max = (out - ref).abs().max().item(), ref.abs().max().item()
+        require(out.dtype == torch.float32 and err <= 1e-6 * ref_max, f"f32 rows {m} C {c}",
+                "max |kernel - plain|", err, "> 1e-6 of", ref_max)
+        b_ms, b_by = bound(8.0 * m * c, 8 * m * c + 8 * c, H100_F32_FLOPS)
+        ms = cuda_ms(kernel, 10)
+        rows.append(dict(shape=f"f32 rows {m}, C{c}", cell="f32", rows=m, C=c,
+                         plan=list(ln.ln_plan(m, c, ln.sm_count(x.device), 4)), max_abs_err=err, ref_max=ref_max,
+                         rel_err=err / ref_max, ms=ms, host_us=host_us(kernel),
+                         plain_ms=cuda_ms(lambda: ln.layer_norm_one_pass_plain(x, s, bias), 3, warmup=1),
+                         library_ms=cuda_ms(lambda: torch.nn.functional.layer_norm(x, (c,), s, bias, 1e-5), 10),
+                         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms))
+        del x, out, ref
+    return rows
+
+
+def run_f32_phase(seed: int, checks: dict) -> dict:
+    """SD1.5 + canny in f32 through run_generation (module docstring, phase
+    23); returns the launch counts of its two runs and puts the f32 kernels'
+    rows in `checks`."""
+    import gc
+
+    from saspa_tpu_torch import cli
+    from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion.pipelines import DiffusionPipeline, init_pipeline
+    from saspa_tpu_torch.gen import driver as tdriver
+    from saspa_tpu_torch.models.controlnet import ZERO_INIT_PREFIXES
+    from saspa_tpu_torch.ops import attention as att
+
+    t_phase = time.perf_counter()
+    b, f32 = F32_SOURCES, torch.float32
+    out, counts = {"phase": "f32", "batch": b}, {}
+    pipe, init_s = timed(lambda: init_pipeline("sd_v1.5", "canny", dtype=f32))
+    require(pipe.dtype == f32 and pipe.vae_dtype == f32 and all(
+        p.dtype == f32 for k in ("unet", "controlnet", "vae") for p in pipe.params[k].parameters()),
+        "init_pipeline(dtype=float32): every model in f32", pipe.dtype)
+    with torch.no_grad():  # small seeded values so the ControlNet residuals are not all zero
+        zgen = torch.Generator(device="cuda").manual_seed(seed + 901)
+        for name, p in sorted(pipe.params["controlnet"].named_parameters()):
+            if name.startswith(ZERO_INIT_PREFIXES):
+                p.copy_(torch.randn(p.shape, generator=zgen, device="cuda") * 0.02)
+    out["init_s"] = init_s
+    k1_sites, k6_sites, ln_sites, gn_sites = set(), set(), set(), set()
+    with PhaseRoot("saspa_f32_") as ph:
+        write_planes_tree(ph.root, np.random.RandomState(seed + 902), b, max(F32_STEPS))
+        ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        classes = ds.get_image_stem_to_class_str_dict()
+        for size, steps in F32_STEPS.items():
+            argv = ["gen", "--dataset", "planes", "--resolution", str(size), "--skip_filter", "--num_per_image",
+                    "1", "--num_inference_steps", str(steps), "--batch_size", str(b), "--seed", str(seed + size)]
+            cfg = cli.gen_config(cli.build_parser().parse_args(argv)).with_dataset_overrides()
+            x = driver_batch(pipe, cfg, ds, classes)
+
+            def fused(n_steps):
+                fn = pipe.make_fused_generate(size, size, n_steps, cfg.guidance_scale, 0.75, 120.0, 200.0)
+                return timed(lambda: fn(pipe.params, x["ids"], x["neg_ids"], x["src"], x["lat"],
+                                        return_images=True))
+
+            # the driver's run, hooked: its sites, and the launches the predicates give
+            ph.tele.lines.clear()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            sites, handles = record_sites(pipe)
+            per, (_, wall) = f32_route_counts(pipe, lambda: timed(lambda: tdriver.run_generation(cfg, pipe=pipe)),
+                                              steps)
+            got = read_counts()
+            for hd in handles:
+                hd.remove()
+            for bb, ll, cc, hh in sites["self_attention"]:
+                if att.packed_flash_eligible(ll, ll, hh, cc // hh, 4):
+                    k1_sites.add((bb, ll, hh, cc // hh))
+                elif att.flash_attention_route(ll, ll, cc // hh):
+                    k6_sites.add((bb, ll, hh, cc // hh))
+            ln_sites |= sites["layernorm"]
+            gn_sites |= sites["group_norm"]
+            want = expected_f32_counts(per, steps)
+            peak = torch.cuda.max_memory_allocated()
+            name = f"f32_{size}"
+            require(len(ph.tele.lines) == 1 and ph.tele.lines[0]["num_errors"] == 0 and
+                    ph.tele.lines[0]["total"] == b, name, "telemetry", ph.tele.lines, *ph.tele.errors)
+            require(got == want, name, "launch counts", got, "expected", want)
+            require(all(got[k] > 0 for k in ("attention_f32", "layernorm_f32", "group_norm_f32")) and
+                    got["ln_geglu"] == 0 and (size < 1024 or got["flash_attention_f32"] > 0), name,
+                    "the f32 kernels", got)
+            counts[name] = got
+            pngs = generated_pngs(cfg, ds)
+            (u8, images), ts = fused(steps)
+            require(bool(torch.isfinite(images).all()) and u8.shape == (b, size, size, 3), name,
+                    "non-finite images or a wrong shape", tuple(u8.shape))
+            u8 = u8.cpu().numpy()
+            same_pngs(f"{name} (fused)", pngs, u8)
+            out[name] = {"argv": argv, "steps": steps, "wall_s": wall, "img_per_s": b / wall, "fused_s": ts,
+                         "peak_mem_bytes": peak, "launches": got, "launches_expected": want,
+                         "launches_per_step": per["step"], "launches_per_decode": per["decode"],
+                         "telemetry": ph.tele.lines[0], "pngs_equal_fused": True, "uint8_mean": float(u8.mean())}
+            del images, u8
+            torch.cuda.empty_cache()
+
+    # card f32 against CPU f32: one source at 128^2 (16^2 latents: K1 f32 at 256 tokens), 2 steps
+    rs = F32_REFERENCE_RESOLUTION
+    rng = np.random.RandomState(seed + 903)
+    src = synthetic_sources(rng, 1, rs)
+    ids = pipe.tokenizer(["a photo of a white airliner on the runway"], pad="eot")
+    neg = pipe.tokenizer([""], pad="eot")
+    lat = rng.randn(1, rs // 8, rs // 8, 4).astype(np.float32)
+    t = time.perf_counter()
+    cpu = DiffusionPipeline("sd_v1.5", controlnet="canny", sampler="ddim", dtype=f32, device="cpu", init_seed=None)
+    copy_weights(pipe, cpu)
+    cpu_setup_s = time.perf_counter() - t
+    (u8_cpu, img_cpu), cpu_s = timed(lambda: cpu.make_fused_generate(rs, rs, 2, 7.5, 0.75, 120.0, 200.0)(
+        cpu.params, ids, neg, src, lat, return_images=True))
+    del cpu
+    reset_counts()
+    (u8_gpu, img_gpu), gpu_s = timed(lambda: pipe.make_fused_generate(rs, rs, 2, 7.5, 0.75, 120.0, 200.0)(
+        pipe.params, ids, neg, src, lat, return_images=True))
+    ref_counts = read_counts()
+    diff = (img_gpu.cpu() - img_cpu).abs().max().item()
+    levels = int((u8_gpu.cpu().int() - u8_cpu.int()).abs().max().item())
+    img_max = img_cpu.abs().max().item()
+    out["card_vs_cpu"] = {"resolution": rs, "batch": 1, "steps": 2, "max_abs_diff": diff, "img_max": img_max,
+                          "rel_diff": diff / img_max, "max_levels": levels, "launches": ref_counts,
+                          "cpu_setup_s": cpu_setup_s, "cpu_s": cpu_s, "gpu_s": gpu_s}
+    require(ref_counts["attention_f32"] > 0 and ref_counts["ln_geglu"] == 0, "f32 card-vs-CPU run routes",
+            ref_counts)
+    require(diff <= 1e-3 * img_max and levels <= 1, "f32 card vs CPU: max |diff|", diff, "of", img_max,
+            "levels", levels)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every new kernel at every f32 shape of the path
+    gen = torch.Generator(device="cuda").manual_seed(seed + 904)
+    # K1 at d_pad 64/128/192 and K6 on q of 3x the unit scale (peaked softmax rows), as in bf16
+    checks["attention_f32"] = [dict(r, cell="f32") for r in check_k1(gen, [
+        (f"f32 B{b} L{l} H{h} d{d}->{att.pad_head_dim(d)}", b, l, h, d, att.pad_head_dim(d))
+        for b, l, h, d in sorted(k1_sites, key=lambda s: (-s[1], s[0]))], torch.float32)]
+    emit({"phase": "kernels", "kernel": "attention_f32", "cell": "f32", "shapes": checks["attention_f32"]})
+    checks["flash_attention_f32"] = [dict(r, cell="f32") for r in check_k6(
+        gen, [(f"f32 B{b} L{l} H{h} d{d}", b, l, h, d) for b, l, h, d in sorted(k6_sites)], torch.float32)]
+    emit({"phase": "kernels", "kernel": "flash_attention_f32", "cell": "f32", "shapes": checks["flash_attention_f32"]})
+    checks["layernorm_f32"] = check_k4_f32(gen, ln_sites)
+    emit({"phase": "kernels", "kernel": "layernorm_f32", "cell": "f32", "shapes": checks["layernorm_f32"]})
+    k3_rows = check_k3_f32(gen, gn_sites, "f32", lambda site, tpu: not tpu and site[:5] in F32_TIMED_K3)
+    checks.setdefault("group_norm_f32", []).extend(k3_rows)
+    emit({"phase": "kernels", "kernel": "group_norm_f32", "cell": "f32", "shapes": k3_rows})
+    out.update(k1_sites=sorted(k1_sites), k6_sites=sorted(k6_sites), phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return counts
+
+
 # ---- phase 20: the prompt and caption tools ---------------------------------
 CAPTION_JPEGS = ("q75_420_375x500", "prog_420_375x500", "q90_420_667x1000", "opt_420_90x120")
 CAPTION_PNG_HW = ((480, 640), (375, 500), (300, 300), (900, 600))  # larger and smaller than BLIP's 384 / 480
 CAPTION_QUESTIONS = ("what color is the plane?", "is it day or night?")
-PROMPTS_NUM = 16
+PROMPTS_NUM = 8
 CAPTION_MARGIN = 1e-3  # ids are held card vs CPU up to the first step whose CPU top-2 margin is below this
 # read but not loaded: BERT's tied MLM bias (cls.predictions.bias is loaded) and T5's tied copies of shared.weight
 CAPTION_NOT_LOADED = WEIGHTS_NOT_LOADED + ("cls.predictions.decoder.bias", "embed_tokens", "lm_head")
@@ -5291,7 +5620,7 @@ def run_captions_phase(seed: int) -> dict:
 
 
 BACKBONE_NETS = ("inception_mixed_6e", "inception_mixed_7c", "resnet50_cbam")
-BACKBONE_TIMED_STEPS = 10
+BACKBONE_TIMED_STEPS = 5
 BACKBONE_PROFILED_STEPS = 2
 BACKBONE_AUGS = 2  # seeded 256^2 PNG augs for each of the filter's first 8 train images
 CLIP_VITB16_IMAGES = 4
@@ -5894,7 +6223,8 @@ def main() -> int:
           "k2_wgmma": k2_ptxas(_build.build_log.get("ln_geglu", "")),
           "k5_wgmma": k5_ptxas(_build.build_log.get("attention_block", "")),
           "k3": k3_ptxas(_build.build_log.get("group_norm", "")), "k6_wgmma": k6,
-          "k1_f32": k1_f32_ptxas(_build.build_log.get("attention_packed_f32", ""))})
+          "k1_f32": k1_f32_ptxas(_build.build_log.get("attention_packed_f32", "")),
+          "f32_core": f32_core_ptxas(_build.build_log.get("attention_f32", ""))})
     require(sorted(k6) == K6_INSTANCES, "K6 instantiations in the ptxas report", sorted(k6))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in k6.values()),
             "K6 kernels spill", k6)
@@ -6123,6 +6453,10 @@ def main() -> int:
     counts.update(run_hed_phase(args.seed))
     counts.update(run_xl_vae_f32_phase(args.seed, checks))
 
+    # ---- SD1.5 + canny in f32: init_pipeline(dtype=float32) through run_generation at 512^2 and 1024^2 ----
+    torch.cuda.empty_cache()
+    counts.update(run_f32_phase(args.seed, checks))
+
     # ---- the prompt and caption tools: cli prep-captions (BLIP, VQA) and prep-prompts (keytotext T5) ----
     torch.cuda.empty_cache()
     counts.update(run_captions_phase(args.seed))
@@ -6151,6 +6485,12 @@ def main() -> int:
         # the TPU numerics' f32 normalize on bf16: cell (t) under SASPA_GN_FP32_NORM=1
         ("group_norm_f32norm", "group_norm.cu", "saspa_tpu/ops/groupnorm.py:111",
          lambda r: (r["B"], r["C"], r["HW"], r["act"]) == (16, 320, 4096, "silu") and "ms" in r),
+        # the f32 UNet (cell (u)): K1 at d_pad 64/128/192 (launches_f32_heads), K6 and K4 in f32
+        ("attention_f32", "attention_f32.cu", "saspa_tpu/ops/attention.py:181",
+         lambda r: (r["B"], r["L"], r["d"]) == (16, 4096, 40)),
+        ("flash_attention_f32", "attention_f32.cu", "saspa_tpu/ops/attention.py:80",
+         lambda r: (r["B"], r["L"]) == (16, 16384)),
+        ("layernorm_f32", "layernorm.cu", "saspa_tpu/ops/layernorm.py:62", lambda r: (r["rows"], r["C"]) == (65536, 320)),
     ]
     kernels = []
     for name, source, replaces, pick in lines:

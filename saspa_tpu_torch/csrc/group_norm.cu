@@ -31,8 +31,10 @@
 // 256 channels at 512^2), far beyond a block's shared memory, so x is read
 // twice (the second read partly from L2), in two launches on one host plan
 // (ops/groupnorm.py::gn_plan):
-//   gn_stats_kernel<T>: a thread owns one 16-byte vector (8 bf16 or 4 f32
-//     consecutive channels) of a pixel row, whatever C/G is; `rows` pixel
+//   gn_stats_kernel<T, N>: a thread owns N 16-byte vectors (N * 8 bf16 or
+//     N * 4 f32 consecutive channels; N = 1, or 2 for f32 rows wider than
+//     4 * 512 channels: SD1.5's up blocks concatenate 1280 + 1280) of a
+//     pixel row, whatever C/G is; `rows` pixel
 //     rows of C/VEC threads each run side by side in a block of `threads`
 //     (whole warps), and grid (blocks, B) blocks walk their sample's rows
 //     grid-stride, four loads in flight a thread.  Each thread sums its
@@ -41,7 +43,7 @@
 //     once (a vector may span a group boundary: C/G = 10, 20, 30), all
 //     groups at once (gn_fold: lane-strided sums, then a butterfly), and
 //     writes one (sum, sum of squares) per group;
-//   gn_apply_kernel<T, TPU, SILU>: its prologue folds the sample's `blocks`
+//   gn_apply_kernel<T, N, TPU, SILU>: its prologue folds the sample's `blocks`
 //     partials of each group the same way, in the same fixed order in every
 //     block, into (mean, rstd); then the same walk as the statistics, its
 //     channels' coefficients in registers, normalizes each vector and stores
@@ -146,30 +148,45 @@ __device__ __forceinline__ bool gn_fold(int G, int n, Term term, int& g, float2&
     return g < G && tid % L == 0;
 }
 
-// Thread tid < rows * C/VEC of a block owns channels VEC*s .. VEC*s + VEC-1
-// (s = tid % (C/VEC)) of the pixel rows blockIdx.x * rows + tid / (C/VEC) +
-// k * gridDim.x * rows, k = 0, 1, ... of sample blockIdx.y; fn(v, r) runs on
-// each row's 16-byte vector, U loads ahead, in row order.
-template <int U, typename T, class Fn>
+// A thread's N consecutive 16-byte vectors of one pixel row.
+template <int N>
+struct GnWords {
+    uint4 w[N];
+};
+
+template <int N, typename T>
+__device__ __forceinline__ GnWords<N> gn_load(const T* p) {
+    GnWords<N> v;
+#pragma unroll
+    for (int n = 0; n < N; ++n) v.w[n] = __ldg(reinterpret_cast<const uint4*>(p) + n);
+    return v;
+}
+
+// Thread tid < rows * C/VEC of a block (VEC = N * 16 / sizeof(T)) owns
+// channels VEC*s .. VEC*s + VEC-1 (s = tid % (C/VEC)) of the pixel rows
+// blockIdx.x * rows + tid / (C/VEC) + k * gridDim.x * rows, k = 0, 1, ... of
+// sample blockIdx.y; fn(v, r) runs on each row's N vectors, U loads ahead,
+// in row order.
+template <int U, int N, typename T, class Fn>
 __device__ __forceinline__ void gn_walk(const T* xs, int HW, int C, int rows, int ro, Fn fn) {
     const int step = gridDim.x * rows;
     int r = blockIdx.x * rows + ro;
     for (; r + (U - 1) * step < HW; r += U * step) {
-        uint4 v[U];
+        GnWords<N> v[U];
 #pragma unroll
-        for (int u = 0; u < U; ++u) v[u] = __ldg(reinterpret_cast<const uint4*>(xs + (size_t)(r + u * step) * C));
+        for (int u = 0; u < U; ++u) v[u] = gn_load<N>(xs + (size_t)(r + u * step) * C);
 #pragma unroll
         for (int u = 0; u < U; ++u) fn(v[u], r + u * step);
     }
-    for (; r < HW; r += step) fn(__ldg(reinterpret_cast<const uint4*>(xs + (size_t)r * C)), r);
+    for (; r < HW; r += step) fn(gn_load<N>(xs + (size_t)r * C), r);
 }
 
 // partial[(b * G + g) * gridDim.x + blockIdx.x] = this block's (sum, sum of
 // squares) of group g.
-template <typename T>
+template <typename T, int N>
 __global__ void __launch_bounds__(GN_MAX_THREADS, 2)
 gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ partial, int HW, int C, int G, int rows) {
-    constexpr int VEC = GnType<T>::VEC;
+    constexpr int VEC = GnType<T>::VEC * N;
     extern __shared__ float2 sch[];  // [rows][C]: each row offset's per-channel moments
     const int b = blockIdx.y, nv = C / VEC, tid = threadIdx.x;
     if (tid < rows * nv) {
@@ -177,7 +194,7 @@ gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ partial, int HW, i
         float s1[VEC], s2[VEC];
 #pragma unroll
         for (int e = 0; e < VEC; ++e) s1[e] = s2[e] = 0.f;
-        gn_walk<4>(x + (size_t)b * HW * C + s * VEC, HW, C, rows, ro, [&](const uint4& v, int) {
+        gn_walk<4 / N, N>(x + (size_t)b * HW * C + s * VEC, HW, C, rows, ro, [&](const GnWords<N>& v, int) {
             const T* h = reinterpret_cast<const T*>(&v);
 #pragma unroll
             for (int e = 0; e < VEC; ++e) {
@@ -212,12 +229,12 @@ gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ partial, int HW, i
 // One instantiation per type and epilogue (the xla order, TPU numerics, or
 // TPU numerics with the f32 normalize on bf16; with or without SiLU), so
 // that no per-element branch or unused operand takes registers.
-template <typename T, int TPU, int SILU>
+template <typename T, int N, int TPU, int SILU>
 __global__ void __launch_bounds__(GN_MAX_THREADS, 2)
 gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
                 T* __restrict__ out, const float2* __restrict__ partial, int HW, int C, int G, int rows, float n,
                 float eps) {
-    constexpr int VEC = GnType<T>::VEC;
+    constexpr int VEC = GnType<T>::VEC * N;
     __shared__ float2 sst[GN_MAX_GROUPS];  // (mean, rstd) of this sample's groups
     const int b = blockIdx.y, nv = C / VEC, tid = threadIdx.x;
     int g;
@@ -245,17 +262,19 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const 
         k[e] = gn_coef<GnCompute<T, TPU>>(gamma[c], beta[c], st.x, st.y, TPU);
     }
     const size_t base = (size_t)b * HW * C + s * VEC;
-    gn_walk<TPU ? 4 : 2>(x + base, HW, C, rows, ro, [&](const uint4& v, int r) {
+    gn_walk<(TPU ? 4 : 2) / N, N>(x + base, HW, C, rows, ro, [&](const GnWords<N>& v, int r) {
         const T* h = reinterpret_cast<const T*>(&v);
         __align__(16) T o[VEC];
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
             o[e] = GnType<T>::from_f(gn_elem<T, TPU, SILU>(GnType<T>::to_f(h[e]), k[e], mean[e]));
-        *reinterpret_cast<uint4*>(out + base + (size_t)r * C) = *reinterpret_cast<const uint4*>(o);
+#pragma unroll
+        for (int w = 0; w < N; ++w)
+            reinterpret_cast<uint4*>(out + base + (size_t)r * C)[w] = reinterpret_cast<const uint4*>(o)[w];
     });
 }
 
-template <typename T>
+template <typename T, int N>
 static cudaError_t launch_group_norm(const void* x, const void* gamma, const void* beta, void* out, void* ws,
                                      int B, int C, int HW, int G, int threads, int rows, int blocks, float eps,
                                      int silu, int tpu, cudaStream_t s) {
@@ -263,15 +282,16 @@ static cudaError_t launch_group_norm(const void* x, const void* gamma, const voi
                                 float);
     // the f32 normalize is epilogue 1 on f32 input: no instantiation of its own
     constexpr int F32N = std::is_same<T, float>::value ? 1 : 2;
-    static const ApplyKernel apply[3][2] = {{gn_apply_kernel<T, 0, 0>, gn_apply_kernel<T, 0, 1>},
-                                            {gn_apply_kernel<T, 1, 0>, gn_apply_kernel<T, 1, 1>},
-                                            {gn_apply_kernel<T, F32N, 0>, gn_apply_kernel<T, F32N, 1>}};  // [tpu][silu]
-    if (C % GnType<T>::VEC || C > GnType<T>::VEC * GN_MAX_THREADS || rows * (C / GnType<T>::VEC) > threads)
-        return cudaErrorInvalidValue;
+    constexpr int VEC = GnType<T>::VEC * N;
+    static const ApplyKernel apply[3][2] = {
+        {gn_apply_kernel<T, N, 0, 0>, gn_apply_kernel<T, N, 0, 1>},
+        {gn_apply_kernel<T, N, 1, 0>, gn_apply_kernel<T, N, 1, 1>},
+        {gn_apply_kernel<T, N, F32N, 0>, gn_apply_kernel<T, N, F32N, 1>}};  // [tpu][silu]
+    if (C % VEC || C > VEC * GN_MAX_THREADS || rows * (C / VEC) > threads) return cudaErrorInvalidValue;
     const T* xp = static_cast<const T*>(x);
     float2* part = static_cast<float2*>(ws);
     const dim3 grid(blocks, B);
-    gn_stats_kernel<T><<<grid, threads, sizeof(float2) * rows * C, s>>>(xp, part, HW, C, G, rows);
+    gn_stats_kernel<T, N><<<grid, threads, sizeof(float2) * rows * C, s>>>(xp, part, HW, C, G, rows);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     apply[tpu][silu != 0]<<<grid, threads, 0, s>>>(xp, static_cast<const float*>(gamma),
@@ -282,26 +302,32 @@ static cudaError_t launch_group_norm(const void* x, const void* gamma, const voi
 
 }  // namespace saspa
 
-// x, out: (B, C, HW), NHWC in memory, bf16 (f32 = 0) or f32 (f32 = 1);
+// x, out: (B, C, HW), NHWC in memory, bf16 (f32 = 0) or f32 (f32 = 1: 4
+// channels a thread; f32 = 2: 8, two 16-byte vectors, for C > 2048);
 // tpu: the epilogue, 0 the xla order, 1 the TPU numerics, 2 the TPU
 // numerics with the f32 normalize (on f32 input the same as 1);
 // gamma, beta: (C,) f32; ws: (B * G * blocks) float2 scratch (each block's
 // group moments).  threads, rows, blocks: the launch plan
 // (ops/groupnorm.py::gn_plan): threads a multiple of 32 and at most 512,
-// rows * C/VEC <= threads (VEC = 8 for bf16, 4 for f32), grid (blocks, B).
-// All contiguous and 16-byte aligned on the device; C % VEC == 0, C <= VEC *
-// 512, C % G == 0, G <= 64, B <= 65535.  Returns a cudaError_t (0 on
-// success).
+// rows * C/VEC <= threads (VEC = 8 for bf16 and f32 = 2, 4 for f32 = 1),
+// grid (blocks, B).  All contiguous and 16-byte aligned on the device; C %
+// VEC == 0, C <= VEC * 512, C % G == 0, G <= 64, B <= 65535.  Returns a
+// cudaError_t (0 on success).
 extern "C" int saspa_group_norm(const void* x, const void* gamma, const void* beta, void* out, void* ws, int B,
                                 int C, int HW, int G, int threads, int rows, int blocks, float eps, int silu, int tpu,
                                 int f32, void* stream) {
     using namespace saspa;
     if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || G <= 0 || G > GN_MAX_GROUPS || C % G || threads % 32 ||
-        threads <= 0 || threads > GN_MAX_THREADS || rows <= 0 || blocks <= 0 || tpu < 0 || tpu > 2)
+        threads <= 0 || threads > GN_MAX_THREADS || rows <= 0 || blocks <= 0 || tpu < 0 || tpu > 2 || f32 < 0 ||
+        f32 > 2)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (f32) return (int)launch_group_norm<float>(x, gamma, beta, out, ws, B, C, HW, G, threads, rows, blocks, eps,
-                                                  silu, tpu, s);
-    return (int)launch_group_norm<bf16>(x, gamma, beta, out, ws, B, C, HW, G, threads, rows, blocks, eps, silu, tpu,
-                                        s);
+    if (f32 == 2)
+        return (int)launch_group_norm<float, 2>(x, gamma, beta, out, ws, B, C, HW, G, threads, rows, blocks, eps,
+                                                silu, tpu, s);
+    if (f32)
+        return (int)launch_group_norm<float, 1>(x, gamma, beta, out, ws, B, C, HW, G, threads, rows, blocks, eps,
+                                                silu, tpu, s);
+    return (int)launch_group_norm<bf16, 1>(x, gamma, beta, out, ws, B, C, HW, G, threads, rows, blocks, eps, silu,
+                                           tpu, s);
 }

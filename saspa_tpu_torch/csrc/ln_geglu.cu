@@ -191,7 +191,7 @@ extern "C" int saspa_ln_geglu(const void* x, const void* lns, const void* lnb, c
     if (M <= 0 || C % 64 || F % 64 || F <= 0 || !(bn_down == 64 || (bn_down == 160 && C % 160 == 0)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = layernorm_launch(kNormKernels, x, lns, lnb, xn, M, C, lanes, vecs, ln_blocks, eps, s);
+    cudaError_t err = layernorm_launch<bf16>(kNormKernels, x, lns, lnb, xn, M, C, lanes, vecs, ln_blocks, eps, s);
     if (err != cudaSuccess) return (int)err;
 
     CUtensorMap mxn, mw1, mhid;

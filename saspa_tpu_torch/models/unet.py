@@ -18,11 +18,15 @@ convolutions keep); module and parameter names follow the flax tree.  By default
 it runs what the JAX package runs by default: self-attention over >= 256
 tokens runs the packed-heads kernel (K1) with head dims padded in the
 weights where its guard admits the shape, else (level 0 at 1024^2) the
-streamed flash kernel (K6) on the unpadded projections, every transformer
-block's norm3 + feed-forward runs the fused
-LN+GEGLU kernel (K2), norm1/norm2 the one-pass LayerNorm (K4), every
+streamed flash kernel (K6) on the unpadded projections, each transformer
+block's norm3 + feed-forward runs the fused LN+GEGLU kernel (K2) where
+`ln_geglu_eligible` admits it (as JAX's predicate: bf16, L % 64 == 0,
+its VMEM guard; else norm3 and the feed-forward as separate ops),
+norm1/norm2 (and norm3 off K2) the one-pass LayerNorm (K4), every
 GroupNorm the GroupNorm kernel (K3) in `_xla_group_norm`'s order, and
-cross-attention over the 77 text tokens is plain torch.
+cross-attention over the 77 text tokens is plain torch.  In f32 (an
+explicit `dtype=torch.float32`) the same routes run the kernels' f32
+variants, and no block takes K2.
 
 The JAX package's route and numerics switches reach the models as one
 record (`ops/switches.py::KernelSwitches`, passed to the constructors):
@@ -66,7 +70,7 @@ from saspa_tpu_torch.ops.attention import (
     packed_flash_eligible,
     pad_head_dim,
 )
-from saspa_tpu_torch.ops.geglu import fused_ln_geglu
+from saspa_tpu_torch.ops.geglu import fused_ln_geglu, ln_geglu_eligible
 from saspa_tpu_torch.ops.groupnorm import group_norm, groups_for, split_plan
 from saspa_tpu_torch.ops.layernorm import layer_norm_fp32_norm, layer_norm_one_pass
 from saspa_tpu_torch.ops.layernorm import layer_norm_one_pass_plain as _ln32_forward  # noqa: F401
@@ -352,6 +356,7 @@ class FeedForwardGEGLU(nn.Module):
 
     def __init__(self, dim, dtype, device, mult=4):
         super().__init__()
+        self.mult = mult
         self.proj_in = Dense(dim, dim * mult * 2, dtype=dtype, device=device)
         self.proj_out = Dense(dim * mult, dim, dtype=dtype, device=device)
 
@@ -377,9 +382,9 @@ class BasicTransformerBlock(nn.Module):
         x = self.attn1(self.norm1(x).to(x.dtype), residual=x)
         a2 = self.attn2(self.norm2(x).to(x.dtype), context)
         x = cfg_tile(x, a2.shape[0]) + a2  # CFG fork point (B -> 2B)
-        if not self.fused_ff:
-            return x + self.ff(self.norm3(x).to(x.dtype))
         ff = self.ff
+        if not (self.fused_ff and ln_geglu_eligible(x.shape[1], x.shape[2], ff.mult, x.dtype)):
+            return x + ff(self.norm3(x).to(x.dtype))
         return fused_ln_geglu(x, self.norm3.scale, self.norm3.bias, ff.proj_in.kernel, ff.proj_in.bias,
                               ff.proj_out.kernel, ff.proj_out.bias, self.norm3.eps)
 

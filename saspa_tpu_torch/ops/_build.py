@@ -36,9 +36,14 @@ SIGNATURES = {
     "attention_packed_f32": ("saspa_attention_packed_f32", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "ln_geglu": ("saspa_ln_geglu", [_P] * 10 + [_I] * 7 + [_F, _P]),
     "group_norm": ("saspa_group_norm", [_P] * 5 + [_I] * 7 + [_F, _I, _I, _I, _P]),
-    "layernorm": ("saspa_layernorm", [_P] * 4 + [_I] * 5 + [_F, _P]),
+    "layernorm": ("saspa_layernorm", [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
     "attention_block": ("saspa_attention_block", [_P] * 9 + [_I] * 5 + [_P]),
     "flash_attention": ("saspa_flash_attention", [_P] * 4 + [_I] * 6 + [_F, _P]),
+    "attention_f32": ("saspa_attention_f32_packed", [_P] * 4 + [_I] * 4 + [_P]),
+}
+# a library's C entry points beside its first: name -> {function: argtypes}
+MORE_ENTRIES = {
+    "attention_f32": {"saspa_flash_attention_f32": [_P] * 4 + [_I] * 6 + [_F, _P]},
 }
 
 KERNELS = tuple(SIGNATURES)
@@ -91,10 +96,10 @@ def _finish(name: str, out: Path, job) -> None:
 
 def _load(name: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in (SIGNATURES[name], *MORE_ENTRIES.get(name, {}).items()):
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -111,15 +116,16 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def kernel(name: str):
-    """The C entry point of one kernel, building its library on first use."""
+def kernel(name: str, entry: str = ""):
+    """The C entry point of one kernel (its first, or `entry`), building its
+    library on first use."""
     if name not in _loaded:
         with _lock:
             if name not in _loaded:
                 out, job = _start(name)
                 _finish(name, out, job)
                 _loaded[name] = _load(name, out)
-    return getattr(_loaded[name], SIGNATURES[name][0])
+    return getattr(_loaded[name], entry or SIGNATURES[name][0])
 
 
 def check(err: int, what: str) -> None:

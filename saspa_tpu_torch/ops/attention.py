@@ -5,12 +5,12 @@ Counterpart of saspa_tpu/ops/attention.py.  Self-attention over image tokens
 that `packed_flash_eligible` admits (lq == lk >= 256, lq % 128 == 0, and the
 packed kernel's 48 MiB guard, counted in the activations' bytes: the XL
 VAE's f32 head of 512 at 4096 tokens is admitted, at 16384 it is not) runs
-`flash_attention_packed` (bf16, or f32 at the VAE's head of 512) on packed
+`flash_attention_packed` (bf16 or f32) on packed
 (B, L, H*D_pad) tensors whose head dims are zero-padded in the projection
 weights (64/128/192 for SD1.5's 40/80/160; the VAE's 512 as is).  Past that
 guard (SD1.5's level 0 at 1024^2: 16384 tokens) the projections stay
 unpadded and `attention()` routes as the JAX package does: K6
-(`flash_attention`, which pads the heads in shared memory) where
+(`flash_attention`, bf16 or f32, which pads the heads in shared memory) where
 `flash_attention_route` admits the shape, else `plain_attention`, the
 counterpart of `_xla_attention`.  Short-kv cross-attention (77 text tokens)
 and the text tower take the plain path, and so do the CLIP image towers
@@ -35,9 +35,11 @@ FLASH_HEAD_DIMS = (64, 128, 192)  # the padded head dims K6 takes
 PLAIN_SCORE_BYTES = 1 << 30  # f32 scores K6's plain version holds at once
 
 launches = 0  # bf16 kernel launches of flash_attention_packed since the last reset
-launches_f32 = 0  # f32 kernel launches of flash_attention_packed (csrc/attention_packed_f32.cu) since the last reset
+launches_f32 = 0  # f32 kernel launches of flash_attention_packed at d_pad 512 (csrc/attention_packed_f32.cu)
+launches_f32_heads = 0  # f32 kernel launches of flash_attention_packed at d_pad 64/128/192 (csrc/attention_f32.cu)
 block_launches = 0  # calls of attention_block_fused / attention_block_stages that launched K5 since the last reset
-flash_launches = 0  # kernel launches of flash_attention (K6) since the last reset
+flash_launches = 0  # bf16 kernel launches of flash_attention (K6) since the last reset
+flash_launches_f32 = 0  # f32 kernel launches of flash_attention (K6, csrc/attention_f32.cu) since the last reset
 BLOCK_HEAD_DIMS = (64, 128, 192)
 
 
@@ -59,15 +61,16 @@ def _packed_block_q(lq: int) -> int:
 def packed_kernel_takes(l: int, dp: int, dtype) -> bool:
     """The packed kernels' contract on the token count L, the padded head
     dim and the dtype: bf16 at d_pad 64/128/192 with L % 128 == 0 (the
-    wgmma blocks' 128 or 256 query rows), or bf16 and f32 at the VAE's
-    d_pad 512 with L % 64 == 0 (both d 512 kernels' 64-row query tiles; the
-    f32 kernel runs the XL VAE's head under SASPA_XL_VAE_FP32=1).  It takes
+    wgmma blocks' 128 or 256 query rows); f32 there with L % 64 == 0 (the
+    FFMA core's 64-row query tiles and 64-key tiles: an f32 UNet); or bf16
+    and f32 at the VAE's d_pad 512 with L % 64 == 0 (both d 512 kernels'
+    64-row query tiles; the f32 kernel runs an f32 VAE's head).  It takes
     every L that `packed_flash_eligible` admits at these head dims."""
     if l <= 0:
         return False
-    if dp == 512:
+    if dp == 512 or (dtype == torch.float32 and dp in FLASH_HEAD_DIMS):
         return dtype in (torch.bfloat16, torch.float32) and l % 64 == 0
-    return dtype == torch.bfloat16 and dp in (64, 128, 192) and l % 128 == 0
+    return dtype == torch.bfloat16 and dp in FLASH_HEAD_DIMS and l % 128 == 0
 
 
 def packed_flash_eligible(lq: int, lk: int, heads: int, d: int, itemsize: int = 2) -> bool:
@@ -201,17 +204,18 @@ def flash_attention_plain(q, k, v, scale: float):
 def flash_attention(q, k, v, scale: float):
     """softmax(q k^T * scale) v over unpadded heads: q (B, Lq, H, D), k/v
     (B, Lk, H, D) -> (B, Lq, H, D).  CPU tensors run the plain version;
-    CUDA tensors launch K6 (bf16, contiguous and 16-byte aligned for its TMA
-    loads, Lq and Lk multiples of 64, D a multiple of 8 that pads to
-    64/128/192) or raise."""
-    global flash_launches
+    CUDA tensors launch K6 (bf16: csrc/flash_attention.cu; f32:
+    csrc/attention_f32.cu, counted in flash_launches_f32; contiguous and
+    16-byte aligned, Lq and Lk multiples of 64, D a multiple of 8 that pads
+    to 64/128/192) or raise."""
+    global flash_launches, flash_launches_f32
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     dp = pad_head_dim(d)
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes bf16 on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes bf16 or f32 on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != (b, lk, h, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if lq % 64 or lk % 64 or d % 8 or dp not in FLASH_HEAD_DIMS:
@@ -220,9 +224,15 @@ def flash_attention(q, k, v, scale: float):
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention needs contiguous, 16-byte aligned q, k, v on one device")
     out = torch.empty_like(q)
-    fn = _build.kernel("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale_q = float(torch.tensor(scale, dtype=q.dtype))  # in q's dtype, as the plain version folds it
+    if q.dtype == torch.float32:
+        fn = _build.kernel("attention_f32", "saspa_flash_attention_f32")
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, lk, h, d, dp, scale_q,
+                        stream), "flash_attention_f32")
+        flash_launches_f32 += 1
+        return out
+    fn = _build.kernel("flash_attention")
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, lk, h, d, dp, scale_q, stream),
                  "flash_attention")
     flash_launches += 1
@@ -251,9 +261,10 @@ def flash_attention_packed(q, k, v, heads: int):
     H*D_pad).  Returns (B, L, H*D_pad); padded output columns are exactly 0.
     CPU tensors run the plain version; CUDA tensors launch a kernel or
     raise: q, k, v contiguous and 16-byte aligned, of the L, head dim and
-    dtype `packed_kernel_takes` admits (bf16: csrc/attention_packed.cu; f32:
-    csrc/attention_packed_f32.cu, counted in launches_f32)."""
-    global launches, launches_f32
+    dtype `packed_kernel_takes` admits (bf16: csrc/attention_packed.cu; f32
+    at d_pad 512: csrc/attention_packed_f32.cu, counted in launches_f32; f32
+    at 64/128/192: csrc/attention_f32.cu, counted in launches_f32_heads)."""
+    global launches, launches_f32, launches_f32_heads
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, heads)
     b, l, hd = q.shape
@@ -265,10 +276,16 @@ def flash_attention_packed(q, k, v, heads: int):
     if not (all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)) and q.device == k.device == v.device):
         raise ValueError("flash_attention_packed needs contiguous, 16-byte aligned q, k, v on one device")
     if not packed_kernel_takes(l, dp, q.dtype):
-        raise ValueError(f"the packed kernels take bf16 at head dim 64/128/192 with L % 128 == 0, or bf16 and f32 "
-                         f"at 512 with L % 64 == 0; got {q.dtype}, head dim {dp}, L {l}")
+        raise ValueError(f"the packed kernels take bf16 at head dim 64/128/192 with L % 128 == 0, or f32 there and "
+                         f"bf16 and f32 at 512 with L % 64 == 0; got {q.dtype}, head dim {dp}, L {l}")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.float32 and dp != 512:
+        fn = _build.kernel("attention_f32")
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, heads, dp, stream),
+                     "attention_f32")
+        launches_f32_heads += 1
+        return out
     if q.dtype == torch.float32:
         fn = _build.kernel("attention_packed_f32")
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, heads, stream),

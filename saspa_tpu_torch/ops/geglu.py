@@ -146,6 +146,30 @@ def ln_geglu_stages(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
     return xn, hid, out
 
 
+def _pick_block_q(l: int) -> int:
+    """The q-block of the JAX kernel (the JAX function of this name without
+    its environment override)."""
+    for cand in (min(512, l), 256, 128, 64):
+        if cand <= l and l % cand == 0:
+            return cand
+    return l
+
+
+def ln_geglu_eligible(l: int, c: int, mult: int, dtype) -> bool:
+    """Copy of the JAX predicate (without its backend check and the
+    switches, which `KernelSwitches.fused_ff` holds): bf16 activations, L a
+    multiple of 64, and the block's weights, accumulators and temporaries
+    within 88 MiB of VMEM.  So f32 blocks, ragged token counts (a 960x1280
+    bucket's 1200 and 300) and C1536 at 1024 tokens take the separate ops."""
+    if dtype != torch.bfloat16 or l < 64 or l % 64:
+        return False
+    f = c * mult
+    bq = _pick_block_q(l)
+    vmem = (2 * 3 * c * f + 2 * 2 * f + 2 * 2 * c + 4 * 2 * c + 2 * 2 * 2 * bq * c + 2 * 4 * bq * f
+            + 2 * bq * f + 2 * 4 * bq * c)
+    return vmem <= 88 * 1024 * 1024
+
+
 def fused_ln_geglu(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
     """x: (B, L, C).  CPU tensors run the plain version; CUDA tensors launch
     K2's kernels (see ln_geglu_stages) or raise."""

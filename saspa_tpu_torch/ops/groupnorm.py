@@ -46,18 +46,26 @@ launches_f32 = 0  # calls of group_norm that launched K3 on f32 since the last r
 
 VMEM_LIMIT = 44 * 1024 * 1024  # _split_plan's per-sample block budget
 # csrc/group_norm.cu: a thread owns one 16-byte vector (8 bf16 or 4 f32
-# channels) of a pixel row; blocks of whole warps, at most GN_MAX_THREADS,
+# channels) of a pixel row, or two (8 f32 channels) on f32 rows wider than
+# 4 * GN_MAX_THREADS; blocks of whole warps, at most GN_MAX_THREADS,
 # and two of the largest resident an SM (__launch_bounds__(512, 2)), so the
 # grid aims at GN_THREADS_PER_SM threads an SM
 GN_MAX_THREADS = 512
 GN_THREADS_PER_SM = 1024
 GN_MAX_GROUPS = 64
-GN_MAX_C = 8 * GN_MAX_THREADS  # bf16; f32 takes 4 * GN_MAX_THREADS
+GN_MAX_C = 8 * GN_MAX_THREADS  # bf16, and f32 in two vectors a thread
+
+
+def gn_vec(c: int, itemsize: int) -> int:
+    """Channels a thread owns: 8 bf16 (one 16-byte vector); 4 f32 (one),
+    or 8 f32 (two) where C passes 4 * GN_MAX_THREADS (SD1.5's 2560-channel
+    skip concatenations)."""
+    return 8 if itemsize == 2 or c > 4 * GN_MAX_THREADS else 4
 
 
 class GnPlan(NamedTuple):
     """Launch plan of K3: blocks of `threads` (whole warps) hold `rows`
-    pixel rows side by side, C/8 threads a row, and `blocks` blocks a sample
+    pixel rows side by side, C/vec threads a row, and `blocks` blocks a sample
     (grid (blocks, B)) walk the sample's rows grid-stride."""
     threads: int
     rows: int
@@ -66,8 +74,8 @@ class GnPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def gn_plan(b: int, hw: int, c: int, sms: int, vec: int = 8) -> GnPlan:
-    """The plan for B samples of hw pixel rows of c channels in vectors of
-    `vec` (8 bf16 or 4 f32: c % vec == 0, c <= vec * GN_MAX_THREADS) on a
+    """The plan for B samples of hw pixel rows of c channels, `vec` a thread
+    (`gn_vec`: c % vec == 0, c <= vec * GN_MAX_THREADS) on a
     card of `sms` SMs: the rows a block holds side by side
     that leave the fewest idle threads in its whole warps, then the block
     nearest 256 threads (C320: 8 rows of 40 threads, 320; C960: 4 of 120;
@@ -164,8 +172,8 @@ def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activati
     """x: (B, C, *spatial); gamma, beta: (C,) f32.  tpu_numerics: the TPU
     kernel's, with its normalize in x's dtype (bf16_norm) or in f32.  CPU
     tensors run the plain version; CUDA tensors launch K3 (bf16 or f32 x,
-    4-d channels-last, C a whole number of 16-byte vectors, 16-byte aligned)
-    or raise."""
+    4-d channels-last, C a whole number of a thread's vectors (`gn_vec`) and
+    at most 4096, 16-byte aligned) or raise."""
     global launches, launches_tpu, launches_tpu_f32norm, launches_f32
     if x.device.type == "cpu":
         if tpu_numerics:
@@ -183,7 +191,8 @@ def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activati
         raise ValueError(f"group_norm: activation {activation!r}")
     if x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("group_norm on CUDA needs a 4-d channels-last x")
-    vec = 16 // x.element_size()
+    vec = gn_vec(c, x.element_size())
+    f32 = x.dtype == torch.float32
     if c % vec or c > vec * GN_MAX_THREADS or groups > GN_MAX_GROUPS:
         raise ValueError(f"group_norm: needs C % {vec} == 0, C <= {vec * GN_MAX_THREADS}, G <= {GN_MAX_GROUPS} for "
                          f"{x.dtype}; got {c}, {groups}")
@@ -199,13 +208,13 @@ def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activati
     out = torch.empty_like(x)  # in x's memory format
     # the epilogue: 0 the xla order, 1 the TPU numerics, 2 with an f32
     # normalize (on f32 input that is epilogue 1)
-    mode = 0 if not tpu_numerics else 1 if bf16_norm or vec == 4 else 2
+    mode = 0 if not tpu_numerics else 1 if bf16_norm or f32 else 2
     fn = _build.kernel("group_norm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), ws.data_ptr(), b, c, hw,
-                    groups, *plan, float(eps), int(activation == "silu"), mode, int(vec == 4), stream),
-                 "group_norm")
-    if vec == 4:
+                    groups, *plan, float(eps), int(activation == "silu"), mode, 0 if not f32 else 1 if vec == 4 else 2,
+                    stream), "group_norm")
+    if f32:
         launches_f32 += 1
     else:
         launches += 1

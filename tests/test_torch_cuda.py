@@ -388,6 +388,85 @@ def test_attention_packed_f32_kernel_matches_plain(gen, b, l, h):
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
+@pytest.mark.parametrize("b,l,h,d,dp", [(2, 256, 8, 40, 64), (1, 384, 2, 40, 64), (2, 1024, 8, 80, 128),
+                                        (1, 320, 4, 80, 128), (2, 256, 8, 160, 192), (1, 448, 2, 160, 192)])
+def test_attention_f32_packed_kernel_matches_plain(gen, b, l, h, d, dp):
+    """K1 in f32 at the UNet's padded head dims (csrc/attention_f32.cu), q
+    pre-scaled by scale * log2(e) on peaked scores (q of 3x the unit scale):
+    f32 out within 1e-4 of the largest output (online against one-pass
+    softmax, other sum orders), padded columns exactly 0, counted by
+    launches_f32_heads alone; L = 320, 384, 448 are not multiples of 128
+    (the f32 core's tiles take L % 64 == 0)."""
+    def padded(x):
+        return torch.nn.functional.pad(x, (0, dp - d)).reshape(b, l, h * dp).contiguous()
+
+    q = padded(torch.randn(b, l, h, d, generator=gen, device="cuda") * (3.0 * attention.LOG2E / math.sqrt(d)))
+    k, v = (padded(torch.randn(b, l, h, d, generator=gen, device="cuda")) for _ in range(2))
+    before = (attention.launches, attention.launches_f32, attention.launches_f32_heads)
+    out = attention.flash_attention_packed(q, k, v, h)
+    assert (attention.launches, attention.launches_f32, attention.launches_f32_heads) == (*before[:2], before[2] + 1)
+    ref = attention.flash_attention_packed_plain(q, k, v, h)
+    assert out.dtype == torch.float32 and ref.abs().max() >= 1.5
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert (out.reshape(b, l, h, dp)[..., d:] == 0).all()
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [(2, 256, 256, 8, 40), (1, 1024, 1024, 8, 40), (1, 512, 512, 4, 80),
+                                         (1, 256, 256, 2, 160), (1, 320, 448, 2, 40), (1, 256, 384, 2, 64),
+                                         (1, 256, 256, 2, 120)])
+def test_flash_attention_f32_kernel_matches_plain(gen, b, lq, lk, h, d):
+    """K6 in f32 (csrc/attention_f32.cu) at unpadded heads (d 40, 80, 160 of
+    SD1.5, 64 unpadded, 120 padding to 128), Lq != Lk among them, q of std 3
+    (peaked softmax): f32 out within 1e-4 of the largest output (64-key tiles
+    against the plain version's 256/512-key chunks), counted by
+    flash_launches_f32 alone."""
+    q = 3.0 * torch.randn(b, lq, h, d, generator=gen, device="cuda")
+    k, v = (torch.randn(b, lk, h, d, generator=gen, device="cuda") for _ in range(2))
+    scale = d ** -0.5
+    before = (attention.flash_launches, attention.flash_launches_f32)
+    out = attention.flash_attention(q, k, v, scale)
+    assert (attention.flash_launches, attention.flash_launches_f32) == (before[0], before[1] + 1)
+    ref = attention.flash_attention_plain(q, k, v, scale)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("m,c", [(4096, 320), (1000, 640), (67, 1280), (13, 8), (257, 64), (999, 1000),
+                                 (5, 1536), (300, 768), (65536, 320)])
+def test_layernorm_f32_kernel_matches_plain(gen, m, c):
+    """K4 on f32 rows (an f32 UNet's norm1/norm2/norm3): f32 statistics and
+    normalize, within 1e-6 of the largest output (the statistics' sum order,
+    rsqrt's last bits), counted by launches_f32 alone; widths with 1 to 12
+    16-byte vectors a lane, up to the refiner's 1536."""
+    x = 1.0 + 2.0 * torch.randn(1, m, c, generator=gen, device="cuda")
+    s, bias = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda"), 0.1 * torch.randn(c, generator=gen, device="cuda")
+    before = (layernorm.launches, layernorm.launches_f32)
+    out = layernorm.layer_norm_one_pass(x, s, bias)
+    assert (layernorm.launches, layernorm.launches_f32) == (before[0], before[1] + 1)
+    ref = layernorm.layer_norm_one_pass_plain(x, s, bias)
+    assert out.dtype == torch.float32 and (out - ref).abs().max() <= 1e-6 * ref.abs().max()
+
+
+@pytest.mark.parametrize("b,c,h,w,act,eps", [(2, 2560, 8, 8, "silu", 1e-5), (2, 2560, 16, 16, None, 1e-6),
+                                               (1, 4096, 4, 4, "silu", 1e-5), (2, 2056, 4, 4, None, 1e-5)])
+@pytest.mark.parametrize("tpu", [False, True])
+def test_group_norm_f32_two_vectors_matches_plain(gen, b, c, h, w, act, eps, tpu):
+    """f32 rows wider than 512 threads of 4 channels (SD1.5's up blocks'
+    2560-channel skip concatenations in an f32 UNet): two 16-byte vectors a
+    thread, both epilogues, within 2e-5 of the largest output, counted by
+    launches_f32 alone."""
+    x = (0.5 + 3.0 * torch.randn(b, c, h, w, generator=gen, device="cuda")).to(memory_format=torch.channels_last)
+    gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    before = (groupnorm.launches, groupnorm.launches_f32)
+    out = groupnorm.group_norm(x, gamma, beta, 32 if c % 32 == 0 else 8, eps, act, tpu_numerics=tpu)
+    assert (groupnorm.launches, groupnorm.launches_f32) == (before[0], before[1] + 1)
+    plain = groupnorm.group_norm_tpu_plain if tpu else groupnorm.group_norm_plain
+    ref = plain(x, gamma, beta, 32 if c % 32 == 0 else 8, eps, act)
+    assert out.dtype == torch.float32 and out.stride() == x.stride()
+    assert (out - ref).abs().max() <= 2e-5 * ref.abs().max()
+
+
 @pytest.mark.parametrize("m,c", [(4096, 320), (1000, 640), (64, 1280), (3, 2048), (4099, 320), (1003, 640),
                                  (67, 1280), (13, 8), (257, 64), (999, 1000), (5, 2048), (65536, 320)])
 def test_layernorm_kernel_matches_plain(gen, m, c):
@@ -529,9 +608,12 @@ def test_flash_attention_wgmma_kernel_peaked(gen, b, lq, lk, h, d):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
-    x = torch.zeros(1, 256, 64, device="cuda")  # f32 on the card: the f32 kernel takes head dim 512 only
+    x = torch.zeros(1, 256, 64, device="cuda")  # f32 on the card: the f32 kernels take head dims 64-192 and 512
     with pytest.raises(ValueError):
-        attention.flash_attention_packed(x, x, x, 1)
+        attention.flash_attention_packed(x, x, x, 4)  # head dim 16
+    with pytest.raises(ValueError):  # f32 at d_pad 64: the FFMA core's 64-row tiles take L % 64 == 0
+        x96 = torch.zeros(1, 96, 64, device="cuda")
+        attention.flash_attention_packed(x96, x96, x96, 1)
     with pytest.raises(TypeError):  # f64
         attention.flash_attention_packed(x.double(), x.double(), x.double(), 1)
     for l in (80, 96):  # f32 and bf16 at d 512: the kernels' 64-row query tiles take L % 64 == 0
@@ -552,13 +634,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         groupnorm.group_norm(x.reshape(1, 64, 16, 16).double().to(memory_format=torch.channels_last), ones, ones)
     with pytest.raises(ValueError):  # 3-d
         groupnorm.group_norm(x.reshape(1, 64, 256), ones, ones)
-    wide = torch.zeros(1, 2056, 2, 2, device="cuda").to(memory_format=torch.channels_last)
-    with pytest.raises(ValueError):  # f32 rows of 2056 channels: past 512 threads of 4
-        groupnorm.group_norm(wide, torch.ones(2056, device="cuda"), torch.ones(2056, device="cuda"), 8)
+    wide = torch.zeros(1, 2060, 2, 2, device="cuda").to(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):  # f32 rows of 2060 channels: past 512 threads of 4, not a multiple of 8
+        groupnorm.group_norm(wide, torch.ones(2060, device="cuda"), torch.ones(2060, device="cuda"), 4)
     with pytest.raises(ValueError):  # contiguous NCHW, not channels-last
         groupnorm.group_norm(y.reshape(1, 40, 16, 16), ones[:40], ones[:40])
-    with pytest.raises(TypeError):
-        layernorm.layer_norm_one_pass(x, ones, ones)
+    with pytest.raises(TypeError):  # f64
+        layernorm.layer_norm_one_pass(x.double(), ones, ones)
     with pytest.raises(ValueError):  # C not a multiple of 8
         layernorm.layer_norm_one_pass(y[:, :, :36].contiguous(), ones[:36], ones[:36])
     xo = torch.zeros(64 * 64 + 4, dtype=torch.bfloat16, device="cuda")[4:].view(1, 64, 64)
@@ -583,8 +665,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):  # C = 36: not a whole number of 16-byte vectors
         groupnorm.group_norm(g36, ones[:36], ones[:36])
     z = torch.zeros(1, 256, 2, 40, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(TypeError):
-        attention.flash_attention(z.float(), z.float(), z.float(), 0.1)
+    with pytest.raises(TypeError):  # f64
+        attention.flash_attention(z.double(), z.double(), z.double(), 0.1)
     with pytest.raises(ValueError):  # L not a multiple of 64
         attention.flash_attention(z[:, :200], z[:, :200], z[:, :200], 0.1)
     with pytest.raises(ValueError):  # head dim 512: past K6's padded dims
