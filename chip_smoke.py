@@ -24,7 +24,8 @@ Phases, each printing one JSON line:
                 route (a) for K5 (three cuBLAS projections, K1, the out
                 projection and the residual add: route_a_ms); the bound
                 of K1, K5 and K6 counts one exp2 a score on the special-
-                function units at the card's maximum SM clock).  K1/K2 shapes
+                function units at the card's maximum SM clock, and their
+                operations on the real head dim, not the zero-padded one).  K1/K2 shapes
                 are listed below; the GroupNorm (K3), LayerNorm (K4) and
                 self-attention block (K5) shapes are recorded by forward hooks
                 during the main path's warm-up, and K3's and K4's also during
@@ -104,7 +105,7 @@ Phases, each printing one JSON line:
                 seconds, its dispatch seconds and its wait for the card at
                 the end, the stream synchronizations in one batch and step
                 (required 0), the card's idle share and kernels a step over
-                2 profiled steps, peak memory (train_throughput).
+                1 profiled step, peak memory (train_throughput).
   8. blip    -- BLIP-Diffusion + canny ControlNet, the default model of
                 every dataset but planes:  cli gen --dataset dtd
                 --skip_filter --num_per_image 1 --resolution 512
@@ -120,7 +121,9 @@ Phases, each printing one JSON line:
                 the fused function's output bit for bit.  Printed: wall s,
                 img/s, s/step, the towers' CUDA-event ms a batch and their
                 own device ms and kernel count (torch.profiler), the idle
-                share of one profiled batch.  Card bf16 against the port on
+                share of one profiled batch at 4 steps (profiled_idle_share:
+                set-up, the towers and the decode weigh more in it than in a
+                30-step batch's).  Card bf16 against the port on
                 the CPU in f32 (same weights): subject embeddings and the
                 spliced text tower's hidden states on the references of two
                 classes at row cosine >= 0.99, and >= 0.99 with each side's
@@ -304,8 +307,15 @@ Phases, each printing one JSON line:
                 the PNGs equal the fused function's and generate's output
                 bit for bit.  K1's four SD2.1 shapes (H5 L4096 before and
                 after the CFG fork, H10 L1024, H20 L256) are in the kernels
-                phase's list.  Printed: init s, wall s, s/step, the
-                parameter counts.
+                phase's list.  Then the same  cli gen  under
+                SASPA_ATTN_MEGAKERNEL=1 on the phase's weights: K5 (bf16)
+                at the 21 self-attentions a step that the block kernel's
+                predicate admits (levels 0-2; level 0 at 5 heads of 64,
+                H*D_pad 320: the Q/K/V product's 64-column tiles), K1 only
+                at the VAE's; and K5 against its plain version at those four
+                sites and at 1024^2's level 0 (B <= 16 as the free memory
+                allows the plain version, L16384 C320 H5).  Printed: init
+                s, wall s, s/step, the parameter counts.
  18. hed    -- the HED ControlNet:  cli gen --dataset planes --controlnet hed
                 --skip_filter  (SD1.5, the fused path, HED inside it),  the
                 same with  --sdedit --sdedit_strength 0.5
@@ -338,7 +348,7 @@ Phases, each printing one JSON line:
                 root:  cli prep-captions --dataset planes  over 8 sources (4
                 seeded PNGs of 300-900 px a side, 4 of tests/fixtures/jpeg's
                 JPEGs) with two --questions, and  cli prep-prompts
-                --dataset planes --num 8, on full-width seeded public
+                --dataset planes --num 4, on full-width seeded public
                 files written to a --weights_dir tree: LAVIS's BLIP caption
                 and VQA .pth (tools/synth_checkpoints.py's layouts, norm
                 weights near 1), the keytotext T5's pytorch_model.bin and a
@@ -421,14 +431,26 @@ Phases, each printing one JSON line:
                 every GroupNorm (the up blocks' 2560 channels in two 16-byte
                 vectors a thread), and 0 on every bf16 counter, K2's
                 included (its predicate refuses f32).  The PNGs equal the
-                fused function's output.  One source at 128^2, 2 steps, on
+                fused function's output.  Then configuration (b) in f32: a
+                second f32 pipeline built under SASPA_PALLAS_GN=1
+                SASPA_ATTN_MEGAKERNEL=1 on the same weights, through the same
+                two runs: K5 in f32 (attention_block_f32, counted in
+                attention.block_launches_f32) at 21 self-attentions a step
+                at 512^2 and 16 at 1024^2, K6 f32 at 1024^2's level 0, no
+                attention_f32, K3 with the TPU numerics where its split
+                plan admits a site (group_norm_f32_tpu, within
+                group_norm_f32); its 512^2 images within 1e-3 of the largest
+                value and 2 uint8 levels of the default run's.  One source
+                at 128^2, 2 steps, on
                 the card against a CPU f32 copy: pre-quantisation images
                 within 1e-3 of the largest value, uint8 within 1 level.
                 Every f32 shape of the path against the plain versions: K1
                 and K6 within 1e-4 of the largest output, K4 within 1e-6, K3
-                (both epilogues) within 2e-5, with times, bounds (f32 at 67
+                (both epilogues) within 2e-5, K5 f32 (each stage and the
+                whole) within 2e-5 of its largest attention-plus-projection
+                term, with times, bounds (f32 at 67
                 TFLOP/s, 3.35 TB/s) and SDPA / F.layer_norm /
-                F.group_norm in f32 (TF32 off) beside them.
+                F.group_norm / route (a) in f32 (TF32 off) beside them.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -760,24 +782,25 @@ def k2_ptxas(log: str) -> dict:
 
 
 def k5_ptxas(log: str) -> dict:
-    """K5's three phases: the Q/K/V product, the attention block per (head
-    dim, warpgroups) instantiation and the out product at both N tiles;
+    """K5's three phases: the Q/K/V product at both N tiles (128; 64 where
+    H*D_pad % 128 != 0, SD2.1's level 0), the attention block per (head dim,
+    warpgroups) instantiation and the out product at both N tiles;
     registers, spills, and wgmma_serialized where ptxas serialised their
-    wgmmas (warning C7514); requires all eight, no spills and no
+    wgmmas (warning C7514); requires all nine, no spills and no
     serialisation."""
-    pat = r"attention_block_(qkv_kernel|attend_kernelILi(\d+)ELi(\d+)E|out_kernelILi(\d+)E)"
+    pat = r"attention_block_(qkv_kernelILi(\d+)E|attend_kernelILi(\d+)ELi(\d+)E|out_kernelILi(\d+)E)"
 
     def key(m):
-        if m[1] == "qkv_kernel":
-            return "qkv"
-        return f"attend_dp{m[2]}_wg{m[3]}" if m[2] else f"out_bn{m[4]}"
+        if m[2]:
+            return f"qkv_bn{m[2]}"
+        return f"attend_dp{m[3]}_wg{m[4]}" if m[3] else f"out_bn{m[5]}"
 
     rep = {key(m): r for fn, r in ptxas_report(log).items() if (m := re.search(pat, fn))}
     for ln in log.splitlines():
         if "C7514" in ln and (m := re.search(pat, ln)) and key(m) in rep:
             rep[key(m)]["wgmma_serialized"] = True
     want = ["attend_dp128_wg2", "attend_dp128_wg4", "attend_dp192_wg2", "attend_dp64_wg2", "attend_dp64_wg4",
-            "out_bn160", "out_bn64", "qkv"]
+            "out_bn160", "out_bn64", "qkv_bn128", "qkv_bn64"]
     require(sorted(rep) == want, "K5 wgmma kernels in the ptxas report", sorted(rep))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 and not r.get("wgmma_serialized")
                 for r in rep.values()), "K5 wgmma kernels spill or serialise", rep)
@@ -822,6 +845,19 @@ def f32_core_ptxas(log: str) -> dict:
             "f32 attention kernels in the ptxas report", sorted(rep))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()),
             "f32 attention kernels spill", rep)
+    return rep
+
+
+def k5_f32_ptxas(log: str) -> dict:
+    """K5's f32 products (csrc/attention_f32.cu, on gemm_f32.cuh): the Q/K/V
+    and out kernels' registers and spills; requires both and no spill (their
+    32 accumulators and 12 float4 operands a thread would go to local
+    memory; two blocks an SM allow 128 registers)."""
+    pat = r"attention_block_f32_(qkv|out)_kernel"
+    rep = {m[1]: r for fn, r in ptxas_report(log).items() if (m := re.search(pat, fn))}
+    require(sorted(rep) == ["out", "qkv"], "K5 f32 kernels in the ptxas report", sorted(rep))
+    require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()),
+            "K5 f32 kernels spill", rep)
     return rep
 
 
@@ -954,7 +990,8 @@ def check_k1(gen, shapes=K1_SHAPES, dtype=torch.bfloat16):
         ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, h), 10)
         plain_ms = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, h), 3, warmup=1)
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=math.log(2.0)), 10)
-        b_ms, b_by = bound(4.0 * b * h * l * l * dp, 4 * b * l * h * dp * q.element_size(),
+        # the operations on the real head dim, as K6's: the padded columns are zero
+        b_ms, b_by = bound(4.0 * b * h * l * l * d, 4 * b * l * h * dp * q.element_size(),
                            H100_F32_FLOPS if f32 else H100_BF16_FLOPS, exps=b * h * l * l)
         extra = d512_times(lambda: att.flash_attention_packed(q, k, v, h), (q, k, v, h), b_ms) if dp == 512 else {}
         rows.append(dict(shape=what, B=b, L=l, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
@@ -1162,6 +1199,30 @@ def check_k4(gen, sites):
     return rows
 
 
+def block_args(gen, b, l, c, h, dtype):
+    """K5's inputs at (B, L, C, heads) in dtype, bo f32: head-padded
+    weights; scores of std ~4.3 bits (q three times the unit scale) make each
+    query's softmax peak on a few keys, so the attention term is of order 1
+    and changes if a K/V tile or the exp2 base goes wrong; the residual and
+    bo are small beside it but not zero."""
+    from saspa_tpu_torch.ops import attention as att
+
+    d = c // h
+    dp = att.pad_head_dim(d)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    def pad_rows(w):  # (C, C) -> head-padded (H*dp, C)
+        return torch.nn.functional.pad(w.reshape(h, d, c), (0, 0, 0, dp - d)).reshape(h * dp, c)
+
+    wq = (pad_rows(rn(c, c, std=3.0 * c ** -0.5)) * (att.LOG2E / math.sqrt(d))).to(dtype).contiguous()
+    wk, wv = (pad_rows(rn(c, c, std=c ** -0.5)).to(dtype).contiguous() for _ in range(2))
+    wo = torch.nn.functional.pad(rn(c, c, std=c ** -0.5).reshape(c, h, d), (0, dp - d)).reshape(c, h * dp)
+    bo = rn(c, std=0.05)
+    return rn(b, l, c).to(dtype), rn(b, l, c, std=0.05).to(dtype), wq, wk, wv, wo.to(dtype).contiguous(), bo, h
+
+
 def check_k5(gen, sites):
     """sites: {(B, L, C, heads)} of the self-attentions the block kernel takes."""
     from saspa_tpu_torch.ops import attention as att
@@ -1171,24 +1232,8 @@ def check_k5(gen, sites):
     for b, l, c, h in sorted(sites):
         d = c // h
         dp = att.pad_head_dim(d)
-
-        def rn(*shape, std=1.0):
-            return torch.randn(shape, generator=gen, device="cuda") * std
-
-        def pad_rows(w):  # (C, C) -> head-padded (H*dp, C)
-            return torch.nn.functional.pad(w.reshape(h, d, c), (0, 0, 0, dp - d)).reshape(h * dp, c)
-
-        # scores of std ~4.3 bits (q three times the unit scale) make each
-        # query's softmax peak on a few keys, so the attention term is of
-        # order 1 and changes if a K/V tile or the exp2 base goes wrong; the
-        # residual and bo are small beside it but not zero
-        wq = (pad_rows(rn(c, c, std=3.0 * c ** -0.5)) * (att.LOG2E / math.sqrt(d))).to(bf).contiguous()
-        wk, wv = (pad_rows(rn(c, c, std=c ** -0.5)).to(bf).contiguous() for _ in range(2))
-        wo = torch.nn.functional.pad(rn(c, c, std=c ** -0.5).reshape(c, h, d), (0, dp - d)).reshape(c, h * dp)
-        wo = wo.to(bf).contiguous()
-        bo = rn(c, std=0.05)
-        x, res = rn(b, l, c).to(bf), rn(b, l, c, std=0.05).to(bf)
-        args = (x, res, wq, wk, wv, wo, bo, h)
+        args = block_args(gen, b, l, c, h, bf)
+        x, res, wq, wk, wv, wo, bo, _ = args
         out = att.attention_block_fused(*args)
         ref = att.attention_block_fused_plain(*args)
         torch.cuda.synchronize()
@@ -1206,8 +1251,9 @@ def check_k5(gen, sites):
         def kernel():
             return att.attention_block_fused(*args)
 
+        # the operations on the real head dim (x is (B, L, C); the padded heads' columns are zero)
         m, hd = b * l, h * dp
-        b_ms, b_by = bound(8.0 * m * c * hd + 4.0 * b * h * l * l * dp, 2 * 3 * m * c + 2 * 4 * c * hd + 4 * c,
+        b_ms, b_by = bound(8.0 * m * c * h * d + 4.0 * b * h * l * l * d, 2 * 3 * m * c + 2 * 4 * c * hd + 4 * c,
                            exps=b * h * l * l)
         ms = cuda_ms(kernel, 10)
         dev_ms, by_kernel = device_ms(kernel, floor_ms=b_ms)
@@ -1241,12 +1287,14 @@ def record_sites(pipe):
     """Forward hooks on the pipeline's norms and self-attentions; returns
     (sites dict, hook handles).  GroupNorm: (B, C, H, W, act, eps); norm1/norm2
     LayerNorm: (rows, C); self-attention with a residual that the block kernel
-    admits: (B, L, C, heads); every transformer self-attention: the same
+    admits: (B, L, C, heads), and the number of such calls under
+    "attention_block_calls"; every transformer self-attention: the same
     tuple under "self_attention"."""
     from saspa_tpu_torch.models.unet import CrossAttention, GroupNorm32, LayerNorm32
     from saspa_tpu_torch.ops.attention import attention_block_eligible
 
-    sites = {"group_norm": set(), "layernorm": set(), "attention_block": set(), "self_attention": set()}
+    sites = {"group_norm": set(), "layernorm": set(), "attention_block": set(), "self_attention": set(),
+             "attention_block_calls": 0}
 
     def gn_hook(mod, args):
         x = args[0]
@@ -1264,6 +1312,7 @@ def record_sites(pipe):
         if kwargs.get("context") is None and kwargs.get("residual") is not None \
                 and attention_block_eligible(l, l, mod.heads, c // mod.heads, c, x.element_size()):
             sites["attention_block"].add((b, l, c, mod.heads))
+            sites["attention_block_calls"] += 1
 
     handles = []
     for key in ("unet", "controlnet", "vae"):
@@ -1364,7 +1413,8 @@ def read_counts() -> dict:
             "attention_block": attention.block_launches, "flash_attention": attention.flash_launches,
             "attention_packed_f32": attention.launches_f32, "group_norm_f32": groupnorm.launches_f32,
             "group_norm_f32norm": groupnorm.launches_tpu_f32norm, "attention_f32": attention.launches_f32_heads,
-            "flash_attention_f32": attention.flash_launches_f32, "layernorm_f32": layernorm.launches_f32}
+            "flash_attention_f32": attention.flash_launches_f32, "layernorm_f32": layernorm.launches_f32,
+            "attention_block_f32": attention.block_launches_f32, "group_norm_f32_tpu": groupnorm.launches_f32_tpu}
 
 
 def reset_counts() -> None:
@@ -1374,11 +1424,12 @@ def reset_counts() -> None:
     groupnorm.launches = groupnorm.launches_tpu = groupnorm.launches_tpu_f32norm = layernorm.launches = 0
     attention.launches_f32 = groupnorm.launches_f32 = 0
     attention.launches_f32_heads = attention.flash_launches_f32 = layernorm.launches_f32 = 0
+    attention.block_launches_f32 = groupnorm.launches_f32_tpu = 0
 
 
 # no f32 launch (the VAE and the UNet in bf16), no f32-normalize K3 (SASPA_GN_FP32_NORM unset)
 F32_NONE = {"attention_packed_f32": 0, "group_norm_f32": 0, "group_norm_f32norm": 0, "attention_f32": 0,
-            "flash_attention_f32": 0, "layernorm_f32": 0}
+            "flash_attention_f32": 0, "layernorm_f32": 0, "attention_block_f32": 0, "group_norm_f32_tpu": 0}
 
 
 def expected_counts(steps: int, config: str) -> dict:
@@ -1552,6 +1603,7 @@ def run_gen_phase(steps: int, seed: int, profile_path=None) -> dict:
 
 
 BLIP_STEPS = 30  # the recipe's DDIM steps, whatever --steps says
+BLIP_PROFILED_STEPS = 4  # the idle share's run: the profile's post-processing takes ~0.5 ms a kernel record
 BLIP_RESOLUTION = 512
 BLIP_REFERENCE_RESOLUTION = 256  # the card-vs-CPU fused run, as phase 4's
 # DTD train images (4 classes, two each) whose names the shipped captions JSON
@@ -1699,17 +1751,19 @@ def run_blip_phase(seed: int, profile_path=None) -> dict:
             return out, time.perf_counter() - t0
 
         towers = profile_run(towers_run)  # their own device time and launches
-        prof = profile_run(lambda: fused_run(steps))
+        prof = profile_run(lambda: fused_run(BLIP_PROFILED_STEPS))
         if profile_path:
             Path(profile_path).parent.mkdir(parents=True, exist_ok=True)
-            Path(profile_path).write_text(json.dumps({"config": "blip", "steps": steps, **{k: prof[k] for k in (
+            Path(profile_path).write_text(json.dumps({"config": "blip", "steps": BLIP_PROFILED_STEPS, **{
+                k: prof[k] for k in (
                 "wall_s", "device_busy_s", "groups_ms", "kernels")}}, indent=1))
         blip = {"phase": "blip", "argv": argv, "batch": b, "resolution": size, "steps": steps, "wall_s": wall,
                 "img_per_s": b / wall, "fused_wall_s": ts, "fused_1step_s": t1, "s_per_step": s_step,
                 "towers_ms": tower_ms, "towers_share_of_fused": tower_ms / 1e3 / ts,
                 "towers_device_ms": towers["device_busy_s"] * 1e3, "towers_groups_ms": towers["groups_ms"],
                 "towers_kernels": sum(k["calls"] for k in towers["kernels"]),
-                "idle_share": prof["idle_share"], "profiled_wall_s": prof["wall_s"],
+                "profiled_idle_share": prof["idle_share"], "profiled_steps": BLIP_PROFILED_STEPS,
+                "profiled_wall_s": prof["wall_s"],
                 "device_busy_s": prof["device_busy_s"], "groups_ms": prof["groups_ms"], "peak_mem_bytes": peak,
                 "launches": counts, "launches_expected": want, "telemetry": tele.lines[0],
                 "pngs_equal_fused": all(same), "subjects_equal_replay": all(subjects_equal),
@@ -2398,7 +2452,7 @@ TRAIN_SOURCE_HW = (700, 1000)  # about FGVC-Aircraft's image size
 TRAIN_AUGS = 2  # seeded 512^2 PNG augs a train image in the aug-JSON
 TRAIN_BATCHES = (4, 16)  # the planes preset's batch, and cub/dtd's
 TRAIN_TIMED_STEPS = 10
-TRAIN_PROFILED_STEPS = 2
+TRAIN_PROFILED_STEPS = 1  # the profile's post-processing takes 7-9 s a profiled step
 TRAIN_COMPARE_STEPS = 2
 
 
@@ -2775,7 +2829,7 @@ DTD_CLASSES = 47  # DTD's categories: dtd's width of fc
 DTD_SPLITS = {"train": 64, "val": 32, "test": 32}  # one eval batch (batch_size * 2) each for val and test
 DTD_SOURCE_HW = 400  # about DTD's image size (300-640)
 COMPCARS_SOURCE_HW = 48  # small: the shipped test split's 4,683 images and val's 1,838 are all decoded
-RECIPE_TIMED_STEPS = 10
+RECIPE_TIMED_STEPS = 5
 
 
 def write_dtd_train_tree(root, seed: int):
@@ -3226,10 +3280,9 @@ def run_weights_phase(steps: int, seed: int, smi: str) -> dict:
     root_logger = logging.getLogger()
     old_handlers, old_level = root_logger.handlers[:], root_logger.level
     root_logger.setLevel(logging.INFO)
-    real_init = tpipelines.init_pipeline
     made = []
 
-    def recording_init(*a, **k):
+    def recording_init(real_init, *a, **k):
         t0 = time.perf_counter()
         with RssPeak() as rss:
             pipe = real_init(*a, **k)
@@ -3250,14 +3303,13 @@ def run_weights_phase(steps: int, seed: int, smi: str) -> dict:
                 "--num_per_image", "1", "--num_inference_steps", str(steps), "--batch_size", str(b), "--seed",
                 str(seed + 3)]
         wload.REPORTS.clear()
-        tpipelines.init_pipeline = recording_init
-        torch.cuda.synchronize()
-        reset_counts()
-        t = time.perf_counter()
-        folder = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        tpipelines.init_pipeline = real_init
+        with InitPipelineAs(recording_init):
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            folder = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
         counts = read_counts()
         want = expected_counts(steps, "default")
         require(counts == want, "weights: gen launch counts", counts, "expected", want)
@@ -3391,7 +3443,6 @@ def run_weights_phase(steps: int, seed: int, smi: str) -> dict:
               "nvidia_smi": smi})
         return counts
     finally:
-        tpipelines.init_pipeline = real_init
         wload.REPORT_SUMS = False
         root_logger.handlers[:] = old_handlers
         root_logger.setLevel(old_level)
@@ -3947,11 +3998,10 @@ def run_planes_biased_phase(seed: int, checks: dict, checked_sites: dict) -> dic
     tele = TelemetryHandler()
     root_logger.setLevel(logging.INFO)
     root_logger.addHandler(tele)
-    real_init = tpipelines.init_pipeline
     recipe_steps = tdriver.IP2P_STEPS
     made = []
 
-    def recording_init(*a, **k):
+    def recording_init(real_init, *a, **k):
         pipe = real_init(*a, **k)
         made.append(pipe)
         return pipe
@@ -3982,13 +4032,12 @@ def run_planes_biased_phase(seed: int, checks: dict, checked_sites: dict) -> dic
                 ("ip2p", None, False, "ALIA", 7.5), "planes_biased: the ALIA preset", cfg)
         want = expected_sdedit_counts(tdriver.IP2P_STEPS)
         wload.REPORTS.clear()
-        tpipelines.init_pipeline = recording_init
-        gc.collect()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        json_path, wall = timed(lambda: cli.main(argv))
-        counts = read_counts()
-        tpipelines.init_pipeline = real_init
+        with InitPipelineAs(recording_init):
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            json_path, wall = timed(lambda: cli.main(argv))
+            counts = read_counts()
         require(len(tele.lines) == 1 and tele.lines[0]["num_errors"] == 0 and tele.lines[0]["total"] == b,
                 "planes_biased gen telemetry", tele.lines, *tele.errors)
         require(counts == want, "planes_biased gen launch counts", counts, "expected", want)
@@ -4126,7 +4175,6 @@ def run_planes_biased_phase(seed: int, checks: dict, checked_sites: dict) -> dic
         return {"planes_biased": counts}
     finally:
         os.chdir(old_cwd)
-        tpipelines.init_pipeline = real_init
         tdriver.IP2P_STEPS = recipe_steps
         wload.REPORT_SUMS = False
         for h in root_logger.handlers[:]:
@@ -4651,8 +4699,10 @@ def run_sd21_phase(seed: int, checks: dict) -> dict:
     """SD2.1 + canny through `cli gen --base_model sd_v2.1` (module
     docstring, phase 17); returns its launch counts."""
     import gc
+    import shutil
 
     from saspa_tpu_torch.data.registry import DS_UTILS_DICT
+    from saspa_tpu_torch.diffusion import pipelines as tpipelines
     from saspa_tpu_torch.diffusion.pipelines import init_pipeline, quantize
 
     size, b, steps = NEW_RESOLUTION, NEW_SOURCES, SD21_STEPS
@@ -4679,13 +4729,18 @@ def run_sd21_phase(seed: int, checks: dict) -> dict:
             return timed(lambda: fn(pipe.params, x["ids"], x["neg_ids"], x["src"], x["lat"]))
 
         sites, handles = record_sites(pipe)
-        fused(1)  # warm-up, hooked: the self-attention sites
+        fused(1)  # warm-up, hooked: the self-attention sites, and those the block kernel's predicate admits
         for h in handles:
             h.remove()
         k1_sites = {(bb, ll, hh) for bb, ll, _, hh in sites["self_attention"] if ll >= 256}
         k1_rows = {(r["B"], r["L"], r["H"]) for r in checks["attention_packed"] if r["shape"].startswith("sd21")}
         require(k1_sites == k1_rows == {(b, 4096, 5), (2 * b, 4096, 5), (2 * b, 1024, 10), (2 * b, 256, 20)},
                 "sd21 K1 sites", sorted(k1_sites), sorted(k1_rows))
+        # levels 0-2 (level 0 at 5 heads of 64: H*D_pad 320) take K5 under SASPA_ATTN_MEGAKERNEL=1
+        k5_step = sites["attention_block_calls"]
+        require(sites["attention_block"] == {(b, 4096, 320, 5), (2 * b, 4096, 320, 5), (2 * b, 1024, 640, 10),
+                                             (2 * b, 256, 1280, 20)} and k5_step == 21, "sd21 K5 sites",
+                sorted(sites["attention_block"]), k5_step)
         u8, ts = fused(steps)
         u8 = u8.cpu().numpy()
         same_pngs("sd21 (fused)", pngs, u8)
@@ -4695,16 +4750,48 @@ def run_sd21_phase(seed: int, checks: dict) -> dict:
             control_image=pipe.control_from_src(x["src"], size, size), controlnet_scale=0.75))
         require(bool(torch.isfinite(images).all()), "sd21: non-finite images")
         same_pngs("sd21 (generate)", pngs, quantize(images).cpu().numpy())
+        shutil.rmtree(cfg.output_folder(str(ds.root_path)))  # the megakernel run resumes nothing
+
+        # cli gen under SASPA_ATTN_MEGAKERNEL=1 on the phase's weights: K5 at the sites above, K1 at the VAE's
+        made = []
+
+        def init_pipeline_shared(_, base_model, controlnet, SDEdit=False, sampler="ddim", weights_dir=None):
+            require((base_model, controlnet, SDEdit, weights_dir) == ("sd_v2.1", "canny", False, None),
+                    "sd21 megakernel: the recipe's pipeline", base_model, controlnet, SDEdit, weights_dir)
+            made.append(tpipelines.DiffusionPipeline(base_model, controlnet=controlnet, sampler=sampler,
+                                                     dtype=torch.bfloat16, init_seed=None))
+            share_weights(pipe, made[-1])
+            return made[-1]
+
+        want_k5 = dict(want, attention_packed=want["attention_packed"] - k5_step * steps,
+                       attention_block=k5_step * steps)
+        with InitPipelineAs(init_pipeline_shared), SwitchEnv({"SASPA_ATTN_MEGAKERNEL": "1"}):
+            _, _, run_k5 = ph.gen("sd21 megakernel", argv, want_k5, b)
+        require(len(made) == 1 and made[0].switches.attention_megakernel, "sd21 megakernel pipeline", made)
+        levels = max(int(np.abs(p1.astype(np.int32) - p0.astype(np.int32)).max())
+                     for p1, p0 in zip(generated_pngs(cfg, ds), pngs))
+        del made[:]
+        gc.collect()
+        torch.cuda.empty_cache()
+        # K5 in bf16 at SD2.1's sites, and at 1024^2's level 0 (16384 tokens, H5) at the largest batch
+        # whose plain version (a head's f32 scores and probabilities, about 5 copies) fits the free memory
+        gen = torch.Generator(device="cuda").manual_seed(seed + 703)
+        free = torch.cuda.mem_get_info()[0]
+        b_big = next((bb for bb in (16, 8, 4, 2, 1) if 5 * bb * 16384 ** 2 * 4 <= 0.8 * free), 1)
+        k5_rows = [dict(r, cell="sd21") for r in check_k5(gen, sites["attention_block"] | {(b_big, 16384, 320, 5)})]
+        checks["attention_block"].extend(k5_rows)
+        emit({"phase": "kernels", "kernel": "attention_block", "cell": "sd21", "shapes": k5_rows})
         emit({"phase": "sd21", **run, "base_model": pipe.base_model, "unet_params": n_unet, "text_params": n_text,
               "params": sum(p.numel() for m in pipe._modules() for p in m.parameters()), "batch": b,
               "resolution": size, "steps": steps, "init_s": init_s, "fused_s": ts, "fused_1step_s": t1,
               "s_per_step": (ts - t1) / (steps - 1), "generate_s": tg, "pngs_equal_fused": True,
               "pngs_equal_generate": True, "self_attention_sites": sorted(sites["self_attention"]),
-              "uint8_mean": float(u8.mean())})
+              "uint8_mean": float(u8.mean()), "megakernel": {**run_k5, "k5_sites": sorted(sites["attention_block"]),
+                                                             "uint8_levels_vs_default": levels}})
         del pipe, images
         gc.collect()
         torch.cuda.empty_cache()
-        return {"sd21": run["launches"]}
+        return {"sd21": run["launches"], "sd21_megakernel": run_k5["launches"]}
 
 
 def calibrated_hed(hed, images):
@@ -5063,16 +5150,26 @@ F32_STEPS = {512: 2, 1024: 1}  # the 512^2 batch and the 1024^2 bucket
 F32_REFERENCE_RESOLUTION = 128  # the card-vs-CPU f32 run: 1 source, 2 steps, 16^2 latents
 F32_TIMED_K3 = {(16, 320, 64, 64, "silu"), (16, 2560, 8, 8, "silu"), (16, 2560, 16, 16, "silu"),
                 (16, 320, 64, 64, None)}  # (B, C, H, W, act): K3 f32 rows timed (the rest checked only)
+F32_OPT_IN = {"SASPA_PALLAS_GN": "1", "SASPA_ATTN_MEGAKERNEL": "1"}  # configuration (b) on the f32 pipeline
+# K5 f32 launches a step of (b) in f32: the 21 self-attentions over >= 256
+# tokens at 512^2; at 1024^2 levels 1-2 and the mid block (16; level 0's
+# 16384 tokens stay on K6, past the packed guard)
+F32_B_K5 = {512: 21, 1024: 16}
 
 
 def f32_route_counts(pipe, run, steps: int) -> dict:
     """The launches of one run of `run()` (`steps` steps and one decode)
     derived from the JAX package's predicates (the port's copies), per model
-    call: every self-attention
+    call: every self-attention with a residual in a block built with the
+    megakernel switch (SASPA_ATTN_MEGAKERNEL=1) takes K5 in f32
+    (attention_block_f32) where attention_block_eligible admits it at 4-byte
+    items; every other self-attention
     takes K1 in f32 (d_pad 512: attention_packed_f32, else attention_f32)
     where packed_flash_eligible admits it at 4-byte items, else K6 where
     flash_attention_route does; every LayerNorm32 call K4; every
-    GroupNorm32 call K3; a block's norm3 and feed-forward K2 where
+    GroupNorm32 call K3, with the TPU numerics (group_norm_f32_tpu, within
+    group_norm_f32) where the module asks for them (SASPA_PALLAS_GN=1) and
+    the split plan admits the site; a block's norm3 and feed-forward K2 where
     ln_geglu_eligible admits it.  Hooks on the modules count the calls;
     returns {"step": ..., "decode": ...} (the UNet and ControlNet of one
     step; the VAE of the decode) and run()'s result."""
@@ -5080,9 +5177,10 @@ def f32_route_counts(pipe, run, steps: int) -> dict:
     from saspa_tpu_torch.models.vae import VAEAttentionBlock
     from saspa_tpu_torch.ops import attention as att
     from saspa_tpu_torch.ops.geglu import ln_geglu_eligible
+    from saspa_tpu_torch.ops.groupnorm import groups_for, split_plan
 
-    keys = ("attention_packed_f32", "attention_f32", "flash_attention_f32", "layernorm_f32", "group_norm_f32",
-            "ln_geglu")
+    keys = ("attention_packed_f32", "attention_f32", "flash_attention_f32", "attention_block_f32", "layernorm_f32",
+            "group_norm_f32", "group_norm_f32_tpu", "ln_geglu")
     out = {part: dict.fromkeys(keys, 0) for part in ("unet", "controlnet", "vae")}
 
     def attention_route(part, b, l, heads, d, padded=True):
@@ -5093,19 +5191,32 @@ def f32_route_counts(pipe, run, steps: int) -> dict:
         elif att.flash_attention_route(l, l, d):
             out[part]["flash_attention_f32"] += 1
 
+    def self_attention(part, mod, x, residual):
+        b, l, c = x.shape
+        if mod.megakernel and residual is not None and att.attention_block_eligible(l, l, mod.heads, c // mod.heads,
+                                                                                      c, 4):
+            out[part]["attention_block_f32"] += 1
+        else:
+            attention_route(part, b, l, mod.heads, c // mod.heads)
+
+    def group_norm(part, mod, x, *halves):
+        require(not halves, "f32 route counts: a split-skip GroupNorm call (SASPA_SPLIT_SKIP_CONCAT is not set)")
+        c = x.shape[1]
+        out[part]["group_norm_f32"] += 1
+        out[part]["group_norm_f32_tpu"] += int(mod.tpu_numerics and split_plan(
+            math.prod(x.shape[2:]), c, groups_for(c, mod.num_groups), x.element_size()) is not None)
+
     handles = []
     for part in out:
         for m in pipe.params[part].modules():
             if isinstance(m, GroupNorm32):
-                handles.append(m.register_forward_pre_hook(lambda mod, a, p=part: out[p].__setitem__(
-                    "group_norm_f32", out[p]["group_norm_f32"] + 1)))
+                handles.append(m.register_forward_pre_hook(lambda mod, a, p=part: group_norm(p, mod, *a)))
             elif isinstance(m, LayerNorm32):
                 handles.append(m.register_forward_pre_hook(lambda mod, a, p=part: out[p].__setitem__(
                     "layernorm_f32", out[p]["layernorm_f32"] + 1)))
             elif isinstance(m, CrossAttention):
                 handles.append(m.register_forward_pre_hook(
-                    lambda mod, a, kw, p=part: attention_route(p, *a[0].shape[:2], mod.heads,
-                                                               a[0].shape[2] // mod.heads)
+                    lambda mod, a, kw, p=part: self_attention(p, mod, a[0], kw.get("residual"))
                     if len(a) == 1 and kw.get("context") is None else None, with_kwargs=True))
             elif isinstance(m, VAEAttentionBlock):
                 handles.append(m.register_forward_pre_hook(
@@ -5170,11 +5281,97 @@ def check_k4_f32(gen, sites) -> list:
     return rows
 
 
+def check_k5_f32(gen, sites) -> list:
+    """K5 in f32 at every site {(B, L, C, heads)} that the (b)-f32 runs
+    recorded: each stage (Q, K, V, the packed heads, out) against
+    attention_block_stages_plain on the same inputs, and the whole within
+    2e-5 of the largest attention-plus-projection term (out - residual -
+    bo; f32 throughout, only the sum orders differ: the FFMA products', the
+    online softmax's), and a launch after the timed ones bit-equal to the
+    first; times (CUDA events; device time by phase; the attention phase's
+    kernel alone by events, attend_ms, and the products' rest), the
+    wrapper's host cost, the bound (f32 operations at 67 TFLOP/s) and the
+    yardstick: route (a) in f32 (three F.linear, TF32 off; K1 f32; F.linear
+    with the bias; the residual add), also with SDPA f32 in place of K1."""
+    from saspa_tpu_torch.ops import attention as att
+
+    F_ = torch.nn.functional
+    rows = []
+    for b, l, c, h in sorted(sites, key=lambda st: (-st[1], st[0])):
+        d = c // h
+        dp = att.pad_head_dim(d)
+        args = block_args(gen, b, l, c, h, torch.float32)
+        x, res, wq, wk, wv, wo, bo, _ = args
+        got = att.attention_block_stages(*args)
+        want = att.attention_block_stages_plain(*args)
+        torch.cuda.synchronize()
+        what = f"f32 B{b} L{l} C{c} H{h} d{d}->{dp}"
+        stage_err = {}
+        for name, g, w in zip(("q", "k", "v", "packed", "out"), got, want):
+            stage_err[name] = {"max_abs_err": (g - w).abs().max().item(), "ref_max": w.abs().max().item()}
+        term_max = (want[4] - res - bo).abs().max().item()
+        err = stage_err["out"]["max_abs_err"]
+        require(err <= 2e-5 * term_max, what, "max |kernel - plain|", err, "> 2e-5 of the term's max", term_max)
+        for name in ("q", "k", "v", "packed"):
+            e = stage_err[name]
+            require(e["max_abs_err"] <= 2e-5 * e["ref_max"], what, name, "max |kernel - plain|", e, "> 2e-5")
+        pad_zero = bool((got[3].reshape(b, l, h, dp)[..., d:] == 0).all().item()) if dp > d else True
+        require(pad_zero, what, "padded packed columns are not exactly zero")
+        q, k, v, out = got[0], got[1], got[2], got[4]
+        del got, want
+
+        def kernel():
+            return att.attention_block_fused(*args)
+
+        # the operations on the real head dim, as check_k5's and K6's
+        m, hd = b * l, h * dp
+        b_ms, b_by = bound(8.0 * m * c * h * d + 4.0 * b * h * l * l * d, 4 * (3 * m * c + 4 * c * hd + c),
+                           H100_F32_FLOPS, exps=b * h * l * l)
+        iters = 3 if l * b >= 65536 else 5
+        ms = cuda_ms(kernel, iters)
+        # the attention phase is K1 f32's kernel on the same Q, K, V: its events time, and the products' the rest
+        attend_ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, h), iters)
+        # on the card, profiles of this entry have come back with a third to a half of its kernels' records
+        # missing (device time 0.65-0.8 of the events time, route (a)'s whole): such a profile counts as missed
+        dev_ms, by_kernel = device_ms(kernel, iters, floor_ms=max(b_ms, 0.8 * ms))
+        phases = breakdown(by_kernel, dev_ms, "{}", ("attention_block_f32_qkv", "attention_f32_kernel",
+                                                     "attention_block_f32_out"), what)
+        phases = phases and dict(zip(("qkv", "attend", "out"), phases.values()))
+        require(torch.equal(kernel(), out), what, "a launch after the timed ones differs from the first")
+        del q, k, v, out
+
+        def route_a(sdpa=False):
+            q = att.fold_scale(F_.linear(x, wq), att.LOG2E / math.sqrt(d))  # timed only: wq is already scaled
+            k, v = F_.linear(x, wk), F_.linear(x, wv)
+            if sdpa:
+                qh, kh, vh = (t.view(b, l, h, dp).transpose(1, 2) for t in (q, k, v))
+                o = F_.scaled_dot_product_attention(qh, kh, vh, scale=math.log(2.0)).transpose(1, 2).reshape(b, l, hd)
+            else:
+                o = att.flash_attention_packed(q, k, v, h)
+            return res + F_.linear(o, wo, bo)
+
+        rows.append(dict(shape=what, cell="f32", B=b, L=l, C=c, H=h, d=d, d_pad=dp, max_abs_err=err,
+                         ref_max=stage_err["out"]["ref_max"], term_max=term_max, rel_err=err / term_max,
+                         stage_err=stage_err, pad_cols_zero=pad_zero, ms=ms, device_ms=dev_ms,
+                         phase_device_ms=phases, attend_ms=attend_ms, products_ms=ms - attend_ms,
+                         host_us=host_us(kernel, iters),
+                         plain_ms=cuda_ms(lambda: att.attention_block_stages_plain(*args), 1, warmup=1),
+                         library_ms=None, route_a_ms=cuda_ms(route_a, iters),
+                         route_a_device_ms=device_ms(route_a, iters, floor_ms=b_ms)[0],
+                         route_a_sdpa_ms=cuda_ms(lambda: route_a(True), iters), bound_ms=b_ms, bound_by=b_by,
+                         bound_share=b_ms / ms))
+        del args, x, res, wq, wk, wv, wo
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_f32_phase(seed: int, checks: dict) -> dict:
-    """SD1.5 + canny in f32 through run_generation (module docstring, phase
-    23); returns the launch counts of its two runs and puts the f32 kernels'
-    rows in `checks`."""
+    """SD1.5 + canny in f32 through run_generation, in the default
+    configuration and in (b) (module docstring, phase 23); returns the
+    launch counts of its four runs and puts the f32 kernels' rows in
+    `checks`."""
     import gc
+    import shutil
 
     from saspa_tpu_torch import cli
     from saspa_tpu_torch.data.registry import DS_UTILS_DICT
@@ -5196,34 +5393,55 @@ def run_f32_phase(seed: int, checks: dict) -> dict:
             if name.startswith(ZERO_INIT_PREFIXES):
                 p.copy_(torch.randn(p.shape, generator=zgen, device="cuda") * 0.02)
     out["init_s"] = init_s
-    k1_sites, k6_sites, ln_sites, gn_sites = set(), set(), set(), set()
+    # configuration (b) on the same weights: JAX's switch variables, read where the pipeline is built
+    with SwitchEnv(F32_OPT_IN):
+        pipe_b = DiffusionPipeline("sd_v1.5", controlnet="canny", sampler="ddim", dtype=f32, init_seed=None)
+    require(pipe_b.switches.pallas_group_norm and pipe_b.switches.attention_megakernel, "f32 (b) switches",
+            pipe_b.switches)
+    share_weights(pipe, pipe_b)
+    k1_sites, k6_sites, k5_sites, ln_sites, gn_sites = set(), set(), set(), set(), set()
     with PhaseRoot("saspa_f32_") as ph:
         write_planes_tree(ph.root, np.random.RandomState(seed + 902), b, max(F32_STEPS))
         ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
         classes = ds.get_image_stem_to_class_str_dict()
+
+        def hooked_run(pp, cfg, steps, name):
+            """run_generation on pipeline pp, hooked: its sites, and the
+            launches the predicates give, against the counters."""
+            ph.tele.lines.clear()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            sites, handles = record_sites(pp)
+            per, (_, wall) = f32_route_counts(pp, lambda: timed(lambda: tdriver.run_generation(cfg, pipe=pp)),
+                                              steps)
+            got = read_counts()
+            for hd in handles:
+                hd.remove()
+            want = expected_f32_counts(per, steps)
+            peak = torch.cuda.max_memory_allocated()
+            require(len(ph.tele.lines) == 1 and ph.tele.lines[0]["num_errors"] == 0 and
+                    ph.tele.lines[0]["total"] == b, name, "telemetry", ph.tele.lines, *ph.tele.errors)
+            require(got == want, name, "launch counts", got, "expected", want)
+            counts[name] = got
+            return sites, {"steps": steps, "wall_s": wall, "img_per_s": b / wall, "peak_mem_bytes": peak,
+                           "launches": got, "launches_expected": want, "launches_per_step": per["step"],
+                           "launches_per_decode": per["decode"], "telemetry": ph.tele.lines[0]}
+
         for size, steps in F32_STEPS.items():
             argv = ["gen", "--dataset", "planes", "--resolution", str(size), "--skip_filter", "--num_per_image",
                     "1", "--num_inference_steps", str(steps), "--batch_size", str(b), "--seed", str(seed + size)]
             cfg = cli.gen_config(cli.build_parser().parse_args(argv)).with_dataset_overrides()
             x = driver_batch(pipe, cfg, ds, classes)
 
-            def fused(n_steps):
-                fn = pipe.make_fused_generate(size, size, n_steps, cfg.guidance_scale, 0.75, 120.0, 200.0)
-                return timed(lambda: fn(pipe.params, x["ids"], x["neg_ids"], x["src"], x["lat"],
-                                        return_images=True))
+            def fused(pp, n_steps):
+                fn = pp.make_fused_generate(size, size, n_steps, cfg.guidance_scale, 0.75, 120.0, 200.0)
+                return timed(lambda: fn(pp.params, x["ids"], x["neg_ids"], x["src"], x["lat"], return_images=True))
 
-            # the driver's run, hooked: its sites, and the launches the predicates give
-            ph.tele.lines.clear()
-            gc.collect()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts()
-            sites, handles = record_sites(pipe)
-            per, (_, wall) = f32_route_counts(pipe, lambda: timed(lambda: tdriver.run_generation(cfg, pipe=pipe)),
-                                              steps)
-            got = read_counts()
-            for hd in handles:
-                hd.remove()
+            name = f"f32_{size}"
+            sites, run = hooked_run(pipe, cfg, steps, name)
+            got = run["launches"]
             for bb, ll, cc, hh in sites["self_attention"]:
                 if att.packed_flash_eligible(ll, ll, hh, cc // hh, 4):
                     k1_sites.add((bb, ll, hh, cc // hh))
@@ -5231,28 +5449,45 @@ def run_f32_phase(seed: int, checks: dict) -> dict:
                     k6_sites.add((bb, ll, hh, cc // hh))
             ln_sites |= sites["layernorm"]
             gn_sites |= sites["group_norm"]
-            want = expected_f32_counts(per, steps)
-            peak = torch.cuda.max_memory_allocated()
-            name = f"f32_{size}"
-            require(len(ph.tele.lines) == 1 and ph.tele.lines[0]["num_errors"] == 0 and
-                    ph.tele.lines[0]["total"] == b, name, "telemetry", ph.tele.lines, *ph.tele.errors)
-            require(got == want, name, "launch counts", got, "expected", want)
             require(all(got[k] > 0 for k in ("attention_f32", "layernorm_f32", "group_norm_f32")) and
                     got["ln_geglu"] == 0 and (size < 1024 or got["flash_attention_f32"] > 0), name,
                     "the f32 kernels", got)
-            counts[name] = got
             pngs = generated_pngs(cfg, ds)
-            (u8, images), ts = fused(steps)
+            (u8, images), ts = fused(pipe, steps)
             require(bool(torch.isfinite(images).all()) and u8.shape == (b, size, size, 3), name,
                     "non-finite images or a wrong shape", tuple(u8.shape))
             u8 = u8.cpu().numpy()
             same_pngs(f"{name} (fused)", pngs, u8)
-            out[name] = {"argv": argv, "steps": steps, "wall_s": wall, "img_per_s": b / wall, "fused_s": ts,
-                         "peak_mem_bytes": peak, "launches": got, "launches_expected": want,
-                         "launches_per_step": per["step"], "launches_per_decode": per["decode"],
-                         "telemetry": ph.tele.lines[0], "pngs_equal_fused": True, "uint8_mean": float(u8.mean())}
+            out[name] = {"argv": argv, **run, "fused_s": ts, "pngs_equal_fused": True, "uint8_mean": float(u8.mean())}
+            images = images.cpu()
+            shutil.rmtree(cfg.output_folder(str(ds.root_path)))  # the (b) run resumes nothing
+
+            # configuration (b) in f32: K5 f32 at every admitted self-attention, K3 with the TPU numerics
+            name_b = f"f32_b_{size}"
+            sites, run = hooked_run(pipe_b, cfg, steps, name_b)
+            got = run["launches"]
+            k5_sites |= sites["attention_block"]
+            require(got["attention_block_f32"] == F32_B_K5[size] * steps and got["attention_f32"] == 0 and
+                    got["group_norm_f32_tpu"] > 0 and got["ln_geglu"] == 0 and
+                    got["flash_attention_f32"] == (7 * steps if size == 1024 else 0), name_b, "the (b) kernels", got)
+            pngs_b = generated_pngs(cfg, ds)
+            levels = max(int(np.abs(pb.astype(np.int32) - pd.astype(np.int32)).max()) for pb, pd in zip(pngs_b, pngs))
+            out[name_b] = {"env": F32_OPT_IN, **run, "uint8_levels_vs_default": levels}
+            if size == min(F32_STEPS):
+                # the same function as the default run's, up to summation order and GroupNorm's
+                # epilogue: held on the same weights, sources and noise
+                (u8_b, images_b), ts = fused(pipe_b, steps)
+                same_pngs(f"{name_b} (fused)", pngs_b, u8_b.cpu().numpy())
+                diff = (images_b.cpu() - images).abs().max().item()
+                img_max = images.abs().max().item()
+                out[name_b].update(fused_s=ts, pngs_equal_fused=True, max_abs_diff_vs_default=diff,
+                                   img_max=img_max, rel_diff_vs_default=diff / img_max)
+                require(diff <= 1e-3 * img_max and levels <= 2, name_b, "against the default f32 run: max |diff|",
+                        diff, "of", img_max, "uint8 levels", levels)
+                del u8_b, images_b
             del images, u8
             torch.cuda.empty_cache()
+    del pipe_b
 
     # card f32 against CPU f32: one source at 128^2 (16^2 latents: K1 f32 at 256 tokens), 2 steps
     rs = F32_REFERENCE_RESOLUTION
@@ -5288,6 +5523,9 @@ def run_f32_phase(seed: int, checks: dict) -> dict:
 
     # every new kernel at every f32 shape of the path
     gen = torch.Generator(device="cuda").manual_seed(seed + 904)
+    checks["attention_block_f32"] = check_k5_f32(gen, k5_sites)
+    emit({"phase": "kernels", "kernel": "attention_block_f32", "cell": "f32", "shapes": checks["attention_block_f32"],
+          "sites": sorted(k5_sites)})
     # K1 at d_pad 64/128/192 and K6 on q of 3x the unit scale (peaked softmax rows), as in bf16
     checks["attention_f32"] = [dict(r, cell="f32") for r in check_k1(gen, [
         (f"f32 B{b} L{l} H{h} d{d}->{att.pad_head_dim(d)}", b, l, h, d, att.pad_head_dim(d))
@@ -5301,7 +5539,8 @@ def run_f32_phase(seed: int, checks: dict) -> dict:
     k3_rows = check_k3_f32(gen, gn_sites, "f32", lambda site, tpu: not tpu and site[:5] in F32_TIMED_K3)
     checks.setdefault("group_norm_f32", []).extend(k3_rows)
     emit({"phase": "kernels", "kernel": "group_norm_f32", "cell": "f32", "shapes": k3_rows})
-    out.update(k1_sites=sorted(k1_sites), k6_sites=sorted(k6_sites), phase_s=time.perf_counter() - t_phase)
+    out.update(k1_sites=sorted(k1_sites), k6_sites=sorted(k6_sites), k5_sites=sorted(k5_sites),
+               phase_s=time.perf_counter() - t_phase)
     emit(out)
     return counts
 
@@ -5310,7 +5549,7 @@ def run_f32_phase(seed: int, checks: dict) -> dict:
 CAPTION_JPEGS = ("q75_420_375x500", "prog_420_375x500", "q90_420_667x1000", "opt_420_90x120")
 CAPTION_PNG_HW = ((480, 640), (375, 500), (300, 300), (900, 600))  # larger and smaller than BLIP's 384 / 480
 CAPTION_QUESTIONS = ("what color is the plane?", "is it day or night?")
-PROMPTS_NUM = 8
+PROMPTS_NUM = 4
 CAPTION_MARGIN = 1e-3  # ids are held card vs CPU up to the first step whose CPU top-2 margin is below this
 # read but not loaded: BERT's tied MLM bias (cls.predictions.bias is loaded) and T5's tied copies of shared.weight
 CAPTION_NOT_LOADED = WEIGHTS_NOT_LOADED + ("cls.predictions.decoder.bias", "embed_tokens", "lm_head")
@@ -5621,7 +5860,7 @@ def run_captions_phase(seed: int) -> dict:
 
 BACKBONE_NETS = ("inception_mixed_6e", "inception_mixed_7c", "resnet50_cbam")
 BACKBONE_TIMED_STEPS = 5
-BACKBONE_PROFILED_STEPS = 2
+BACKBONE_PROFILED_STEPS = 1
 BACKBONE_AUGS = 2  # seeded 256^2 PNG augs for each of the filter's first 8 train images
 CLIP_VITB16_IMAGES = 4
 
@@ -6067,6 +6306,27 @@ class SwitchEnv:
         return False
 
 
+class InitPipelineAs:
+    """Inside the block the port's init_pipeline, which cli gen calls, is
+    make(real_init, *args, **kwargs); the real one again on exit."""
+
+    def __init__(self, make):
+        self.make = make
+
+    def __enter__(self):
+        from saspa_tpu_torch.diffusion import pipelines as tpipelines
+
+        self.real = tpipelines.init_pipeline
+        tpipelines.init_pipeline = lambda *a, **k: self.make(self.real, *a, **k)
+        return self
+
+    def __exit__(self, *exc):
+        from saspa_tpu_torch.diffusion import pipelines as tpipelines
+
+        tpipelines.init_pipeline = self.real
+        return False
+
+
 def share_weights(src, dst) -> None:
     """dst's modules take src's parameter tensors themselves (same device
     and dtype): no copy."""
@@ -6092,9 +6352,9 @@ def run_switches_phase(base, cpu_base, seed: int) -> dict:
 
     size, b, steps, rs = NEW_RESOLUTION, NEW_SOURCES, SWITCH_STEPS, SWITCH_REFERENCE_RESOLUTION
     t0 = time.perf_counter()
-    real_init, made = tpipelines.init_pipeline, []
+    made = []
 
-    def init_pipeline(base_model, controlnet, SDEdit=False, sampler="ddim", weights_dir=None):
+    def init_pipeline(_, base_model, controlnet, SDEdit=False, sampler="ddim", weights_dir=None):
         require((base_model, controlnet, SDEdit, sampler, weights_dir) == ("sd_v1.5", "canny", False, "ddim", None),
                 "switches: the planes recipe's pipeline", base_model, controlnet, SDEdit, sampler, weights_dir)
         pipe = tpipelines.DiffusionPipeline(base_model, controlnet=controlnet, sampler=sampler,
@@ -6104,69 +6364,65 @@ def run_switches_phase(base, cpu_base, seed: int) -> dict:
         return pipe
 
     out = {}
-    tpipelines.init_pipeline = init_pipeline
-    try:
-        with PhaseRoot("saspa_switches_") as ph:
-            write_planes_tree(ph.root, np.random.RandomState(seed + 901), b, size)
-            ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
-            argv = ["gen", "--dataset", "planes", "--skip_filter", "--num_per_image", "1", "--resolution", str(size),
-                    "--num_inference_steps", str(steps), "--batch_size", str(b), "--seed", str(seed + 902)]
-            for name, env in SWITCH_SETS.items():
-                t_set = time.perf_counter()
-                made.clear()
-                with SwitchEnv(env):
-                    want_sw = KernelSwitches.from_env()
-                    cfg, _, run = ph.gen(f"switches {name}", argv, expected_switch_counts(steps, name), b)
-                    require(len(made) == 1, "switches", name, "pipelines built", len(made))
-                    pipe, sites, handles = made[0]
-                    for h in handles:
-                        h.remove()
-                    require(pipe.switches == want_sw, "switches", name, "record", pipe.switches, want_sw)
-                    batches = sorted({st[0] for st in sites["self_attention"]})
-                    require(batches == ([2 * b] if want_sw.cfg_full_batch else [b, 2 * b]), "switches", name,
-                            "self-attention batches", batches)
-                    pngs = generated_pngs(cfg, ds)
-                    x = driver_batch(pipe, cfg, ds, ds.get_image_stem_to_class_str_dict())
-                    fn = pipe.make_fused_generate(size, size, steps, cfg.guidance_scale, 0.75, 120.0, 200.0)
-                    (u8, images), fused_s = timed(lambda: fn(pipe.params, x["ids"], x["neg_ids"], x["src"], x["lat"],
-                                                             return_images=True))
-                    require(bool(torch.isfinite(images).all()), "switches", name, "non-finite images")
-                    same_pngs(f"switches {name} (fused)", pngs, u8.cpu().numpy())
-                    del images
-                    shutil.rmtree(cfg.output_folder(str(ds.root_path)))  # the next set's run resumes nothing
+    with InitPipelineAs(init_pipeline), PhaseRoot("saspa_switches_") as ph:
+        write_planes_tree(ph.root, np.random.RandomState(seed + 901), b, size)
+        ds = DS_UTILS_DICT["planes"](print_func=lambda *a: None)
+        argv = ["gen", "--dataset", "planes", "--skip_filter", "--num_per_image", "1", "--resolution", str(size),
+                "--num_inference_steps", str(steps), "--batch_size", str(b), "--seed", str(seed + 902)]
+        for name, env in SWITCH_SETS.items():
+            t_set = time.perf_counter()
+            made.clear()
+            with SwitchEnv(env):
+                want_sw = KernelSwitches.from_env()
+                cfg, _, run = ph.gen(f"switches {name}", argv, expected_switch_counts(steps, name), b)
+                require(len(made) == 1, "switches", name, "pipelines built", len(made))
+                pipe, sites, handles = made[0]
+                for h in handles:
+                    h.remove()
+                require(pipe.switches == want_sw, "switches", name, "record", pipe.switches, want_sw)
+                batches = sorted({st[0] for st in sites["self_attention"]})
+                require(batches == ([2 * b] if want_sw.cfg_full_batch else [b, 2 * b]), "switches", name,
+                        "self-attention batches", batches)
+                pngs = generated_pngs(cfg, ds)
+                x = driver_batch(pipe, cfg, ds, ds.get_image_stem_to_class_str_dict())
+                fn = pipe.make_fused_generate(size, size, steps, cfg.guidance_scale, 0.75, 120.0, 200.0)
+                (u8, images), fused_s = timed(lambda: fn(pipe.params, x["ids"], x["neg_ids"], x["src"], x["lat"],
+                                                         return_images=True))
+                require(bool(torch.isfinite(images).all()), "switches", name, "non-finite images")
+                same_pngs(f"switches {name} (fused)", pngs, u8.cpu().numpy())
+                del images
+                shutil.rmtree(cfg.output_folder(str(ds.root_path)))  # the next set's run resumes nothing
 
-                    # card vs CPU f32 under the same switches: one source at rs^2
-                    small = (x["src"][:1, ::size // rs, ::size // rs], x["ids"][:1], x["neg_ids"][:1],
-                             x["lat"][:1, ::size // rs, ::size // rs])
-                    reset_counts()
-                    _, img_gpu = pipe.make_fused_generate(rs, rs, steps, cfg.guidance_scale)(
-                        pipe.params, small[1], small[2], small[0], small[3], return_images=True)
-                    small_counts = read_counts()
-                    t_cpu = time.perf_counter()
-                    cpu = tpipelines.DiffusionPipeline("sd_v1.5", controlnet="canny", sampler="ddim",
-                                                       dtype=torch.float32, device="cpu", init_seed=None)
-                    require(cpu.switches == want_sw, "switches", name, "CPU record", cpu.switches)
-                    share_weights(cpu_base, cpu)
-                    _, img_cpu = cpu.make_fused_generate(rs, rs, steps, cfg.guidance_scale)(
-                        cpu.params, small[1], small[2], small[0], small[3], return_images=True)
-                    cpu_s = time.perf_counter() - t_cpu
-                    diff = (img_gpu.float().cpu() - img_cpu).abs()
-                    mean_diff, max_diff = diff.mean().item(), diff.max().item()
-                    require(mean_diff <= 0.02, "switches", name, "card vs CPU mean |diff|", mean_diff)
-                    ran = [k for k, v in expected_switch_counts(2, name).items() if v > 0]
-                    require(all(small_counts[k] > 0 for k in ran), "switches", name, "reference run missed a kernel",
-                            small_counts)
-                    del cpu, pipe, made[:]
-                gc.collect()
-                torch.cuda.empty_cache()
-                emit({"phase": "switches", "set": name, "env": env, **run, "record": vars(want_sw),
-                      "fused_s": fused_s, "pngs_equal_fused": True, "self_attention_batches": batches,
-                      "reference_resolution": rs, "reference_launches": small_counts, "mean_abs_diff": mean_diff,
-                      "max_abs_diff": max_diff, "cpu_s": cpu_s, "set_s": time.perf_counter() - t_set,
-                      "uint8_mean": float(u8.float().mean().item())})
-                out[f"switches_{name}"] = run["launches"]
-    finally:
-        tpipelines.init_pipeline = real_init
+                # card vs CPU f32 under the same switches: one source at rs^2
+                small = (x["src"][:1, ::size // rs, ::size // rs], x["ids"][:1], x["neg_ids"][:1],
+                         x["lat"][:1, ::size // rs, ::size // rs])
+                reset_counts()
+                _, img_gpu = pipe.make_fused_generate(rs, rs, steps, cfg.guidance_scale)(
+                    pipe.params, small[1], small[2], small[0], small[3], return_images=True)
+                small_counts = read_counts()
+                t_cpu = time.perf_counter()
+                cpu = tpipelines.DiffusionPipeline("sd_v1.5", controlnet="canny", sampler="ddim",
+                                                   dtype=torch.float32, device="cpu", init_seed=None)
+                require(cpu.switches == want_sw, "switches", name, "CPU record", cpu.switches)
+                share_weights(cpu_base, cpu)
+                _, img_cpu = cpu.make_fused_generate(rs, rs, steps, cfg.guidance_scale)(
+                    cpu.params, small[1], small[2], small[0], small[3], return_images=True)
+                cpu_s = time.perf_counter() - t_cpu
+                diff = (img_gpu.float().cpu() - img_cpu).abs()
+                mean_diff, max_diff = diff.mean().item(), diff.max().item()
+                require(mean_diff <= 0.02, "switches", name, "card vs CPU mean |diff|", mean_diff)
+                ran = [k for k, v in expected_switch_counts(2, name).items() if v > 0]
+                require(all(small_counts[k] > 0 for k in ran), "switches", name, "reference run missed a kernel",
+                        small_counts)
+                del cpu, pipe, made[:]
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit({"phase": "switches", "set": name, "env": env, **run, "record": vars(want_sw),
+                  "fused_s": fused_s, "pngs_equal_fused": True, "self_attention_batches": batches,
+                  "reference_resolution": rs, "reference_launches": small_counts, "mean_abs_diff": mean_diff,
+                  "max_abs_diff": max_diff, "cpu_s": cpu_s, "set_s": time.perf_counter() - t_set,
+                  "uint8_mean": float(u8.float().mean().item())})
+            out[f"switches_{name}"] = run["launches"]
     gc.collect()
     emit({"phase": "switches_total", "sets": list(SWITCH_SETS), "seconds": time.perf_counter() - t0})
     return out
@@ -6224,7 +6480,8 @@ def main() -> int:
           "k5_wgmma": k5_ptxas(_build.build_log.get("attention_block", "")),
           "k3": k3_ptxas(_build.build_log.get("group_norm", "")), "k6_wgmma": k6,
           "k1_f32": k1_f32_ptxas(_build.build_log.get("attention_packed_f32", "")),
-          "f32_core": f32_core_ptxas(_build.build_log.get("attention_f32", ""))})
+          "f32_core": f32_core_ptxas(_build.build_log.get("attention_f32", "")),
+          "k5_f32": k5_f32_ptxas(_build.build_log.get("attention_f32", ""))})
     require(sorted(k6) == K6_INSTANCES, "K6 instantiations in the ptxas report", sorted(k6))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in k6.values()),
             "K6 kernels spill", k6)
@@ -6491,6 +6748,9 @@ def main() -> int:
         ("flash_attention_f32", "attention_f32.cu", "saspa_tpu/ops/attention.py:80",
          lambda r: (r["B"], r["L"]) == (16, 16384)),
         ("layernorm_f32", "layernorm.cu", "saspa_tpu/ops/layernorm.py:62", lambda r: (r["rows"], r["C"]) == (65536, 320)),
+        # configuration (b) on the f32 pipeline (SASPA_PALLAS_GN=1 SASPA_ATTN_MEGAKERNEL=1): K5 in f32
+        ("attention_block_f32", "attention_f32.cu", "saspa_tpu/ops/attention.py:268",
+         lambda r: (r["B"], r["L"], r["C"]) == (16, 4096, 320)),
     ]
     kernels = []
     for name, source, replaces, pick in lines:

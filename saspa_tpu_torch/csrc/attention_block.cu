@@ -22,10 +22,13 @@
 // three wgmma + TMA kernels behind one entry point, with Q, K, V and the
 // packed heads round-tripping HBM as bf16 (where the TPU kernel rounds them
 // too, so the function is the same):
-//   1. attention_block_qkv_kernel: [Q | K | V] = x_ln [wq | wk | wv]^T on the
-//      persistent product walk of gemm_wgmma.cuh (shared with K2), 128 rows x
-//      128 columns a tile; the load picks wq's, wk's or wv's tensor map by
-//      the N tile, so nothing is concatenated per call, and the epilogue
+//   1. attention_block_qkv_kernel<BN>: [Q | K | V] = x_ln [wq | wk | wv]^T on
+//      the persistent product walk of gemm_wgmma.cuh (shared with K2), 128
+//      rows x BN columns a tile, BN = 128 where H*DP % 128 == 0 (SD1.5, SDXL,
+//      the refiner), else 64 (SD2.1's 5 heads of 64 at level 0: H*DP = 320),
+//      so that no tile straddles two projections; the load picks wq's, wk's
+//      or wv's tensor map by the N tile, so nothing is concatenated per
+//      call, and the epilogue
 //      rounds to bf16 into K1's packed (B, L, H*DP) layout, 16 bytes a
 //      thread after a transpose across each quad of lanes (quad_transpose:
 //      4-byte stores of the accumulator's layout cost more than the
@@ -42,8 +45,9 @@
 
 namespace saspa {
 
-// Persistent blocks over the (3 * HD / 128) x ceil(M / 128) tiles of
-// [Q | K | V]: N tiles 0 .. HD/128 - 1 are Q's, then K's, then V's.
+// Persistent blocks over the (3 * HD / BN) x ceil(M / 128) tiles of
+// [Q | K | V]: N tiles 0 .. HD/BN - 1 are Q's, then K's, then V's.
+template <int BN>
 __global__ void __launch_bounds__(GG_THREADS, 2)
 attention_block_qkv_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mwq,
                            const __grid_constant__ CUtensorMap mwk, const __grid_constant__ CUtensorMap mwv,
@@ -52,19 +56,19 @@ attention_block_qkv_kernel(const __grid_constant__ CUtensorMap mx, const __grid_
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const uint32_t smem = (smem_addr(smem_raw) + 1023u) & ~1023u;
     const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-    const int per = HD / 128, nt = 3 * per;  // N tiles of one projection, of all three
+    const int per = HD / BN, nt = 3 * per;  // N tiles of one projection, of all three
 
     auto load = [&](int n, int m, int j, uint32_t a, uint32_t b, uint32_t bar) {
         const int which = n / per;
         const CUtensorMap* w = which == 0 ? &mwq : which == 1 ? &mwk : &mwv;
         tma_load_2d(a, &mx, j * 64, m * GG_BM, bar);
-        tma_load_2d(b, w, j * 64, (n % per) * 128, bar);
+        tma_load_2d(b, w, j * 64, (n % per) * BN, bar);
     };
-    auto epi = [&](int n, int m, float (&acc)[64]) {
+    auto epi = [&](int n, int m, float (&acc)[BN / 2]) {
         bf16* o = qkv + (size_t)(n / per) * M * HD;  // Q, K, V: (M, HD) each, one after another
         const int row0 = m * GG_BM + (threadIdx.x / 32) * 16 + g;
 #pragma unroll
-        for (int i = 0; i < 16; i += 4)
+        for (int i = 0; i < BN / 8; i += 4)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
                 uint32_t w[4];
@@ -74,11 +78,11 @@ attention_block_qkv_kernel(const __grid_constant__ CUtensorMap mx, const __grid_
                 quad_transpose(w);  // now columns 8(i + t) .. + 7
                 const int row = row0 + 8 * half;
                 if (row < M)
-                    *reinterpret_cast<uint4*>(o + (size_t)row * HD + (n % per) * 128 + 8 * (i + t)) =
+                    *reinterpret_cast<uint4*>(o + (size_t)row * HD + (n % per) * BN + 8 * (i + t)) =
                         make_uint4(w[0], w[1], w[2], w[3]);
             }
     };
-    gg_tiles<128>(smem, bars, C / 64, nt, nt * ((M + GG_BM - 1) / GG_BM), load, epi);
+    gg_tiles<BN>(smem, bars, C / 64, nt, nt * ((M + GG_BM - 1) / GG_BM), load, epi);
 }
 
 // K5's __global__ for packed_attention_wgmma (attention_packed_wgmma.cuh).
@@ -144,18 +148,19 @@ attention_block_out_kernel(const __grid_constant__ CUtensorMap mp, const __grid_
     gg_tiles<BN>(smem, bars, HD / 64, nt, nt * ((M + GG_BM - 1) / GG_BM), load, epi);
 }
 
+template <int BN>
 static cudaError_t launch_qkv(const void* x, const void* wq, const void* wk, const void* wv, bf16* qkv, int M, int C,
                               int HD, cudaStream_t s) {
     CUtensorMap mx, mwq, mwk, mwv;
-    if (!bf16_map_sw128(&mx, x, M, C, GG_BM) || !bf16_map_sw128(&mwq, wq, HD, C, 128) ||
-        !bf16_map_sw128(&mwk, wk, HD, C, 128) || !bf16_map_sw128(&mwv, wv, HD, C, 128))
+    if (!bf16_map_sw128(&mx, x, M, C, GG_BM) || !bf16_map_sw128(&mwq, wq, HD, C, BN) ||
+        !bf16_map_sw128(&mwk, wk, HD, C, BN) || !bf16_map_sw128(&mwv, wv, HD, C, BN))
         return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(attention_block_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)GgCfg<128>::SMEM);
+    cudaError_t err = cudaFuncSetAttribute(attention_block_qkv_kernel<BN>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GgCfg<BN>::SMEM);
     if (err != cudaSuccess) return err;
-    const int ntiles = 3 * (HD / 128) * ((M + GG_BM - 1) / GG_BM);
-    attention_block_qkv_kernel<<<gg_grid(ntiles), GG_THREADS, GgCfg<128>::SMEM, s>>>(mx, mwq, mwk, mwv, qkv, M, C,
-                                                                                      HD);
+    const int ntiles = 3 * (HD / BN) * ((M + GG_BM - 1) / GG_BM);
+    attention_block_qkv_kernel<BN><<<gg_grid(ntiles), GG_THREADS, GgCfg<BN>::SMEM, s>>>(mx, mwq, mwk, mwv, qkv, M, C,
+                                                                                         HD);
     return cudaGetLastError();
 }
 
@@ -179,22 +184,23 @@ static cudaError_t launch_out(const bf16* packed, const void* wo, const float* b
 // x_ln, residual, out: (B, L, C) bf16; wq, wk, wv: (H*dp, C) bf16; wo: (C, H*dp)
 // bf16; bo: (C,) f32; ws: 4 * B*L*H*dp bf16 scratch (Q, K, V, then the packed
 // heads, each (B, L, H*dp)).  All contiguous and 16-byte aligned on the
-// device; L % 128 == 0, C % 64 == 0, dp in {64, 128, 192}, H*dp % 128 == 0.
-// Returns a cudaError_t (0 on success).
+// device; L % 128 == 0, C % 64 == 0, dp in {64, 128, 192} (so H*dp % 64 == 0:
+// the Q/K/V product takes 64-column tiles where H*dp % 128 != 0, and the out
+// product walks H*dp in 64-wide stages).  Returns a cudaError_t (0 on success).
 extern "C" int saspa_attention_block(const void* x_ln, const void* residual, const void* wq, const void* wk,
                                      const void* wv, const void* wo, const void* bo, void* ws, void* out, int B,
                                      int L, int C, int H, int dp, void* stream) {
     using namespace saspa;
     const int HD = H * dp;
-    if (B <= 0 || H <= 0 || L <= 0 || L % 128 || C <= 0 || C % 64 || HD % 128 ||
-        (dp != 64 && dp != 128 && dp != 192))
+    if (B <= 0 || H <= 0 || L <= 0 || L % 128 || C <= 0 || C % 64 || (dp != 64 && dp != 128 && dp != 192))
         return (int)cudaErrorInvalidValue;
     const int M = B * L;
     const size_t n = (size_t)M * HD;
     bf16* q = static_cast<bf16*>(ws);
     bf16* packed = q + 3 * n;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = launch_qkv(x_ln, wq, wk, wv, q, M, C, HD, s);
+    cudaError_t err = HD % 128 == 0 ? launch_qkv<128>(x_ln, wq, wk, wv, q, M, C, HD, s)
+                                    : launch_qkv<64>(x_ln, wq, wk, wv, q, M, C, HD, s);
     if (err == cudaSuccess) err = launch_packed_wgmma<K5Kernels>(q, q + n, q + 2 * n, packed, B, L, H, dp, s);
     if (err != cudaSuccess) return (int)err;
     const float* bop = static_cast<const float*>(bo);

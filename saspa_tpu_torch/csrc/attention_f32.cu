@@ -1,5 +1,6 @@
 // Self-attention in f32 at padded head dims 64, 128 and 192 for Hopper: K1's
-// f32 variant at the UNet's heads and K6's f32 variant, one core.
+// f32 variant at the UNet's heads and K6's f32 variant, one core; and K5's
+// f32 variant, the whole self-attention block around that core.
 //
 // Replaces, on f32 activations (a pipeline built with dtype=float32):
 //   saspa_tpu/ops/attention.py::flash_attention_packed (Pallas kernel
@@ -10,7 +11,22 @@
 //     _flash_kernel, via flash_attention) on (B, L, H, d) q, k, v at the
 //     real head dim d (a multiple of 8 padding to 64/128/192), q * scale
 //     folded in f32, softmax in base e with a running max and sum
-//     (entry saspa_flash_attention_f32).
+//     (entry saspa_flash_attention_f32);
+//   saspa_tpu/ops/attention.py::attention_block_fused (Pallas kernel
+//     _block_kernel, under SASPA_ATTN_MEGAKERNEL=1) on an f32 block
+//     (entry saspa_attention_block_f32): Q, K, V = x_ln wq_scaled^T,
+//     x_ln wk^T, x_ln wv^T; the packed heads = the K1 entry's attention on
+//     them; out = packed wo^T + bo + residual; all f32, nothing rounded.
+//     Three kernels behind the entry, as K5 in bf16 runs (attention_block.cu):
+//     the Q/K/V product (attention_block_f32_qkv_kernel), this core at exp2
+//     on Q, K, V, and the out product (attention_block_f32_out_kernel), whose
+//     epilogue adds bo and the residual; Q, K, V and the packed heads
+//     round-trip device memory in f32 (a workspace of 4 * B*L*H*D_PAD
+//     floats).  The products are gemm_f32.cuh's register-tiled FFMA tiles
+//     (64 columns: SD2.1's H*D_PAD = 320 needs no other tile, and no tile
+//     straddles two projections).  What bounds it: operations, the
+//     attention's 4*B*H*L^2*D_PAD flops against the four projections'
+//     8*B*L*C*H*D_PAD (about 89% and 11% at SD1.5's level 0).
 // For every batch row b and head h: out = softmax(q_h k_h^T) v_h, with the
 // scores, probabilities, the running max and sum, the P.V product and the
 // output all f32, as the TPU kernels compute an f32 block (P cast to v's
@@ -43,6 +59,7 @@
 // the probabilities in place and each row's rescale factor.  Three block
 // barriers a tile.  Shared memory: Q, K, V (64 x (D_PAD + 4) floats each)
 // and the 64 x 68 score tile: 70 / 119 / 168 KB at D_PAD 64 / 128 / 192.
+#include "gemm_f32.cuh"
 #include "mma_bf16.cuh"
 
 #include <math.h>
@@ -279,6 +296,80 @@ static int attention_f32_dispatch(const void* q, const void* k, const void* v, v
     }
 }
 
+// K5 in f32, phase 1: [Q | K | V] = x [wq | wk | wv]^T.  blockIdx.x walks
+// the 3 * HD / GF_BN column tiles (Q's, then K's, then V's: tile n reads
+// rows (n % per) * 64 .. + 63 of one projection's weights), blockIdx.y the
+// ceil(M / GF_BM) row tiles; the three outputs are (M, HD) planes one after
+// another in qkv.
+__global__ void __launch_bounds__(GF_THREADS, 2)
+attention_block_f32_qkv_kernel(const float* __restrict__ x, const float* __restrict__ wq,
+                               const float* __restrict__ wk, const float* __restrict__ wv, float* __restrict__ qkv,
+                               int M, int C, int HD) {
+    extern __shared__ __align__(16) float gf_smem[];
+    const int per = HD / GF_BN, which = blockIdx.x / per, n0 = (blockIdx.x % per) * GF_BN;
+    const int m0 = blockIdx.y * GF_BM, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    float acc[8][4];
+    gf_tile(x, C, which == 0 ? wq : which == 1 ? wk : wv, C, M, C, m0, n0, gf_smem, acc);
+    float* o = qkv + (size_t)which * M * HD;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int row = m0 + ty + 16 * i;
+        if (row < M) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[(size_t)row * HD + n0 + tx + 16 * e] = acc[i][e];
+        }
+    }
+}
+
+// K5 in f32, phase 3: out = packed wo^T + bo + residual, the sum in that
+// order (the TPU kernel's and the plain version's); blockIdx.x walks the C /
+// GF_BN column tiles, blockIdx.y the row tiles.
+__global__ void __launch_bounds__(GF_THREADS, 2)
+attention_block_f32_out_kernel(const float* __restrict__ packed, const float* __restrict__ wo,
+                               const float* __restrict__ bo, const float* __restrict__ res, float* __restrict__ out,
+                               int M, int C, int HD) {
+    extern __shared__ __align__(16) float gf_smem[];
+    const int n0 = blockIdx.x * GF_BN, m0 = blockIdx.y * GF_BM, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    float acc[8][4];
+    gf_tile(packed, HD, wo, HD, M, HD, m0, n0, gf_smem, acc);
+    float bs[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bs[e] = __ldg(bo + n0 + tx + 16 * e);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int row = m0 + ty + 16 * i;
+        if (row < M) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const size_t at = (size_t)row * C + n0 + tx + 16 * e;
+                out[at] = (acc[i][e] + bs[e]) + __ldg(res + at);
+            }
+        }
+    }
+}
+
+static cudaError_t attention_block_f32_run(const float* x, const float* res, const float* wq, const float* wk,
+                                           const float* wv, const float* wo, const float* bo, float* ws, float* out,
+                                           int B, int L, int C, int H, int dp, cudaStream_t s) {
+    const int HD = H * dp, M = B * L, mt = (M + GF_BM - 1) / GF_BM;
+    if (mt > 65535) return cudaErrorInvalidValue;
+    const size_t n = (size_t)M * HD;
+    float *q = ws, *k = ws + n, *v = ws + 2 * n, *packed = ws + 3 * n;
+    cudaError_t err = cudaFuncSetAttribute(attention_block_f32_qkv_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GF_SMEM);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(attention_block_f32_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)GF_SMEM);
+    if (err != cudaSuccess) return err;
+    attention_block_f32_qkv_kernel<<<dim3(3 * HD / GF_BN, mt), GF_THREADS, GF_SMEM, s>>>(x, wq, wk, wv, q, M, C, HD);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = (cudaError_t)attention_f32_dispatch<true>(q, k, v, packed, B, L, L, H, dp, dp, 1.0f, s);
+    if (err != cudaSuccess) return err;
+    attention_block_f32_out_kernel<<<dim3(C / GF_BN, mt), GF_THREADS, GF_SMEM, s>>>(packed, wo, bo, res, out, M, C,
+                                                                                    HD);
+    return cudaGetLastError();
+}
+
 }  // namespace saspa
 
 // K1 in f32: q, k, v, out contiguous, 16-byte aligned (B, L, H*dp) f32 on the
@@ -296,4 +387,25 @@ extern "C" int saspa_attention_f32_packed(const void* q, const void* k, const vo
 extern "C" int saspa_flash_attention_f32(const void* q, const void* k, const void* v, void* out, int B, int Lq,
                                          int Lk, int H, int d, int dp, float scale, void* stream) {
     return saspa::attention_f32_dispatch<false>(q, k, v, out, B, Lq, Lk, H, d, dp, scale, stream);
+}
+
+// K5 in f32: x_ln, residual, out (B, L, C); wq (pre-scaled by
+// softmax_scale*log2(e)), wk, wv (H*dp, C); wo (C, H*dp); bo (C,); ws 4 *
+// B*L*H*dp floats (Q, K, V, then the packed heads, each (B, L, H*dp)).  All
+// f32, contiguous and 16-byte aligned on the device; L % 64 == 0 (the
+// core's 64-row query tiles and 64-key tiles), C % 64 == 0 (the products'
+// 64-column tiles and 32-deep stages), dp 64, 128 or 192.  Returns a
+// cudaError_t (0 on success).
+extern "C" int saspa_attention_block_f32(const void* x_ln, const void* residual, const void* wq, const void* wk,
+                                         const void* wv, const void* wo, const void* bo, void* ws, void* out, int B,
+                                         int L, int C, int H, int dp, void* stream) {
+    using namespace saspa;
+    if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || L <= 0 || L % AF_BM || C <= 0 || C % GF_BN ||
+        (dp != 64 && dp != 128 && dp != 192))
+        return (int)cudaErrorInvalidValue;
+    return (int)attention_block_f32_run(
+        static_cast<const float*>(x_ln), static_cast<const float*>(residual), static_cast<const float*>(wq),
+        static_cast<const float*>(wk), static_cast<const float*>(wv), static_cast<const float*>(wo),
+        static_cast<const float*>(bo), static_cast<float*>(ws), static_cast<float*>(out), B, L, C, H, dp,
+        static_cast<cudaStream_t>(stream));
 }

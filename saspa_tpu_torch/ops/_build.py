@@ -43,7 +43,8 @@ SIGNATURES = {
 }
 # a library's C entry points beside its first: name -> {function: argtypes}
 MORE_ENTRIES = {
-    "attention_f32": {"saspa_flash_attention_f32": [_P] * 4 + [_I] * 6 + [_F, _P]},
+    "attention_f32": {"saspa_flash_attention_f32": [_P] * 4 + [_I] * 6 + [_F, _P],
+                      "saspa_attention_block_f32": [_P] * 9 + [_I] * 5 + [_P]},
 }
 
 KERNELS = tuple(SIGNATURES)

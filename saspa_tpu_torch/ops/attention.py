@@ -18,7 +18,8 @@ and the text tower take the plain path, and so do the CLIP image towers
 option, each transformer block's self-attention that
 `attention_block_eligible` admits runs `attention_block_fused` instead: the
 Q/K/V projections, the attention, to_out, its bias and the residual add
-behind one wrapper.
+behind one wrapper (bf16: csrc/attention_block.cu; f32: the f32 core's
+block entry in csrc/attention_f32.cu).
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ PLAIN_SCORE_BYTES = 1 << 30  # f32 scores K6's plain version holds at once
 launches = 0  # bf16 kernel launches of flash_attention_packed since the last reset
 launches_f32 = 0  # f32 kernel launches of flash_attention_packed at d_pad 512 (csrc/attention_packed_f32.cu)
 launches_f32_heads = 0  # f32 kernel launches of flash_attention_packed at d_pad 64/128/192 (csrc/attention_f32.cu)
-block_launches = 0  # calls of attention_block_fused / attention_block_stages that launched K5 since the last reset
+block_launches = 0  # bf16 calls of attention_block_fused / attention_block_stages that launched K5 since the last reset
+block_launches_f32 = 0  # f32 calls that launched K5 (csrc/attention_f32.cu's block entry) since the last reset
 flash_launches = 0  # bf16 kernel launches of flash_attention (K6) since the last reset
 flash_launches_f32 = 0  # f32 kernel launches of flash_attention (K6, csrc/attention_f32.cu) since the last reset
 BLOCK_HEAD_DIMS = (64, 128, 192)
@@ -313,6 +315,19 @@ def attention_block_eligible(lq: int, lk: int, heads: int, d: int, c: int, items
     return vmem <= 80 * 1024 * 1024
 
 
+def attention_block_takes(l: int, c: int, heads: int, dp: int, dtype) -> bool:
+    """K5's contract on the token count L, the width C, the heads, the
+    padded head dim and the dtype: d_pad 64/128/192 and C % 64 == 0 (the
+    products' 64-column tiles; H*D_pad is then a multiple of 64, which both
+    products take: SD2.1's 5 heads of 64 give 320); bf16 with L % 128 == 0
+    (K1's wgmma attention blocks) or f32 with L % 64 == 0 (the FFMA core's
+    64-row tiles).  It takes every self-attention site that
+    `attention_block_eligible` admits in the UNet configs."""
+    if l <= 0 or c <= 0 or heads <= 0 or dp not in BLOCK_HEAD_DIMS or c % 64:
+        return False
+    return (dtype == torch.bfloat16 and l % 128 == 0) or (dtype == torch.float32 and l % 64 == 0)
+
+
 def attention_block_fused_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int):
     """Plain version of K5 (products in f32): Q/K/V rounded to x_ln's dtype,
     K1's plain attention, then packed . wo^T + bo + residual in f32, rounded
@@ -342,37 +357,44 @@ def attention_block_stages_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, head
 def attention_block_stages(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int):
     """(q, k, v, packed, out) of K5's three kernels: q, k, v and packed are
     (B, L, H*D_pad), out like x_ln.  CPU tensors run the plain stages; CUDA
-    tensors launch the kernels or raise: bf16 activations and weights, an f32
-    bo, D_pad in {64, 128, 192}, L % 128 == 0 (K1's attention blocks;
-    `attention_block_eligible` admits no other L), C % 64 == 0, H*D_pad %
-    128 == 0, contiguous and 16-byte aligned (TMA)."""
-    global block_launches
+    tensors launch the kernels or raise: bf16 activations and weights
+    (csrc/attention_block.cu) or f32 ones (csrc/attention_f32.cu's block
+    entry, counted in block_launches_f32), an f32 bo, of the L, C, head
+    dim and dtype `attention_block_takes` admits, contiguous and 16-byte
+    aligned (TMA, 16-byte loads)."""
+    global block_launches, block_launches_f32
     if x_ln.device.type == "cpu":
         return attention_block_stages_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads)
     b, l, c = x_ln.shape
     hd = wq_scaled.shape[0]
     dp = hd // heads
-    bf = torch.bfloat16
-    if any(t.dtype != bf for t in (x_ln, residual, wq_scaled, wk, wv, wo)) or bo.dtype != torch.float32:
-        raise TypeError("attention_block_fused on CUDA takes bf16 activations and weights and an f32 bo")
+    dt = x_ln.dtype
+    if dt not in (torch.bfloat16, torch.float32) or any(t.dtype != dt for t in (residual, wq_scaled, wk, wv, wo)) \
+            or bo.dtype != torch.float32:
+        raise TypeError("attention_block_fused on CUDA takes bf16 or f32 activations and weights of one dtype and "
+                        "an f32 bo")
     if residual.shape != x_ln.shape or any(w.shape != (hd, c) for w in (wq_scaled, wk, wv)) \
             or wo.shape != (c, hd) or bo.shape != (c,) or hd != heads * dp:
         raise ValueError(f"attention_block_fused shapes: x {tuple(x_ln.shape)} wq {tuple(wq_scaled.shape)} "
                          f"wo {tuple(wo.shape)} heads {heads}")
-    if dp not in BLOCK_HEAD_DIMS or l % 128 or c % 64 or hd % 128:
-        raise ValueError(f"block kernel takes head dim in {BLOCK_HEAD_DIMS}, L % 128 == 0, C % 64 == 0 and "
-                         f"H*D_pad % 128 == 0; got {dp}, {l}, {c}, {hd}")
+    if not attention_block_takes(l, c, heads, dp, dt):
+        raise ValueError(f"block kernel takes head dim in {BLOCK_HEAD_DIMS}, C % 64 == 0 and L % 128 == 0 in bf16 "
+                         f"or L % 64 == 0 in f32; got {dp}, {c}, {l}, {dt}")
     ts = (x_ln, residual, wq_scaled, wk, wv, wo, bo)
     if not all(t.is_contiguous() and t.device == x_ln.device and t.data_ptr() % 16 == 0 for t in ts):
         raise ValueError("attention_block_fused needs contiguous, 16-byte aligned inputs on one device")
-    ws = torch.empty((4, b, l, hd), dtype=bf, device=x_ln.device)  # Q, K, V, packed
+    ws = torch.empty((4, b, l, hd), dtype=dt, device=x_ln.device)  # Q, K, V, packed
     out = torch.empty_like(x_ln)
-    fn = _build.kernel("attention_block")
+    f32 = dt == torch.float32
+    fn = _build.kernel("attention_f32", "saspa_attention_block_f32") if f32 else _build.kernel("attention_block")
     stream = torch.cuda.current_stream(x_ln.device).cuda_stream
     _build.check(fn(x_ln.data_ptr(), residual.data_ptr(), wq_scaled.data_ptr(), wk.data_ptr(), wv.data_ptr(),
                     wo.data_ptr(), bo.data_ptr(), ws.data_ptr(), out.data_ptr(), b, l, c, heads, dp, stream),
-                 "attention_block")
-    block_launches += 1
+                 "attention_block_f32" if f32 else "attention_block")
+    if f32:
+        block_launches_f32 += 1
+    else:
+        block_launches += 1
     return ws[0], ws[1], ws[2], ws[3], out
 
 

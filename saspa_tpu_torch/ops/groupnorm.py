@@ -43,6 +43,7 @@ launches = 0  # calls of group_norm that launched K3 on bf16 since the last rese
 launches_tpu = 0  # of which with the TPU kernel's numerics and its bf16 normalize
 launches_tpu_f32norm = 0  # of which with the TPU kernel's numerics and an f32 normalize (SASPA_GN_FP32_NORM=1)
 launches_f32 = 0  # calls of group_norm that launched K3 on f32 since the last reset
+launches_f32_tpu = 0  # of which with the TPU kernel's numerics (SASPA_PALLAS_GN=1 on an f32 pipeline)
 
 VMEM_LIMIT = 44 * 1024 * 1024  # _split_plan's per-sample block budget
 # csrc/group_norm.cu: a thread owns one 16-byte vector (8 bf16 or 4 f32
@@ -174,7 +175,7 @@ def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activati
     tensors run the plain version; CUDA tensors launch K3 (bf16 or f32 x,
     4-d channels-last, C a whole number of a thread's vectors (`gn_vec`) and
     at most 4096, 16-byte aligned) or raise."""
-    global launches, launches_tpu, launches_tpu_f32norm, launches_f32
+    global launches, launches_tpu, launches_tpu_f32norm, launches_f32, launches_f32_tpu
     if x.device.type == "cpu":
         if tpu_numerics:
             return group_norm_tpu_plain(x, gamma, beta, num_groups, eps, activation, bf16_norm)
@@ -216,6 +217,7 @@ def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5, activati
                     stream), "group_norm")
     if f32:
         launches_f32 += 1
+        launches_f32_tpu += int(mode == 1)
     else:
         launches += 1
         launches_tpu += int(mode == 1)

@@ -485,10 +485,10 @@ def test_layernorm_kernel_matches_plain(gen, m, c):
     assert (out == ref).float().mean() >= 0.99
 
 
-def _block_args(gen, b, l, c, h):
+def _block_args(gen, b, l, c, h, bf=torch.bfloat16):
+    """K5's inputs in dtype bf (bf16, or f32 for its f32 variant), bo f32."""
     d = c // h
     dp = attention.pad_head_dim(d)
-    bf = torch.bfloat16
 
     def rows(w):  # (C, C) torch-layout weight -> head-padded (H*dp, C)
         return torch.nn.functional.pad(w.reshape(h, d, c), (0, 0, 0, dp - d)).reshape(h * dp, c)
@@ -504,7 +504,7 @@ def _block_args(gen, b, l, c, h):
 
 
 @pytest.mark.parametrize("b,l,c,h", [(2, 256, 320, 8), (1, 1024, 640, 8), (2, 256, 1280, 8), (1, 128, 128, 2),
-                                     (8, 1024, 640, 10), (8, 256, 1280, 20)])
+                                     (8, 1024, 640, 10), (8, 256, 1280, 20), (2, 4096, 320, 5)])
 def test_attention_block_kernel_matches_plain(gen, b, l, c, h):
     """K5 vs its plain version: bf16 Q/K/V and packed rounding points are the
     same; online vs one-pass softmax and f32 product order differ: |diff|
@@ -513,7 +513,8 @@ def test_attention_block_kernel_matches_plain(gen, b, l, c, h):
     that term is of order 1, beside a small residual and bo.  The last case
     is a 128-token block (one 128-row attention block, one 128-key tile; C
     128 takes the out product's 64-column tiles); the two before it are
-    SDXL's sites at 512^2 (heads of d 64, no padding)."""
+    SDXL's sites at 512^2 (heads of d 64, no padding), and SD2.1's level 0
+    (5 heads of 64: H*D_pad 320, the Q/K/V product's 64-column tiles)."""
     args = _block_args(gen, b, l, c, h)
     x, res, bo = args[0], args[1], args[6]
     before = (attention.block_launches, attention.launches)
@@ -526,12 +527,13 @@ def test_attention_block_kernel_matches_plain(gen, b, l, c, h):
 
 
 @pytest.mark.parametrize("b,l,c,h", [(16, 4096, 320, 8), (16, 1024, 640, 8), (16, 256, 1280, 8), (2, 384, 320, 8),
-                                     (2, 640, 640, 8)])
+                                     (2, 640, 640, 8), (2, 4096, 320, 5), (2, 384, 320, 5)])
 def test_attention_block_stages_match_plain_stages(gen, b, l, c, h):
     """Each of K5's three kernels against its plain stage on the previous
     kernel's output, at the three main-path shapes of configuration (b) and
     at L = 384 and 640, where the attention takes K1's 2-warpgroup blocks (L
-    % 256 != 0).  Q, K, V: f32 products rounded to bf16, only the sum order
+    % 256 != 0), and at SD2.1's H*D_pad 320 (the Q/K/V product's 64-column
+    tiles).  Q, K, V: f32 products rounded to bf16, only the sum order
     differs: >= 99% bit-equal, the rest within 1 ulp of the product's terms
     (|x| |W|^T).  packed: K1's function on the kernel's Q, K, V, within 1% of
     its largest output; padded head columns exactly 0.  out: >= 99% equal to
@@ -554,6 +556,44 @@ def test_attention_block_stages_match_plain_stages(gen, b, l, c, h):
     ref = attention.attention_block_fused_plain(*args)
     term = ref.float() - res.float() - bo
     assert (out.float() - ref.float()).abs().max() <= 1e-2 * term.abs().max()
+
+
+@pytest.mark.parametrize("b,l,c,h", [(2, 4096, 320, 8), (2, 1024, 640, 8), (2, 256, 1280, 8), (1, 4096, 640, 8),
+                                     (1, 1024, 1280, 8), (2, 4096, 320, 5), (3, 192, 128, 2)])
+def test_attention_block_f32_stages_match_plain_stages(gen, b, l, c, h):
+    """K5 in f32 (csrc/attention_f32.cu's block entry) at an f32 pipeline's
+    sites under SASPA_ATTN_MEGAKERNEL=1, reduced in batch: 512^2's levels
+    0-2, 1024^2's levels 1-2, SD2.1's level 0 (H*D_pad 320), and 3 x 192
+    tokens (576 rows: a ragged last row tile; L % 128 != 0, which the FFMA
+    core takes).  Q, K, V against x W^T in f32 within 1e-5 of each
+    element's |x| |W|^T (sum order only); packed against K1's plain version
+    on the kernel's Q, K, V within 1e-4 of its largest output (as K1 f32),
+    padded columns exactly 0; out against packed wo^T + bo + residual within
+    1e-5 of |packed| |wo|^T + |bo| + |residual|; the whole block within 2e-5
+    of the largest attention-plus-projection term.  Counted by
+    block_launches_f32 alone (not block_launches, not K1's counters)."""
+    args = _block_args(gen, b, l, c, h, torch.float32)
+    x, res, wq, wk, wv, wo, bo, _ = args
+    dp = attention.pad_head_dim(c // h)
+    counters = ("block_launches", "block_launches_f32", "launches", "launches_f32", "launches_f32_heads")
+    before = [getattr(attention, n) for n in counters]
+    q, k, v, packed, out = attention.attention_block_stages(*args)
+    assert [getattr(attention, n) for n in counters] == [before[0], before[1] + 1, *before[2:]]
+    assert all(t.dtype == torch.float32 for t in (q, k, v, packed, out)) and out.shape == x.shape
+    for got, w in ((q, wq), (k, wk), (v, wv)):
+        want = x @ w.t()
+        mag = x.abs() @ w.abs().t()
+        assert ((got - want).abs() <= 1e-5 * mag).all()
+    att_ref = attention.flash_attention_packed_plain(q, k, v, h)
+    assert (packed - att_ref).abs().max() <= 1e-4 * att_ref.abs().max()
+    assert (packed.reshape(b, l, h, dp)[..., c // h:] == 0).all()
+    out_ref = packed @ wo.t() + bo + res
+    mag = packed.abs() @ wo.abs().t() + bo.abs() + res.abs()
+    assert ((out - out_ref).abs() <= 1e-5 * mag).all()
+    ref = attention.attention_block_stages_plain(*args)[4]
+    term = ref - res - bo
+    assert term.abs().max() >= 0.5
+    assert (out - ref).abs().max() <= 2e-5 * term.abs().max()
 
 
 @pytest.mark.parametrize("b,lq,lk,h,d", [(2, 256, 256, 8, 40), (1, 512, 512, 4, 80), (1, 256, 256, 2, 160),
@@ -661,6 +701,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     w128 = torch.zeros(128, 128, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError):  # L = 64: K1's attention blocks take L % 128 == 0
         attention.attention_block_fused(x64, x64, w128, w128, w128, w128, torch.ones(128, device="cuda"), 2)
+    x96, w128f = torch.zeros(1, 96, 128, device="cuda"), w128.float()
+    with pytest.raises(ValueError):  # f32 at L = 96: the FFMA core's tiles take L % 64 == 0
+        attention.attention_block_fused(x96, x96, w128f, w128f, w128f, w128f, torch.ones(128, device="cuda"), 2)
+    with pytest.raises(TypeError):  # f32 activations, bf16 weights
+        attention.attention_block_fused(x64.float(), x64.float(), w128, w128, w128, w128,
+                                        torch.ones(128, device="cuda"), 2)
     g36 = torch.zeros(1, 36, 4, 4, dtype=torch.bfloat16, device="cuda").to(memory_format=torch.channels_last)
     with pytest.raises(ValueError):  # C = 36: not a whole number of 16-byte vectors
         groupnorm.group_norm(g36, ones[:36], ones[:36])

@@ -27,7 +27,9 @@ CPU tensors.
   K1 at 1024 and 256 tokens, K6 in the VAE) through both packages'
   `run_generation(cfg, pipe=...)`: the same files, PNGs within 1 uint8
   level and >= 99% equal, as tests/test_torch_driver.py holds the f32
-  pipelines.
+  pipelines; and the same under SASPA_PALLAS_GN=1 SASPA_ATTN_MEGAKERNEL=1
+  (configuration (b) in f32: K5 at every block's self-attention, K3 with the
+  TPU numerics), both packages' K5 sites counted.
 """
 
 import math
@@ -267,6 +269,20 @@ def square_tree(tmp_path, monkeypatch):
     return tmp_path
 
 
+def _same_pngs(got, want):
+    """The same files; generated PNGs within 1 uint8 level and >= 99% equal,
+    the _source and _control PNGs equal."""
+    assert sorted(got) == sorted(want) and len(got) == 2 + 2 + 2
+    for name in got:
+        a, b = got[name].astype(np.int32), want[name].astype(np.int32)
+        assert a.shape == b.shape, name
+        if "_prompt_" in name:
+            d = np.abs(a - b)
+            assert a.shape == (64, 64, 3) and d.max() <= 1 and np.mean(d == 0) >= 0.99, (name, d.max())
+        else:
+            assert np.array_equal(a, b), name
+
+
 def test_f32_run_generation_matches_jax(square_tree, monkeypatch):
     """The tiny canny configuration (tests/test_torch_pipeline.py's params)
     in f32 at 64^2, 2 sources x 1 prompt, batch 2, 2 DDIM steps, CFG 7.5,
@@ -304,17 +320,58 @@ def test_f32_run_generation_matches_jax(square_tree, monkeypatch):
         monkeypatch.setattr(module, name, counted)
     got_dir = tdriver.run_generation(cfg, pipe=tp)
     assert got_dir == want_dir
-    got = _pngs(got_dir)
-    assert sorted(got) == sorted(want) and len(got) == 2 + 2 + 2
-    for name in got:
-        a, b = got[name].astype(np.int32), want[name].astype(np.int32)
-        assert a.shape == b.shape, name
-        if "_prompt_" in name:
-            d = np.abs(a - b)
-            assert a.shape == (64, 64, 3) and d.max() <= 1 and np.mean(d == 0) >= 0.99, (name, d.max())
-        else:
-            assert np.array_equal(a, b), name
+    _same_pngs(_pngs(got_dir), want)
     # per step 6 blocks (UNet: down 1, up 2, mid; ControlNet: down 1, mid), one decode
     assert counts.get("fused_ln_geglu", 0) == 0, counts
     assert counts["flash_attention_packed"] == 6 * 2 and counts["layer_norm_one_pass"] == 3 * 6 * 2, counts
     assert counts["flash_attention"] == 1, counts
+
+
+def test_f32_opt_in_run_generation_matches_jax(square_tree, monkeypatch):
+    """test_f32_run_generation_matches_jax under SASPA_PALLAS_GN=1
+    SASPA_ATTN_MEGAKERNEL=1 (configuration (b) on the f32 pipeline): JAX
+    traces its block kernel (K5) at the self-attentions its predicate admits
+    at 4-byte items and runs it in interpret mode, with its GroupNorm kernel;
+    the port, whose pipeline reads the same variables where it is built,
+    runs K5's plain version at each of the 6 blocks a step (and so K1 at
+    none), K3 with the TPU numerics, K6 once a decode, no K2.  The same
+    files and bounds."""
+    for k in ("SASPA_PALLAS_GN", "SASPA_ATTN_MEGAKERNEL"):
+        monkeypatch.setenv(k, "1")
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    params = tiny_params()
+    _PresetJaxPipeline.preset = params
+    jp = _PresetJaxPipeline(base_model="sd_v1.5", controlnet="canny", sampler="ddim", dtype=jnp.float32,
+                            unet_cfg=G_UNET, vae_cfg=G_VAE, text_cfgs=G_TEXT)
+    tp = DiffusionPipeline(controlnet="canny", device="cpu", dtype=torch.float32, init_seed=None,
+                           unet_cfg=P_UNET, vae_cfg=P_VAE, text_cfgs=P_TEXT)
+    assert tp.switches.attention_megakernel and tp.switches.pallas_group_norm
+    tp.load_flax_params(params)
+    counts = {}
+
+    def count(module, name):
+        fn = getattr(module, name)
+
+        def counted(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **k)
+
+        monkeypatch.setattr(module, name, counted)
+
+    count(jatt, "attention_block_fused")  # JAX's sites, counted while it traces its step once
+    cfg = _cfg(resolution=64, num_per_image=1, batch_size=2)
+    with pltpu.force_tpu_interpret_mode():
+        want_dir = jax_run_generation(_jax_cfg(cfg), pipe=jp)
+    want = _pngs(want_dir)
+    for p in Path(want_dir).glob("*.png"):
+        p.unlink()
+    assert counts.pop("attention_block_fused") == 6  # one traced step: the port's 6 sites a step
+    for module, name in ((t_unet, "attention_block_fused"), (t_unet, "flash_attention_packed"),
+                         (t_unet, "fused_ln_geglu"), (tatt, "flash_attention"), (tgn, "group_norm_tpu_plain")):
+        count(module, name)
+    got_dir = tdriver.run_generation(cfg, pipe=tp)
+    assert got_dir == want_dir
+    _same_pngs(_pngs(got_dir), want)
+    assert counts["attention_block_fused"] == 6 * 2 and counts.get("flash_attention_packed", 0) == 0, counts
+    assert counts.get("fused_ln_geglu", 0) == 0 and counts["flash_attention"] == 1, counts
+    assert counts["group_norm_tpu_plain"] > 0, counts
