@@ -458,7 +458,9 @@ With --parent DIR, the kernels phase also times another checkout's K3, K5
 and K1 at d 512 (bf16 at the VAE's mid attentions, and f32 in the
 xl_vae_f32 phase; its own wrappers and kernels, built from DIR) on the
 same inputs (parent_ms, parent_device_ms, parent_host_us); K1's d 512 rows
-carry their own device_ms beside them.
+carry their own device_ms beside them.  The f32 phase times DIR's f32
+attention core the same way at every K1 f32 (d_pad 64-192), K6 f32 and K5
+f32 row (parent_ms, by CUDA events over as many launches as the row's ms).
 With --profile, one more main-path run of each configuration under
 torch.profiler writes the device time by kernel to OUT.json and
 OUT_opt_in.json, one 1024^2 batch to OUT_gen_1024.json and the filter's
@@ -833,15 +835,20 @@ def k3_ptxas(log: str) -> dict:
     return rep
 
 
+F32_CORE_WIDTHS = (40, 64, 80, 128, 160, 192)  # the f32 core's computed widths: real d 40/80/160/64, padded 128/192
+
+
 def f32_core_ptxas(log: str) -> dict:
-    """The f32 attention core (csrc/attention_f32.cu) per (padded head dim,
-    softmax base) instantiation: registers and spills; requires all six (K1's
-    exp2 and K6's exp at 64, 128, 192) and no spill (the accumulators and the
-    score tile's operands a thread would go to local memory)."""
+    """The f32 attention core (csrc/attention_f32.cu) per (computed width D,
+    softmax base) instantiation: registers and spills; requires all twelve
+    (K1's and K5's exp2 and K6's exp at D 40, 64, 80, 128, 160, 192: SD1.5's
+    heads of 40, 80 and 160 compute no padded column) and no spill (the
+    accumulators and the score tile's operands a thread would go to local
+    memory)."""
     pat = r"attention_f32_kernelILi(\d+)ELb([01])E"
-    rep = {f"dp{m[1]}_{'exp2' if m[2] == '1' else 'exp'}": r for fn, r in ptxas_report(log).items()
+    rep = {f"d{m[1]}_{'exp2' if m[2] == '1' else 'exp'}": r for fn, r in ptxas_report(log).items()
            if (m := re.search(pat, fn))}
-    require(sorted(rep) == sorted(f"dp{d}_{e}" for d in (64, 128, 192) for e in ("exp2", "exp")),
+    require(sorted(rep) == sorted(f"d{d}_{e}" for d in F32_CORE_WIDTHS for e in ("exp2", "exp")),
             "f32 attention kernels in the ptxas report", sorted(rep))
     require(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rep.values()),
             "f32 attention kernels spill", rep)
@@ -892,16 +899,17 @@ def k6_ptxas(log: str) -> dict:
 
 
 PARENT = {}  # with --parent: the parent checkout's wrapper modules ("groupnorm", "attention"), on its own kernels
-PARENT_KERNELS = ("group_norm", "attention_block", "attention_packed", "attention_packed_f32")
+PARENT_KERNELS = ("group_norm", "attention_block", "attention_packed", "attention_packed_f32", "attention_f32")
 
 
 def load_parent(root: str) -> float:
-    """Builds the K3, K5 and K1 (bf16 and f32) libraries of another checkout
+    """Builds the K3, K5, K1 (bf16 and f32) libraries and the f32 attention
+    core's (K1 f32 at d_pad 64-192, K6 f32, K5 f32) of another checkout
     (root/saspa_tpu_torch/csrc, nvcc in parallel, into _build/parent) and
     loads that checkout's wrapper modules (ops/groupnorm.py,
     ops/attention.py) as they are, their `_build` answered by those
-    libraries with that checkout's C signatures, into PARENT.  Returns the
-    seconds taken."""
+    libraries with that checkout's C signatures (each library's first entry
+    and its MORE_ENTRIES), into PARENT.  Returns the seconds taken."""
     import ctypes
     import importlib.util
     from pathlib import Path
@@ -918,7 +926,8 @@ def load_parent(root: str) -> float:
         spec.loader.exec_module(mod)
         return mod
 
-    sigs = module("parent_build", pkg / "ops" / "_build.py").SIGNATURES
+    pbuild = module("parent_build", pkg / "ops" / "_build.py")
+    sigs, more = pbuild.SIGNATURES, getattr(pbuild, "MORE_ENTRIES", {})
     out = _build.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"),
@@ -928,10 +937,12 @@ def load_parent(root: str) -> float:
     for n, proc in jobs.items():
         _, err = proc.communicate()
         require(proc.returncode == 0, "parent build of", n, err[-2000:])
-        fn = getattr(ctypes.CDLL(str(out / f"lib{n}.so")), sigs[n][0])
-        fn.argtypes, fn.restype = sigs[n][1], ctypes.c_int
-        fns[n] = fn
-    shim = SimpleNamespace(kernel=fns.__getitem__, check=_build.check)
+        lib = ctypes.CDLL(str(out / f"lib{n}.so"))
+        for entry, argtypes in ((sigs[n][0], sigs[n][1]), *more.get(n, {}).items()):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[n, entry] = fn
+    shim = SimpleNamespace(kernel=lambda name, entry="": fns[name, entry or sigs[name][0]], check=_build.check)
     for name in ("groupnorm", "attention"):
         mod = module(f"parent_{name}", pkg / "ops" / f"{name}.py")
         mod._build = shim
@@ -942,6 +953,12 @@ def load_parent(root: str) -> float:
 def parent_times(fn) -> dict:
     """The parent's wrapper timed as the change's is: ms, device_ms, host_us."""
     return {"parent_ms": cuda_ms(fn, 10), "parent_device_ms": device_ms(fn)[0], "parent_host_us": host_us(fn)}
+
+
+def parent_ms(fn, iters: int) -> dict:
+    """With --parent, the parent's wrapper on the row's inputs by CUDA events
+    over as many launches as the row's own ms (parent_ms); else nothing."""
+    return {"parent_ms": cuda_ms(fn, iters)} if PARENT else {}
 
 
 def d512_times(kernel, args, b_ms: float) -> dict:
@@ -973,7 +990,7 @@ def check_k1(gen, shapes=K1_SHAPES, dtype=torch.bfloat16):
         q = padded(3.0 * torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype).contiguous()
         k = padded(torch.randn(shape, generator=gen, device="cuda")).to(dtype).contiguous()
         v = padded(torch.randn(shape, generator=gen, device="cuda")).to(dtype).contiguous()
-        out = att.flash_attention_packed(q, k, v, h)
+        out = att.flash_attention_packed(q, k, v, h, head_dim=d)  # the real head dim, as the UNet passes it
         ref = att.flash_attention_packed_plain(q, k, v, h)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -987,13 +1004,16 @@ def check_k1(gen, shapes=K1_SHAPES, dtype=torch.bfloat16):
         pad_zero = bool((out.reshape(b, l, h, dp)[..., d:] == 0).all().item()) if dp > d else True
         require(pad_zero, what, "padded output columns are not exactly zero")
         qh, kh, vh = (x.reshape(b, l, h, dp).transpose(1, 2) for x in (q, k, v))
-        ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, h), 10)
+        ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, h, head_dim=d), 10)
         plain_ms = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, h), 3, warmup=1)
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=math.log(2.0)), 10)
         # the operations on the real head dim, as K6's: the padded columns are zero
         b_ms, b_by = bound(4.0 * b * h * l * l * d, 4 * b * l * h * dp * q.element_size(),
                            H100_F32_FLOPS if f32 else H100_BF16_FLOPS, exps=b * h * l * l)
-        extra = d512_times(lambda: att.flash_attention_packed(q, k, v, h), (q, k, v, h), b_ms) if dp == 512 else {}
+        if dp == 512:
+            extra = d512_times(lambda: att.flash_attention_packed(q, k, v, h), (q, k, v, h), b_ms)
+        else:  # the f32 core's rows: the parent's K1 f32 (its own wrapper, without the real head dim)
+            extra = parent_ms(lambda: PARENT["attention"].flash_attention_packed(q, k, v, h), 10) if f32 else {}
         rows.append(dict(shape=what, B=b, L=l, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
                          rel_err=err / ref_max,
                          pad_cols_zero=pad_zero, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1030,6 +1050,7 @@ def check_k6(gen, shapes=K6_SHAPES, dtype=torch.bfloat16):
         require(err <= tol * ref_max, what, "max |kernel - plain|", err, "> tolerance", tol, "of", ref_max)
         del ref
         ms = cuda_ms(lambda: att.flash_attention(q, k, v, scale), 3)
+        par = parent_ms(lambda: PARENT["attention"].flash_attention(q, k, v, scale), 3) if f32 else {}
         plain_ms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, scale), 1, warmup=1)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's (B, H, L, d)
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale), 3)
@@ -1040,7 +1061,7 @@ def check_k6(gen, shapes=K6_SHAPES, dtype=torch.bfloat16):
         rows.append(dict(shape=what, B=b, L=l, H=h, d=d, d_pad=dp, max_abs_err=err, ref_max=ref_max,
                          rel_err=err / ref_max, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                         lib_ratio=ms / lib_ms, bound_share=b_ms / ms))
+                         lib_ratio=ms / lib_ms, bound_share=b_ms / ms, **par))
         del q, k, v, out, qh, kh, vh
         torch.cuda.empty_cache()
     return rows
@@ -5292,7 +5313,9 @@ def check_k5_f32(gen, sites) -> list:
     kernel alone by events, attend_ms, and the products' rest), the
     wrapper's host cost, the bound (f32 operations at 67 TFLOP/s) and the
     yardstick: route (a) in f32 (three F.linear, TF32 off; K1 f32; F.linear
-    with the bias; the residual add), also with SDPA f32 in place of K1."""
+    with the bias; the residual add), also with SDPA f32 in place of K1;
+    with --parent, the parent's K5 f32 on the same inputs (parent_ms).  The
+    kernel takes the real head dim, as the UNet passes it."""
     from saspa_tpu_torch.ops import attention as att
 
     F_ = torch.nn.functional
@@ -5302,7 +5325,7 @@ def check_k5_f32(gen, sites) -> list:
         dp = att.pad_head_dim(d)
         args = block_args(gen, b, l, c, h, torch.float32)
         x, res, wq, wk, wv, wo, bo, _ = args
-        got = att.attention_block_stages(*args)
+        got = att.attention_block_stages(*args, head_dim=d)
         want = att.attention_block_stages_plain(*args)
         torch.cuda.synchronize()
         what = f"f32 B{b} L{l} C{c} H{h} d{d}->{dp}"
@@ -5321,7 +5344,7 @@ def check_k5_f32(gen, sites) -> list:
         del got, want
 
         def kernel():
-            return att.attention_block_fused(*args)
+            return att.attention_block_fused(*args, head_dim=d)
 
         # the operations on the real head dim, as check_k5's and K6's
         m, hd = b * l, h * dp
@@ -5330,7 +5353,8 @@ def check_k5_f32(gen, sites) -> list:
         iters = 3 if l * b >= 65536 else 5
         ms = cuda_ms(kernel, iters)
         # the attention phase is K1 f32's kernel on the same Q, K, V: its events time, and the products' the rest
-        attend_ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, h), iters)
+        attend_ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, h, head_dim=d), iters)
+        par = parent_ms(lambda: PARENT["attention"].attention_block_fused(*args), iters)
         # on the card, profiles of this entry have come back with a third to a half of its kernels' records
         # missing (device time 0.65-0.8 of the events time, route (a)'s whole): such a profile counts as missed
         dev_ms, by_kernel = device_ms(kernel, iters, floor_ms=max(b_ms, 0.8 * ms))
@@ -5347,7 +5371,7 @@ def check_k5_f32(gen, sites) -> list:
                 qh, kh, vh = (t.view(b, l, h, dp).transpose(1, 2) for t in (q, k, v))
                 o = F_.scaled_dot_product_attention(qh, kh, vh, scale=math.log(2.0)).transpose(1, 2).reshape(b, l, hd)
             else:
-                o = att.flash_attention_packed(q, k, v, h)
+                o = att.flash_attention_packed(q, k, v, h, head_dim=d)
             return res + F_.linear(o, wo, bo)
 
         rows.append(dict(shape=what, cell="f32", B=b, L=l, C=c, H=h, d=d, d_pad=dp, max_abs_err=err,
@@ -5359,7 +5383,7 @@ def check_k5_f32(gen, sites) -> list:
                          library_ms=None, route_a_ms=cuda_ms(route_a, iters),
                          route_a_device_ms=device_ms(route_a, iters, floor_ms=b_ms)[0],
                          route_a_sdpa_ms=cuda_ms(lambda: route_a(True), iters), bound_ms=b_ms, bound_by=b_by,
-                         bound_share=b_ms / ms))
+                         bound_share=b_ms / ms, **par))
         del args, x, res, wq, wk, wv, wo
         torch.cuda.empty_cache()
     return rows
@@ -6451,8 +6475,8 @@ def main() -> int:
     ap.add_argument("--profile", metavar="OUT.json",
                     help="also profile one main-path run of each configuration: OUT.json, OUT_opt_in.json")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also time another checkout's K1 (d 512, bf16 and f32), K3 and K5 wrappers and kernels "
-                         "beside these (parent_* keys)")
+                    help="also time another checkout's K1 (d 512, bf16 and f32), K3, K5 and f32 attention core "
+                         "(K1 f32 at d_pad 64-192, K6 f32, K5 f32) wrappers and kernels beside these (parent_* keys)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card", file=sys.stderr)

@@ -336,13 +336,14 @@ class CrossAttention(nn.Module):
             dt = wq.dtype
             if self.megakernel and is_self and residual is not None and attention_block_eligible(
                     x.shape[1], context.shape[1], self.heads, d, inner, x.element_size()):
-                return attention_block_fused(x.to(dt), residual, wq_scaled, wk, wv, wo, self.to_out.bias, self.heads)
+                return attention_block_fused(x.to(dt), residual, wq_scaled, wk, wv, wo, self.to_out.bias, self.heads,
+                                             head_dim=d)
             q = F.linear(x.to(dt), wq)
             k = F.linear(context.to(dt), wk)
             v = F.linear(context.to(dt), wv)
             q = cfg_tile(q, context.shape[0])
             qs = fold_scale(q, LOG2E / math.sqrt(d))
-            out = F.linear(flash_attention_packed(qs, k, v, self.heads), wo, self.to_out.bias.to(dt))
+            out = F.linear(flash_attention_packed(qs, k, v, self.heads, head_dim=d), wo, self.to_out.bias.to(dt))
         else:  # unpadded projections: cross-attention, and self-attention past the packed guard (K6)
             q = cfg_tile(self.to_q(x), context.shape[0])
             out = self.to_out(attention(q, self.to_k(context), self.to_v(context), self.heads, self.kernels))

@@ -39,12 +39,12 @@ SIGNATURES = {
     "layernorm": ("saspa_layernorm", [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
     "attention_block": ("saspa_attention_block", [_P] * 9 + [_I] * 5 + [_P]),
     "flash_attention": ("saspa_flash_attention", [_P] * 4 + [_I] * 6 + [_F, _P]),
-    "attention_f32": ("saspa_attention_f32_packed", [_P] * 4 + [_I] * 4 + [_P]),
+    "attention_f32": ("saspa_attention_f32_packed", [_P] * 4 + [_I] * 5 + [_P]),
 }
 # a library's C entry points beside its first: name -> {function: argtypes}
 MORE_ENTRIES = {
-    "attention_f32": {"saspa_flash_attention_f32": [_P] * 4 + [_I] * 6 + [_F, _P],
-                      "saspa_attention_block_f32": [_P] * 9 + [_I] * 5 + [_P]},
+    "attention_f32": {"saspa_flash_attention_f32": [_P] * 4 + [_I] * 5 + [_F, _P],
+                      "saspa_attention_block_f32": [_P] * 9 + [_I] * 6 + [_P]},
 }
 
 KERNELS = tuple(SIGNATURES)

@@ -207,9 +207,9 @@ def flash_attention(q, k, v, scale: float):
     """softmax(q k^T * scale) v over unpadded heads: q (B, Lq, H, D), k/v
     (B, Lk, H, D) -> (B, Lq, H, D).  CPU tensors run the plain version;
     CUDA tensors launch K6 (bf16: csrc/flash_attention.cu; f32:
-    csrc/attention_f32.cu, counted in flash_launches_f32; contiguous and
-    16-byte aligned, Lq and Lk multiples of 64, D a multiple of 8 that pads
-    to 64/128/192) or raise."""
+    csrc/attention_f32.cu at the real head dim, counted in
+    flash_launches_f32; contiguous and 16-byte aligned, Lq and Lk multiples
+    of 64, D a multiple of 8 that pads to 64/128/192) or raise."""
     global flash_launches, flash_launches_f32
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
@@ -230,8 +230,8 @@ def flash_attention(q, k, v, scale: float):
     scale_q = float(torch.tensor(scale, dtype=q.dtype))  # in q's dtype, as the plain version folds it
     if q.dtype == torch.float32:
         fn = _build.kernel("attention_f32", "saspa_flash_attention_f32")
-        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, lk, h, d, dp, scale_q,
-                        stream), "flash_attention_f32")
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, lk, h, d, scale_q, stream),
+                     "flash_attention_f32")
         flash_launches_f32 += 1
         return out
     fn = _build.kernel("flash_attention")
@@ -241,13 +241,26 @@ def flash_attention(q, k, v, scale: float):
     return out
 
 
-def flash_attention_packed_plain(q, k, v, heads: int):
+def real_head_dim(head_dim, dp: int) -> int:
+    """The real head dim a packed wrapper is told (head_dim; None: the padded
+    width dp): a multiple of 4 (16 bytes in f32) within dp.  The columns past
+    it are zero by contract (the padded projections' zero rows)."""
+    d = dp if head_dim is None else int(head_dim)
+    if not (0 < d <= dp and d % 4 == 0):
+        raise ValueError(f"head_dim {head_dim}: a multiple of 4 within the padded head width {dp}")
+    return d
+
+
+def flash_attention_packed_plain(q, k, v, heads: int, head_dim: int | None = None):
     """Plain version of K1 (same function, f32 scores and accumulation):
     q pre-scaled by scale*log2(e); exp2 softmax; P cast to v's dtype before
     the P.V product (a no-op in f32); output in q's dtype.  Loops over heads
-    to bound the (B, L, L) f32 score memory."""
+    to bound the (B, L, L) f32 score memory.  head_dim (the real head dim)
+    changes nothing: the columns past it are zero, and it computes on all of
+    them as before."""
     b, lq, hd = q.shape
     dp = hd // heads
+    real_head_dim(head_dim, dp)
     out = torch.empty_like(q)
     for h in range(heads):
         sl = slice(h * dp, (h + 1) * dp)
@@ -258,19 +271,22 @@ def flash_attention_packed_plain(q, k, v, heads: int):
     return out
 
 
-def flash_attention_packed(q, k, v, heads: int):
+def flash_attention_packed(q, k, v, heads: int, head_dim: int | None = None):
     """q: (B, L, H*D_pad) with softmax_scale*log2(e) folded in; k, v: (B, L,
     H*D_pad).  Returns (B, L, H*D_pad); padded output columns are exactly 0.
-    CPU tensors run the plain version; CUDA tensors launch a kernel or
-    raise: q, k, v contiguous and 16-byte aligned, of the L, head dim and
-    dtype `packed_kernel_takes` admits (bf16: csrc/attention_packed.cu; f32
-    at d_pad 512: csrc/attention_packed_f32.cu, counted in launches_f32; f32
-    at 64/128/192: csrc/attention_f32.cu, counted in launches_f32_heads)."""
+    head_dim: the real head dim d <= D_pad (default D_pad), the columns past
+    it zero in q, k and v.  CPU tensors run the plain version; CUDA tensors
+    launch a kernel or raise: q, k, v contiguous and 16-byte aligned, of the
+    L, head dim and dtype `packed_kernel_takes` admits (bf16:
+    csrc/attention_packed.cu; f32 at d_pad 512: csrc/attention_packed_f32.cu,
+    counted in launches_f32; f32 at 64/128/192: csrc/attention_f32.cu, which
+    computes on the real d columns, counted in launches_f32_heads)."""
     global launches, launches_f32, launches_f32_heads
     if q.device.type == "cpu":
-        return flash_attention_packed_plain(q, k, v, heads)
+        return flash_attention_packed_plain(q, k, v, heads, head_dim)
     b, l, hd = q.shape
     dp = hd // heads
+    d = real_head_dim(head_dim, dp)
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_packed takes bf16 or f32 on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != q.shape or v.shape != q.shape or hd != heads * dp:
@@ -284,7 +300,7 @@ def flash_attention_packed(q, k, v, heads: int):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.dtype == torch.float32 and dp != 512:
         fn = _build.kernel("attention_f32")
-        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, heads, dp, stream),
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, heads, dp, d, stream),
                      "attention_f32")
         launches_f32_heads += 1
         return out
@@ -328,10 +344,12 @@ def attention_block_takes(l: int, c: int, heads: int, dp: int, dtype) -> bool:
     return (dtype == torch.bfloat16 and l % 128 == 0) or (dtype == torch.float32 and l % 64 == 0)
 
 
-def attention_block_fused_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int):
+def attention_block_fused_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int, head_dim: int | None = None):
     """Plain version of K5 (products in f32): Q/K/V rounded to x_ln's dtype,
     K1's plain attention, then packed . wo^T + bo + residual in f32, rounded
-    to x_ln's dtype."""
+    to x_ln's dtype.  head_dim as in flash_attention_packed_plain: it
+    changes nothing."""
+    real_head_dim(head_dim, wq_scaled.shape[0] // heads)
     d = x_ln.dtype
     xf = x_ln.float()
     q, k, v = ((xf @ w.float().t()).to(d) for w in (wq_scaled, wk, wv))
@@ -339,11 +357,14 @@ def attention_block_fused_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads
     return (packed.float() @ wo.float().t() + bo.float() + residual.float()).to(d)
 
 
-def attention_block_stages_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int):
+def attention_block_stages_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int,
+                                 head_dim: int | None = None):
     """The plain mirror of K5's three kernels on the card: (q, k, v, packed,
     out).  The QKV projection rounds each f32 product to x_ln's dtype; the
     attention is K1's (`flash_attention_packed_plain`); the out projection
-    adds bo and the residual to the f32 product and rounds once."""
+    adds bo and the residual to the f32 product and rounds once.  head_dim:
+    as in attention_block_fused_plain."""
+    real_head_dim(head_dim, wq_scaled.shape[0] // heads)
     d = x_ln.dtype
     xf = x_ln.float()
     q = (xf @ wq_scaled.float().t()).to(d)
@@ -354,20 +375,23 @@ def attention_block_stages_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, head
     return q, k, v, packed, (out + bo.float() + residual.float()).to(d)
 
 
-def attention_block_stages(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int):
+def attention_block_stages(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int, head_dim: int | None = None):
     """(q, k, v, packed, out) of K5's three kernels: q, k, v and packed are
-    (B, L, H*D_pad), out like x_ln.  CPU tensors run the plain stages; CUDA
-    tensors launch the kernels or raise: bf16 activations and weights
-    (csrc/attention_block.cu) or f32 ones (csrc/attention_f32.cu's block
-    entry, counted in block_launches_f32), an f32 bo, of the L, C, head
-    dim and dtype `attention_block_takes` admits, contiguous and 16-byte
-    aligned (TMA, 16-byte loads)."""
+    (B, L, H*D_pad), out like x_ln; head_dim: the real head dim (default
+    D_pad), the weights' rows past it zero in each head.  CPU tensors run
+    the plain stages; CUDA tensors launch the kernels or raise: bf16
+    activations and weights (csrc/attention_block.cu) or f32 ones
+    (csrc/attention_f32.cu's block entry, whose attention computes on the
+    real d columns, counted in block_launches_f32), an f32 bo, of the L, C,
+    head dim and dtype `attention_block_takes` admits, contiguous and
+    16-byte aligned (TMA, 16-byte loads)."""
     global block_launches, block_launches_f32
     if x_ln.device.type == "cpu":
-        return attention_block_stages_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads)
+        return attention_block_stages_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads, head_dim)
     b, l, c = x_ln.shape
     hd = wq_scaled.shape[0]
     dp = hd // heads
+    d = real_head_dim(head_dim, dp)
     dt = x_ln.dtype
     if dt not in (torch.bfloat16, torch.float32) or any(t.dtype != dt for t in (residual, wq_scaled, wk, wv, wo)) \
             or bo.dtype != torch.float32:
@@ -385,24 +409,25 @@ def attention_block_stages(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int
         raise ValueError("attention_block_fused needs contiguous, 16-byte aligned inputs on one device")
     ws = torch.empty((4, b, l, hd), dtype=dt, device=x_ln.device)  # Q, K, V, packed
     out = torch.empty_like(x_ln)
-    f32 = dt == torch.float32
-    fn = _build.kernel("attention_f32", "saspa_attention_block_f32") if f32 else _build.kernel("attention_block")
     stream = torch.cuda.current_stream(x_ln.device).cuda_stream
-    _build.check(fn(x_ln.data_ptr(), residual.data_ptr(), wq_scaled.data_ptr(), wk.data_ptr(), wv.data_ptr(),
-                    wo.data_ptr(), bo.data_ptr(), ws.data_ptr(), out.data_ptr(), b, l, c, heads, dp, stream),
-                 "attention_block_f32" if f32 else "attention_block")
-    if f32:
+    ptrs = (x_ln.data_ptr(), residual.data_ptr(), wq_scaled.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), ws.data_ptr(), out.data_ptr())
+    if dt == torch.float32:
+        fn = _build.kernel("attention_f32", "saspa_attention_block_f32")
+        _build.check(fn(*ptrs, b, l, c, heads, dp, d, stream), "attention_block_f32")
         block_launches_f32 += 1
     else:
+        _build.check(_build.kernel("attention_block")(*ptrs, b, l, c, heads, dp, stream), "attention_block")
         block_launches += 1
     return ws[0], ws[1], ws[2], ws[3], out
 
 
-def attention_block_fused(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int):
+def attention_block_fused(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads: int, head_dim: int | None = None):
     """residual + to_out(self_attention(x_ln)).  x_ln, residual: (B, L, C);
     wq_scaled, wk, wv: (H*D_pad, C) head-padded, softmax_scale*log2(e) folded
-    into wq; wo: (C, H*D_pad); bo: (C,) f32.  CPU tensors run the plain
-    version; CUDA tensors launch K5 (see attention_block_stages) or raise."""
+    into wq; wo: (C, H*D_pad); bo: (C,) f32; head_dim: the real head dim
+    (default D_pad).  CPU tensors run the plain version; CUDA tensors launch
+    K5 (see attention_block_stages) or raise."""
     if x_ln.device.type == "cpu":
-        return attention_block_fused_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads)
-    return attention_block_stages(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads)[4]
+        return attention_block_fused_plain(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads, head_dim)
+    return attention_block_stages(x_ln, residual, wq_scaled, wk, wv, wo, bo, heads, head_dim)[4]

@@ -388,14 +388,20 @@ def test_attention_packed_f32_kernel_matches_plain(gen, b, l, h):
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
-@pytest.mark.parametrize("b,l,h,d,dp", [(2, 256, 8, 40, 64), (1, 384, 2, 40, 64), (2, 1024, 8, 80, 128),
-                                        (1, 320, 4, 80, 128), (2, 256, 8, 160, 192), (1, 448, 2, 160, 192)])
-def test_attention_f32_packed_kernel_matches_plain(gen, b, l, h, d, dp):
-    """K1 in f32 at the UNet's padded head dims (csrc/attention_f32.cu), q
-    pre-scaled by scale * log2(e) on peaked scores (q of 3x the unit scale):
-    f32 out within 1e-4 of the largest output (online against one-pass
-    softmax, other sum orders), padded columns exactly 0, counted by
-    launches_f32_heads alone; L = 320, 384, 448 are not multiples of 128
+@pytest.mark.parametrize("b,l,h,d,dp,real", [
+    (2, 256, 8, 40, 64, True), (1, 384, 2, 40, 64, True), (2, 1024, 8, 80, 128, True), (1, 320, 4, 80, 128, True),
+    (2, 256, 8, 160, 192, True), (1, 448, 2, 160, 192, True), (2, 256, 4, 64, 64, True), (1, 192, 2, 120, 128, True),
+    (1, 320, 2, 24, 64, True), (2, 256, 8, 40, 64, False), (1, 192, 4, 80, 128, False), (1, 256, 2, 160, 192, False),
+    (1, 320, 2, 128, 128, True), (1, 192, 2, 192, 192, True)])
+def test_attention_f32_packed_kernel_matches_plain(gen, b, l, h, d, dp, real):
+    """K1 in f32 at the UNet's heads (csrc/attention_f32.cu), q pre-scaled by
+    scale * log2(e) on peaked scores (q of 3x the unit scale): f32 out within
+    1e-4 of the largest output (online against one-pass softmax, other sum
+    orders), padded columns exactly 0, counted by launches_f32_heads alone.
+    real: the wrapper is told the real head dim, as the UNet tells it (the
+    core computes on d columns: its widths 40, 64, 80, 160, and 120 and 24
+    at the next width up, 128 and 40), else it computes on all d_pad columns
+    (widths 64, 128, 192); L = 192, 320, 384, 448 are not multiples of 128
     (the f32 core's tiles take L % 64 == 0)."""
     def padded(x):
         return torch.nn.functional.pad(x, (0, dp - d)).reshape(b, l, h * dp).contiguous()
@@ -403,7 +409,7 @@ def test_attention_f32_packed_kernel_matches_plain(gen, b, l, h, d, dp):
     q = padded(torch.randn(b, l, h, d, generator=gen, device="cuda") * (3.0 * attention.LOG2E / math.sqrt(d)))
     k, v = (padded(torch.randn(b, l, h, d, generator=gen, device="cuda")) for _ in range(2))
     before = (attention.launches, attention.launches_f32, attention.launches_f32_heads)
-    out = attention.flash_attention_packed(q, k, v, h)
+    out = attention.flash_attention_packed(q, k, v, h, head_dim=d if real else None)
     assert (attention.launches, attention.launches_f32, attention.launches_f32_heads) == (*before[:2], before[2] + 1)
     ref = attention.flash_attention_packed_plain(q, k, v, h)
     assert out.dtype == torch.float32 and ref.abs().max() >= 1.5
@@ -413,13 +419,17 @@ def test_attention_f32_packed_kernel_matches_plain(gen, b, l, h, d, dp):
 
 @pytest.mark.parametrize("b,lq,lk,h,d", [(2, 256, 256, 8, 40), (1, 1024, 1024, 8, 40), (1, 512, 512, 4, 80),
                                          (1, 256, 256, 2, 160), (1, 320, 448, 2, 40), (1, 256, 384, 2, 64),
-                                         (1, 256, 256, 2, 120)])
+                                         (1, 256, 256, 2, 120), (1, 192, 320, 2, 80), (1, 448, 192, 2, 160),
+                                         (1, 320, 256, 2, 128), (1, 256, 192, 2, 192), (1, 192, 256, 2, 16),
+                                         (1, 256, 320, 2, 48), (1, 192, 192, 2, 176)])
 def test_flash_attention_f32_kernel_matches_plain(gen, b, lq, lk, h, d):
     """K6 in f32 (csrc/attention_f32.cu) at unpadded heads (d 40, 80, 160 of
-    SD1.5, 64 unpadded, 120 padding to 128), Lq != Lk among them, q of std 3
-    (peaked softmax): f32 out within 1e-4 of the largest output (64-key tiles
-    against the plain version's 256/512-key chunks), counted by
-    flash_launches_f32 alone."""
+    SD1.5 and 64 at the core's widths of the same d; 128 and 192; 16, 48,
+    120 and 176 at the next width up, 40, 64, 128 and 192, with zeroed
+    columns), Lq != Lk among them and L = 192, 320, 448 not multiples of
+    128, q of std 3 (peaked softmax): f32 out within 1e-4 of the largest
+    output (64-key tiles against the plain version's 256/512-key chunks),
+    counted by flash_launches_f32 alone."""
     q = 3.0 * torch.randn(b, lq, h, d, generator=gen, device="cuda")
     k, v = (torch.randn(b, lk, h, d, generator=gen, device="cuda") for _ in range(2))
     scale = d ** -0.5
@@ -571,13 +581,14 @@ def test_attention_block_f32_stages_match_plain_stages(gen, b, l, c, h):
     padded columns exactly 0; out against packed wo^T + bo + residual within
     1e-5 of |packed| |wo|^T + |bo| + |residual|; the whole block within 2e-5
     of the largest attention-plus-projection term.  Counted by
-    block_launches_f32 alone (not block_launches, not K1's counters)."""
+    block_launches_f32 alone (not block_launches, not K1's counters).  The
+    wrapper is told the real head dim, as the UNet tells it."""
     args = _block_args(gen, b, l, c, h, torch.float32)
     x, res, wq, wk, wv, wo, bo, _ = args
     dp = attention.pad_head_dim(c // h)
     counters = ("block_launches", "block_launches_f32", "launches", "launches_f32", "launches_f32_heads")
     before = [getattr(attention, n) for n in counters]
-    q, k, v, packed, out = attention.attention_block_stages(*args)
+    q, k, v, packed, out = attention.attention_block_stages(*args, head_dim=c // h)
     assert [getattr(attention, n) for n in counters] == [before[0], before[1] + 1, *before[2:]]
     assert all(t.dtype == torch.float32 for t in (q, k, v, packed, out)) and out.shape == x.shape
     for got, w in ((q, wq), (k, wk), (v, wv)):
