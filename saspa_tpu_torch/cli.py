@@ -51,6 +51,14 @@ writes the keytotext T5's sentence pool LE_{num}_{dataset}_all_classes_
 {bool}.json under --output_path and prints its path.  Both read the public
 files (LAVIS's .pth, the T5's HF files) under --weights_dir (else
 $SASPA_WEIGHTS_DIR, else ./weights) and raise without them.
+
+Under torchrun (`torchrun --nproc_per_node=N -m saspa_tpu_torch.cli
+{gen,filter,train} ...`) `main` first joins the process group torchrun
+describes, one process a card (parallel/mesh.py::init_distributed): `gen`
+splits the worklist over the ranks and rank 0 alone filters, as the JAX
+driver does; `filter` and `train` shard every batch over the ranks, and
+`--batch_size` stays the global batch.  A plain `python -m
+saspa_tpu_torch.cli` runs one process, as before.
 """
 
 from __future__ import annotations
@@ -236,6 +244,14 @@ def cmd_gen(args):
                                      model_confidence_based_filtering=True, **cut)
 
 
+def _mesh():
+    """The group's mesh when torchrun started more than one rank, else None."""
+    from saspa_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    return mesh if mesh.size > 1 else None
+
+
 def cmd_filter(args):
     from saspa_tpu_torch.filters.aug_json import create_json_of_image_name_to_augmented_images_paths
 
@@ -252,6 +268,7 @@ def cmd_filter(args):
         alia_conf_filtering=args.alia_conf_filtering,
         weights_dir=args.weights_dir,
         batch_size=args.batch_size,
+        mesh=_mesh(),
     )
     print(path)
     return path
@@ -268,7 +285,7 @@ def cmd_merge(args):
 def cmd_train(args, device=None):
     from saspa_tpu_torch.fgvc.runner import run_training
 
-    return run_training(args, device=device)
+    return run_training(args, device=device, mesh=_mesh())
 
 
 def cmd_eval_biased(args, device=None):
@@ -307,7 +324,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from saspa_tpu_torch.parallel.mesh import init_distributed
+
     args = build_parser().parse_args(argv)
+    init_distributed()
     logging.basicConfig(level=logging.INFO)
     return {"gen": cmd_gen, "filter": cmd_filter, "train": cmd_train, "eval-biased": cmd_eval_biased,
             "merge-jsons": cmd_merge, "prep-captions": cmd_prep_captions,

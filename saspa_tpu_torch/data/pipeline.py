@@ -13,6 +13,15 @@ so the batches equal its batches; with CutMix, each batch's mixing key is
 `item_key(seed, "cutmix", epoch, i)`.  `timings` adds up the host seconds the
 consumer waited for batches (`host_wait_s`) and the seconds the producer
 spent loading them (`load_s`).
+
+Under a mesh of more than one rank (parallel/mesh.py), `batch_size` stays
+the global batch and each rank yields its contiguous rows of every global
+batch (the rows shard_batch would cut): it loads and transforms only those,
+draws for the whole batch and keeps its rows' draws (`utils/rng.py::Rows`),
+and still asks the dataset for every path of the batch in order, since the
+AugSampler's substitutions are one sequential stream.  With CutMix it also
+loads the rows its rows mix from (`ops/augment.py::cutmix_sources`).  So a
+rank's rows equal the one-process batch's.
 """
 
 from __future__ import annotations
@@ -29,8 +38,9 @@ import torch
 from saspa_tpu_torch import resolve_device, to_device
 from saspa_tpu_torch.data.datasets import FGVCDataset
 from saspa_tpu_torch.gen.image_io import read_rgb
-from saspa_tpu_torch.ops.augment import cutmix_batch, train_transform_batch, val_transform_batch
+from saspa_tpu_torch.ops.augment import cutmix_batch, cutmix_sources, train_transform_batch, val_transform_batch
 from saspa_tpu_torch.ops.host_resize import resize_bilinear_u8
+from saspa_tpu_torch.parallel.mesh import Mesh
 from saspa_tpu_torch.utils import rng as rngs
 
 
@@ -47,8 +57,14 @@ class InputPipeline:
 
     def __init__(self, dataset: FGVCDataset, batch_size: int, resize: Tuple[int, int] = (224, 224),
                  train_transform: Optional[str] = "classic", use_cutmix: bool = False, seed: int = 1,
-                 num_threads: int = 8, device=None, drop_last: bool = True):
+                 num_threads: int = 8, device=None, drop_last: bool = True, mesh: Optional[Mesh] = None):
         self.ds = dataset
+        self.own: Optional[rngs.Rows] = None  # this rank's rows of each batch, under a mesh
+        if mesh is not None and mesh.size > 1:
+            if not drop_last:
+                raise ValueError("a mesh takes full batches only (drop_last=True)")
+            sl = mesh.rows(batch_size)  # raises unless the ranks divide the batch
+            self.own = rngs.Rows(np.arange(sl.start, sl.stop), batch_size)
         self.drop_last = drop_last
         self.batch_size = batch_size
         self.resize = resize
@@ -73,14 +89,28 @@ class InputPipeline:
             np.random.RandomState(self.seed * 100003 + epoch).shuffle(idx)
         return idx
 
-    def _load_batch(self, indices) -> Tuple[np.ndarray, np.ndarray]:
+    def _load_batch(self, indices, keep=None) -> Tuple[np.ndarray, np.ndarray]:
+        """The batch's rows `keep` (all by default), decoded and resized."""
         pre_h, pre_w = self.pre_size
         items = [self.ds.item_path(int(i)) for i in indices]  # the AugSampler draws in index order
+        if keep is not None:
+            items = [items[k] for k in keep]
         arrays = list(self._pool.map(lambda it: decode_resize(it[0], pre_h, pre_w), items))
         return np.stack(arrays), np.asarray([it[1] for it in items], np.int32)
 
+    def _sources(self, epoch: int, i: int, mix: bool) -> Optional[np.ndarray]:
+        """The rows of global batch i this rank loads (None: all): its own,
+        and with CutMix (`mix`) those they mix from."""
+        if self.own is None:
+            return None
+        if mix and self.use_cutmix:
+            return cutmix_sources(rngs.item_key(self.seed, "cutmix", epoch, i), self.own, *self.resize)
+        return self.own.index
+
     def host_batches(self, epoch: int, shuffle: bool) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """uint8 (B, pre_h, pre_w, 3) and int32 (B,) labels, prefetched."""
+        """uint8 (B, pre_h, pre_w, 3) and int32 (B,) labels, prefetched;
+        under a mesh the rows `_sources` names (a shuffled epoch is a train
+        epoch, which mixes)."""
         idx = self._index_order(epoch, shuffle)
         bounds = [(lo, min(lo + self.batch_size, len(idx))) for lo in range(0, len(self) * self.batch_size,
                                                                           self.batch_size)]
@@ -98,11 +128,11 @@ class InputPipeline:
 
         def producer():
             try:
-                for lo, hi in bounds:
+                for i, (lo, hi) in enumerate(bounds):
                     if stop.is_set():
                         return
                     t = time.perf_counter()
-                    batch = self._load_batch(idx[lo:hi])
+                    batch = self._load_batch(idx[lo:hi], self._sources(epoch, i, shuffle))
                     self.timings["load_s"] += time.perf_counter() - t
                     if not put(("batch", batch)):
                         return
@@ -130,18 +160,23 @@ class InputPipeline:
 
     def iter_train(self, epoch: int):
         """Yields (X normalized float32 (B, 3, h, w), y int64 (B,), y_soft
-        float32 (B, classes) or None) on the device; y_soft is CutMix's."""
+        float32 (B, classes) or None) on the device; y_soft is CutMix's.
+        Under a mesh, this rank's rows of each."""
         th, tw = self.resize
         for i, (x_u8, y) in enumerate(self.host_batches(epoch, shuffle=True)):
             key = rngs.item_key(self.seed, "augment", epoch, i)
-            X = train_transform_batch(self._upload(x_u8), key, self.train_transform, th, tw)
+            src = self._sources(epoch, i, True)
+            src = None if src is None else rngs.Rows(src, self.batch_size)
+            X = train_transform_batch(self._upload(x_u8), key, self.train_transform, th, tw, src)
             y = to_device(y.astype(np.int64), self.device)
             y_soft = None
             if self.use_cutmix:
-                X, y, y_soft = cutmix_batch(X, y, rngs.item_key(self.seed, "cutmix", epoch, i), self.ds.num_classes)
+                X, y, y_soft = cutmix_batch(X, y, rngs.item_key(self.seed, "cutmix", epoch, i), self.ds.num_classes,
+                                            self.own)
             yield X, y, y_soft
 
     def iter_eval(self):
+        """(X, y) of each eval batch; under a mesh, this rank's rows."""
         th, tw = self.resize
         for x_u8, y in self.host_batches(0, shuffle=False):
             yield val_transform_batch(self._upload(x_u8), th, tw), to_device(y.astype(np.int64), self.device)

@@ -11,7 +11,12 @@ class's train samples against its accuracy at each validation and test
 (fgvc/plots.py, under save_dir/plots/{val,test}/).  That flag needs
 matplotlib: without it `train_config` raises, before the first step.
 
-Runs on the card unless `device="cpu"` is passed.
+Runs on the card unless `device="cpu"` is passed.  Under a mesh of more
+than one rank (one process a card, `torchrun ... -m saspa_tpu_torch.cli
+train`), `--batch_size` is the global batch, each rank loads and trains on
+its rows of it (fgvc/train.py), and rank 0 alone makes the log directory
+and writes the metrics, plots and checkpoints; the others meet it at a
+barrier after each checkpoint and learn the directory's name from it.
 """
 
 from __future__ import annotations
@@ -42,8 +47,9 @@ def train_config(args):
         few_shot=args.few_shot, ckpt=getattr(args, "ckpt", None))
 
 
-def pipelines(cfg, device):
-    """(train_ds, {"train", "val", "test"} InputPipelines, info)."""
+def pipelines(cfg, device, mesh=None):
+    """(train_ds, {"train", "val", "test"} InputPipelines, info); under a
+    mesh each yields this rank's rows."""
     from saspa_tpu_torch.data.datasets import get_datasets
     from saspa_tpu_torch.data.pipeline import InputPipeline
 
@@ -53,11 +59,12 @@ def pipelines(cfg, device):
         special_aug=cfg.special_aug, use_cutmix=cfg.use_cutmix, few_shot=cfg.few_shot, seed=cfg.seed)
     pipes = {"train": InputPipeline(train_ds, batch_size=cfg.batch_size, resize=cfg.image_size,
                                     train_transform=info["train_transform"], use_cutmix=info["use_cutmix"],
-                                    seed=cfg.seed, num_threads=cfg.workers * 2, device=device),
+                                    seed=cfg.seed, num_threads=cfg.workers * 2, device=device, mesh=mesh),
              # eval batches of batch_size * 2, as the reference's (fgvc/train.py:316-319)
-             "val": InputPipeline(val_ds, batch_size=cfg.batch_size * 2, resize=cfg.image_size, device=device),
-             "test": (InputPipeline(test_ds, batch_size=cfg.batch_size * 2, resize=cfg.image_size, device=device)
-                      if len(test_ds) else None)}
+             "val": InputPipeline(val_ds, batch_size=cfg.batch_size * 2, resize=cfg.image_size, device=device,
+                                  mesh=mesh),
+             "test": (InputPipeline(test_ds, batch_size=cfg.batch_size * 2, resize=cfg.image_size, device=device,
+                                    mesh=mesh) if len(test_ds) else None)}
     return train_ds, pipes, info
 
 
@@ -77,19 +84,26 @@ def evaluate_checkpoint(args, device=None) -> dict:
     return trainer.evaluate(pipes["test"].iter_eval(), epoch=0, is_test=True)
 
 
-def run_training(args, device=None) -> dict:
+def run_training(args, device=None, mesh=None) -> dict:
     from saspa_tpu_torch import resolve_device
     from saspa_tpu_torch.fgvc.train import Trainer
+    from saspa_tpu_torch.parallel.mesh import broadcast_str
     from saspa_tpu_torch.utils.logging_utils import MetricsWriter, init_logging
 
     cfg = train_config(args)
     device = resolve_device(device)
-    save_dir = init_logging(logdir=args.logdir)
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        save_dir = init_logging(logdir=args.logdir)
+        metrics = MetricsWriter(save_dir, use_wandb=getattr(args, "wandb", False))
+    else:
+        save_dir, metrics = None, None
+    if mesh is not None:
+        save_dir = broadcast_str(mesh, save_dir, device)
     cfg = cfg.replace(save_dir=save_dir)
-    metrics = MetricsWriter(save_dir, use_wandb=getattr(args, "wandb", False))
     logging.info("train config: %s", cfg)
 
-    train_ds, pipes, info = pipelines(cfg, device)
+    train_ds, pipes, info = pipelines(cfg, device, mesh)
     train_pipe, val_pipe, test_pipe = pipes["train"], pipes["val"], pipes["test"]
     if len(val_pipe) == 0:
         logging.warning("val split (%d samples) smaller than the eval batch %d: no full val batch; "
@@ -97,18 +111,23 @@ def run_training(args, device=None) -> dict:
     if len(train_pipe) == 0:
         raise ValueError(f"train split ({len(train_ds)} samples) smaller than batch_size {cfg.batch_size}: "
                          "zero train batches per epoch; lower --batch_size")
-    trainer = Trainer(cfg, num_classes=info["num_classes"], num_batches_per_epoch=len(train_pipe), device=device)
+    trainer = Trainer(cfg, num_classes=info["num_classes"], num_batches_per_epoch=len(train_pipe), device=device,
+                      mesh=mesh)
     teacher = None
     if cfg.use_target_soft_cross_entropy:
         teacher = make_clip_teacher(cfg.dataset, info["classes"], getattr(args, "weights_dir", None), device)
 
-    plot_per_class = getattr(args, "plot_per_class_acc", False)
+    plot_per_class = getattr(args, "plot_per_class_acc", False) and lead
     if plot_per_class:
         counts = Counter(train_ds.labels)
         train_samples_per_class = {c: counts.get(c, 0) for c in range(info["num_classes"])}
 
+    def log(row: dict):
+        if metrics is not None:
+            metrics.log(row)
+
     def log_eval(ev: dict, epoch: int, tag: str):
-        metrics.log({"epoch": epoch, **{k: (v[0] if isinstance(v, list) else v) for k, v in ev.items()
+        log({"epoch": epoch, **{k: (v[0] if isinstance(v, list) else v) for k, v in ev.items()
                                         if not k.endswith("_acc_per_class")}})
         if plot_per_class:
             import matplotlib.pyplot as plt
@@ -128,7 +147,7 @@ def run_training(args, device=None) -> dict:
         if teacher is not None:
             batches = ((X, y, y_soft, teacher(X)) for X, y, y_soft in batches)
         out = trainer.run_epoch(epoch, batches)
-        metrics.log({"epoch": epoch, **{k: v for k, v in out.items() if np.isscalar(v)}})
+        log({"epoch": epoch, **{k: v for k, v in out.items() if np.isscalar(v)}})
 
         if trainer.should_validate(epoch):
             ev = trainer.evaluate(val_pipe.iter_eval(), epoch=epoch, is_test=False)

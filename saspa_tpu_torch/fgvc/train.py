@@ -25,6 +25,20 @@ statistics the first left, as the JAX step's `variables2`.  Every draw
 comes from the step's threefry key split as the JAX step splits it
 (k_model1, k_model2, k_crop, k_drop = split(key, 4)), so a step with the
 same key draws what JAX draws; `draws` injects them instead.
+
+Data parallelism (`mesh`, parallel/mesh.py; JAX's sharded step,
+saspa_tpu/fgvc/train.py:259-329): one process a card, each holding the
+state and taking its contiguous rows of the global batch (shard_batch).
+Every draw is made for the global batch on every rank and sliced
+(`utils/rng.py::Rows`; injected draws are global too), BatchNorm takes the
+global batch's statistics, the gradients are one flat all_reduce divided
+by the rank count (the shards are equal, so that is the global batch's
+mean), the feature-center scatter adds the gathered global delta at the
+gathered labels, and the metrics are reduced before the host reads them.
+So every rank ends a step as the one-process step on the global batch does,
+and every decision the host makes (validation, early stop, divergence
+abort, the best checkpoint) comes from reduced values, the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -41,8 +55,10 @@ from saspa_tpu_torch import resolve_device
 from saspa_tpu_torch.fgvc import losses as L
 from saspa_tpu_torch.fgvc.metrics import AverageMeter, MeanClassAccuracy, TopKAccuracy, per_class_stats, topk_correct
 from saspa_tpu_torch.models.cal import WSDAN_CAL
-from saspa_tpu_torch.models.layers import init_weights
+from saspa_tpu_torch.models.layers import init_weights, sync_batch_norms
 from saspa_tpu_torch.ops.batch_augment import batch_augment
+from saspa_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean_, all_reduce_sum, barrier, gather_rows,
+                                           replicated)
 from saspa_tpu_torch.utils import rng as rngs
 from saspa_tpu_torch.utils.checkpoint import load_checkpoint, restore_into, save_checkpoint
 from saspa_tpu_torch.utils.config import TrainConfig
@@ -100,10 +116,29 @@ def sgd_update(state: TrainState, lr: float, weight_decay: float, momentum: floa
 REGULAR_CE_RATIO = 0.5  # the hard CE's share of the blend with the teacher's soft targets
 
 
-def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int):
+def _reduce_metrics(mesh: Optional[Mesh], metrics: dict) -> dict:
+    """The metrics over every rank, in one all_reduce: the loss averaged
+    (the shards are equal), the counts summed."""
+    if mesh is None or mesh.size == 1:
+        return metrics
+    names = list(metrics)
+    flat = all_reduce_sum(mesh, torch.cat([metrics[k].double().reshape(-1) for k in names]))
+    out, at = {}, 0
+    for k in names:
+        v = metrics[k]
+        part = flat[at:at + v.numel()].view(v.shape)
+        at += v.numel()
+        out[k] = (part / mesh.size if k == "loss" else part).to(v.dtype)
+    return out
+
+
+def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int, mesh: Optional[Mesh] = None):
     """train_step(state, X (B, 3, H, W) f32, y (B,) int, key, y_soft=None,
     draws=None, clip_logits=None) -> metrics (device tensors), updating
-    `state` in place.
+    `state` in place.  Under a mesh of more than one rank, X, y, y_soft and
+    clip_logits are this rank's rows of the global batch (the module
+    docstring), draws the global batch's, and the metrics the global
+    batch's.
 
     y_soft (B, num_classes) f32, CutMix's soft labels, replaces y in every
     cross-entropy term (the aug and aux views repeat it as they repeat y);
@@ -120,18 +155,27 @@ def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int):
     def ce(logits, labels, soft):
         return L.cross_entropy(logits, labels) if soft is None else L.cross_entropy_soft(logits, soft)
 
+    world = 1 if mesh is None else mesh.size
+
     def train_step(state: TrainState, X: torch.Tensor, y: torch.Tensor, key, y_soft: Optional[torch.Tensor] = None,
                    draws: Optional[dict] = None, clip_logits: Optional[torch.Tensor] = None):
         k_model1, k_model2, k_crop, k_drop = rngs.split(key, 4)
         draws = draws or {}
         model = state.model
         y = y.long()
+        rows1 = rows2 = None
+        if world > 1:  # this rank's rows of the batch (B) and of the crop + drop batch (2B)
+            b = X.shape[0]
+            rows1 = rngs.Rows(np.arange(mesh.rank * b, (mesh.rank + 1) * b), b * world)
+            rows2 = rngs.Rows(np.concatenate([rows1.index, rows1.total + rows1.index]), 2 * rows1.total)
+            draws = {k: v[torch.as_tensor((rows2 if k in ("fake2", "pick2") else rows1).index, device=v.device)]
+                     for k, v in draws.items()}
 
         fc_batch = state.feature_center[y]
         fc_batch = fc_batch / fc_batch.norm(dim=-1, keepdim=True).clamp_min(1e-12)  # F.normalize
 
         p_raw, p_aux, feature_matrix, attention_map = model(
-            X, train=True, rngs_key=k_model1, fake_att=draws.get("fake1"), pick_idx=draws.get("pick1"))
+            X, train=True, rngs_key=k_model1, fake_att=draws.get("fake1"), pick_idx=draws.get("pick1"), rows=rows1)
         if not use_wsdan:
             # dont_use_wsdan keeps the center term: CE(raw) + center (fgvc/train.py:501-503)
             loss = ce(p_raw, y, y_soft) + L.center_loss(feature_matrix, fc_batch)
@@ -139,11 +183,11 @@ def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int):
         else:
             att = attention_map.detach()
             crop_images = batch_augment(X, att[:, 0], k_crop, mode="crop", theta=(0.4, 0.6), padding_ratio=0.1,
-                                        thetas=draws.get("crop_theta"))
+                                        thetas=draws.get("crop_theta"), rows=rows1)
             drop_images = batch_augment(X, att[:, 1], k_drop, mode="drop", theta=(0.2, 0.5),
-                                        thetas=draws.get("drop_theta"))
+                                        thetas=draws.get("drop_theta"), rows=rows1)
             p_aug, p_aux_aug, _, _ = model(torch.cat([crop_images, drop_images]), train=True, rngs_key=k_model2,
-                                           fake_att=draws.get("fake2"), pick_idx=draws.get("pick2"))
+                                           fake_att=draws.get("fake2"), pick_idx=draws.get("pick2"), rows=rows2)
             y_aug = torch.cat([y, y])
             p_aux_cat = torch.cat([p_aux, p_aux_aug])
             y_aux = torch.cat([y, y_aug])
@@ -163,23 +207,31 @@ def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int):
                 loss = loss + ce_term
 
         loss.backward()
+        if world > 1:
+            all_reduce_mean_(mesh, [p.grad for p in model.parameters()])
         f = np.float64 if model.fc.kernel.dtype == torch.float64 else np.float32
         sgd_update(state, lr_at(cfg, num_batches_per_epoch, state.step, f), cfg.optimizer_weight_decay, cfg.momentum)
         with torch.no_grad():
             delta = beta * (feature_matrix.detach() - fc_batch)
-            state.feature_center.index_add_(0, y, delta)  # accumulates duplicate labels
+            if world > 1:  # the global batch's rows, in the one-process order
+                delta, y_all = gather_rows(mesh, delta), gather_rows(mesh, y)
+            else:
+                y_all = y
+            state.feature_center.index_add_(0, y_all, delta)  # accumulates duplicate labels
             metrics = {"loss": loss.detach(), "raw_correct": topk_correct(p_raw, y),
                        "aug_correct": topk_correct(p_aug, y_aug), "aux_correct": topk_correct(p_aux_cat, y_aux)}
         state.step += 1
-        return metrics
+        return _reduce_metrics(mesh, metrics)
 
     return train_step
 
 
 @torch.no_grad()
-def eval_step(state: TrainState, X: torch.Tensor, y: torch.Tensor, key, num_classes: int) -> dict:
+def eval_step(state: TrainState, X: torch.Tensor, y: torch.Tensor, key, num_classes: int,
+              mesh: Optional[Mesh] = None) -> dict:
     """Two-view TTA eval (fgvc/train.py:604-623); the crop's theta is fixed,
-    so `key` draws nothing."""
+    so `key` draws nothing.  Under a mesh X and y are this rank's rows and
+    the metrics the global batch's."""
     model = state.model
     y = y.long()
     p_raw, p_aux, _, attention_map = model(X)
@@ -188,17 +240,24 @@ def eval_step(state: TrainState, X: torch.Tensor, y: torch.Tensor, key, num_clas
     p = (p_raw + p_crop) / 2.0
     p_aux = (p_aux + p_aux_crop) / 2.0
     corrects, counts = per_class_stats(p, y, num_classes)
-    return {"loss": L.cross_entropy(p, y), "correct": topk_correct(p, y), "aux_correct": topk_correct(p_aux, y),
-            "class_corrects": corrects, "class_counts": counts}
+    return _reduce_metrics(mesh, {"loss": L.cross_entropy(p, y), "correct": topk_correct(p, y),
+                                  "aux_correct": topk_correct(p_aux, y), "class_corrects": corrects,
+                                  "class_counts": counts})
 
 
 class Trainer:
     """The epoch loop over the input pipeline's device batches (X, y,
     y_soft or None), with the teacher's clip_logits as a fourth item when
-    the soft-target CE is on."""
+    the soft-target CE is on.  Under a mesh of more than one rank, each
+    batch is this rank's rows of the global batch (InputPipeline(mesh=...)
+    yields them; shard_batch cuts them from a global one), the state starts
+    from rank 0's, and rank 0 alone writes the best checkpoint."""
 
-    def __init__(self, cfg: TrainConfig, num_classes: int, num_batches_per_epoch: int, device=None):
+    def __init__(self, cfg: TrainConfig, num_classes: int, num_batches_per_epoch: int, device=None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.world = 1 if mesh is None else mesh.size
         self.num_classes = num_classes
         self.num_batches_per_epoch = num_batches_per_epoch
         self.state = create_train_state(cfg, num_classes, device)
@@ -213,7 +272,11 @@ class Trainer:
             self.restored = {"file": cfg.ckpt, "skipped": skipped, "missing": [k for k in own if k not in loaded],
                              "feature_center": "feature_center" in ckpt, "pth": ckpt.get("report")}
             logging.info("restored checkpoint from %s: %s", cfg.ckpt, self.restored)
-        self.train_step = make_train_step(cfg, num_batches_per_epoch)
+        if self.world > 1:
+            s = self.state
+            replicated(mesh, [s.model, s.feature_center, s.momentum])
+            sync_batch_norms(s.model, mesh)
+        self.train_step = make_train_step(cfg, num_batches_per_epoch, mesh)
         self.best_val_acc = float("-inf")
         self.best_val_history: list = []
         self.logs: dict = {}
@@ -239,7 +302,7 @@ class Trainer:
             n += 1
             if pending is not None:
                 consume(*pending)
-            pending = (m, int(y.shape[0]))
+            pending = (m, int(y.shape[0]) * self.world)
         if pending is not None:
             consume(*pending)
         dt = time.time() - t0
@@ -262,10 +325,10 @@ class Trainer:
         pending = None
         for i, (X, y) in enumerate(batches):
             m = eval_step(self.state, X, y, rngs.item_key(self.cfg.seed, "attention_pick", epoch, i),
-                          self.num_classes)
+                          self.num_classes, self.mesh)
             if pending is not None:
                 consume(*pending)
-            pending = (m, int(y.shape[0]))
+            pending = (m, int(y.shape[0]) * self.world)
         if pending is not None:
             consume(*pending)
         tag = "test" if is_test else "val"
@@ -276,10 +339,15 @@ class Trainer:
         return out
 
     def maybe_save_best(self, val_acc: float, path: str) -> bool:
+        """val_acc is the global batch's, so every rank decides alike; rank
+        0 writes, and the others wait for it."""
         if val_acc > self.best_val_acc:
             self.best_val_acc = val_acc
-            save_checkpoint(path, self.state.model, feature_center=self.state.feature_center, logs=self.logs)
-            logging.info("saved best checkpoint (val acc %.2f) to %s", val_acc, path)
+            if self.mesh is None or self.mesh.rank == 0:
+                save_checkpoint(path, self.state.model, feature_center=self.state.feature_center, logs=self.logs)
+                logging.info("saved best checkpoint (val acc %.2f) to %s", val_acc, path)
+            if self.mesh is not None:
+                barrier(self.mesh)
             return True
         return False
 

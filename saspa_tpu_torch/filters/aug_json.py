@@ -18,6 +18,14 @@ reference's counters.  Files are checked with `gen.image_io.verify_image`
 (lpips_min <= d <= lpips_max) scores each aug against its original in
 padded batches (filters/lpips_filter.py), after the confidence filter and
 before CLIP, in the JAX builder's order.
+
+With a mesh of more than one rank (`cli filter` under torchrun), every rank
+runs the builder and both scorers split each batch over the ranks
+(filters/batches.py).  Rank 0 alone verifies and deletes corrupt files,
+before a barrier after which every rank lists the folder; rank 0 alone runs
+the host-side filters (LPIPS, the ALIA thresholds), writes the JSON, its log
+and the telemetry line, and a last barrier lets every rank return the
+JSON's path once it is written.
 """
 
 from __future__ import annotations
@@ -157,13 +165,19 @@ def create_json_of_image_name_to_augmented_images_paths(
     batch_size: int = 64,
     seed: int = 0,
     device=None,
+    mesh=None,
 ) -> str:
     """Writes the aug-JSON of a folder of generated images and returns its
-    path.  The models run on `device` (None: the card)."""
+    path.  The models run on `device` (None: the card); `mesh` shares the
+    scoring among its ranks (module docstring)."""
     if clip_filtering and model_confidence_based_filtering:
         raise ValueError("can't use both clip_filtering and model_confidence_based_filtering")
     from saspa_tpu_torch.data.registry import DS_UTILS_DICT
     from saspa_tpu_torch.filters.batches import new_timings
+    from saspa_tpu_torch.parallel.mesh import barrier
+
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
+    lead = mesh is None or mesh.rank == 0
 
     if not str(augmented_image_folder_path).endswith("/images"):
         augmented_image_folder_path = str(Path(augmented_image_folder_path) / "images")
@@ -173,7 +187,7 @@ def create_json_of_image_name_to_augmented_images_paths(
         clip_filtering_discount, semantic_filtering, model_confidence_based_filtering,
         conf_top_k, filter_confidence_higher_than, alia_conf_filtering,
     )
-    if init_log:
+    if init_log and lead:
         from saspa_tpu_torch.utils.logging_utils import init_logging
 
         init_logging(logfile=json_path.replace(".json", ".log"))
@@ -181,7 +195,11 @@ def create_json_of_image_name_to_augmented_images_paths(
 
     timings = new_timings()
     t0 = time.perf_counter()
-    check_folder_of_images_with_pil(augmented_image_folder_path, max_delete=50, substrings_to_exclude=SUBSTRINGS_TO_EXCLUDE)
+    if lead:
+        check_folder_of_images_with_pil(augmented_image_folder_path, max_delete=50,
+                                        substrings_to_exclude=SUBSTRINGS_TO_EXCLUDE)
+    if mesh is not None:  # the others list the folder once the corrupt files are gone
+        barrier(mesh)
     timings["verify_s"] = time.perf_counter() - t0
 
     utils_to_use = DS_UTILS_DICT[dataset](print_func=logging.info)
@@ -218,7 +236,7 @@ def create_json_of_image_name_to_augmented_images_paths(
         model, preprocess = utils_to_use.load_baseline_model(device=device, weights_dir=weights_dir)
         from saspa_tpu_torch.filters.confidence import batched_logits
 
-        baseline_logits = batched_logits(model, flat_paths, preprocess, batch_size, timings)
+        baseline_logits = batched_logits(model, flat_paths, preprocess, batch_size, timings, mesh)
         del model
         path_to_class = utils_to_use.get_image_path_to_class_id_dict()
         owner_class = np.asarray(
@@ -240,7 +258,7 @@ def create_json_of_image_name_to_augmented_images_paths(
             counters["too_high_confidence"] = int((keep & too_high).sum())
             keep &= ~too_high
 
-    if (lpips_min or lpips_max) and len(flat_paths):
+    if (lpips_min or lpips_max) and len(flat_paths) and lead:
         from saspa_tpu_torch.filters.lpips_filter import batched_lpips
 
         dists = batched_lpips([original_images_paths[o] for o in flat_owner], flat_paths, resize=resize,
@@ -261,7 +279,7 @@ def create_json_of_image_name_to_augmented_images_paths(
         )
 
         clip_scorer = CLIPScorer("rn50", weights_dir=weights_dir, device=device)
-        img_feats = clip_scorer.image_features(flat_paths, batch_size, timings)
+        img_feats = clip_scorer.image_features(flat_paths, batch_size, timings, mesh)
 
     if clip_filtering and len(flat_paths):
         classnames, prompts, key_to_class, key_mode = _clip_class_battery(dataset, utils_to_use)
@@ -286,6 +304,10 @@ def create_json_of_image_name_to_augmented_images_paths(
         mask = semantic_keep(logits)
         counters["semantic_filtering"] = int((keep & ~mask).sum())
         keep &= mask
+
+    if not lead:  # the scoring's collectives are done; rank 0 filters and writes
+        barrier(mesh)
+        return json_path
 
     if alia_conf_filtering and len(flat_paths):
         thresholds = utils_to_use.get_baseline_conf_threshold(device=device, weights_dir=weights_dir)
@@ -337,6 +359,8 @@ def create_json_of_image_name_to_augmented_images_paths(
 
     logging.info("augs/image histogram: %s", get_dict_of_value_counts_image_name_to_num_aug_images(result))
     logging.info("filter telemetry: %s", json.dumps(timings))
+    if mesh is not None:
+        barrier(mesh)
     return json_path
 
 

@@ -94,9 +94,12 @@ class CLIPScorer:
         ids = torch.from_numpy(self.tokenizer(list(prompts))).long().to(self.device)
         return self.model.encode_text(ids).float().cpu().numpy()
 
-    def image_features(self, paths: Sequence[str], batch_size: int = 64, timings: Optional[dict] = None) -> np.ndarray:
+    def image_features(self, paths: Sequence[str], batch_size: int = 64, timings: Optional[dict] = None,
+                       mesh=None) -> np.ndarray:
+        """(N, output_dim) image features; with a mesh each batch is split
+        over its ranks (filters/batches.py)."""
         return score_in_batches(paths, clip_preprocess_path, self.model.encode_image, batch_size,
-                                self.model.output_dim, self.device, timings)
+                                self.model.output_dim, self.device, timings, mesh)
 
     def logits(self, image_features: np.ndarray, text_features: np.ndarray) -> np.ndarray:
         return self.logit_scale * image_features @ text_features.T

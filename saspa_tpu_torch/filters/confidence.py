@@ -84,12 +84,13 @@ def load_cal_baseline(name: str, num_classes: int, resize: Tuple[int, int] = (22
 
 
 def batched_logits(model: WSDAN_CAL, paths: Sequence[str], preprocess: Callable[[str], np.ndarray],
-                   batch_size: int = 64, timings: Optional[dict] = None) -> np.ndarray:
+                   batch_size: int = 64, timings: Optional[dict] = None, mesh=None) -> np.ndarray:
     """Image paths -> (N, num_classes) float32 logits, in padded batches of
-    one shape on the model's device."""
+    one shape on the model's device; with a mesh each batch is split over
+    its ranks (filters/batches.py)."""
     device = model.fc.kernel.device
     return score_in_batches(paths, preprocess, lambda x: model(x)[0], batch_size, model.num_classes, device,
-                            timings)
+                            timings, mesh)
 
 
 def compute_alia_thresholds(ds_utils, device=None, weights_dir: Optional[str] = None) -> Dict[str, float]:

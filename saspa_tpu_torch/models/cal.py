@@ -56,27 +56,31 @@ def bap(features: torch.Tensor, attentions: torch.Tensor,
     return pool(attentions), pool(torch.ones_like(attentions) if fake_att is None else fake_att)
 
 
-def fake_attention(key, shape_nchw, device="cpu") -> torch.Tensor:
+def fake_attention(key, shape_nchw, device="cpu", rows: Optional[rngs.Rows] = None) -> torch.Tensor:
     """jax.random.uniform(key, (B, H, W, M), float32, 0, 2) as (B, M, H, W)
-    on `device` (the JAX module draws it in its NHWC layout)."""
+    on `device` (the JAX module draws it in its NHWC layout); with `rows`,
+    B is rows of a batch of rows.total, drawn for the whole."""
     b, m, h, w = shape_nchw
-    return to_device(rngs.uniform_f32(key, (b, h, w, m), 0.0, 2.0), device).permute(0, 3, 1, 2)
+    u = rngs.uniform_f32(key, (rngs.draw_size(rows, b), h, w, m), 0.0, 2.0)
+    return to_device(rngs.take_rows(u, rows), device).permute(0, 3, 1, 2)
 
 
 def sample_attention_maps(attentions: torch.Tensor, key=None, pick_idx: Optional[torch.Tensor] = None,
-                          return_picks: bool = False):
+                          return_picks: bool = False, rows: Optional[rngs.Rows] = None):
     """Training-time map selection (fgvc/models/cal.py:201-209): two maps a
     sample, with replacement, with probability proportional to sqrt(total
     energy): jax.random.categorical(split(key, B)[i], logits, shape=(2,)).
     The Gumbel noise comes from the host, the logits and the argmax stay on
-    the maps' device.  `pick_idx` (B, 2) overrides the draw.
+    the maps' device.  `pick_idx` (B, 2) overrides the draw; `rows` as
+    fake_attention's.
 
     attentions (B, M, H, W) -> (B, 2, H, W) [first for crop, second for drop]."""
     b, m = attentions.shape[:2]
     if pick_idx is None:
         energy = torch.sqrt(attentions.sum(dim=(2, 3)) + EPSILON)  # (B, M)
         logits = torch.log(energy / energy.sum(dim=-1, keepdim=True))
-        noise = np.stack([rngs.categorical_gumbel(k, m, (2,)) for k in rngs.split(key, b)])  # (B, 2, M)
+        keys = rngs.take_rows(rngs.split(key, rngs.draw_size(rows, b)), rows)
+        noise = np.stack([rngs.categorical_gumbel(k, m, (2,)) for k in keys])  # (B, 2, M)
         pick_idx = (to_device(noise, logits.device) + logits[:, None, :]).argmax(dim=-1)
     pick_idx = pick_idx.to(device=attentions.device, dtype=torch.long)
     picked = torch.take_along_dim(attentions, pick_idx[:, :, None, None], dim=1)
@@ -118,9 +122,10 @@ class WSDAN_CAL(nn.Module):
                         param_dtype=param_dtype)
 
     def forward(self, x, train: bool = False, rngs_key=None, fake_att: Optional[torch.Tensor] = None,
-                pick_idx: Optional[torch.Tensor] = None):
+                pick_idx: Optional[torch.Tensor] = None, rows: Optional[rngs.Rows] = None):
         """train=True needs `rngs_key` (a numpy threefry key) unless both
-        `fake_att` (B, M, h, w) and `pick_idx` (B, 2) are given."""
+        `fake_att` (B, M, h, w) and `pick_idx` (B, 2) are given.  `rows`: x
+        holds those rows of a larger batch, and the draws are that batch's."""
         feature_maps = self.features(x, train)  # (B, C, h, w)
         if self.net == "inception_mixed_7c":
             attention_maps = feature_maps[:, :self.M].float()
@@ -134,9 +139,10 @@ class WSDAN_CAL(nn.Module):
                     raise ValueError("the training forward needs an rng key, or fake_att and pick_idx")
                 k_fake, k_pick = rngs.split(rngs_key, 2)
             if fake_att is None:
-                fake_att = fake_attention(k_fake, am32.shape, am32.device)
+                fake_att = fake_attention(k_fake, am32.shape, am32.device, rows)
             feature_matrix, feature_matrix_hat = bap(fm32, am32, fake_att.to(am32.device, am32.dtype))
-            attention_map = sample_attention_maps(am32.detach(), None if pick_idx is not None else k_pick, pick_idx)
+            attention_map = sample_attention_maps(am32.detach(), None if pick_idx is not None else k_pick, pick_idx,
+                                                  rows=rows)
         else:
             feature_matrix, feature_matrix_hat = bap(fm32, am32)
             attention_map = am32.mean(dim=1, keepdim=True)

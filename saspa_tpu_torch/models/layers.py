@@ -92,9 +92,16 @@ class BatchNorm(nn.Module):
     forward(x, train=True) normalizes with the batch's: f32 mean and fast
     variance E[x^2] - E[x]^2 clipped at 0 (biased), over every axis but the
     channels, differentiable; and folds them into the running statistics
-    under no_grad as ra = 0.9 * ra + 0.1 * batch, var as mean."""
+    under no_grad as ra = 0.9 * ra + 0.1 * batch, var as mean.
+
+    `mesh` (set by `sync_batch_norms`): with more than one rank, the batch
+    is the global one.  Each rank's mean and mean of x^2 are summed over the
+    ranks by the autograd-aware all_reduce and divided by the rank count
+    (the shards are equal), so every rank normalizes by, and folds in, the
+    same statistics, as flax over a sharded batch."""
 
     momentum = 0.9
+    mesh = None
 
     def __init__(self, features, eps: float = 1e-5, device=None):
         super().__init__()
@@ -109,8 +116,12 @@ class BatchNorm(nn.Module):
         xf = acc_dtype(x)
         if train:
             dims = [0] + list(range(2, x.ndim))
-            mean = xf.mean(dim=dims)
-            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            mean, sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+            if self.mesh is not None and self.mesh.size > 1:
+                from torch.distributed.nn.functional import all_reduce
+
+                mean, sq = all_reduce(torch.stack([mean, sq])) / self.mesh.size
+            var = (sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
@@ -118,6 +129,15 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
+def sync_batch_norms(module: nn.Module, mesh) -> nn.Module:
+    """Every BatchNorm of `module` takes its train-mode statistics over
+    `mesh`'s global batch (None: its own batch again)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
+    return module
 
 
 def flax_layer_norm(x, scale, bias, eps: float = 1e-5):

@@ -45,13 +45,16 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.double() * torch.as_tensor(b).double() + torch.as_tensor(c).double()).to(a.dtype)
 
 
-def random_crop_batch(imgs: torch.Tensor, key, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """(B, H, W, C) -> (B, th, tw, C), one random offset a sample."""
+def random_crop_batch(imgs: torch.Tensor, key, out_hw: Tuple[int, int], rows: Optional[rngs.Rows] = None) -> torch.Tensor:
+    """(B, H, W, C) -> (B, th, tw, C), one random offset a sample.  `rows`:
+    imgs are those rows of a larger batch, whose draws they take (here and
+    in every transform below)."""
     b, h, w, _ = imgs.shape
     th, tw = out_hw
+    n = rngs.draw_size(rows, b)
     ky, kx = rngs.split(key, 2)
-    oy = rngs.randint(ky, (b,), 0, h - th + 1)
-    ox = rngs.randint(kx, (b,), 0, w - tw + 1)
+    oy = rngs.take_rows(rngs.randint(ky, (n,), 0, h - th + 1), rows)
+    ox = rngs.take_rows(rngs.randint(kx, (n,), 0, w - tw + 1), rows)
     return torch.stack([imgs[i, oy[i]:oy[i] + th, ox[i]:ox[i] + tw] for i in range(b)])
 
 
@@ -62,8 +65,9 @@ def center_crop_batch(imgs: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tens
     return imgs[:, y0:y0 + th, x0:x0 + tw]
 
 
-def hflip_batch(imgs: torch.Tensor, key, p: float = 0.5) -> torch.Tensor:
-    flip = to_device(rngs.bernoulli(key, p, (imgs.shape[0],)), imgs.device)
+def hflip_batch(imgs: torch.Tensor, key, p: float = 0.5, rows: Optional[rngs.Rows] = None) -> torch.Tensor:
+    flip = to_device(rngs.take_rows(rngs.bernoulli(key, p, (rngs.draw_size(rows, imgs.shape[0]),)), rows),
+                     imgs.device)
     return torch.where(flip[:, None, None, None], imgs.flip(2), imgs)
 
 
@@ -81,15 +85,20 @@ def adjust_saturation(img: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     return fma(factor, img - g, g).clamp(0.0, 1.0)
 
 
-def color_jitter_batch(imgs: torch.Tensor, key, brightness: float = 0.126, saturation: float = 0.5) -> torch.Tensor:
+def color_jitter_batch(imgs: torch.Tensor, key, brightness: float = 0.126, saturation: float = 0.5,
+                       rows: Optional[rngs.Rows] = None) -> torch.Tensor:
     """torchvision ColorJitter(brightness=0.126, saturation=0.5)
     (fgvc/util.py:296), with the op order drawn per sample."""
-    b = imgs.shape[0]
+    b = rngs.draw_size(rows, imgs.shape[0])
     kb, ks, ko = rngs.split(key, 3)
     dev = imgs.device
-    bf = to_device(rngs.uniform_f32(kb, (b, 1, 1, 1), 1 - brightness, 1 + brightness), dev)
-    sf = to_device(rngs.uniform_f32(ks, (b, 1, 1, 1), 1 - saturation, 1 + saturation), dev)
-    bright_first = to_device(rngs.bernoulli(ko, 0.5, (b, 1, 1, 1)), dev)
+
+    def up(a):
+        return to_device(rngs.take_rows(a, rows), dev)
+
+    bf = up(rngs.uniform_f32(kb, (b, 1, 1, 1), 1 - brightness, 1 + brightness))
+    sf = up(rngs.uniform_f32(ks, (b, 1, 1, 1), 1 - saturation, 1 + saturation))
+    bright_first = up(rngs.bernoulli(ko, 0.5, (b, 1, 1, 1)))
     return torch.where(bright_first, adjust_saturation(adjust_brightness(imgs, bf), sf),
                        adjust_brightness(adjust_saturation(imgs, sf), bf))
 
@@ -270,10 +279,10 @@ def apply_ops(imgs: torch.Tensor, op_idx: np.ndarray, strength: np.ndarray, name
 RANDAUG_NUM_OPS, RANDAUG_MAGNITUDE = 2, 9  # torchvision's RandAugment defaults: 2 ops at 9 of 30
 
 
-def randaugment_draws(key, b: int):
+def randaugment_draws(key, b: int, rows: Optional[rngs.Rows] = None):
     """(op index, signed strength), each (2, b): sample i's key is
     split(key, b)[i]; op r splits fold_in(key, r) into (op, sign, next key)."""
-    keys = rngs.split(key, b)
+    keys = rngs.take_rows(rngs.split(key, rngs.draw_size(rows, b)), rows)
     op_idx = np.zeros((RANDAUG_NUM_OPS, b), np.int64)
     sign = np.zeros((RANDAUG_NUM_OPS, b), _F)
     for r in range(RANDAUG_NUM_OPS):
@@ -283,9 +292,9 @@ def randaugment_draws(key, b: int):
     return op_idx, sign * _F(RANDAUG_MAGNITUDE / 30.0)
 
 
-def randaugment_batch(imgs: torch.Tensor, key) -> torch.Tensor:
+def randaugment_batch(imgs: torch.Tensor, key, rows: Optional[rngs.Rows] = None) -> torch.Tensor:
     """RandAugment (torchvision's 14 ops, 31 bins, 2 ops at strength 9 / 30)."""
-    op_idx, strength = randaugment_draws(key, imgs.shape[0])
+    op_idx, strength = randaugment_draws(key, imgs.shape[0], rows)
     return apply_ops(imgs, op_idx, strength, RANDAUG_OPS)
 
 
@@ -324,21 +333,21 @@ _AA_P = np.array([[op[1] for op in pol] for pol in AA_POLICY], _F)
 _AA_M = np.array([[op[2] / 9.0 for op in pol] for pol in AA_POLICY], _F)
 
 
-def autoaugment_draws(key, b: int):
+def autoaugment_draws(key, b: int, rows: Optional[rngs.Rows] = None):
     """(op index, signed strength, applied), each (2, b): sample i's key
     split(key, b)[i] splits into (policy, coin 1, coin 2, sign 1, sign 2);
     op j applies where uniform < its f32 probability."""
-    kp, k1, k2, ks1, ks2 = rngs.split_each(rngs.split(key, b), 5)
+    kp, k1, k2, ks1, ks2 = rngs.split_each(rngs.take_rows(rngs.split(key, rngs.draw_size(rows, b)), rows), 5)
     pol = rngs.randint_each(kp, 0, len(AA_POLICY))
     apply = np.stack([rngs.uniform_each(kk) < _AA_P[pol, j] for j, kk in enumerate((k1, k2))])
     sign = np.stack([np.where(rngs.uniform_each(kk) < _F(0.5), _F(1), _F(-1)) for kk in (ks1, ks2)])
     return _AA_IDX[pol].T, sign * _AA_M[pol].T, apply
 
 
-def autoaugment_batch(imgs: torch.Tensor, key) -> torch.Tensor:
+def autoaugment_batch(imgs: torch.Tensor, key, rows: Optional[rngs.Rows] = None) -> torch.Tensor:
     """AutoAugment: one of the 25 ImageNet sub-policies a sample, each of its
     two ops applied with its probability."""
-    op_idx, strength, apply = autoaugment_draws(key, imgs.shape[0])
+    op_idx, strength, apply = autoaugment_draws(key, imgs.shape[0], rows)
     return apply_ops(imgs, op_idx, strength, AUTOAUG_OPS, apply)
 
 
@@ -370,23 +379,54 @@ def cutmix_draws(key, b: int, h: int, w: int):
     return ints, lams
 
 
-def cutmix_batch(imgs: torch.Tensor, labels: torch.Tensor, key, num_classes: int):
+def _cutmix_plan(ints: np.ndarray, out: np.ndarray):
+    """(sources, mix 1's rows): the sorted rows whose images mix into rows
+    `out`.  Mix 2 reads mix 1's result at its permutation of `out`, and
+    mix 1 reads the images at its permutation of those."""
+    mid = np.union1d(out, ints[1, 1][out])
+    return np.union1d(mid, ints[0, 1][mid]), mid
+
+
+def cutmix_sources(key, rows: rngs.Rows, h: int, w: int) -> np.ndarray:
+    """The sorted rows of the batch that rows.index's CutMix reads, at (h, w)."""
+    return _cutmix_plan(cutmix_draws(key, rows.total, h, w)[0], np.asarray(rows.index))[0]
+
+
+def cutmix_batch(imgs: torch.Tensor, labels: torch.Tensor, key, num_classes: int,
+                 rows: Optional[rngs.Rows] = None):
     """In-batch CutMix of NCHW images: returns (images, labels, soft labels
     f32 (B, num_classes)).  Mix 2 permutes mix 1's images and labels.  The
-    draws go up in two uploads; boxes and mixes run on imgs' device."""
-    b, _, h, w = imgs.shape
+    draws go up in two uploads; boxes and mixes run on imgs' device.
+
+    With `rows`, imgs and labels are the rows `cutmix_sources(key, rows, h,
+    w)` of a batch of rows.total, and the result is rows.index's: a shard
+    loads only the images its own rows mix from.  Without `rows` the batch
+    is all of its own rows."""
+    _, _, h, w = imgs.shape
     dev = imgs.device
-    ints, lams = cutmix_draws(key, b, h, w)
-    ints, lams = to_device(ints, dev), to_device(lams, dev)
-    y_soft = torch.zeros(b, num_classes, dtype=torch.float32, device=dev).scatter_(1, labels.long()[:, None], 1.0)
+    if rows is None:
+        rows = rngs.Rows(np.arange(imgs.shape[0]), imgs.shape[0])
+    n = rows.total
+    ints_np, lams_np = cutmix_draws(key, n, h, w)
+    ints, lams = to_device(ints_np, dev), to_device(lams_np, dev)
+    y_soft = torch.zeros(imgs.shape[0], num_classes, dtype=torch.float32, device=dev).scatter_(
+        1, labels.long()[:, None], 1.0)
     ys = torch.arange(h, device=dev)[None, :, None]
     xs = torch.arange(w, device=dev)[None, None, :]
-    for i in range(CUTMIX_MIXES):
-        do, _, y1, y2, x1, x2 = ints[i, :, :, None, None]
+    # each mix's output rows and the rows its input holds, as rows of the batch
+    have, mid = _cutmix_plan(ints_np, np.asarray(rows.index))
+    labels = labels[to_device(np.searchsorted(have, rows.index), dev)]
+    for i, (dst, src) in enumerate([(mid, have), (np.asarray(rows.index), mid)]):
+        pos = np.zeros(n, np.int64)
+        pos[src] = np.arange(len(src))
+        sel = to_device(dst, dev)
+        mix, lam = ints[i][:, sel], lams[i][:, sel]
+        here, there = to_device(pos[dst], dev), to_device(pos[ints_np[i, 1][dst]], dev)
+        base, base_soft, other, other_soft = imgs[here], y_soft[here], imgs[there], y_soft[there]
+        do, _, y1, y2, x1, x2 = mix[:, :, None, None]
         box = (ys >= y1) & (ys < y2) & (xs >= x1) & (xs < x2) & (do > 0)
-        perm = ints[i, 1]
-        imgs = torch.where(box[:, None], imgs[perm], imgs)
-        y_soft = lams[i, 0][:, None] * y_soft + lams[i, 1][:, None] * y_soft[perm]
+        imgs = torch.where(box[:, None], other, base)
+        y_soft = lam[0][:, None] * base_soft + lam[1][:, None] * other_soft
     return imgs, labels, y_soft
 
 
@@ -409,23 +449,25 @@ def _finalize_u8(imgs_u8: torch.Tensor) -> torch.Tensor:
     return (fma(imgs_u8.float(), _INV_255, -mean) * inv_std).permute(0, 3, 1, 2).contiguous()
 
 
-def train_transform_batch(imgs_u8: torch.Tensor, key, preset: Optional[str], out_h: int, out_w: int) -> torch.Tensor:
+def train_transform_batch(imgs_u8: torch.Tensor, key, preset: Optional[str], out_h: int, out_w: int,
+                          rows: Optional[rngs.Rows] = None) -> torch.Tensor:
     """uint8 (B, H, W, C), already resized to size / 0.875 by the host ->
-    normalized float32 (B, C, out_h, out_w)."""
+    normalized float32 (B, C, out_h, out_w); with `rows`, imgs_u8 are those
+    rows of a larger batch and take its draws."""
     if preset not in PRESETS:
         raise ValueError(f"unknown train transform preset {preset!r}")
     kc, kf, kj = rngs.split(key, 3)
     if preset is None:
         return val_transform_batch(imgs_u8, out_h, out_w)
-    x = random_crop_batch(imgs_u8, kc, (out_h, out_w))
+    x = random_crop_batch(imgs_u8, kc, (out_h, out_w), rows)
     if preset == "randaug":
-        return _finalize(randaugment_batch(x.float() * _INV_255, kj))
+        return _finalize(randaugment_batch(x.float() * _INV_255, kj, rows))
     if preset == "autoaug":
-        return _finalize(autoaugment_batch(x.float() * _INV_255, kj))
-    x = hflip_batch(x, kf)  # the flip commutes with the scale
+        return _finalize(autoaugment_batch(x.float() * _INV_255, kj, rows))
+    x = hflip_batch(x, kf, rows=rows)  # the flip commutes with the scale
     if preset == "classic_no_color":
         return _finalize_u8(x)
-    return _finalize(color_jitter_batch(x.float() * _INV_255, kj))
+    return _finalize(color_jitter_batch(x.float() * _INV_255, kj, rows=rows))
 
 
 def val_transform_batch(imgs_u8: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -122,16 +122,17 @@ def draw_thetas(key, theta: Union[float, Tuple[float, float]], batch: int) -> np
 @torch.no_grad()
 def batch_augment(images: torch.Tensor, attention_map: torch.Tensor, key=None, mode: str = "crop",
                   theta: Union[float, Tuple[float, float]] = 0.5, padding_ratio: float = 0.1,
-                  thetas: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  thetas: Optional[torch.Tensor] = None, rows: Optional[rngs.Rows] = None) -> torch.Tensor:
     """Attention-guided crop or drop of NCHW `images` by one (ah, aw) map a
     sample.  Train draws theta per sample from `key` (a numpy threefry key,
-    as jax's); `thetas` (B,) overrides the draw.  Computes in f32 (f64
+    as jax's), for the whole batch of which `rows` are part when given;
+    `thetas` (B,) overrides the draw.  Computes in f32 (f64
     for an f64 map, as jax with x64)."""
     b, _, h, w = images.shape
     attn = acc_dtype(attention_map)
     amax = attn.amax(dim=(1, 2))
     if thetas is None:
-        thetas = to_device(draw_thetas(key, theta, b), attn.device)
+        thetas = to_device(rngs.take_rows(draw_thetas(key, theta, rngs.draw_size(rows, b)), rows), attn.device)
     thetas = thetas.to(device=attn.device, dtype=attn.dtype) * amax
 
     if mode == "crop":

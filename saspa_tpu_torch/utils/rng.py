@@ -33,6 +33,8 @@ within 3 ulps (tests/test_torch_train_recipes.py).
 from __future__ import annotations
 
 import hashlib
+from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -236,6 +238,28 @@ def host_choice(n: int, seed: int, stream: str, *indices: int) -> int:
 
 
 # ---- the draws of the train path: jax.random's functions on numpy keys ----
+@dataclass(frozen=True)
+class Rows:
+    """Rows `index` of a batch of `total`.  A shard of a batch makes each
+    draw for all `total` rows and keeps its own (`take`), so it draws what
+    the whole batch draws."""
+
+    index: np.ndarray
+    total: int
+
+    def take(self, a: np.ndarray, axis: int = 0) -> np.ndarray:
+        return np.take(a, self.index, axis=axis)
+
+
+def draw_size(rows: Optional[Rows], b: int) -> int:
+    """The batch a draw is made for: the whole of which `rows` are part, else b."""
+    return b if rows is None else rows.total
+
+
+def take_rows(a: np.ndarray, rows: Optional[Rows], axis: int = 0) -> np.ndarray:
+    return a if rows is None else rows.take(a, axis)
+
+
 def split(key, num: int = 2) -> np.ndarray:
     """jax.random.split(key, num) in the partitionable mode: key i is the
     hash of the counter pair (0, i), so it equals fold_in(key, i)."""

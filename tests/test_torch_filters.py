@@ -54,7 +54,7 @@ class StubScorer:
     def text_features(self, prompts):
         return np.stack([_seeded(p, (16,)) for p in prompts])
 
-    def image_features(self, paths, batch_size=64, timings=None):
+    def image_features(self, paths, batch_size=64, timings=None, mesh=None):
         lean = self.text_features(["a photo of an aircraft"])[0]
         return np.stack([_seeded(Path(p).name, (16,)) + (zlib.crc32(Path(p).name.encode()) % 2) * lean
                          for p in paths])

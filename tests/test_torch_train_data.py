@@ -325,8 +325,8 @@ def test_cli_train_with_the_clip_teacher(tree, tmp_path, monkeypatch):
     seen = []
     step = ttrain.make_train_step
 
-    def recording_step(cfg, n):
-        inner = step(cfg, n)
+    def recording_step(cfg, n, mesh=None):
+        inner = step(cfg, n, mesh)
 
         def run(state, X, y, key, y_soft=None, draws=None, clip_logits=None):
             seen.append((cfg.use_target_soft_cross_entropy, tuple(X.shape), tuple(clip_logits.shape)))
