@@ -473,6 +473,37 @@ Phases, each printing one JSON line:
                 of the one-process scores, each rank having scored 32.
                 Per-rank wall, init, train and score seconds; no K1-K6.  A
                 failing rank fails the phase.
+ 25. tp     -- cell (w), the (data, model) grid, right after dp: 4 ranks
+                of this script (--tp-rank) under gloo on cuda:0 as a (2, 2)
+                mesh (rank r at data index r // 2, model index r % 2), each
+                taking 2 f64 steps of the dry run's stage-1 model
+                (saspa_tpu_torch/dryrun.py: ResNet-50 at 64^2, M 4, 8
+                classes, global batch 8, lr 1e-6, injected global draws)
+                with fc's classes split over the model axis (shard_head),
+                against this process's one-process steps, which it takes
+                meanwhile: every step the loss, the whole fc, the feature
+                centers and the BatchNorm statistics within 1e-9 of each
+                tensor's largest entry and the gradient sgd_update takes
+                (fc's reassembled) within 1e-9 (relative norm); after the
+                last step every replicated parameter, momentum, buffer and
+                the feature centers bit-equal on all 4 ranks, each fc shard
+                bit-equal over its two data ranks.  Then
+                dryrun_multichip(4) on the ranks: JAX's three
+                "dryrun_multichip OK" lines on rank 0 only, stage 2's
+                gathered images (the tiny f32 SD1.5 + canny pipeline, 2
+                rows a data index) within 1 uint8 level of this process's
+                one-process run, stage 3's logits of 13 images (batches of
+                8 on the (4, 1) mesh: 4, 4, 3, 2 rows a rank) within 1e-5
+                of the largest.  Stage 2's launches on every rank and here
+                equal the f32 routes' (f32_route_counts: K1 f32 at d 16/32,
+                K6 f32 at the VAE's d 16, K4 f32, K3 f32 at C8-C128);
+                entry() (full-width SD1.5 + canny, bf16, batch 2) once,
+                its launches equal the bf16 routes' (21 K1, 23 K2, 88 K3,
+                46 K4), its output (2, 64, 64, 4) f32 finite, and its ms
+                (CUDA events over 3 calls, after the ranks end).  Every
+                kernel the phase launched against its plain version at its
+                shapes (rows with "cell": "tp"); K3 timed at its largest
+                site, K4 (bf16) at its largest, the others at every shape.
 The kernels phase also holds K6 (streamed flash attention on unpadded heads)
 against its plain version at the 1024^2 level-0 shapes and a capped
 960x1280 bucket.
@@ -1089,12 +1120,13 @@ def check_k6(gen, shapes=K6_SHAPES, dtype=torch.bfloat16):
     return rows
 
 
-def check_k2(gen):
+def check_k2(gen, shapes=K2_SHAPES):
+    """K2 against its plain version at each (what, B, L, C) of shapes."""
     from saspa_tpu_torch.ops import geglu
 
     rows = []
     bf = torch.bfloat16
-    for what, b, l, c in K2_SHAPES:
+    for what, b, l, c in shapes:
         f = 4 * c
 
         def rn(*shape, std=1.0):
@@ -1140,9 +1172,10 @@ def check_k2(gen):
     return rows
 
 
-def check_k3(gen, sites):
+def check_k3(gen, sites, timed=None):
     """sites: {(B, C, H, W, act, eps)} of the main path's GroupNorms (all
-    channels-last); both epilogues at each."""
+    channels-last); both epilogues at each, timed where timed(site) (by
+    default everywhere)."""
     from saspa_tpu_torch.ops import groupnorm as gn
 
     rows = []
@@ -1166,7 +1199,8 @@ def check_k3(gen, sites):
                 + beta.abs().reshape(1, c, 1, 1)
 
         lib = {"library_ms": None, "library_device_ms": None}
-        if act is None:  # no single PyTorch call computes GroupNorm + SiLU
+        clock = timed is None or timed((b, c, h, w, act, eps))
+        if act is None and clock:  # no single PyTorch call computes GroupNorm + SiLU
             gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
 
             def library():
@@ -1180,6 +1214,10 @@ def check_k3(gen, sites):
             what = f"B{b} C{c} {h}x{w} act={act} {'tpu' if tpu else 'xla'}"
             err, ref_max, ulps, equal = require_ulps(what, out, ref, mag_of, [slice(i, i + 1) for i in range(b)])
             del out, ref
+            if not clock:
+                rows.append(dict(shape=what, B=b, C=c, HW=h * w, act=act, eps=eps, tpu_numerics=tpu,
+                                 max_abs_err=err, ref_max=ref_max, max_ulps=ulps, equal_share=equal))
+                continue
 
             def kernel():
                 return gn.group_norm(x, gamma, beta, 32, eps, act, tpu_numerics=tpu)
@@ -1204,8 +1242,9 @@ def check_k3(gen, sites):
     return rows
 
 
-def check_k4(gen, sites):
-    """sites: {(rows, C)} of the main path's norm1/norm2 LayerNorms."""
+def check_k4(gen, sites, timed=None):
+    """sites: {(rows, C)} of the main path's norm1/norm2 LayerNorms, timed
+    where timed(site) (by default everywhere)."""
     from saspa_tpu_torch.ops import layernorm as ln
 
     rows = []
@@ -1224,6 +1263,11 @@ def check_k4(gen, sites):
             return (xf.abs() + mean.abs()) * (rstd * s).abs() + bias.abs()
 
         err, ref_max, ulps, equal = require_ulps(f"rows {m} C {c}", out, ref, mag_of, [slice(None)])
+        if timed is not None and not timed((m, c)):
+            rows.append(dict(shape=f"rows {m}, C{c}", rows=m, C=c, max_abs_err=err, ref_max=ref_max, max_ulps=ulps,
+                             equal_share=equal))
+            del x, out, ref
+            continue
         b_ms, b_by = bound(8.0 * m * c, 4 * m * c + 8 * c, H100_F32_FLOPS)
         ms = cuda_ms(lambda: ln.layer_norm_one_pass(x, s, bias), 10)
         dev_ms, _ = device_ms(lambda: ln.layer_norm_one_pass(x, s, bias), floor_ms=b_ms)
@@ -2494,7 +2538,7 @@ TRAIN_SPLITS = {"train": 64, "val": 16, "test": 16}
 TRAIN_SOURCE_HW = (700, 1000)  # about FGVC-Aircraft's image size
 TRAIN_AUGS = 2  # seeded 512^2 PNG augs a train image in the aug-JSON
 TRAIN_BATCHES = (4, 16)  # the planes preset's batch, and cub/dtd's
-TRAIN_TIMED_STEPS = 10
+TRAIN_TIMED_STEPS = 5  # 10 before the tp phase, which this and BACKBONE_TIMED_STEPS pay for (PERF.md)
 TRAIN_PROFILED_STEPS = 1  # the profile's post-processing takes 7-9 s a profiled step
 TRAIN_COMPARE_STEPS = 2
 
@@ -5254,7 +5298,7 @@ F32_OPT_IN = {"SASPA_PALLAS_GN": "1", "SASPA_ATTN_MEGAKERNEL": "1"}  # configura
 F32_B_K5 = {512: 21, 1024: 16}
 
 
-def f32_route_counts(pipe, run, steps: int) -> dict:
+def f32_route_counts(pipe, run, steps: int, itemsize: int = 4) -> dict:
     """The launches of one run of `run()` (`steps` steps and one decode)
     derived from the JAX package's predicates (the port's copies), per model
     call: every self-attention with a residual in a block built with the
@@ -5269,48 +5313,54 @@ def f32_route_counts(pipe, run, steps: int) -> dict:
     the split plan admits the site; a block's norm3 and feed-forward K2 where
     ln_geglu_eligible admits it.  Hooks on the modules count the calls;
     returns {"step": ..., "decode": ...} (the UNet and ControlNet of one
-    step; the VAE of the decode) and run()'s result."""
+    step; the VAE of the decode, where the pipeline has one) and run()'s
+    result.  itemsize 2: the same routes on bf16 activations, counted under
+    the bf16 counters' names (attention_packed for every K1 launch)."""
     from saspa_tpu_torch.models.unet import BasicTransformerBlock, CrossAttention, GroupNorm32, LayerNorm32
     from saspa_tpu_torch.models.vae import VAEAttentionBlock
     from saspa_tpu_torch.ops import attention as att
     from saspa_tpu_torch.ops.geglu import ln_geglu_eligible
     from saspa_tpu_torch.ops.groupnorm import groups_for, split_plan
 
-    keys = ("attention_packed_f32", "attention_f32", "flash_attention_f32", "attention_block_f32", "layernorm_f32",
-            "group_norm_f32", "group_norm_f32_tpu", "ln_geglu")
+    f32 = itemsize == 4
+    name = {k: k if f32 else k.replace("_f32", "") for k in (
+        "attention_packed_f32", "flash_attention_f32", "attention_block_f32", "layernorm_f32", "group_norm_f32",
+        "group_norm_f32_tpu")}
+    name["attention_f32"] = "attention_f32" if f32 else "attention_packed"
+    keys = tuple(dict.fromkeys(list(name.values()) + ["ln_geglu"]))
     out = {part: dict.fromkeys(keys, 0) for part in ("unet", "controlnet", "vae")}
 
     def attention_route(part, b, l, heads, d, padded=True):
         """padded: the heads' padding is in the weights (the UNet's
         projections); the VAE's packed route takes only lane-aligned heads."""
-        if (padded or d == att.pad_head_dim(d)) and att.packed_flash_eligible(l, l, heads, d, 4):
-            out[part]["attention_packed_f32" if att.pad_head_dim(d) == 512 else "attention_f32"] += 1
+        if (padded or d == att.pad_head_dim(d)) and att.packed_flash_eligible(l, l, heads, d, itemsize):
+            out[part][name["attention_packed_f32" if att.pad_head_dim(d) == 512 else "attention_f32"]] += 1
         elif att.flash_attention_route(l, l, d):
-            out[part]["flash_attention_f32"] += 1
+            out[part][name["flash_attention_f32"]] += 1
 
     def self_attention(part, mod, x, residual):
         b, l, c = x.shape
         if mod.megakernel and residual is not None and att.attention_block_eligible(l, l, mod.heads, c // mod.heads,
-                                                                                      c, 4):
-            out[part]["attention_block_f32"] += 1
+                                                                                      c, itemsize):
+            out[part][name["attention_block_f32"]] += 1
         else:
             attention_route(part, b, l, mod.heads, c // mod.heads)
 
     def group_norm(part, mod, x, *halves):
         require(not halves, "f32 route counts: a split-skip GroupNorm call (SASPA_SPLIT_SKIP_CONCAT is not set)")
         c = x.shape[1]
-        out[part]["group_norm_f32"] += 1
-        out[part]["group_norm_f32_tpu"] += int(mod.tpu_numerics and split_plan(
+        out[part][name["group_norm_f32"]] += 1
+        out[part][name["group_norm_f32_tpu"]] += int(mod.tpu_numerics and split_plan(
             math.prod(x.shape[2:]), c, groups_for(c, mod.num_groups), x.element_size()) is not None)
 
     handles = []
     for part in out:
-        for m in pipe.params[part].modules():
+        for m in (pipe.params[part].modules() if part in pipe.params else ()):
             if isinstance(m, GroupNorm32):
                 handles.append(m.register_forward_pre_hook(lambda mod, a, p=part: group_norm(p, mod, *a)))
             elif isinstance(m, LayerNorm32):
                 handles.append(m.register_forward_pre_hook(lambda mod, a, p=part: out[p].__setitem__(
-                    "layernorm_f32", out[p]["layernorm_f32"] + 1)))
+                    name["layernorm_f32"], out[p][name["layernorm_f32"]] + 1)))
             elif isinstance(m, CrossAttention):
                 handles.append(m.register_forward_pre_hook(
                     lambda mod, a, kw, p=part: self_attention(p, mod, a[0], kw.get("residual"))
@@ -5959,7 +6009,7 @@ def run_captions_phase(seed: int) -> dict:
 
 
 BACKBONE_NETS = ("inception_mixed_6e", "inception_mixed_7c", "resnet50_cbam")
-BACKBONE_TIMED_STEPS = 5
+BACKBONE_TIMED_STEPS = 3  # 5 before the tp phase
 BACKBONE_PROFILED_STEPS = 1
 BACKBONE_AUGS = 2  # seeded 256^2 PNG augs for each of the filter's first 8 train images
 CLIP_VITB16_IMAGES = 4
@@ -6734,6 +6784,333 @@ def run_dp_phase(seed: int, smi: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---- the (data, model) grid: the dry run on 4 gloo ranks on the one card ----------------------------------------
+TP_RANKS = 4  # a (2, 2) mesh: rank r at data index r // 2, model index r % 2; all on cuda:0 under gloo
+TP_STEPS = 2
+TP_TIMEOUT_S = 300
+TP_ENTRY_ITERS = 3  # entry()'s ms: CUDA events over this many calls after its recorded call
+
+
+def tp_train(d, mesh, device: str) -> dict:
+    """TP_STEPS f64 steps of the dry run's stage-1 model (dryrun.train_config(4):
+    ResNet-50 at 64^2, M 4, 8 classes, global batch 8) at lr DP_LR on the
+    global batches and injected draws of d/tp_in.pt, seeded, the head sharded
+    over the mesh's model axis (under a mesh, this rank's rows); the losses,
+    the flat gradient each step hands to sgd_update with fc's whole (rank 0),
+    the whole fc, feature centers and BatchNorm statistics after the last
+    step, and under a mesh the bit differences from the ranks that must
+    hold the same values."""
+    import torch.distributed as dist
+
+    from saspa_tpu_torch import dryrun
+    from saspa_tpu_torch.fgvc import train as ttrain
+    from saspa_tpu_torch.models.layers import sync_batch_norms
+    from saspa_tpu_torch.parallel import data_group, replicated, shard_batch, shard_head
+
+    spec = torch.load(d / "tp_in.pt", weights_only=False)
+    t0 = time.perf_counter()
+    cfg = dryrun.train_config(TP_RANKS).replace(learning_rate=DP_LR)
+    st = ttrain.create_train_state(cfg, dryrun.NUM_CLASSES, device, init_seed=spec["seed"])
+    state_to_f64(st)
+    if mesh is not None:  # replicate, then shard (parallel/head.py)
+        replicated(mesh, [st.model, st.feature_center, st.momentum])
+        sync_batch_norms(st.model, mesh)
+        shard_head(st.model, mesh, st.momentum)
+    fc = st.model.fc
+    whole = fc.gather if mesh is not None and mesh.model_size > 1 else (lambda t: t.detach().clone())
+    lead = mesh is None or mesh.rank == 0
+    step = ttrain.make_train_step(cfg, 10, mesh)
+    grads, losses, real = [], [], ttrain.sgd_update
+
+    def spy(state, *a):
+        flat = torch.cat([(whole(p.grad) if n == "fc.kernel" else p.grad).reshape(-1)
+                          for n, p in state.model.named_parameters()])
+        if lead:
+            grads.append(flat.cpu())
+        return real(state, *a)
+
+    ttrain.sgd_update = spy
+    try:
+        for s, (X, y, draws) in enumerate(spec["steps"]):
+            X, y = shard_batch(mesh, (X, y)) if mesh is not None else (X.to(device), y.to(device))
+            m = step(st, X, y, np.array([0, s], np.uint32),
+                     draws={k: v.to(device, torch.float64 if v.is_floating_point() else v.dtype)
+                            for k, v in draws.items()})
+            losses.append(m["loss"].item())
+    finally:
+        ttrain.sgd_update = real
+    sd = st.model.state_dict()
+    out = {"losses": losses, "grads": grads, "fc": whole(fc.kernel).cpu(), "feature_center": st.feature_center.cpu(),
+           "stats": {k: v.cpu() for k, v in sd.items() if k.endswith((".mean", ".var"))}}
+    if mesh is not None:
+        rep = ([p.detach() for n, p in st.model.named_parameters() if n != "fc.kernel"] + list(st.model.buffers())
+               + [v for n, v in st.momentum.items() if n != "fc.kernel"] + [st.feature_center])
+        shard = [fc.kernel.detach(), st.momentum["fc.kernel"]]
+        diffs = {}
+        for key, tensors, src, group in (("replicated", rep, 0, None),
+                                         ("shard", shard, mesh.model_index, data_group(mesh))):
+            diffs[key] = 0.0
+            for t in tensors:
+                ref = t.clone()
+                dist.broadcast(ref, src, group=group)
+                diffs[key] = max(diffs[key], float((ref - t).abs().max()))
+        out["bit_diffs"] = diffs
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_tp_rank(d: str) -> int:
+    """A rank of the tp phase (`chip_smoke.py --tp-rank R --tp-dir D`, with
+    torchrun's variables set by the phase): joins the gloo group on cuda:0,
+    makes the (2, 2) mesh, trains in f64 with the head sharded, runs
+    dryrun_multichip(4) (its lines go to this rank's log) with the kernels'
+    launch counts, and writes D/tp_rank<R>.pt."""
+    from pathlib import Path
+
+    from saspa_tpu_torch import dryrun
+    from saspa_tpu_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    init_distributed(backend="gloo", device="cuda:0")
+    grid = make_mesh((2, 2))
+    out = {"rank": grid.rank, "coords": (grid.data_index, grid.model_index), "init_s": time.perf_counter() - t0}
+    out["train"] = tp_train(Path(d), grid, "cuda:0")
+    t = time.perf_counter()
+    reset_counts()
+    run = dryrun.dryrun_multichip(TP_RANKS, "cuda:0")
+    torch.cuda.synchronize()
+    out["launches"] = read_counts()
+    out["dryrun"] = {"loss": run["train"]["loss"], "step": run["train"]["step"],
+                     "images": run["generation"]["images"], "rows": run["generation"]["rows"],
+                     "logits": run["filter"]["logits"], "scored": run["filter"]["scored"],
+                     "seconds": time.perf_counter() - t}
+    out["wall_s"] = time.perf_counter() - t0
+    torch.save(out, Path(d) / f"tp_rank{grid.rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def transformer_sites(module, sites: set):
+    """Forward pre-hooks recording (B, L, C) of every transformer block that
+    takes K2 (its fused feed-forward, where ln_geglu_eligible admits it)."""
+    from saspa_tpu_torch.models.unet import BasicTransformerBlock
+    from saspa_tpu_torch.ops.geglu import ln_geglu_eligible
+
+    def hook(mod, a):
+        x = a[0]
+        if mod.fused_ff and ln_geglu_eligible(x.shape[1], x.shape[2], mod.ff.mult, x.dtype):
+            sites.add(tuple(x.shape))
+
+    return [m.register_forward_pre_hook(hook) for m in module.modules() if isinstance(m, BasicTransformerBlock)]
+
+
+def run_tp_phase(seed: int, smi: str) -> tuple:
+    """The (data, model) grid (module docstring, phase 25): TP_RANKS processes
+    under gloo on cuda:0 as a (2, 2) mesh against this process's one-process
+    run of the same work, which it runs meanwhile, then entry() and every
+    kernel the phase launched against its plain version at its shapes.
+    Returns the launch counts of the phase's main path (stage 2 on the ranks
+    and here, entry()) and the kernels' check rows by name."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+    import types
+    from pathlib import Path
+
+    from saspa_tpu_torch import dryrun
+    from saspa_tpu_torch.fgvc.train import create_train_state
+    from saspa_tpu_torch.models.vae import VAEAttentionBlock
+    from saspa_tpu_torch.ops import attention as att
+    from saspa_tpu_torch.parallel.mesh import Mesh
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="saspa_tp_"))
+    procs = []
+    try:
+        rng = np.random.RandomState(seed + 901)
+        b, m = 2 * TP_RANKS, dryrun.M
+        hw = feature_side("resnet50", dryrun.IMG)
+        steps = []
+        for _ in range(TP_STEPS):
+            y = rng.randint(0, dryrun.NUM_CLASSES, b)
+            y[b - 1] = y[0]  # a label on both data indices: the feature-center scatter adds both rows
+            draws = train_draws(rng, b, m, hw)
+            steps.append((torch.from_numpy(rng.randn(b, 3, dryrun.IMG, dryrun.IMG)), torch.from_numpy(y),
+                          {k: torch.from_numpy(v) for k, v in draws.items()}))
+        torch.save({"steps": steps, "seed": seed + 902}, root / "tp_in.pt")
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        logs = [root / f"rank{r}.log" for r in range(TP_RANKS)]
+        t_spawn = time.perf_counter()
+        for r in range(TP_RANKS):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(TP_RANKS), LOCAL_RANK=str(r),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            with open(logs[r], "w") as fh:
+                procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-rank", str(r),
+                                               "--tp-dir", str(root)], env=env, stdout=fh, stderr=subprocess.STDOUT))
+        cuda = torch.device("cuda")
+        one = Mesh((1, 1), ("data", "model"), 0, cuda)
+        ref_train = tp_train(root, None, "cuda")
+
+        # stage 2 in one process: its f32 routes and sites, its launches
+        t = time.perf_counter()
+        pipe = dryrun.generation_pipeline(cuda)
+        sites2, handles = record_sites(pipe)
+        vae_attn: set = set()
+        handles += [mod.register_forward_pre_hook(lambda _, a: vae_attn.add(tuple(a[0].shape)))
+                    for mod in pipe.params["vae"].modules() if isinstance(mod, VAEAttentionBlock)]
+        reset_counts()
+        per2, gen_one = f32_route_counts(pipe, lambda: dryrun.generation_stage(TP_RANKS, one, cuda, pipe), 2)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for h in handles:
+            h.remove()
+        want2 = expected_f32_counts(per2, dryrun.GEN_STEPS)
+        require(counts == want2, "tp stage 2 launch counts", counts, "expected", want2)
+        gen_s = time.perf_counter() - t
+        model = create_train_state(dryrun.train_config(TP_RANKS), dryrun.NUM_CLASSES, cuda, init_seed=0).model.eval()
+        filt_one = dryrun.filter_stage(TP_RANKS, one, model)
+        del model
+
+        # entry(): one recorded call (sites and routes), then the timed calls
+        t = time.perf_counter()
+        fn, args = dryrun.entry(cuda)
+        torch.cuda.synchronize()
+        entry_init_s = time.perf_counter() - t
+        shim = types.SimpleNamespace(params=args[0])
+        sites_e, handles = record_sites(shim)
+        k2_sites: set = set()
+        handles += transformer_sites(args[0]["unet"], k2_sites) + transformer_sites(args[0]["controlnet"], k2_sites)
+        reset_counts()
+        per_e, out = f32_route_counts(shim, lambda: fn(*args), 1, itemsize=2)
+        torch.cuda.synchronize()
+        entry_counts = read_counts()
+        for h in handles:
+            h.remove()
+        want_e = {k: 0 for k in entry_counts}
+        want_e.update(per_e["step"])
+        require(entry_counts == want_e, "entry() launch counts", entry_counts, "expected", want_e)
+        require(tuple(out.shape) == (2, 64, 64, 4) and out.dtype == torch.float32 and bool(torch.isfinite(out).all()),
+                "entry() output", tuple(out.shape), out.dtype)
+        for k, v in entry_counts.items():
+            counts[k] += v
+
+        def tails():
+            return "\n".join(f"{p.name}: {p.read_text()[-2000:]}" for p in logs)
+
+        ended = []
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, TP_TIMEOUT_S - (time.perf_counter() - t_spawn)))
+            except subprocess.TimeoutExpired:
+                require(False, "tp ranks timed out", tails())
+            ended.append(time.perf_counter() - t_spawn)
+        require(all(p.returncode == 0 for p in procs), "tp ranks failed", [p.returncode for p in procs], tails())
+        ranks = [torch.load(root / f"tp_rank{r}.pt", weights_only=False) for r in range(TP_RANKS)]
+        lines = [log.read_text() for log in logs]
+        entry_ms = cuda_ms(lambda: fn(*args), TP_ENTRY_ITERS, warmup=0)  # the card is this process's again
+        emit({"phase": "tp_entry", "shape": list(out.shape), "dtype": str(out.dtype), "ms": entry_ms,
+              "init_s": entry_init_s, "launches": entry_counts, "nvidia_smi": smi})
+        del fn, args, shim, out
+        torch.cuda.empty_cache()
+
+        def rel_max(a, b):
+            a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+            return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+        tr = [r["train"] for r in ranks]
+        train = {"loss_rel": [max(abs(g["losses"][s] - ref_train["losses"][s]) / abs(ref_train["losses"][s])
+                                  for g in tr) for s in range(TP_STEPS)],
+                 "grad_rel_err": [rel_norm(tr[0]["grads"][s], ref_train["grads"][s]) for s in range(TP_STEPS)],
+                 "grad_cos": [cosine(tr[0]["grads"][s], ref_train["grads"][s]) for s in range(TP_STEPS)],
+                 "fc_rel": max(rel_max(g["fc"], ref_train["fc"]) for g in tr),
+                 "feature_center_rel": max(rel_max(g["feature_center"], ref_train["feature_center"]) for g in tr),
+                 "stats_rel": max(rel_max(g["stats"][k], v) for g in tr for k, v in ref_train["stats"].items()),
+                 "bit_diffs": [g["bit_diffs"] for g in tr]}
+        runs = [r["dryrun"] for r in ranks]
+        u8 = gen_one["images"].int()
+        gen_diff = max(int((r["images"].int() - u8).abs().max()) for r in runs)
+        logits_rel = max(rel_max(r["logits"], filt_one["logits"]) for r in runs)
+        ok_lines = ["dryrun_multichip OK (train): mesh=(2, 2) loss=",
+                    "dryrun_multichip OK (generation): mesh=(2, 2) batch=4 -> uint8 (4, 64, 64, 3)",
+                    "dryrun_multichip OK (filter): mesh=(4, 1) scored=(13, 8) keep_conf="]
+        printed = [[text.count(line) for line in ok_lines] for text in lines]
+        rank_counts = {k: sum(r["launches"][k] for r in ranks) for k in counts}
+        emit({"phase": "tp", "ranks": TP_RANKS, "mesh": [2, 2], "backend": "gloo", "device": "cuda:0",
+              "coords": [r["coords"] for r in ranks], "global_batch": b, "lr": DP_LR, "dtype": "float64",
+              "train": train, "dryrun_losses": [r["loss"] for r in runs], "dryrun_steps": [r["step"] for r in runs],
+              "gen_rows": [r["rows"] for r in runs], "gen_max_uint8_diff": gen_diff, "logits_rel": logits_rel,
+              "scored_by_rank": [r["scored"] for r in runs], "ok_lines_by_rank": printed,
+              "rank_launches": [r["launches"] for r in ranks], "one_process_launches": want2,
+              "one_process_gen_s": gen_s, "rank_wall_s": [r["wall_s"] for r in ranks],
+              "rank_init_s": [r["init_s"] for r in ranks], "rank_train_s": [g["seconds"] for g in tr],
+              "rank_dryrun_s": [r["seconds"] for r in runs], "rank_end_s": ended,
+              "one_process_train_s": ref_train["seconds"], "nvidia_smi": smi})
+        require([r["coords"] for r in ranks] == [(0, 0), (0, 1), (1, 0), (1, 1)], "tp mesh coordinates")
+        # f64 bounds (tests/test_torch_parallel_tp.py): 1e-9 of each tensor's largest entry, the gradient's
+        # relative norm 1e-9; replicated state bit-equal on every rank, fc shards over their data ranks
+        require(max(train["loss_rel"]) <= 1e-9 and max(train["grad_rel_err"]) <= 1e-9 and train["fc_rel"] <= 1e-9
+                and train["feature_center_rel"] <= 1e-9 and train["stats_rel"] <= 1e-9, "tp train steps, f64", train)
+        require(all(g == {"replicated": 0.0, "shard": 0.0} for g in train["bit_diffs"]), "tp bit equality", train)
+        require(printed == [[1, 1, 1], [0, 0, 0], [0, 0, 0], [0, 0, 0]], "dryrun_multichip's lines", printed)
+        require(all(np.isfinite(r["loss"]) and r["step"] == 1 for r in runs), "dry run stage 1", runs[0]["loss"])
+        require([r["rows"] for r in runs] == [2] * TP_RANKS and gen_diff <= 1, "dry run stage 2 vs one process",
+                gen_diff)
+        require([r["scored"] for r in runs] == [4, 4, 3, 2] and logits_rel <= 1e-5, "dry run stage 3 vs one process",
+                logits_rel)
+        require(all(r["launches"] == want2 for r in ranks), "the ranks' stage-2 launches (one process's)",
+                [r["launches"] for r in ranks], want2)
+        for k, v in rank_counts.items():
+            counts[k] += v
+
+        # every kernel the phase launched, at its shapes, against its plain version
+        gen = torch.Generator(device="cuda").manual_seed(seed + 903)
+        rows: dict = {}
+        largest = max(sites2["group_norm"], key=lambda st: st[0] * st[1] * st[2] * st[3])
+        rows["group_norm_f32"] = check_k3_f32(gen, sites2["group_norm"], "tp", lambda st, tpu: st == largest
+                                              and not tpu)
+        rows["layernorm_f32"] = check_k4_f32(gen, sites2["layernorm"])
+        heads = sorted(sites2["self_attention"])
+        rows["attention_f32"] = check_k1(gen, [(f"tp B{b_} L{l} H{h} d{c // h}", b_, l, h, c // h,
+                                                att.pad_head_dim(c // h)) for b_, l, c, h in heads
+                                               if att.packed_flash_eligible(l, l, h, c // h, 4)], torch.float32)
+        if want2["flash_attention_f32"]:  # the VAE decoder's mid attention: one head of C, unpadded
+            rows["flash_attention_f32"] = check_k6(gen, [(f"tp vae mid attention B{b_} L{h_ * w_} d{c}", b_, h_ * w_,
+                                                          1, c) for b_, c, h_, w_ in sorted(vae_attn)], torch.float32)
+        ebig = max(sites_e["group_norm"], key=lambda st: st[0] * st[1] * st[2] * st[3])
+        rows["group_norm"] = check_k3(gen, sites_e["group_norm"], lambda st: st == ebig)
+        rows["layernorm"] = check_k4(gen, sites_e["layernorm"], lambda st: st == max(sites_e["layernorm"]))
+        ek1 = sorted(sites_e["self_attention"])
+        rows["attention_packed"] = check_k1(gen, [(f"tp entry B{b_} L{l} H{h} d{c // h}", b_, l, h, c // h,
+                                                   att.pad_head_dim(c // h)) for b_, l, c, h in ek1
+                                                  if att.packed_flash_eligible(l, l, h, c // h, 2)])
+        rows["ln_geglu"] = check_k2(gen, [(f"tp entry B{b_} L{l} C{c}", b_, l, c) for b_, l, c in sorted(k2_sites)])
+        ran = {k for k, v in counts.items() if v}
+        require(ran <= set(rows), "tp: a launched kernel was not checked", sorted(ran - set(rows)))
+        for name, rs in rows.items():
+            rows[name] = [dict(r, cell="tp") for r in rs]
+            emit({"phase": "kernels", "kernel": name, "cell": "tp", "shapes": rows[name]})
+        emit({"phase": "tp_total", "launches": counts, "seconds": time.perf_counter() - t_phase})
+        del pipe
+        torch.cuda.empty_cache()
+        return counts, rows
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def train_profile_path(profile):
     from pathlib import Path
 
@@ -6761,12 +7138,16 @@ def main() -> int:
                          "(K1 f32 at d_pad 64-192, K6 f32, K5 f32) wrappers and kernels beside these (parent_* keys)")
     ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)  # a rank of the dp phase, which starts it
     ap.add_argument("--dp-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # a rank of the tp phase, which starts it
+    ap.add_argument("--tp-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card", file=sys.stderr)
         return 2
     if args.dp_rank is not None:
         return run_dp_rank(args.dp_dir)
+    if args.tp_rank is not None:
+        return run_tp_rank(args.tp_dir)
     if args.steps < 2:
         ap.error("--steps must be at least 2")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6968,6 +7349,9 @@ def main() -> int:
     # ---- data parallelism: the train step and the scorers on 2 gloo ranks against one process ----
     counts["dp"] = run_dp_phase(args.seed, smi)
 
+    # ---- the (data, model) grid: dryrun_multichip(4) on 4 gloo ranks against one process; entry() ----
+    counts["tp"], tp_rows = run_tp_phase(args.seed, smi)
+
     # ---- BLIP-Diffusion: cli gen --dataset dtd, every dataset's default but planes' ----
     blip_profile = None
     if args.profile:
@@ -7065,6 +7449,8 @@ def main() -> int:
         ("attention_block_f32", "attention_f32.cu", "saspa_tpu/ops/attention.py:268",
          lambda r: (r["B"], r["L"], r["C"]) == (16, 4096, 320)),
     ]
+    for name, rows in tp_rows.items():  # after the phases that set their kernels' rows
+        checks.setdefault(name, []).extend(rows)
     kernels = []
     for name, source, replaces, pick in lines:
         rows = checks[name]

@@ -14,9 +14,9 @@ so the batches equal its batches; with CutMix, each batch's mixing key is
 consumer waited for batches (`host_wait_s`) and the seconds the producer
 spent loading them (`load_s`).
 
-Under a mesh of more than one rank (parallel/mesh.py), `batch_size` stays
-the global batch and each rank yields its contiguous rows of every global
-batch (the rows shard_batch would cut): it loads and transforms only those,
+Under a mesh of more than one data index (parallel/mesh.py), `batch_size`
+stays the global batch and each rank yields its data index's contiguous rows
+of every global batch (the rows shard_batch would cut): it loads and transforms only those,
 draws for the whole batch and keeps its rows' draws (`utils/rng.py::Rows`),
 and still asks the dataset for every path of the batch in order, since the
 AugSampler's substitutions are one sequential stream.  With CutMix it also
@@ -60,7 +60,7 @@ class InputPipeline:
                  num_threads: int = 8, device=None, drop_last: bool = True, mesh: Optional[Mesh] = None):
         self.ds = dataset
         self.own: Optional[rngs.Rows] = None  # this rank's rows of each batch, under a mesh
-        if mesh is not None and mesh.size > 1:
+        if mesh is not None and mesh.data_size > 1:
             if not drop_last:
                 raise ValueError("a mesh takes full batches only (drop_last=True)")
             sl = mesh.rows(batch_size)  # raises unless the ranks divide the batch

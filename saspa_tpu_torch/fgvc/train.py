@@ -28,13 +28,19 @@ same key draws what JAX draws; `draws` injects them instead.
 
 Data parallelism (`mesh`, parallel/mesh.py; JAX's sharded step,
 saspa_tpu/fgvc/train.py:259-329): one process a card, each holding the
-state and taking its contiguous rows of the global batch (shard_batch).
-Every draw is made for the global batch on every rank and sliced
+state and taking its data index's contiguous rows of the global batch
+(shard_batch; the model ranks of a data index take the same rows).  Every
+draw is made for the global batch on every rank and sliced
 (`utils/rng.py::Rows`; injected draws are global too), BatchNorm takes the
 global batch's statistics, the gradients are one flat all_reduce divided
 by the rank count (the shards are equal, so that is the global batch's
-mean), the feature-center scatter adds the gathered global delta at the
-gathered labels, and the metrics are reduced before the host reads them.
+mean; the model ranks of a data index add equal gradients), the
+feature-center scatter adds the gathered global delta at the gathered
+labels, and the metrics are reduced over the data group before the host
+reads them.  With the head sharded over the model axis
+(parallel/head.py::shard_head, the dry run's tensor parallelism), each model
+rank keeps its classes' rows of fc.kernel and their momentum, and each
+shard's gradient is averaged over its own data group only.
 So every rank ends a step as the one-process step on the global batch does,
 and every decision the host makes (validation, early stop, divergence
 abort, the best checkpoint) comes from reduced values, the same on every
@@ -117,9 +123,9 @@ REGULAR_CE_RATIO = 0.5  # the hard CE's share of the blend with the teacher's so
 
 
 def _reduce_metrics(mesh: Optional[Mesh], metrics: dict) -> dict:
-    """The metrics over every rank, in one all_reduce: the loss averaged
+    """The metrics over the data axis, in one all_reduce: the loss averaged
     (the shards are equal), the counts summed."""
-    if mesh is None or mesh.size == 1:
+    if mesh is None or mesh.data_size == 1:
         return metrics
     names = list(metrics)
     flat = all_reduce_sum(mesh, torch.cat([metrics[k].double().reshape(-1) for k in names]))
@@ -128,7 +134,7 @@ def _reduce_metrics(mesh: Optional[Mesh], metrics: dict) -> dict:
         v = metrics[k]
         part = flat[at:at + v.numel()].view(v.shape)
         at += v.numel()
-        out[k] = (part / mesh.size if k == "loss" else part).to(v.dtype)
+        out[k] = (part / mesh.data_size if k == "loss" else part).to(v.dtype)
     return out
 
 
@@ -155,7 +161,7 @@ def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int, mesh: Optional
     def ce(logits, labels, soft):
         return L.cross_entropy(logits, labels) if soft is None else L.cross_entropy_soft(logits, soft)
 
-    world = 1 if mesh is None else mesh.size
+    dp = 1 if mesh is None else mesh.data_size
 
     def train_step(state: TrainState, X: torch.Tensor, y: torch.Tensor, key, y_soft: Optional[torch.Tensor] = None,
                    draws: Optional[dict] = None, clip_logits: Optional[torch.Tensor] = None):
@@ -164,9 +170,9 @@ def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int, mesh: Optional
         model = state.model
         y = y.long()
         rows1 = rows2 = None
-        if world > 1:  # this rank's rows of the batch (B) and of the crop + drop batch (2B)
+        if dp > 1:  # this rank's rows of the batch (B) and of the crop + drop batch (2B)
             b = X.shape[0]
-            rows1 = rngs.Rows(np.arange(mesh.rank * b, (mesh.rank + 1) * b), b * world)
+            rows1 = rngs.Rows(np.arange(mesh.data_index * b, (mesh.data_index + 1) * b), b * dp)
             rows2 = rngs.Rows(np.concatenate([rows1.index, rows1.total + rows1.index]), 2 * rows1.total)
             draws = {k: v[torch.as_tensor((rows2 if k in ("fake2", "pick2") else rows1).index, device=v.device)]
                      for k, v in draws.items()}
@@ -207,13 +213,15 @@ def make_train_step(cfg: TrainConfig, num_batches_per_epoch: int, mesh: Optional
                 loss = loss + ce_term
 
         loss.backward()
-        if world > 1:
-            all_reduce_mean_(mesh, [p.grad for p in model.parameters()])
+        if mesh is not None and mesh.size > 1:  # a sharded head's shards over their data group, the rest over all
+            sharded = {id(p) for m in model.modules() if getattr(m, "model_sharded", False) for p in m.parameters()}
+            all_reduce_mean_(mesh, [p.grad for p in model.parameters() if id(p) in sharded])
+            all_reduce_mean_(mesh, [p.grad for p in model.parameters() if id(p) not in sharded], replicated=True)
         f = np.float64 if model.fc.kernel.dtype == torch.float64 else np.float32
         sgd_update(state, lr_at(cfg, num_batches_per_epoch, state.step, f), cfg.optimizer_weight_decay, cfg.momentum)
         with torch.no_grad():
             delta = beta * (feature_matrix.detach() - fc_batch)
-            if world > 1:  # the global batch's rows, in the one-process order
+            if dp > 1:  # the global batch's rows, in the one-process order
                 delta, y_all = gather_rows(mesh, delta), gather_rows(mesh, y)
             else:
                 y_all = y
@@ -251,13 +259,15 @@ class Trainer:
     the soft-target CE is on.  Under a mesh of more than one rank, each
     batch is this rank's rows of the global batch (InputPipeline(mesh=...)
     yields them; shard_batch cuts them from a global one), the state starts
-    from rank 0's, and rank 0 alone writes the best checkpoint."""
+    from rank 0's, and rank 0 alone writes the best checkpoint.  On a (data,
+    model) grid it runs data parallelism over the data axis with every
+    parameter replicated over the model axis, as JAX's Trainer does."""
 
     def __init__(self, cfg: TrainConfig, num_classes: int, num_batches_per_epoch: int, device=None,
                  mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.mesh = mesh
-        self.world = 1 if mesh is None else mesh.size
+        self.dp = 1 if mesh is None else mesh.data_size
         self.num_classes = num_classes
         self.num_batches_per_epoch = num_batches_per_epoch
         self.state = create_train_state(cfg, num_classes, device)
@@ -272,7 +282,7 @@ class Trainer:
             self.restored = {"file": cfg.ckpt, "skipped": skipped, "missing": [k for k in own if k not in loaded],
                              "feature_center": "feature_center" in ckpt, "pth": ckpt.get("report")}
             logging.info("restored checkpoint from %s: %s", cfg.ckpt, self.restored)
-        if self.world > 1:
+        if mesh is not None and mesh.size > 1:
             s = self.state
             replicated(mesh, [s.model, s.feature_center, s.momentum])
             sync_batch_norms(s.model, mesh)
@@ -302,7 +312,7 @@ class Trainer:
             n += 1
             if pending is not None:
                 consume(*pending)
-            pending = (m, int(y.shape[0]) * self.world)
+            pending = (m, int(y.shape[0]) * self.dp)
         if pending is not None:
             consume(*pending)
         dt = time.time() - t0
@@ -328,7 +338,7 @@ class Trainer:
                           self.num_classes, self.mesh)
             if pending is not None:
                 consume(*pending)
-            pending = (m, int(y.shape[0]) * self.world)
+            pending = (m, int(y.shape[0]) * self.dp)
         if pending is not None:
             consume(*pending)
         tag = "test" if is_test else "val"

@@ -7,13 +7,15 @@ pads the batch to a full one so every forward has one shape, and the model
 runs on the device; the scores come back as float32 numpy.  Host and device
 seconds are kept apart in a caller's `timings` dict.
 
-With a mesh of more than one rank (parallel/mesh.py; JAX's scorers shard
-each batch over the mesh's data axis, filters/confidence.py:86-118), each
-batch is padded to a multiple of the ranks and split into their contiguous
-rows: a rank reads and preprocesses only its rows, on its own host threads,
-runs them on its card, and one all_reduce of a zeroed buffer gathers the
-scores, so every rank returns the whole (N, width) array after the same
-collectives.  Sharding is asked for by passing the mesh, never taken up
+With a mesh of more than one data index (parallel/mesh.py; JAX's scorers
+shard each batch over the mesh's data axis, filters/confidence.py:86-118),
+each batch is padded to a multiple of the data size and split into the data
+indices' contiguous rows: a rank reads and preprocesses only its rows, on
+its own host threads, runs them on its card, and one all_reduce of a zeroed
+buffer over its data group gathers the scores, so every rank returns the
+whole (N, width) array after the same collectives.  The model ranks of a
+data index score the same rows (a model-sharded head gathers its own
+logits, parallel/head.py).  Sharding is asked for by passing the mesh, never taken up
 because a group exists: a rank that scores alone while a group is up enters
 no collective.
 """
@@ -47,8 +49,8 @@ def score_in_batches(paths: Sequence[str], preprocess: Callable[[str], np.ndarra
     """(N, width) float32 scores of `forward` on NCHW batches of
     `preprocess(path)` (an (H, W, 3) float32 array each); under a mesh,
     every rank's the whole array."""
-    mesh = mesh if mesh is not None and mesh.size > 1 else None
-    full = batch_size if mesh is None else pad_to_multiple(batch_size, mesh.size)
+    mesh = mesh if mesh is not None and mesh.data_size > 1 else None
+    full = batch_size if mesh is None else pad_to_multiple(batch_size, mesh.data_size)
     own = slice(0, full) if mesh is None else mesh.rows(full)
     out = []
     with ThreadPoolExecutor(max_workers=HOST_THREADS) as pool:

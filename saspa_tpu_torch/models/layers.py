@@ -94,11 +94,12 @@ class BatchNorm(nn.Module):
     channels, differentiable; and folds them into the running statistics
     under no_grad as ra = 0.9 * ra + 0.1 * batch, var as mean.
 
-    `mesh` (set by `sync_batch_norms`): with more than one rank, the batch
-    is the global one.  Each rank's mean and mean of x^2 are summed over the
-    ranks by the autograd-aware all_reduce and divided by the rank count
-    (the shards are equal), so every rank normalizes by, and folds in, the
-    same statistics, as flax over a sharded batch."""
+    `mesh` (set by `sync_batch_norms`): with more than one data index, the
+    batch is the global one.  Each rank's mean and mean of x^2 are summed
+    over its data group (parallel/mesh.py: the model ranks of a data index
+    hold the same rows) by the autograd-aware all_reduce and divided by the
+    data size (the shards are equal), so every rank normalizes by, and
+    folds in, the same statistics, as flax over a sharded batch."""
 
     momentum = 0.9
     mesh = None
@@ -117,10 +118,12 @@ class BatchNorm(nn.Module):
         if train:
             dims = [0] + list(range(2, x.ndim))
             mean, sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
-            if self.mesh is not None and self.mesh.size > 1:
+            if self.mesh is not None and self.mesh.data_size > 1:
                 from torch.distributed.nn.functional import all_reduce
 
-                mean, sq = all_reduce(torch.stack([mean, sq])) / self.mesh.size
+                from saspa_tpu_torch.parallel.mesh import data_group
+
+                mean, sq = all_reduce(torch.stack([mean, sq]), group=data_group(self.mesh)) / self.mesh.data_size
             var = (sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)

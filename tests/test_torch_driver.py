@@ -421,7 +421,8 @@ def test_importing_the_entry_point_loads_no_jax_pil_or_cv2():
         "saspa_tpu_torch.fgvc.train, saspa_tpu_torch.fgvc.runner, saspa_tpu_torch.fgvc.losses, "
         "saspa_tpu_torch.fgvc.metrics, saspa_tpu_torch.data.pipeline, saspa_tpu_torch.ops.augment, "
         "saspa_tpu_torch.ops.batch_augment, saspa_tpu_torch.ops.host_resize, saspa_tpu_torch.utils.checkpoint, "
-        "saspa_tpu_torch.parallel, saspa_tpu_torch.parallel.mesh, saspa_tpu_torch.utils.profiling\n"
+        "saspa_tpu_torch.parallel, saspa_tpu_torch.parallel.mesh, saspa_tpu_torch.utils.profiling, "
+        "saspa_tpu_torch.parallel.head, saspa_tpu_torch.dryrun\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'saspa_tpu', 'PIL', 'cv2'))\n"
         "assert not bad, bad\n"
     )

@@ -243,8 +243,143 @@ def cli_train(d: Path, mesh) -> dict:
     return {k: v for k, v in logs.items() if k != "restored"}
 
 
-TASKS = {"train_injected": train_injected, "train_keyed": train_keyed, "score": score, "cli_filter": cli_filter,
-         "gen_filter": gen_filter, "cli_train": cli_train}
+# ---- the (data, model) grid: the column-parallel head and the dry run ---------------
+def _max_diff(a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def _bit_diffs(state, grid) -> dict:
+    """After the last step: the largest difference of each rank's replicated
+    tensors (every parameter, momentum and buffer but fc's, the feature
+    centers) from rank 0's, and of its fc shard and fc momentum from its
+    model index's rank at data index 0 (broadcasts, world and data group)."""
+    import torch.distributed as dist
+
+    from saspa_tpu_torch.parallel import data_group
+
+    fc = [state.model.fc.kernel.detach(), state.momentum["fc.kernel"]]
+    rep = ([p.detach() for n, p in state.model.named_parameters() if n != "fc.kernel"]
+           + [v for n, v in state.momentum.items() if n != "fc.kernel"] + list(state.model.buffers())
+           + [state.feature_center])
+    out = {"replicated": 0.0, "shard": 0.0}
+    for key, tensors, src, group in (("replicated", rep, 0, None), ("shard", fc, grid.model_index, data_group(grid))):
+        for t in tensors:
+            ref = t.clone()
+            dist.broadcast(ref, src, group=group)
+            out[key] = max(out[key], _max_diff(ref, t))
+    return out
+
+
+def _sharded_steps(spec, cfg, mesh) -> tuple:
+    """The injected-draw steps of spec on `mesh` (None: one process), the
+    head sharded over a model axis; every step's record with the whole fc
+    and its momentum, the gradient sgd_update takes (fc's reassembled) on
+    rank 0, and after step 1 rank 0's params and momentum (fc's whole)."""
+    from saspa_tpu_torch.parallel import shard_head
+
+    state = f64_state(spec, mesh)
+    if mesh is not None:
+        shard_head(state.model, mesh, state.momentum)
+    fc = state.model.fc
+    whole = (lambda t: fc.gather(t)) if mesh is not None and mesh.model_size > 1 else (lambda t: t.clone())
+    lead = mesh is None or mesh.rank == 0
+    step = ttrain.make_train_step(cfg, 10, mesh)
+    grads, real = [], ttrain.sgd_update
+
+    def spy(st, *a):
+        g = {n: (whole(p.grad) if n == "fc.kernel" else p.grad.clone()) for n, p in st.model.named_parameters()}
+        grads.append(g if lead else None)
+        return real(st, *a)
+
+    ttrain.sgd_update = spy
+    steps = []
+    try:
+        for s, (X, y, draws) in enumerate(spec["batches"]):
+            if mesh is not None:
+                X, y = shard_batch(mesh, (X, y))
+            m = step(state, X, y, np.asarray(spec["keys"][s], np.uint32), draws=draws)
+            rec = _record(state, m)
+            rec.update(fc=whole(state.model.fc.kernel.detach()), fc_momentum=whole(state.momentum["fc.kernel"]))
+            if s == 0 and lead:
+                rec["params"] = {n: (rec["fc"] if n == "fc.kernel" else p.detach().clone())
+                                 for n, p in state.model.named_parameters()}
+                rec["momentum"] = {n: (rec["fc_momentum"] if n == "fc.kernel" else v.clone())
+                                   for n, v in state.momentum.items()}
+            steps.append(rec)
+    finally:
+        ttrain.sgd_update = real
+    return state, steps, grads
+
+
+def _trainer_epoch(spec: dict, mesh, d: Path) -> dict:
+    """Trainer(mesh=`mesh`) (None: one process) through one epoch of
+    InputPipeline(mesh=...) batches of spec's files, its evaluation on them
+    and its best checkpoint (DIR/trainer_best_<rank>.pt), in f64: every rank
+    but rank 0 starts from another seed, so only replicated() makes them
+    one.  Returns the epoch's and the evaluation's logs, this rank's train
+    batch, and the state (_record's and _final's)."""
+    from saspa_tpu_torch.data.datasets import FGVCDataset
+    from saspa_tpu_torch.data.pipeline import InputPipeline
+
+    rank = 0 if mesh is None else mesh.rank
+    cfg = get_train_config("planes").replace(**spec["cfg"])
+    files = _Files(spec["files"], spec["labels"], spec["classes"])
+    pipes = [InputPipeline(FGVCDataset(files, split, seed=3, print_func=lambda *a: None),
+                           batch_size=cfg.batch_size, resize=cfg.image_size, train_transform="classic", seed=5,
+                           num_threads=2, device="cpu", mesh=mesh) for split in ("train", "test")]
+    real = ttrain.create_train_state
+    ttrain.create_train_state = lambda c, n, device=None, init_seed=None: f64_state(
+        {"num_classes": n, "M": c.num_attentions, "net": c.net, "init_seed": rank}, None)
+    try:
+        trainer = ttrain.Trainer(cfg, len(spec["classes"]), len(pipes[0]), CPU, mesh=mesh)
+    finally:
+        ttrain.create_train_state = real
+    batches = [(X.double(), y, y_soft) for X, y, y_soft in pipes[0].iter_train(0)]
+    train = trainer.run_epoch(0, batches)
+    val = trainer.evaluate((X.double(), y) for X, y in pipes[1].iter_eval())
+    saved = trainer.maybe_save_best(val["val_topk_accuracy"][0], str(d / f"trainer_best_{rank}.pt"))
+    return {"train": train, "val": val, "saved": saved, "X": batches[0][0], "y": batches[0][1],
+            **_record(trainer.state, {}), **_final(trainer.state, mesh)}
+
+
+def tp(d: Path, mesh) -> dict:
+    """On 4 ranks as a (2, 2) mesh: the f64 injected-draw steps of
+    DIR/train_in.pt with the head sharded over the model axis; then, on
+    rank 0 alone (no collective), the same steps in one process, and each
+    step's gradient error against them; the ranks' bit differences; a
+    Trainer epoch on the grid (everything replicated) and, on rank 0, in one
+    process; the dry run's three stages (dryrun_multichip(4)), and on rank 0
+    stages 2 and 3 in one process."""
+    from saspa_tpu_torch import dryrun
+    from saspa_tpu_torch.fgvc.train import create_train_state
+    from saspa_tpu_torch.parallel import make_mesh
+    from saspa_tpu_torch.parallel.mesh import Mesh
+
+    spec = _load(d / "train_in.pt")
+    cfg = get_train_config("planes").replace(**spec["cfg"])
+    grid = make_mesh((2, 2))
+    state, steps, grads = _sharded_steps(spec, cfg, grid)
+    out = {"coords": (grid.data_index, grid.model_index), "steps": steps, "shard": state.model.fc.kernel.detach(),
+           "bit_diffs": _bit_diffs(state, grid)}
+    one = Mesh((1, 1), ("data", "model"), 0, CPU)
+    if grid.rank == 0:
+        _, out["one_steps"], ref_grads = _sharded_steps(spec, cfg, None)
+        flat = [(torch.cat([g[n].reshape(-1) for n in r]), torch.cat([v.reshape(-1) for v in r.values()]))
+                for g, r in zip(grads, ref_grads)]
+        out["grad_rel"] = [float((g - r).norm() / r.norm()) for g, r in flat]
+    out["trainer"] = _trainer_epoch(spec["trainer"], grid, d)
+    if grid.rank == 0:
+        out["trainer_one"] = _trainer_epoch(spec["trainer"], None, d / "one")
+    out["dryrun"] = dryrun.dryrun_multichip(4, "cpu")
+    if grid.rank == 0:
+        n = 4
+        model = create_train_state(dryrun.train_config(n), dryrun.NUM_CLASSES, CPU, init_seed=0).model.eval()
+        out["one"] = {"generation": dryrun.generation_stage(n, one, CPU), "filter": dryrun.filter_stage(n, one, model)}
+    return out
+
+
+TASKS = {"tp": tp, "train_injected": train_injected, "train_keyed": train_keyed, "score": score,
+         "cli_filter": cli_filter, "gen_filter": gen_filter, "cli_train": cli_train}
 
 
 # ---- the launcher the tests call ----------------------------------------------
